@@ -1,0 +1,769 @@
+"""Batched assignment — whole-queue placement instead of the reference's
+one-pod-at-a-time control loop (``pkg/scheduler/scheduler.go:462``
+scheduleOne → ``selectHost``, ``generic_scheduler.go:292``). The port of
+``kubernetes_tpu/ops/assign.py``.
+
+Two solvers:
+
+- ``greedy_assign`` — the **parity path**: pods in activeQ order
+  (priority desc, arrival asc), recomputing predicates + priorities for
+  one pod against the current usage each step — the reference's serial
+  semantics with the lowest node index as the deterministic tie-break.
+- ``batch_assign`` — the **fast path**: assign-and-mask rounds. Every
+  round, all unplaced pods score all nodes at once, pick their best node
+  (rotating among exactly tied bests), and per-node acceptance admits the
+  highest-priority prefix that fits capacity; usage updates by
+  scatter-add and the next round re-masks.
+
+The reference runs its round loops on the device
+(``jax.lax.while_loop``); here they are Python loops whose conditions are
+read on the host — one counted sync per round (:mod:`.sync`), plus one at
+round 0 when the transport-plan router decides.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from kubernetes_tpu_torch.ops.arrays import (
+    DeviceNodes,
+    DevicePods,
+    DeviceSelectors,
+)
+from kubernetes_tpu_torch.ops.predicates import (
+    BIT,
+    resource_fit_mask,
+    run_predicates,
+    static_predicate_reasons,
+    static_volume_reasons,
+)
+from kubernetes_tpu_torch.ops.priorities import (
+    _EPS,
+    _idiv,
+    MAX_PRIORITY,
+    hoist_priorities,
+    run_priorities,
+)
+from kubernetes_tpu_torch.ops.sync import to_host
+
+NEG = -1e30
+
+#: auto-routing thresholds: route a batch to the transport plan only when
+#: round 0 shows a real tie-contention cohort — at least this many bidders
+#: whose multi-way-tied best columns are oversubscribed...
+AUTO_TIE_MIN_COHORT = 8
+#: ...AND whose runner-up gaps differ by at least this many score steps
+AUTO_TIE_GAP_MARGIN = 2.0
+
+#: kernels that can create the asymmetric-second-choice signature the
+#: auto-router hunts; when the host gates prove ALL of them absent, the
+#: router (and the plan branch) is left out for the batch
+_PREFERENCE_KERNELS = (
+    "NodeAffinityPriority", "SelectorSpreadPriority",
+    "InterPodAffinityPriority", "EvenPodsSpreadPriority",
+    "TaintTolerationPriority", "ImageLocalityPriority",
+)
+
+#: lean-score support: the usage-dependent resource kernels the fused
+#: round inlines, plus EqualPriority (a constant)
+_LEAN_DYNAMIC = ("LeastRequestedPriority", "MostRequestedPriority",
+                 "BalancedResourceAllocation")
+
+
+class UsageState(NamedTuple):
+    """The mutable slice of node state — what AddPod touches in the
+    reference's NodeInfo (requested, nonZeroRequest, usedPorts, pod list)
+    plus spread counts."""
+
+    requested: torch.Tensor  # (N, R)
+    nonzero_req: torch.Tensor  # (N, 2)
+    port_any: torch.Tensor  # (N, Upp)
+    port_wild: torch.Tensor  # (N, Upp)
+    port_spec: torch.Tensor  # (N, Upip)
+    owner_counts: torch.Tensor  # (N, Uo)
+    matcher_counts: torch.Tensor  # (N, M)
+    anti_counts: torch.Tensor  # (N, Ua)
+    sym_counts: torch.Tensor  # (N, Us)
+    aff_pod_count: torch.Tensor  # (N,)
+    vol_any: torch.Tensor  # (N, Uv)
+    vol_rw: torch.Tensor  # (N, Uv)
+    pd_mh: torch.Tensor  # (N, Uvd)
+    csi_mh: torch.Tensor  # (N, Uvc)
+
+
+def usage_from_nodes(nodes: DeviceNodes) -> UsageState:
+    return UsageState(
+        requested=nodes.requested,
+        nonzero_req=nodes.nonzero_req,
+        port_any=nodes.port_any_mh,
+        port_wild=nodes.port_wild_mh,
+        port_spec=nodes.port_spec_mh,
+        owner_counts=nodes.owner_counts,
+        matcher_counts=nodes.matcher_counts,
+        anti_counts=nodes.anti_counts,
+        sym_counts=nodes.sym_counts,
+        aff_pod_count=nodes.aff_pod_count,
+        vol_any=nodes.vol_any_mh,
+        vol_rw=nodes.vol_rw_mh,
+        pd_mh=nodes.pd_mh,
+        csi_mh=nodes.csi_mh,
+    )
+
+
+def nodes_with_usage(nodes: DeviceNodes, u: UsageState) -> DeviceNodes:
+    return nodes._replace(
+        requested=u.requested,
+        nonzero_req=u.nonzero_req,
+        port_any_mh=u.port_any,
+        port_wild_mh=u.port_wild,
+        port_spec_mh=u.port_spec,
+        owner_counts=u.owner_counts,
+        matcher_counts=u.matcher_counts,
+        anti_counts=u.anti_counts,
+        sym_counts=u.sym_counts,
+        aff_pod_count=u.aff_pod_count,
+        vol_any_mh=u.vol_any,
+        vol_rw_mh=u.vol_rw,
+        pd_mh=u.pd_mh,
+        csi_mh=u.csi_mh,
+    )
+
+
+def _scatter_add(base, idx, vals):
+    return base.clone().index_add_(0, idx, vals)
+
+
+def _scatter_max(base, idx, vals):
+    if base.ndim == 1:
+        return base.clone().scatter_reduce_(0, idx, vals, "amax")
+    return base.clone().scatter_reduce_(
+        0, idx[:, None].expand_as(vals), vals, "amax")
+
+
+def _apply_batch(u: UsageState, pods: DevicePods, node_idx: torch.Tensor,
+                 accepted: torch.Tensor) -> UsageState:
+    """Scatter accepted pods into the usage state (new tensors; ``u`` is
+    left as it was). ``node_idx`` (P,) row per pod; ``accepted`` (P,) bool
+    gates contributions (rejected rows scatter zeros into row 0).
+
+    The adds are exact only while every partial sum is an exactly
+    representable f32 (integer-valued requests, the reference's own
+    argument); the CUDA scatter-add's order varies from run to run, so
+    anything inexact would show up as run-to-run noise."""
+    tgt = torch.where(accepted, node_idx, 0).long()
+    w = accepted.to(torch.float32)[:, None]
+    return UsageState(
+        requested=_scatter_add(u.requested, tgt, pods.req * w),
+        nonzero_req=_scatter_add(u.nonzero_req, tgt, pods.nonzero_req * w),
+        port_any=_scatter_max(
+            u.port_any, tgt,
+            torch.maximum(pods.port_wild_pp, pods.port_spec_pp) * w),
+        port_wild=_scatter_max(u.port_wild, tgt, pods.port_wild_pp * w),
+        port_spec=_scatter_max(u.port_spec, tgt, pods.port_spec_pip * w),
+        owner_counts=_scatter_add(u.owner_counts, tgt,
+                                  pods.owner_match_mh * w),
+        matcher_counts=_scatter_add(u.matcher_counts, tgt,
+                                    pods.matcher_mh * w),
+        anti_counts=_scatter_add(u.anti_counts, tgt, pods.anti_term_mh * w),
+        sym_counts=_scatter_add(u.sym_counts, tgt, pods.sym_term_mh * w),
+        aff_pod_count=_scatter_add(
+            u.aff_pod_count, tgt, pods.has_aff.to(torch.float32) * w[:, 0]),
+        vol_any=_scatter_max(u.vol_any, tgt, pods.vol_any_mh * w),
+        vol_rw=_scatter_max(u.vol_rw, tgt, pods.vol_rw_mh * w),
+        pd_mh=_scatter_max(u.pd_mh, tgt, pods.pd_mh * w),
+        csi_mh=_scatter_max(u.csi_mh, tgt, pods.csi_mh * w),
+    )
+
+
+def _lexsort(secondary: torch.Tensor, primary: torch.Tensor) -> torch.Tensor:
+    """``jnp.lexsort((secondary, primary))``: order by ``primary``, ties
+    by ``secondary`` — two stable sorts."""
+    o = torch.argsort(secondary, stable=True)
+    return o[torch.argsort(primary[o], stable=True)]
+
+
+def _inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
+    """inv[perm[i]] = i for a permutation ``perm``."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                             device=perm.device)
+    return inv
+
+
+def queue_order(pods: DevicePods) -> torch.Tensor:
+    """activeQ comparator: priority desc, then arrival (row order) asc —
+    scheduling_queue.go's less func. Invalid (padding) rows sort last."""
+    pri = torch.where(pods.valid, pods.priority.long(), -(2**31))
+    return _lexsort(pods.order.long(), -pri)
+
+
+def _pod_row(pods: DevicePods, p: torch.Tensor) -> DevicePods:
+    """One-row DevicePods view at device index ``p`` (shape (1,))."""
+    return DevicePods(*[f.index_select(0, p) for f in pods])
+
+
+def _first_true(x: torch.Tensor) -> torch.Tensor:
+    """Per-row index of the first True (0 when none) — jnp.argmax on a
+    boolean row."""
+    return x.to(torch.uint8).argmax(1)
+
+
+def greedy_assign(
+    pods: DevicePods,
+    nodes: DeviceNodes,
+    sel: DeviceSelectors,
+    weights: Optional[Dict[str, float]] = None,
+    extra_mask: Optional[torch.Tensor] = None,
+    vol=None,
+    static_vol: Optional[torch.Tensor] = None,
+    enabled_mask: Optional[int] = None,
+    extra_score: Optional[torch.Tensor] = None,
+    skip_priorities=(),
+    no_ports: bool = False,
+    no_pod_affinity: bool = False,
+    no_spread: bool = False,
+) -> Tuple[torch.Tensor, UsageState]:
+    """Serial-parity solver. Returns (assigned node row per pod or -1,
+    final usage). ``extra_mask`` (P, N) ANDs into feasibility;
+    ``skip_priorities`` names kernels replaced by their exact constants.
+    The pod loop stays on the device: no host sync."""
+    P = pods.req.shape[0]
+    dev = pods.req.device
+    perm = queue_order(pods)
+    u = usage_from_nodes(nodes)
+    static_bits, prog = static_predicate_reasons(pods, nodes, sel)
+    if vol is not None and static_vol is None:
+        static_vol = static_volume_reasons(pods, nodes, sel, vol, prog=prog)
+    picks = torch.empty((P,), dtype=torch.int32, device=dev)
+    for i in range(P):
+        p = perm[i:i + 1]
+        pod = _pod_row(pods, p)
+        cur = nodes_with_usage(nodes, u)
+        sv = static_vol.index_select(0, p) if static_vol is not None else None
+        mask = run_predicates(
+            pod, cur, sel, None, vol, sv, enabled_mask,
+            hoisted=(static_bits.index_select(0, p), prog),
+            no_ports=no_ports, no_pod_affinity=no_pod_affinity,
+            no_spread=no_spread).mask  # (1, N)
+        if extra_mask is not None:
+            mask = mask & extra_mask.index_select(0, p)
+        score = run_priorities(pod, cur, sel, mask, weights,
+                               skip=skip_priorities)
+        if extra_score is not None:
+            score = score + extra_score.index_select(0, p)
+        best = torch.where(mask, score, NEG).argmax(1)  # (1,)
+        ok = mask.gather(1, best[:, None])[:, 0] & pod.valid
+        u = _apply_batch(u, pod, best, ok)
+        picks[i:i + 1] = torch.where(ok, best, -1).to(torch.int32)
+    assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    assigned[perm] = picks
+    return assigned, u
+
+
+def _segment_prefix(values: torch.Tensor,
+                    seg_starts: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sums within contiguous segments. ``values`` (P, R)
+    sorted by segment; ``seg_starts`` (P,) index of each row's segment
+    start. f32 sums: exact while the running totals are exactly
+    representable (integer requests, as in the reference)."""
+    excl = torch.cumsum(values, dim=0) - values
+    return excl - excl[seg_starts]
+
+
+def _lean_score_plan(weights, skip):
+    """Scoring plan for the fused lean round: ``(const_total, terms)`` —
+    the exact scalar sum of all gated/constant kernels plus the ordered
+    (name, weight) list of live resource kernels — or None when any
+    active kernel falls outside the provably exact lean set (integer
+    weights, stock kernels)."""
+    from kubernetes_tpu_torch.ops.priorities import (
+        _ALL_STOCK_KERNELS,
+        _STOCK_KERNELS,
+        DEFAULT_WEIGHTS,
+        EMPTY_CONSTANTS,
+        PRIORITY_REGISTRY,
+    )
+
+    weights = DEFAULT_WEIGHTS if weights is None else weights
+    const_total = 0.0
+    terms = []
+    for name, w in weights.items():
+        if not w:
+            continue
+        if float(w) != int(w):
+            return None
+        if PRIORITY_REGISTRY.get(name) is not _ALL_STOCK_KERNELS.get(name):
+            return None  # rebound kernel: empty/lean behavior unknown
+        if (name in skip and name in EMPTY_CONSTANTS
+                and PRIORITY_REGISTRY[name] is _STOCK_KERNELS[name]):
+            const_total += w * EMPTY_CONSTANTS[name]
+        elif name == "EqualPriority":
+            const_total += w * 1.0
+        elif name in _LEAN_DYNAMIC:
+            terms.append((name, float(w)))
+        else:
+            return None
+    return const_total, tuple(terms)
+
+
+def _lean_masked_score(pods, nodes, u, active, static_ok, res_on, plan):
+    """The lean round's single (P, N) pass: feasibility and weighted score
+    in one ``where(mask, score, NEG)``. Arithmetic is verbatim
+    priorities.least_requested / most_requested / balanced_allocation
+    with the shared request fractions computed once."""
+    from kubernetes_tpu_torch.ops.priorities import _balanced, _capped
+
+    const_total, terms = plan
+    mask = static_ok & active[:, None]
+    if res_on:
+        mask = mask & resource_fit_mask(pods.req, nodes.allocatable,
+                                        u.requested)
+    score = torch.full((pods.req.shape[0], nodes.allocatable.shape[0]),
+                       float(const_total), dtype=torch.float32,
+                       device=pods.req.device)
+    if terms:
+        cpu_req = pods.nonzero_req[:, 0:1] + u.nonzero_req[None, :, 0]
+        mem_req = pods.nonzero_req[:, 1:2] + u.nonzero_req[None, :, 1]
+        cpu_cap = nodes.allocatable[None, :, 0]
+        mem_cap = nodes.allocatable[None, :, 1]
+        for name, w in terms:
+            if name == "LeastRequestedPriority":
+                t = _idiv(
+                    _capped(cpu_req, cpu_cap,
+                            _idiv((cpu_cap - cpu_req) * MAX_PRIORITY,
+                                  cpu_cap))
+                    + _capped(mem_req, mem_cap,
+                              _idiv((mem_cap - mem_req) * MAX_PRIORITY,
+                                    mem_cap)),
+                    2.0)
+            elif name == "MostRequestedPriority":
+                t = _idiv(
+                    _capped(cpu_req, cpu_cap,
+                            _idiv(cpu_req * MAX_PRIORITY, cpu_cap))
+                    + _capped(mem_req, mem_cap,
+                              _idiv(mem_req * MAX_PRIORITY, mem_cap)),
+                    2.0)
+            else:  # BalancedResourceAllocation
+                t = _balanced(cpu_req, mem_req, cpu_cap, mem_cap)
+            score = score + w * t
+    return torch.where(mask, score, NEG)
+
+
+def _rotated_pick(tied: torch.Tensor, arank: torch.Tensor):
+    """Each row picks its ``(arank % tcount + 1)``-th tied column — the
+    deterministic tie-break spread, the batched analog of selectHost's
+    randomized round-robin among max-scoring nodes
+    (generic_scheduler.go:292). Returns (choice, tcount); choice is 0
+    where a row has no tied column. (The reference's blocked two-level
+    selection picks the same column.)"""
+    pos = torch.cumsum(tied.to(torch.int32), dim=1, dtype=torch.int32)
+    tcount = pos[:, -1]
+    rot = torch.where(tcount > 0, arank % tcount.clamp_min(1), 0)
+    choice = _first_true(tied & (pos == (rot + 1)[:, None]))
+    return torch.where(tcount > 0, choice, 0), tcount
+
+
+def _admit_scored(choice, rank, req, free, per_node_cap, capacity_on,
+                  sorted_gate=None):
+    """Score-ordered per-node admission, one spelling shared by the general
+    and lean rounds: group chosen pods by node (queue rank ascending
+    within a node), admit the prefix that fits remaining capacity
+    (``capacity_on`` is the PodFitsResources gate), cap admissions per
+    node per round. ``sorted_gate(order2, seg_starts) -> (P,) bool`` ANDs
+    in the general path's port guard in the same sorted frame. Returns
+    the (P,) accepted mask in original row order."""
+    P = choice.shape[0]
+    N = free.shape[0]
+    ckey = torch.where(choice >= 0, choice, N + 1)
+    order2 = _lexsort(rank, ckey)  # grouped by chosen node, rank asc
+    c_s = choice[order2]
+    ckey_s = ckey[order2].contiguous()  # sorted — safe for searchsorted
+    req_s = req[order2]
+    seg_starts = torch.searchsorted(ckey_s, ckey_s, side="left")
+    prefix = _segment_prefix(req_s, seg_starts)  # usage by earlier pods
+    free_s = free[c_s.clamp(0, N - 1)]
+    if capacity_on:
+        fits = (prefix + req_s <= free_s + 1e-6).all(1)
+    else:
+        # a Policy bypassing PodFitsResources also bypasses the in-round
+        # capacity guard (it only keeps co-admissions consistent with it)
+        fits = torch.ones((P,), dtype=torch.bool, device=choice.device)
+    within = torch.arange(P, device=choice.device) - seg_starts
+    acc_s = (c_s >= 0) & fits & (within < per_node_cap)
+    if sorted_gate is not None:
+        acc_s = acc_s & sorted_gate(order2, seg_starts)
+    return acc_s[_inverse_permutation(order2)]
+
+
+def _more_rounds(assigned, pods, accepted) -> bool:
+    """The round loop's data-dependent exits, read in ONE counted sync:
+    a round that admitted nobody (contention fixpoint), or nothing left
+    to place."""
+    progressed, left = to_host(torch.stack([
+        accepted.any(), ((assigned == -1) & pods.valid).any()]))
+    return progressed and left
+
+
+def _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
+                 per_node_cap, enabled_mask):
+    """The fused round loop for lean batches: same exits and admission
+    rule as the general loop, one materialized (P, N) matrix per round."""
+    P = pods.req.shape[0]
+    N = nodes.allocatable.shape[0]
+    static_reasons, _prog = static_predicate_reasons(pods, nodes, sel)
+    if enabled_mask is not None:
+        static_reasons = static_reasons & int(enabled_mask)
+    static_ok = (static_reasons == 0) & nodes.valid[None, :] \
+        & pods.valid[:, None]
+    res_on = enabled_mask is None or bool(
+        enabled_mask & (1 << BIT["PodFitsResources"]))
+    window = N * per_node_cap
+    guard = NEG * 0.5  # real scores are finite and tiny next to NEG
+    assigned = torch.full((P,), -1, dtype=torch.int32, device=pods.req.device)
+    u = usage_from_nodes(nodes)
+    rounds = 0
+    more = bool(to_host(pods.valid.any()))
+    while more and rounds < max_rounds:
+        active = (assigned == -1) & pods.valid
+        ms = _lean_masked_score(pods, nodes, u, active, static_ok, res_on,
+                                lean_plan)
+        rowmax = ms.amax(1, keepdim=True)
+        feasible_any = rowmax[:, 0] > guard
+        wkey = torch.where(active & feasible_any, rank, P + 1)
+        arank = _inverse_permutation(torch.argsort(wkey, stable=True))
+        if P > window:
+            # the bidder window binds only with more pods than window slots
+            gate = active & feasible_any & (arank < window)
+            ms = torch.where(gate[:, None], ms, NEG)
+            rowmax = ms.amax(1, keepdim=True)
+        tied = (ms >= rowmax) & (rowmax > guard)
+        choice, _tc = _rotated_pick(tied, arank)
+        feasible = ms.gather(1, choice[:, None])[:, 0] > guard
+        choice = torch.where(feasible, choice, -1)
+        accepted = _admit_scored(choice, rank, pods.req,
+                                 nodes.allocatable - u.requested,
+                                 per_node_cap, res_on)
+        assigned = torch.where(accepted, choice.to(torch.int32), assigned)
+        u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
+        rounds += 1
+        more = _more_rounds(assigned, pods, accepted)
+    return assigned, u, rounds
+
+
+def _column_slots(pods, nodes, u, active):
+    """Column capacity for the transport plan: how many ACTIVE pods could
+    land on each node, bounded per resource by the smallest active
+    request (the pod-count column alone almost never binds)."""
+    from kubernetes_tpu_torch.snapshot import RES_PODS
+
+    free = torch.clamp_min(nodes.allocatable - u.requested, 0.0)  # (N, R)
+    min_req = torch.where(active[:, None] & (pods.req > 0), pods.req,
+                          float("inf")).amin(0)  # (R,)
+    per_res = torch.where(torch.isfinite(min_req),
+                          torch.floor(free / torch.clamp_min(min_req, 1e-30)),
+                          float("inf"))
+    slots = per_res.amin(1)
+    return torch.where(torch.isfinite(slots), slots, free[:, RES_PODS])
+
+
+def _tie_cohort_detected(mask_full, score, slots):
+    """The auto-router's round-0 test: does the batch hold a real
+    tie-contention cohort — multi-way-tied best columns that are
+    oversubscribed, among bidders whose runner-up gaps differ? Evaluated
+    over the PRE-window mask (the whole batch's tie structure)."""
+    rm = torch.where(mask_full, score, NEG).amax(1, keepdim=True)
+    tied_f = mask_full & (score >= rm)
+    tc0 = tied_f.sum(1).to(torch.float32)
+    share = tied_f.to(torch.float32) / tc0.clamp_min(1.0)[:, None]
+    demand = share.sum(0)  # (N,) intended tie mass
+    over = demand > slots.clamp_min(1e-9)
+    cohort = (tc0 >= 2.0) & (tied_f & over[None, :]).any(1)
+    alt = mask_full & ~tied_f
+    r2 = torch.where(alt, score, NEG).amax(1)
+    gap = torch.where(alt.any(1), rm[:, 0] - r2, 1e3)
+    gmin = torch.where(cohort, gap, float("inf")).amin()
+    gmax = torch.where(cohort, gap, -float("inf")).amax()
+    return ((cohort.sum() >= AUTO_TIE_MIN_COHORT)
+            & (gmax - gmin >= AUTO_TIE_GAP_MARGIN))
+
+
+def _batch_impl(pods, nodes, sel, weights, max_rounds, per_node_cap,
+                extra_mask=None, vol=None, static_vol=None,
+                enabled_mask=None, extra_score=None, use_sinkhorn=False,
+                skip=(), no_ports=False, no_pod_affinity=False,
+                no_spread=False, auto_sinkhorn=True):
+    # routing gate: no preference kernel live -> no possible asymmetric
+    # tie cohort -> the router and the plan branch stay out
+    auto_sinkhorn = (auto_sinkhorn and not use_sinkhorn
+                     and not all(k in skip for k in _PREFERENCE_KERNELS))
+    P = pods.req.shape[0]
+    N = nodes.allocatable.shape[0]
+    dev = pods.req.device
+    perm = queue_order(pods)
+    rank = _inverse_permutation(perm)
+    # ---- lean round (constraint-light batches) --------------------------
+    # no volume/port coupling, no extender/plugin mask or score, argmax
+    # tie-break and a provably exact lean scoring plan: one materialized
+    # (P, N) matrix per round; placements identical to the general round
+    lean_plan = None
+    if (vol is None and static_vol is None and extra_mask is None
+            and extra_score is None and no_ports
+            and not use_sinkhorn and not auto_sinkhorn):
+        lean_plan = _lean_score_plan(weights, skip)
+    if lean_plan is not None:
+        return _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
+                            per_node_cap, enabled_mask)
+    # pods carrying host ports or attach-counted/conflict-checked volumes
+    # are admitted at most one per node per round (conservative, exact)
+    has_port = (pods.port_wild_pp.sum(1) + pods.port_spec_pp.sum(1)) > 0
+    if vol is not None:
+        has_port = has_port | ((pods.vol_any_mh.sum(1) + pods.pd_mh.sum(1)
+                                + pods.csi_mh.sum(1)) > 0)
+    # usage-invariant predicate bits + selector programs, and the
+    # usage-invariant scoring slice, once per batch
+    hoisted = static_predicate_reasons(pods, nodes, sel)
+    if vol is not None and static_vol is None:
+        static_vol = static_volume_reasons(pods, nodes, sel, vol,
+                                           prog=hoisted[1])
+    hoisted_prio = hoist_priorities(pods, nodes, sel, weights, skip)
+    res_on = enabled_mask is None or bool(
+        enabled_mask & (1 << BIT["PodFitsResources"]))
+
+    def port_gate(order2, seg_starts):
+        # one port-bearing pod per node per round (conservative, exact)
+        hp_s = has_port[order2].to(torch.int32)
+        hp_prefix = _segment_prefix(hp_s[:, None], seg_starts)[:, 0]
+        return (hp_s == 0) | (hp_prefix == 0)
+
+    assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    u = usage_from_nodes(nodes)
+    use_plan = False
+    rounds = 0
+    more = bool(to_host(pods.valid.any()))
+    while more and rounds < max_rounds:
+        cur = nodes_with_usage(nodes, u)
+        active = (assigned == -1) & pods.valid
+        mask = run_predicates(
+            pods, cur, sel, None, vol, static_vol, enabled_mask,
+            hoisted=hoisted, no_ports=no_ports,
+            no_pod_affinity=no_pod_affinity,
+            no_spread=no_spread).mask & active[:, None]
+        if extra_mask is not None:
+            mask = mask & extra_mask
+        score = run_priorities(pods, cur, sel, mask, weights, None,
+                               skip=skip, hoisted=hoisted_prio,
+                               fused=True)
+        if extra_score is not None:
+            score = score + extra_score
+        # bidder window: only the top K = N*per_node_cap active pods (by
+        # queue rank) with a feasible node bid this round, so priority
+        # order is structural (the serial loop is the K=1 case)
+        feasible_any = mask.any(1)
+        wkey = torch.where(active & feasible_any, rank, P + 1)
+        arank = _inverse_permutation(torch.argsort(wkey, stable=True))
+        mask_full = mask  # pre-window, for the auto-router
+        mask = mask & (active & feasible_any & (arank < N * per_node_cap))[
+            :, None]
+        rowmax = torch.where(mask, score, NEG).amax(1, keepdim=True)
+        tied = mask & (score >= rowmax)
+        if use_sinkhorn or auto_sinkhorn:
+            slots = _column_slots(pods, nodes, u, active)
+            if auto_sinkhorn and rounds == 0:
+                # decide ONCE, from round 0: one counted sync
+                use_plan = bool(to_host(
+                    _tie_cohort_detected(mask_full, score, slots)))
+            if use_sinkhorn or use_plan:
+                tied = _plan_tied(score, rowmax, mask, slots)
+        choice, _tc = _rotated_pick(tied, arank)
+        feasible = mask.gather(1, choice[:, None])[:, 0]
+        choice = torch.where(feasible, choice, -1)
+        # per-node acceptance: highest-priority prefix that fits. The cap
+        # turns each round into an auction step: nodes admit their best
+        # bidders, usage updates, the rest re-bid
+        accepted = _admit_scored(choice, rank, pods.req,
+                                 nodes.allocatable - u.requested,
+                                 per_node_cap, res_on, sorted_gate=port_gate)
+        assigned = torch.where(accepted, choice.to(torch.int32), assigned)
+        u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
+        rounds += 1
+        more = _more_rounds(assigned, pods, accepted)
+    return assigned, u, rounds
+
+
+def _plan_tied(score, rowmax, mask, slots):
+    """Choose from the entropic-OT transport plan instead of the raw
+    per-pod argmax: the plan balances the batch against node capacities,
+    so contended pods pre-spread instead of colliding. Identical pods get
+    identical plan rows, so the plan argmax keeps the rotation tie-break
+    (returns the tied mask for it)."""
+    from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_plan
+
+    masked = torch.where(mask, score - rowmax, NEG)
+    plan = sinkhorn_plan(masked, mask, slots)
+    pmasked = torch.where(mask, plan, -1.0)
+    prowmax = pmasked.amax(1, keepdim=True)
+    return mask & (pmasked >= prowmax)
+
+
+def batch_assign(
+    pods: DevicePods,
+    nodes: DeviceNodes,
+    sel: DeviceSelectors,
+    weights: Optional[Dict[str, float]] = None,
+    max_rounds: int = 256,
+    per_node_cap: int = 1,
+    extra_mask: Optional[torch.Tensor] = None,
+    vol=None,
+    static_vol: Optional[torch.Tensor] = None,
+    enabled_mask: Optional[int] = None,
+    extra_score: Optional[torch.Tensor] = None,
+    use_sinkhorn: bool = False,
+    skip_priorities=(),
+    no_ports: bool = False,
+    no_pod_affinity: bool = False,
+    no_spread: bool = False,
+    auto_sinkhorn: bool = True,
+):
+    """Fast batched solver. Returns (assigned row per pod or -1, final
+    usage, rounds executed) — ``rounds`` a host int. ``per_node_cap``
+    bounds admissions per node per round; expect about ceil(P / (N *
+    cap)) rounds on uniform workloads. ``extra_mask`` as in
+    :func:`greedy_assign` (None routes constraint-light batches to the
+    lean round).
+
+    The general round always scores the NodeAffinity + TaintToleration
+    pair with the fused kernel (the CUDA kernel on the card) when the
+    regrouped accumulation is provably exact — bit-identical to the two
+    separate normalizes. ``use_sinkhorn`` picks from the transport plan
+    every round; ``auto_sinkhorn`` lets round 0 decide. Inter-pod
+    affinity and topology spread are not ported yet (ROADMAP A.7): pass
+    batches whose topology gates hold."""
+    return _batch_impl(
+        pods, nodes, sel, weights, max_rounds, per_node_cap,
+        extra_mask=extra_mask, vol=vol, static_vol=static_vol,
+        enabled_mask=enabled_mask, extra_score=extra_score,
+        use_sinkhorn=use_sinkhorn, skip=tuple(skip_priorities),
+        no_ports=no_ports, no_pod_affinity=no_pod_affinity,
+        no_spread=no_spread, auto_sinkhorn=auto_sinkhorn)
+
+
+def validate_solution(assigned, usage: UsageState, pods: DevicePods,
+                      nodes: DeviceNodes,
+                      enabled_mask: Optional[int] = None) -> Tuple[bool, str]:
+    """Host trust-but-verify for a solver result before any pod is
+    assumed. Returns (ok, reason) with ``reason`` one of shape | dtype |
+    range | invalid-node | finiteness | capacity. O(P·R + N·R) numpy:
+    index-range sanity, claimed-usage finiteness, and a full per-node
+    capacity recomputation from the assignment itself (never trusting the
+    solver's usage). Capacity is enforced only when PodFitsResources is,
+    and only blames nodes that were within allocatable before the batch."""
+
+    def host(t):
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+
+    P = pods.req.shape[0]
+    try:
+        a = host(assigned)
+    except (TypeError, ValueError, RuntimeError):
+        return False, "dtype"
+    if a.ndim != 1 or a.shape[0] < P:
+        return False, "shape"
+    a = a[:P]
+    if not np.issubdtype(a.dtype, np.integer):
+        if not np.all(np.isfinite(a)):
+            return False, "finiteness"
+        if np.any(a != np.floor(a)):
+            return False, "dtype"
+        a = a.astype(np.int64)
+    valid = host(pods.valid)
+    nvalid = host(nodes.valid)
+    N = nvalid.shape[0]
+    if np.any(valid & ((a < -1) | (a >= N))):
+        return False, "range"
+    sel = valid & (a >= 0)
+    if np.any(sel & ~nvalid[np.clip(a, 0, N - 1)]):
+        return False, "invalid-node"
+    if not bool(np.all(np.isfinite(host(usage.requested)))):
+        return False, "finiteness"
+    res_on = enabled_mask is None or bool(
+        enabled_mask & (1 << BIT["PodFitsResources"]))
+    if res_on and np.any(sel):
+        req = host(pods.req)
+        base = host(nodes.requested)
+        alloc = host(nodes.allocatable)
+        add = np.zeros_like(base)
+        np.add.at(add, a[sel], req[sel])
+        # relative tolerance: f32 scatter-add drift scales with magnitude
+        tol = 1e-5 * np.maximum(alloc, 1.0) + 1e-6
+        pre_ok = base <= alloc + tol
+        over = (base + add > alloc + tol) & nvalid[:, None] & (add > 0)
+        if np.any(over & pre_ok):
+            return False, "capacity"
+    return True, ""
+
+
+#: device_validate verdict codes, in the host checker's precedence order
+#: (index 0 = ok). Host-side decode: ``VALIDATE_REASONS[int(code)]``.
+VALIDATE_REASONS = ("", "shape", "dtype", "range", "invalid-node",
+                    "finiteness", "capacity")
+
+
+def device_validate(assigned, usage: UsageState, pods: DevicePods,
+                    nodes: DeviceNodes, enabled_mask: Optional[int] = None):
+    """On-device twin of :func:`validate_solution`: every check as one
+    reduction over the assignment, returned as two int32 device scalars
+    ``(code, valid_count)`` that ride the scheduler's single end-of-solve
+    readback; decode with :data:`VALIDATE_REASONS`. A result that is not
+    a 1-D tensor covering the batch never reaches the device (returns
+    None; the host checker renders the verdict). Capacity is recomputed
+    from the assignment, never from the claimed usage."""
+    if isinstance(assigned, np.ndarray):
+        assigned = torch.tensor(assigned)
+    if (not isinstance(assigned, torch.Tensor) or assigned.ndim != 1
+            or assigned.shape[0] < pods.req.shape[0]):
+        return None
+    P = pods.req.shape[0]
+    valid = pods.valid
+    nvalid = nodes.valid
+    N = nvalid.shape[0]
+    a = assigned[:P].to(pods.req.device)
+    false = torch.zeros((), dtype=torch.bool, device=a.device)
+    if a.is_floating_point():
+        # a lying solver returning floats: finiteness first, then
+        # integer-valuedness, then proceed on the floored values
+        fin = torch.isfinite(a)
+        fin_a_bad = ~fin.all()
+        dtype_bad = (fin & (a != torch.floor(a))).any()
+        a = torch.where(fin, a, -2.0).to(torch.int32)
+    else:
+        fin_a_bad = false
+        dtype_bad = false
+        a = a.to(torch.int32)
+    range_bad = (valid & ((a < -1) | (a >= N))).any()
+    sel = valid & (a >= 0)
+    ac = a.clamp(0, N - 1).long()
+    invalid_node = (sel & ~nvalid[ac]).any()
+    fin_bad = ~torch.isfinite(usage.requested).all()
+    res_on = enabled_mask is None or bool(
+        enabled_mask & (1 << BIT["PodFitsResources"]))
+    if res_on:
+        base = nodes.requested
+        alloc = nodes.allocatable
+        add = torch.zeros_like(base).index_add_(
+            0, torch.where(sel, ac, 0), pods.req * sel.to(base.dtype)[:, None])
+        tol = 1e-5 * torch.clamp_min(alloc, 1.0) + 1e-6
+        pre_ok = base <= alloc + tol
+        over = (base + add > alloc + tol) & nvalid[:, None] & (add > 0)
+        cap_bad = (over & pre_ok).any()
+    else:
+        cap_bad = false
+    code = torch.where(fin_a_bad, 5, torch.where(
+        dtype_bad, 2, torch.where(
+            range_bad, 3, torch.where(
+                invalid_node, 4, torch.where(
+                    fin_bad, 5, torch.where(cap_bad, 6, 0))))))
+    return code.to(torch.int32), sel.sum(dtype=torch.int32)
