@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs five phases and exits non-zero
+``nvcc`` per source, in parallel), then runs six phases and exits non-zero
 if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time;
@@ -18,18 +18,23 @@ if any fails:
 4. the plan path: ``Scheduler(solver="sinkhorn")`` on the same cluster
    with 4096 pending pods, then the tied-preferences workload through
    the default auto-router;
-5. one reduced cycle (1000 nodes x 2048 pods) on CUDA and on CPU tensors
-   (the plain versions) must place identically.
+5. the topology path at full width, cell ``topo-5k-mixed``: the same
+   cluster with 10,000 pending pods mixing preferred zones, hostname pod
+   anti-affinity, zone pod affinity, and hard and soft topology spread,
+   checked by a host re-check of every constraint;
+6. one reduced cycle of each cell (1000 nodes x 2048 pods) on CUDA and on
+   CPU tensors (the plain versions) must place identically.
 
 Lines of JSON report each phase; the line before the last lists every
-kernel with its launches on the main paths (the smoke cell and the plan
-path, each counted from 0 just before it runs: ``launches`` is their sum,
-``launches_by_path`` and ``launches_per_cycle`` split it), error against
-the plain version, times and bound; the last line is the one-line contract
-``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
-and prints no result. ``--phases`` runs a subset (comma-separated names:
-env, kernels, smoke, plan, parity); ``--profile DIR`` adds one profiled
-cycle of the smoke cell (device time by kernel, a trace written to DIR).
+kernel with its launches on the main paths (the smoke cell, the plan path
+and the topology path, each counted from 0 just before it runs:
+``launches`` is their sum, ``launches_by_path`` and ``launches_per_cycle``
+split it), error against the plain version, times and bound; the last
+line is the one-line contract ``{"ok": true, "device": {...}}``. Without a
+CUDA card it exits non-zero and prints no result. ``--phases`` runs a
+subset (comma-separated names: env, kernels, smoke, plan, topology,
+parity); ``--profile DIR`` adds one profiled first cycle of the smoke cell
+and of the topology cell (device time by kernel, traces written to DIR).
 """
 
 from __future__ import annotations
@@ -49,7 +54,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
-ALL_PHASES = ("env", "kernels", "smoke", "plan", "parity")
+ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity")
+#: the phases that drive a main path and count its kernel launches
+MAIN_PATHS = ("smoke", "plan", "topology")
 
 
 def emit(obj) -> None:
@@ -229,6 +236,7 @@ def _bound(nbytes: float, ops: float) -> dict:
 # ---------------------------------------------------------------------------
 
 ZONE = "failure-domain.beta.kubernetes.io/zone"
+HOSTNAME = "kubernetes.io/hostname"
 SOFT_TAINT = "DeletionCandidateOfClusterAutoscaler"
 
 
@@ -308,65 +316,6 @@ def recheck_capacity(nodes, bound, assignments, pods_by_key):
         if u[0] > a.cpu_milli or u[1] > a.memory or u[2] > a.pods:
             fail(f"node {nd.name} over capacity: {u} > "
                  f"({a.cpu_milli}, {a.memory}, {a.pods})")
-
-
-def warm_up() -> None:
-    """Warm the CUDA libraries (cuBLAS handles, allocator) off the clock
-    with a small cluster through the same path."""
-    from kubernetes_tpu_torch.scheduler import Scheduler
-
-    drive(Scheduler(device="cuda"),
-          *smoke_cell(n_nodes=100, n_bound=20, n_pending=256, seed=1))
-
-
-def phase_smoke() -> dict:
-    """Returns the kernel launches of the smoke cell's run and its cycle
-    count."""
-    import torch
-
-    from kubernetes_tpu_torch import kernels
-    from kubernetes_tpu_torch.scheduler import Scheduler
-
-    warm_up()
-    nodes, bound, pending = smoke_cell()
-    sched = Scheduler(device="cuda")
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = drive(sched, nodes, bound, pending)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    scheduled = sum(r.scheduled for r in results)
-    if scheduled != len(pending):
-        fail(f"smoke: bound {scheduled} of {len(pending)} pods")
-    for r in results:
-        # a failed kernel must not pass through the greedy tier
-        if r.solver_tier != "batch" or r.solver_fallbacks:
-            fail(f"smoke: a cycle solved on tier {r.solver_tier!r} after "
-                 f"{r.solver_fallbacks} fallbacks")
-    if launches["fused_pair_normalize"] <= 0:
-        fail("smoke: the fused-pair kernel was never launched")
-    assignments = {}
-    for r in results:
-        assignments.update(r.assignments)
-    recheck_capacity(nodes, bound, assignments,
-                     {p.key(): p for p in pending})
-    cycle_s = sum(r.elapsed_s for r in results)
-    emit({"phase": "smoke", "cell": "smoke-5k-prefaffinity",
-          "nodes": len(nodes), "bound": len(bound),
-          "pending": len(pending), "scheduled": scheduled,
-          "cycles": len(results),
-          "cycle_s": [r.elapsed_s for r in results],
-          "solve_s": [r.solve_s for r in results],
-          "rounds": [r.rounds for r in results],
-          "host_syncs": [r.host_syncs for r in results],
-          "snapshot_mode": [r.snapshot_mode for r in results],
-          "pods_per_s_cycles": scheduled / cycle_s,
-          "pods_per_s_wall_with_ingest": scheduled / wall,
-          "wall_s_with_ingest": wall, "launches": launches,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return {"launches": launches, "cycles": len(results)}
 
 
 def tied_preferences_workload(n_hot=4, n_cold=20, n_steep=16, n_flat=80):
@@ -490,10 +439,201 @@ def phase_plan() -> dict:
     return {"launches": launches, "cycles": len(results)}
 
 
-def profile_cycle(out_dir: str) -> None:
-    """One cycle of the smoke cell under torch.profiler: device time by
-    kernel, the device-busy share of the cycle, and a gzipped Chrome trace
-    in ``out_dir`` (``--profile`` only; the timed runs are unprofiled)."""
+def topo_cell(n_nodes=5000, n_bound=1000, n_pending=10000, seed=7,
+              zones=10):
+    """Cell ``topo-5k-mixed``: the smoke cell's cluster, and pending pods
+    of 100m / 500 Mi interleaved by ``i % 5`` so that every cycle carries
+    every kind: 0 the smoke cell's weight-50 preferred zone (tolerating
+    the taint on odd ``i``); 1 required pod anti-affinity on the hostname
+    against its own ``anti-group`` label (n // 50 groups over the kind's
+    n pods, BenchmarkSchedulingPodAntiAffinity); 2 required pod affinity on
+    the zone to its own ``aff-group`` label (n // 100 groups,
+    BenchmarkSchedulingPodAffinity; each group's first pod seeds a zone
+    through the self-match escape); 3 a hard hostname spread (maxSkew 1,
+    DoNotSchedule); 4 a soft zone spread (ScheduleAnyway). Returns
+    (nodes, bound, pending)."""
+    import random
+
+    from kubernetes_tpu_torch.api.types import (
+        Affinity,
+        LabelSelector,
+        PodAffinityTerm,
+        Taint,
+        Toleration,
+        TopologySpreadConstraint,
+    )
+    from kubernetes_tpu_torch.testing import (
+        make_node,
+        make_pod,
+        node_affinity_preferred,
+        req,
+    )
+
+    rng = random.Random(seed)
+    taint = Taint(SOFT_TAINT, "true", "PreferNoSchedule")
+    nodes = [make_node(f"node-{i}", cpu_milli=4000, memory=32 * 2**30,
+                       pods=110, zone=f"zone-{i % zones}",
+                       taints=(taint,) if i % 10 == 0 else ())
+             for i in range(n_nodes)]
+    bound = [make_pod(f"bound-{i}", cpu_milli=100, memory=500 * 2**20,
+                      node_name=f"node-{i % n_nodes}")
+             for i in range(n_bound)]
+    tol = (Toleration(key=SOFT_TAINT, operator="Exists",
+                      effect="PreferNoSchedule"),)
+    per_kind = n_pending // 5
+    anti_groups = max(per_kind // 50, 1)
+    aff_groups = max(per_kind // 100, 1)
+
+    def term(key, labels):
+        return PodAffinityTerm(
+            label_selector=LabelSelector(match_labels=dict(labels)),
+            topology_key=key)
+
+    def spread(key, when, labels):
+        return TopologySpreadConstraint(
+            max_skew=1, topology_key=key, when_unsatisfiable=when,
+            label_selector=LabelSelector(match_labels=dict(labels)))
+
+    pending = []
+    for i in range(n_pending):
+        kind, j = i % 5, i // 5
+        kw = {}
+        if kind == 0:
+            kw = dict(affinity=node_affinity_preferred(
+                (50, [req(ZONE, "In", f"zone-{rng.randrange(zones)}")])),
+                tolerations=tol if i % 2 else ())
+        elif kind == 1:
+            labels = {"anti-group": f"g{j % anti_groups}"}
+            kw = dict(labels=labels, affinity=Affinity(
+                pod_anti_affinity_required=(term(HOSTNAME, labels),)))
+        elif kind == 2:
+            labels = {"aff-group": f"g{j % aff_groups}"}
+            kw = dict(labels=labels, affinity=Affinity(
+                pod_affinity_required=(term(ZONE, labels),)))
+        elif kind == 3:
+            labels = {"spread-app": "hard"}
+            kw = dict(labels=labels, topology_spread=(
+                spread(HOSTNAME, "DoNotSchedule", labels),))
+        else:
+            labels = {"spread-app": "soft"}
+            kw = dict(labels=labels, topology_spread=(
+                spread(ZONE, "ScheduleAnyway", labels),))
+        pending.append(make_pod(f"pod-{i}", cpu_milli=100,
+                                memory=500 * 2**20, **kw))
+    return nodes, bound, pending
+
+
+def recheck_topology(nodes, assignments, pods_by_key) -> dict:
+    """Host re-check of the topology cell, independent of the port: no
+    node holds two pods of one anti-group, every affinity group lies in
+    one zone, and no node holds two hard-spread pods. Returns the counts
+    it checked."""
+    zone_of = {nd.name: nd.labels[ZONE] for nd in nodes}
+    anti, hard, aff_zones = set(), set(), {}
+    for key, node in assignments.items():
+        labels = pods_by_key[key].labels
+        g = labels.get("anti-group")
+        if g is not None:
+            if (g, node) in anti:
+                fail(f"topology: node {node} holds two pods of anti-group "
+                     f"{g}")
+            anti.add((g, node))
+        if labels.get("spread-app") == "hard":
+            if node in hard:
+                fail(f"topology: node {node} holds two hard-spread pods")
+            hard.add(node)
+        g = labels.get("aff-group")
+        if g is not None:
+            aff_zones.setdefault(g, set()).add(zone_of[node])
+    split = {g: sorted(z) for g, z in aff_zones.items() if len(z) != 1}
+    if split:
+        fail(f"topology: affinity groups span several zones: {split}")
+    return {"anti_pods": len(anti), "hard_spread_nodes": len(hard),
+            "affinity_groups": len(aff_zones)}
+
+
+#: the cells that drive a main path: phase -> (cell name, builder, re-check
+#: beyond capacity or None)
+CELLS = {
+    "smoke": ("smoke-5k-prefaffinity", smoke_cell, None),
+    "topology": ("topo-5k-mixed", topo_cell, recheck_topology),
+}
+
+
+def warm_up(phase: str) -> None:
+    """Warm the CUDA libraries (cuBLAS handles, allocator, the ATen kernels
+    the path loads at first use) off the clock with a small cluster of the
+    same cell through the same path."""
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    build = CELLS[phase][1]
+    drive(Scheduler(device="cuda"),
+          *build(n_nodes=100, n_bound=20, n_pending=260, seed=1))
+
+
+def phase_cell(phase: str) -> dict:
+    """Drives the phase's cell at full width through
+    ``Scheduler(device="cuda")`` until the queue drains, and fails unless
+    every pod binds on tier ``batch`` with no fallback, the fused pair
+    kernel launched, and the host re-checks pass. Returns the kernel
+    launches of the run and its cycle count."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    cell, build, recheck = CELLS[phase]
+    warm_up(phase)
+    nodes, bound, pending = build()
+    sched = Scheduler(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = drive(sched, nodes, bound, pending)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    scheduled = sum(r.scheduled for r in results)
+    if scheduled != len(pending):
+        fail(f"{phase}: bound {scheduled} of {len(pending)} pods")
+    for r in results:
+        # a failed kernel must not pass through the greedy tier
+        if r.solver_tier != "batch" or r.solver_fallbacks:
+            fail(f"{phase}: a cycle solved on tier {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+    if launches["fused_pair_normalize"] <= 0:
+        fail(f"{phase}: the fused-pair kernel was never launched")
+    assignments = {}
+    for r in results:
+        assignments.update(r.assignments)
+    by_key = {p.key(): p for p in pending}
+    recheck_capacity(nodes, bound, assignments, by_key)
+    checked = recheck(nodes, assignments, by_key) if recheck else None
+    cycle_s = sum(r.elapsed_s for r in results)
+    emit({"phase": phase, "cell": cell,
+          "nodes": len(nodes), "bound": len(bound),
+          "pending": len(pending), "scheduled": scheduled,
+          "cycles": len(results),
+          "attempted": [r.attempted for r in results],
+          "cycle_s": [r.elapsed_s for r in results],
+          "solve_s": [r.solve_s for r in results],
+          "rounds": [r.rounds for r in results],
+          "host_syncs": [r.host_syncs for r in results],
+          "snapshot_mode": [r.snapshot_mode for r in results],
+          "pods_per_s_cycles": scheduled / cycle_s,
+          "pods_per_s_wall_with_ingest": scheduled / wall,
+          "wall_s_with_ingest": wall, "launches": launches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "recheck": checked})
+    return {"launches": launches, "cycles": len(results)}
+
+
+def profile_cycle(out_dir: str, phase: str) -> None:
+    """The first cycle of the phase's cell under torch.profiler: device
+    time by kernel, the device-busy share of the cycle, and a gzipped
+    Chrome trace in ``out_dir`` (``--profile`` only; the timed runs are
+    unprofiled)."""
     import gzip
 
     import torch
@@ -501,8 +641,9 @@ def profile_cycle(out_dir: str) -> None:
 
     from kubernetes_tpu_torch.scheduler import Scheduler
 
-    warm_up()
-    nodes, bound, pending = smoke_cell()
+    cell, build, _recheck = CELLS[phase]
+    warm_up(phase)
+    nodes, bound, pending = build()
     sched = Scheduler(device="cuda")
     for nd in nodes:
         sched.on_node_add(nd)
@@ -517,7 +658,7 @@ def profile_cycle(out_dir: str) -> None:
         wall = time.perf_counter() - t0
 
     os.makedirs(out_dir, exist_ok=True)
-    trace = os.path.join(out_dir, "smoke_cycle_trace.json")
+    trace = os.path.join(out_dir, f"{cell}_cycle_trace.json")
     prof.export_chrome_trace(trace)
     with open(trace, "rb") as src:
         raw = src.read()
@@ -541,8 +682,9 @@ def profile_cycle(out_dir: str) -> None:
         c[0] += 1
         c[1] += float(e["dur"])
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:15]
-    emit({"phase": "profile", "cell": "smoke-5k-prefaffinity",
+    emit({"phase": "profile", "cell": cell,
           "cycle": 1, "scheduled": r.scheduled, "rounds": r.rounds,
+          "host_syncs": r.host_syncs,
           "wall_s_profiled": wall, "solve_s": r.solve_s,
           "device_events": len(dev_events),
           "device_busy_s": busy_us / 1e6,
@@ -554,25 +696,27 @@ def profile_cycle(out_dir: str) -> None:
 
 
 def phase_parity() -> None:
-    """One reduced cycle on CUDA (kernels) and on CPU tensors (plain
-    versions): placements must be identical."""
+    """One reduced cycle of each cell on CUDA (kernels) and on CPU tensors
+    (plain versions): placements and rounds must be identical."""
     from kubernetes_tpu_torch.scheduler import Scheduler
 
-    out = {}
-    for dev in ("cuda", "cpu"):
-        nodes, bound, pending = smoke_cell(n_nodes=1000, n_bound=200,
-                                           n_pending=2048, seed=11)
-        r = drive(Scheduler(device=dev), nodes, bound, pending, max_cycles=1)
-        out[dev] = r[0]
-    a, b = out["cuda"], out["cpu"]
-    if a.assignments != b.assignments or a.rounds != b.rounds:
-        diff = sum(1 for k in a.assignments
-                   if b.assignments.get(k) != a.assignments[k])
-        fail(f"parity: CUDA and CPU placements differ ({diff} pods, "
-             f"rounds {a.rounds} vs {b.rounds})")
-    emit({"phase": "parity", "nodes": 1000, "pending": 2048,
-          "scheduled": a.scheduled, "rounds": a.rounds,
-          "identical": True})
+    for cell, build, _recheck in CELLS.values():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            nodes, bound, pending = build(n_nodes=1000, n_bound=200,
+                                          n_pending=2048, seed=11)
+            r = drive(Scheduler(device=dev), nodes, bound, pending,
+                      max_cycles=1)
+            out[dev] = r[0]
+        a, b = out["cuda"], out["cpu"]
+        if a.assignments != b.assignments or a.rounds != b.rounds:
+            diff = sum(1 for k in a.assignments
+                       if b.assignments.get(k) != a.assignments[k])
+            fail(f"parity {cell}: CUDA and CPU placements differ ({diff} "
+                 f"pods, rounds {a.rounds} vs {b.rounds})")
+        emit({"phase": "parity", "cell": cell, "nodes": 1000,
+              "pending": 2048, "scheduled": a.scheduled, "rounds": a.rounds,
+              "identical": True})
 
 
 # ---------------------------------------------------------------------------
@@ -595,7 +739,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one smoke-cell cycle, trace into DIR")
+                    help="also profile the first cycle of the smoke and the "
+                         "topology cell, traces into DIR")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -631,13 +776,16 @@ def main() -> None:
 
     paths = {}
     if "smoke" in phases:
-        paths["smoke"] = phase_smoke()
+        paths["smoke"] = phase_cell("smoke")
     if "plan" in phases:
         paths["plan"] = phase_plan()
+    if "topology" in phases:
+        paths["topology"] = phase_cell("topology")
     if "parity" in phases:
         phase_parity()
     if args.profile:
-        profile_cycle(args.profile)
+        for phase in CELLS:
+            profile_cycle(args.profile, phase)
     out = []
     for name, meta in KERNELS.items():
         r = dict(name=name, **meta)
@@ -647,7 +795,9 @@ def main() -> None:
         r["launches_by_path"] = by_path
         r["launches_per_cycle"] = {p: got["launches"][name] / got["cycles"]
                                    for p, got in paths.items()}
-        if len(paths) == 2 and r["launches"] <= 0:
+        # every kernel serves at least one main path: once all of them
+        # ran, a kernel that none of them launched is a failure
+        if set(MAIN_PATHS) <= set(paths) and r["launches"] <= 0:
             fail(f"kernel {name} was never launched on the main paths")
         out.append(r)
     emit({"kernels": out})

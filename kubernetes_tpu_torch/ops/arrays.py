@@ -18,6 +18,7 @@ from kubernetes_tpu_torch.snapshot import (
     NodeTable,
     PodTable,
     SelectorTables,
+    TopologyTables,
     VolumeTables,
 )
 from kubernetes_tpu_torch.utils.interner import bucket_size
@@ -139,6 +140,53 @@ class DeviceSelectors(NamedTuple):
     p_prog_valid: Tensor  # (Gp,) bool
 
 
+class DeviceTopology(NamedTuple):
+    """Padded inter-pod-affinity / topology-spread term tables. Row tables
+    carry valid masks; padded rows point their ``*_prog`` at the dump
+    program (index = padded program count) so segment reductions stay
+    neutral. ``*_m_onehot`` matrices turn matcher-id gathers into matmuls
+    against the (N, M) / (P, M) count matrices."""
+
+    pair_valid: Tensor  # (Utp,) bool
+    # required (anti)affinity rows
+    ra_valid: Tensor  # (Ta,) bool
+    ra_prog: Tensor  # (Ta,) i32 — pad rows -> Ga (dump)
+    ra_key: Tensor  # (Ta,) i32
+    ra_m_onehot: Tensor  # (Ta, M) f32
+    ra_anti: Tensor  # (Ta,) bool
+    ga_valid: Tensor  # (Ga,) bool
+    # preferred rows
+    rp_valid: Tensor
+    rp_prog: Tensor
+    rp_key: Tensor
+    rp_m_onehot: Tensor
+    rp_w: Tensor  # (Tp,) f32 signed, pad 0
+    gp_valid: Tensor  # (Gp,) bool
+    # anti-term columns
+    at_key: Tensor  # (Ua,) i32
+    at_m_onehot: Tensor  # (Ua, M) f32
+    # sym-term columns
+    st_key: Tensor  # (Us,) i32
+    st_m_onehot: Tensor  # (Us, M) f32
+    st_w: Tensor  # (Us,) f32
+    st_hard: Tensor  # (Us,) f32
+    # spread hard
+    sh_valid: Tensor  # (Tsh,) bool
+    sh_prog: Tensor  # (Tsh,) i32 — pad -> Gsh
+    sh_key: Tensor
+    sh_m_onehot: Tensor  # (Tsh, M)
+    sh_skew: Tensor  # (Tsh,) f32
+    shp_selprog: Tensor  # (Gsh,) i32, -1 = unconstrained
+    shp_valid: Tensor  # (Gsh,) bool
+    # spread soft
+    ss_valid: Tensor
+    ss_prog: Tensor
+    ss_key: Tensor
+    ss_m_onehot: Tensor
+    ssp_selprog: Tensor
+    ssp_valid: Tensor
+
+
 class DeviceVolumes(NamedTuple):
     """Volume-constraint tables: universe metadata (token kinds/escapes)
     plus this batch's VolumeZone rows and VolumeBinding CNF clauses."""
@@ -161,6 +209,7 @@ _KINDS = {
     "nodes": DeviceNodes,
     "pods": DevicePods,
     "selectors": DeviceSelectors,
+    "topology": DeviceTopology,
     "volumes": DeviceVolumes,
 }
 
@@ -398,13 +447,82 @@ def volumes_to_device(t: VolumeTables, device="cuda") -> DeviceVolumes:
     )
 
 
+def topology_to_device(t: TopologyTables, device="cuda") -> DeviceTopology:
+    """Every row and program table is padded to ``bucket_size(n, 4)``;
+    the padded widths decide where pad rows point (the dump program)."""
+    up = _to(device)
+    M = t.n_matchers
+
+    def onehot(m_idx: np.ndarray, rows: int):
+        # negative ids (padding) get an all-zero row, NOT a clipped alias
+        # of matcher 0 — the pm_* matmuls are the only validity gate the
+        # at/st tables have
+        oh = np.zeros((rows, M), np.float32)
+        m_idx = np.asarray(m_idx)
+        ok = m_idx >= 0
+        r = np.arange(len(m_idx))[ok]
+        if len(r):
+            oh[r, np.clip(m_idx[ok], 0, M - 1)] = 1.0
+        return up(oh)
+
+    def valid(n: int, rows: int):
+        v = np.zeros((rows,), bool)
+        v[:n] = True
+        return up(v)
+
+    Ta = bucket_size(max(t.ra_n_rows, 1), 4)
+    Ga = bucket_size(max(t.ra_n_progs, 1), 4)
+    Tp = bucket_size(max(t.rp_n_rows, 1), 4)
+    Gp = bucket_size(max(t.rp_n_progs, 1), 4)
+    Tsh = bucket_size(max(t.sh_n_rows, 1), 4)
+    Gsh = bucket_size(max(t.sh_n_progs, 1), 4)
+    Tss = bucket_size(max(t.ss_n_rows, 1), 4)
+    Gss = bucket_size(max(t.ss_n_progs, 1), 4)
+    n_pairs_pad = bucket_size(max(t.n_pairs, 1))
+    i32 = lambda a, rows, fill: up(_pad_rows(a, rows, fill))
+    return DeviceTopology(
+        pair_valid=valid(t.n_pairs, n_pairs_pad),
+        ra_valid=valid(t.ra_n_rows, Ta),
+        ra_prog=i32(t.ra_prog, Ta, Ga),
+        ra_key=i32(t.ra_key, Ta, 0),
+        ra_m_onehot=onehot(_pad_rows(t.ra_m, Ta, 0), Ta),
+        ra_anti=up(_pad_rows(t.ra_anti, Ta, False)),
+        ga_valid=valid(t.ra_n_progs, Ga),
+        rp_valid=valid(t.rp_n_rows, Tp),
+        rp_prog=i32(t.rp_prog, Tp, Gp),
+        rp_key=i32(t.rp_key, Tp, 0),
+        rp_m_onehot=onehot(_pad_rows(t.rp_m, Tp, 0), Tp),
+        rp_w=up(_pad_rows(t.rp_w, Tp, 0.0)),
+        gp_valid=valid(t.rp_n_progs, Gp),
+        at_key=up(t.at_key),
+        at_m_onehot=onehot(t.at_m, t.at_m.shape[0]),
+        st_key=up(t.st_key),
+        st_m_onehot=onehot(t.st_m, t.st_m.shape[0]),
+        st_w=up(t.st_w),
+        st_hard=up(t.st_hard),
+        sh_valid=valid(t.sh_n_rows, Tsh),
+        sh_prog=i32(t.sh_prog, Tsh, Gsh),
+        sh_key=i32(t.sh_key, Tsh, 0),
+        sh_m_onehot=onehot(_pad_rows(t.sh_m, Tsh, 0), Tsh),
+        sh_skew=up(_pad_rows(t.sh_skew, Tsh, 0.0)),
+        shp_selprog=i32(t.shp_selprog, Gsh, -1),
+        shp_valid=valid(t.sh_n_progs, Gsh),
+        ss_valid=valid(t.ss_n_rows, Tss),
+        ss_prog=i32(t.ss_prog, Tss, Gss),
+        ss_key=i32(t.ss_key, Tss, 0),
+        ss_m_onehot=onehot(_pad_rows(t.ss_m, Tss, 0), Tss),
+        ssp_selprog=i32(t.ssp_selprog, Gss, -1),
+        ssp_valid=valid(t.ss_n_progs, Gss),
+    )
+
+
 def from_numpy(kind: str, fields: dict, device="cuda"):
     """Build one of the port's containers from numpy arrays keyed by field
     name — e.g. ``{f: np.asarray(getattr(jax_nodes, f)) for f in
     DeviceNodes._fields}`` read out of the reference package's tables, so
     both packages compute on identical inputs. ``kind`` is ``nodes``,
-    ``pods``, ``selectors`` or ``volumes``. Dtypes carry over as they
-    are."""
+    ``pods``, ``selectors``, ``topology`` or ``volumes``. Dtypes carry
+    over as they are."""
     cls = _KINDS[kind]
     up = _to(device)
     return cls(**{f: up(np.asarray(fields[f])) for f in cls._fields})

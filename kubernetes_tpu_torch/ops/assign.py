@@ -48,6 +48,10 @@ from kubernetes_tpu_torch.ops.priorities import (
     run_priorities,
 )
 from kubernetes_tpu_torch.ops.sync import to_host
+from kubernetes_tpu_torch.ops.topology import (
+    self_escape_active,
+    sensitive_keys,
+)
 
 NEG = -1e30
 
@@ -216,6 +220,7 @@ def greedy_assign(
     nodes: DeviceNodes,
     sel: DeviceSelectors,
     weights: Optional[Dict[str, float]] = None,
+    topo=None,
     extra_mask: Optional[torch.Tensor] = None,
     vol=None,
     static_vol: Optional[torch.Tensor] = None,
@@ -244,13 +249,13 @@ def greedy_assign(
         cur = nodes_with_usage(nodes, u)
         sv = static_vol.index_select(0, p) if static_vol is not None else None
         mask = run_predicates(
-            pod, cur, sel, None, vol, sv, enabled_mask,
+            pod, cur, sel, topo, vol, sv, enabled_mask,
             hoisted=(static_bits.index_select(0, p), prog),
             no_ports=no_ports, no_pod_affinity=no_pod_affinity,
             no_spread=no_spread).mask  # (1, N)
         if extra_mask is not None:
             mask = mask & extra_mask.index_select(0, p)
-        score = run_priorities(pod, cur, sel, mask, weights,
+        score = run_priorities(pod, cur, sel, mask, weights, topo,
                                skip=skip_priorities)
         if extra_score is not None:
             score = score + extra_score.index_select(0, p)
@@ -490,7 +495,43 @@ def _tie_cohort_detected(mask_full, score, slots):
             & (gmax - gmin >= AUTO_TIE_GAP_MARGIN))
 
 
-def _batch_impl(pods, nodes, sel, weights, max_rounds, per_node_cap,
+def _first_per_group(ok, gate, key, rank):
+    """Keep only the lowest-rank gated pod per ``key`` group; ungated pods
+    pass through (``jnp.lexsort`` + ``searchsorted(side="left")`` group
+    starts, as in the reference)."""
+    P = ok.shape[0]
+    big = 2**30
+    gkey = torch.where(gate, key.long(), big)
+    o = _lexsort(rank, gkey)
+    gk_s = gkey[o].contiguous()
+    starts = torch.searchsorted(gk_s, gk_s, side="left")
+    within = torch.arange(P, device=ok.device) - starts
+    keep = torch.empty_like(ok)
+    keep[o] = (gk_s == big) | (within == 0)
+    return ok & (keep | ~gate)
+
+
+def _serialize_topology(accepted, choice, rank, sens, pods, cur, topo,
+                        tpid, no_pod_affinity):
+    """The batched guard for anti-affinity / hard-spread interactions among
+    same-round admissions (the serial loop never needs it; in-batch it
+    replaces per-pod cache updates): one topology-sensitive pod per
+    (key, pair) per round, then one self-match escapee per affinity
+    program."""
+    ok = accepted
+    for k in range(tpid.shape[1]):
+        pair = tpid[choice.clamp(0, tpid.shape[0] - 1), k]
+        gate = ok & (choice >= 0) & sens[:, k] & (pair >= 0)
+        ok = _first_per_group(ok, gate, pair, rank)
+    if not no_pod_affinity:
+        # the second first-pod-of-a-group must wait and join the first
+        esc = self_escape_active(pods, cur, topo)
+        gate_e = ok & (choice >= 0) & esc
+        ok = _first_per_group(ok, gate_e, pods.affprog_id, rank)
+    return ok
+
+
+def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                 extra_mask=None, vol=None, static_vol=None,
                 enabled_mask=None, extra_score=None, use_sinkhorn=False,
                 skip=(), no_ports=False, no_pod_affinity=False,
@@ -505,12 +546,12 @@ def _batch_impl(pods, nodes, sel, weights, max_rounds, per_node_cap,
     perm = queue_order(pods)
     rank = _inverse_permutation(perm)
     # ---- lean round (constraint-light batches) --------------------------
-    # no volume/port coupling, no extender/plugin mask or score, argmax
+    # no topology/volume/port coupling, no extender/plugin mask or score, argmax
     # tie-break and a provably exact lean scoring plan: one materialized
     # (P, N) matrix per round; placements identical to the general round
     lean_plan = None
-    if (vol is None and static_vol is None and extra_mask is None
-            and extra_score is None and no_ports
+    if (topo is None and vol is None and static_vol is None
+            and extra_mask is None and extra_score is None and no_ports
             and not use_sinkhorn and not auto_sinkhorn):
         lean_plan = _lean_score_plan(weights, skip)
     if lean_plan is not None:
@@ -529,6 +570,13 @@ def _batch_impl(pods, nodes, sel, weights, max_rounds, per_node_cap,
         static_vol = static_volume_reasons(pods, nodes, sel, vol,
                                            prog=hoisted[1])
     hoisted_prio = hoist_priorities(pods, nodes, sel, weights, skip)
+    # (P, K) topology keys along which same-round co-admission into one
+    # topology group could violate required anti-affinity / hard spread;
+    # skipped when BOTH batch gates hold (a universe matcher left by a
+    # long-gone affinity pod would otherwise serialize clean pods)
+    sens = None
+    if topo is not None and not (no_pod_affinity and no_spread):
+        sens = sensitive_keys(pods, topo, nodes.topo_pair_id.shape[1])
     res_on = enabled_mask is None or bool(
         enabled_mask & (1 << BIT["PodFitsResources"]))
 
@@ -547,13 +595,13 @@ def _batch_impl(pods, nodes, sel, weights, max_rounds, per_node_cap,
         cur = nodes_with_usage(nodes, u)
         active = (assigned == -1) & pods.valid
         mask = run_predicates(
-            pods, cur, sel, None, vol, static_vol, enabled_mask,
+            pods, cur, sel, topo, vol, static_vol, enabled_mask,
             hoisted=hoisted, no_ports=no_ports,
             no_pod_affinity=no_pod_affinity,
             no_spread=no_spread).mask & active[:, None]
         if extra_mask is not None:
             mask = mask & extra_mask
-        score = run_priorities(pods, cur, sel, mask, weights, None,
+        score = run_priorities(pods, cur, sel, mask, weights, topo,
                                skip=skip, hoisted=hoisted_prio,
                                fused=True)
         if extra_score is not None:
@@ -586,6 +634,11 @@ def _batch_impl(pods, nodes, sel, weights, max_rounds, per_node_cap,
         accepted = _admit_scored(choice, rank, pods.req,
                                  nodes.allocatable - u.requested,
                                  per_node_cap, res_on, sorted_gate=port_gate)
+        if sens is not None:
+            accepted = _serialize_topology(accepted, choice, rank, sens,
+                                           pods, cur, topo,
+                                           nodes.topo_pair_id,
+                                           no_pod_affinity)
         assigned = torch.where(accepted, choice.to(torch.int32), assigned)
         u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
         rounds += 1
@@ -615,6 +668,7 @@ def batch_assign(
     weights: Optional[Dict[str, float]] = None,
     max_rounds: int = 256,
     per_node_cap: int = 1,
+    topo=None,
     extra_mask: Optional[torch.Tensor] = None,
     vol=None,
     static_vol: Optional[torch.Tensor] = None,
@@ -638,11 +692,12 @@ def batch_assign(
     pair with the fused kernel (the CUDA kernel on the card) when the
     regrouped accumulation is provably exact — bit-identical to the two
     separate normalizes. ``use_sinkhorn`` picks from the transport plan
-    every round; ``auto_sinkhorn`` lets round 0 decide. Inter-pod
-    affinity and topology spread are not ported yet (ROADMAP A.7): pass
-    batches whose topology gates hold."""
+    every round; ``auto_sinkhorn`` lets round 0 decide. ``topo`` (a
+    :class:`~kubernetes_tpu_torch.ops.arrays.DeviceTopology`) adds inter-pod
+    affinity and topology spread, with their admissions serialized per
+    topology pair per round."""
     return _batch_impl(
-        pods, nodes, sel, weights, max_rounds, per_node_cap,
+        pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         extra_mask=extra_mask, vol=vol, static_vol=static_vol,
         enabled_mask=enabled_mask, extra_score=extra_score,
         use_sinkhorn=use_sinkhorn, skip=tuple(skip_priorities),

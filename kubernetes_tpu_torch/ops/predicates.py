@@ -163,20 +163,25 @@ def _bits(cond: torch.Tensor, name: str) -> torch.Tensor:
     return cond.to(torch.int32) << BIT[name]
 
 
+def _row_ids(ids: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Segment ids broadcast over ``data``'s trailing axes."""
+    return ids.long().view((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+
+
 def _segment_min(data: torch.Tensor, ids: torch.Tensor, n: int):
     """jax.ops.segment_min over rows: empty segments hold int32 max."""
     out = torch.full((n,) + data.shape[1:], _I32_MAX, dtype=data.dtype,
                      device=data.device)
-    return out.scatter_reduce_(0, ids.long()[:, None].expand_as(data), data,
-                               "amin", include_self=True)
+    return out.scatter_reduce_(0, _row_ids(ids, data), data, "amin",
+                               include_self=True)
 
 
 def _segment_max(data: torch.Tensor, ids: torch.Tensor, n: int):
     """jax.ops.segment_max over rows: empty segments hold int32 min."""
     out = torch.full((n,) + data.shape[1:], _I32_MIN, dtype=data.dtype,
                      device=data.device)
-    return out.scatter_reduce_(0, ids.long()[:, None].expand_as(data), data,
-                               "amax", include_self=True)
+    return out.scatter_reduce_(0, _row_ids(ids, data), data, "amax",
+                               include_self=True)
 
 
 def _gather_rows(table: torch.Tensor, ids: torch.Tensor, fill):
@@ -330,12 +335,11 @@ def run_predicates(
     (CreateFromConfig semantics, factory.go:356). ``hoisted`` takes
     :func:`static_predicate_reasons` output computed once per batch.
     ``no_ports`` skips the three port-conflict matmuls (exact when no
-    pending pod declares host ports).
-
-    The inter-pod affinity / topology spread predicates are not ported yet
-    (ROADMAP A.7): a ``topo`` table raises."""
-    if topo is not None and not (no_pod_affinity and no_spread):
-        raise NotImplementedError("topology: ROADMAP A.7")
+    pending pod declares host ports). ``topo`` (a
+    :class:`~kubernetes_tpu_torch.ops.arrays.DeviceTopology`) adds the
+    inter-pod affinity and topology spread predicates; ``no_pod_affinity``
+    / ``no_spread`` skip each of them where the batch gates prove its mask
+    all-true."""
     if hoisted is None:
         reasons, prog = static_predicate_reasons(pods, nodes, sel)
     else:
@@ -351,6 +355,26 @@ def run_predicates(
                      + pods.port_spec_pp @ nodes.port_wild_mh.T
                      + pods.port_spec_pip @ nodes.port_spec_mh.T)
         reasons |= _bits(conflicts > 0, "PodFitsHostPorts")
+
+    if topo is not None:
+        from kubernetes_tpu_torch.ops.topology import (
+            even_pods_spread_mask,
+            inter_pod_affinity_mask,
+        )
+
+        # the topology universe only grows over a packer's life, so the
+        # batch-scoped gates matter for long-lived drivers: no_pod_affinity
+        # (no (anti)affinity pod in the batch AND all-zero node-side
+        # anti/sym counts) and no_spread (no spread constraint in the
+        # batch) each prove their mask all-true
+        if not no_pod_affinity:
+            # MatchInterPodAffinity (predicates.go:1211)
+            reasons |= _bits(~inter_pod_affinity_mask(pods, nodes, topo),
+                             "MatchInterPodAffinity")
+        if not no_spread:
+            # EvenPodsSpread (predicates.go:1720)
+            reasons |= _bits(~even_pods_spread_mask(pods, nodes, topo, prog),
+                             "EvenPodsSpread")
 
     if vol is not None:
         reasons |= _dynamic_volume_reasons(pods, nodes, vol)

@@ -20,7 +20,14 @@ from kubernetes_tpu_torch.ops.arrays import (
     DevicePods,
     DeviceSelectors,
 )
-from kubernetes_tpu_torch.ops.predicates import preferred_program_score
+from kubernetes_tpu_torch.ops.predicates import (
+    preferred_program_score,
+    selector_program_match,
+)
+from kubernetes_tpu_torch.ops.topology import (
+    even_pods_spread_score,
+    inter_pod_affinity_score,
+)
 
 _EPS = 1e-5
 
@@ -205,24 +212,28 @@ def equal_priority(pods, nodes, sel, topo, mask):
                       dtype=torch.float32, device=pods.req.device)
 
 
-def _topology_score(pods, nodes, topo):
-    if topo is not None:
-        raise NotImplementedError("topology: ROADMAP A.7")
+def _zeros(pods, nodes):
     return torch.zeros((pods.req.shape[0], nodes.allocatable.shape[0]),
                        dtype=torch.float32, device=pods.req.device)
 
 
 def inter_pod_affinity(pods, nodes, sel, topo, mask):
-    """interpod_affinity.go CalculateInterPodAffinityPriority. All zeros
-    when no topology tables were packed; the tables themselves are not
-    ported yet (ROADMAP A.7)."""
-    return _topology_score(pods, nodes, topo)
+    """interpod_affinity.go CalculateInterPodAffinityPriority (symmetric
+    weighted term counts, min/max-normalized). All zeros when no topology
+    tables were packed."""
+    if topo is None:
+        return _zeros(pods, nodes)
+    return inter_pod_affinity_score(pods, nodes, topo, mask)
 
 
 def even_pods_spread(pods, nodes, sel, topo, mask):
-    """even_pods_spread.go CalculateEvenPodsSpreadPriority. All zeros when
-    no topology tables were packed (ROADMAP A.7)."""
-    return _topology_score(pods, nodes, topo)
+    """even_pods_spread.go CalculateEvenPodsSpreadPriority (enabled
+    whenever soft constraints exist). All zeros when no topology tables
+    were packed."""
+    if topo is None:
+        return _zeros(pods, nodes)
+    prog = selector_program_match(sel, nodes)
+    return even_pods_spread_score(pods, nodes, topo, prog, mask)
 
 
 #: RequestedToCapacityRatio default shape: least-utilized preferred

@@ -21,8 +21,8 @@ AddUnschedulableIfNotPresent):
       for pod in unassigned: reasons, FitError text, requeue
 
 Not ported yet (ROADMAP): the pipelined executor, warmup, preemption,
-extenders, the restricted/partitioned routes, topology constraints,
-explain reports, observability, leader fencing and the ambiguous-bind
+extenders, the restricted/partitioned routes, explain reports,
+observability, leader fencing and the ambiguous-bind
 protocol, the mesh, and the ``batch-single``/``batch-cpu``/``exact``
 tiers.
 """
@@ -49,6 +49,7 @@ from kubernetes_tpu_torch.framework import (
 from kubernetes_tpu_torch.ops.arrays import (
     pods_to_device,
     selectors_to_device,
+    topology_to_device,
     volumes_to_device,
 )
 from kubernetes_tpu_torch.ops.assign import (
@@ -128,6 +129,19 @@ class CycleResult:
     #: device-to-host syncs the cycle made (round-loop conditions, the
     #: router's decision, the validated readback, failure reductions)
     host_syncs: int = 0
+
+
+def _has_topo(u) -> bool:
+    """Whether the packer's universe holds any inter-pod affinity or
+    topology spread term (then the cycle packs the topology tables)."""
+    return bool(
+        len(u.aff_programs)
+        or len(u.pref_aff_programs)
+        or len(u.spread_hard_programs)
+        or len(u.spread_soft_programs)
+        or len(u.anti_terms)
+        or len(u.sym_terms)
+    )
 
 
 class Scheduler:
@@ -321,17 +335,15 @@ class Scheduler:
         node_order = self.cache.node_order()
         pt = pk.pack_pods(batch)
         skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
-        if not (no_pod_aff and no_spread):
-            for p in batch:
-                self._cycle_states.pop(p.key(), None)
-                self.queue.add_if_not_present(p)
-            raise NotImplementedError(
-                "topology: ROADMAP A.7 (inter-pod affinity / topology "
-                "spread constraints are not ported yet)")
         dev = self.device
         dp = pods_to_device(pt, pad_to=bucket_size(max(len(batch), 1)),
                             device=dev)
         ds = selectors_to_device(pk.pack_selector_tables(), device=dev)
+        # the topology universe only grows: once any affinity or spread
+        # term was interned, every cycle packs the tables (the batch gates
+        # then skip what this batch provably does not need)
+        dt = (topology_to_device(pk.pack_topology_tables(), device=dev)
+              if _has_topo(pk.u) else None)
         dv = sv = None
         if any(p.volumes for p in batch):
             dv = volumes_to_device(pk.pack_volume_tables(batch), device=dev)
@@ -341,9 +353,9 @@ class Scheduler:
             batch, dp, dn, ds, node_order)
 
         ts = self.clock()
-        ladder = self._solve_ladder(batch, dp, dn, ds, dv, sv, extra_mask,
-                                    extra_score, skip_prio, no_ports,
-                                    no_pod_aff, no_spread, res)
+        ladder = self._solve_ladder(batch, dp, dn, ds, dt, dv, sv,
+                                    extra_mask, extra_score, skip_prio,
+                                    no_ports, no_pod_aff, no_spread, res)
         res.solve_s = self.clock() - ts
         if ladder is None:
             # every tier failed: requeue the whole batch with backoff
@@ -385,7 +397,7 @@ class Scheduler:
         failed_idx = [i for i, a in enumerate(assigned) if a < 0]
         counts = None
         if failed_idx:
-            fr = run_predicates(dp, nodes_with_usage(dn, usage), ds, None,
+            fr = run_predicates(dp, nodes_with_usage(dn, usage), ds, dt,
                                 dv, sv, self.pred_mask)
             rows = torch.tensor(failed_idx, dtype=torch.long, device=dev)
             counts = failure_counts(
@@ -475,22 +487,22 @@ class Scheduler:
 
     # -- degradation ladder ------------------------------------------------
 
-    def _run_tier(self, tier, batch, dp, dn, ds, dv, sv, extra_mask,
+    def _run_tier(self, tier, batch, dp, dn, ds, dt, dv, sv, extra_mask,
                   extra_score, skip_prio, no_ports, no_pod_aff, no_spread):
         """One solve attempt on one ladder tier: (assigned, usage, rounds).
         Exceptions propagate to the ladder."""
         if tier == "greedy":
             a, u = greedy_assign(
-                dp, dn, ds, self.weights, extra_mask=extra_mask, vol=dv,
-                static_vol=sv, enabled_mask=self.pred_mask,
+                dp, dn, ds, self.weights, topo=dt, extra_mask=extra_mask,
+                vol=dv, static_vol=sv, enabled_mask=self.pred_mask,
                 extra_score=extra_score, skip_priorities=skip_prio,
                 no_ports=no_ports, no_pod_affinity=no_pod_aff,
                 no_spread=no_spread)
             return a, u, len(batch)
         return batch_assign(
             dp, dn, ds, self.weights, max_rounds=self.max_rounds,
-            per_node_cap=self.per_node_cap, extra_mask=extra_mask, vol=dv,
-            static_vol=sv, enabled_mask=self.pred_mask,
+            per_node_cap=self.per_node_cap, topo=dt, extra_mask=extra_mask,
+            vol=dv, static_vol=sv, enabled_mask=self.pred_mask,
             extra_score=extra_score, use_sinkhorn=(tier == "sinkhorn"),
             skip_priorities=skip_prio, no_ports=no_ports,
             no_pod_affinity=no_pod_aff, no_spread=no_spread)
@@ -512,7 +524,7 @@ class Scheduler:
             raise SolverResultInvalid(f"{tier}: {VALIDATE_REASONS[code]}")
         return assigned, u_dev, int(rounds)
 
-    def _solve_ladder(self, batch, dp, dn, ds, dv, sv, extra_mask,
+    def _solve_ladder(self, batch, dp, dn, ds, dt, dv, sv, extra_mask,
                       extra_score, skip_prio, no_ports, no_pod_aff,
                       no_spread, res):
         """Try the configured tier, then the greedy sequential oracle (the
@@ -526,7 +538,7 @@ class Scheduler:
                                  else [])
         for i, tier in enumerate(tiers):
             try:
-                out = self._run_tier(tier, batch, dp, dn, ds, dv, sv,
+                out = self._run_tier(tier, batch, dp, dn, ds, dt, dv, sv,
                                      extra_mask, extra_score, skip_prio,
                                      no_ports, no_pod_aff, no_spread)
                 assigned, usage, rounds = self._validated_readback(

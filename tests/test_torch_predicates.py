@@ -1,8 +1,8 @@
 """The port's Filter pass against the JAX package's: on seeded clusters
 with taints, required and preferred node affinity, node selectors, host
-ports, node conditions and volumes, the reason bitmasks (and therefore
-the feasibility masks) are equal bit for bit; so are the failure
-reductions behind the FitError text."""
+ports, node conditions, volumes, inter-pod affinity and topology spread,
+the reason bitmasks (and therefore the feasibility masks) are equal bit
+for bit; so are the failure reductions behind the FitError text."""
 
 import random
 
@@ -11,11 +11,20 @@ import pytest
 import torch
 
 import kubernetes_tpu.ops.predicates as jp
+import kubernetes_tpu.ops.priorities as jprio
 import kubernetes_tpu_torch.ops.predicates as tp
 from kubernetes_tpu.obs.explain import explain_reduce
 from kubernetes_tpu.snapshot import FIXED_RESOURCE_NAMES
 from test_predicates import random_cluster
-from torch_parity import jax_tables, port_tables, random_volume_cluster
+from test_topology import random_affinity_cluster, random_spread_cluster
+from torch_parity import (
+    jax_tables,
+    jax_topo_tables,
+    port_tables,
+    port_topo_tables,
+    random_volume_cluster,
+    topo_mixed_cluster,
+)
 
 
 def _eq(j, t):
@@ -63,13 +72,38 @@ def test_volume_reason_bits_match(seed):
         tp.run_predicates(dp, dn, ds, None, dv, tsv).reasons)
 
 
-def test_topology_tables_are_refused():
-    rng = random.Random(5)
-    nodes, scheduled, pending = random_cluster(rng, n_nodes=3, n_sched=2,
-                                               n_pending=2)
-    dn, dp, ds, _ = port_tables(*jax_tables(nodes, scheduled, pending)[:3])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        tp.run_predicates(dp, dn, ds, topo=object())
+def _topology_cluster(case):
+    if case < 3:
+        return random_affinity_cluster(random.Random(150 + case))
+    if case < 6:
+        return random_spread_cluster(random.Random(160 + case))
+    return topo_mixed_cluster(170 + case, n_nodes=16, n_bound=8,
+                              n_pending=30)
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_topology_reason_bits_match(case):
+    """MatchInterPodAffinity and EvenPodsSpread bits, with the batch gates
+    on and off: equal bit for bit, and the gates exact where they hold."""
+    nodes, scheduled, pending = _topology_cluster(case)
+    jdn, jdp, jds, jdt, nt, pt, _pk = jax_topo_tables(nodes, scheduled,
+                                                      pending)
+    dn, dp, ds, dt = port_topo_tables(jdn, jdp, jds, jdt)
+    jr = jp.run_predicates(jdp, jdn, jds, jdt)
+    tr = tp.run_predicates(dp, dn, ds, dt)
+    _eq(jr.reasons, tr.reasons)
+    _eq(jr.mask, tr.mask)
+    if case < 6:  # the seeded clusters hold bound pods the terms see
+        assert (tr.reasons & ((1 << tp.BIT["MatchInterPodAffinity"])
+                              | (1 << tp.BIT["EvenPodsSpread"]))).any()
+    _skip, _ports, no_aff, no_spread = jprio.solver_gates(nt, pt)
+    for gates in ({}, dict(no_pod_affinity=no_aff, no_spread=no_spread)):
+        _eq(jp.run_predicates(jdp, jdn, jds, jdt, **gates).reasons,
+            tp.run_predicates(dp, dn, ds, dt, **gates).reasons)
+    if no_aff or no_spread:
+        gated = tp.run_predicates(dp, dn, ds, dt, no_pod_affinity=no_aff,
+                                  no_spread=no_spread)
+        _eq(jr.reasons, gated.reasons)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -16,10 +16,15 @@ import kubernetes_tpu_torch.ops.predicates as tpred
 import kubernetes_tpu_torch.ops.priorities as tp
 from kubernetes_tpu_torch.ops import fused_score
 from test_predicates import random_cluster
-from torch_parity import jax_tables, port_tables, pref_affinity_cluster
-
-#: kernels whose output needs topology tables (not ported: ROADMAP A.7)
-_TOPOLOGY = ("InterPodAffinityPriority", "EvenPodsSpreadPriority")
+from test_topology import random_affinity_cluster, random_spread_cluster
+from torch_parity import (
+    jax_tables,
+    jax_topo_tables,
+    port_tables,
+    port_topo_tables,
+    pref_affinity_cluster,
+    topo_mixed_cluster,
+)
 
 
 def _clusters():
@@ -29,22 +34,28 @@ def _clusters():
     for seed in range(2):
         yield pref_affinity_cluster(600 + seed, n_nodes=24, n_bound=30,
                                     n_pending=40)
+    # inter-pod affinity and topology spread: both topology kernels live
+    yield random_affinity_cluster(random.Random(610), n_nodes=10,
+                                  n_sched=20, n_pending=14)
+    yield random_spread_cluster(random.Random(620))
+    yield topo_mixed_cluster(630, n_nodes=24, n_bound=12, n_pending=40)
 
 
 def _eq(j, t):
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(8))
 def test_stock_kernels_and_totals_bit_identical(case):
     nodes, scheduled, pending = list(_clusters())[case]
-    jdn, jdp, jds, _dv, nt, pt, _pk = jax_tables(nodes, scheduled, pending)
-    dn, dp, ds, _ = port_tables(jdn, jdp, jds)
-    jmask = jpred.run_predicates(jdp, jdn, jds).mask
-    mask = tpred.run_predicates(dp, dn, ds).mask
+    jdn, jdp, jds, jdt, nt, pt, _pk = jax_topo_tables(nodes, scheduled,
+                                                      pending)
+    dn, dp, ds, dt = port_topo_tables(jdn, jdp, jds, jdt)
+    jmask = jpred.run_predicates(jdp, jdn, jds, jdt).mask
+    mask = tpred.run_predicates(dp, dn, ds, dt).mask
     for name, fn in jp.PRIORITY_REGISTRY.items():
-        if name in _TOPOLOGY:
-            continue
+        _eq(fn(jdp, jdn, jds, jdt, jmask),
+            tp.PRIORITY_REGISTRY[name](dp, dn, ds, dt, mask))
         _eq(fn(jdp, jdn, jds, None, jmask),
             tp.PRIORITY_REGISTRY[name](dp, dn, ds, None, mask))
     weights = dict(jp.DEFAULT_WEIGHTS, MostRequestedPriority=2,
@@ -58,10 +69,10 @@ def test_stock_kernels_and_totals_bit_identical(case):
     assert set(jh) == set(th)
     for w in (None, weights):
         for sk in ((), skip):
-            want = jp.run_priorities(jdp, jdn, jds, jmask, w, skip=sk)
+            want = jp.run_priorities(jdp, jdn, jds, jmask, w, jdt, skip=sk)
             for hoisted in (None, th):
                 for fused in (False, True):
-                    got = tp.run_priorities(dp, dn, ds, mask, w, skip=sk,
+                    got = tp.run_priorities(dp, dn, ds, mask, w, dt, skip=sk,
                                             hoisted=hoisted, fused=fused)
                     _eq(want, got)
 

@@ -2,8 +2,11 @@
 ``Scheduler(pipeline_depth=1)`` and to the port's
 ``Scheduler(device="cpu")`` binds the same pods to the same nodes, cycle
 by cycle, with the same ``CycleResult`` failure reasons, FitError texts
-and round counts — on the chip smoke cell shrunk to 64 nodes and 512
-pods, through node and pod churn, on every ladder tier the port runs."""
+and round counts — on the chip smoke cells shrunk to 64 nodes (the
+preferred-zone cell through node and pod churn, on every ladder tier the
+port runs; the mixed affinity/anti-affinity/spread cell over three
+cycles), on topology failures, and on snapshot modes as new topology
+groups arrive."""
 
 import dataclasses
 
@@ -13,7 +16,14 @@ from kubernetes_tpu.scheduler import Scheduler as JScheduler
 from kubernetes_tpu_torch import scheduler as tsched
 from kubernetes_tpu_torch.kernels import KernelError
 from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
-from torch_parity import pref_affinity_cluster, to_port
+from kubernetes_tpu.api.types import (
+    Affinity,
+    LabelSelector,
+    PodAffinityTerm,
+    TopologySpreadConstraint,
+)
+from kubernetes_tpu.testing import make_node, make_pod
+from torch_parity import pref_affinity_cluster, to_port, topo_mixed_cluster
 
 
 class FakeClock:
@@ -92,8 +102,6 @@ def test_other_tiers_bind_like_the_reference(monkeypatch, solver):
 
 
 def test_gang_rollback_matches():
-    from kubernetes_tpu.testing import make_node, make_pod
-
     nodes = [make_node(f"n{i}", cpu_milli=2000) for i in range(4)]
     pods = [make_pod(f"g{i}", cpu_milli=1500, pod_group="big",
                      pod_group_min_available=6) for i in range(6)]
@@ -131,3 +139,118 @@ def test_kernel_faults_escape_the_solver_ladder(monkeypatch, fault,
     else:
         with pytest.raises(KernelError, match="injected"):
             ts.schedule_cycle()
+
+
+def _topo_pod(name, labels=None, anti=None, aff=None, spread_key=None):
+    """100m / 256 Mi pod with required hostname anti-affinity to ``anti``,
+    required zone affinity to ``aff`` and/or a hard spread (maxSkew 1)
+    over ``spread_key`` — each against its own labels when given."""
+    labels = dict(labels or {})
+
+    def term(key, sel):
+        return PodAffinityTerm(label_selector=LabelSelector(match_labels=sel),
+                               topology_key=key)
+
+    affinity = Affinity(
+        pod_anti_affinity_required=(
+            (term("kubernetes.io/hostname", anti),) if anti else ()),
+        pod_affinity_required=(
+            (term("failure-domain.beta.kubernetes.io/zone", aff),)
+            if aff else ()))
+    spread = ((TopologySpreadConstraint(
+        max_skew=1, topology_key=spread_key,
+        when_unsatisfiable="DoNotSchedule",
+        label_selector=LabelSelector(match_labels=labels)),)
+        if spread_key else ())
+    return make_pod(name, cpu_milli=100, memory=2**28, labels=labels,
+                    affinity=affinity, topology_spread=spread)
+
+
+def test_topology_cell_binds_like_the_reference():
+    """The chip cell topo-5k-mixed shrunk to 64 nodes over 4 zones and 320
+    pending pods, in three cycles of at most 128."""
+    nodes, bound, pending = topo_mixed_cluster(1, n_nodes=64, n_bound=16,
+                                               n_pending=320)
+    js, ts, _clocks = _pair(max_batch=128)
+    _feed((js, ts), nodes, bound + pending)
+    results = [_cycle_matches(js, ts)[1] for _ in range(3)]
+    assert [r.attempted for r in results] == [128, 128, 64]
+    assert sum(r.scheduled for r in results) == 320
+    assert all(r.solver_tier == "batch" and not r.solver_fallbacks
+               for r in results)
+    placed = {}
+    for r in results:
+        placed.update(r.assignments)
+    zone_of = {nd.name: nd.labels["failure-domain.beta.kubernetes.io/zone"]
+               for nd in nodes}
+    by_key = {p.key(): p for p in pending}
+    for label in ("anti-group", "spread-app"):
+        seen = set()
+        for key, node in placed.items():
+            v = by_key[key].labels.get(label)
+            if v and (label == "anti-group" or v == "hard"):
+                assert (v, node) not in seen, (label, v, node)
+                seen.add((v, node))
+    groups = {}
+    for key, node in placed.items():
+        g = by_key[key].labels.get("aff-group")
+        if g:
+            groups.setdefault(g, set()).add(zone_of[node])
+    assert groups and all(len(z) == 1 for z in groups.values())
+
+
+def test_topology_failures_match():
+    """Pods that topology keeps out: an anti-affinity group larger than the
+    node count, affinity to a group that exists nowhere (and no
+    self-match), and a hard spread over a key no node carries. Reasons and
+    FitError texts equal the reference's."""
+    nodes = [make_node(f"n{i}", cpu_milli=4000, memory=32 * 2**30,
+                       zone=f"z{i % 2}") for i in range(6)]
+    pods = [_topo_pod(f"anti-{i}", {"grp": "a"}, anti={"grp": "a"})
+            for i in range(9)]
+    pods += [_topo_pod(f"lost-{i}", {"grp": "b"}, aff={"grp": "nowhere"})
+             for i in range(2)]
+    pods += [_topo_pod(f"rack-{i}", {"grp": "c"}, spread_key="rack")
+             for i in range(2)]
+    pods += [_topo_pod(f"host-{i}", {"grp": "d"}, spread_key=(
+        "kubernetes.io/hostname")) for i in range(8)]
+    js, ts, _clocks = _pair()
+    _feed((js, ts), nodes, pods)
+    _rj, rt = _cycle_matches(js, ts)
+    assert rt.failure_reasons["default/anti-8"] == ("MatchInterPodAffinity",)
+    assert rt.failure_reasons["default/lost-0"] == ("MatchInterPodAffinity",)
+    assert rt.failure_reasons["default/rack-0"] == ("EvenPodsSpread",)
+    assert "didn't match pod affinity/anti-affinity" in rt.fit_errors[
+        "default/anti-8"]
+    assert rt.scheduled == 6 + 8
+
+
+def test_new_topology_groups_repack_like_the_reference():
+    """Cycles that bring new anti-affinity groups widen the node-side
+    count matrices: the port's snapshot mode is ``full`` exactly where the
+    reference's is, and ``delta`` where it is."""
+    nodes = [make_node(f"n{i}", cpu_milli=4000, memory=32 * 2**30,
+                       zone=f"z{i % 4}") for i in range(16)]
+
+    def plain(prefix, n):
+        return [make_pod(f"{prefix}{i}", cpu_milli=100, memory=2**28)
+                for i in range(n)]
+
+    def anti(prefix, n, g):
+        return [_topo_pod(f"{prefix}{i}", {"anti-group": g},
+                          anti={"anti-group": g}) for i in range(n)]
+
+    js, ts, _clocks = _pair()
+    _feed((js, ts), nodes, anti("z", 3, "g0") + plain("p", 10))
+    arrivals = (plain("q", 10), anti("a", 6, "g0"), anti("b", 4, "g1"),
+                plain("r", 5), anti("c", 4, "g2") + [_topo_pod(
+                    "s0", {"aff-group": "x"}, aff={"aff-group": "x"},
+                    spread_key="kubernetes.io/hostname")], ())
+    modes = []
+    for batch in arrivals:
+        rj, rt = _cycle_matches(js, ts)
+        assert rt.snapshot_mode == rj.snapshot_mode
+        modes.append(rt.snapshot_mode)
+        _feed((js, ts), pods=batch)
+    assert modes[3] == "full"  # the cycle that brought group g1
+    assert "delta" in modes

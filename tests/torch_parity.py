@@ -21,10 +21,12 @@ from kubernetes_tpu.ops.arrays import (
     DeviceNodes as JNodes,
     DevicePods as JPods,
     DeviceSelectors as JSelectors,
+    DeviceTopology as JTopology,
     DeviceVolumes as JVolumes,
     nodes_to_device,
     pods_to_device,
     selectors_to_device,
+    topology_to_device,
     volumes_to_device,
 )
 from kubernetes_tpu.snapshot import SnapshotPacker
@@ -32,7 +34,7 @@ from kubernetes_tpu.testing import make_node, make_pod
 from kubernetes_tpu_torch.ops.arrays import from_numpy
 
 _KIND_OF = {JNodes: "nodes", JPods: "pods", JSelectors: "selectors",
-            JVolumes: "volumes"}
+            JTopology: "topology", JVolumes: "volumes"}
 
 
 def to_port(obj):
@@ -78,6 +80,20 @@ def port_tables(dn, dp, ds, dv=None):
     """The port's CPU tables holding exactly the JAX tables' values."""
     return (port_table(dn), port_table(dp), port_table(ds),
             None if dv is None else port_table(dv))
+
+
+def jax_topo_tables(nodes, scheduled, pending):
+    """Pack a JAX-typed cluster with the JAX packer, topology tables
+    included. Returns ``(dn, dp, ds, dt, nt, pt, pk)``."""
+    dn, dp, ds, _dv, nt, pt, pk = jax_tables(nodes, scheduled, pending)
+    return dn, dp, ds, topology_to_device(pk.pack_topology_tables()), nt, \
+        pt, pk
+
+
+def port_topo_tables(dn, dp, ds, dt):
+    """The port's CPU tables (topology included) holding exactly the JAX
+    tables' values."""
+    return port_tables(dn, dp, ds)[:3] + (port_table(dt),)
 
 
 def resource_batch(rng, n_pods, big_frac=0.3):
@@ -210,4 +226,72 @@ def pref_affinity_cluster(seed: int, n_nodes: int = 64, n_bound: int = 16,
                 (50, [req(zone_key, "In", f"zone-{rng.randrange(10)}")])),
             tolerations=tol if i % 2 else (),
             priority=rng.choice([0, 0, 0, 100])))
+    return nodes, bound, pending
+
+
+def topo_mixed_cluster(seed: int, n_nodes: int = 64, n_bound: int = 16,
+                       n_pending: int = 320, zones: int = 4,
+                       anti_groups: int = 4, aff_groups: int = 4):
+    """The chip smoke cell ``topo-5k-mixed`` shrunk: the smoke cell's
+    nodes (4 CPU / 32 Gi / 110 pods, every 10th with the autoscaler's
+    PreferNoSchedule taint) and round-robin bound pods, and pending pods
+    of 100m / 500 Mi interleaved by ``i % 5``: 0 a weight-50 preferred
+    zone (tolerating the taint on odd ``i``), 1 required hostname
+    anti-affinity to its own ``anti-group``, 2 required zone affinity to
+    its own ``aff-group``, 3 a hard hostname spread (maxSkew 1), 4 a soft
+    zone spread. Returns ``(nodes, bound, pending)`` with the JAX
+    package's types."""
+    from kubernetes_tpu.testing import node_affinity_preferred, req
+
+    rng = random.Random(seed)
+    zone_key = "failure-domain.beta.kubernetes.io/zone"
+    taint = jtypes.Taint("DeletionCandidateOfClusterAutoscaler", "true",
+                         "PreferNoSchedule")
+    tol = (jtypes.Toleration(key="DeletionCandidateOfClusterAutoscaler",
+                             operator="Exists", effect="PreferNoSchedule"),)
+    nodes = [make_node(f"node-{i}", cpu_milli=4000, memory=32 * 2**30,
+                       pods=110, zone=f"zone-{i % zones}",
+                       taints=(taint,) if i % 10 == 0 else ())
+             for i in range(n_nodes)]
+    bound = [make_pod(f"bound-{i}", cpu_milli=100, memory=500 * 2**20,
+                      node_name=f"node-{i % n_nodes}")
+             for i in range(n_bound)]
+
+    def term(key, labels):
+        return jtypes.PodAffinityTerm(
+            label_selector=jtypes.LabelSelector(match_labels=dict(labels)),
+            topology_key=key)
+
+    def spread(key, when, labels):
+        return jtypes.TopologySpreadConstraint(
+            max_skew=1, topology_key=key, when_unsatisfiable=when,
+            label_selector=jtypes.LabelSelector(match_labels=dict(labels)))
+
+    pending = []
+    for i in range(n_pending):
+        kind, j = i % 5, i // 5
+        kw = {}
+        if kind == 0:
+            kw = dict(affinity=node_affinity_preferred(
+                (50, [req(zone_key, "In", f"zone-{rng.randrange(zones)}")])),
+                tolerations=tol if i % 2 else ())
+        elif kind == 1:
+            labels = {"anti-group": f"g{j % anti_groups}"}
+            kw = dict(labels=labels, affinity=jtypes.Affinity(
+                pod_anti_affinity_required=(
+                    term("kubernetes.io/hostname", labels),)))
+        elif kind == 2:
+            labels = {"aff-group": f"g{j % aff_groups}"}
+            kw = dict(labels=labels, affinity=jtypes.Affinity(
+                pod_affinity_required=(term(zone_key, labels),)))
+        elif kind == 3:
+            labels = {"spread-app": "hard"}
+            kw = dict(labels=labels, topology_spread=(spread(
+                "kubernetes.io/hostname", "DoNotSchedule", labels),))
+        else:
+            labels = {"spread-app": "soft"}
+            kw = dict(labels=labels, topology_spread=(spread(
+                zone_key, "ScheduleAnyway", labels),))
+        pending.append(make_pod(f"pod-{i}", cpu_milli=100,
+                                memory=500 * 2**20, **kw))
     return nodes, bound, pending
