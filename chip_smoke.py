@@ -5,8 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs six phases and exits non-zero
-if any fails:
+``nvcc`` per source, in parallel), then runs seven phases and exits
+non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time;
 2. every kernel against its plain PyTorch version on the card, at the main
@@ -23,18 +23,25 @@ if any fails:
    anti-affinity, zone pod affinity, and hard and soft topology spread,
    checked by a host re-check of every constraint;
 6. one reduced cycle of each cell (1000 nodes x 2048 pods) on CUDA and on
-   CPU tensors (the plain versions) must place identically.
+   CPU tensors (the plain versions) must place identically;
+7. the failure path at full width, cell ``preempt-5k-burst``: 5000 full
+   nodes (20,000 bound low-priority pods, some under a PDB) take 4064
+   ordinary pods and 32 high-priority preemptors, then 64 poachers that
+   only the freed nodes could hold, on a hand-advanced clock: preemption,
+   nominated pods (pass A) and the explain report, checked by a host
+   re-check of every victim, nomination, poacher and node.
 
 Lines of JSON report each phase; the line before the last lists every
-kernel with its launches on the main paths (the smoke cell, the plan path
-and the topology path, each counted from 0 just before it runs:
-``launches`` is their sum, ``launches_by_path`` and ``launches_per_cycle``
-split it), error against the plain version, times and bound; the last
-line is the one-line contract ``{"ok": true, "device": {...}}``. Without a
-CUDA card it exits non-zero and prints no result. ``--phases`` runs a
-subset (comma-separated names: env, kernels, smoke, plan, topology,
-parity); ``--profile DIR`` adds one profiled first cycle of the smoke cell
-and of the topology cell (device time by kernel, traces written to DIR).
+kernel with its launches on the main paths (the smoke cell, the plan
+path, the topology path and the preempt cell, each counted from 0 just
+before it runs: ``launches`` is their sum, ``launches_by_path`` and
+``launches_per_cycle`` split it), error against the plain version, times
+and bound; the last line is the one-line contract
+``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
+and prints no result. ``--phases`` runs a subset (comma-separated names:
+env, kernels, smoke, plan, topology, parity, preempt); ``--profile DIR``
+adds one profiled first cycle of the smoke cell and of the topology cell
+(device time by kernel, traces written to DIR).
 """
 
 from __future__ import annotations
@@ -54,9 +61,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
-ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity")
+ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
+              "preempt")
 #: the phases that drive a main path and count its kernel launches
-MAIN_PATHS = ("smoke", "plan", "topology")
+MAIN_PATHS = ("smoke", "plan", "topology", "preempt")
 
 
 def emit(obj) -> None:
@@ -720,6 +728,238 @@ def phase_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: preemption, nominated pods and the explain report
+# ---------------------------------------------------------------------------
+
+PREEMPTOR_PRIORITY = 1000
+
+
+class FakeClock:
+    """The scheduler's clock, advanced by hand between cycles."""
+
+    def __init__(self) -> None:
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def preempt_cell(n_nodes=5000, per_node=4, n_ordinary=4064, n_preemptors=32,
+                 n_poachers=64, seed=7):
+    """Cell ``preempt-5k-burst``: scheduler_perf's PreemptionBasic (a full
+    cluster of low-priority pods takes a burst of high-priority pods) on
+    the smoke cell's nodes, plus a PodDisruptionBudget and ordinary
+    traffic that competes with the nominated preemptors. Each node holds
+    ``per_node`` bound pods of priority 0, 900m / 4 Gi (bound pod k on
+    node k // per_node); every 10th is labelled ``app=guarded`` and one
+    PDB with disruptionsAllowed 0 covers them. Wave 1: ``n_ordinary``
+    pods of priority 0, 100m / 500 Mi with the smoke cell's preferred
+    zone and toleration mix (they fit in the 400m each node has left) and
+    ``n_preemptors`` of priority 1000, 3000m / 500 Mi with the same zone
+    preference (they fit nowhere until three victims leave a node).
+    Wave 2: ``n_poachers`` of priority 0, 2000m / 500 Mi, which fit only
+    on the nodes preemption freed. Returns
+    (nodes, bound, wave1, poachers, pdb)."""
+    import random
+
+    from kubernetes_tpu_torch.api.types import Toleration
+    from kubernetes_tpu_torch.testing import (
+        make_pdb,
+        make_pod,
+        node_affinity_preferred,
+        req,
+    )
+
+    rng = random.Random(seed)
+    nodes, _bound, _pending = smoke_cell(n_nodes=n_nodes, n_bound=0,
+                                         n_pending=0)
+    bound = [make_pod(f"bound-{k}", cpu_milli=900, memory=4 * 2**30,
+                      node_name=f"node-{k // per_node}",
+                      labels={"app": "guarded" if k % 10 == 0 else "filler"})
+             for k in range(n_nodes * per_node)]
+    tol = (Toleration(key=SOFT_TAINT, operator="Exists",
+                      effect="PreferNoSchedule"),)
+
+    def prefer():
+        return node_affinity_preferred(
+            (50, [req(ZONE, "In", f"zone-{rng.randrange(10)}")]))
+
+    wave1 = [make_pod(f"pod-{i}", cpu_milli=100, memory=500 * 2**20,
+                      affinity=prefer(), tolerations=tol if i % 2 else ())
+             for i in range(n_ordinary)]
+    wave1 += [make_pod(f"preemptor-{i}", cpu_milli=3000, memory=500 * 2**20,
+                       affinity=prefer(), priority=PREEMPTOR_PRIORITY)
+              for i in range(n_preemptors)]
+    poachers = [make_pod(f"poacher-{i}", cpu_milli=2000, memory=500 * 2**20)
+                for i in range(n_poachers)]
+    return nodes, bound, wave1, poachers, make_pdb("guarded",
+                                                   {"app": "guarded"})
+
+
+def run_preempt_cell(cell, device="cuda", max_cycles=8):
+    """Drive the cell through ``Scheduler(device=...)`` on a fake clock:
+    wave 1, then (inside the preemptors' 1 s backoff) wave 2, then the
+    poachers leave (a cancelled job) and the clock jumps past every
+    backoff before each later cycle, until every preemptor is bound. The
+    host's real clock would not do: one preemption pass takes seconds, so
+    the backoff would run out inside cycle 1. Returns (results, wall
+    seconds per cycle, peak bytes per cycle, events per cycle)."""
+    import torch
+
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    nodes, bound, wave1, poachers, pdb = cell
+    on_card = torch.device(device).type == "cuda"
+    clock = FakeClock()
+    events = []
+    sched = Scheduler(device=device, clock=clock, pdb_lister=lambda: [pdb],
+                      event_sink=lambda r, p, m: events.append((r, p, m)))
+    for nd in nodes:
+        sched.on_node_add(nd)
+    for p in bound + wave1:
+        sched.on_pod_add(p)
+    results, walls, peaks, by_cycle = [], [], [], []
+
+    def cycle():
+        del events[:]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        if on_card:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+        walls.append(time.perf_counter() - t0)
+        results.append(r)
+        by_cycle.append(list(events))
+
+    cycle()
+    clock.t += 0.5
+    for p in poachers:
+        sched.on_pod_add(p)
+    cycle()
+    for p in poachers:
+        sched.on_pod_delete(p)
+    preemptors = {p.key() for p in wave1 if p.priority == PREEMPTOR_PRIORITY}
+    bound_keys = set()
+    while len(results) < max_cycles:
+        for r in results:
+            bound_keys.update(r.assignments)
+        if preemptors <= bound_keys:
+            break
+        clock.t += 11.0  # past the longest backoff (10 s)
+        cycle()
+    return results, walls, peaks, by_cycle
+
+
+def recheck_preempt(cell, results, events_by_cycle) -> dict:
+    """Host re-check of the preempt cell, independent of the port. Returns
+    the counts it checked."""
+    nodes, bound, wave1, poachers, _pdb = cell
+    by_key = {p.key(): p for p in bound + wave1 + poachers}
+    assignments = {}
+    for r in results:
+        assignments.update(r.assignments)
+    missing = [p.key() for p in wave1 if p.key() not in assignments]
+    if missing:
+        fail(f"preempt: {len(missing)} wave-1 pods never bound, e.g. "
+             f"{missing[:3]}")
+    poacher_keys = {p.key() for p in poachers}
+    if poacher_keys & set(assignments):
+        fail("preempt: a poacher was bound onto capacity promised to a "
+             "nominated preemptor")
+    # the pass-A cycle: every poacher held off, its explain row showing
+    # the nominated (freed) nodes feasible and Insufficient cpu elsewhere
+    nominated = set(results[0].nominations.values())
+    r2 = results[1]
+    if r2.attempted != len(poachers) or r2.scheduled:
+        fail(f"preempt: pass-A cycle attempted {r2.attempted}, scheduled "
+             f"{r2.scheduled}")
+    for key in poacher_keys:
+        pe = r2.explain.pods.get(key)
+        if pe is None or pe.feasible_nodes != len(nominated):
+            fail(f"preempt: poacher {key} explain row "
+                 f"{pe and pe.to_json()} (want {len(nominated)} feasible)")
+        want = f"{len(nodes) - len(nominated)} Insufficient cpu"
+        if want not in r2.fit_errors.get(key, ""):
+            fail(f"preempt: poacher {key} FitError "
+                 f"{r2.fit_errors.get(key)!r} lacks {want!r}")
+    # victims: lower priority than their preemptor, on the node it was
+    # nominated to in the same cycle
+    victims = []
+    for r, events in zip(results, events_by_cycle):
+        for reason, v, msg in events:
+            if reason != "Preempted":
+                continue
+            pre = by_key[msg[len("by "):]]
+            if v.priority >= pre.priority:
+                fail(f"preempt: victim {v.key()} priority {v.priority} >= "
+                     f"{pre.key()}'s")
+            if v.node_name != r.nominations.get(pre.key()):
+                fail(f"preempt: victim {v.key()} on {v.node_name}, "
+                     f"preemptor nominated to {r.nominations.get(pre.key())}")
+            if v.labels.get("app") == "guarded":
+                fail(f"preempt: guarded pod {v.key()} was evicted")
+            victims.append(v.key())
+    if sum(r.preempted for r in results) != len(victims):
+        fail("preempt: Preempted events and CycleResult.preempted disagree")
+    if len(set(victims)) != len(victims):
+        fail("preempt: a victim was evicted twice")
+    gone = set(victims)
+    recheck_capacity(nodes, [p for p in bound if p.key() not in gone],
+                     assignments, by_key)
+    for r in results:
+        if r.solver_tier != "batch" or r.solver_fallbacks:
+            fail(f"preempt: a cycle solved on tier {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+    return {"victims": len(victims), "nominated_nodes_cycle1":
+            len(nominated), "preemptors_bound":
+            sum(1 for p in wave1 if p.priority == PREEMPTOR_PRIORITY)}
+
+
+def phase_preempt() -> dict:
+    """Drives cell ``preempt-5k-burst`` at full width through
+    ``Scheduler(device="cuda")`` (after the same sequence on a 100-node
+    cell, off the clock) and fails unless every host re-check passes and
+    the fused pair kernel launched. Returns the kernel launches of the
+    full-width run and its cycle count."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    run_preempt_cell(preempt_cell(n_nodes=100, n_ordinary=80, seed=1))
+    cell = preempt_cell()
+    kernels.reset_launches()
+    results, walls, peaks, events = run_preempt_cell(cell)
+    launches = dict(kernels.LAUNCHES)
+    checked = recheck_preempt(cell, results, events)
+    if launches["fused_pair_normalize"] <= 0:
+        fail("preempt: the fused-pair kernel was never launched")
+    emit({"phase": "preempt", "cell": "preempt-5k-burst",
+          "nodes": len(cell[0]), "bound": len(cell[1]),
+          "wave1": len(cell[2]), "poachers": len(cell[3]),
+          "cycles": len(results),
+          "attempted": [r.attempted for r in results],
+          "scheduled": [r.scheduled for r in results],
+          "preempted": [r.preempted for r in results],
+          "nominations": [len(r.nominations) for r in results],
+          "wall_s": walls,
+          "preempt_s": [r.preempt_s for r in results],
+          "explain_s": [r.explain_s for r in results],
+          "rounds": [r.rounds for r in results],
+          "host_syncs": [r.host_syncs for r in results],
+          "preempt_rows_bytes": [r.preempt_rows_bytes for r in results],
+          "peak_mem_gib": [b / 2**30 for b in peaks],
+          "snapshot_mode": [r.snapshot_mode for r in results],
+          "top_reasons": [r.explain.top_reasons() if r.explain else None
+                          for r in results],
+          "launches": launches, "recheck": checked})
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cycles": len(results)}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -783,6 +1023,8 @@ def main() -> None:
         paths["topology"] = phase_cell("topology")
     if "parity" in phases:
         phase_parity()
+    if "preempt" in phases:
+        paths["preempt"] = phase_preempt()
     if args.profile:
         for phase in CELLS:
             profile_cycle(args.profile, phase)

@@ -102,6 +102,15 @@ class SchedulerCache:
     def node(self, name: str) -> Optional[Node]:
         return self._nodes.get(name)
 
+    def nodes(self) -> List[Node]:
+        return list(self._nodes.values())
+
+    def pods_on(self, node_name: str) -> List[Pod]:
+        return list(self._pods_by_node.get(node_name, {}).values())
+
+    def pod_count(self) -> int:
+        return sum(len(m) for m in self._pods_by_node.values())
+
     def group_members(self, group: str) -> int:
         """Count of cached pods (assumed or bound) carrying ``pod_group ==
         group`` — the gang gate's credit for members placed in earlier

@@ -1,0 +1,4 @@
+"""Observability for the batched solve path (the port of
+``kubernetes_tpu/obs``). Ported so far:
+:mod:`kubernetes_tpu_torch.obs.explain`, the batched schedulability
+explainer."""

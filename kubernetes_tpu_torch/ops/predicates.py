@@ -140,22 +140,17 @@ def failure_counts(reasons, node_valid, req, free, ready, net_unavail):
     valid nodes each predicate excluded; ``insufficient`` (F, R) valid
     nodes where PodFitsResources fired and the request exceeds the free
     amount; ``not_ready``/``net_unavail`` (F,) the CheckNodeCondition
-    splits. The port of ``kubernetes_tpu/obs/explain.py`` explain_reduce's
-    FitError fields; ``req`` (F, R), ``free`` (N, R)."""
-    v = node_valid[None, :]
-    fired = [(((reasons >> b) & 1) > 0) & v for b in range(len(BIT))]
-    per_reason = torch.stack([f.sum(1, dtype=torch.int32) for f in fired], 1)
-    bits = sum((f.any(1).to(torch.int32) << b) for b, f in enumerate(fired))
-    res_fired = fired[BIT["PodFitsResources"]]
-    insufficient = torch.stack([
-        (res_fired & (req[:, r:r + 1] > free[None, :, r] + 1e-6)).sum(
-            1, dtype=torch.int32)
-        for r in range(req.shape[1])], 1)
-    cond = fired[BIT["CheckNodeCondition"]]
-    not_ready = (cond & ~ready[None, :]).sum(1, dtype=torch.int32)
-    net = (cond & net_unavail[None, :]).sum(1, dtype=torch.int32)
-    return dict(bits=bits, per_reason=per_reason, insufficient=insufficient,
-                not_ready=not_ready, net_unavail=net)
+    splits. A view of :func:`kubernetes_tpu_torch.obs.explain.explain_reduce`'s
+    FitError fields over every row; ``req`` (F, R), ``free`` (N, R)."""
+    from kubernetes_tpu_torch.obs.explain import explain_reduce
+
+    every = torch.ones((reasons.shape[0],), dtype=torch.bool,
+                       device=reasons.device)
+    ex = explain_reduce(reasons, node_valid, every, req, free, ready,
+                        net_unavail)
+    return dict(bits=ex.pod_bits, per_reason=ex.per_pod,
+                insufficient=ex.insufficient, not_ready=ex.not_ready,
+                net_unavail=ex.net_unavail)
 
 
 def _bits(cond: torch.Tensor, name: str) -> torch.Tensor:

@@ -15,16 +15,20 @@ AddUnschedulableIfNotPresent):
       batch = queue.pop_batch()                      # NextPod, batched
       PreFilter plugins                              # framework
       nt, dn = cache.device_snapshot()               # resident, patched
+      pass A: nominated pods as phantoms -> extra_mask
       assigned = ladder(batch)                       # batch|sinkhorn -> greedy
       device_validate + ONE readback                 # verdict, rounds, rows
       for pod, node in assigned: assume, reserve, permit, bind
-      for pod in unassigned: reasons, FitError text, requeue
+      explain_reduce + ONE readback                  # reasons, FitError text
+      for pod in unassigned: requeue; explain report
+      preemption: evict, nominate                    # failed pods' rows
 
-Not ported yet (ROADMAP): the pipelined executor, warmup, preemption,
-extenders, the restricted/partitioned routes, explain reports,
-observability, leader fencing and the ambiguous-bind
-protocol, the mesh, and the ``batch-single``/``batch-cpu``/``exact``
-tiers.
+Not ported yet (ROADMAP): the pipelined executor and warmup, preemption
+inside the pipelined and restricted tails and the scenario cascade,
+extenders, the restricted/partitioned routes, observability (metrics,
+journeys, the flight recorder, ``/debug/why``), leader fencing and the
+ambiguous-bind protocol, the mesh, and the
+``batch-single``/``batch-cpu``/``exact`` tiers.
 """
 
 from __future__ import annotations
@@ -46,6 +50,13 @@ from kubernetes_tpu_torch.framework import (
     CycleState,
     Framework,
 )
+from kubernetes_tpu_torch.obs.explain import (
+    PodExplanation,
+    UnschedulableReport,
+    build_report,
+    explain_reduce,
+    read_back,
+)
 from kubernetes_tpu_torch.ops.arrays import (
     pods_to_device,
     selectors_to_device,
@@ -63,13 +74,13 @@ from kubernetes_tpu_torch.ops.assign import (
 )
 from kubernetes_tpu_torch.ops.predicates import (
     decode_reasons,
-    failure_counts,
     fit_error_message_from_counts,
     run_predicates,
     static_volume_reasons,
 )
 from kubernetes_tpu_torch.ops.priorities import solver_gates
 from kubernetes_tpu_torch.ops.sync import SYNCS, to_host
+from kubernetes_tpu_torch.preemption import preempt
 from kubernetes_tpu_torch.queue import SchedulingQueue
 from kubernetes_tpu_torch.snapshot import FIXED_RESOURCE_NAMES
 from kubernetes_tpu_torch.utils import klog
@@ -114,6 +125,8 @@ class CycleResult:
     #: pod key -> FitError.Error()-shaped message with per-reason node
     #: counts (only for pods that failed the filter pass)
     fit_errors: Dict[str, str] = field(default_factory=dict)
+    preempted: int = 0  # victims deleted this cycle
+    nominations: Dict[str, str] = field(default_factory=dict)  # pod -> node
     waiting: int = 0  # pods parked by Permit plugins this cycle
     elapsed_s: float = 0.0
     #: which ladder tier produced this cycle's placements ("" = no solve)
@@ -127,8 +140,21 @@ class CycleResult:
     #: per-pod create-to-bind latency for every pod bound this cycle
     e2e_latency_s: Dict[str, float] = field(default_factory=dict)
     #: device-to-host syncs the cycle made (round-loop conditions, the
-    #: router's decision, the validated readback, failure reductions)
+    #: router's decision, the validated readback, the explain readback,
+    #: the preemption rows)
     host_syncs: int = 0
+    #: the cycle's UnschedulableReport (obs/explain.py): why the residual
+    #: pods stayed pending. None when explain is off or the cycle ended
+    #: before the solve
+    explain: Optional[object] = None
+    #: host seconds (perf_counter) of the failure pass: filter, explain
+    #: reduction, its readback, the failed pods' requeue and the report
+    explain_s: float = 0.0
+    #: host seconds (perf_counter) of the preemption pass: the reason-row
+    #: readback and victim selection, eviction and nomination
+    preempt_s: float = 0.0
+    #: bytes of the preemption reason rows read back this cycle
+    preempt_rows_bytes: int = 0
 
 
 def _has_topo(u) -> bool:
@@ -171,6 +197,13 @@ class Scheduler:
         volume_binder=None,
         scheduler_name: str = "default-scheduler",
         device="cuda",
+        enable_preemption: bool = True,
+        enable_non_preempting: bool = False,
+        max_preemptions_per_cycle: int = 16,
+        pdb_lister: Optional[Callable[[], List]] = None,
+        victim_deleter: Optional[Callable[[Pod], None]] = None,
+        explain: bool = True,
+        explain_top_k: int = 3,
     ) -> None:
         if solver not in TIERS:
             raise ValueError(f"solver must be one of {TIERS}, got {solver!r}")
@@ -197,6 +230,26 @@ class Scheduler:
         self._cycle_states: Dict[str, CycleState] = {}
         #: delayed-binding PVC lifecycle (volume_binder.go:30)
         self.volume_binder = volume_binder or VolumeBinder(self.cache.packer)
+        self.enable_preemption = enable_preemption
+        #: NonPreemptingPriority feature gate: honor preemption_policy=Never
+        self.enable_non_preempting = enable_non_preempting
+        self.max_preemptions_per_cycle = max_preemptions_per_cycle
+        #: PDBs come from a lister (the disruption controller maintains
+        #: their status in the reference)
+        self.pdb_lister = pdb_lister or (lambda: [])
+        #: victim_deleter(pod): deletes the victim through the API.
+        #: Default: mark it terminating and remove it from the cache at
+        #: once (grace period 0)
+        self.victim_deleter = victim_deleter
+        #: build the per-cycle UnschedulableReport, keeping top_k
+        #: relaxations per pod
+        self.explain = explain
+        self.explain_top_k = explain_top_k
+        #: latest explanation per still-pending pod: updated each cycle
+        #: from the report, dropped when the pod binds or leaves
+        self.why_pending: Dict[str, PodExplanation] = {}
+        #: the most recent cycle's UnschedulableReport
+        self.last_explain: Optional[UnschedulableReport] = None
 
     # -- informer handlers -------------------------------------------------
 
@@ -241,6 +294,7 @@ class Scheduler:
         elif self.responsible_for(old):
             self.queue.delete(old.key())
             self._cycle_states.pop(old.key(), None)
+            self.why_pending.pop(old.key(), None)
 
     def on_pod_delete(self, pod: Pod) -> None:
         key = pod.key()
@@ -260,6 +314,7 @@ class Scheduler:
             self.queue.delete(key)
         self.cache.packer.forget_pod(key)
         self._cycle_states.pop(key, None)
+        self.why_pending.pop(key, None)
 
     def on_node_add(self, node) -> None:
         self.cache.add_node(node)
@@ -308,6 +363,9 @@ class Scheduler:
         self._reap_expired_assumptions()
         self._process_waiting(res)
         batch = self.queue.pop_batch(self.max_batch)
+        if not batch:
+            self._explain_retire_if_drained()
+            return self._finish(res, t0, syncs0)
         cycle = self.queue.scheduling_cycle
         # skipPodSchedule (scheduler.go:335): pods marked for deletion drop
         batch = [p for p in batch if not p.deletion_timestamp]
@@ -325,11 +383,19 @@ class Scheduler:
                 self._fail(p, cycle, res, (f"PreFilter:{status.message}",))
         batch = kept
         if not batch:
+            # every popped pod failed PreFilter: they still get report
+            # rows (status reasons, no device analytics)
+            if self.explain:
+                self._build_explain_report(cycle, [], None,
+                                           len(self.cache.nodes()), res)
             return self._finish(res, t0, syncs0)
 
         # pack: pods first (their programs grow universes), then snapshot
         pk = self.cache.packer
+        nominated = self._nominated_pods(exclude={p.key() for p in batch})
         for p in batch:
+            pk.intern_pod(p)
+        for p, _ in nominated:
             pk.intern_pod(p)
         nt, dn, res.snapshot_mode = self.cache.device_snapshot()
         node_order = self.cache.node_order()
@@ -351,6 +417,11 @@ class Scheduler:
 
         extra_mask, extra_score, early_fail = self._plugin_terms(
             batch, dp, dn, ds, node_order)
+        if nominated:
+            nom_mask = self._nominated_mask(nominated, node_order, dp, dn,
+                                            ds, dt, dv, sv)
+            extra_mask = (nom_mask if extra_mask is None
+                          else extra_mask & nom_mask)
 
         ts = self.clock()
         ladder = self._solve_ladder(batch, dp, dn, ds, dt, dv, sv,
@@ -385,7 +456,8 @@ class Scheduler:
                         gang_failed[gi] = f"GangIncomplete:{gname}"
         if gang_failed:
             # rebuild usage from the FINAL assignment: rolled-back members
-            # must not linger as phantom occupancy in the reason pass
+            # must not linger as phantom occupancy in the reason pass or in
+            # preemption
             pad = np.full((dp.valid.shape[0],), -1, np.int64)
             pad[: len(batch)] = assigned
             pad_t = torch.from_numpy(pad).to(dev)
@@ -393,43 +465,53 @@ class Scheduler:
                                  pad_t.clamp_min(0), (pad_t >= 0) & dp.valid)
 
         # reasons for the unplaced: one filter pass against the final
-        # usage, reduced on the device for exactly the failed rows
+        # usage (without the nominated phantoms, as in the reference),
+        # reduced on the device by explain_reduce for exactly the failed
+        # rows and read back as one transfer; preemption's per-node rows
+        # are gathered for the preemptable pods only
         failed_idx = [i for i, a in enumerate(assigned) if a < 0]
-        counts = None
+        preemptable_idx = [i for i in failed_idx if i not in gang_failed]
+        ex = rows_dev = None
         if failed_idx:
+            tx = time.perf_counter()
             fr = run_predicates(dp, nodes_with_usage(dn, usage), ds, dt,
                                 dv, sv, self.pred_mask)
             rows = torch.tensor(failed_idx, dtype=torch.long, device=dev)
-            counts = failure_counts(
-                fr.reasons.index_select(0, rows), dn.valid,
+            every = torch.ones((len(failed_idx),), dtype=torch.bool,
+                               device=dev)
+            ex = explain_reduce(
+                fr.reasons.index_select(0, rows), dn.valid, every,
                 dp.req.index_select(0, rows), dn.allocatable - usage.requested,
                 dn.ready, dn.network_unavailable)
+            if self.enable_preemption and preemptable_idx:
+                pre = torch.tensor(preemptable_idx, dtype=torch.long,
+                                   device=dev)
+                rows_dev = fr.reasons.index_select(0, pre)[:, : nt.n]
+            res.explain_s += time.perf_counter() - tx
 
         # bind the placed pods first: host work that overlaps the failure
         # reductions still running on the device
         for i, pod in enumerate(batch):
             if int(assigned[i]) >= 0:
                 self._admit_pod(pod, node_order[int(assigned[i])], cycle, res)
+        tx = time.perf_counter()
         reasons_row: Dict[int, Tuple[str, ...]] = {}
         fit_msgs: Dict[int, str] = {}
-        if counts is not None:
-            host = to_host(torch.cat([
-                counts["bits"][:, None], counts["per_reason"],
-                counts["insufficient"], counts["not_ready"][:, None],
-                counts["net_unavail"][:, None]], 1))
-            n_b = counts["per_reason"].shape[1]
-            n_r = counts["insufficient"].shape[1]
+        ex_host = None
+        if ex is not None:
+            ex_host = read_back(ex)
             res_names = (list(FIXED_RESOURCE_NAMES)
                          + pk.u.scalar_resources.items())[: pt.req.shape[1]]
             for j, i in enumerate(failed_idx):
-                row = host[j]
-                bits = int(row[0])
+                # a pod's reason set = union over valid nodes of failed
+                # bits (zero when no node is valid)
+                bits = int(ex_host["pod_bits"][j])
                 reasons_row[i] = decode_reasons(bits)
                 if bits:
                     fit_msgs[i] = fit_error_message_from_counts(
-                        row[1:1 + n_b], row[1 + n_b:1 + n_b + n_r],
-                        row[1 + n_b + n_r], row[2 + n_b + n_r], nt.n,
-                        pt.req[i], res_names)
+                        ex_host["per_pod"][j], ex_host["insufficient"][j],
+                        ex_host["not_ready"][j], ex_host["net_unavail"][j],
+                        nt.n, pt.req[i], res_names)
         for i, pod in enumerate(batch):
             if int(assigned[i]) >= 0:
                 continue
@@ -440,6 +522,21 @@ class Scheduler:
             else:
                 reasons, msg = reasons_row.get(i, ()), fit_msgs.get(i)
             self._fail(pod, cycle, res, reasons, message=msg)
+        if self.explain:
+            self._build_explain_report(
+                cycle, [batch[i].key() for i in failed_idx], ex_host, nt.n,
+                res)
+        res.explain_s += time.perf_counter() - tx
+
+        # preemption (scheduler.go:493 -> preempt): failed pods try to
+        # evict lower-priority pods; winners get a nominated node and
+        # retry. The reason rows cross to the host only here
+        if rows_dev is not None:
+            tp = time.perf_counter()
+            res.preempt_rows_bytes = rows_dev.numel() * rows_dev.element_size()
+            self._run_preemption(batch, preemptable_idx, to_host(rows_dev),
+                                 node_order, res)
+            res.preempt_s = time.perf_counter() - tp
         return self._finish(res, t0, syncs0)
 
     def _finish(self, res: CycleResult, t0: float, syncs0: int):
@@ -484,6 +581,146 @@ class Scheduler:
                 s = torch.from_numpy(hs).to(self.device)
                 extra_score = s if extra_score is None else extra_score + s
         return extra_mask, extra_score, early_fail
+
+    # -- nominated pods, preemption, explain reports -----------------------
+
+    def _nominated_pods(self, exclude) -> List[Tuple[Pod, str]]:
+        """(pod, node) for every nominated pod not in the current batch and
+        whose node still exists."""
+        out: List[Tuple[Pod, str]] = []
+        for node_name, pods in self.queue.nominated.items():
+            if self.cache.node(node_name) is None:
+                continue
+            for p in pods:
+                if p.key() not in exclude:
+                    out.append((p, node_name))
+        return out
+
+    def _nominated_mask(self, nominated, node_order, dp, dn, ds, dt, dv,
+                        sv) -> torch.Tensor:
+        """Nominated-pods pass A (podFitsOnNode's two-pass rule,
+        generic_scheduler.go:610): the batch's feasibility must also hold
+        with the nominated pods counted onto their nodes. As in the JAX
+        package, ALL nominated pods are added, not only those of higher or
+        equal priority — strictly more conservative than the reference (a
+        pod may wait one extra cycle; capacity is never double-promised).
+        Returns the (P, N) mask."""
+        dev = self.device
+        row_of = {name: i for i, name in enumerate(node_order)}
+        dpn = pods_to_device(
+            self.cache.packer.pack_pods([p for p, _ in nominated]),
+            device=dev)
+        rows = np.zeros((dpn.valid.shape[0],), np.int64)
+        ok = np.zeros((dpn.valid.shape[0],), bool)
+        for j, (_, node) in enumerate(nominated):
+            r = row_of.get(node, -1)
+            rows[j], ok[j] = max(r, 0), r >= 0
+        u_nom = _apply_batch(usage_from_nodes(dn), dpn,
+                             torch.from_numpy(rows).to(dev),
+                             torch.from_numpy(ok).to(dev) & dpn.valid)
+        return run_predicates(dp, nodes_with_usage(dn, u_nom), ds, dt, dv,
+                              sv, self.pred_mask).mask
+
+    def _run_preemption(self, batch, preemptable_idx, rows, node_order,
+                        res: CycleResult) -> None:
+        """Failed pods, highest priority first and at most
+        ``max_preemptions_per_cycle`` of them successfully, evict
+        lower-priority victims and are nominated onto the freed node.
+        ``rows[j]`` is the failure pass's reason row of
+        ``batch[preemptable_idx[j]]`` over ``node_order``."""
+        nodes = self.cache.nodes()
+        node_pods_of = {nd.name: self.cache.pods_on(nd.name) for nd in nodes}
+        pdbs = list(self.pdb_lister())
+        row_of = {i: j for j, i in enumerate(preemptable_idx)}
+        order = sorted(preemptable_idx, key=lambda i: -batch[i].priority)
+        done = 0
+        for i in order:
+            if done >= self.max_preemptions_per_cycle:
+                break
+            pod = batch[i]
+            bits = rows[row_of[i]]
+            reason_bits = {name: bits[r] for r, name in enumerate(node_order)
+                           if name}
+            result = preempt(
+                pod, nodes, node_pods_of, reason_bits, pdbs,
+                nominated_pods_of=dict(self.queue.nominated.items()),
+                vol_state=self.cache.packer.resolve_volumes,
+                extenders=[],
+                enable_non_preempting=self.enable_non_preempting)
+            if result is None:
+                continue
+            now = self.clock()
+            for v in result.victims:
+                v.deletion_timestamp = now
+                self.event_sink("Preempted", v, f"by {pod.key()}")
+                if self.victim_deleter is not None:
+                    # the deletion goes through the API; the victim stays
+                    # cached as terminating until the watch delete arrives
+                    self.victim_deleter(v)
+                else:
+                    self.cache.remove_pod(v.key())
+                # either way, later preemptors in this cycle must not
+                # re-select (and re-delete) the same victims
+                node_pods_of[result.node_name] = [
+                    p for p in node_pods_of[result.node_name]
+                    if p.key() != v.key()]
+            # clear lower-priority nominations on the chosen node
+            # (scheduler.go:330 getLowerPriorityNominatedPods)
+            for p in result.clear_nominations:
+                p.nominated_node_name = ""
+                self.queue.nominated.delete(p)
+            pod.nominated_node_name = result.node_name
+            self.queue.nominated.add(pod, result.node_name)
+            res.preempted += len(result.victims)
+            res.nominations[pod.key()] = result.node_name
+            done += 1
+        if res.preempted and self.victim_deleter is None:
+            # the victims' deletes happened inline (grace 0): the watch
+            # delete -> MoveAllToActiveQueue wakeup happens here, or the
+            # nominated preemptor waits out the unschedulable flush
+            self.queue.move_all_to_active()
+
+    def _build_explain_report(self, cycle, keys, ex_host, n_nodes,
+                              res: CycleResult) -> None:
+        """Assemble the cycle's UnschedulableReport from the read-back
+        explain arrays (row j belongs to ``keys[j]``) and the scheduler-level
+        failure reasons; set it on the result, ``last_explain`` and
+        ``why_pending``."""
+        report = build_report(cycle, n_nodes, keys, range(len(keys)),
+                              ex_host, self.explain_top_k)
+        # pods that failed OUTSIDE the filter pass (prefilter, plugins,
+        # gang rollback, volume/permit/bind errors) still get a row
+        for key in res.failure_reasons:
+            if key not in report.pods:
+                report.pods[key] = PodExplanation(key=key)
+        now = self.clock()
+        for key, pe in report.pods.items():
+            pe.reasons = res.failure_reasons.get(key, ())
+            pe.message = res.fit_errors.get(key, "")
+            pe.attempts = self.queue.backoff_map.attempts(key)
+            pod = self.queue.pod(key)
+            if pod is not None:
+                # the queue stamps queued_at on add (0.0 is a valid
+                # fake-clock enqueue time, not "unset")
+                pe.queue_residency_s = max(
+                    now - getattr(pod, "queued_at", now), 0.0)
+        res.explain = report
+        self.last_explain = report
+        self.why_pending.update(report.pods)
+
+    def _explain_retire_if_drained(self) -> None:
+        """An idle cycle popped nothing: when every pod the last report
+        analyzed has since left (bind and delete drop their why_pending
+        rows), retire the report instead of reporting them forever. Pods
+        parked in backoff or unschedulable keep their rows."""
+        if not self.explain or self.why_pending or self.last_explain is None:
+            return
+        if not (self.last_explain.pods
+                or self.last_explain.reason_node_counts):
+            return
+        self.last_explain = UnschedulableReport(
+            cycle=self.queue.scheduling_cycle,
+            n_nodes=self.last_explain.n_nodes)
 
     # -- degradation ladder ------------------------------------------------
 
@@ -633,6 +870,7 @@ class Scheduler:
         self.cache.finish_binding(pod.key())
         self.queue.nominated.delete(pod)
         self.queue.backoff_map.clear_pod(pod.key())
+        self.why_pending.pop(pod.key(), None)
         res.scheduled += 1
         res.assignments[pod.key()] = node_name
         res.e2e_latency_s[pod.key()] = max(

@@ -13,6 +13,7 @@ from kubernetes_tpu_torch.api.types import (
     NodeCondition,
     NodeSelectorTerm,
     Pod,
+    PodDisruptionBudget,
     PreferredSchedulingTerm,
     Requirement,
     Resources,
@@ -94,3 +95,12 @@ def node_affinity_preferred(*weighted: Tuple[int, Sequence[Requirement]]) -> Aff
     )
 
 
+def make_pdb(name: str, match_labels: Dict[str, str],
+             disruptions_allowed: int = 0,
+             namespace: str = "default") -> PodDisruptionBudget:
+    """A PodDisruptionBudget over the pods carrying ``match_labels``, with
+    ``disruptions_allowed`` as its status."""
+    return PodDisruptionBudget(
+        name=name, namespace=namespace,
+        selector=LabelSelector(match_labels=dict(match_labels)),
+        disruptions_allowed=disruptions_allowed)

@@ -5,8 +5,9 @@ by cycle, with the same ``CycleResult`` failure reasons, FitError texts
 and round counts — on the chip smoke cells shrunk to 64 nodes (the
 preferred-zone cell through node and pod churn, on every ladder tier the
 port runs; the mixed affinity/anti-affinity/spread cell over three
-cycles), on topology failures, and on snapshot modes as new topology
-groups arrive."""
+cycles), on topology failures, on snapshot modes as new topology
+groups arrive, and on the preemption scenarios (victims, nominations,
+pass A and the explain report)."""
 
 import dataclasses
 
@@ -20,10 +21,16 @@ from kubernetes_tpu.api.types import (
     Affinity,
     LabelSelector,
     PodAffinityTerm,
+    PodDisruptionBudget,
     TopologySpreadConstraint,
 )
 from kubernetes_tpu.testing import make_node, make_pod
-from torch_parity import pref_affinity_cluster, to_port, topo_mixed_cluster
+from torch_parity import (
+    preempt_burst_cluster,
+    pref_affinity_cluster,
+    to_port,
+    topo_mixed_cluster,
+)
 
 
 class FakeClock:
@@ -36,7 +43,7 @@ class FakeClock:
 
 def _pair(**kw):
     jc, tc = FakeClock(), FakeClock()
-    js = JScheduler(pipeline_depth=1, enable_preemption=False, clock=jc, **kw)
+    js = JScheduler(pipeline_depth=1, clock=jc, **kw)
     ts = TScheduler(device="cpu", clock=tc, **kw)
     return js, ts, (jc, tc)
 
@@ -60,6 +67,12 @@ def _cycle_matches(js, ts):
     assert (rt.scheduled, rt.unschedulable, rt.rounds) == (
         rj.scheduled, rj.unschedulable, rj.rounds)
     assert rt.solver_tier == rj.solver_tier
+    assert (rt.preempted, rt.nominations) == (rj.preempted, rj.nominations)
+    assert (rt.explain is None) == (rj.explain is None)
+    if rt.explain is not None:
+        assert rt.explain.to_json() == rj.explain.to_json()
+        assert ({k: pe.to_json() for k, pe in rt.explain.pods.items()}
+                == {k: pe.to_json() for k, pe in rj.explain.pods.items()})
     return rj, rt
 
 
@@ -254,3 +267,200 @@ def test_new_topology_groups_repack_like_the_reference():
         _feed((js, ts), pods=batch)
     assert modes[3] == "full"  # the cycle that brought group g1
     assert "delta" in modes
+
+
+# -- preemption, nominated pods and the explain report ----------------------
+# The scheduler scenarios of tests/test_preemption.py (plus one where a
+# higher-priority preemptor clears a lower-priority nomination), fed to
+# both schedulers with fake clocks advanced together; every cycle's
+# bindings, victims, nominations, reasons, FitError text and explain
+# report must be equal (_cycle_matches).
+
+
+def _advance(clocks, dt):
+    for c in clocks:
+        c.t += dt
+
+
+def _scn_preempts_then_binds(js, ts, clocks, ev):
+    _feed((js, ts), [make_node("n0", cpu_milli=1000, pods=10)],
+          [make_pod("low", cpu_milli=900, priority=1)])
+    assert _cycle_matches(js, ts)[1].scheduled == 1
+    _feed((js, ts), pods=[make_pod("high", cpu_milli=900, priority=50)])
+    r = _cycle_matches(js, ts)[1]
+    assert (r.preempted, r.nominations) == (1, {"default/high": "n0"})
+    assert ("Preempted", "low") in ev[1]
+    assert ts.cache.pod_count() == js.cache.pod_count() == 0
+    assert set(ts.why_pending) == {"default/high"}
+    _advance(clocks, 2.0)
+    assert _cycle_matches(js, ts)[1].assignments == {"default/high": "n0"}
+    assert not ts.why_pending and not ts.queue.nominated.items()
+    # an idle cycle retires the drained report
+    _cycle_matches(js, ts)
+    assert ts.last_explain.to_json() == js.last_explain.to_json()
+    assert not ts.last_explain.pods
+
+
+def _scn_poacher_held_off(js, ts, clocks, ev):
+    _feed((js, ts), [make_node("n0", cpu_milli=1000, pods=10)],
+          [make_pod("low", cpu_milli=900, priority=1)])
+    _cycle_matches(js, ts)
+    _feed((js, ts), pods=[make_pod("high", cpu_milli=900, priority=50)])
+    assert _cycle_matches(js, ts)[1].nominations == {"default/high": "n0"}
+    _feed((js, ts), pods=[make_pod("poacher", cpu_milli=900, priority=5)])
+    r = _cycle_matches(js, ts)[1]
+    assert r.scheduled == 0 and "default/poacher" in r.failure_reasons
+    # the failure pass runs without the phantoms: n0 reads feasible
+    assert r.explain.pods["default/poacher"].feasible_nodes == 1
+    _advance(clocks, 2.0)
+    assert _cycle_matches(js, ts)[1].assignments.get("default/high") == "n0"
+
+
+def _scn_pdb_across_nodes(js, ts, clocks, ev):
+    _feed((js, ts), [make_node(f"n{i}", cpu_milli=1000, pods=10)
+                     for i in range(2)],
+          [make_pod("guarded", cpu_milli=900, priority=1,
+                    labels={"app": "guarded"}),
+           make_pod("plain", cpu_milli=900, priority=1)])
+    r = _cycle_matches(js, ts)[1]
+    plain_node = r.assignments["default/plain"]
+    _feed((js, ts), pods=[make_pod("big", cpu_milli=900, priority=50)])
+    assert _cycle_matches(js, ts)[1].nominations["default/big"] == plain_node
+
+
+def _scn_two_preemptors(js, ts, clocks, ev):
+    _feed((js, ts), [make_node(f"n{i}", cpu_milli=1000, pods=10)
+                     for i in range(2)],
+          [make_pod(f"low{i}", cpu_milli=900, priority=1) for i in range(2)])
+    _cycle_matches(js, ts)
+    _feed((js, ts), pods=[make_pod("hi0", cpu_milli=900, priority=50),
+                          make_pod("hi1", cpu_milli=900, priority=40)])
+    r = _cycle_matches(js, ts)[1]
+    assert r.preempted == 2 and sorted(r.nominations.values()) == ["n0", "n1"]
+    _advance(clocks, 2.0)
+    assert sorted(_cycle_matches(js, ts)[1].assignments) == [
+        "default/hi0", "default/hi1"]
+
+
+def _scn_hub_deleter(js, ts, clocks, ev):
+    _feed((js, ts), [make_node("n0", cpu_milli=1000, pods=10)],
+          [make_pod("low", cpu_milli=900, priority=1)])
+    _cycle_matches(js, ts)
+    _feed((js, ts), pods=[make_pod("h1", cpu_milli=900, priority=50),
+                          make_pod("h2", cpu_milli=900, priority=40)])
+    r = _cycle_matches(js, ts)[1]
+    assert r.preempted == 1
+    assert ts.cache.pod_count() == js.cache.pod_count() == 1
+
+
+def _scn_disabled(js, ts, clocks, ev):
+    _feed((js, ts), [make_node("n0", cpu_milli=1000, pods=10)],
+          [make_pod("low", cpu_milli=900, priority=1)])
+    _cycle_matches(js, ts)
+    _feed((js, ts), pods=[make_pod("high", cpu_milli=900, priority=50)])
+    r = _cycle_matches(js, ts)[1]
+    assert (r.preempted, r.nominations) == (0, {})
+    assert ts.cache.pod_count() == 1
+
+
+def _scn_clears_lower_nomination(js, ts, clocks, ev):
+    _feed((js, ts), [make_node("n0", cpu_milli=2000, pods=10)],
+          [make_pod("lowA", cpu_milli=900, priority=1),
+           make_pod("lowB", cpu_milli=900, priority=1)])
+    _cycle_matches(js, ts)
+    _feed((js, ts), pods=[make_pod("mid", cpu_milli=1000, priority=20)])
+    r = _cycle_matches(js, ts)[1]
+    assert (r.preempted, r.nominations) == (1, {"default/mid": "n0"})
+    # mid still backs off; high preempts the rest and clears its nomination
+    _feed((js, ts), pods=[make_pod("high", cpu_milli=1500, priority=50)])
+    r = _cycle_matches(js, ts)[1]
+    assert (r.preempted, r.nominations) == (1, {"default/high": "n0"})
+    assert ts.queue.nominated.node_of("default/mid") is None
+    _advance(clocks, 2.0)
+    r = _cycle_matches(js, ts)[1]
+    assert r.assignments == {"default/high": "n0"}
+    assert "default/mid" in r.failure_reasons and not r.nominations
+
+
+SCENARIOS = {
+    "preempts_then_binds": (_scn_preempts_then_binds, {}),
+    "poacher_held_off": (_scn_poacher_held_off, {}),
+    "pdb_across_nodes": (_scn_pdb_across_nodes, {}),
+    "two_preemptors": (_scn_two_preemptors, {}),
+    "hub_deleter": (_scn_hub_deleter, {"victim_deleter": True}),
+    "disabled": (_scn_disabled, {"enable_preemption": False}),
+    "clears_lower_nomination": (_scn_clears_lower_nomination, {}),
+}
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_preemption_scenarios_match(name):
+    run, kw = SCENARIOS[name]
+    kw = dict(kw)
+    deleted = ([], [])
+    if kw.pop("victim_deleter", False):
+        kw["victim_deleter"] = (deleted[0].append, deleted[1].append)
+    jkw = {k: (v[0] if k == "victim_deleter" else v) for k, v in kw.items()}
+    tkw = {k: (v[1] if k == "victim_deleter" else v) for k, v in kw.items()}
+    if name == "pdb_across_nodes":
+        pdb = PodDisruptionBudget(
+            selector=LabelSelector(match_labels={"app": "guarded"}),
+            disruptions_allowed=0)
+        jkw["pdb_lister"] = lambda: [pdb]
+        tkw["pdb_lister"] = lambda: [to_port(pdb)]
+    jc, tc = FakeClock(), FakeClock()
+    js = JScheduler(pipeline_depth=1, clock=jc, **jkw)
+    ts = TScheduler(device="cpu", clock=tc, **tkw)
+    ev = ([], [])
+    js.event_sink = lambda reason, pod, msg: ev[0].append((reason, pod.name))
+    ts.event_sink = lambda reason, pod, msg: ev[1].append((reason, pod.name))
+    run(js, ts, (jc, tc), ev)
+    assert ev[1] == ev[0]
+    assert [p.key() for p in deleted[1]] == [p.key() for p in deleted[0]]
+    assert ({k: pe.to_json() for k, pe in ts.why_pending.items()}
+            == {k: pe.to_json() for k, pe in js.why_pending.items()})
+
+
+def test_why_pending_leaves_with_the_pod():
+    """A pending pod's report row is dropped when it is deleted or stops
+    being this scheduler's, as in the reference."""
+    js, ts, _clocks = _pair()
+    pods = [make_pod(f"big{i}", cpu_milli=5000) for i in range(3)]
+    _feed((js, ts), [make_node("n0", cpu_milli=1000)], pods)
+    _cycle_matches(js, ts)
+    assert set(ts.why_pending) == {p.key() for p in pods}
+    for s, conv in ((js, lambda p: p), (ts, to_port)):
+        s.on_pod_delete(conv(pods[0]))
+        s.on_pod_update(conv(pods[1]), conv(dataclasses.replace(
+            pods[1], scheduler_name="other")))
+    assert set(ts.why_pending) == set(js.why_pending) == {pods[2].key()}
+
+
+def test_preempt_burst_cell_matches():
+    """The chip cell preempt-5k-burst shrunk to 64 nodes (8 preemptors, at
+    most 4 preemptions a cycle, 8 poachers): wave 1 binds and preempts,
+    pass A holds the poachers off the freed nodes, the poachers leave,
+    and the preemptors bind over the next cycles — equal, cycle by cycle,
+    on both schedulers."""
+    nodes, bound, wave1, poachers, pdb = preempt_burst_cluster(5)
+    js, ts, clocks = _pair(max_preemptions_per_cycle=4)
+    js.pdb_lister = lambda: [pdb]
+    ts.pdb_lister = lambda: [to_port(pdb)]
+    _feed((js, ts), nodes, bound + wave1)
+    r1 = _cycle_matches(js, ts)[1]
+    assert r1.scheduled == 52 and len(r1.nominations) == 4
+    _advance(clocks, 0.5)
+    _feed((js, ts), pods=poachers)
+    r2 = _cycle_matches(js, ts)[1]
+    assert r2.scheduled == 0 and r2.preempted == 0
+    freed = set(r1.nominations.values())
+    for p in poachers:
+        assert r2.explain.pods[p.key()].feasible_nodes == len(freed)
+    for p in poachers:
+        js.on_pod_delete(p)
+        ts.on_pod_delete(to_port(p))
+    bound_keys = set(r1.assignments)
+    for _ in range(4):
+        _advance(clocks, 11.0)
+        bound_keys.update(_cycle_matches(js, ts)[1].assignments)
+    assert {p.key() for p in wave1} <= bound_keys

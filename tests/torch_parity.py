@@ -295,3 +295,47 @@ def topo_mixed_cluster(seed: int, n_nodes: int = 64, n_bound: int = 16,
         pending.append(make_pod(f"pod-{i}", cpu_milli=100,
                                 memory=500 * 2**20, **kw))
     return nodes, bound, pending
+
+
+def preempt_burst_cluster(seed: int, n_nodes: int = 64, per_node: int = 4,
+                          n_ordinary: int = 52, n_preemptors: int = 8,
+                          n_poachers: int = 8):
+    """The chip smoke cell ``preempt-5k-burst`` shrunk: the smoke cell's
+    nodes, ``per_node`` bound pods of priority 0, 900m / 4 Gi on each
+    (every 10th labelled ``app=guarded``, under one PDB with no
+    disruptions allowed); wave 1 of ordinary pods (priority 0, 100m /
+    500 Mi, a preferred zone, half tolerating the taint) and preemptors
+    (priority 1000, 3000m / 500 Mi, a preferred zone); wave 2 of poachers
+    (priority 0, 2000m / 500 Mi). Returns
+    ``(nodes, bound, wave1, poachers, pdb)`` with the JAX package's
+    types."""
+    from kubernetes_tpu.testing import node_affinity_preferred, req
+
+    rng = random.Random(seed)
+    zone_key = "failure-domain.beta.kubernetes.io/zone"
+    nodes, _bound, _pending = pref_affinity_cluster(
+        seed, n_nodes=n_nodes, n_bound=0, n_pending=0)
+    bound = [make_pod(f"bound-{k}", cpu_milli=900, memory=4 * 2**30,
+                      node_name=f"node-{k // per_node}",
+                      labels={"app": "guarded" if k % 10 == 0 else "filler"})
+             for k in range(n_nodes * per_node)]
+    tol = (jtypes.Toleration(key="DeletionCandidateOfClusterAutoscaler",
+                             operator="Exists", effect="PreferNoSchedule"),)
+
+    def prefer():
+        return node_affinity_preferred(
+            (50, [req(zone_key, "In", f"zone-{rng.randrange(10)}")]))
+
+    wave1 = [make_pod(f"pod-{i}", cpu_milli=100, memory=500 * 2**20,
+                      affinity=prefer(), tolerations=tol if i % 2 else ())
+             for i in range(n_ordinary)]
+    wave1 += [make_pod(f"preemptor-{i}", cpu_milli=3000, memory=500 * 2**20,
+                       affinity=prefer(), priority=1000)
+              for i in range(n_preemptors)]
+    poachers = [make_pod(f"poacher-{i}", cpu_milli=2000, memory=500 * 2**20)
+                for i in range(n_poachers)]
+    pdb = jtypes.PodDisruptionBudget(
+        name="guarded",
+        selector=jtypes.LabelSelector(match_labels={"app": "guarded"}),
+        disruptions_allowed=0)
+    return nodes, bound, wave1, poachers, pdb
