@@ -8,9 +8,16 @@ It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), then runs seven phases and exits
 non-zero if any fails:
 
-1. environment: card name and power limit, torch/CUDA versions, build time;
+1. environment: card name and power limit, torch/CUDA versions, build time,
+   each kernel function's registers, shared memory and spills (ptxas);
 2. every kernel against its plain PyTorch version on the card, at the main
-   path's shape (8192 x 8192) and a ragged one (5000 x 3000), with times;
+   path's padded shape (8192 x 8192) and a ragged one (5000 x 3000); the
+   fused pair also on the widest staged row (1024 x 12288), a row past the
+   staged limit (256 x 16384) and the smallest bucket (64 x 8), each on
+   the path its route names; the v pass also at 1000 x 3001, and twice
+   to the same bits. Times at 8192 x 8192 (the pair's wide path beside its
+   staged one) and, once the main paths ran, the pair and the v pass held
+   again and timed at the shapes those paths launched;
 3. the main path at full width, cell ``smoke-5k-prefaffinity``: 5000
    nodes, 1000 bound pods, 10,000 pending pods with preferred zone
    affinity and a PreferNoSchedule taint on every 10th node, through
@@ -36,7 +43,10 @@ kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path and the preempt cell, each counted from 0 just
 before it runs: ``launches`` is their sum, ``launches_by_path`` and
 ``launches_per_cycle`` split it), error against the plain version, times
-and bound; the last line is the one-line contract
+and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
+CUDA-event medians; ``ms_batched`` times back-to-back calls and
+``device_ms`` is the trace's device time); the last line is the one-line
+contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt); ``--profile DIR``
@@ -76,8 +86,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
-    """Median milliseconds of one ``fn()`` on the card (CUDA events)."""
+def cuda_time_ms(fn, warmup: int = 3, reps: int = 15,
+                 batch: int = 1) -> float:
+    """Median milliseconds of one ``fn()`` on the card (CUDA events around
+    ``batch`` back-to-back calls, divided by ``batch``: with ``batch`` > 1
+    the host enqueues ahead and its own time per call drops out)."""
     import torch
 
     for _ in range(warmup):
@@ -88,11 +101,55 @@ def cuda_time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
+
+
+def batched_ms(fn) -> float:
+    """Milliseconds of one call in 10 windows of 10 back-to-back calls
+    (the host's time per call hides behind the card's when it is the
+    shorter; ``ms`` in the kernels line is the single-call median of
+    :func:`cuda_time_ms`, the method of every earlier reading)."""
+    return cuda_time_ms(fn, reps=10, batch=10)
+
+
+def device_ms(fn, reps: int = 10) -> dict:
+    """Device time of ``fn()`` from torch.profiler's CUPTI trace of
+    ``reps`` calls: ``by_kernel``, the mean over each kernel's (or copy's,
+    or memset's) launches with their count, and ``per_call``, the sum of
+    each one's mean times its launches a call (its count over ``reps``,
+    rounded, at least 1: the trace can miss a call's events) -- the
+    card's own time for the work, without the host's launch gaps.
+    ``per_call`` is None when the trace holds no device events."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    got: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
+        name = name.split("(")[0].strip()[:60]
+        t, c = got.get(name, (0.0, 0))
+        got[name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    return {"per_call": (sum(t / c * max(1, round(c / reps))
+                             for t, c in got.values()) if got else None),
+            "by_kernel": {k: {"ms": t / c, "count": c}
+                          for k, (t, c) in got.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -154,38 +211,159 @@ def _sinkhorn_inputs(P, N, gen, dev):
     return logk, log_r, log_c, u, v
 
 
+#: shapes the pair is held bit for bit at: the main path's padded shape
+#: (staged, timed), a ragged one (3000 % 16 != 0: wide), the widest staged
+#: row, a row wider than the staged limit and the smallest bucket (wide)
+PAIR_SHAPES = ((8192, 8192), (5000, 3000), (1024, 12288), (256, 16384),
+               (64, 8))
+#: shapes the Sinkhorn passes are held at: the padded main shape (timed),
+#: a ragged one, and a row that is not a multiple of four (v only: the u
+#: pass refuses it)
+SINKHORN_SHAPES = ((8192, 8192), (5000, 3000), (1000, 3001))
+
+
+def _pair_bound(P, N) -> dict:
+    nbytes = P * N * (4 + 4 + 1 + 4)
+    ops = P * N * 14  # 2 masked max, 2x(mul, div, add, floor), combine
+    return _bound(nbytes, ops)
+
+
+def _sinkhorn_bound(name, P, N) -> dict:
+    nbytes = P * N * 4 + (P + 2 * N) * 4 if name == "sinkhorn_v" \
+        else P * N * 4 + (2 * P + N) * 4
+    ops = P * N * 5  # add, max, sub, exp, sum
+    return _bound(nbytes, ops)
+
+
+def time_pair(P, N, gen, dev) -> dict:
+    """The pair's wrapper and plain version timed at (P, N), the wrapper
+    held bit for bit against the plain version on the same inputs."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import fused_score
+
+    rf, rr, mask = _pair_inputs(P, N, gen, dev)
+
+    def kern():
+        return fused_score.fused_pair_normalize(rf, rr, mask, 1.0, 1.0)
+
+    def plain():
+        return fused_score.fused_pair_normalize_plain(rf, rr, mask, 1.0,
+                                                      1.0)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        fail(f"fused_pair_normalize {P}x{N}: max |err| {err}, must be 0")
+    out = {"max_abs_err": err, "ms": cuda_time_ms(kern),
+           "ms_batched": batched_ms(kern), "device_ms": device_ms(kern),
+           "plain_ms": cuda_time_ms(plain)}
+    out.update(_pair_bound(P, N))
+    return out
+
+
+def time_v(P, N, gen, dev) -> dict:
+    """The v pass's wrapper, plain version and library call timed at
+    (P, N), the wrapper held against the plain version on the same inputs
+    within the stated tolerance."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import sinkhorn
+
+    logk, _log_r, log_c, u, _v = _sinkhorn_inputs(P, N, gen, dev)
+
+    def kern():
+        return sinkhorn.sinkhorn_v(logk, u, log_c)
+
+    def plain():
+        return sinkhorn.sinkhorn_v_plain(logk, u, log_c)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=SINKHORN_ATOL, rtol=SINKHORN_RTOL):
+        fail(f"sinkhorn_v {P}x{N}: max |err| {err} beyond atol "
+             f"{SINKHORN_ATOL} rtol {SINKHORN_RTOL}")
+    out = {"max_abs_err": err, "ms": cuda_time_ms(kern),
+           "ms_batched": batched_ms(kern), "device_ms": device_ms(kern),
+           "plain_ms": cuda_time_ms(plain),
+           "library_ms": cuda_time_ms(
+               lambda: torch.logsumexp(logk + u[:, None], 0))}
+    out.update(_sinkhorn_bound("sinkhorn_v", P, N))
+    return out
+
+
+def _wide_pair(rf, rr, mask):
+    """The pair's wide path launched directly, whatever the row (a timing
+    yardstick for the staged path; not a launch of the main path)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import fused_score
+
+    out = torch.empty_like(rf)
+    fused_score.launch(rf, rr, mask, out, 1.0, 1.0, staged=False)
+    return out
+
+
 def check_kernels(out_rows: dict) -> None:
     import torch
 
+    from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.ops import fused_score, sinkhorn
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261017)
-    for P, N, main in ((8192, 8192, True), (5000, 3000, False)):
-        # -- fused pair: bit-identical ----------------------------------
+    row = out_rows.setdefault("fused_pair_normalize", {})
+    for i, (P, N) in enumerate(PAIR_SHAPES):
+        # -- fused pair: bit-identical on both paths --------------------
         rf, rr, mask = _pair_inputs(P, N, gen, dev)
+        wide0 = kernels.LAUNCHES["fused_pair_normalize_wide"]
         got = fused_score.fused_pair_normalize(rf, rr, mask, 1.0, 1.0)
+        path = ("wide" if kernels.LAUNCHES["fused_pair_normalize_wide"]
+                > wide0 else "staged")
         want = fused_score.fused_pair_normalize_plain(rf, rr, mask, 1.0, 1.0)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.equal(got, want):
-            fail(f"fused_pair_normalize {P}x{N}: max |err| {err}, must be 0")
-        row = out_rows.setdefault("fused_pair_normalize", {})
-        row[f"max_abs_err_{P}x{N}"] = err
-        if main:
+            fail(f"fused_pair_normalize {P}x{N} ({path}): max |err| {err}, "
+                 "must be 0")
+        want_path = ("staged" if fused_score.staged_route(N, rf, rr, mask,
+                                                          got) else "wide")
+        if path != want_path:
+            fail(f"fused_pair_normalize {P}x{N}: took the {path} path, "
+                 f"route says {want_path}")
+        row[f"max_abs_err_{P}x{N}_{path}"] = err
+        if i == 0:
+            if path != "staged":
+                fail(f"fused_pair_normalize {P}x{N}: the main shape took "
+                     "the wide path")
             row["max_abs_err"] = err
-            row["ms"] = cuda_time_ms(lambda: fused_score.fused_pair_normalize(
-                rf, rr, mask, 1.0, 1.0))
+
+            def kern():
+                return fused_score.fused_pair_normalize(rf, rr, mask, 1.0,
+                                                        1.0)
+
+            row["ms"] = cuda_time_ms(kern)
+            row["ms_batched"] = batched_ms(kern)
+            row["device_ms"] = device_ms(kern)
+            row["wide_ms"] = cuda_time_ms(lambda: _wide_pair(rf, rr, mask))
+            row["wide_ms_batched"] = batched_ms(
+                lambda: _wide_pair(rf, rr, mask))
+            row["wide_device_ms"] = device_ms(lambda: _wide_pair(rf, rr,
+                                                                 mask))
+            if not torch.equal(_wide_pair(rf, rr, mask), want):
+                fail(f"fused_pair_normalize {P}x{N}: the wide path differs")
             row["plain_ms"] = cuda_time_ms(
                 lambda: fused_score.fused_pair_normalize_plain(
                     rf, rr, mask, 1.0, 1.0))
             # no single PyTorch call computes the weighted pair
             row["library_ms"] = None
-            nbytes = P * N * (4 + 4 + 1 + 4)
-            ops = P * N * 14  # 2 masked max, 2x(mul, div, add, floor), combine
-            row.update(_bound(nbytes, ops))
+            row.update(_pair_bound(P, N))
         del rf, rr, mask, got, want
+        torch.cuda.empty_cache()
+    for i, (P, N) in enumerate(SINKHORN_SHAPES):
         # -- sinkhorn u / v: within tolerance -----------------------------
         logk, log_r, log_c, u, v = _sinkhorn_inputs(P, N, gen, dev)
         for name, kern, plain, args, lib in (
@@ -195,6 +373,8 @@ def check_kernels(out_rows: dict) -> None:
                 ("sinkhorn_v", sinkhorn.sinkhorn_v, sinkhorn.sinkhorn_v_plain,
                  (logk, u, log_c),
                  lambda: torch.logsumexp(logk + u[:, None], 0))):
+            if name == "sinkhorn_u" and N % 4:
+                continue
             got = kern(*args)
             want = plain(*args)
             torch.cuda.synchronize()
@@ -205,19 +385,23 @@ def check_kernels(out_rows: dict) -> None:
                      f"{SINKHORN_ATOL} rtol {SINKHORN_RTOL}")
             row = out_rows.setdefault(name, {})
             row[f"max_abs_err_{P}x{N}"] = err
-            if main:
+            if i == 0:
                 row["max_abs_err"] = err
                 row["ms"] = cuda_time_ms(lambda: kern(*args))
+                row["ms_batched"] = batched_ms(lambda: kern(*args))
+                row["device_ms"] = device_ms(lambda: kern(*args))
                 row["plain_ms"] = cuda_time_ms(lambda: plain(*args))
                 row["library_ms"] = cuda_time_ms(lib)
-                nbytes = P * N * 4 + (P + 2 * N) * 4 if name == "sinkhorn_v" \
-                    else P * N * 4 + (2 * P + N) * 4
-                ops = P * N * 5  # add, max, sub, exp, sum
-                row.update(_bound(nbytes, ops))
+                row.update(_sinkhorn_bound(name, P, N))
+        # the v pass gives the same bits run to run (the last block of a
+        # strip merges the chunk partials in chunk order)
+        if not torch.equal(sinkhorn.sinkhorn_v(logk, u, log_c),
+                           sinkhorn.sinkhorn_v(logk, u, log_c)):
+            fail(f"sinkhorn_v {P}x{N}: two runs differ")
         del logk, log_r, log_c, u, v
         torch.cuda.empty_cache()
-    # the kernels read rows as 16-byte vectors: a row length that is not
-    # a multiple of four is refused, never read past its end
+    # the pair and the u pass read rows as 16-byte vectors: a row length
+    # that is not a multiple of four is refused, never read past its end
     rf, rr, mask = _pair_inputs(4, 3001, gen, dev)
     logk, log_r, _log_c, _u, v = _sinkhorn_inputs(4, 3001, gen, dev)
     for name, call in (
@@ -229,6 +413,37 @@ def check_kernels(out_rows: dict) -> None:
         except ValueError:
             continue
         fail(f"{name}: a row of 3001 was not refused")
+
+
+def time_main_shapes(out_rows: dict, paths: dict) -> None:
+    """Times the redesigned kernels at the shapes their main path
+    launched, read off the launches: the pair at the smoke cell's first
+    launch (its first cycle's batch), the v pass at the plan path's."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    for name, phase, timer in (("fused_pair_normalize", "smoke", time_pair),
+                               ("sinkhorn_v", "plan", time_v)):
+        shapes = paths.get(phase, {}).get("shapes", {}).get(name)
+        if not shapes:
+            continue
+        P, N = shapes[0][0]
+        got = timer(P, N, gen, dev)
+        out_rows.setdefault(name, {})["main_shape"] = {
+            "phase": phase, "shape": [P, N],
+            "launches_by_shape": shapes, **got}
+        torch.cuda.empty_cache()
+
+
+def launch_shapes() -> dict:
+    """Each kernel's launches since the last reset, by shape, in the
+    order of each shape's first launch: ``[[[P, N], launches], ...]``."""
+    from kubernetes_tpu_torch import kernels
+
+    return {k: [[list(s), c] for s, c in v.items()]
+            for k, v in kernels.SHAPES.items()}
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -399,6 +614,7 @@ def phase_plan() -> dict:
     results = drive(sched, nodes, bound, pending)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    shapes = launch_shapes()
     if launches["sinkhorn_u"] <= 0 or launches["sinkhorn_v"] <= 0:
         fail(f"plan: Sinkhorn kernels not launched ({launches})")
     assignments = {}
@@ -444,7 +660,7 @@ def phase_plan() -> dict:
             > quality["argmax_only"]):
         fail(f"tied: auto-router quality {quality}")
     emit({"phase": "plan-tied", "quality_points": quality})
-    return {"launches": launches, "cycles": len(results)}
+    return {"launches": launches, "cycles": len(results), "shapes": shapes}
 
 
 def topo_cell(n_nodes=5000, n_bound=1000, n_pending=10000, seed=7,
@@ -602,6 +818,7 @@ def phase_cell(phase: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    shapes = launch_shapes()
     scheduled = sum(r.scheduled for r in results)
     if scheduled != len(pending):
         fail(f"{phase}: bound {scheduled} of {len(pending)} pods")
@@ -634,7 +851,7 @@ def phase_cell(phase: str) -> dict:
           "wall_s_with_ingest": wall, "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "recheck": checked})
-    return {"launches": launches, "cycles": len(results)}
+    return {"launches": launches, "cycles": len(results), "shapes": shapes}
 
 
 def profile_cycle(out_dir: str, phase: str) -> None:
@@ -933,6 +1150,7 @@ def phase_preempt() -> dict:
     kernels.reset_launches()
     results, walls, peaks, events = run_preempt_cell(cell)
     launches = dict(kernels.LAUNCHES)
+    shapes = launch_shapes()
     checked = recheck_preempt(cell, results, events)
     if launches["fused_pair_normalize"] <= 0:
         fail("preempt: the fused-pair kernel was never launched")
@@ -956,12 +1174,57 @@ def phase_preempt() -> dict:
                           for r in results],
           "launches": launches, "recheck": checked})
     torch.cuda.empty_cache()
-    return {"launches": launches, "cycles": len(results)}
+    return {"launches": launches, "cycles": len(results), "shapes": shapes}
 
 
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's identifier inside a mangled name, with its template
+    argument (``v_kernel<1>`` for ``...8v_kernelILb1E...``)."""
+    import re
+
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+        size = int(m.group(1))
+        ident = m.group(2)[:size]
+        if len(ident) == size and ident.endswith("kernel"):
+            t = re.match(r"ILb(\d)E", m.group(2)[size:])
+            return ident + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def ptxas_summary(reports: dict) -> dict:
+    """Registers, static shared memory and spills of each kernel function,
+    from the ``-Xptxas=-v`` report of each library built in this run (the
+    staged pair kernel's dynamic shared memory, 9 bytes an element of its
+    row, is set at launch)."""
+    import re
+
+    out = {}
+    for lib, text in reports.items():
+        got = None
+        for ln in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", ln)
+            if m:
+                got = out.setdefault(f"{lib}:{_kernel_name(m.group(1))}", {})
+                continue
+            if got is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                got["spill_stores"] = int(m.group(1))
+                got["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                got["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", ln)
+                got["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def gpu_line() -> str:
@@ -1005,9 +1268,7 @@ def main() -> None:
               "python": sys.version.split()[0],
               "device": torch.cuda.get_device_name(0),
               "kernel_build_s": build_s,
-              "ptxas": {k: [ln for ln in v.splitlines()
-                            if "registers" in ln or "spill" in ln]
-                        for k, v in reports.items()}})
+              "ptxas": ptxas_summary(reports)})
 
     rows: dict = {}
     if "kernels" in phases:
@@ -1028,6 +1289,8 @@ def main() -> None:
     if args.profile:
         for phase in CELLS:
             profile_cycle(args.profile, phase)
+    if "kernels" in phases:
+        time_main_shapes(rows, paths)
     out = []
     for name, meta in KERNELS.items():
         r = dict(name=name, **meta)
@@ -1037,6 +1300,10 @@ def main() -> None:
         r["launches_by_path"] = by_path
         r["launches_per_cycle"] = {p: got["launches"][name] / got["cycles"]
                                    for p, got in paths.items()}
+        if name == "fused_pair_normalize":
+            r["launches_wide"] = sum(
+                got["launches"]["fused_pair_normalize_wide"]
+                for got in paths.values())
         # every kernel serves at least one main path: once all of them
         # ran, a kernel that none of them launched is a failure
         if set(MAIN_PATHS) <= set(paths) and r["launches"] <= 0:

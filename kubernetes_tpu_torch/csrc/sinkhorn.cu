@@ -10,18 +10,34 @@
 // Bound: bytes. Each pass must read the (P, N) f32 log-kernel once
 // (268 MB at 8192 x 8192, about 0.08 ms on an H100 at 3.35 TB/s); one
 // exp per element is far below the card's rate. Each thread keeps a
-// running (max, sum) pair — an online logsumexp, rescaling the sum when
-// the max grows — so logk is read exactly once per pass:
+// running (max, sum) pair -- an online logsumexp, rescaling the sum when
+// the max grows -- so logk is read exactly once per pass:
 //   u pass: one block per row, float4 row reads (n % 4 == 0), pairs
-//           merged across the block;
-//   v pass: threads own adjacent columns (row reads coalesce), the rows
-//           are cut into chunks, each (chunk, column) writes a partial
-//           pair, and a second small kernel merges a column's partials.
+//           merged across the block.
+//   v pass: one launch. A block owns a strip of 128 columns and a chunk of
+//           rows; each thread owns four adjacent columns, read as one
+//           float4 (16 bytes, neighbouring lanes on neighbouring
+//           addresses), and walks its chunk's rows in tiles of 8 with all
+//           8 loads of a tile issued before any arithmetic: 128 bytes in
+//           flight per thread, 64 KB per SM at the two blocks an SM the
+//           wrapper plans (up to four fit), well above the ~20 KB per SM
+//           that covers HBM latency at 3.35 TB/s. Per tile and
+//           column one max, at most one rescale and 8 exps with no
+//           branch. The warps' pairs merge in shared memory into one
+//           partial per (chunk, column); the last block of a strip to
+//           finish (an atomic counter per strip after __threadfence,
+//           zeroed by a memset the entry point queues right before the
+//           kernel) merges the strip's partials in chunk order and
+//           writes v, so the result is the same run to run. Rows of any length are
+//           taken: when n % 4 != 0 (or logk is not 16-byte aligned) the
+//           same kernel reads the four columns as scalars, and columns
+//           past n and rows past the chunk read as -inf.
 // The summation order differs from the plain version's, so results agree
 // to a few ulps, not bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -91,34 +107,150 @@ u_kernel(const float* __restrict__ logk, const float* __restrict__ v,
   }
 }
 
-// Partial (max, sum) of column j over rows [chunk*rows, (chunk+1)*rows).
-__global__ void __launch_bounds__(kThreads)
-v_partial_kernel(const float* __restrict__ logk, const float* __restrict__ u,
-                 float* __restrict__ pm, float* __restrict__ ps, int p,
-                 int n, int rows) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int i0 = blockIdx.y * rows;
-  const int i1 = min(i0 + rows, p);
-  float m = -INFINITY, s = 0.0f;
-  for (int i = i0; i < i1; ++i)
-    lse_add(m, s, logk[static_cast<size_t>(i) * n + j] + u[i]);
-  pm[static_cast<size_t>(blockIdx.y) * n + j] = m;
-  ps[static_cast<size_t>(blockIdx.y) * n + j] = s;
+// ---- v pass ---------------------------------------------------------------
+
+constexpr int kVWarps = kThreads / 32;  // row groups of a block
+constexpr int kVCols = 128;             // a strip: 32 lanes x 4 columns
+constexpr int kVTile = 8;               // rows a thread loads before math
+
+__device__ __forceinline__ float4 neg_inf4() {
+  return make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
 }
 
-__global__ void __launch_bounds__(kThreads)
-v_finish_kernel(const float* __restrict__ pm, const float* __restrict__ ps,
-                const float* __restrict__ log_c, float* __restrict__ v,
-                int n, int chunks) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float m = -INFINITY, s = 0.0f;
-  for (int c = 0; c < chunks; ++c)
-    lse_merge(m, s, pm[static_cast<size_t>(c) * n + j],
-              ps[static_cast<size_t>(c) * n + j]);
-  const float vv = fminf(log_c[j] - lse_final(m, s), 0.0f);
-  v[j] = vv > kNegInf * 0.5f ? vv : 0.0f;
+// logk[i, j0..j0+3], -inf where the row or a column is out of range. The
+// vector form needs n % 4 == 0 and a 16-byte aligned logk.
+template <bool kVec>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ logk,
+                                            int i, bool row_ok, int j0,
+                                            int n) {
+  const float* at = logk + static_cast<size_t>(i) * n + j0;
+  if (kVec)
+    return row_ok && j0 < n ? __ldg(reinterpret_cast<const float4*>(at))
+                            : neg_inf4();
+  float4 q = neg_inf4();
+  if (row_ok) {
+    if (j0 < n) q.x = __ldg(at);
+    if (j0 + 1 < n) q.y = __ldg(at + 1);
+    if (j0 + 2 < n) q.z = __ldg(at + 2);
+    if (j0 + 3 < n) q.w = __ldg(at + 3);
+  }
+  return q;
+}
+
+// Fold one column's tile of kVTile terms into its running pair (m, s):
+// one rescale when the tile's max exceeds m, then the tile's exps with
+// no branch. -inf terms (rows past the end) add exp(-inf) = 0; while m is
+// still -inf every term was -inf and nothing is added (no -inf - -inf).
+__device__ __forceinline__ void lse_tile(float& m, float& s,
+                                         const float (&x)[kVTile]) {
+  float tm = x[0];
+#pragma unroll
+  for (int r = 1; r < kVTile; ++r) tm = fmaxf(tm, x[r]);
+  if (tm > m) {
+    s *= expf(m - tm);
+    m = tm;
+  }
+  if (m > -INFINITY) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int r = 0; r < kVTile; ++r) acc += expf(x[r] - m);
+    s += acc;
+  }
+}
+
+__device__ __forceinline__ void lse_merge4(float4& m, float4& s, float4 m2,
+                                           float4 s2) {
+  lse_merge(m.x, s.x, m2.x, s2.x);
+  lse_merge(m.y, s.y, m2.y, s2.y);
+  lse_merge(m.z, s.z, m2.z, s2.z);
+  lse_merge(m.w, s.w, m2.w, s2.w);
+}
+
+__device__ __forceinline__ float v_value(float m, float s, float log_c) {
+  const float vv = fminf(log_c - lse_final(m, s), 0.0f);
+  return vv > kNegInf * 0.5f ? vv : 0.0f;
+}
+
+// Block (strip, chunk): lane l owns columns strip*128 + 4l .. +3, warp w
+// the chunk's row tiles w, w + 8, ... (tiles of 8 rows, all loads of a
+// tile issued before its math). The warps' pairs merge in warp order into
+// the block's partial, written to pm/ps[chunk] (row stride npad =
+// strips * 128). The last block of a strip to finish (a counter per strip,
+// zeroed before the launch) merges the strip's partials in chunk order and
+// writes v, so the result does not depend on which block ran when.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
+v_kernel(const float* __restrict__ logk, const float* __restrict__ u,
+         const float* __restrict__ log_c, float* __restrict__ v,
+         float* __restrict__ pm, float* __restrict__ ps,
+         int* __restrict__ counters, int p, int n, int rows) {
+  const int strip = blockIdx.x, chunk = blockIdx.y, chunks = gridDim.y;
+  const int lane = threadIdx.x & 31, wy = threadIdx.x >> 5;
+  const int j0 = strip * kVCols + 4 * lane;
+  const size_t npad = static_cast<size_t>(gridDim.x) * kVCols;
+  const int i1 = min((chunk + 1) * rows, p);
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t = chunk * rows + wy * kVTile; t < i1; t += kVWarps * kVTile) {
+    float4 q[kVTile];
+#pragma unroll
+    for (int r = 0; r < kVTile; ++r)
+      q[r] = load_quad<kVec>(logk, t + r, t + r < i1, j0, n);
+    float x[4][kVTile];
+#pragma unroll
+    for (int r = 0; r < kVTile; ++r) {
+      const float ur = t + r < i1 ? __ldg(u + t + r) : 0.0f;
+      x[0][r] = q[r].x + ur;
+      x[1][r] = q[r].y + ur;
+      x[2][r] = q[r].z + ur;
+      x[3][r] = q[r].w + ur;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) lse_tile(m[k], s[k], x[k]);
+  }
+
+  __shared__ float4 wm[kVWarps][32], ws[kVWarps][32];
+  __shared__ int last;
+  wm[wy][lane] = make_float4(m[0], m[1], m[2], m[3]);
+  ws[wy][lane] = make_float4(s[0], s[1], s[2], s[3]);
+  __syncthreads();
+  float4* pm4 = reinterpret_cast<float4*>(pm);
+  float4* ps4 = reinterpret_cast<float4*>(ps);
+  const size_t col4 = static_cast<size_t>(strip) * (kVCols / 4) + lane;
+  if (wy == 0) {
+    float4 bm = wm[0][lane], bs = ws[0][lane];
+    for (int w = 1; w < kVWarps; ++w) lse_merge4(bm, bs, wm[w][lane],
+                                                 ws[w][lane]);
+    pm4[chunk * (npad / 4) + col4] = bm;
+    ps4[chunk * (npad / 4) + col4] = bs;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(counters + strip, 1) == chunks - 1;
+  __syncthreads();
+  if (!last || wy != 0) return;
+
+  // the strip's last block: merge every chunk's partial in chunk order
+  // (loads four chunks ahead, from L2: the other blocks wrote them)
+  float4 fm = neg_inf4(), fs = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int c0 = 0; c0 < chunks; c0 += 4) {
+    float4 am[4], as[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c0 + c < chunks) {
+        am[c] = __ldcg(pm4 + (c0 + c) * (npad / 4) + col4);
+        as[c] = __ldcg(ps4 + (c0 + c) * (npad / 4) + col4);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c0 + c < chunks) lse_merge4(fm, fs, am[c], as[c]);
+  }
+  if (j0 < n) v[j0] = v_value(fm.x, fs.x, log_c[j0]);
+  if (j0 + 1 < n) v[j0 + 1] = v_value(fm.y, fs.y, log_c[j0 + 1]);
+  if (j0 + 2 < n) v[j0 + 2] = v_value(fm.z, fs.z, log_c[j0 + 2]);
+  if (j0 + 3 < n) v[j0 + 3] = v_value(fm.w, fs.w, log_c[j0 + 3]);
 }
 
 }  // namespace
@@ -133,20 +265,32 @@ extern "C" int ktt_sinkhorn_u(const void* logk, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// pm, ps: (chunks, strips * 128) f32 scratch; counters: (strips,) int32
+// scratch, zeroed here on the stream right before the launch (the caller
+// allocates all three); strips = ceil(n / 128); chunk c holds rows
+// [c*rows, min((c+1)*rows, p)), every chunk at least one row.
 extern "C" int ktt_sinkhorn_v(const void* logk, const void* u,
                               const void* log_c, void* v, void* pm, void* ps,
-                              int p, int n, int chunks, int rows,
-                              void* stream) {
+                              void* counters, int p, int n, int chunks,
+                              int rows, void* stream) {
   if (p <= 0 || n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kThreads - 1) / kThreads, chunks);
-  v_partial_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(logk), static_cast<const float*>(u),
-      static_cast<float*>(pm), static_cast<float*>(ps), p, n, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  v_finish_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(pm), static_cast<const float*>(ps),
-      static_cast<const float*>(log_c), static_cast<float*>(v), n, chunks);
+  const dim3 grid((n + kVCols - 1) / kVCols, chunks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* k = static_cast<const float*>(logk);
+  const float* uu = static_cast<const float*>(u);
+  const float* lc = static_cast<const float*>(log_c);
+  float* vv = static_cast<float*>(v);
+  float* m = static_cast<float*>(pm);
+  float* s = static_cast<float*>(ps);
+  int* cnt = static_cast<int*>(counters);
+  const cudaError_t z =
+      cudaMemsetAsync(cnt, 0, sizeof(int) * grid.x, st);
+  if (z != cudaSuccess) return static_cast<int>(z);
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(logk) % 16 == 0)
+    v_kernel<true><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s, cnt, p,
+                                              n, rows);
+  else
+    v_kernel<false><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s, cnt, p,
+                                               n, rows);
   return static_cast<int>(cudaGetLastError());
 }

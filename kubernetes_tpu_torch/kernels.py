@@ -26,12 +26,13 @@ its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -48,10 +49,12 @@ LIBRARIES = {
     # every step with an explicit round-to-nearest intrinsic)
     "fused_pair": ("fused_pair.cu", ["-fmad=false"], {
         "ktt_fused_pair_normalize": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
+        "ktt_fused_pair_normalize_wide": [_P, _P, _P, _P, _I, _I, _F, _F,
+                                          _P],
     }),
     "sinkhorn": ("sinkhorn.cu", [], {
         "ktt_sinkhorn_u": [_P, _P, _P, _P, _I, _I, _P],
-        "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     }),
 }
 
@@ -59,11 +62,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 #: kernel wrapper name -> launches since the last reset
+#: (``fused_pair_normalize`` counts both of its paths,
+#: ``fused_pair_normalize_wide`` the wide path's share of them)
 LAUNCHES: Dict[str, int] = {
     "fused_pair_normalize": 0,
+    "fused_pair_normalize_wide": 0,
     "sinkhorn_u": 0,
     "sinkhorn_v": 0,
 }
+
+#: kernel wrapper name -> {shape: launches at that shape} since the last
+#: reset, shapes in the order of their first launch (a run reads off the
+#: shapes its main path launched; bounded by the distinct shapes, which
+#: the padded buckets keep few)
+SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {k: {} for k in LAUNCHES}
+
 
 class KernelError(Exception):
     """A hand-written kernel failed to build, load or launch."""
@@ -76,6 +89,14 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SHAPES[k].clear()
+
+
+def count_launch(name: str, shape) -> None:
+    """Called by a wrapper right after its kernel launched."""
+    LAUNCHES[name] += 1
+    shape = tuple(shape)
+    SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
 
 
 def _nvcc() -> str:
@@ -180,9 +201,21 @@ def require(t, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t) -> int:
+    """Streaming multiprocessors of the card that holds ``t``."""
+    return _sm_count(t.device.index if t.device.index is not None else 0)
+
+
 def require_vec4(n: int, what: str, *ts) -> None:
-    """The kernels read rows as 16-byte vectors: the row length must be a
-    multiple of four and every pointer aligned to its vector's size (the
+    """The pair and u kernels read rows as 16-byte vectors: the row length
+    must be a multiple of four and every pointer aligned to its vector's size (the
     main path's rows are ``bucket_size`` long, a power of two >= 8)."""
     if n % 4:
         raise ValueError(f"{what}: row length {n} is not a multiple of 4")

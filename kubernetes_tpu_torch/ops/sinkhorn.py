@@ -39,9 +39,28 @@ NEG_INF = -1e30
 #: this counts the iteration as converged (log-domain, so ~relative)
 STATS_TOL = 1e-3
 
-#: the v pass cuts the rows into at most this many chunks, each chunk's
-#: partial (max, sum) per column merged by a second small kernel
+#: the v pass: a block covers a strip of V_COLS columns (32 threads x 4)
+#: and one chunk of the rows; the chunks are sized so that the grid is
+#: V_BLOCKS_PER_SM blocks for each SM (one wave: the kernel's launch
+#: bounds let four stay resident), with at most V_CHUNKS chunks and at
+#: least V_MIN_ROWS rows (one 8-row tile per warp) in each. The last block
+#: of a strip merges the strip's chunk partials. Two blocks an SM measured
+#: faster than one, four or more on an H100 (scripts/torch_kernel_sweep.py:
+#: longer row walks per warp, fewer partials to merge).
+V_COLS = 128
+V_BLOCKS_PER_SM = 2
 V_CHUNKS = 64
+V_MIN_ROWS = 64
+
+
+def v_plan(P: int, N: int, sms: int) -> Tuple[int, int, int]:
+    """(strips, chunks, rows per chunk) of the v pass on a card with
+    ``sms`` SMs; every chunk holds at least one row."""
+    strips = -(-N // V_COLS)
+    chunks = max(1, min(V_BLOCKS_PER_SM * sms // strips, V_CHUNKS,
+                        -(-P // V_MIN_ROWS)))
+    rows = max(-(-P // chunks), 1)
+    return strips, max(-(-P // rows), 1), rows
 
 
 def sinkhorn_u_plain(logk, v, log_r):
@@ -77,30 +96,45 @@ def sinkhorn_u(logk, v, log_r):
     code = fn(logk.data_ptr(), v.data_ptr(), log_r.data_ptr(), u.data_ptr(),
               P, N, kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_u")
-    kernels.LAUNCHES["sinkhorn_u"] += 1
+    kernels.count_launch("sinkhorn_u", (P, N))
     return u
 
 
 def sinkhorn_v(logk, u, log_c):
     """(N,) column potentials. CPU tensors take the plain version; CUDA
-    tensors launch the kernel pair (partials + merge, or raise)."""
+    tensors launch the kernel (or raise; any N)."""
     if logk.device.type == "cpu":
         return sinkhorn_v_plain(logk, u, log_c)
     P, N = logk.shape
     kernels.require(logk, "sinkhorn_v logk", torch.float32)
     kernels.require(u, "sinkhorn_v u", torch.float32, (P,))
     kernels.require(log_c, "sinkhorn_v log_c", torch.float32, (N,))
-    rows = max(-(-P // V_CHUNKS), 1)
-    chunks = max(-(-P // rows), 1)
+    _, chunks, rows = v_plan(P, N, kernels.sm_count(logk))
+    v = launch_v(logk, u, log_c, chunks, rows)
+    kernels.count_launch("sinkhorn_v", (P, N))
+    return v
+
+
+def launch_v(logk, u, log_c, chunks: int, rows: int):
+    """Launch the v kernel with ``chunks`` chunks of ``rows`` rows (every
+    chunk at least one row) and return v (no checks and no count:
+    :func:`sinkhorn_v` makes both; the one place the C entry point is
+    called)."""
+    P, N = logk.shape
+    strips = -(-N // V_COLS)
     v = torch.empty((N,), dtype=torch.float32, device=logk.device)
-    pm = torch.empty((chunks, N), dtype=torch.float32, device=logk.device)
-    ps = torch.empty((chunks, N), dtype=torch.float32, device=logk.device)
+    # one scratch allocation: the chunk partials pm and ps, (chunks,
+    # strips * V_COLS) f32 each, then one int32 counter per strip (4-byte
+    # words; the entry point zeroes the counters on the stream)
+    part = chunks * strips * V_COLS
+    scratch = torch.empty((2 * part + strips,), dtype=torch.float32,
+                          device=logk.device)
+    base = scratch.data_ptr()
     fn = kernels.lib("sinkhorn").ktt_sinkhorn_v
     code = fn(logk.data_ptr(), u.data_ptr(), log_c.data_ptr(), v.data_ptr(),
-              pm.data_ptr(), ps.data_ptr(), P, N, chunks, rows,
+              base, base + 4 * part, base + 8 * part, P, N, chunks, rows,
               kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_v")
-    kernels.LAUNCHES["sinkhorn_v"] += 1
     return v
 
 
