@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs seven phases and exits
+``nvcc`` per source, in parallel), then runs eight phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -14,8 +14,9 @@ non-zero if any fails:
    path's padded shape (8192 x 8192) and a ragged one (5000 x 3000); the
    fused pair also on the widest staged row (1024 x 12288), a row past the
    staged limit (256 x 16384) and the smallest bucket (64 x 8), each on
-   the path its route names; the v pass also at 1000 x 3001, and twice
-   to the same bits. Times at 8192 x 8192 (the pair's wide path beside its
+   the path its route names; u and v in both rules (the fixed-iteration
+   Pallas rule and the tolerance loop's jnp rule); the v pass also at
+   1000 x 3001, and twice to the same bits. Times at 8192 x 8192 (the pair's wide path beside its
    staged one) and, once the main paths ran, the pair and the v pass held
    again and timed at the shapes those paths launched;
 3. the main path at full width, cell ``smoke-5k-prefaffinity``: 5000
@@ -29,27 +30,42 @@ non-zero if any fails:
    cluster with 10,000 pending pods mixing preferred zones, hostname pod
    anti-affinity, zone pod affinity, and hard and soft topology spread,
    checked by a host re-check of every constraint;
-6. one reduced cycle of each cell (1000 nodes x 2048 pods) on CUDA and on
-   CPU tensors (the plain versions) must place identically;
+6. one reduced cycle of each cell (1000 nodes x 2048 pods), and a reduced
+   run of the sparse cell (1000 nodes, C = 64, a 512-pod burst, then 8
+   micro-batches), on CUDA and on CPU tensors (the plain versions) must
+   place identically, with the same solve scopes;
 7. the failure path at full width, cell ``preempt-5k-burst``: 5000 full
    nodes (20,000 bound low-priority pods, some under a PDB) take 4064
    ordinary pods and 32 high-priority preemptors, then 64 poachers that
    only the freed nodes could hold, on a hand-advanced clock: preemption,
    nominated pods (pass A) and the explain report, checked by a host
-   re-check of every victim, nomination, poacher and node.
+   re-check of every victim, nomination, poacher and node;
+8. the sparsity-first routes at full width, cell ``sparse-5k-churn``: the
+   smoke cell's 5000 nodes and 1000 bound pods through
+   ``Scheduler(incremental=IncrementalConfig(enabled=True, primary=True,
+   candidate_bucket=256))``, once with ``solver="batch"`` and once with
+   ``solver="sinkhorn"`` and warm potentials: a cold burst of 4096 pods
+   (partitioned: 8 blocks of 256 columns), then 48 steady cycles of 8
+   deletes and 16-128 new pods (restricted to 256 candidate columns), a
+   node added mid-run (partitioned again) and a last cycle whose misfit
+   pod sends the cycle to the dense ladder; checked by the exact scope
+   sequence, the capacity re-check and the misfit's FitError.
 
 Lines of JSON report each phase; the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
-path, the topology path and the preempt cell, each counted from 0 just
-before it runs: ``launches`` is their sum, ``launches_by_path`` and
-``launches_per_cycle`` split it), error against the plain version, times
+path, the topology path, the preempt cell and the sparse cell, each
+counted from 0 just before it runs: ``launches`` is their sum,
+``launches_by_path`` and ``launches_per_cycle`` split it; the sparse
+cell's frame shapes are held and timed again under ``sparse_shapes``),
+error against the plain version, times
 and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
 CUDA-event medians; ``ms_batched`` times back-to-back calls and
 ``device_ms`` is the trace's device time); the last line is the one-line
 contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
-env, kernels, smoke, plan, topology, parity, preempt); ``--profile DIR``
+env, kernels, smoke, plan, topology, parity, preempt, sparse);
+``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
 """
@@ -72,9 +88,9 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
-              "preempt")
+              "preempt", "sparse")
 #: the phases that drive a main path and count its kernel launches
-MAIN_PATHS = ("smoke", "plan", "topology", "preempt")
+MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse")
 
 
 def emit(obj) -> None:
@@ -177,6 +193,23 @@ KERNELS = {
 
 #: Sinkhorn passes sum in another order than the plain versions
 SINKHORN_ATOL, SINKHORN_RTOL = 1e-5, 1e-4
+
+
+def sinkhorn_err(got, want):
+    """(max |err| over the finite potentials, whether the pass agrees with
+    its plain version): within the stated tolerance everywhere, and the
+    same entries at or below NEG_INF/2 (the jnp rule keeps a
+    zero-capacity column's v near NEG_INF, where one ulp is ~1e23, so
+    the error is reported over the other entries)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.sinkhorn import NEG_INF
+
+    live = want > NEG_INF / 2
+    ok = (torch.allclose(got, want, atol=SINKHORN_ATOL, rtol=SINKHORN_RTOL)
+          and torch.equal(live, got > NEG_INF / 2))
+    err = float((got - want).abs()[live].max()) if live.any() else 0.0
+    return err, ok
 
 
 def _pair_inputs(P, N, gen, dev):
@@ -294,6 +327,51 @@ def time_v(P, N, gen, dev) -> dict:
     return out
 
 
+def time_sinkhorn_pass(name, P, N, gen, dev) -> dict:
+    """A Sinkhorn pass's wrapper held against its plain version in both
+    rules at (P, N) (zero-capacity columns in the inputs), then timed in
+    the jnp rule (the tolerance loop's, which the sparse path runs) with
+    its plain version and library call, and in the Pallas rule."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import sinkhorn
+
+    logk, log_r, log_c, u, v = _sinkhorn_inputs(P, N, gen, dev)
+    if name == "sinkhorn_u":
+        kern, plain, args = sinkhorn.sinkhorn_u, sinkhorn.sinkhorn_u_plain, \
+            (logk, v, log_r)
+
+        def lib():
+            return torch.logsumexp(logk + v[None, :], 1)
+    else:
+        kern, plain, args = sinkhorn.sinkhorn_v, sinkhorn.sinkhorn_v_plain, \
+            (logk, u, log_c)
+
+        def lib():
+            return torch.logsumexp(logk + u[:, None], 0)
+    out = {}
+    for rule in (False, True):
+        got, want = kern(*args, jnp_rule=rule), plain(*args, jnp_rule=rule)
+        torch.cuda.synchronize()
+        err, ok = sinkhorn_err(got, want)
+        tag = "jnp" if rule else "pallas"
+        if not ok:
+            fail(f"{name} {P}x{N} ({tag} rule): max |err| {err} beyond atol "
+                 f"{SINKHORN_ATOL} rtol {SINKHORN_RTOL}")
+        out[f"max_abs_err_{tag}"] = err
+    out["max_abs_err"] = max(out["max_abs_err_jnp"],
+                             out["max_abs_err_pallas"])
+    out.update({
+        "ms": cuda_time_ms(lambda: kern(*args, jnp_rule=True)),
+        "ms_batched": batched_ms(lambda: kern(*args, jnp_rule=True)),
+        "device_ms": device_ms(lambda: kern(*args, jnp_rule=True)),
+        "ms_pallas_rule": cuda_time_ms(lambda: kern(*args)),
+        "plain_ms": cuda_time_ms(lambda: plain(*args, jnp_rule=True)),
+        "library_ms": cuda_time_ms(lib)})
+    out.update(_sinkhorn_bound(name, P, N))
+    return out
+
+
 def _wide_pair(rf, rr, mask):
     """The pair's wide path launched directly, whatever the row (a timing
     yardstick for the staged path; not a launch of the main path)."""
@@ -364,7 +442,7 @@ def check_kernels(out_rows: dict) -> None:
         del rf, rr, mask, got, want
         torch.cuda.empty_cache()
     for i, (P, N) in enumerate(SINKHORN_SHAPES):
-        # -- sinkhorn u / v: within tolerance -----------------------------
+        # -- sinkhorn u / v: within tolerance, in both rules --------------
         logk, log_r, log_c, u, v = _sinkhorn_inputs(P, N, gen, dev)
         for name, kern, plain, args, lib in (
                 ("sinkhorn_u", sinkhorn.sinkhorn_u, sinkhorn.sinkhorn_u_plain,
@@ -375,6 +453,17 @@ def check_kernels(out_rows: dict) -> None:
                  lambda: torch.logsumexp(logk + u[:, None], 0))):
             if name == "sinkhorn_u" and N % 4:
                 continue
+            row = out_rows.setdefault(name, {})
+            # the jnp rule (the tolerance loop's): zero-capacity columns
+            # (cap 0 in the inputs) keep v near NEG_INF
+            got_j = kern(*args, jnp_rule=True)
+            want_j = plain(*args, jnp_rule=True)
+            torch.cuda.synchronize()
+            err_j, ok = sinkhorn_err(got_j, want_j)
+            if not ok:
+                fail(f"{name} {P}x{N} (jnp rule): max |err| {err_j} beyond "
+                     f"atol {SINKHORN_ATOL} rtol {SINKHORN_RTOL}")
+            row[f"max_abs_err_{P}x{N}_jnp"] = err_j
             got = kern(*args)
             want = plain(*args)
             torch.cuda.synchronize()
@@ -383,7 +472,6 @@ def check_kernels(out_rows: dict) -> None:
                                   rtol=SINKHORN_RTOL):
                 fail(f"{name} {P}x{N}: max |err| {err} beyond atol "
                      f"{SINKHORN_ATOL} rtol {SINKHORN_RTOL}")
-            row = out_rows.setdefault(name, {})
             row[f"max_abs_err_{P}x{N}"] = err
             if i == 0:
                 row["max_abs_err"] = err
@@ -418,7 +506,9 @@ def check_kernels(out_rows: dict) -> None:
 def time_main_shapes(out_rows: dict, paths: dict) -> None:
     """Times the redesigned kernels at the shapes their main path
     launched, read off the launches: the pair at the smoke cell's first
-    launch (its first cycle's batch), the v pass at the plan path's."""
+    launch (its first cycle's batch), the v pass at the plan path's; and
+    every kernel at every shape the sparse phase launched (the pair bit
+    for bit, u and v in both rules)."""
     import torch
 
     dev = torch.device("cuda")
@@ -435,6 +525,19 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             "phase": phase, "shape": [P, N],
             "launches_by_shape": shapes, **got}
         torch.cuda.empty_cache()
+    # the sparse phase's frames: every shape it launched, both arms
+    for name, shapes in paths.get("sparse", {}).get("shapes", {}).items():
+        if name not in KERNELS:
+            continue
+        rows = []
+        for (P, N), n in shapes:
+            got = (time_pair(P, N, gen, dev) if name == "fused_pair_normalize"
+                   else time_sinkhorn_pass(name, P, N, gen, dev))
+            if name == "fused_pair_normalize":
+                got["library_ms"] = None
+            rows.append({"shape": [P, N], "launches": n, **got})
+            torch.cuda.empty_cache()
+        out_rows.setdefault(name, {})["sparse_shapes"] = rows
 
 
 def launch_shapes() -> dict:
@@ -942,6 +1045,23 @@ def phase_parity() -> None:
         emit({"phase": "parity", "cell": cell, "nodes": 1000,
               "pending": 2048, "scheduled": a.scheduled, "rounds": a.rounds,
               "identical": True})
+    # the sparsity-first routes, reduced: 1000 nodes, C = 64 (16 blocks
+    # of the padded 1024, capped at 8), a 512-pod burst, 8 micro-batches
+    out = {}
+    for dev in ("cuda", "cpu"):
+        results, _walls, _cell, _final, _declines = run_sparse(
+            "batch", device=dev, candidate_bucket=64, n_nodes=1000,
+            n_bound=200, burst=512, steady=8, seed=11, batches=(8, 16, 32))
+        out[dev] = [(r.solve_scope, r.rounds, r.assignments)
+                    for r in results]
+    if out["cuda"] != out["cpu"]:
+        fail("parity sparse-5k-churn (reduced): CUDA and CPU differ "
+             f"(scopes {[x[0] for x in out['cuda']]} vs "
+             f"{[x[0] for x in out['cpu']]})")
+    emit({"phase": "parity", "cell": "sparse-5k-churn", "nodes": 1000,
+          "candidate_bucket": 64, "burst": 512, "micro_batches": 8,
+          "scopes": [x[0] for x in out["cuda"]],
+          "rounds": [x[1] for x in out["cuda"]], "identical": True})
 
 
 # ---------------------------------------------------------------------------
@@ -1178,21 +1298,296 @@ def phase_preempt() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the sparsity-first routes (restricted, partitioned, warm Sinkhorn)
+# ---------------------------------------------------------------------------
+
+#: micro-batch sizes the steady cycles cycle through (128 = max_batch_frac
+#: x C at C = 256)
+SPARSE_BATCHES = (16, 32, 64, 128)
+
+
+def sparse_traffic(n_nodes=5000, n_bound=1000, burst=4096, steady=48,
+                   seed=7, batches=SPARSE_BATCHES):
+    """Cell ``sparse-5k-churn``: the smoke cell's cluster and pods (4 CPU
+    / 32 Gi / 110-pod nodes over 10 zones, the autoscaler's
+    PreferNoSchedule taint on every 10th node, 100m / 500 Mi pods with a
+    weight-50 preferred zone, half tolerating the taint), seeded. Cycle 1
+    takes a cold burst of ``burst`` pods; then ``steady`` cycles each
+    delete 8 seeded bound pods and add a micro-batch of 16, 32, 64, 128,
+    ... (``batches``); the middle steady cycle also adds a node; the last
+    adds 15
+    ordinary pods and one pod that fits nowhere (64 CPU). Returns
+    ``(nodes, bound, cycles, expected scopes, misfit)`` with ``cycles`` a
+    list of ``(nodes to add, pods to add, bound-pod deletes)``."""
+    import random
+
+    from kubernetes_tpu_torch.api.types import Toleration
+    from kubernetes_tpu_torch.testing import (
+        make_node,
+        make_pod,
+        node_affinity_preferred,
+        req,
+    )
+
+    rng = random.Random(seed)
+    nodes, bound, _pending = smoke_cell(n_nodes=n_nodes, n_bound=n_bound,
+                                        n_pending=0)
+    tol = (Toleration(key=SOFT_TAINT, operator="Exists",
+                      effect="PreferNoSchedule"),)
+    count = [0]
+
+    def pods(n):
+        out = []
+        for _ in range(n):
+            i = count[0]
+            count[0] += 1
+            out.append(make_pod(
+                f"sp-{i}", cpu_milli=100, memory=500 * 2**20,
+                affinity=node_affinity_preferred(
+                    (50, [req(ZONE, "In", f"zone-{rng.randrange(10)}")])),
+                tolerations=tol if i % 2 else ()))
+        return out
+
+    node_add_at = steady // 2
+    cycles = [([], pods(burst), 0)]
+    scopes = ["partitioned"]
+    misfit = make_pod("sp-misfit", cpu_milli=64000, memory=500 * 2**20)
+    for c in range(steady):
+        if c == steady - 1:
+            cycles.append(([], pods(15) + [misfit], 8))
+            scopes.append("full")
+            continue
+        add = []
+        if c == node_add_at:
+            add = [make_node(f"node-{n_nodes}", cpu_milli=4000,
+                             memory=32 * 2**30, pods=110,
+                             zone=f"zone-{n_nodes % 10}")]
+        cycles.append((add, pods(batches[c % len(batches)]), 8))
+        scopes.append("partitioned" if add else "restricted")
+    return nodes, bound, cycles, scopes, misfit
+
+
+def _route_declines():
+    """A logging handler that keeps the port's warnings of a declined
+    restricted or partitioned solve (a fault inside the route; an
+    under-placed attempt falls back without one)."""
+    import logging
+
+    class Declines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            msg = record.getMessage()
+            if "declined" in msg:
+                self.messages.append(msg)
+
+    return Declines()
+
+
+def run_sparse(solver, device="cuda", candidate_bucket=256, **traffic):
+    """Drive ``sparse_traffic`` through ``Scheduler(device=..., incremental=
+    IncrementalConfig(enabled=True, primary=True, ...))`` with preemption
+    off (the sinkhorn arm with warm potentials at tolerance 1e-3). Every
+    bind is confirmed by the watch's add right after its cycle, as the
+    API server would. Returns ``(results, wall seconds per cycle, the
+    cell, the final pod -> node map, the routes' decline warnings)``."""
+    import logging
+    import random
+
+    import torch
+
+    from kubernetes_tpu_torch.config import IncrementalConfig
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    inc = IncrementalConfig(enabled=True, primary=True,
+                            candidate_bucket=candidate_bucket,
+                            warm_potentials=True, warm_tol=1e-3)
+    # the scheduler's clock is perf_counter, so that CycleResult.solve_s
+    # is on the same clock as the cycle walls measured here
+    sched = Scheduler(device=device, solver=solver, enable_preemption=False,
+                      incremental=inc, clock=time.perf_counter)
+    cell = sparse_traffic(**traffic)
+    nodes, bound, cycles, _scopes, _misfit = cell
+    for nd in nodes:
+        sched.on_node_add(nd)
+    placed = {}  # pod key -> bound pod (node_name set)
+    for p in bound:
+        sched.on_pod_add(p)
+        placed[p.key()] = p
+    rng = random.Random(11)
+    results, walls = [], []
+    on_card = torch.device(device).type == "cuda"
+    declines = _route_declines()
+    port_log = logging.getLogger("kubernetes_tpu_torch")
+    port_log.addHandler(declines)
+    try:
+        _drive_sparse(sched, cycles, placed, rng, results, walls, on_card)
+    finally:
+        port_log.removeHandler(declines)
+    return (results, walls, cell, {k: p.node_name for k, p in placed.items()},
+            declines.messages)
+
+
+def _drive_sparse(sched, cycles, placed, rng, results, walls, on_card):
+    """The cycles of :func:`run_sparse` (appends to ``results``/``walls``
+    and keeps ``placed`` as the watch would see it)."""
+    import dataclasses
+
+    import torch
+
+    for add, pending, deletes in cycles:
+        for nd in add:
+            sched.on_node_add(nd)
+        for key in rng.sample(sorted(placed), deletes):
+            sched.on_pod_delete(placed.pop(key))
+        for p in pending:
+            sched.on_pod_add(p)
+        by_key = {p.key(): p for p in pending}
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        if on_card:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        results.append(r)
+        for key, node in r.assignments.items():
+            p = dataclasses.replace(by_key[key], node_name=node)
+            sched.on_pod_add(p)  # the watch confirms the binding
+            placed[key] = p
+
+
+def _by_scope(results, values):
+    out: dict = {}
+    for r, v in zip(results, values):
+        out.setdefault(r.solve_scope, []).append(v)
+    return out
+
+
+def phase_sparse() -> dict:
+    """Cell ``sparse-5k-churn`` on both arms (``solver="batch"``, and
+    ``solver="sinkhorn"`` with warm potentials), each on a fresh cluster
+    after the same sequence on a 600-node cell off the clock. Fails unless
+    every pod that fits binds, the capacity re-check is clean, the scope
+    sequence is exactly the traffic's (partitioned, restricted...,
+    partitioned after the node add, full on the under-placed cycle: a
+    restricted or partitioned attempt declined by a fault would show here
+    as another scope, and its warning is counted), every cycle solved on
+    its arm's tier with no
+    fallback, the pair kernel launched on both arms and u and v on the
+    sinkhorn arm. Returns the launches of both arms' full-width runs,
+    their cycle count and the shapes launched."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    total: dict = {k: 0 for k in kernels.LAUNCHES}
+    shapes: dict = {}
+    cycles = 0
+    for solver in ("batch", "sinkhorn"):
+        run_sparse(solver, n_nodes=600, n_bound=120, burst=512, steady=8,
+                   seed=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        results, walls, cell, final, declines = run_sparse(solver)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        arm_shapes = launch_shapes()
+        nodes, bound, traffic, want_scopes, misfit = cell
+        if declines:
+            fail(f"sparse/{solver}: a route declined on a fault and "
+                 f"re-solved dense: {declines[:3]}")
+        scopes = [r.solve_scope for r in results]
+        if scopes != want_scopes:
+            fail(f"sparse/{solver}: scopes {scopes} != {want_scopes}")
+        for r in results:
+            if r.solver_tier != solver or r.solver_fallbacks:
+                fail(f"sparse/{solver}: a cycle solved on tier "
+                     f"{r.solver_tier!r} after {r.solver_fallbacks} "
+                     "fallbacks")
+        pending = [p for _a, ps, _d in traffic for p in ps]
+        bound_n = sum(r.scheduled for r in results)
+        if bound_n != len(pending) - 1:
+            fail(f"sparse/{solver}: bound {bound_n} of {len(pending) - 1} "
+                 "pods that fit")
+        last = results[-1]
+        if (last.unschedulable != 1 or misfit.key() not in last.fit_errors
+                or "Insufficient cpu" not in last.fit_errors[misfit.key()]):
+            fail(f"sparse/{solver}: the misfit pod did not fail with its "
+                 f"FitError ({last.fit_errors})")
+        all_nodes = nodes + [nd for add, _p, _d in traffic for nd in add]
+        by_key = {p.key(): p for p in bound + pending}
+        recheck_capacity(all_nodes, [], final, by_key)
+        if launches["fused_pair_normalize"] <= 0:
+            fail(f"sparse/{solver}: the fused-pair kernel never launched")
+        if solver == "sinkhorn" and (launches["sinkhorn_u"] <= 0
+                                     or launches["sinkhorn_v"] <= 0):
+            fail(f"sparse/sinkhorn: Sinkhorn kernels not launched "
+                 f"({launches})")
+        steady = [i for i, r in enumerate(results)
+                  if i > 0 and r.solve_scope == "restricted"]
+        emit({"phase": "sparse", "cell": "sparse-5k-churn",
+              "solver": solver, "nodes": len(all_nodes),
+              "bound": len(bound), "pending": len(pending),
+              "scheduled": bound_n, "cycles": len(results),
+              "cycles_by_scope": {k: len(v) for k, v in _by_scope(
+                  results, results).items()},
+              "scopes": scopes,
+              "snapshot_mode": [r.snapshot_mode for r in results],
+              "attempted": [r.attempted for r in results],
+              "rounds_by_scope": _by_scope(results,
+                                           [r.rounds for r in results]),
+              "host_syncs_by_scope": _by_scope(
+                  results, [r.host_syncs for r in results]),
+              "cycle_s_by_scope": _by_scope(results, walls),
+              "solve_s_by_scope": _by_scope(results,
+                                            [r.solve_s for r in results]),
+              "reuse_frac": [r.reuse_frac for r in results],
+              "cold_blocks": [r.cold_blocks for r in results],
+              "route_declines": len(declines),
+              "pods_per_s_steady": (
+                  sum(results[i].scheduled for i in steady)
+                  / sum(walls[i] for i in steady)),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "launches": launches, "shapes": {
+                  k: v for k, v in arm_shapes.items() if v},
+              "recheck": "capacity clean"})
+        for k, v in launches.items():
+            total[k] += v
+        for k, v in arm_shapes.items():
+            got = shapes.setdefault(k, [])
+            for shape, n in v:
+                for row in got:
+                    if row[0] == shape:
+                        row[1] += n
+                        break
+                else:
+                    got.append([shape, n])
+        cycles += len(results)
+        torch.cuda.empty_cache()
+    return {"launches": total, "cycles": cycles, "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
 
 def _kernel_name(mangled: str) -> str:
     """The kernel's identifier inside a mangled name, with its template
-    argument (``v_kernel<1>`` for ``...8v_kernelILb1E...``)."""
+    arguments (``v_kernel<1,0>`` for ``...8v_kernelILb1ELb0EE...``)."""
     import re
 
     for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
         size = int(m.group(1))
         ident = m.group(2)[:size]
         if len(ident) == size and ident.endswith("kernel"):
-            t = re.match(r"ILb(\d)E", m.group(2)[size:])
-            return ident + (f"<{t.group(1)}>" if t else "")
+            t = re.match(r"I((?:Lb\dE)+)E", m.group(2)[size:])
+            args = re.findall(r"Lb(\d)E", t.group(1)) if t else []
+            return ident + (f"<{','.join(args)}>" if args else "")
     return mangled
 
 
@@ -1240,7 +1635,9 @@ def gpu_line() -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(ALL_PHASES))
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of: "
+                         + ", ".join(ALL_PHASES))
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the first cycle of the smoke and the "
                          "topology cell, traces into DIR")
@@ -1286,6 +1683,8 @@ def main() -> None:
         phase_parity()
     if "preempt" in phases:
         paths["preempt"] = phase_preempt()
+    if "sparse" in phases:
+        paths["sparse"] = phase_sparse()
     if args.profile:
         for phase in CELLS:
             profile_cycle(args.profile, phase)

@@ -17,6 +17,14 @@ Reference: ``pkg/scheduler/internal/cache/cache.go``.
    widths change). :meth:`SchedulerCache.device_snapshot` keeps the
    packed table on the device across cycles and patches dirty rows in
    place.
+
+3. **Score summary** (the incremental solve's seam): when the scheduler
+   turns it on (:meth:`SchedulerCache.enable_score_cache`), a per-node
+   summary of the score plane (``ops/fused_score.NodeSummary``) lives
+   beside the resident table under the same full-vs-delta discipline: a
+   full upload drops it (rebuilt lazily by :meth:`score_summary`) and
+   bumps ``summary_generation``; a delta drain patches exactly the rows
+   it scatters, in the same drain; a clean cycle touches nothing.
 """
 
 from __future__ import annotations
@@ -96,6 +104,22 @@ class SchedulerCache:
         self.last_upload_rows: int = 0
         #: bytes the last call moved to the device
         self.last_upload_nbytes: int = 0
+        # ---- the incremental solve's score summary ---------------------
+        #: resident NodeSummary aligned row for row with the resident
+        #: table (None until first asked for after a full upload)
+        self._summary = None
+        #: bumps whenever the summary's rows are rebuilt from scratch
+        #: (full upload, drop, enable): the scheduler keys its warm
+        #: Sinkhorn potentials on it
+        self.summary_generation = 0
+        #: node rows the last device_snapshot() patched (the cycle's dirty
+        #: frontier; empty on clean and full snapshots)
+        self.last_patched_idx: List[int] = []
+        self._score_cache_on = False
+        self._summary_flags = {"honor_conditions": True,
+                               "prefer_packed": False}
+        #: the last score_summary() call rebuilt the summary from scratch
+        self.last_summary_rebuilt = False
 
     # -- introspection -----------------------------------------------------
 
@@ -327,6 +351,7 @@ class SchedulerCache:
         n_pad = bucket_size(max(table.n, 1))
         self.last_upload_rows = 0
         self.last_upload_nbytes = 0
+        self.last_patched_idx = []
         pending_rows = sum(len(i) for i, _ in self._pending_dev)
         if (self._dev is None or self._dev_stale or n_pad != self._dev_pad
                 or pending_rows > self.max_dirty_frac * max(table.n, 1)):
@@ -338,6 +363,11 @@ class SchedulerCache:
             self.last_snapshot_mode = "full"
             self.last_upload_rows = table.n
             self.last_upload_nbytes = tree_nbytes(self._dev)
+            if self._score_cache_on:
+                # the whole plane changed: rebuild lazily, and the
+                # generation bump kills warm state keyed on the old one
+                self._summary = None
+                self.summary_generation += 1
         elif not self._pending_dev:
             self.last_snapshot_mode = "clean"
         else:
@@ -351,11 +381,65 @@ class SchedulerCache:
                                           device=self.device)
                 pidx = np.full((d_pad,), n_pad, np.int64)
                 pidx[: len(idx)] = idx
+                if self._score_cache_on and self._summary is not None:
+                    # the summary's same rows, from the same delta pack:
+                    # clean columns are reused, dirty ones recomputed
+                    from kubernetes_tpu_torch.ops.fused_score import (
+                        node_summary,
+                        patch_node_summary,
+                    )
+
+                    self._summary = patch_node_summary(
+                        self._summary,
+                        node_summary(sub_dev, **self._summary_flags), pidx)
                 self._dev = scatter_node_rows(self._dev, sub_dev, pidx)
                 self.last_upload_rows += len(idx)
                 self.last_upload_nbytes += tree_nbytes(sub_dev)
+                self.last_patched_idx.extend(idx)
             self.last_snapshot_mode = "delta"
         return table, self._dev, self.last_snapshot_mode
+
+    # -- the incremental solve's score summary -----------------------------
+
+    def enable_score_cache(self, honor_conditions: bool = True,
+                           prefer_packed: bool = False) -> None:
+        """Turn the resident score summary on, pinned to the scheduler's
+        Policy (whether the node-condition predicates gate eligibility)
+        and objective (fullest-first ranking under a packing one)."""
+        self._score_cache_on = True
+        self._summary_flags = {"honor_conditions": bool(honor_conditions),
+                               "prefer_packed": bool(prefer_packed)}
+        self._summary = None
+        self.summary_generation += 1
+
+    def drop_score_summary(self) -> None:
+        """Drop only the summary (the resident table stays coherent): the
+        next :meth:`score_summary` rebuilds it, and the generation bump
+        kills warm state keyed on the old one."""
+        with self._snap_lock:
+            self._summary = None
+            self.summary_generation += 1
+
+    def has_score_summary(self) -> bool:
+        """Whether a summary exists now (no lazy build)."""
+        return self._summary is not None
+
+    def score_summary(self):
+        """The resident NodeSummary (None when the cache is off or no
+        resident table exists), built from the resident table on first
+        demand after a full upload and patched by delta drains after
+        that; ``last_summary_rebuilt`` says which happened."""
+        with self._snap_lock:
+            self.last_summary_rebuilt = False
+            if not self._score_cache_on or self._dev is None:
+                return None
+            if self._summary is None:
+                from kubernetes_tpu_torch.ops.fused_score import node_summary
+
+                self._summary = node_summary(self._dev,
+                                             **self._summary_flags)
+                self.last_summary_rebuilt = True
+            return self._summary
 
     def _full_repack(self) -> NodeTable:
         nodes = list(self._nodes.values())

@@ -3,9 +3,17 @@
 // Replaces the two Pallas TPU kernels of kubernetes_tpu/ops/sinkhorn.py:
 //   _u_kernel (:156)  u_i = log_r_i - lse_j(logk_ij + v_j)
 //   _v_kernel (:171)  v_j = min(log_c_j - lse_i(logk_ij + u_i), 0)
-// with the same max-shifted logsumexp: the shift is clamped at
-// NEG_INF = -1e30, the sum gets +1e-30 inside the log, u <= NEG_INF/2 is
-// written as NEG_INF and v <= NEG_INF/2 as 0.
+// in one of two rules, chosen per launch:
+//   Pallas rule (the fixed-iteration scaling): the max shift is clamped
+//     at NEG_INF = -1e30, the sum gets +1e-30 inside the log,
+//     u <= NEG_INF/2 is written as NEG_INF and v <= NEG_INF/2 as 0;
+//   jnp rule (the tolerance-gated loop, which the reference runs with
+//     _scale_jnp on every backend, sinkhorn.py:120): the logsumexp of
+//     jax.scipy.special.logsumexp (shift = the max, 0 when it is not
+//     finite; no +1e-30), a non-finite u written as NEG_INF and a
+//     non-finite v as 0. A zero-capacity column keeps its finite
+//     v ~ -1e30 here, so it takes no mass; the Pallas rule would reset it
+//     to 0.
 //
 // Bound: bytes. Each pass must read the (P, N) f32 log-kernel once
 // (268 MB at 8192 x 8192, about 0.08 ms on an H100 at 3.35 TB/s); one
@@ -67,7 +75,9 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2,
 
 // log(sum + 1e-30) + m with the shift clamped at NEG_INF, as the Pallas
 // kernels compute it: m' = max(m, NEG_INF), sum' = sum * exp(m - m').
+template <bool kJnp>
 __device__ __forceinline__ float lse_final(float m, float s) {
+  if (kJnp) return logf(s) + (isfinite(m) ? m : 0.0f);
   if (m < kNegInf) {
     s = s * expf(m - kNegInf);
     m = kNegInf;
@@ -75,8 +85,17 @@ __device__ __forceinline__ float lse_final(float m, float s) {
   return logf(s + 1e-30f) + m;
 }
 
+// The row potential from its log-sum-exp, in the launch's rule.
+template <bool kJnp>
+__device__ __forceinline__ float u_value(float m, float s, float log_r) {
+  const float uu = log_r - lse_final<kJnp>(m, s);
+  if (kJnp) return isfinite(uu) ? uu : kNegInf;
+  return uu > kNegInf * 0.5f ? uu : kNegInf;
+}
+
 // One block per row; the row is read as float4 (the wrapper requires
 // n % 4 == 0 and 16-byte aligned logk rows and v).
+template <bool kJnp>
 __global__ void __launch_bounds__(kThreads)
 u_kernel(const float* __restrict__ logk, const float* __restrict__ v,
          const float* __restrict__ log_r, float* __restrict__ u, int n) {
@@ -102,8 +121,7 @@ u_kernel(const float* __restrict__ logk, const float* __restrict__ v,
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int w = 1; w < (blockDim.x >> 5); ++w) lse_merge(m, s, sm[w], ss[w]);
-    const float uu = log_r[blockIdx.x] - lse_final(m, s);
-    u[blockIdx.x] = uu > kNegInf * 0.5f ? uu : kNegInf;
+    u[blockIdx.x] = u_value<kJnp>(m, s, log_r[blockIdx.x]);
   }
 }
 
@@ -166,8 +184,12 @@ __device__ __forceinline__ void lse_merge4(float4& m, float4& s, float4 m2,
   lse_merge(m.w, s.w, m2.w, s2.w);
 }
 
+// The column potential, in the launch's rule (fminf returns 0 for a NaN
+// operand, which either rule writes as 0 anyway).
+template <bool kJnp>
 __device__ __forceinline__ float v_value(float m, float s, float log_c) {
-  const float vv = fminf(log_c - lse_final(m, s), 0.0f);
+  const float vv = fminf(log_c - lse_final<kJnp>(m, s), 0.0f);
+  if (kJnp) return isfinite(vv) ? vv : 0.0f;
   return vv > kNegInf * 0.5f ? vv : 0.0f;
 }
 
@@ -178,7 +200,7 @@ __device__ __forceinline__ float v_value(float m, float s, float log_c) {
 // strips * 128). The last block of a strip to finish (a counter per strip,
 // zeroed before the launch) merges the strip's partials in chunk order and
 // writes v, so the result does not depend on which block ran when.
-template <bool kVec>
+template <bool kVec, bool kJnp>
 __global__ void __launch_bounds__(kThreads, 4)
 v_kernel(const float* __restrict__ logk, const float* __restrict__ u,
          const float* __restrict__ log_c, float* __restrict__ v,
@@ -247,32 +269,40 @@ v_kernel(const float* __restrict__ logk, const float* __restrict__ u,
     for (int c = 0; c < 4; ++c)
       if (c0 + c < chunks) lse_merge4(fm, fs, am[c], as[c]);
   }
-  if (j0 < n) v[j0] = v_value(fm.x, fs.x, log_c[j0]);
-  if (j0 + 1 < n) v[j0 + 1] = v_value(fm.y, fs.y, log_c[j0 + 1]);
-  if (j0 + 2 < n) v[j0 + 2] = v_value(fm.z, fs.z, log_c[j0 + 2]);
-  if (j0 + 3 < n) v[j0 + 3] = v_value(fm.w, fs.w, log_c[j0 + 3]);
+  if (j0 < n) v[j0] = v_value<kJnp>(fm.x, fs.x, log_c[j0]);
+  if (j0 + 1 < n) v[j0 + 1] = v_value<kJnp>(fm.y, fs.y, log_c[j0 + 1]);
+  if (j0 + 2 < n) v[j0 + 2] = v_value<kJnp>(fm.z, fs.z, log_c[j0 + 2]);
+  if (j0 + 3 < n) v[j0 + 3] = v_value<kJnp>(fm.w, fs.w, log_c[j0 + 3]);
 }
 
 }  // namespace
 
+// jnp_rule: 0 = the Pallas rule, else the jnp rule (see the header).
 extern "C" int ktt_sinkhorn_u(const void* logk, const void* v,
                               const void* log_r, void* u, int p, int n,
-                              void* stream) {
+                              int jnp_rule, void* stream) {
   if (p <= 0 || n <= 0) return 0;
-  u_kernel<<<p, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logk), static_cast<const float*>(v),
-      static_cast<const float*>(log_r), static_cast<float*>(u), n);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* k = static_cast<const float*>(logk);
+  const float* vv = static_cast<const float*>(v);
+  const float* lr = static_cast<const float*>(log_r);
+  float* uu = static_cast<float*>(u);
+  if (jnp_rule)
+    u_kernel<true><<<p, kThreads, 0, st>>>(k, vv, lr, uu, n);
+  else
+    u_kernel<false><<<p, kThreads, 0, st>>>(k, vv, lr, uu, n);
   return static_cast<int>(cudaGetLastError());
 }
 
 // pm, ps: (chunks, strips * 128) f32 scratch; counters: (strips,) int32
 // scratch, zeroed here on the stream right before the launch (the caller
 // allocates all three); strips = ceil(n / 128); chunk c holds rows
-// [c*rows, min((c+1)*rows, p)), every chunk at least one row.
+// [c*rows, min((c+1)*rows, p)), every chunk at least one row; jnp_rule as
+// for the u pass.
 extern "C" int ktt_sinkhorn_v(const void* logk, const void* u,
                               const void* log_c, void* v, void* pm, void* ps,
                               void* counters, int p, int n, int chunks,
-                              int rows, void* stream) {
+                              int rows, int jnp_rule, void* stream) {
   if (p <= 0 || n <= 0) return 0;
   const dim3 grid((n + kVCols - 1) / kVCols, chunks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -286,11 +316,18 @@ extern "C" int ktt_sinkhorn_v(const void* logk, const void* u,
   const cudaError_t z =
       cudaMemsetAsync(cnt, 0, sizeof(int) * grid.x, st);
   if (z != cudaSuccess) return static_cast<int>(z);
-  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(logk) % 16 == 0)
-    v_kernel<true><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s, cnt, p,
-                                              n, rows);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(logk) % 16 == 0;
+  if (vec && jnp_rule)
+    v_kernel<true, true><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s, cnt,
+                                                    p, n, rows);
+  else if (vec)
+    v_kernel<true, false><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s,
+                                                     cnt, p, n, rows);
+  else if (jnp_rule)
+    v_kernel<false, true><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s,
+                                                     cnt, p, n, rows);
   else
-    v_kernel<false><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s, cnt, p,
-                                               n, rows);
+    v_kernel<false, false><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s,
+                                                      cnt, p, n, rows);
   return static_cast<int>(cudaGetLastError());
 }

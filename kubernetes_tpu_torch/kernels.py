@@ -53,8 +53,10 @@ LIBRARIES = {
                                           _P],
     }),
     "sinkhorn": ("sinkhorn.cu", [], {
-        "ktt_sinkhorn_u": [_P, _P, _P, _P, _I, _I, _P],
-        "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # the int before the stream: 0 = the Pallas rule, 1 = the jnp rule
+        "ktt_sinkhorn_u": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P],
     }),
 }
 

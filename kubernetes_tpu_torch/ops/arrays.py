@@ -353,6 +353,52 @@ def scatter_node_rows(resident: DeviceNodes, sub: DeviceNodes,
     return resident._replace(zone_valid=sub.zone_valid)
 
 
+def gather_node_rows(nodes: DeviceNodes, idx: Tensor) -> DeviceNodes:
+    """The restricted solve's candidate-column view: the (C,) node rows
+    ``idx`` of the resident table as a small DeviceNodes the solver runs
+    on unchanged. An index outside the table (the candidate padding
+    sentinel ``== N``) gives a row of zeros, as the reference's
+    ``jnp.take(mode="fill", fill_value=0)``: ``valid`` is False there, so
+    padded rows reject every predicate. ``zone_valid`` is universe-shaped
+    and passes through whole."""
+    idx = idx.long()
+    inside = (idx >= 0) & (idx < nodes.n)
+    safe = torch.where(inside, idx, 0)
+    out = {}
+    for name in DeviceNodes._fields:
+        a = getattr(nodes, name)
+        if name == "zone_valid":
+            out[name] = a
+            continue
+        rows = a.index_select(0, safe)
+        keep = inside.view((-1,) + (1,) * (rows.dim() - 1))
+        out[name] = torch.where(keep, rows, torch.zeros((), dtype=a.dtype,
+                                                         device=a.device))
+    return DeviceNodes(**out)
+
+
+def gather_candidates(summary, dirty_mask: Tensor, nodes: DeviceNodes,
+                      k: int, hint_mask=None, num_shards: int = 1,
+                      hint_quota: int = 0):
+    """Candidate pick + row gather (``ops/fused_score.candidate_columns``
+    composed with :func:`gather_node_rows`). Returns ``(cand_idx,
+    sub_nodes)``."""
+    from kubernetes_tpu_torch.ops.fused_score import candidate_columns
+
+    cand = candidate_columns(summary, dirty_mask, k, hint_mask, num_shards,
+                             hint_quota)
+    return cand, gather_node_rows(nodes, cand)
+
+
+def map_restricted_assignment(assigned_local: Tensor,
+                              cand_idx: Tensor) -> Tensor:
+    """Candidate-local assignment rows -> global node rows, on the device
+    (-1 stays -1; local rows clip into the frame as in the reference)."""
+    safe = assigned_local.long().clamp(0, cand_idx.shape[0] - 1)
+    return torch.where(assigned_local >= 0, cand_idx[safe].to(torch.int32),
+                       -1).to(torch.int32)
+
+
 def selectors_to_device(t: SelectorTables, device="cuda") -> DeviceSelectors:
     up = _to(device)
 

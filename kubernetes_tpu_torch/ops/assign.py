@@ -535,14 +535,29 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                 extra_mask=None, vol=None, static_vol=None,
                 enabled_mask=None, extra_score=None, use_sinkhorn=False,
                 skip=(), no_ports=False, no_pod_affinity=False,
-                no_spread=False, auto_sinkhorn=True):
+                no_spread=False, auto_sinkhorn=True, with_stats=False,
+                sk_init=None, sk_tol=None):
+    """The round loop. Returns ``(assigned, usage, rounds, sk_stats,
+    (sk_u, sk_v))``: the last round's Sinkhorn stats ([-1, -1] when the
+    plan never ran or ``with_stats`` is off) and the potential carry."""
     # routing gate: no preference kernel live -> no possible asymmetric
     # tie cohort -> the router and the plan branch stay out
     auto_sinkhorn = (auto_sinkhorn and not use_sinkhorn
                      and not all(k in skip for k in _PREFERENCE_KERNELS))
+    # warm-started Sinkhorn: the potentials carry across rounds (and, via
+    # sk_init, across cycles) only when a warm start or a tolerance is
+    # asked for; otherwise every round's plan solves from zeros
+    sk_warm = (sk_init is not None) or (sk_tol is not None)
     P = pods.req.shape[0]
     N = nodes.allocatable.shape[0]
     dev = pods.req.device
+    sk_stats = torch.full((2,), -1.0, dtype=torch.float32, device=dev)
+    if sk_init is not None:
+        sk_u, sk_v = (sk_init[0].to(torch.float32),
+                      sk_init[1].to(torch.float32))
+    else:
+        sk_u = torch.zeros((P,), dtype=torch.float32, device=dev)
+        sk_v = torch.zeros((N,), dtype=torch.float32, device=dev)
     perm = queue_order(pods)
     rank = _inverse_permutation(perm)
     # ---- lean round (constraint-light batches) --------------------------
@@ -555,8 +570,11 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
             and not use_sinkhorn and not auto_sinkhorn):
         lean_plan = _lean_score_plan(weights, skip)
     if lean_plan is not None:
+        # the lean route never runs the plan: [-1, -1] stats and zero
+        # potentials keep the return uniform
         return _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
-                            per_node_cap, enabled_mask)
+                            per_node_cap, enabled_mask) + (
+            sk_stats, (sk_u.new_zeros((P,)), sk_v.new_zeros((N,))))
     # pods carrying host ports or attach-counted/conflict-checked volumes
     # are admitted at most one per node per round (conservative, exact)
     has_port = (pods.port_wild_pp.sum(1) + pods.port_spec_pp.sum(1)) > 0
@@ -624,7 +642,10 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                 use_plan = bool(to_host(
                     _tie_cohort_detected(mask_full, score, slots)))
             if use_sinkhorn or use_plan:
-                tied = _plan_tied(score, rowmax, mask, slots)
+                tied, sk_stats, (sk_u, sk_v) = _plan_tied(
+                    score, rowmax, mask, slots,
+                    init=(sk_u, sk_v) if sk_warm else None, tol=sk_tol,
+                    with_stats=with_stats)
         choice, _tc = _rotated_pick(tied, arank)
         feasible = mask.gather(1, choice[:, None])[:, 0]
         choice = torch.where(feasible, choice, -1)
@@ -643,22 +664,31 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
         rounds += 1
         more = _more_rounds(assigned, pods, accepted)
-    return assigned, u, rounds
+    return assigned, u, rounds, sk_stats, (sk_u, sk_v)
 
 
-def _plan_tied(score, rowmax, mask, slots):
+def _plan_tied(score, rowmax, mask, slots, init=None, tol=None,
+               with_stats=False):
     """Choose from the entropic-OT transport plan instead of the raw
     per-pod argmax: the plan balances the batch against node capacities,
     so contended pods pre-spread instead of colliding. Identical pods get
-    identical plan rows, so the plan argmax keeps the rotation tie-break
-    (returns the tied mask for it)."""
+    identical plan rows, so the plan argmax keeps the rotation tie-break.
+    ``init``/``tol`` warm-start the scaling and gate it on a tolerance.
+    Returns ``(tied mask, stats, (u, v))``; stats are [-1, -1] unless
+    ``with_stats``."""
     from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_plan
 
     masked = torch.where(mask, score - rowmax, NEG)
-    plan = sinkhorn_plan(masked, mask, slots)
+    out = sinkhorn_plan(masked, mask, slots, with_stats=with_stats,
+                        init=init, tol=tol, return_potentials=True)
+    if with_stats:
+        plan, stats, pot = out
+    else:
+        (plan, pot), stats = out, torch.full(
+            (2,), -1.0, dtype=torch.float32, device=score.device)
     pmasked = torch.where(mask, plan, -1.0)
     prowmax = pmasked.amax(1, keepdim=True)
-    return mask & (pmasked >= prowmax)
+    return mask & (pmasked >= prowmax), stats, pot
 
 
 def batch_assign(
@@ -680,6 +710,10 @@ def batch_assign(
     no_pod_affinity: bool = False,
     no_spread: bool = False,
     auto_sinkhorn: bool = True,
+    stats_out: bool = False,
+    sk_init=None,
+    sk_tol: Optional[float] = None,
+    potentials_out: bool = False,
 ):
     """Fast batched solver. Returns (assigned row per pod or -1, final
     usage, rounds executed) — ``rounds`` a host int. ``per_node_cap``
@@ -695,14 +729,31 @@ def batch_assign(
     every round; ``auto_sinkhorn`` lets round 0 decide. ``topo`` (a
     :class:`~kubernetes_tpu_torch.ops.arrays.DeviceTopology`) adds inter-pod
     affinity and topology spread, with their admissions serialized per
-    topology pair per round."""
-    return _batch_impl(
+    topology pair per round.
+
+    ``stats_out`` appends a (2,) f32 device tensor [Sinkhorn iterations,
+    final residual] of the last round that ran the plan ([-1, -1] when
+    none did). Warm-started Sinkhorn (the incremental solve): ``sk_init``
+    seeds the plan's potentials with a ``(u0, v0)`` pair, ``sk_tol``
+    switches the scaling to the tolerance-gated loop, and either one
+    carries the potentials from round to round; ``potentials_out``
+    appends the final ``(u, v)`` pair (zeros on the lean route, which
+    never runs the plan). Unset, the cold start of every round stays as
+    it was."""
+    assigned, u, rounds, sk_stats, pot = _batch_impl(
         pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         extra_mask=extra_mask, vol=vol, static_vol=static_vol,
         enabled_mask=enabled_mask, extra_score=extra_score,
         use_sinkhorn=use_sinkhorn, skip=tuple(skip_priorities),
         no_ports=no_ports, no_pod_affinity=no_pod_affinity,
-        no_spread=no_spread, auto_sinkhorn=auto_sinkhorn)
+        no_spread=no_spread, auto_sinkhorn=auto_sinkhorn,
+        with_stats=stats_out, sk_init=sk_init, sk_tol=sk_tol)
+    ret = (assigned, u, rounds)
+    if stats_out:
+        ret = ret + (sk_stats,)
+    if potentials_out:
+        ret = ret + (pot,)
+    return ret
 
 
 def validate_solution(assigned, usage: UsageState, pods: DevicePods,

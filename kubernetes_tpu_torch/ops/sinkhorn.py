@@ -17,11 +17,16 @@ Formulation: unbalanced entropic OT with
 Iterations run in log space. Each iteration is one row pass
 (:func:`sinkhorn_u`) and one column pass (:func:`sinkhorn_v`); on a CUDA
 tensor each is a hand-written kernel (``csrc/sinkhorn.cu``), on a CPU
-tensor its plain PyTorch version beside it. Both follow the reference's
+tensor its plain PyTorch version beside it. Each pass takes one of two
+rules, as the reference does: the fixed-iteration scaling follows its
 Pallas kernels (max shift clamped at NEG_INF, ``+1e-30`` inside the log,
-u <= NEG_INF/2 -> NEG_INF, v <= NEG_INF/2 -> 0). The kernels sum in
-another order than the plain versions, so the two agree to a few ulps:
-the tests hold potentials and plans to ``atol=1e-5, rtol=1e-4``.
+u <= NEG_INF/2 -> NEG_INF, v <= NEG_INF/2 -> 0); the tolerance-gated loop
+follows its jnp scaling, which the reference runs on every backend
+(``jax.scipy.special.logsumexp``, a non-finite u -> NEG_INF, a non-finite
+v -> 0, so a zero-capacity column keeps v ~ NEG_INF and takes no mass).
+The kernels sum in another order than the plain versions, so the two
+agree to a few ulps: the tests hold potentials and plans to
+``atol=1e-5, rtol=1e-4``.
 """
 
 from __future__ import annotations
@@ -63,29 +68,43 @@ def v_plan(P: int, N: int, sms: int) -> Tuple[int, int, int]:
     return strips, max(-(-P // rows), 1), rows
 
 
-def sinkhorn_u_plain(logk, v, log_r):
+def _lse(x, dim: int, jnp_rule: bool):
+    """Log-sum-exp of ``x`` along ``dim`` in the pass's rule: the jnp rule
+    is ``jax.scipy.special.logsumexp`` (shift by the max, 0 when it is not
+    finite); the Pallas rule clamps the shift at NEG_INF and adds
+    ``1e-30`` inside the log."""
+    m = x.amax(dim, keepdim=True)
+    if jnp_rule:
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        return (torch.log(torch.exp(x - m).sum(dim, keepdim=True))
+                + m).squeeze(dim)
+    m = m.clamp_min(NEG_INF)
+    return (torch.log(torch.exp(x - m).sum(dim, keepdim=True) + 1e-30)
+            + m).squeeze(dim)
+
+
+def sinkhorn_u_plain(logk, v, log_r, jnp_rule: bool = False):
     """Row pass: ``u = log_r - lse_j(logk + v)`` (plain version)."""
-    x = logk + v[None, :]
-    m = x.amax(1, keepdim=True).clamp_min(NEG_INF)
-    lse = torch.log(torch.exp(x - m).sum(1, keepdim=True) + 1e-30) + m
-    u = log_r - lse[:, 0]
+    u = log_r - _lse(logk + v[None, :], 1, jnp_rule)
+    if jnp_rule:
+        return torch.where(torch.isfinite(u), u, NEG_INF)
     return torch.where(u > NEG_INF / 2, u, NEG_INF)
 
 
-def sinkhorn_v_plain(logk, u, log_c):
+def sinkhorn_v_plain(logk, u, log_c, jnp_rule: bool = False):
     """Column pass: ``v = min(log_c - lse_i(logk + u), 0)`` (plain)."""
-    x = logk + u[:, None]
-    m = x.amax(0, keepdim=True).clamp_min(NEG_INF)
-    lse = torch.log(torch.exp(x - m).sum(0, keepdim=True) + 1e-30) + m
-    v = torch.clamp_max(log_c - lse[0, :], 0.0)
+    v = torch.clamp_max(log_c - _lse(logk + u[:, None], 0, jnp_rule), 0.0)
+    if jnp_rule:
+        return torch.where(torch.isfinite(v), v, 0.0)
     return torch.where(v > NEG_INF / 2, v, 0.0)
 
 
-def sinkhorn_u(logk, v, log_r):
-    """(P,) row potentials. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise; N must be a multiple of four)."""
+def sinkhorn_u(logk, v, log_r, jnp_rule: bool = False):
+    """(P,) row potentials in the Pallas rule, or the jnp rule with
+    ``jnp_rule``. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (or raise; N must be a multiple of four)."""
     if logk.device.type == "cpu":
-        return sinkhorn_u_plain(logk, v, log_r)
+        return sinkhorn_u_plain(logk, v, log_r, jnp_rule)
     P, N = logk.shape
     kernels.require(logk, "sinkhorn_u logk", torch.float32)
     kernels.require(v, "sinkhorn_u v", torch.float32, (N,))
@@ -94,30 +113,33 @@ def sinkhorn_u(logk, v, log_r):
     u = torch.empty((P,), dtype=torch.float32, device=logk.device)
     fn = kernels.lib("sinkhorn").ktt_sinkhorn_u
     code = fn(logk.data_ptr(), v.data_ptr(), log_r.data_ptr(), u.data_ptr(),
-              P, N, kernels.stream_ptr(logk))
+              P, N, int(jnp_rule), kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_u")
     kernels.count_launch("sinkhorn_u", (P, N))
     return u
 
 
-def sinkhorn_v(logk, u, log_c):
-    """(N,) column potentials. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise; any N)."""
+def sinkhorn_v(logk, u, log_c, jnp_rule: bool = False):
+    """(N,) column potentials in the Pallas rule, or the jnp rule with
+    ``jnp_rule``. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (or raise; any N)."""
     if logk.device.type == "cpu":
-        return sinkhorn_v_plain(logk, u, log_c)
+        return sinkhorn_v_plain(logk, u, log_c, jnp_rule)
     P, N = logk.shape
     kernels.require(logk, "sinkhorn_v logk", torch.float32)
     kernels.require(u, "sinkhorn_v u", torch.float32, (P,))
     kernels.require(log_c, "sinkhorn_v log_c", torch.float32, (N,))
     _, chunks, rows = v_plan(P, N, kernels.sm_count(logk))
-    v = launch_v(logk, u, log_c, chunks, rows)
+    v = launch_v(logk, u, log_c, chunks, rows, jnp_rule)
     kernels.count_launch("sinkhorn_v", (P, N))
     return v
 
 
-def launch_v(logk, u, log_c, chunks: int, rows: int):
+def launch_v(logk, u, log_c, chunks: int, rows: int,
+             jnp_rule: bool = False):
     """Launch the v kernel with ``chunks`` chunks of ``rows`` rows (every
-    chunk at least one row) and return v (no checks and no count:
+    chunk at least one row) in the Pallas or the jnp rule and return v
+    (no checks and no count:
     :func:`sinkhorn_v` makes both; the one place the C entry point is
     called)."""
     P, N = logk.shape
@@ -133,14 +155,14 @@ def launch_v(logk, u, log_c, chunks: int, rows: int):
     fn = kernels.lib("sinkhorn").ktt_sinkhorn_v
     code = fn(logk.data_ptr(), u.data_ptr(), log_c.data_ptr(), v.data_ptr(),
               base, base + 4 * part, base + 8 * part, P, N, chunks, rows,
-              kernels.stream_ptr(logk))
+              int(jnp_rule), kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_v")
     return v
 
 
-def _step(logk, log_r, log_c, u, v):
-    u = sinkhorn_u(logk, v, log_r)
-    v = sinkhorn_v(logk, u, log_c)
+def _step(logk, log_r, log_c, u, v, jnp_rule=False):
+    u = sinkhorn_u(logk, v, log_r, jnp_rule)
+    v = sinkhorn_v(logk, u, log_c, jnp_rule)
     return u, v
 
 
@@ -168,12 +190,14 @@ def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL):
 
 def _tol_scan(logk, log_r, log_c, u, v, iters, tol):
     """Tolerance-gated scaling loop: iterate until the max row-potential
-    delta drops under ``tol`` or the ``iters`` budget runs out. The loop
-    condition is read on the host, one counted sync per iteration."""
+    delta drops under ``tol`` or the ``iters`` budget runs out. Its passes
+    take the jnp rule, as the reference's loop (``_scale_jnp``) does on
+    every backend. The loop condition is read on the host, one counted
+    sync per iteration."""
     i = 0
     delta = float("inf")
     while i < iters and delta >= tol:
-        u2, v2 = _step(logk, log_r, log_c, u, v)
+        u2, v2 = _step(logk, log_r, log_c, u, v, jnp_rule=True)
         delta = to_host(_delta(u2, u))
         u, v = u2, v2
         i += 1

@@ -23,11 +23,21 @@ AddUnschedulableIfNotPresent):
       for pod in unassigned: requeue; explain report
       preemption: evict, nominate                    # failed pods' rows
 
-Not ported yet (ROADMAP): the pipelined executor and warmup, preemption
-inside the pipelined and restricted tails and the scenario cascade,
-extenders, the restricted/partitioned routes, observability (metrics,
-journeys, the flight recorder, ``/debug/why``), leader fencing and the
-ambiguous-bind protocol, the mesh, and the
+With ``incremental=IncrementalConfig(enabled=True)`` two sparsity-first
+routes come before the dense ladder (``_restricted_tail``,
+``_partitioned_cold_tail``): a steady micro-batch on a clean or delta
+snapshot solves RESTRICTED, on the top-C candidate columns picked from
+the cache's resident score summary; with ``primary`` a cycle the
+restricted route did not take solves PARTITIONED, in B capacity-balanced
+(P, C) column blocks plus one remainder pass. Either binds only when the
+whole batch placed; anything less falls through to the dense ladder in
+the same cycle.
+
+Not ported yet (ROADMAP): the pipelined executor and warmup (with them the
+candidate-bucket tuner's warmed ladder), preemption inside the pipelined
+tail and the scenario cascade, scenario packs, extenders, observability
+(metrics, journeys, the flight recorder, ``/debug/why``), leader fencing,
+recovery and the ambiguous-bind protocol, the mesh, and the
 ``batch-single``/``batch-cpu``/``exact`` tiers.
 """
 
@@ -44,12 +54,14 @@ import torch
 from kubernetes_tpu_torch import resolve_device
 from kubernetes_tpu_torch.api.types import Pod, is_pod_terminated
 from kubernetes_tpu_torch.cache import SchedulerCache
+from kubernetes_tpu_torch.config import IncrementalConfig
 from kubernetes_tpu_torch.framework import (
     SKIP,
     WAIT,
     CycleState,
     Framework,
 )
+from kubernetes_tpu_torch.kernels import KernelError
 from kubernetes_tpu_torch.obs.explain import (
     PodExplanation,
     UnschedulableReport,
@@ -58,6 +70,9 @@ from kubernetes_tpu_torch.obs.explain import (
     read_back,
 )
 from kubernetes_tpu_torch.ops.arrays import (
+    gather_candidates,
+    gather_node_rows,
+    map_restricted_assignment,
     pods_to_device,
     selectors_to_device,
     topology_to_device,
@@ -72,13 +87,18 @@ from kubernetes_tpu_torch.ops.assign import (
     nodes_with_usage,
     usage_from_nodes,
 )
+from kubernetes_tpu_torch.ops.fused_score import (
+    node_summary,
+    partition_columns,
+)
 from kubernetes_tpu_torch.ops.predicates import (
+    BIT,
     decode_reasons,
     fit_error_message_from_counts,
     run_predicates,
     static_volume_reasons,
 )
-from kubernetes_tpu_torch.ops.priorities import solver_gates
+from kubernetes_tpu_torch.ops.priorities import DEFAULT_WEIGHTS, solver_gates
 from kubernetes_tpu_torch.ops.sync import SYNCS, to_host
 from kubernetes_tpu_torch.preemption import preempt
 from kubernetes_tpu_torch.queue import SchedulingQueue
@@ -155,6 +175,16 @@ class CycleResult:
     preempt_s: float = 0.0
     #: bytes of the preemption reason rows read back this cycle
     preempt_rows_bytes: int = 0
+    #: which solve placed the cycle: "restricted" (candidate columns of
+    #: the resident score summary), "partitioned" (the sparsity-first
+    #: cold solve in column blocks), "full" (the dense ladder; also a
+    #: restricted or partitioned attempt that fell back), "" (no solve)
+    solve_scope: str = ""
+    #: fraction of the score summary's node columns reused from the cache
+    #: this cycle (1 - patched/live; 0.0 unless restricted)
+    reuse_frac: float = 0.0
+    #: column blocks the partitioned cold solve ran (0 otherwise)
+    cold_blocks: int = 0
 
 
 def _has_topo(u) -> bool:
@@ -204,6 +234,7 @@ class Scheduler:
         victim_deleter: Optional[Callable[[Pod], None]] = None,
         explain: bool = True,
         explain_top_k: int = 3,
+        incremental: Optional[IncrementalConfig] = None,
     ) -> None:
         if solver not in TIERS:
             raise ValueError(f"solver must be one of {TIERS}, got {solver!r}")
@@ -250,6 +281,25 @@ class Scheduler:
         self.why_pending: Dict[str, PodExplanation] = {}
         #: the most recent cycle's UnschedulableReport
         self.last_explain: Optional[UnschedulableReport] = None
+        #: the sparsity-first routes (restricted, partitioned) and the
+        #: warm Sinkhorn carry
+        self.incremental = (incremental if incremental is not None
+                            else IncrementalConfig())
+        #: warm Sinkhorn potentials: (key, (u, v)) with key (pod bucket,
+        #: candidate bucket, cache.summary_generation); every invalidation
+        #: edge bumps the generation or clears it
+        self._sk_warm_pot = None
+        #: restricted service engaged since the last invalidation
+        self._incr_active = False
+        #: the candidate-bucket tuner: the warmed bucket ladder (empty
+        #: until warmup is ported, which keeps the bucket pinned), recent
+        #: raw micro-batch sizes, the deepest frame position placed into
+        self._warmed_cbuckets: set = set()
+        self._tuner_batch_obs: List[int] = []
+        self._tuner_depth_max = 0
+        self._summary_flags = self._score_cache_flags()
+        if self.incremental.enabled:
+            self.cache.enable_score_cache(**self._summary_flags)
 
     # -- informer handlers -------------------------------------------------
 
@@ -415,6 +465,26 @@ class Scheduler:
             dv = volumes_to_device(pk.pack_volume_tables(batch), device=dev)
             sv = static_volume_reasons(dp, dn, ds, dv)
 
+        # the sparsity-first routes: a steady micro-batch solves
+        # RESTRICTED on candidate columns of the resident score summary;
+        # with ``primary`` a cycle it did not take solves PARTITIONED.
+        # Either returns None unless the whole batch placed, and the
+        # dense ladder below re-solves the cycle (the fallback)
+        if self._incremental_eligible(batch, nominated, dn, dt, dv,
+                                      res.snapshot_mode, no_ports,
+                                      no_pod_aff, no_spread, nt):
+            out = self._restricted_tail(batch, cycle, res, t0, syncs0, nt,
+                                        dn, ds, dp, node_order, skip_prio)
+            if out is not None:
+                return out
+        if self._partitioned_cold_eligible(batch, nominated, dn, dt, dv,
+                                           no_ports, no_pod_aff, no_spread):
+            out = self._partitioned_cold_tail(batch, cycle, res, t0, syncs0,
+                                              nt, dn, ds, dp, node_order,
+                                              skip_prio)
+            if out is not None:
+                return out
+
         extra_mask, extra_score, early_fail = self._plugin_terms(
             batch, dp, dn, ds, node_order)
         if nominated:
@@ -541,6 +611,8 @@ class Scheduler:
 
     def _finish(self, res: CycleResult, t0: float, syncs0: int):
         res.elapsed_s = self.clock() - t0
+        if res.solver_tier and not res.solve_scope:
+            res.solve_scope = "full"
         res.host_syncs = SYNCS.count - syncs0
         klog.V(3).info(
             "cycle: attempted=%d scheduled=%d unschedulable=%d rounds=%d "
@@ -788,6 +860,321 @@ class Scheduler:
                 continue
             return assigned, usage, rounds, tier
         return None
+
+    # -- the sparsity-first routes (restricted, partitioned) ----------------
+
+    def _score_cache_flags(self) -> Dict[str, bool]:
+        """The score summary's semantics for this scheduler: candidate
+        eligibility honors the node-condition predicates only when the
+        Policy enforces them, and the ranking prefers packed columns under
+        a packing objective."""
+        cond_names = ("CheckNodeCondition", "CheckNodeUnschedulable",
+                      "CheckNodeMemoryPressure", "CheckNodeDiskPressure",
+                      "CheckNodePIDPressure")
+        honor = self.pred_mask is None or all(
+            self.pred_mask & (1 << BIT[n]) for n in cond_names)
+        w = self.weights if self.weights is not None else DEFAULT_WEIGHTS
+        packed = (w.get("MostRequestedPriority", 0)
+                  > w.get("LeastRequestedPriority", 0))
+        return {"honor_conditions": honor, "prefer_packed": packed}
+
+    def _drop_incremental(self, reason: str) -> None:
+        """One invalidation edge for all warm-solve state: the summary
+        drops (rebuilt lazily from the resident table) and the Sinkhorn
+        carry dies. Reasons: full-snapshot (node-set change, pack-epoch
+        or interner growth, explicit invalidation), dirty-frac,
+        restricted-error."""
+        klog.V(4).info("incremental state dropped: %s", reason)
+        self._sk_warm_pot = None
+        self._incr_active = False
+        if self.cache.has_score_summary():
+            self.cache.drop_score_summary()
+
+    def _note_tuner_batch(self, raw: int) -> None:
+        """Feed one raw micro-batch size into the tuner's window (the last
+        64 cycles)."""
+        self._tuner_batch_obs.append(raw)
+        if len(self._tuner_batch_obs) > 64:
+            del self._tuner_batch_obs[:-64]
+
+    def _candidate_bucket(self, n_pad: int) -> int:
+        """The candidate-column bucket C: the configured value snapped up
+        to a power of two. With ``auto_tune`` and a warmed ladder, the
+        smallest warmed C that admits the recent micro-batches under
+        ``max_batch_frac`` and leaves 2x headroom over the deepest frame
+        position placed into; without a warmed ladder it stays pinned."""
+        inc = self.incremental
+        c0 = bucket_size(max(inc.candidate_bucket, 1))
+        if not inc.auto_tune or not self._warmed_cbuckets:
+            return c0
+        need = max(max(self._tuner_batch_obs, default=1)
+                   / max(inc.max_batch_frac, 1e-6),
+                   2 * self._tuner_depth_max, 1)
+        ladder = sorted(self._warmed_cbuckets)
+        for c in ladder:
+            if c >= need:
+                return c
+        return ladder[-1]
+
+    def _frame_gates_hold(self, batch, nominated, dn, dt, dv, no_ports,
+                          no_pod_aff, no_spread) -> bool:
+        """The facts that make a candidate frame complete, shared by both
+        routes: a batch solver tier, no nominated pods, no framework
+        plugin term, and no constraint class that couples across the
+        whole node axis (ports and volumes; topology unless the batch
+        gates prove it vacuous)."""
+        if self.solver not in ("batch", "sinkhorn") or dn is None:
+            return False
+        if nominated:
+            return False
+        fw = self.framework
+        if (fw.has_host_filters() or fw.has_host_scores()
+                or fw.has_batch_filters() or fw.has_batch_scores()):
+            return False
+        if dv is not None or not no_ports:
+            return False
+        return dt is None or (no_pod_aff and no_spread)
+
+    def _incremental_eligible(self, batch, nominated, dn, dt, dv, snap_mode,
+                              no_ports, no_pod_aff, no_spread, nt) -> bool:
+        """May this cycle take the restricted route? A clean or delta
+        resident snapshot (a full one drops the warm state), the frame
+        gates, a micro-batch small enough for the candidate bucket, a
+        padded cluster wider than the bucket, and a dirty frontier under
+        ``max_dirty_frac`` (a blowout drops the warm state)."""
+        inc = self.incremental
+        if not inc.enabled or self.solver not in ("batch", "sinkhorn"):
+            return False
+        if snap_mode == "full":
+            self._drop_incremental("full-snapshot")
+            return False
+        if snap_mode not in ("clean", "delta"):
+            return False
+        if not self._frame_gates_hold(batch, nominated, dn, dt, dv,
+                                      no_ports, no_pod_aff, no_spread):
+            return False
+        # the tuner sees the raw batch size before the bucket compare
+        self._note_tuner_batch(len(batch))
+        n_pad = dn.valid.shape[0]
+        C = self._candidate_bucket(n_pad)
+        if C >= n_pad or len(batch) > inc.max_batch_frac * C:
+            return False
+        if len(self.cache.last_patched_idx) > inc.max_dirty_frac * max(
+                nt.n, 1):
+            self._drop_incremental("dirty-frac")
+            return False
+        return True
+
+    def _solve_frame(self, dp_f, sub_dn, ds, cand, skip_prio, sk_init=None,
+                     warm=False):
+        """One (P, C) frame: solve it with the stock solver, validate on
+        the device, map the candidate-local rows to global node rows and
+        read back the mapped rows, the verdict and the deepest frame
+        position as ONE transfer. Returns ``(assigned (P_pad,) host,
+        rounds, depth, potentials or None)``; raises SolverResultInvalid
+        on a failed verdict."""
+        inc = self.incremental
+        out = batch_assign(
+            dp_f, sub_dn, ds, self.weights, max_rounds=self.max_rounds,
+            per_node_cap=self.per_node_cap, enabled_mask=self.pred_mask,
+            use_sinkhorn=(self.solver == "sinkhorn"),
+            skip_priorities=skip_prio, no_ports=True, no_pod_affinity=True,
+            no_spread=True, sk_init=sk_init,
+            sk_tol=(inc.warm_tol if warm else None), potentials_out=warm)
+        a_local, u_local, rounds = out[:3]
+        verdict = device_validate(a_local, u_local, dp_f, sub_dn,
+                                  self.pred_mask)
+        if verdict is None:
+            raise SolverResultInvalid("frame: shape")
+        code, _count = verdict
+        a_local = a_local[: dp_f.valid.shape[0]].to(torch.int32)
+        depth = torch.where(dp_f.valid & (a_local >= 0), a_local, -1).amax()
+        host = to_host(torch.cat([
+            map_restricted_assignment(a_local, cand),
+            torch.stack([code.to(torch.int32), depth.to(torch.int32)])]))
+        if host[-2]:
+            raise SolverResultInvalid(f"frame: {VALIDATE_REASONS[host[-2]]}")
+        return (np.asarray(host[:-2], np.int64), int(rounds), int(host[-1]),
+                out[3] if warm else None)
+
+    def _restricted_tail(self, batch, cycle, res, t0, syncs0, nt, dn, ds,
+                         dp, node_order, skip_prio):
+        """The restricted cycle: pick the top-C candidate columns of the
+        resident score summary (dirty columns guaranteed a slot), gather
+        them into a (C, .) view, solve the batch there, and bind only when
+        every pod placed. An under-placed batch (a pod may fit on a column
+        outside the frame) or a failed solve returns None and the dense
+        ladder re-solves the cycle; a kernel fault (``KernelError``) is
+        not a solve failure and propagates."""
+        inc = self.incremental
+        # a gang that cannot meet its quorum will be rolled back whoever
+        # solves it: leave it to the dense ladder's analytics
+        gang_need: Dict[str, List[int]] = {}
+        for gp in batch:
+            if gp.pod_group:
+                g = gang_need.setdefault(gp.pod_group, [0, 0])
+                g[0] += 1
+                g[1] = max(g[1], gp.pod_group_min_available)
+        for gname, (cnt, need) in gang_need.items():
+            if cnt + self.cache.group_members(gname) < need:
+                return None
+        summary = self.cache.score_summary()
+        if summary is None:
+            return None
+        n_pad = dn.valid.shape[0]
+        C = self._candidate_bucket(n_pad)
+        idxs = list(self.cache.last_patched_idx)
+        dirty = torch.zeros((n_pad,), dtype=torch.bool, device=self.device)
+        if idxs:
+            dirty[torch.tensor(idxs, dtype=torch.long,
+                               device=self.device)] = True
+        # a lazy rebuild recomputed the whole summary: no reuse this cycle
+        reuse = (0.0 if self.cache.last_summary_rebuilt
+                 else max(0.0, 1.0 - len(idxs) / max(nt.n, 1)))
+        warm = bool(inc.warm_potentials and self.solver == "sinkhorn")
+        pot_key = (dp.valid.shape[0], C, self.cache.summary_generation)
+        sk_init = None
+        if warm and self._sk_warm_pot is not None \
+                and self._sk_warm_pot[0] == pot_key:
+            sk_init = self._sk_warm_pot[1]
+        ts = self.clock()
+        try:
+            cand, sub_dn = gather_candidates(summary, dirty, dn, C)
+            assigned, rounds, depth, pot = self._solve_frame(
+                dp, sub_dn, ds, cand, skip_prio, sk_init=sk_init, warm=warm)
+        except KernelError:
+            raise
+        except (SolverResultInvalid, RuntimeError) as e:
+            klog.warning("restricted solve declined (%s); dense solve", e)
+            self._drop_incremental("restricted-error")
+            return None
+        self._tuner_depth_max = max(self._tuner_depth_max, depth + 1)
+        placed = assigned[: len(batch)]
+        if (placed < 0).any():
+            return None  # under-placed: the dense ladder decides
+        if warm and pot is not None:
+            self._sk_warm_pot = (pot_key, pot)
+        self._incr_active = True
+        res.rounds = rounds
+        res.solver_tier = self.solver
+        res.solve_scope = "restricted"
+        res.reuse_frac = round(reuse, 4)
+        res.solve_s = self.clock() - ts
+        for i, pod in enumerate(batch):
+            self._admit_pod(pod, node_order[int(placed[i])], cycle, res)
+        if self.explain:
+            # nothing failed the filter pass (everything placed), but the
+            # admission tail's failures still get report rows
+            self._build_explain_report(cycle, [], None, nt.n, res)
+        return self._finish(res, t0, syncs0)
+
+    def _cold_blocks(self, n_pad: int, C: int) -> int:
+        """Blocks of the partitioned cold solve: ``cold_blocks``, or (0 =
+        auto) the padded node bucket over C capped at 8; always clamped so
+        that B * C fits the table."""
+        b = self.incremental.cold_blocks or min(8, n_pad // max(C, 1))
+        return max(min(b, n_pad // max(C, 1)), 0)
+
+    def _partitioned_cold_eligible(self, batch, nominated, dn, dt, dv,
+                                   no_ports, no_pod_aff, no_spread) -> bool:
+        """May this cycle take the partitioned cold solve? ``primary`` on,
+        the frame gates, no gang (its rollback wants the dense plane), and
+        at least two blocks of C columns in the padded table."""
+        inc = self.incremental
+        if not (inc.enabled and inc.primary) or not batch:
+            return False
+        if not self._frame_gates_hold(batch, nominated, dn, dt, dv,
+                                      no_ports, no_pod_aff, no_spread):
+            return False
+        if any(p.pod_group for p in batch):
+            return False
+        n_pad = dn.valid.shape[0]
+        C = self._candidate_bucket(n_pad)
+        return C < n_pad and self._cold_blocks(n_pad, C) >= 2
+
+    def _partitioned_cold_tail(self, batch, cycle, res, t0, syncs0, nt, dn,
+                               ds, dp, node_order, skip_prio):
+        """The partitioned cold solve: rank every column once, deal the top
+        B*C round-robin into B column-disjoint blocks of width C, and solve
+        them in turn, each block's pod validity masking out the pods
+        placed before it. The unplaced remainder takes one more frame: a
+        fresh top-C of the usage-overlaid table. Binds only when the whole
+        batch placed; otherwise (or on a failed solve) returns None for the
+        dense ladder. A ``KernelError`` propagates."""
+        inc = self.incremental
+        dev = self.device
+        n_pad = dn.valid.shape[0]
+        P_pad = dp.valid.shape[0]
+        C = self._candidate_bucket(n_pad)
+        B = self._cold_blocks(n_pad, C)
+        summary = self.cache.score_summary()
+        if summary is None:
+            summary = node_summary(dn, **self._summary_flags)
+        warm = bool(inc.warm_potentials and self.solver == "sinkhorn")
+        pending = np.zeros((P_pad,), bool)
+        pending[: len(batch)] = True
+        assigned = np.full((len(batch),), -1, np.int64)
+        zeros_dirty = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
+        rounds = 0
+
+        def take(got):
+            for i in range(len(batch)):
+                if pending[i] and got[i] >= 0:
+                    assigned[i] = got[i]
+                    pending[i] = False
+
+        def pending_pods():
+            return dp._replace(valid=dp.valid & torch.from_numpy(
+                pending.copy()).to(dev))
+
+        ts = self.clock()
+        try:
+            blocks = partition_columns(summary, zeros_dirty, B, C)
+            for b in range(B):
+                if not pending[: len(batch)].any():
+                    break
+                got, r, _depth, _pot = self._solve_frame(
+                    pending_pods(), gather_node_rows(dn, blocks[b]), ds,
+                    blocks[b], skip_prio, warm=warm)
+                rounds += r
+                take(got)
+            if pending[: len(batch)].any():
+                # the remainder: one fresh top-C frame over the table with
+                # every block placement debited (blocks were disjoint, so
+                # this is where cross-block usage first meets)
+                acc = np.full((P_pad,), -1, np.int64)
+                acc[: len(batch)] = assigned
+                acc_t = torch.from_numpy(acc).to(dev)
+                u = _apply_batch(usage_from_nodes(dn), dp,
+                                 acc_t.clamp_min(0),
+                                 (acc_t >= 0) & dp.valid)
+                dn_u = nodes_with_usage(dn, u)
+                cand, sub_dn = gather_candidates(
+                    node_summary(dn_u, **self._summary_flags), zeros_dirty,
+                    dn_u, C)
+                got, r, _depth, _pot = self._solve_frame(
+                    pending_pods(), sub_dn, ds, cand, skip_prio, warm=warm)
+                rounds += r
+                take(got)
+        except KernelError:
+            raise
+        except (SolverResultInvalid, RuntimeError) as e:
+            klog.warning("partitioned cold solve declined (%s); dense "
+                         "solve", e)
+            return None
+        if pending[: len(batch)].any():
+            return None  # under-placed: the dense ladder decides
+        res.rounds = rounds
+        res.solver_tier = self.solver
+        res.solve_scope = "partitioned"
+        res.cold_blocks = B
+        res.reuse_frac = 0.0
+        res.solve_s = self.clock() - ts
+        for i, pod in enumerate(batch):
+            self._admit_pod(pod, node_order[int(assigned[i])], cycle, res)
+        if self.explain:
+            self._build_explain_report(cycle, [], None, nt.n, res)
+        return self._finish(res, t0, syncs0)
 
     # -- assume / bind -----------------------------------------------------
 

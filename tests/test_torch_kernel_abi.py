@@ -70,6 +70,21 @@ def test_every_source_is_built():
     assert built == on_disk
 
 
+def test_sinkhorn_entry_points_take_the_rule_mode():
+    # the int right before the stream picks the Pallas (0) or the jnp (1)
+    # rule; both passes take it, and both kernels are templated on it
+    fns = kernels.LIBRARIES["sinkhorn"][2]
+    assert [_KIND[t] for t in fns["ktt_sinkhorn_u"]] == [
+        "pointer"] * 4 + ["int"] * 3 + ["pointer"]
+    assert [_KIND[t] for t in fns["ktt_sinkhorn_v"]] == [
+        "pointer"] * 7 + ["int"] * 5 + ["pointer"]
+    src = _source("sinkhorn.cu")
+    assert re.search(r"int jnp_rule, void\* stream\) \{\n  if \(p <= 0",
+                     src)
+    assert "template <bool kJnp>" in src
+    assert "template <bool kVec, bool kJnp>" in src
+
+
 def test_fused_pair_is_built_without_fma_contraction():
     # bit identity with the plain version: no multiply-add may fuse
     assert "-fmad=false" in kernels.LIBRARIES["fused_pair"][1]
@@ -117,7 +132,10 @@ def test_pair_route(n, offset, staged):
 @pytest.mark.parametrize("P, N, sms", [
     (8192, 8192, 132), (4096, 8192, 132), (5000, 3000, 132),
     (1000, 3001, 132), (96, 32, 132), (1, 8, 132), (3, 5, 1),
-    (100000, 128, 132), (8192, 16384, 132)])
+    (100000, 128, 132), (8192, 16384, 132),
+    # the restricted frames: P_pad <= 128 against C = 256, and a
+    # partitioned block's (4096, 256)
+    (16, 256, 132), (128, 256, 132), (4096, 256, 132)])
 def test_v_plan_covers_every_row_once(P, N, sms):
     strips, chunks, rows = sinkhorn.v_plan(P, N, sms)
     assert strips * sinkhorn.V_COLS >= N > (strips - 1) * sinkhorn.V_COLS

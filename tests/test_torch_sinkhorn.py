@@ -84,6 +84,47 @@ def test_scaling_matches_the_jnp_loop_with_stats_and_tolerance():
     assert abs(int(tstats[0]) - int(np.asarray(jstats)[0])) <= 1
 
 
+def _zero_cap_problem(P, N):
+    """Integer scores, a 70% feasible mask and capacities 1-2 with columns
+    2 and 5 at zero capacity (a BestEffort pod batched with requesting
+    pods gives a node 0 slots while it stays feasible there)."""
+    g = np.random.default_rng(0)
+    score = g.integers(0, 100, (P, N)).astype(np.float32)
+    mask = g.random((P, N)) < 0.7
+    cap = g.integers(1, 3, N).astype(np.float32)
+    cap[[2, 5]] = 0
+    return score, mask, cap
+
+
+@pytest.mark.parametrize("start", ["zeros", "partial"])
+@pytest.mark.parametrize("shape", [(8, 16), (32, 24), (303, 41)])
+def test_tolerance_loop_matches_the_jnp_loop_on_zero_capacity_columns(
+        shape, start):
+    # the tolerance loop is the reference's jnp scaling on every backend:
+    # a zero-capacity column keeps v ~ NEG_INF and takes no mass
+    score, mask, cap = _zero_cap_problem(*shape)
+    args_j = (jnp.asarray(score), jnp.asarray(mask), jnp.asarray(cap))
+    args_t = (torch.tensor(score), torch.tensor(mask), torch.tensor(cap))
+    P, N = shape
+    if start == "zeros":
+        init = (np.zeros(P, np.float32), np.zeros(N, np.float32))
+    else:
+        _p, (ju, jv) = js.sinkhorn_plan(*args_j, iters=3, pallas=False,
+                                        return_potentials=True)
+        init = (np.asarray(ju), np.asarray(jv))
+    want, jst, (ju, jv) = js.sinkhorn_plan(
+        *args_j, init=tuple(jnp.asarray(a) for a in init), tol=1e-3,
+        with_stats=True, return_potentials=True)
+    got, tst, (tu, tv) = ts.sinkhorn_plan(
+        *args_t, init=tuple(torch.tensor(a) for a in init), tol=1e-3,
+        with_stats=True, return_potentials=True)
+    _close(got, want)
+    _close(tu, ju)
+    _close(tv, jv)
+    assert abs(int(tst[0]) - int(np.asarray(jst)[0])) <= 1
+    assert float(got[:, [2, 5]].sum()) == 0.0
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_plan_matches(seed):
     score, mask, cap = _problem(10 + seed, 48, 20)

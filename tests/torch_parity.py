@@ -339,3 +339,74 @@ def preempt_burst_cluster(seed: int, n_nodes: int = 64, per_node: int = 4,
         selector=jtypes.LabelSelector(match_labels={"app": "guarded"}),
         disruptions_allowed=0)
     return nodes, bound, wave1, poachers, pdb
+
+
+def incremental_pair(solver="batch", sched_kw=None, **inc):
+    """The JAX package's ``Scheduler(pipeline_depth=1)`` and the port's
+    ``Scheduler(device="cpu")``, each with its own package's
+    ``IncrementalConfig(**inc)`` (enabled unless ``inc`` says otherwise),
+    preemption off and a fake clock at 0. Returns ``(js, ts)``."""
+    from kubernetes_tpu.config import IncrementalConfig as JInc
+    from kubernetes_tpu.scheduler import Scheduler as JScheduler
+    from kubernetes_tpu_torch.config import IncrementalConfig as TInc
+    from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
+
+    inc = {"enabled": True, **inc}
+    kw = {"enable_preemption": False, "solver": solver, **(sched_kw or {})}
+    js = JScheduler(pipeline_depth=1, incremental=JInc(**inc),
+                    clock=lambda: 0.0, **kw)
+    ts = TScheduler(device="cpu", incremental=TInc(**inc),
+                    clock=lambda: 0.0, **kw)
+    return js, ts
+
+
+def feed_pair(js, ts, events):
+    """Apply one list of events to both schedulers: ``(op, arg)`` with op
+    one of node_add, node_update, node_delete (arg: the node's name),
+    pod_add, pod_delete, volume_state (arg ignored); ``arg`` is built with
+    the JAX package's types and converted for the port."""
+    for op, arg in events:
+        if op == "node_delete":
+            js.on_node_delete(arg)
+            ts.on_node_delete(arg)
+        elif op == "volume_state":
+            js.set_volume_state(pvcs=[], pvs=[], classes=[])
+            ts.set_volume_state(pvcs=[], pvs=[], classes=[])
+        else:
+            getattr(js, f"on_{op}")(arg)
+            getattr(ts, f"on_{op}")(to_port(arg))
+
+
+#: the CycleResult fields the incremental routes must reproduce
+ROUTE_FIELDS = ("attempted", "scheduled", "unschedulable", "rounds",
+                "assignments", "failure_reasons", "solver_tier",
+                "snapshot_mode", "solve_scope", "reuse_frac", "cold_blocks")
+
+
+def drive_pair(js, ts, cycles):
+    """Feed each list of events of ``cycles`` to both schedulers and run
+    one cycle on each; asserts the two results agree on ROUTE_FIELDS
+    (``reuse_frac`` to 4 decimals, as both round it) and returns the
+    port's results."""
+    out = []
+    for n, events in enumerate(cycles):
+        feed_pair(js, ts, events)
+        rj, rt = js.schedule_cycle(), ts.schedule_cycle()
+        for f in ROUTE_FIELDS:
+            assert getattr(rt, f) == getattr(rj, f), (n, f, getattr(rt, f),
+                                                      getattr(rj, f))
+        out.append(rt)
+    return out
+
+
+def incremental_cluster(n_nodes=96, hetero=True):
+    """The 96-node cluster of tests/test_incremental.py's ``build()``
+    (bucket_size(96) = 128 nodes padded, wider than C = 32): 500-pod
+    nodes, hetero cpu and memory drawn from ``random.Random(7)``."""
+    rng = random.Random(7)
+    nodes = []
+    for i in range(n_nodes):
+        cpu = rng.choice([16000, 32000, 64000]) if hetero else 64000
+        mem = (rng.choice([64, 128, 256]) if hetero else 256) * 2**30
+        nodes.append(make_node(f"n{i}", cpu_milli=cpu, memory=mem, pods=500))
+    return nodes
