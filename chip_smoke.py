@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs eight phases and exits
+``nvcc`` per source, in parallel), then runs nine phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -22,7 +22,9 @@ non-zero if any fails:
 3. the main path at full width, cell ``smoke-5k-prefaffinity``: 5000
    nodes, 1000 bound pods, 10,000 pending pods with preferred zone
    affinity and a PreferNoSchedule taint on every 10th node, through
-   ``Scheduler(device="cuda")`` until the queue drains;
+   ``Scheduler(device="cuda")`` until the queue drains (its 8192-pod
+   cycle pipelines in 2 chunks at the defaults, the 1808-pod one does
+   not);
 4. the plan path: ``Scheduler(solver="sinkhorn")`` on the same cluster
    with 4096 pending pods, then the tied-preferences workload through
    the default auto-router;
@@ -49,11 +51,25 @@ non-zero if any fails:
    deletes and 16-128 new pods (restricted to 256 candidate columns), a
    node added mid-run (partitioned again) and a last cycle whose misfit
    pod sends the cycle to the dense ladder; checked by the exact scope
-   sequence, the capacity re-check and the misfit's FitError.
+   sequence, the capacity re-check and the misfit's FitError;
+9. the pipelined cycle executor at full width, cell ``pipeline-5k-30k``
+   (the reference bench's headline: 5000 nodes, 1000 bound, 30,000
+   pending smoke pods in batches of 8192, each cycle in 2 chunks of at
+   most 4096), at depth 2 and at depth 1: every chunk's dispatch runs
+   under ``torch.cuda.set_sync_debug_mode("error")``, each cycle's host
+   syncs are bounded by its chunks, explain readbacks and router
+   decisions, and the spans' host seconds (pack, dispatch, readback,
+   bind), rounds and pods/s are printed; then one profiled pipelined
+   cycle (the device's idle share) and a reduced run (500 nodes, 3000
+   pods, chunks of 512) whose depth-2, depth-3 and CPU placements must
+   agree. The device round loop (``csrc/graph_loop.cu``) is then held
+   against its plain version, the Python loop, on the first chunk's
+   inputs.
 
 Lines of JSON report each phase; the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
-path, the topology path, the preempt cell and the sparse cell, each
+path, the topology path, the preempt cell, the sparse cell and the
+pipeline cell, each
 counted from 0 just before it runs: ``launches`` is their sum,
 ``launches_by_path`` and ``launches_per_cycle`` split it; the sparse
 cell's frame shapes are held and timed again under ``sparse_shapes``),
@@ -64,7 +80,7 @@ CUDA-event medians; ``ms_batched`` times back-to-back calls and
 contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
-env, kernels, smoke, plan, topology, parity, preempt, sparse);
+env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -73,6 +89,7 @@ adds one profiled first cycle of the smoke cell and of the topology cell
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -88,9 +105,9 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
-              "preempt", "sparse")
+              "preempt", "sparse", "pipeline")
 #: the phases that drive a main path and count its kernel launches
-MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse")
+MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline")
 
 
 def emit(obj) -> None:
@@ -149,19 +166,24 @@ def device_ms(fn, reps: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     got: dict = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
-        name = name.split("(")[0].strip()[:60]
-        t, c = got.get(name, (0.0, 0))
-        got[name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    # a trace can come back without device events (seen on the first
+    # profile taken after another profile in the process): one retry
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = re.sub(r"\(anonymous namespace\)::|^void ", "", e.name)
+            name = name.split("(")[0].strip()[:60]
+            t, c = got.get(name, (0.0, 0))
+            got[name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+        if got:
+            break
     return {"per_call": (sum(t / c * max(1, round(c / reps))
                              for t, c in got.values()) if got else None),
             "by_kernel": {k: {"ms": t / c, "count": c}
@@ -189,7 +211,19 @@ KERNELS = {
         "source": "kubernetes_tpu_torch/csrc/sinkhorn.cu",
         "replaces": "kubernetes_tpu/ops/sinkhorn.py:171 _v_kernel",
     },
+    # not a Pallas kernel: the conditional-node graph and its exit-test
+    # kernel that keep the round loop on the card, as the reference's
+    # jax.lax.while_loop does
+    "round_loop": {
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/graph_loop.cu",
+        "replaces": "kubernetes_tpu/ops/assign.py:893 jax.lax.while_loop "
+                    "(the round loop of _batch_impl; :544 _lean_rounds)",
+    },
 }
+
+#: the kernels that take (P, N) arrays (timed again at the main shapes)
+ARRAY_KERNELS = ("fused_pair_normalize", "sinkhorn_u", "sinkhorn_v")
 
 #: Sinkhorn passes sum in another order than the plain versions
 SINKHORN_ATOL, SINKHORN_RTOL = 1e-5, 1e-4
@@ -527,7 +561,7 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
         torch.cuda.empty_cache()
     # the sparse phase's frames: every shape it launched, both arms
     for name, shapes in paths.get("sparse", {}).get("shapes", {}).items():
-        if name not in KERNELS:
+        if name not in ARRAY_KERNELS:
             continue
         rows = []
         for (P, N), n in shapes:
@@ -540,11 +574,22 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
         out_rows.setdefault(name, {})["sparse_shapes"] = rows
 
 
+def launch_counts() -> dict:
+    """Each kernel's launches since the last reset, the launches replayed
+    inside the device round loop's graph included (read off the device
+    counters: one sync, after the run)."""
+    from kubernetes_tpu_torch import kernels
+
+    kernels.collect()
+    return dict(kernels.LAUNCHES)
+
+
 def launch_shapes() -> dict:
     """Each kernel's launches since the last reset, by shape, in the
     order of each shape's first launch: ``[[[P, N], launches], ...]``."""
     from kubernetes_tpu_torch import kernels
 
+    kernels.collect()
     return {k: [[list(s), c] for s, c in v.items()]
             for k, v in kernels.SHAPES.items()}
 
@@ -716,7 +761,7 @@ def phase_plan() -> dict:
     kernels.reset_launches()
     results = drive(sched, nodes, bound, pending)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     shapes = launch_shapes()
     if launches["sinkhorn_u"] <= 0 or launches["sinkhorn_v"] <= 0:
         fail(f"plan: Sinkhorn kernels not launched ({launches})")
@@ -751,7 +796,7 @@ def phase_plan() -> dict:
         kernels.reset_launches()
         a, _, _ = batch_assign(dp, dn, ds, per_node_cap=2, **kw)
         torch.cuda.synchronize()
-        got = dict(kernels.LAUNCHES)
+        got = launch_counts()
         if label == "default":
             if got["sinkhorn_u"] <= 0:
                 fail("tied: the auto-router did not route to the plan")
@@ -920,7 +965,7 @@ def phase_cell(phase: str) -> dict:
     results = drive(sched, nodes, bound, pending)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     shapes = launch_shapes()
     scheduled = sum(r.scheduled for r in results)
     if scheduled != len(pending):
@@ -948,6 +993,7 @@ def phase_cell(phase: str) -> dict:
           "solve_s": [r.solve_s for r in results],
           "rounds": [r.rounds for r in results],
           "host_syncs": [r.host_syncs for r in results],
+          "pipeline_chunks": [r.pipeline_chunks for r in results],
           "snapshot_mode": [r.snapshot_mode for r in results],
           "pods_per_s_cycles": scheduled / cycle_s,
           "pods_per_s_wall_with_ingest": scheduled / wall,
@@ -1269,7 +1315,7 @@ def phase_preempt() -> dict:
     cell = preempt_cell()
     kernels.reset_launches()
     results, walls, peaks, events = run_preempt_cell(cell)
-    launches = dict(kernels.LAUNCHES)
+    launches = launch_counts()
     shapes = launch_shapes()
     checked = recheck_preempt(cell, results, events)
     if launches["fused_pair_normalize"] <= 0:
@@ -1494,7 +1540,7 @@ def phase_sparse() -> dict:
         kernels.reset_launches()
         results, walls, cell, final, declines = run_sparse(solver)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        launches = launch_counts()
         arm_shapes = launch_shapes()
         nodes, bound, traffic, want_scopes, misfit = cell
         if declines:
@@ -1572,6 +1618,315 @@ def phase_sparse() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the pipelined cycle executor and the device round loop
+# ---------------------------------------------------------------------------
+
+
+def pipeline_cell(n_nodes=5000, n_bound=1000, n_pending=30000, seed=7):
+    """Cell ``pipeline-5k-30k``: the reference bench's headline shape
+    (``bench.py:32-38``, BenchmarkScheduling's 5000 nodes, 1000 bound and
+    30,000 pending, in batches of 8192) with the smoke cell's nodes and
+    pods. At the defaults every cycle pipelines: 4 cycles of 8192, 8192,
+    8192 and 5424 pods, each in 2 chunks of at most 4096."""
+    return smoke_cell(n_nodes, n_bound, n_pending, seed)
+
+
+class DispatchCheck:
+    """Wraps a scheduler's tier runs (the pipelined executor's dispatch):
+    each runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
+    device-to-host sync that does not go through the counted ``to_host``
+    raises; the counted reads (the auto-router's decisions) are recorded
+    per run, and the first run's inputs are kept."""
+
+    def __init__(self, sched) -> None:
+        self.reads: list = []
+        self.inputs = None
+        real = sched._run_tier
+
+        def run(tier, batch, *args):
+            import torch
+
+            from kubernetes_tpu_torch.ops.sync import SYNCS
+
+            if self.inputs is None:
+                self.inputs = args
+            s0 = SYNCS.count
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return real(tier, batch, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                self.reads.append(SYNCS.count - s0)
+
+        sched._run_tier = run
+
+
+def feed(sched, nodes, bound, pending) -> None:
+    for nd in nodes:
+        sched.on_node_add(nd)
+    for p in bound + pending:
+        sched.on_pod_add(p)
+
+
+def busy_share(prof, wall_s: float) -> dict:
+    """Device busy seconds of a profiled window (the union of the card's
+    kernel, copy and fill intervals) and its share of ``wall_s``."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for t0, t1 in spans:
+        busy_us += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    return {"device_events": len(spans), "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall_s,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall_s}
+
+
+def _span_sums(trace) -> dict:
+    """Host seconds of the pipelined executor's span kinds in one cycle
+    (``pack``, ``dispatch``, ``readback``, ``bind``, summed over chunks)
+    and of the cycle's other top-level spans."""
+    out: dict = {}
+    for name, sec in trace.span_durations().items():
+        key = name.split("@")[0].replace("pipeline:", "")
+        out[key] = out.get(key, 0.0) + sec
+    return out
+
+
+def run_pipeline(depth: int, cell=None, chunk: int = 4096, device="cuda",
+                 check: bool = True):
+    """One run of the cell through ``Scheduler(device=..., pipeline_depth=
+    depth, pipeline_chunk=chunk)`` until the queue drains. Returns the
+    per-cycle results, the router reads per cycle and the dispatch
+    check."""
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    nodes, bound, pending = cell if cell is not None else pipeline_cell()
+    sched = Scheduler(device=device, pipeline_depth=depth,
+                      pipeline_chunk=chunk)
+    dc = DispatchCheck(sched) if check else None
+    feed(sched, nodes, bound, pending)
+    results, reads = [], []
+    for _ in range(16):
+        n0 = len(dc.reads) if dc else 0
+        r = sched.schedule_cycle()
+        if r.attempted == 0:
+            break
+        results.append((r, _span_sums(sched.obs.last_trace)))
+        reads.append(sum(dc.reads[n0:]) if dc else 0)
+    return results, reads, dc
+
+
+def phase_pipeline() -> dict:
+    """Drives cell ``pipeline-5k-30k`` at full width at depth 2 (the
+    default) and at depth 1, then one profiled pipelined cycle, then a
+    reduced run at depths 2 and 3 on the card and on CPU tensors. Fails
+    unless every pod binds on tier ``batch``, the capacity re-check holds,
+    every chunk's dispatch runs clean under sync-debug ``error``, each
+    cycle's host syncs are no more than its chunks plus its explain
+    readbacks plus its router decisions, and the reduced runs place
+    identically. Returns the depth-2 run's kernel launches, its cycle
+    count and its first dispatch's inputs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_tpu_torch import kernels
+
+    # warm the libraries and this path off the clock (600 pods in chunks
+    # of 256)
+    run_pipeline(2, pipeline_cell(100, 20, 600, seed=1), chunk=256)
+    torch.cuda.synchronize()
+    out = {}
+    for depth in (2, 1):
+        cell = pipeline_cell()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        results, reads, dc = run_pipeline(depth, cell)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        shapes = launch_shapes()
+        nodes, bound, pending = cell
+        rs = [r for r, _ in results]
+        scheduled = sum(r.scheduled for r in rs)
+        if scheduled != len(pending):
+            fail(f"pipeline/depth {depth}: bound {scheduled} of "
+                 f"{len(pending)} pods")
+        for r, n_reads in zip(rs, reads):
+            if r.solver_tier != "batch" or r.solver_fallbacks:
+                fail(f"pipeline/depth {depth}: a cycle solved on tier "
+                     f"{r.solver_tier!r} after {r.solver_fallbacks} "
+                     "fallbacks")
+            chunks = max(r.pipeline_chunks, 1)
+            # a chunk with failures reads its explain rows and, for
+            # preemption, its reason rows
+            explain_reads = 2 * chunks if r.unschedulable else 0
+            if r.host_syncs > chunks + explain_reads + n_reads:
+                fail(f"pipeline/depth {depth}: {r.host_syncs} host syncs "
+                     f"in a cycle of {chunks} chunks and {n_reads} router "
+                     "decisions")
+        want_chunks = [2, 2, 2, 2] if depth == 2 else [0, 0, 0, 0]
+        if [r.pipeline_chunks for r in rs] != want_chunks or [
+                r.attempted for r in rs] != [8192, 8192, 8192, 5424]:
+            fail(f"pipeline/depth {depth}: cycles "
+                 f"{[r.attempted for r in rs]} in chunks "
+                 f"{[r.pipeline_chunks for r in rs]}")
+        assignments = {}
+        for r in rs:
+            assignments.update(r.assignments)
+        recheck_capacity(nodes, bound, assignments,
+                         {p.key(): p for p in pending})
+        cycle_s = [r.elapsed_s for r in rs]
+        out[depth] = {
+            "depth": depth, "cycles": len(rs),
+            "attempted": [r.attempted for r in rs],
+            "pipeline_chunks": [r.pipeline_chunks for r in rs],
+            "cycle_s": cycle_s, "solve_s": [r.solve_s for r in rs],
+            "rounds": [r.rounds for r in rs],
+            "host_syncs": [r.host_syncs for r in rs],
+            "router_reads": reads,
+            "spans_s": [sp for _, sp in results],
+            "pods_per_s": scheduled / sum(cycle_s),
+            # without the first cycle, which captures the round loop
+            "pods_per_s_warm": (sum(r.scheduled for r in rs[1:])
+                                / sum(cycle_s[1:])),
+        }
+        if depth == 2:
+            main = {"launches": launches, "cycles": len(rs),
+                    "shapes": shapes, "inputs": dc.inputs}
+        emit({"phase": "pipeline", "cell": "pipeline-5k-30k",
+              "nodes": len(nodes), "bound": len(bound),
+              "pending": len(pending), "scheduled": scheduled,
+              "recheck": "capacity clean", "dispatch_sync_debug": "error",
+              "launches": launches, **out[depth]})
+        del cell, results, dc
+        torch.cuda.empty_cache()
+
+    # one pipelined cycle under the profiler (the second: the first
+    # captures the round loop)
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    sched = Scheduler(device="cuda")
+    feed(sched, *pipeline_cell())
+    sched.schedule_cycle()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = busy_share(prof, wall)
+    if not got["device_events"]:
+        fail("pipeline: the profiled cycle holds no device events")
+    emit({"phase": "pipeline-profile", "cell": "pipeline-5k-30k",
+          "cycle": 2, "scheduled": r.scheduled,
+          "pipeline_chunks": r.pipeline_chunks, "rounds": r.rounds,
+          "host_syncs": r.host_syncs, "wall_s_profiled": wall,
+          "spans_s": _span_sums(sched.obs.last_trace), **got})
+    del sched, prof
+    torch.cuda.empty_cache()
+
+    # reduced: 500 nodes, 3000 pods in chunks of 512 -- depth 2 and 3 on
+    # the card and depth 2 on CPU tensors place identically
+    placed = {}
+    for label, depth, dev in (("cuda/2", 2, "cuda"), ("cuda/3", 3, "cuda"),
+                              ("cpu/2", 2, "cpu")):
+        results, _reads, _dc = run_pipeline(
+            depth, pipeline_cell(500, 100, 3000, seed=11), chunk=512,
+            device=dev, check=dev == "cuda")
+        placed[label] = [(r.assignments, r.rounds, r.pipeline_chunks)
+                         for r, _ in results]
+    if not placed["cuda/2"] == placed["cuda/3"] == placed["cpu/2"]:
+        fail("pipeline (reduced): depth 2, depth 3 and CPU placements differ")
+    emit({"phase": "pipeline-parity", "nodes": 500, "pending": 3000,
+          "pipeline_chunk": 512,
+          "chunks": [c for _a, _r, c in placed["cuda/2"]],
+          "rounds": [r for _a, r, _c in placed["cuda/2"]],
+          "identical": ["cuda/2", "cuda/3", "cpu/2"]})
+    return main
+
+
+@contextlib.contextmanager
+def host_round_loop():
+    """Inside the block, the round loop runs as the plain Python loop
+    even on CUDA tensors (the device loop's plain version)."""
+    from kubernetes_tpu_torch.ops import device_loop
+
+    real = device_loop.run
+
+    def plain(fn, ctx, state, valid, max_rounds, statics=None, shape=()):
+        return real(fn, ctx, state, valid, max_rounds, None, shape)
+
+    device_loop.run = plain
+    try:
+        yield
+    finally:
+        device_loop.run = real
+
+
+def _nbytes(*trees) -> int:
+    import torch
+
+    total = 0
+    for tree in trees:
+        if isinstance(tree, torch.Tensor):
+            total += tree.numel() * tree.element_size()
+        elif isinstance(tree, (tuple, list)):
+            total += _nbytes(*tree)
+    return total
+
+
+def check_round_loop(out_rows: dict, inputs) -> None:
+    """The device round loop held against its plain version (the Python
+    loop on the same CUDA tensors) on the pipeline path's first chunk:
+    placements, usage and round count must be identical. Times both
+    (CUDA events around one ``batch_assign``)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.assign import batch_assign
+
+    (dp, dn, ds, dt, dv, sv, extra_mask, extra_score, skip, no_ports,
+     no_aff, no_spread) = inputs
+
+    def solve():
+        return batch_assign(dp, dn, ds, None, max_rounds=128,
+                            per_node_cap=4, topo=dt, extra_mask=extra_mask,
+                            vol=dv, static_vol=sv, extra_score=extra_score,
+                            skip_priorities=skip, no_ports=no_ports,
+                            no_pod_affinity=no_aff, no_spread=no_spread)
+
+    a, u, rounds = solve()
+    with host_round_loop():
+        a2, u2, rounds2 = solve()
+    torch.cuda.synchronize()
+    err = max(float((a - a2).abs().max()),
+              float((u.requested - u2.requested).abs().max()),
+              abs(int(rounds) - int(rounds2)))
+    if err or not torch.equal(a, a2):
+        fail(f"round_loop: the device loop differs from the Python loop "
+             f"(max |err| {err}, rounds {int(rounds)} vs {int(rounds2)})")
+    row = out_rows.setdefault("round_loop", {})
+    P, N = dp.valid.shape[0], dn.valid.shape[0]
+    row["max_abs_err"] = err
+    row["shape"] = [P, N]
+    row["rounds"] = int(rounds)
+    row["ms"] = cuda_time_ms(solve)
+    row["device_ms"] = device_ms(solve)["per_call"]
+    with host_round_loop():
+        row["plain_ms"] = cuda_time_ms(solve)
+        row["plain_device_ms"] = device_ms(solve)["per_call"]
+    # no PyTorch call runs a data-dependent loop on the card
+    row["library_ms"] = None
+    # the least the loop could move: its inputs read once, its outputs
+    # (assignment and usage) written once
+    row.update(_bound(_nbytes(tuple(dp), tuple(dn), tuple(ds), a, tuple(u)),
+                      0.0))
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1620,6 +1975,18 @@ def ptxas_summary(reports: dict) -> dict:
                 sm = re.search(r"(\d+) bytes smem", ln)
                 got["static_smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def release_graphs() -> None:
+    """Drop the cached round-loop graphs of the phase that ended and give
+    their memory back (each graph keeps its round's temporaries)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import device_loop
+
+    torch.cuda.synchronize()
+    device_loop.clear()
+    torch.cuda.empty_cache()
 
 
 def gpu_line() -> str:
@@ -1673,23 +2040,26 @@ def main() -> None:
         emit({"phase": "kernels", "ok": True})
 
     paths = {}
-    if "smoke" in phases:
-        paths["smoke"] = phase_cell("smoke")
-    if "plan" in phases:
-        paths["plan"] = phase_plan()
-    if "topology" in phases:
-        paths["topology"] = phase_cell("topology")
-    if "parity" in phases:
-        phase_parity()
-    if "preempt" in phases:
-        paths["preempt"] = phase_preempt()
-    if "sparse" in phases:
-        paths["sparse"] = phase_sparse()
+    for phase, run in (("smoke", lambda: phase_cell("smoke")),
+                       ("plan", phase_plan),
+                       ("topology", lambda: phase_cell("topology")),
+                       ("parity", phase_parity),
+                       ("preempt", phase_preempt),
+                       ("sparse", phase_sparse),
+                       ("pipeline", phase_pipeline)):
+        if phase not in phases:
+            continue
+        got = run()
+        if phase in MAIN_PATHS:
+            paths[phase] = got
+        release_graphs()
     if args.profile:
         for phase in CELLS:
             profile_cycle(args.profile, phase)
     if "kernels" in phases:
         time_main_shapes(rows, paths)
+        if "pipeline" in paths:
+            check_round_loop(rows, paths["pipeline"]["inputs"])
     out = []
     for name, meta in KERNELS.items():
         r = dict(name=name, **meta)

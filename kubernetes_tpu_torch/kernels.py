@@ -20,7 +20,12 @@ stops the cycle.
 
 ``LAUNCHES`` counts the launches each wrapper made (a wrapper adds one
 where it launches its kernel, and nowhere else), so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. A launch made while a CUDA graph
+is being captured (the device round loop, ``ops/device_loop.py``) is not
+a launch yet: inside :func:`counting_on_device` the wrapper's count
+becomes a one-element add on a device counter, captured beside the
+kernel, so every replay of the graph counts its launches on the card;
+:func:`collect` reads those counters back (one sync) into ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +64,12 @@ LIBRARIES = {
         "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P],
     }),
+    # the round loop's conditional WHILE graph (ops/device_loop.py)
+    "graph_loop": ("graph_loop.cu", [], {
+        "ktt_loop_build": [_P, _P, _P, _I, _P],
+        "ktt_loop_launch": [_P, _P],
+        "ktt_loop_destroy": [_P],
+    }),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -71,6 +83,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_pair_normalize_wide": 0,
     "sinkhorn_u": 0,
     "sinkhorn_v": 0,
+    "round_loop": 0,
 }
 
 #: kernel wrapper name -> {shape: launches at that shape} since the last
@@ -88,17 +101,71 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+#: (wrapper name, shape) -> slot of the device counters, in the order of
+#: their first capture
+_DEVICE_SLOTS: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+#: (device type, index) -> int64 counters, one per slot (made outside any
+#: capture)
+_DEVICE_COUNTS: Dict[Tuple[str, int], object] = {}
+#: the counters a capture in progress adds to (None: count on the host)
+_capture_counts = None
+_DEVICE_SLOTS_MAX = 256
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         SHAPES[k].clear()
+    for counts in _DEVICE_COUNTS.values():
+        counts.zero_()
 
 
 def count_launch(name: str, shape) -> None:
-    """Called by a wrapper right after its kernel launched."""
-    LAUNCHES[name] += 1
+    """Called by a wrapper right after its kernel launched (or, inside
+    :func:`counting_on_device`, was captured)."""
     shape = tuple(shape)
+    if _capture_counts is not None:
+        slot = _DEVICE_SLOTS.setdefault((name, shape), len(_DEVICE_SLOTS))
+        if slot >= _DEVICE_SLOTS_MAX:
+            raise KernelError("too many distinct kernel shapes captured")
+        _capture_counts[slot:slot + 1].add_(1)
+        return
+    LAUNCHES[name] += 1
     SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
+
+
+@contextmanager
+def counting_on_device(device):
+    """Count the launches captured inside the block on ``device``'s
+    counters (so a graph replay counts them), not on the host."""
+    global _capture_counts
+    import torch
+
+    dev = torch.device(device)
+    key = (dev.type, dev.index or 0)
+    counts = _DEVICE_COUNTS.get(key)
+    if counts is None:
+        counts = torch.zeros((_DEVICE_SLOTS_MAX,), dtype=torch.int64,
+                             device=device)
+        _DEVICE_COUNTS[key] = counts
+    prev, _capture_counts = _capture_counts, counts
+    try:
+        yield
+    finally:
+        _capture_counts = prev
+
+
+def collect() -> None:
+    """Fold the device counters into ``LAUNCHES`` / ``SHAPES`` and zero
+    them: one device-to-host read per card that ever captured a launch.
+    Call it outside any timed or sync-checked region."""
+    for counts in _DEVICE_COUNTS.values():
+        got = counts.tolist()
+        counts.zero_()
+        for (name, shape), slot in _DEVICE_SLOTS.items():
+            if got[slot]:
+                LAUNCHES[name] += got[slot]
+                SHAPES[name][shape] = SHAPES[name].get(shape, 0) + got[slot]
 
 
 def _nvcc() -> str:

@@ -16,18 +16,22 @@ Two solvers:
   scatter-add and the next round re-masks.
 
 The reference runs its round loops on the device
-(``jax.lax.while_loop``); here they are Python loops whose conditions are
-read on the host — one counted sync per round (:mod:`.sync`), plus one at
-round 0 when the transport-plan router decides.
+(``jax.lax.while_loop``); so does the port on a CUDA tensor: round 0 runs
+eagerly, the later rounds loop as one CUDA graph (:mod:`.device_loop`),
+and the only host read is the transport-plan router's round-0 decision
+(one counted sync, :mod:`.sync`). On CPU tensors the plain Python loop
+stays.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.ops import device_loop
 from kubernetes_tpu_torch.ops.arrays import (
     DeviceNodes,
     DevicePods,
@@ -403,13 +407,44 @@ def _admit_scored(choice, rank, req, free, per_node_cap, capacity_on,
     return acc_s[_inverse_permutation(order2)]
 
 
-def _more_rounds(assigned, pods, accepted) -> bool:
-    """The round loop's data-dependent exits, read in ONE counted sync:
-    a round that admitted nobody (contention fixpoint), or nothing left
-    to place."""
-    progressed, left = to_host(torch.stack([
-        accepted.any(), ((assigned == -1) & pods.valid).any()]))
-    return progressed and left
+def _round_exit(assigned, pods, accepted) -> torch.Tensor:
+    """The round loop's data-dependent exit test as a 0-d bool device
+    tensor: continue while the round admitted somebody (no contention
+    fixpoint) and somebody is left to place."""
+    return accepted.any() & ((assigned == -1) & pods.valid).any()
+
+
+def _lean_round(ctx, state, first, tag, *, per_node_cap, res_on,
+                lean_plan):
+    """One fused lean round (the body :func:`_lean_rounds` loops)."""
+    pods, nodes, rank, static_ok = ctx
+    assigned, u = state
+    P = pods.req.shape[0]
+    N = nodes.allocatable.shape[0]
+    window = N * per_node_cap
+    guard = NEG * 0.5  # real scores are finite and tiny next to NEG
+    active = (assigned == -1) & pods.valid
+    ms = _lean_masked_score(pods, nodes, u, active, static_ok, res_on,
+                            lean_plan)
+    rowmax = ms.amax(1, keepdim=True)
+    feasible_any = rowmax[:, 0] > guard
+    wkey = torch.where(active & feasible_any, rank, P + 1)
+    arank = _inverse_permutation(torch.argsort(wkey, stable=True))
+    if P > window:
+        # the bidder window binds only with more pods than window slots
+        gate = active & feasible_any & (arank < window)
+        ms = torch.where(gate[:, None], ms, NEG)
+        rowmax = ms.amax(1, keepdim=True)
+    tied = (ms >= rowmax) & (rowmax > guard)
+    choice, _tc = _rotated_pick(tied, arank)
+    feasible = ms.gather(1, choice[:, None])[:, 0] > guard
+    choice = torch.where(feasible, choice, -1)
+    accepted = _admit_scored(choice, rank, pods.req,
+                             nodes.allocatable - u.requested,
+                             per_node_cap, res_on)
+    assigned = torch.where(accepted, choice.to(torch.int32), assigned)
+    u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
+    return (assigned, u), _round_exit(assigned, pods, accepted), None
 
 
 def _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
@@ -417,7 +452,6 @@ def _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
     """The fused round loop for lean batches: same exits and admission
     rule as the general loop, one materialized (P, N) matrix per round."""
     P = pods.req.shape[0]
-    N = nodes.allocatable.shape[0]
     static_reasons, _prog = static_predicate_reasons(pods, nodes, sel)
     if enabled_mask is not None:
         static_reasons = static_reasons & int(enabled_mask)
@@ -425,36 +459,14 @@ def _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
         & pods.valid[:, None]
     res_on = enabled_mask is None or bool(
         enabled_mask & (1 << BIT["PodFitsResources"]))
-    window = N * per_node_cap
-    guard = NEG * 0.5  # real scores are finite and tiny next to NEG
-    assigned = torch.full((P,), -1, dtype=torch.int32, device=pods.req.device)
-    u = usage_from_nodes(nodes)
-    rounds = 0
-    more = bool(to_host(pods.valid.any()))
-    while more and rounds < max_rounds:
-        active = (assigned == -1) & pods.valid
-        ms = _lean_masked_score(pods, nodes, u, active, static_ok, res_on,
-                                lean_plan)
-        rowmax = ms.amax(1, keepdim=True)
-        feasible_any = rowmax[:, 0] > guard
-        wkey = torch.where(active & feasible_any, rank, P + 1)
-        arank = _inverse_permutation(torch.argsort(wkey, stable=True))
-        if P > window:
-            # the bidder window binds only with more pods than window slots
-            gate = active & feasible_any & (arank < window)
-            ms = torch.where(gate[:, None], ms, NEG)
-            rowmax = ms.amax(1, keepdim=True)
-        tied = (ms >= rowmax) & (rowmax > guard)
-        choice, _tc = _rotated_pick(tied, arank)
-        feasible = ms.gather(1, choice[:, None])[:, 0] > guard
-        choice = torch.where(feasible, choice, -1)
-        accepted = _admit_scored(choice, rank, pods.req,
-                                 nodes.allocatable - u.requested,
-                                 per_node_cap, res_on)
-        assigned = torch.where(accepted, choice.to(torch.int32), assigned)
-        u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
-        rounds += 1
-        more = _more_rounds(assigned, pods, accepted)
+    body = functools.partial(_lean_round, per_node_cap=per_node_cap,
+                             res_on=res_on, lean_plan=lean_plan)
+    state = (torch.full((P,), -1, dtype=torch.int32,
+                        device=pods.req.device), usage_from_nodes(nodes))
+    (assigned, u), rounds = device_loop.run(
+        body, (pods, nodes, rank, static_ok), state, pods.valid, max_rounds,
+        statics=("lean", per_node_cap, res_on, lean_plan),
+        shape=static_ok.shape)
     return assigned, u, rounds
 
 
@@ -531,6 +543,80 @@ def _serialize_topology(accepted, choice, rank, sens, pods, cur, topo,
     return ok
 
 
+def _general_round(ctx, state, first, use_plan, *, weights, skip,
+                   enabled_mask, no_ports, no_pod_affinity, no_spread,
+                   per_node_cap, res_on, use_sinkhorn, auto_sinkhorn,
+                   sk_warm, sk_tol, with_stats):
+    """One general assignment round (the body :func:`_batch_impl` loops).
+    ``first`` marks round 0, where the auto-router decides ``use_plan``
+    for every later round with one counted sync."""
+    (pods, nodes, sel, topo, vol, static_vol, extra_mask, extra_score, rank,
+     hoisted, hoisted_prio, sens, has_port) = ctx
+    assigned, u, sk_stats, sk_u, sk_v = state
+    P = pods.req.shape[0]
+    N = nodes.allocatable.shape[0]
+
+    def port_gate(order2, seg_starts):
+        # one port-bearing pod per node per round (conservative, exact)
+        hp_s = has_port[order2].to(torch.int32)
+        hp_prefix = _segment_prefix(hp_s[:, None], seg_starts)[:, 0]
+        return (hp_s == 0) | (hp_prefix == 0)
+
+    cur = nodes_with_usage(nodes, u)
+    active = (assigned == -1) & pods.valid
+    mask = run_predicates(
+        pods, cur, sel, topo, vol, static_vol, enabled_mask,
+        hoisted=hoisted, no_ports=no_ports,
+        no_pod_affinity=no_pod_affinity,
+        no_spread=no_spread).mask & active[:, None]
+    if extra_mask is not None:
+        mask = mask & extra_mask
+    score = run_priorities(pods, cur, sel, mask, weights, topo,
+                           skip=skip, hoisted=hoisted_prio, fused=True)
+    if extra_score is not None:
+        score = score + extra_score
+    # bidder window: only the top K = N*per_node_cap active pods (by
+    # queue rank) with a feasible node bid this round, so priority
+    # order is structural (the serial loop is the K=1 case)
+    feasible_any = mask.any(1)
+    wkey = torch.where(active & feasible_any, rank, P + 1)
+    arank = _inverse_permutation(torch.argsort(wkey, stable=True))
+    mask_full = mask  # pre-window, for the auto-router
+    mask = mask & (active & feasible_any & (arank < N * per_node_cap))[
+        :, None]
+    rowmax = torch.where(mask, score, NEG).amax(1, keepdim=True)
+    tied = mask & (score >= rowmax)
+    if use_sinkhorn or auto_sinkhorn:
+        slots = _column_slots(pods, nodes, u, active)
+        if auto_sinkhorn and first:
+            # decide ONCE, from round 0: one counted sync
+            use_plan = bool(to_host(
+                _tie_cohort_detected(mask_full, score, slots)))
+        if use_sinkhorn or use_plan:
+            tied, sk_stats, (sk_u, sk_v) = _plan_tied(
+                score, rowmax, mask, slots,
+                init=(sk_u, sk_v) if sk_warm else None, tol=sk_tol,
+                with_stats=with_stats)
+    choice, _tc = _rotated_pick(tied, arank)
+    feasible = mask.gather(1, choice[:, None])[:, 0]
+    choice = torch.where(feasible, choice, -1)
+    # per-node acceptance: highest-priority prefix that fits. The cap
+    # turns each round into an auction step: nodes admit their best
+    # bidders, usage updates, the rest re-bid
+    accepted = _admit_scored(choice, rank, pods.req,
+                             nodes.allocatable - u.requested,
+                             per_node_cap, res_on, sorted_gate=port_gate)
+    if sens is not None:
+        accepted = _serialize_topology(accepted, choice, rank, sens,
+                                       pods, cur, topo,
+                                       nodes.topo_pair_id,
+                                       no_pod_affinity)
+    assigned = torch.where(accepted, choice.to(torch.int32), assigned)
+    u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
+    return ((assigned, u, sk_stats, sk_u, sk_v),
+            _round_exit(assigned, pods, accepted), bool(use_plan))
+
+
 def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                 extra_mask=None, vol=None, static_vol=None,
                 enabled_mask=None, extra_score=None, use_sinkhorn=False,
@@ -538,8 +624,10 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                 no_spread=False, auto_sinkhorn=True, with_stats=False,
                 sk_init=None, sk_tol=None):
     """The round loop. Returns ``(assigned, usage, rounds, sk_stats,
-    (sk_u, sk_v))``: the last round's Sinkhorn stats ([-1, -1] when the
-    plan never ran or ``with_stats`` is off) and the potential carry."""
+    (sk_u, sk_v))``: ``rounds`` an int32 0-d tensor, the last round's
+    Sinkhorn stats ([-1, -1] when the plan never ran or ``with_stats`` is
+    off) and the potential carry. On a CUDA tensor nothing is read back
+    except the auto-router's round-0 decision (:mod:`.device_loop`)."""
     # routing gate: no preference kernel live -> no possible asymmetric
     # tie cohort -> the router and the plan branch stay out
     auto_sinkhorn = (auto_sinkhorn and not use_sinkhorn
@@ -597,74 +685,39 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         sens = sensitive_keys(pods, topo, nodes.topo_pair_id.shape[1])
     res_on = enabled_mask is None or bool(
         enabled_mask & (1 << BIT["PodFitsResources"]))
-
-    def port_gate(order2, seg_starts):
-        # one port-bearing pod per node per round (conservative, exact)
-        hp_s = has_port[order2].to(torch.int32)
-        hp_prefix = _segment_prefix(hp_s[:, None], seg_starts)[:, 0]
-        return (hp_s == 0) | (hp_prefix == 0)
-
-    assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    u = usage_from_nodes(nodes)
-    use_plan = False
-    rounds = 0
-    more = bool(to_host(pods.valid.any()))
-    while more and rounds < max_rounds:
-        cur = nodes_with_usage(nodes, u)
-        active = (assigned == -1) & pods.valid
-        mask = run_predicates(
-            pods, cur, sel, topo, vol, static_vol, enabled_mask,
-            hoisted=hoisted, no_ports=no_ports,
-            no_pod_affinity=no_pod_affinity,
-            no_spread=no_spread).mask & active[:, None]
-        if extra_mask is not None:
-            mask = mask & extra_mask
-        score = run_priorities(pods, cur, sel, mask, weights, topo,
-                               skip=skip, hoisted=hoisted_prio,
-                               fused=True)
-        if extra_score is not None:
-            score = score + extra_score
-        # bidder window: only the top K = N*per_node_cap active pods (by
-        # queue rank) with a feasible node bid this round, so priority
-        # order is structural (the serial loop is the K=1 case)
-        feasible_any = mask.any(1)
-        wkey = torch.where(active & feasible_any, rank, P + 1)
-        arank = _inverse_permutation(torch.argsort(wkey, stable=True))
-        mask_full = mask  # pre-window, for the auto-router
-        mask = mask & (active & feasible_any & (arank < N * per_node_cap))[
-            :, None]
-        rowmax = torch.where(mask, score, NEG).amax(1, keepdim=True)
-        tied = mask & (score >= rowmax)
-        if use_sinkhorn or auto_sinkhorn:
-            slots = _column_slots(pods, nodes, u, active)
-            if auto_sinkhorn and rounds == 0:
-                # decide ONCE, from round 0: one counted sync
-                use_plan = bool(to_host(
-                    _tie_cohort_detected(mask_full, score, slots)))
-            if use_sinkhorn or use_plan:
-                tied, sk_stats, (sk_u, sk_v) = _plan_tied(
-                    score, rowmax, mask, slots,
-                    init=(sk_u, sk_v) if sk_warm else None, tol=sk_tol,
-                    with_stats=with_stats)
-        choice, _tc = _rotated_pick(tied, arank)
-        feasible = mask.gather(1, choice[:, None])[:, 0]
-        choice = torch.where(feasible, choice, -1)
-        # per-node acceptance: highest-priority prefix that fits. The cap
-        # turns each round into an auction step: nodes admit their best
-        # bidders, usage updates, the rest re-bid
-        accepted = _admit_scored(choice, rank, pods.req,
-                                 nodes.allocatable - u.requested,
-                                 per_node_cap, res_on, sorted_gate=port_gate)
-        if sens is not None:
-            accepted = _serialize_topology(accepted, choice, rank, sens,
-                                           pods, cur, topo,
-                                           nodes.topo_pair_id,
-                                           no_pod_affinity)
-        assigned = torch.where(accepted, choice.to(torch.int32), assigned)
-        u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
-        rounds += 1
-        more = _more_rounds(assigned, pods, accepted)
+    flags = dict(weights=weights, skip=tuple(skip), enabled_mask=enabled_mask,
+                 no_ports=no_ports, no_pod_affinity=no_pod_affinity,
+                 no_spread=no_spread, per_node_cap=per_node_cap,
+                 res_on=res_on, use_sinkhorn=use_sinkhorn,
+                 auto_sinkhorn=auto_sinkhorn, sk_warm=sk_warm, sk_tol=sk_tol,
+                 with_stats=with_stats)
+    # the tolerance-gated Sinkhorn reads its residual on the host every
+    # iteration, so its rounds cannot be captured: they keep the Python
+    # loop (statics None)
+    statics = None if sk_tol is not None else (
+        "general", _weights_key(weights),
+        *[(k, v) for k, v in flags.items() if k != "weights"])
+    ctx = (pods, nodes, sel, topo, vol, static_vol, extra_mask, extra_score,
+           rank, hoisted, hoisted_prio, sens, has_port)
+    state = (torch.full((P,), -1, dtype=torch.int32, device=dev),
+             usage_from_nodes(nodes), sk_stats, sk_u, sk_v)
+    (assigned, u, sk_stats, sk_u, sk_v), rounds = device_loop.run(
+        functools.partial(_general_round, **flags), ctx, state, pods.valid,
+        max_rounds, statics, shape=(P, N))
     return assigned, u, rounds, sk_stats, (sk_u, sk_v)
+
+
+def _weights_key(weights) -> tuple:
+    """What a captured round bakes in of the priority configuration: the
+    weights in accumulation order and the kernel bound to each name."""
+    from kubernetes_tpu_torch.ops.priorities import (
+        DEFAULT_WEIGHTS,
+        PRIORITY_REGISTRY,
+    )
+
+    weights = DEFAULT_WEIGHTS if weights is None else weights
+    return tuple((k, float(w), id(PRIORITY_REGISTRY.get(k)))
+                 for k, w in weights.items())
 
 
 def _plan_tied(score, rowmax, mask, slots, init=None, tol=None,
@@ -716,7 +769,8 @@ def batch_assign(
     potentials_out: bool = False,
 ):
     """Fast batched solver. Returns (assigned row per pod or -1, final
-    usage, rounds executed) — ``rounds`` a host int. ``per_node_cap``
+    usage, rounds executed) — ``rounds`` an int32 0-d tensor on the
+    batch's device, read when the caller reads the result. ``per_node_cap``
     bounds admissions per node per round; expect about ceil(P / (N *
     cap)) rounds on uniform workloads. ``extra_mask`` as in
     :func:`greedy_assign` (None routes constraint-light batches to the

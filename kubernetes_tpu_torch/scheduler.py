@@ -1,7 +1,7 @@
 """The scheduling loop — the batched analog of the reference's control
 loop (``pkg/scheduler/scheduler.go:256`` Run / ``:462`` scheduleOne), on
-PyTorch tensors (the port of ``kubernetes_tpu/scheduler.py``'s monolithic
-cycle, ``pipeline_depth=1``).
+PyTorch tensors (the port of ``kubernetes_tpu/scheduler.py``: the
+monolithic cycle and the pipelined cycle executor).
 
 Where the reference pops ONE pod, filters/scores all nodes for it,
 assumes and binds, this loop pops the whole activeQ, solves the batch on
@@ -23,6 +23,13 @@ AddUnschedulableIfNotPresent):
       for pod in unassigned: requeue; explain report
       preemption: evict, nominate                    # failed pods' rows
 
+With the defaults (``pipeline_depth=2, pipeline_chunk=4096``, as in the
+reference) a batch of more than ``pipeline_chunk`` pods takes the
+pipelined executor instead (``_pipelined_tail``): chunks of
+``pipeline_chunk`` pods solve one after another, each against the usage
+the chunk before it left, while the host packs the next chunk and binds
+the previous one (``pipeline_depth=1`` keeps the monolithic cycle).
+
 With ``incremental=IncrementalConfig(enabled=True)`` two sparsity-first
 routes come before the dense ladder (``_restricted_tail``,
 ``_partitioned_cold_tail``): a steady micro-batch on a clean or delta
@@ -33,9 +40,12 @@ restricted route did not take solves PARTITIONED, in B capacity-balanced
 whole batch placed; anything less falls through to the dense ladder in
 the same cycle.
 
-Not ported yet (ROADMAP): the pipelined executor and warmup (with them the
-candidate-bucket tuner's warmed ladder), preemption inside the pipelined
-tail and the scenario cascade, scenario packs, extenders, observability
+Every cycle opens one trace (``Scheduler.obs``, :mod:`.obs.core`) with
+spans at the reference's sites and under its names.
+
+Not ported yet (ROADMAP): warmup (with it the candidate-bucket tuner's
+warmed ladder), the circuit breakers and cycle deadline, the scenario
+cascade, scenario packs, extenders, observability beyond the cycle trace
 (metrics, journeys, the flight recorder, ``/debug/why``), leader fencing,
 recovery and the ambiguous-bind protocol, the mesh, and the
 ``batch-single``/``batch-cpu``/``exact`` tiers.
@@ -62,6 +72,7 @@ from kubernetes_tpu_torch.framework import (
     Framework,
 )
 from kubernetes_tpu_torch.kernels import KernelError
+from kubernetes_tpu_torch.obs.core import Obs
 from kubernetes_tpu_torch.obs.explain import (
     PodExplanation,
     UnschedulableReport,
@@ -185,6 +196,30 @@ class CycleResult:
     reuse_frac: float = 0.0
     #: column blocks the partitioned cold solve ran (0 otherwise)
     cold_blocks: int = 0
+    #: chunks the pipelined executor solved (0: the monolithic cycle)
+    pipeline_chunks: int = 0
+
+
+def _filter_pass(dp, dn, ds, dt, dv=None, sv=None, em=None):
+    """One standalone filter evaluation (reasons + mask) — the
+    nominated-pods pass-A mask and the failure-reason passes (the
+    reference's jitted ``_filter_pass``)."""
+    return run_predicates(dp, dn, ds, dt, dv, sv, em)
+
+
+def _static_vol_pass(dp, dn, ds, dv):
+    """Usage-independent volume reasons, computed once per cycle (or per
+    chunk) and shared by the solver rounds and the reporting passes."""
+    return static_volume_reasons(dp, dn, ds, dv)
+
+
+def _rounds_tensor(rounds, device) -> torch.Tensor:
+    """A solver's round count as a (1,) int32 device tensor to ride a
+    readback: a batch tier's device scalar, or the greedy tier's host
+    int (filled on the device, no upload)."""
+    if isinstance(rounds, torch.Tensor):
+        return rounds.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.full((1,), int(rounds), dtype=torch.int32, device=device)
 
 
 def _has_topo(u) -> bool:
@@ -235,6 +270,8 @@ class Scheduler:
         explain: bool = True,
         explain_top_k: int = 3,
         incremental: Optional[IncrementalConfig] = None,
+        pipeline_depth: int = 2,
+        pipeline_chunk: int = 4096,
     ) -> None:
         if solver not in TIERS:
             raise ValueError(f"solver must be one of {TIERS}, got {solver!r}")
@@ -300,6 +337,13 @@ class Scheduler:
         self._summary_flags = self._score_cache_flags()
         if self.incremental.enabled:
             self.cache.enable_score_cache(**self._summary_flags)
+        #: the pipelined executor: batches of more than ``pipeline_chunk``
+        #: pods solve in chunks of that size; depth 1 is the monolithic
+        #: cycle (every depth >= 2 places identically)
+        self.pipeline_depth = pipeline_depth
+        self.pipeline_chunk = pipeline_chunk
+        #: the cycle tracer (one Trace per cycle, spans on perf_counter)
+        self.obs = Obs()
 
     # -- informer handlers -------------------------------------------------
 
@@ -409,6 +453,7 @@ class Scheduler:
         t0 = self.clock()
         syncs0 = SYNCS.count
         res = CycleResult()
+        self.obs.begin_cycle(self.queue.scheduling_cycle)
         self.queue.tick()
         self._reap_expired_assumptions()
         self._process_waiting(res)
@@ -443,27 +488,39 @@ class Scheduler:
         # pack: pods first (their programs grow universes), then snapshot
         pk = self.cache.packer
         nominated = self._nominated_pods(exclude={p.key() for p in batch})
-        for p in batch:
-            pk.intern_pod(p)
-        for p, _ in nominated:
-            pk.intern_pod(p)
-        nt, dn, res.snapshot_mode = self.cache.device_snapshot()
-        node_order = self.cache.node_order()
-        pt = pk.pack_pods(batch)
-        skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
+        use_pipeline = self._pipeline_eligible(batch, nominated)
         dev = self.device
-        dp = pods_to_device(pt, pad_to=bucket_size(max(len(batch), 1)),
-                            device=dev)
-        ds = selectors_to_device(pk.pack_selector_tables(), device=dev)
-        # the topology universe only grows: once any affinity or spread
-        # term was interned, every cycle packs the tables (the batch gates
-        # then skip what this batch provably does not need)
-        dt = (topology_to_device(pk.pack_topology_tables(), device=dev)
-              if _has_topo(pk.u) else None)
-        dv = sv = None
-        if any(p.volumes for p in batch):
-            dv = volumes_to_device(pk.pack_volume_tables(batch), device=dev)
-            sv = static_volume_reasons(dp, dn, ds, dv)
+        with self.obs.span("snapshot"):
+            for p in batch:
+                pk.intern_pod(p)
+            for p, _ in nominated:
+                pk.intern_pod(p)
+            nt, dn, res.snapshot_mode = self.cache.device_snapshot()
+            node_order = self.cache.node_order()
+            pt = pk.pack_pods(batch)
+            skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
+            # a pipelined cycle packs and uploads its pods chunk by chunk
+            dp = None if use_pipeline else pods_to_device(
+                pt, pad_to=bucket_size(max(len(batch), 1)), device=dev)
+            ds = selectors_to_device(pk.pack_selector_tables(), device=dev)
+            # the topology universe only grows: once any affinity or
+            # spread term was interned, every cycle packs the tables (the
+            # batch gates then skip what this batch provably does not
+            # need)
+            dt = (topology_to_device(pk.pack_topology_tables(), device=dev)
+                  if _has_topo(pk.u) else None)
+            dv = sv = None
+            if dp is not None and any(p.volumes for p in batch):
+                dv = volumes_to_device(pk.pack_volume_tables(batch),
+                                       device=dev)
+                sv = _static_vol_pass(dp, dn, ds, dv)
+
+        if use_pipeline:
+            # the pipelined executor owns the rest of the cycle on the
+            # clean fast path (no nominated pods, gangs or plugin terms)
+            return self._pipelined_tail(batch, cycle, res, t0, syncs0, nt,
+                                        dn, ds, dt, node_order, skip_prio,
+                                        no_ports, no_pod_aff, no_spread)
 
         # the sparsity-first routes: a steady micro-batch solves
         # RESTRICTED on candidate columns of the resident score summary;
@@ -544,8 +601,8 @@ class Scheduler:
         ex = rows_dev = None
         if failed_idx:
             tx = time.perf_counter()
-            fr = run_predicates(dp, nodes_with_usage(dn, usage), ds, dt,
-                                dv, sv, self.pred_mask)
+            fr = _filter_pass(dp, nodes_with_usage(dn, usage), ds, dt, dv,
+                              sv, self.pred_mask)
             rows = torch.tensor(failed_idx, dtype=torch.long, device=dev)
             every = torch.ones((len(failed_idx),), dtype=torch.bool,
                                device=dev)
@@ -561,6 +618,7 @@ class Scheduler:
 
         # bind the placed pods first: host work that overlaps the failure
         # reductions still running on the device
+        bind_span = self.obs.current_trace.begin_span("bind")
         for i, pod in enumerate(batch):
             if int(assigned[i]) >= 0:
                 self._admit_pod(pod, node_order[int(assigned[i])], cycle, res)
@@ -597,6 +655,7 @@ class Scheduler:
                 cycle, [batch[i].key() for i in failed_idx], ex_host, nt.n,
                 res)
         res.explain_s += time.perf_counter() - tx
+        self.obs.current_trace.end_span(bind_span)
 
         # preemption (scheduler.go:493 -> preempt): failed pods try to
         # evict lower-priority pods; winners get a nominated node and
@@ -604,8 +663,9 @@ class Scheduler:
         if rows_dev is not None:
             tp = time.perf_counter()
             res.preempt_rows_bytes = rows_dev.numel() * rows_dev.element_size()
-            self._run_preemption(batch, preemptable_idx, to_host(rows_dev),
-                                 node_order, res)
+            with self.obs.span("preemption"):
+                self._run_preemption(batch, preemptable_idx,
+                                     to_host(rows_dev), node_order, res)
             res.preempt_s = time.perf_counter() - tp
         return self._finish(res, t0, syncs0)
 
@@ -614,6 +674,7 @@ class Scheduler:
         if res.solver_tier and not res.solve_scope:
             res.solve_scope = "full"
         res.host_syncs = SYNCS.count - syncs0
+        self.obs.end_cycle()
         klog.V(3).info(
             "cycle: attempted=%d scheduled=%d unschedulable=%d rounds=%d "
             "syncs=%d %.3fs", res.attempted, res.scheduled,
@@ -690,8 +751,8 @@ class Scheduler:
         u_nom = _apply_batch(usage_from_nodes(dn), dpn,
                              torch.from_numpy(rows).to(dev),
                              torch.from_numpy(ok).to(dev) & dpn.valid)
-        return run_predicates(dp, nodes_with_usage(dn, u_nom), ds, dt, dv,
-                              sv, self.pred_mask).mask
+        return _filter_pass(dp, nodes_with_usage(dn, u_nom), ds, dt, dv,
+                            sv, self.pred_mask).mask
 
     def _run_preemption(self, batch, preemptable_idx, rows, node_order,
                         res: CycleResult) -> None:
@@ -819,19 +880,22 @@ class Scheduler:
     def _validated_readback(self, tier, out, dp, dn):
         """Validate one tier's result on the device and read the
         assignment back together with the verdict as ONE device-to-host
-        copy. Returns ``(assigned_host, usage, rounds)`` or raises
-        SolverResultInvalid with the host checker's reason vocabulary."""
+        copy, the round count riding it. Returns ``(assigned_host, usage,
+        rounds)`` or raises SolverResultInvalid with the host checker's
+        reason vocabulary."""
         a_dev, u_dev, rounds = out
-        verdict = device_validate(a_dev, u_dev, dp, dn, self.pred_mask)
+        with self.obs.span("validate"):
+            verdict = device_validate(a_dev, u_dev, dp, dn, self.pred_mask)
         if verdict is None:
             raise SolverResultInvalid(f"{tier}: shape")
         code, _count = verdict
-        host = to_host(torch.cat([a_dev[: dp.valid.shape[0]].to(
-            torch.int32), code[None]]))
-        assigned, code = np.asarray(host[:-1], np.int64), host[-1]
+        host = to_host(torch.cat([
+            a_dev[: dp.valid.shape[0]].to(torch.int32), code[None],
+            _rounds_tensor(rounds, code.device)]))
+        assigned, code, rounds = np.asarray(host[:-2], np.int64), *host[-2:]
         if code:
             raise SolverResultInvalid(f"{tier}: {VALIDATE_REASONS[code]}")
-        return assigned, u_dev, int(rounds)
+        return assigned, u_dev, rounds
 
     def _solve_ladder(self, batch, dp, dn, ds, dt, dv, sv, extra_mask,
                       extra_score, skip_prio, no_ports, no_pod_aff,
@@ -847,11 +911,12 @@ class Scheduler:
                                  else [])
         for i, tier in enumerate(tiers):
             try:
-                out = self._run_tier(tier, batch, dp, dn, ds, dt, dv, sv,
-                                     extra_mask, extra_score, skip_prio,
-                                     no_ports, no_pod_aff, no_spread)
-                assigned, usage, rounds = self._validated_readback(
-                    tier, out, dp, dn)
+                with self.obs.span(f"solve:{tier}"):
+                    out = self._run_tier(tier, batch, dp, dn, ds, dt, dv, sv,
+                                         extra_mask, extra_score, skip_prio,
+                                         no_ports, no_pod_aff, no_spread)
+                    assigned, usage, rounds = self._validated_readback(
+                        tier, out, dp, dn)
             except (SolverResultInvalid, RuntimeError) as e:
                 klog.warning("solver tier %s failed (%s); falling back",
                              tier, e)
@@ -860,6 +925,231 @@ class Scheduler:
                 continue
             return assigned, usage, rounds, tier
         return None
+
+    # -- pipelined cycle executor ------------------------------------------
+
+    def _pipeline_eligible(self, batch, nominated) -> bool:
+        """The pipelined executor covers the clean high-throughput path:
+        features that need whole-batch host coupling (host or batch
+        plugins, gang groups, nominated-pod pass A) keep the monolithic
+        cycle. The reference's extender, scenario-pack and
+        ``percentageOfNodesToScore`` checks hold trivially here: the port
+        configures none of them. Depth 1 is the explicit off switch."""
+        if self.pipeline_depth < 2 or self.pipeline_chunk < 1:
+            return False
+        if len(batch) <= self.pipeline_chunk:
+            return False
+        if self.solver not in TIERS or nominated:
+            return False
+        fw = self.framework
+        if (fw.has_host_filters() or fw.has_host_scores()
+                or fw.has_batch_filters() or fw.has_batch_scores()):
+            return False
+        # gangs stay monolithic: all-or-nothing groups straddling chunk
+        # boundaries would need cross-chunk rollback
+        return not any(p.pod_group for p in batch)
+
+    def _pipelined_tail(self, batch, cycle, res, t0, syncs0, nt, dn, ds, dt,
+                        node_order, skip_prio, no_ports, no_pod_aff,
+                        no_spread) -> CycleResult:
+        """Double-buffered pack -> solve -> readback -> bind pipeline over
+        fixed sub-batches: while chunk k's solve runs on the device (its
+        round loop is one enqueued graph, ``ops/device_loop.py``), the
+        host packs chunk k+1 and binds chunk k-1. Chunking and the
+        usage-chain data dependencies are identical at every depth >= 2
+        (only host scheduling overlaps), so placements are depth-invariant
+        by construction. Every chunk pads to ONE bucket, so the whole
+        cycle reuses one cached round-loop graph.
+
+        ``dispatch`` never sheds a chunk: the reference's circuit breaker
+        and cycle deadline are not ported yet (ROADMAP A.12). A chunk
+        whose dispatch or readback fails re-solves through the full
+        ladder; a ``KernelError`` is not a solver fault and propagates."""
+        pk = self.cache.packer
+        C = self.pipeline_chunk
+        chunks = [batch[i:i + C] for i in range(0, len(batch), C)]
+        res.pipeline_chunks = len(chunks)
+        chunk_pad = bucket_size(C)
+        solver = self.solver
+        dev = self.device
+        res_names = list(FIXED_RESOURCE_NAMES) + pk.u.scalar_resources.items()
+        dn_cur = dn
+        solve_s = 0.0
+        tier_last = solver
+        failed_global: List[int] = []
+        reasons_row: Dict[int, Tuple[str, ...]] = {}
+        fit_msgs: Dict[int, str] = {}
+        rmat_rows: Dict[int, list] = {}
+        ex_parts: List[dict] = []
+
+        def pack_chunk(k):
+            with self.obs.span(f"pipeline:pack@{k}", pods=len(chunks[k])):
+                pt_c = pk.pack_pods(chunks[k])
+                dp_c = pods_to_device(pt_c, pad_to=chunk_pad, device=dev)
+                dv_c = sv_c = None
+                if any(p.volumes for p in chunks[k]):
+                    dv_c = volumes_to_device(
+                        pk.pack_volume_tables(chunks[k]), device=dev)
+                    sv_c = _static_vol_pass(dp_c, dn, ds, dv_c)
+                return pt_c, dp_c, dv_c, sv_c
+
+        def dispatch(k, packed, dn_in):
+            """Queue chunk k's solve on the device; None when it failed
+            to enqueue (the chunk then takes the ladder in settle)."""
+            _pt_c, dp_c, dv_c, sv_c = packed
+            with self.obs.span(f"pipeline:dispatch@{k}", tier=solver):
+                try:
+                    return self._run_tier(solver, chunks[k], dp_c, dn_in, ds,
+                                          dt, dv_c, sv_c, None, None,
+                                          skip_prio, no_ports, no_pod_aff,
+                                          no_spread)
+                except KernelError:
+                    raise
+                except (SolverResultInvalid, RuntimeError) as e:
+                    klog.warning("pipelined chunk %d dispatch failed (%s)",
+                                 k, e)
+                    return None
+
+        def settle(k, packed, out, dn_in):
+            """Read chunk k's result back -- validated on the device, the
+            verdict and the round count riding the chunk's ONE readback
+            -- and fall back to the full ladder on a failure. Returns
+            (assigned host array or None, usage, tier)."""
+            nonlocal solve_s
+            chunk = chunks[k]
+            _pt_c, dp_c, dv_c, sv_c = packed
+            ts = self.clock()
+            if out is not None:
+                try:
+                    with self.obs.span(f"pipeline:readback@{k}"):
+                        a, u_dev, rounds = self._validated_readback(
+                            solver, out, dp_c, dn_in)
+                    res.rounds += rounds
+                    solve_s += self.clock() - ts
+                    return a[: len(chunk)].copy(), u_dev, solver
+                except KernelError:
+                    raise
+                except (SolverResultInvalid, RuntimeError) as e:
+                    klog.warning("pipelined chunk %d solve failed (%s); "
+                                 "ladder", k, e)
+            ladder = self._solve_ladder(chunk, dp_c, dn_in, ds, dt, dv_c,
+                                        sv_c, None, None, skip_prio,
+                                        no_ports, no_pod_aff, no_spread, res)
+            solve_s += self.clock() - ts
+            if ladder is None:
+                for pod in chunk:
+                    self._fail(pod, cycle, res, ("SolverUnavailable",))
+                return None, None, ""
+            a_host, u_dev, rounds, tier = ladder
+            res.rounds += rounds
+            return a_host[: len(chunk)].copy(), u_dev, tier
+
+        def chunk_failures(k, offset, a, packed):
+            """Failure reasons and explain rows for chunk k's unplaced
+            pods, against the post-chunk usage (what the serial loop would
+            have seen last), reduced on the device and read back small;
+            the per-node reason rows are read for the failed pods only."""
+            failed_idx = [i for i, t in enumerate(a) if t < 0]
+            if not failed_idx:
+                return
+            pt_c, dp_c, dv_c, sv_c = packed
+            tx = time.perf_counter()
+            fr = _filter_pass(dp_c, dn_cur, ds, dt, dv_c, sv_c,
+                              self.pred_mask)
+            rows = torch.tensor(failed_idx, dtype=torch.long, device=dev)
+            reasons = fr.reasons.index_select(0, rows)
+            ex = explain_reduce(
+                reasons, dn_cur.valid,
+                torch.ones((len(failed_idx),), dtype=torch.bool, device=dev),
+                dp_c.req.index_select(0, rows),
+                dn_cur.allocatable - dn_cur.requested, dn_cur.ready,
+                dn_cur.network_unavailable)
+            ex_h = read_back(ex)
+            ex_parts.append(ex_h)
+            rmat = None
+            if self.enable_preemption:
+                rows_dev = reasons[:, : nt.n]
+                res.preempt_rows_bytes += (rows_dev.numel()
+                                           * rows_dev.element_size())
+                rmat = to_host(rows_dev)
+            for j, i in enumerate(failed_idx):
+                g = offset + i
+                bits = int(ex_h["pod_bits"][j])
+                reasons_row[g] = decode_reasons(bits)
+                if rmat is not None:
+                    rmat_rows[g] = rmat[j]
+                failed_global.append(g)
+                if bits:
+                    fit_msgs[g] = fit_error_message_from_counts(
+                        ex_h["per_pod"][j], ex_h["insufficient"][j],
+                        ex_h["not_ready"][j], ex_h["net_unavail"][j],
+                        nt.n, pt_c.req[i], res_names[: pt_c.req.shape[1]])
+            res.explain_s += time.perf_counter() - tx
+
+        def bind_chunk(k, offset, a):
+            with self.obs.span(f"pipeline:bind@{k}"):
+                for i, pod in enumerate(chunks[k]):
+                    t = int(a[i])
+                    if t < 0:
+                        g = offset + i
+                        self._fail(pod, cycle, res, reasons_row.get(g, ()),
+                                   message=fit_msgs.get(g))
+                    else:
+                        self._admit_pod(pod, node_order[t], cycle, res)
+
+        # ---- the pipeline proper ----
+        offset = 0
+        packed = pack_chunk(0)
+        pend = (packed, dispatch(0, packed, dn_cur), dn_cur)
+        for k in range(len(chunks)):
+            # pack chunk k+1 NOW: the host packs while chunk k's solve
+            # runs on the device (the overlap the executor exists for)
+            nxt = pack_chunk(k + 1) if k + 1 < len(chunks) else None
+            packed_k, out_k, dn_in = pend
+            a, u_dev, tier = settle(k, packed_k, out_k, dn_in)
+            if tier:
+                tier_last = tier
+            if u_dev is not None:
+                dn_cur = nodes_with_usage(dn_in, u_dev)
+            if a is not None:
+                # the failure passes ride the device queue BEFORE chunk
+                # k+1's solve so their readback never waits behind it
+                chunk_failures(k, offset, a, packed_k)
+            if nxt is not None:
+                pend = (nxt, dispatch(k + 1, nxt, dn_cur), dn_cur)
+            if a is not None:
+                # bind on the host while chunk k+1 solves on the device
+                bind_chunk(k, offset, a)
+            offset += len(chunks[k])
+        res.solver_tier = tier_last
+        res.solve_s = solve_s
+        self.obs.step(f"pipeline done ({len(chunks)} chunks, {res.rounds} "
+                      f"rounds)")
+
+        if self.explain:
+            tx = time.perf_counter()
+            ex_host = None
+            if ex_parts:
+                # the chunks' rows in batch order (chunks and their failed
+                # rows both ascend), the cluster roll-up summed
+                ex_host = {f: np.concatenate([part[f] for part in ex_parts])
+                           for f in ("per_pod", "one_bit", "feasible")}
+                for f in ("pair_hist", "pods_blocked"):
+                    ex_host[f] = np.sum([part[f] for part in ex_parts], 0)
+            self._build_explain_report(
+                cycle, [batch[g].key() for g in failed_global], ex_host,
+                nt.n, res)
+            res.explain_s += time.perf_counter() - tx
+
+        preempt_idx = [g for g in failed_global if g in rmat_rows]
+        if self.enable_preemption and preempt_idx:
+            tp = time.perf_counter()
+            with self.obs.span("preemption"):
+                self._run_preemption(batch, preempt_idx,
+                                     [rmat_rows[g] for g in preempt_idx],
+                                     node_order, res)
+            res.preempt_s = time.perf_counter() - tp
+        return self._finish(res, t0, syncs0)
 
     # -- the sparsity-first routes (restricted, partitioned) ----------------
 
@@ -969,8 +1259,8 @@ class Scheduler:
                      warm=False):
         """One (P, C) frame: solve it with the stock solver, validate on
         the device, map the candidate-local rows to global node rows and
-        read back the mapped rows, the verdict and the deepest frame
-        position as ONE transfer. Returns ``(assigned (P_pad,) host,
+        read back the mapped rows, the verdict, the deepest frame position
+        and the round count as ONE transfer. Returns ``(assigned (P_pad,) host,
         rounds, depth, potentials or None)``; raises SolverResultInvalid
         on a failed verdict."""
         inc = self.incremental
@@ -991,10 +1281,12 @@ class Scheduler:
         depth = torch.where(dp_f.valid & (a_local >= 0), a_local, -1).amax()
         host = to_host(torch.cat([
             map_restricted_assignment(a_local, cand),
-            torch.stack([code.to(torch.int32), depth.to(torch.int32)])]))
-        if host[-2]:
-            raise SolverResultInvalid(f"frame: {VALIDATE_REASONS[host[-2]]}")
-        return (np.asarray(host[:-2], np.int64), int(rounds), int(host[-1]),
+            torch.stack([code.to(torch.int32), depth.to(torch.int32)]),
+            _rounds_tensor(rounds, code.device)]))
+        code, depth, rounds = host[-3:]
+        if code:
+            raise SolverResultInvalid(f"frame: {VALIDATE_REASONS[code]}")
+        return (np.asarray(host[:-3], np.int64), rounds, depth,
                 out[3] if warm else None)
 
     def _restricted_tail(self, batch, cycle, res, t0, syncs0, nt, dn, ds,
@@ -1039,9 +1331,11 @@ class Scheduler:
             sk_init = self._sk_warm_pot[1]
         ts = self.clock()
         try:
-            cand, sub_dn = gather_candidates(summary, dirty, dn, C)
-            assigned, rounds, depth, pot = self._solve_frame(
-                dp, sub_dn, ds, cand, skip_prio, sk_init=sk_init, warm=warm)
+            with self.obs.span("solve:restricted"):
+                cand, sub_dn = gather_candidates(summary, dirty, dn, C)
+                assigned, rounds, depth, pot = self._solve_frame(
+                    dp, sub_dn, ds, cand, skip_prio, sk_init=sk_init,
+                    warm=warm)
         except KernelError:
             raise
         except (SolverResultInvalid, RuntimeError) as e:
@@ -1060,8 +1354,9 @@ class Scheduler:
         res.solve_scope = "restricted"
         res.reuse_frac = round(reuse, 4)
         res.solve_s = self.clock() - ts
-        for i, pod in enumerate(batch):
-            self._admit_pod(pod, node_order[int(placed[i])], cycle, res)
+        with self.obs.span("bind"):
+            for i, pod in enumerate(batch):
+                self._admit_pod(pod, node_order[int(placed[i])], cycle, res)
         if self.explain:
             # nothing failed the filter pass (everything placed), but the
             # admission tail's failures still get report rows
@@ -1128,6 +1423,8 @@ class Scheduler:
                 pending.copy()).to(dev))
 
         ts = self.clock()
+        solve_span = self.obs.current_trace.begin_span("solve:partitioned",
+                                                        blocks=B)
         try:
             blocks = partition_columns(summary, zeros_dirty, B, C)
             for b in range(B):
@@ -1162,6 +1459,8 @@ class Scheduler:
             klog.warning("partitioned cold solve declined (%s); dense "
                          "solve", e)
             return None
+        finally:
+            self.obs.current_trace.end_span(solve_span)
         if pending[: len(batch)].any():
             return None  # under-placed: the dense ladder decides
         res.rounds = rounds
@@ -1170,8 +1469,10 @@ class Scheduler:
         res.cold_blocks = B
         res.reuse_frac = 0.0
         res.solve_s = self.clock() - ts
-        for i, pod in enumerate(batch):
-            self._admit_pod(pod, node_order[int(assigned[i])], cycle, res)
+        with self.obs.span("bind"):
+            for i, pod in enumerate(batch):
+                self._admit_pod(pod, node_order[int(assigned[i])], cycle,
+                                res)
         if self.explain:
             self._build_explain_report(cycle, [], None, nt.n, res)
         return self._finish(res, t0, syncs0)

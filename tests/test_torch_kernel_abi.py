@@ -85,6 +85,42 @@ def test_sinkhorn_entry_points_take_the_rule_mode():
     assert "template <bool kVec, bool kJnp>" in src
 
 
+def test_graph_loop_entry_points_and_exit_test():
+    # build(body, rounds, cont, max_rounds, exec_out), launch(exec,
+    # stream), destroy(exec); the exit kernel keeps the reference's exits
+    # (a round that admitted nobody or left nobody, or max_rounds) and
+    # the loop is a WHILE node on a handle reset at every launch
+    fns = kernels.LIBRARIES["graph_loop"][2]
+    assert [_KIND[t] for t in fns["ktt_loop_build"]] == [
+        "pointer"] * 3 + ["int", "pointer"]
+    assert [_KIND[t] for t in fns["ktt_loop_launch"]] == ["pointer"] * 2
+    src = _source("graph_loop.cu")
+    assert "cudaGraphCondTypeWhile" in src
+    assert "cudaGraphCondAssignDefault" in src
+    assert re.search(r"\*cont != 0 && r < max_rounds", src)
+    # CUDA 13 changed cudaGraphAddNode's signature; both are spelled out
+    assert "CUDART_VERSION >= 13000" in src
+
+
+def test_captured_launches_count_on_the_device_counters():
+    kernels.reset_launches()
+    try:
+        with kernels.counting_on_device("cpu"):
+            for _ in range(3):
+                kernels.count_launch("sinkhorn_u", (64, 32))
+            kernels.count_launch("sinkhorn_v", (64, 32))
+        assert kernels.LAUNCHES["sinkhorn_u"] == 0
+        kernels.collect()
+        assert kernels.LAUNCHES["sinkhorn_u"] == 3
+        assert kernels.LAUNCHES["sinkhorn_v"] == 1
+        assert kernels.SHAPES["sinkhorn_u"] == {(64, 32): 3}
+        kernels.collect()  # the counters were zeroed: nothing twice
+        assert kernels.LAUNCHES["sinkhorn_u"] == 3
+    finally:
+        kernels._DEVICE_COUNTS.pop(("cpu", 0), None)
+        kernels.reset_launches()
+
+
 def test_fused_pair_is_built_without_fma_contraction():
     # bit identity with the plain version: no multiply-add may fuse
     assert "-fmad=false" in kernels.LIBRARIES["fused_pair"][1]
@@ -180,6 +216,9 @@ def test_entry_points_are_called_from_one_place_each():
         "ktt_fused_pair_normalize_wide": {"fused_score.py"},
         "ktt_sinkhorn_u": {"sinkhorn.py"},
         "ktt_sinkhorn_v": {"sinkhorn.py"},
+        "ktt_loop_build": {"device_loop.py"},
+        "ktt_loop_launch": {"device_loop.py"},
+        "ktt_loop_destroy": {"device_loop.py"},
     }
 
 

@@ -322,7 +322,7 @@ def test_batch_assign_potentials_roundtrip(sk_tol):
     assert pot[1].shape == (tdn.valid.shape[0],)
     ja, _ju, jr, jst, jpot = j_batch_assign(jdp, jdn, jds, **kw)
     _same(a1, ja)
-    assert r1 == int(jr)
+    assert int(r1) == int(jr)
     for t, j in zip(pot, jpot):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL,
                                    rtol=RTOL)
@@ -500,6 +500,50 @@ def test_warm_potentials_carry_while_the_key_holds():
     assert r.solve_scope == "restricted"
     assert ts._sk_warm_pot[0] == key0
     assert key0[1:] == (32, ts.cache.summary_generation)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("primary", [False, True])
+def test_warm_carry_through_churn_matches_the_reference(monkeypatch, primary,
+                                                         seed):
+    """The warm Sinkhorn carry across restricted cycles: 10 cycles of 8
+    seeded pods on the 96-node cluster (C = 32), a bound pod deleted
+    every third cycle. Every cycle agrees with the reference on
+    ROUTE_FIELDS, and after every restricted cycle both packages hold a
+    carry under the same key (pod bucket, C, summary generation)."""
+    monkeypatch.setenv("KTPU_PALLAS", "1")
+    js, ts = incremental_pair(solver="sinkhorn", primary=primary,
+                              candidate_bucket=32)
+    rng = random.Random(seed)
+    placed = []
+    events = [("node_add", nd) for nd in incremental_cluster()]
+    restricted = 0
+    for c in range(10):
+        shapes = {}
+        for i in range(8):
+            name = f"w{c}-{i}"
+            shapes[f"default/{name}"] = (
+                name, rng.choice([100, 250, 500]),
+                rng.choice([128, 256, 512]) * 2**20)
+            events.append(("pod_add", make_pod(
+                name, cpu_milli=shapes[f"default/{name}"][1],
+                memory=shapes[f"default/{name}"][2])))
+        if c and c % 3 == 0 and placed:
+            name, cpu, mem, node = placed.pop(rng.randrange(len(placed)))
+            events.append(("pod_delete", make_pod(
+                name, cpu_milli=cpu, memory=mem, node_name=node)))
+        r = drive_pair(js, ts, [events])[0]
+        events = []
+        assert r.unschedulable == 0
+        for key, node in sorted(r.assignments.items()):
+            placed.append(shapes[key] + (node,))
+        if r.solve_scope == "restricted":
+            restricted += 1
+            assert ts._sk_warm_pot is not None
+            assert ts._sk_warm_pot[0] == js._sk_warm_pot[0]
+            assert ts._sk_warm_pot[0][1:] == (32,
+                                              ts.cache.summary_generation)
+    assert restricted >= 5
 
 
 @pytest.mark.parametrize("exc, declines", [(KernelError, False),

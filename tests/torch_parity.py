@@ -410,3 +410,48 @@ def incremental_cluster(n_nodes=96, hetero=True):
         mem = (rng.choice([64, 128, 256]) if hetero else 256) * 2**30
         nodes.append(make_node(f"n{i}", cpu_milli=cpu, memory=mem, pods=500))
     return nodes
+
+
+def scheduler_pair(**kw):
+    """The JAX package's ``Scheduler(**kw)`` and the port's
+    ``Scheduler(device="cpu", **kw)``, each with a fake clock at 0 (both
+    at their own defaults for whatever ``kw`` leaves out: the pipelined
+    executor at depth 2, chunks of 4096). Returns ``(js, ts)``."""
+    from kubernetes_tpu.scheduler import Scheduler as JScheduler
+    from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
+
+    return (JScheduler(clock=lambda: 0.0, **kw),
+            TScheduler(device="cpu", clock=lambda: 0.0, **kw))
+
+
+def feed_cluster(js, ts, nodes, pods):
+    """Add JAX-typed nodes, then pods (bound or pending), to both
+    schedulers."""
+    feed_pair(js, ts, [("node_add", nd) for nd in nodes]
+              + [("pod_add", p) for p in pods])
+
+
+#: the CycleResult fields the pipelined executor must reproduce
+PIPELINE_FIELDS = ("attempted", "scheduled", "unschedulable", "rounds",
+                   "assignments", "failure_reasons", "fit_errors",
+                   "preempted", "nominations", "solver_tier",
+                   "snapshot_mode", "pipeline_chunks")
+
+
+def explain_rows(report):
+    """An UnschedulableReport as plain data: every pod's row and the
+    cluster roll-up."""
+    if report is None:
+        return None
+    return ({k: (pe.reasons, pe.message, pe.reason_node_counts,
+                 [tuple(r) for r in pe.relaxations], pe.feasible_nodes)
+             for k, pe in report.pods.items()},
+            report.reason_node_counts, report.reason_pods)
+
+
+def assert_same_cycle(rj, rt, fields=PIPELINE_FIELDS):
+    """Both cycles agree on ``fields`` and on the explain report's rows."""
+    for f in fields:
+        assert getattr(rt, f) == getattr(rj, f), (f, getattr(rt, f),
+                                                  getattr(rj, f))
+    assert explain_rows(rt.explain) == explain_rows(rj.explain)
