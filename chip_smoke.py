@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs nine phases and exits
+``nvcc`` per source, in parallel), then runs ten phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -64,23 +64,43 @@ non-zero if any fails:
    pods, chunks of 512) whose depth-2, depth-3 and CPU placements must
    agree. The device round loop (``csrc/graph_loop.cu``) is then held
    against its plain version, the Python loop, on the first chunk's
-   inputs.
+   inputs;
+10. the configured scheduler: every arm's configuration is a JSON
+   v1alpha1 ``KubeSchedulerConfiguration`` written to a temporary
+   directory, loaded with ``cli.load_config_file`` and built with
+   ``Scheduler.from_config``. Arm A, cell ``pipeline-5k-30k`` with
+   ``solver: batch`` and ``solver: sinkhorn`` and ``warmup`` on: the
+   scheduler warms with the first 64 pending pods after the node sync
+   (as ``cli.run``'s gate does); no cycle may capture a round-loop graph
+   after warmup, every pod binds on the configured tier, placements equal
+   a hand-built ``Scheduler``. Arm B, the ladder (5000 nodes, 4096
+   pending): each raising and poisoning fault kind at ``solve:batch``
+   gives the retry then ``batch-cpu`` with the fault-free placements; the
+   breaker opens, sheds and half-opens on a hand-advanced clock; a blown
+   ``cycleDeadline`` skips to ``greedy``; a ``KernelError`` reaches the
+   caller. Arm C, ``solver: exact`` (500 nodes, 512 pending): equal to
+   ``native.exact_assign`` recomputed on the recorded host matrices and
+   to the same cycle on CPU tensors; a topology batch routes to
+   ``batch``. Arm D (5000 nodes): 256 pods through an extender this
+   script serves on 127.0.0.1, then ``percentageOfNodesToScore: 50``:
+   every bound node passed the extender's filter and lies in its cycle's
+   ``NodeTree.take(k)`` subset.
 
 Lines of JSON report each phase; the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
-path, the topology path, the preempt cell, the sparse cell and the
-pipeline cell, each
-counted from 0 just before it runs: ``launches`` is their sum,
-``launches_by_path`` and ``launches_per_cycle`` split it; the sparse
-cell's frame shapes are held and timed again under ``sparse_shapes``),
-error against the plain version, times
-and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
+path, the topology path, the preempt cell, the sparse cell, the
+pipeline cell and the configured scheduler's arm A, each counted from 0
+just before it runs: ``launches`` is their sum, ``launches_by_path``
+and ``launches_per_cycle`` split it; the sparse cell's frame shapes are
+held and timed again under ``sparse_shapes``), error against the plain
+version, times and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
 CUDA-event medians; ``ms_batched`` times back-to-back calls and
 ``device_ms`` is the trace's device time); the last line is the one-line
 contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
-env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline);
+env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
+config);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -105,9 +125,10 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
-              "preempt", "sparse", "pipeline")
+              "preempt", "sparse", "pipeline", "config")
 #: the phases that drive a main path and count its kernel launches
-MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline")
+MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
+              "config")
 
 
 def emit(obj) -> None:
@@ -1888,8 +1909,8 @@ def check_round_loop(out_rows: dict, inputs) -> None:
 
     from kubernetes_tpu_torch.ops.assign import batch_assign
 
-    (dp, dn, ds, dt, dv, sv, extra_mask, extra_score, skip, no_ports,
-     no_aff, no_spread) = inputs
+    (dp, dn, ds, dt, dv, sv, _base_fr, extra_mask, extra_score, skip,
+     no_ports, no_aff, no_spread) = inputs
 
     def solve():
         return batch_assign(dp, dn, ds, None, max_rounds=128,
@@ -1924,6 +1945,506 @@ def check_round_loop(out_rows: dict, inputs) -> None:
     # (assignment and usage) written once
     row.update(_bound(_nbytes(tuple(dp), tuple(dn), tuple(ds), a, tuple(u)),
                       0.0))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the configured scheduler (Scheduler.from_config, the ladder,
+# exact, extenders, node truncation, warmup)
+# ---------------------------------------------------------------------------
+
+#: the v1alpha1 document header every arm's configuration carries
+GV = {"apiVersion": "kubescheduler.config.k8s.io/v1alpha1",
+      "kind": "KubeSchedulerConfiguration"}
+
+
+def configured(doc: dict, tmp: str, name: str, **kw):
+    """Write ``doc`` as a JSON KubeSchedulerConfiguration, load it with
+    ``cli.load_config_file`` (as ``python -m kubernetes_tpu_torch
+    --config`` does) and build ``Scheduler.from_config`` on the card."""
+    from kubernetes_tpu_torch.cli import load_config_file
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump({**GV, **doc}, f)
+    return Scheduler.from_config(load_config_file(path), **kw)
+
+
+def _solve_spans(trace) -> dict:
+    return {k: v for k, v in trace.span_durations().items()
+            if k.startswith(("solve:", "pipeline:dispatch",
+                             "pipeline:readback"))}
+
+
+def config_arm_a(tmp: str) -> dict:
+    """Arm A: cell ``pipeline-5k-30k`` through ``Scheduler.from_config``
+    with ``solver: batch`` and ``solver: sinkhorn``, ``warmup: {enabled:
+    true}`` and ``percentageOfNodesToScore: 100`` (the v1alpha1 default,
+    0, is the reference's adaptive rule: 10% of 5000 nodes, which takes
+    the cycle off the pipelined executor). After the node sync the
+    scheduler warms with the first 64 pending pods, as ``cli.run``'s gate
+    does. Fails unless warmup captured graphs and no cycle captured one,
+    every pod binds on the configured tier with no fallback, capacity is
+    clean, and the placements equal a hand-built ``Scheduler`` with the
+    same arguments (unwarmed)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.config import (
+        RobustnessConfig,
+        default_predicate_mask,
+        default_priority_weights,
+    )
+    from kubernetes_tpu_torch.ops import device_loop
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    out = {}
+    launches = {}
+    for solver in ("batch", "sinkhorn"):
+        nodes, bound, pending = pipeline_cell()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        sched = configured({"solver": solver,
+                            "percentageOfNodesToScore": 100,
+                            "warmup": {"enabled": True}}, tmp,
+                           f"arm-a-{solver}")
+        feed(sched, nodes, bound, pending)
+        c0 = device_loop.CAPTURES.count
+        t0 = time.perf_counter()
+        # cli.run's gate: the first 64 active pods after the node sync
+        warmed = sched.warmup(
+            sample_pods=sched.queue.pending_pods()["active"][:64])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_captures = device_loop.CAPTURES.count - c0
+        mem_after_warmup = torch.cuda.memory_allocated()
+        peak_after_warmup = torch.cuda.max_memory_allocated()
+        results = []
+        for _ in range(16):
+            t0 = time.perf_counter()
+            r = sched.schedule_cycle()
+            torch.cuda.synchronize()
+            if r.attempted == 0:
+                break
+            results.append((r, time.perf_counter() - t0,
+                            _solve_spans(sched.obs.last_trace)))
+        got = launch_counts()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        rs = [r for r, _, _ in results]
+        scheduled = sum(r.scheduled for r in rs)
+        captures_after = sum(r.graph_captures for r in rs)
+        if warmed <= 0 or warm_captures <= 0:
+            fail(f"config/A/{solver}: warmup warmed {warmed} shapes, "
+                 f"captured {warm_captures} graphs")
+        if captures_after:
+            fail(f"config/A/{solver}: {captures_after} round-loop graphs "
+                 "captured after warmup")
+        if scheduled != len(pending):
+            fail(f"config/A/{solver}: bound {scheduled} of {len(pending)}")
+        for r in rs:
+            if r.solver_tier != solver or r.solver_fallbacks:
+                fail(f"config/A/{solver}: a cycle solved on tier "
+                     f"{r.solver_tier!r} after {r.solver_fallbacks} "
+                     "fallbacks")
+        placed = {}
+        for r in rs:
+            placed.update(r.assignments)
+        recheck_capacity(nodes, bound, placed, {p.key(): p for p in pending})
+        pinned = device_loop.pinned_count()
+        del sched
+        release_graphs()
+        # the same arguments by hand, no warmup
+        hand = Scheduler(solver=solver, pred_mask=default_predicate_mask(),
+                         weights=default_priority_weights(),
+                         robustness=RobustnessConfig())
+        feed(hand, *pipeline_cell())
+        want = {}
+        for _ in range(16):
+            r = hand.schedule_cycle()
+            if r.attempted == 0:
+                break
+            want.update(r.assignments)
+        if want != placed:
+            n = sum(placed.get(k) != v for k, v in want.items())
+            fail(f"config/A/{solver}: placements differ from the "
+                 f"hand-built Scheduler on {n} pods")
+        del hand
+        release_graphs()
+        cycle_s = [w for _, w, _ in results]
+        out[solver] = {
+            "warmed_shapes": warmed, "warmup_s": warm_s,
+            "graph_captures_warmup": warm_captures,
+            "graphs_pinned": pinned,
+            "graph_captures_after_warmup": captures_after,
+            "memory_allocated_after_warmup_gib": mem_after_warmup / 2**30,
+            "max_memory_allocated_after_warmup_gib":
+                peak_after_warmup / 2**30,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "attempted": [r.attempted for r in rs],
+            "pipeline_chunks": [r.pipeline_chunks for r in rs],
+            "rounds": [r.rounds for r in rs],
+            "host_syncs": [r.host_syncs for r in rs],
+            "cycle_s": cycle_s, "solve_s": [r.solve_s for r in rs],
+            "solve_spans_s": [sp for _, _, sp in results],
+            "pods_per_s": scheduled / sum(cycle_s),
+            "scheduled": scheduled, "tier": solver,
+            "placements_equal_hand_built": True, "launches": got}
+    return {"arms": out, "launches": launches, "cycles": sum(
+        len(v["attempted"]) for v in out.values())}
+
+
+class _KernelFaultOnRetry:
+    """A fault injector whose first ``solve:batch`` attempt crashes (a
+    solver fault, so the ladder retries) and whose retry hits a broken
+    kernel (``KernelError``, which must reach the caller)."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch import faults, kernels
+
+        self.calls = 0
+        self.crash = faults.SolverCrash
+        self.kernel_error = kernels.KernelError
+
+    def solver_hook(self, site, assigned, usage, rounds, n_nodes):
+        self.calls += 1
+        if self.calls == 1:
+            raise self.crash(f"injected crash at {site}")
+        raise self.kernel_error(f"injected kernel fault at {site}")
+
+    def device_hook(self, site):
+        return None
+
+
+class _Clock:
+    """A hand-advanced clock (the breaker's open duration)."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def _ladder_cycle(sched, pods):
+    for p in pods:
+        sched.on_pod_add(p)
+    t0 = time.perf_counter()
+    r = sched.schedule_cycle()
+    return r, time.perf_counter() - t0
+
+
+def config_arm_b(tmp: str) -> dict:
+    """Arm B: the ladder on the smoke cluster (5000 nodes, 1000 bound)
+    with 4096 pending pods, one monolithic cycle. A ``FaultInjector``
+    fails ``solve:batch`` with each raising kind and each poisoning kind
+    in turn: the retry runs, then ``batch-cpu`` places the batch, equal to
+    the same cycle without a fault. Then, on 64-pod cycles: the breaker
+    opens after ``breakerFailureThreshold`` cycles, sheds the tier, and
+    half-opens after ``breakerOpenDuration`` on a hand-advanced clock; a
+    blown ``cycleDeadline`` skips to ``greedy``; a ``KernelError`` on the
+    retry reaches the caller."""
+    import torch
+
+    from kubernetes_tpu_torch import faults, kernels
+    from kubernetes_tpu_torch.testing import make_pod
+
+    nodes, bound, pending = smoke_cell(n_pending=4096)
+    doc = {"solver": "batch", "percentageOfNodesToScore": 100}
+    base = configured(doc, tmp, "arm-b")
+    feed(base, nodes, bound, pending)
+    r0, s0 = _ladder_cycle(base, [])
+    if r0.solver_tier != "batch" or r0.scheduled != len(pending):
+        fail(f"config/B: the fault-free cycle solved on {r0.solver_tier!r}, "
+             f"bound {r0.scheduled}")
+    del base
+    kinds = {}
+    for kind in ("timeout", "connection", "crash", "device_lost",
+                 "device_oom", "partial", "stale", "garbage", "nan",
+                 "infeasible"):
+        inj = faults.FaultInjector(seed=7).arm("solve:batch", kind)
+        sched = configured(doc, tmp, "arm-b", fault_injector=inj,
+                           retry_sleep=lambda _s: None)
+        feed(sched, nodes, bound, pending)
+        r, wall = _ladder_cycle(sched, [])
+        if r.tier_attempts != ["batch", "batch", "batch-cpu"]:
+            fail(f"config/B/{kind}: tiers {r.tier_attempts}")
+        if r.assignments != r0.assignments:
+            fail(f"config/B/{kind}: batch-cpu placed differently from the "
+                 "fault-free cycle")
+        kinds[kind] = {"tiers": r.tier_attempts, "scheduled": r.scheduled,
+                       "cycle_s": wall,
+                       "batch_cpu_s": sched.obs.last_trace.span_durations()
+                       .get("solve:batch-cpu"),
+                       "rejections": dict(
+                           (k[1], v) for k, v in
+                           sched.metrics.solver_rejections._values.items()),
+                       "host_syncs": r.host_syncs}
+        del sched
+        torch.cuda.empty_cache()
+
+    # the breaker: threshold 2, open 30 s, 64-pod cycles on a fake clock
+    clock = _Clock()
+    inj = faults.FaultInjector(seed=9).arm("solve:batch", "crash")
+    sched = configured({**doc, "robustness": {
+        "breakerFailureThreshold": 2, "breakerOpenDuration": "30s"}},
+        tmp, "arm-b-breaker", fault_injector=inj, clock=clock,
+        retry_sleep=lambda _s: None)
+    feed(sched, nodes, bound, [])
+    extra = [make_pod(f"extra-{i}", cpu_milli=100, memory=500 * 2**20)
+             for i in range(4 * 64)]
+    breaker = []
+    for k in range(4):
+        if k == 3:
+            clock.t += 31.0
+            inj.rules.clear()
+        r, wall = _ladder_cycle(sched, extra[64 * k: 64 * (k + 1)])
+        breaker.append({"tiers": r.tier_attempts, "tier": r.solver_tier,
+                        "scheduled": r.scheduled, "cycle_s": wall,
+                        "state": sched._breakers["solver:batch"].state})
+    want = [["batch", "batch", "batch-cpu"], ["batch", "batch", "batch-cpu"],
+            ["batch:shed", "batch-cpu"], ["batch"]]
+    if [b["tiers"] for b in breaker] != want or [
+            b["state"] for b in breaker] != ["closed", "open", "open",
+                                             "closed"]:
+        fail(f"config/B/breaker: {breaker}")
+    breaker_metrics = {
+        "breaker_state": {k[0]: v for k, v in
+                          sched.metrics.breaker_state._values.items()},
+        "solver_fallbacks": {f"{k[0]}->{k[1]}": v for k, v in
+                             sched.metrics.solver_fallbacks._values.items()},
+        "solver_retries": {k[0]: v for k, v in
+                           sched.metrics.solver_retries._values.items()}}
+    del sched
+
+    # a blown deadline: 1 ms is gone before the ladder starts
+    sched = configured({**doc, "robustness": {"cycleDeadline": "1ms"}},
+                       tmp, "arm-b-deadline")
+    feed(sched, nodes, bound, [])
+    r, wall = _ladder_cycle(sched, extra[:64])
+    if r.tier_attempts != ["batch:shed", "greedy"] or r.scheduled != 64 \
+            or sched.metrics.deadline_exceeded.value() != 1:
+        fail(f"config/B/deadline: tiers {r.tier_attempts}, bound "
+             f"{r.scheduled}")
+    deadline = {"tiers": r.tier_attempts, "scheduled": r.scheduled,
+                "cycle_s": wall}
+    del sched
+
+    # a kernel fault on the retry reaches the caller
+    sched = configured(doc, tmp, "arm-b-kernel",
+                       fault_injector=_KernelFaultOnRetry(),
+                       retry_sleep=lambda _s: None)
+    feed(sched, nodes, bound, extra[:64])
+    try:
+        sched.schedule_cycle()
+        fail("config/B/kernel: the KernelError did not reach the caller")
+    except kernels.KernelError as e:
+        kernel_fault = str(e)
+    del sched
+    release_graphs()
+    return {"fault_free_cycle_s": s0, "kinds": kinds, "breaker": breaker,
+            "breaker_metrics": breaker_metrics, "deadline": deadline,
+            "kernel_error_reached_caller": kernel_fault}
+
+
+def config_arm_c(tmp: str) -> dict:
+    """Arm C: ``solver: exact`` on 500 nodes with 512 pending pods (cut
+    to size: the host Hungarian is O(n^3) numpy). The placements must
+    equal the plain ``native.exact_assign`` on the same host matrices
+    (each call's inputs recorded, recomputed) and the same cycle on CPU
+    tensors; capacity clean; a batch with topology terms goes to
+    ``batch``."""
+    from kubernetes_tpu_torch import native
+    from kubernetes_tpu_torch.api.types import (
+        Affinity,
+        LabelSelector,
+        PodAffinityTerm,
+    )
+    from kubernetes_tpu_torch.testing import make_pod
+
+    nodes, bound, pending = smoke_cell(500, 100, 512, seed=3)
+    doc = {"solver": "exact", "percentageOfNodesToScore": 100}
+    calls = []
+    real = native.exact_assign
+
+    def recording(score, mask, cap):
+        out = real(score, mask, cap)
+        calls.append((score.copy(), mask.copy(), cap.copy(), out.copy()))
+        return out
+
+    native.exact_assign = recording
+    try:
+        sched = configured(doc, tmp, "arm-c")
+        feed(sched, nodes, bound, pending)
+        r, wall = _ladder_cycle(sched, [])
+    finally:
+        native.exact_assign = real
+    if r.solver_tier != "exact" or r.solver_fallbacks or not calls:
+        fail(f"config/C: tier {r.solver_tier!r}, {len(calls)} exact calls")
+    for score, mask, cap, got in calls:
+        if not (real(score, mask, cap) == got).all():
+            fail("config/C: exact_assign disagrees with its recomputation")
+    cpu = configured(doc, tmp, "arm-c", device="cpu")
+    feed(cpu, nodes, bound, pending)
+    rc, _ = _ladder_cycle(cpu, [])
+    if rc.assignments != r.assignments:
+        fail("config/C: the exact tier placed differently on CPU tensors")
+    recheck_capacity(nodes, bound, r.assignments,
+                     {p.key(): p for p in pending})
+    anti = Affinity(pod_anti_affinity_required=(PodAffinityTerm(
+        label_selector=LabelSelector(match_labels={"app": "spread"}),
+        topology_key=HOSTNAME),))
+    topo = [make_pod(f"anti-{i}", cpu_milli=100, labels={"app": "spread"},
+                     affinity=anti) for i in range(32)]
+    rt, _ = _ladder_cycle(sched, topo)
+    if rt.solver_tier != "batch" or sched.exact_fallbacks != 1 \
+            or rt.scheduled != 32 or len(set(rt.assignments.values())) != 32:
+        fail(f"config/C: the topology batch solved on {rt.solver_tier!r}, "
+             f"{sched.exact_fallbacks} routings, {rt.scheduled} bound")
+    return {"nodes": len(nodes), "pending": len(pending),
+            "scheduled": r.scheduled,
+            "cycle_s": wall, "solve_s": r.solve_s, "rounds": r.rounds,
+            "exact_calls": len(calls),
+            "slot_columns": [int(c[2].sum()) for c in calls],
+            "cpu_equal": True, "topology_batch_tier": rt.solver_tier}
+
+
+class _ExtenderHandler:
+    """The extender endpoint served on 127.0.0.1 (node-cache-capable wire
+    form): filter drops every node whose index is a multiple of 3,
+    prioritize scores a node by its index modulo 5."""
+
+    @staticmethod
+    def make():
+        import http.server
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                names = body.get("nodenames") or []
+                idx = {n: int(n.rsplit("-", 1)[1]) for n in names}
+                if self.path.endswith("/filter"):
+                    resp = {"nodenames": [n for n in names if idx[n] % 3]}
+                else:
+                    resp = [{"host": n, "score": idx[n] % 5} for n in names]
+                data = json.dumps(resp).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        return Handler
+
+
+def config_arm_d(tmp: str) -> dict:
+    """Arm D, 5000 nodes: 256 pending pods through one extender (filter +
+    prioritize, weight 1) that this phase serves itself on 127.0.0.1
+    (``http.server`` in a thread; one pod a call, as the protocol is);
+    then ``percentageOfNodesToScore: 50`` on 256 more. Fails unless every
+    bound node passed the extender's filter, and every pod bound under
+    truncation landed in its cycle's ``NodeTree.take(k)`` subset."""
+    import http.server
+    import threading
+
+    from kubernetes_tpu_torch.nodetree import num_feasible_nodes_to_find
+
+    nodes, bound, pending = smoke_cell(n_pending=512, seed=5)
+    # the extender lives on loopback: no proxy may stand in between
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.lower() in ("http_proxy", "https_proxy", "all_proxy")}
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                          _ExtenderHandler.make())
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/ext"
+        sched = configured({
+            "percentageOfNodesToScore": 100,
+            "algorithmSource": {"policy": {"kind": "Policy", "extenders": [
+                {"urlPrefix": url, "filterVerb": "filter",
+                 "prioritizeVerb": "prioritize", "weight": 1,
+                 "nodeCacheCapable": True}]}}}, tmp, "arm-d-extender")
+        half = len(pending) // 2
+        feed(sched, nodes, bound, pending[:half])
+        r, wall = _ladder_cycle(sched, [])
+        ext_span = sched.obs.last_trace.span_durations().get("extenders")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+        os.environ.update(saved)
+    if r.scheduled != half or r.solver_tier != "batch":
+        fail(f"config/D: bound {r.scheduled} of {half} through the "
+             f"extender on {r.solver_tier!r}")
+    bad = [n for n in r.assignments.values()
+           if int(n.rsplit("-", 1)[1]) % 3 == 0]
+    if bad:
+        fail(f"config/D: {len(bad)} pods bound on nodes the extender "
+             "filtered out")
+    trunc = configured({"percentageOfNodesToScore": 50}, tmp,
+                       "arm-d-truncated")
+    subsets = []
+    real_take = trunc.node_tree.take
+
+    def take(n):
+        got = real_take(n)
+        subsets.append(set(got))
+        return got
+
+    trunc.node_tree.take = take
+    feed(trunc, nodes, bound, pending[half:])
+    rt, wall_t = _ladder_cycle(trunc, [])
+    k = num_feasible_nodes_to_find(len(nodes), 50)
+    if rt.scheduled != len(pending) - half or len(subsets) != 1 \
+            or len(subsets[0]) != k:
+        fail(f"config/D: truncation bound {rt.scheduled}, subsets "
+             f"{[len(s) for s in subsets]}")
+    outside = [n for n in rt.assignments.values() if n not in subsets[0]]
+    if outside or rt.pipeline_chunks:
+        fail(f"config/D: {len(outside)} pods bound outside the subset")
+    release_graphs()
+    return {"extender": {"scheduled": r.scheduled, "cycle_s": wall,
+                         "extenders_span_s": ext_span,
+                         "host_syncs": r.host_syncs},
+            "truncation": {"scheduled": rt.scheduled, "k": k,
+                           "cycle_s": wall_t,
+                           "nodes_used": len(set(rt.assignments.values()))}}
+
+
+def phase_config() -> dict:
+    """The configured scheduler: arms A-D (see each). Every arm's
+    configuration is a JSON v1alpha1 document this phase writes to a
+    temporary directory and loads with ``load_config_file``; the
+    scheduler is built with ``Scheduler.from_config``. Returns arm A's
+    kernel launches (the configured main path, counted from 0 before its
+    first scheduler is built, warmup included)."""
+    import tempfile
+
+    import torch
+
+    # warm the libraries and this path off the clock
+    run_pipeline(2, pipeline_cell(100, 20, 600, seed=1), chunk=256)
+    release_graphs()
+    with tempfile.TemporaryDirectory(prefix="ktt-config-") as tmp:
+        main = config_arm_a(tmp)
+        emit({"phase": "config", "arm": "A", "cell": "pipeline-5k-30k",
+              **main["arms"]})
+        b = config_arm_b(tmp)
+        emit({"phase": "config", "arm": "B", "cell": "ladder-5k-4096", **b})
+        c = config_arm_c(tmp)
+        emit({"phase": "config", "arm": "C", "cell": "exact-500-512", **c})
+        d = config_arm_d(tmp)
+        emit({"phase": "config", "arm": "D", "cell": "extender-5k-256", **d})
+    torch.cuda.empty_cache()
+    return {"launches": main["launches"], "cycles": main["cycles"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2046,7 +2567,8 @@ def main() -> None:
                        ("parity", phase_parity),
                        ("preempt", phase_preempt),
                        ("sparse", phase_sparse),
-                       ("pipeline", phase_pipeline)):
+                       ("pipeline", phase_pipeline),
+                       ("config", phase_config)):
         if phase not in phases:
             continue
         got = run()

@@ -24,6 +24,19 @@ torch.set_float32_matmul_precision("highest")
 __version__ = "0.1.0"
 
 
+def version_info() -> dict:
+    """pkg/version analog (version/base.go Get()): the version document
+    ``--version`` prints."""
+    import platform as _platform
+
+    return {
+        "gitVersion": f"v{__version__}",
+        "compatibleReference": "kubernetes v1.16 (scheduler capability set)",
+        "platform": f"{_platform.system().lower()}/{_platform.machine()}",
+        "pythonVersion": _platform.python_version(),
+    }
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller
     asks for the CPU. Raises when CUDA is asked for and no card is

@@ -234,11 +234,18 @@ def greedy_assign(
     no_ports: bool = False,
     no_pod_affinity: bool = False,
     no_spread: bool = False,
+    fault_hook=None,
+    fault_site: str = "solve:greedy",
 ) -> Tuple[torch.Tensor, UsageState]:
     """Serial-parity solver. Returns (assigned node row per pod or -1,
     final usage). ``extra_mask`` (P, N) ANDs into feasibility;
     ``skip_priorities`` names kernels replaced by their exact constants.
-    The pod loop stays on the device: no host sync."""
+    The pod loop stays on the device: no host sync.
+
+    ``fault_hook(site, assigned, usage, rounds, n_nodes)`` is the
+    solver-entry fault-injection seam (:mod:`kubernetes_tpu_torch.faults`):
+    called with the would-be result, it may raise a solver fault or
+    return a poisoned triple."""
     P = pods.req.shape[0]
     dev = pods.req.device
     perm = queue_order(pods)
@@ -269,6 +276,9 @@ def greedy_assign(
         picks[i:i + 1] = torch.where(ok, best, -1).to(torch.int32)
     assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
     assigned[perm] = picks
+    if fault_hook is not None:
+        assigned, u, _ = fault_hook(fault_site, assigned, u, 0,
+                                    nodes.allocatable.shape[0])
     return assigned, u
 
 
@@ -546,7 +556,7 @@ def _serialize_topology(accepted, choice, rank, sens, pods, cur, topo,
 def _general_round(ctx, state, first, use_plan, *, weights, skip,
                    enabled_mask, no_ports, no_pod_affinity, no_spread,
                    per_node_cap, res_on, use_sinkhorn, auto_sinkhorn,
-                   sk_warm, sk_tol, with_stats):
+                   sk_warm, sk_tol, with_stats, route_plan=None):
     """One general assignment round (the body :func:`_batch_impl` loops).
     ``first`` marks round 0, where the auto-router decides ``use_plan``
     for every later round with one counted sync."""
@@ -589,9 +599,11 @@ def _general_round(ctx, state, first, use_plan, *, weights, skip,
     if use_sinkhorn or auto_sinkhorn:
         slots = _column_slots(pods, nodes, u, active)
         if auto_sinkhorn and first:
-            # decide ONCE, from round 0: one counted sync
-            use_plan = bool(to_host(
+            # decide ONCE, from round 0: one counted sync (unless the
+            # caller fixed the route)
+            use_plan = (bool(to_host(
                 _tie_cohort_detected(mask_full, score, slots)))
+                if route_plan is None else bool(route_plan))
         if use_sinkhorn or use_plan:
             tied, sk_stats, (sk_u, sk_v) = _plan_tied(
                 score, rowmax, mask, slots,
@@ -622,7 +634,7 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                 enabled_mask=None, extra_score=None, use_sinkhorn=False,
                 skip=(), no_ports=False, no_pod_affinity=False,
                 no_spread=False, auto_sinkhorn=True, with_stats=False,
-                sk_init=None, sk_tol=None):
+                sk_init=None, sk_tol=None, route_plan=None):
     """The round loop. Returns ``(assigned, usage, rounds, sk_stats,
     (sk_u, sk_v))``: ``rounds`` an int32 0-d tensor, the last round's
     Sinkhorn stats ([-1, -1] when the plan never ran or ``with_stats`` is
@@ -690,13 +702,14 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                  no_spread=no_spread, per_node_cap=per_node_cap,
                  res_on=res_on, use_sinkhorn=use_sinkhorn,
                  auto_sinkhorn=auto_sinkhorn, sk_warm=sk_warm, sk_tol=sk_tol,
-                 with_stats=with_stats)
+                 with_stats=with_stats, route_plan=route_plan)
     # the tolerance-gated Sinkhorn reads its residual on the host every
     # iteration, so its rounds cannot be captured: they keep the Python
     # loop (statics None)
     statics = None if sk_tol is not None else (
         "general", _weights_key(weights),
-        *[(k, v) for k, v in flags.items() if k != "weights"])
+        *[(k, v) for k, v in flags.items()
+          if k not in ("weights", "route_plan")])
     ctx = (pods, nodes, sel, topo, vol, static_vol, extra_mask, extra_score,
            rank, hoisted, hoisted_prio, sens, has_port)
     state = (torch.full((P,), -1, dtype=torch.int32, device=dev),
@@ -767,6 +780,9 @@ def batch_assign(
     sk_init=None,
     sk_tol: Optional[float] = None,
     potentials_out: bool = False,
+    fault_hook=None,
+    fault_site: str = "solve:batch",
+    route_plan: Optional[bool] = None,
 ):
     """Fast batched solver. Returns (assigned row per pod or -1, final
     usage, rounds executed) — ``rounds`` an int32 0-d tensor on the
@@ -793,7 +809,13 @@ def batch_assign(
     carries the potentials from round to round; ``potentials_out``
     appends the final ``(u, v)`` pair (zeros on the lean route, which
     never runs the plan). Unset, the cold start of every round stays as
-    it was."""
+    it was.
+
+    ``fault_hook``/``fault_site``: the fault-injection seam, as in
+    :func:`greedy_assign`; the hook stands where an out-of-process
+    solver's response would be decoded. ``route_plan`` replaces the
+    auto-router's round-0 decision (no read): the warmup uses it to
+    capture the round-loop graph of each route the router can take."""
     assigned, u, rounds, sk_stats, pot = _batch_impl(
         pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         extra_mask=extra_mask, vol=vol, static_vol=static_vol,
@@ -801,7 +823,11 @@ def batch_assign(
         use_sinkhorn=use_sinkhorn, skip=tuple(skip_priorities),
         no_ports=no_ports, no_pod_affinity=no_pod_affinity,
         no_spread=no_spread, auto_sinkhorn=auto_sinkhorn,
-        with_stats=stats_out, sk_init=sk_init, sk_tol=sk_tol)
+        with_stats=stats_out, sk_init=sk_init, sk_tol=sk_tol,
+        route_plan=route_plan)
+    if fault_hook is not None:
+        assigned, u, rounds = fault_hook(fault_site, assigned, u, rounds,
+                                         nodes.allocatable.shape[0])
     ret = (assigned, u, rounds)
     if stats_out:
         ret = ret + (sk_stats,)

@@ -17,9 +17,15 @@ the result. :func:`run` gives the port the same shape.
   syncs, and are not counted.
 
 One graph is cached per (shapes and dtypes of every input, the statics
-the body bakes in, ``max_rounds``): a cached graph reads its inputs from
-fixed buffers, so each run copies the inputs there (device to device,
-stream-ordered) and clones the results out. A capture or launch that
+the body bakes in, round 0's tag, ``max_rounds``): a cached graph reads
+its inputs from fixed buffers, so each run copies the inputs there
+(device to device, stream-ordered) and clones the results out. Every
+capture counts in ``CAPTURES``, and every loop run adds its key to
+``KEYS`` (on CPU tensors too: the key a card would cache the graph
+under, so a test can check the warmup's coverage without a card).
+Graphs captured under :func:`pinning` (the scheduler's warmup) stay
+cached outside the ``CACHE_SIZE`` bound, so a warmed shape never
+captures again. A capture or launch that
 fails raises :class:`~kubernetes_tpu_torch.kernels.KernelError`; there is
 no quiet fall-back to the Python loop.
 
@@ -30,6 +36,7 @@ indexing, no ``.item()``): the capture refuses anything else.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 from typing import Callable, List, Optional, Tuple
 
@@ -38,8 +45,22 @@ import torch
 from kubernetes_tpu_torch import kernels
 from kubernetes_tpu_torch.ops.sync import to_host
 
-#: cached loop graphs kept per process (the oldest is dropped beyond it)
+#: cached loop graphs kept per process besides the pinned ones (the
+#: oldest unpinned graph is dropped beyond it)
 CACHE_SIZE = 8
+
+
+class CaptureCounter:
+    """A running count of round-loop graph captures (cache misses)."""
+
+    def __init__(self) -> None:
+        self.count = 0
+
+
+CAPTURES = CaptureCounter()
+
+#: the cache key of every loop run (see :func:`run`)
+KEYS: set = set()
 
 #: (round body, ctx, state, first round?, tag) -> (state, cont, tag)
 RoundFn = Callable[..., Tuple[object, torch.Tensor, object]]
@@ -165,6 +186,25 @@ class _Loop:
 _cache: "collections.OrderedDict[tuple, _Loop]" = collections.OrderedDict()
 #: evicted loops whose last launch may still be running
 _retired: List[_Loop] = []
+#: keys of the cached loops that eviction skips
+_pinned: set = set()
+#: whether loops run now are pinned (inside :func:`pinning`)
+_pin_now = [False]
+
+
+@contextlib.contextmanager
+def pinning():
+    """Every loop captured or reused inside the block stays cached until
+    :func:`clear` (the warmup's graphs)."""
+    _pin_now[0] = True
+    try:
+        yield
+    finally:
+        _pin_now[0] = False
+
+
+def pinned_count() -> int:
+    return len(_pinned)
 
 
 def _sweep() -> None:
@@ -183,6 +223,7 @@ def clear() -> None:
     """Drop every cached loop (their memory is freed once idle)."""
     _retired.extend(_cache.values())
     _cache.clear()
+    _pinned.clear()
     _sweep()
 
 
@@ -194,14 +235,22 @@ def _host_loop(round_fn: RoundFn, ctx, state, valid, max_rounds: int):
         return bool(t) if dev.type == "cpu" else bool(to_host(t))
 
     rounds = 0
-    tag = None
+    tag = first_tag = None
     more = max_rounds > 0 and read(valid.any())
     while more and rounds < max_rounds:
         state, cont, tag = round_fn(ctx, state, rounds == 0, tag)
+        if rounds == 0:
+            first_tag = tag
         rounds += 1
         more = read(cont)
     # filled on the device: an upload would wait for the stream
-    return state, torch.full((), rounds, dtype=torch.int32, device=dev)
+    return (state, torch.full((), rounds, dtype=torch.int32, device=dev),
+            first_tag)
+
+
+def _key(ctx, state, statics, tag, max_rounds: int, dev) -> tuple:
+    return (_flatten(ctx, []), _flatten(state, []), statics, tag,
+            int(max_rounds), str(dev))
 
 
 def run(round_fn: RoundFn, ctx, state, valid: torch.Tensor, max_rounds: int,
@@ -221,7 +270,11 @@ def run(round_fn: RoundFn, ctx, state, valid: torch.Tensor, max_rounds: int,
     batch's (P, N), for the launch count of the loop."""
     dev = valid.device
     if dev.type != "cuda" or statics is None:
-        return _host_loop(round_fn, ctx, state, valid, max_rounds)
+        out, rounds, tag = _host_loop(round_fn, ctx, state, valid,
+                                      max_rounds)
+        if statics is not None and max_rounds > 1:
+            KEYS.add(_key(ctx, state, statics, tag, max_rounds, dev))
+        return out, rounds
     if max_rounds <= 0:
         return state, torch.zeros((), dtype=torch.int32, device=dev)
     _sweep()
@@ -235,14 +288,23 @@ def run(round_fn: RoundFn, ctx, state, valid: torch.Tensor, max_rounds: int,
     if max_rounds == 1:
         return state, rounds
     cont = (cont & any_valid).to(torch.int32)
-    key = (_flatten(ctx, []), _flatten(state, []), statics, tag,
-           int(max_rounds), str(dev))
+    key = _key(ctx, state, statics, tag, max_rounds, dev)
+    KEYS.add(key)
+    if _pin_now[0]:
+        _pinned.add(key)
     loop = _cache.get(key)
     if loop is None:
         loop = _Loop(round_fn, ctx, state, tag, max_rounds, dev, shape)
+        CAPTURES.count += 1
         _cache[key] = loop
-        while len(_cache) > CACHE_SIZE:
-            _retired.append(_cache.popitem(last=False)[1])
+        _evict()
     else:
         _cache.move_to_end(key)
     return loop.run(ctx, state, rounds, cont)
+
+
+def _evict() -> None:
+    """Retire the oldest unpinned loops beyond ``CACHE_SIZE``."""
+    unpinned = [k for k in _cache if k not in _pinned]
+    for k in unpinned[: max(len(unpinned) - CACHE_SIZE, 0)]:
+        _retired.append(_cache.pop(k))

@@ -8,19 +8,22 @@ and the tolerance-gated Sinkhorn's exit tests. All of them go through
 :func:`to_host`, which counts them: ``SYNCS.count`` is what a cycle's
 report subtracts.
 
-:func:`to_host` is the one sanctioned read: it lifts PyTorch's sync debug
-mode (``torch.cuda.set_sync_debug_mode``) for its own copy, so a caller
-that runs a path under ``"error"`` catches every sync that is NOT counted
-here."""
+:func:`to_host` is the one sanctioned read (with :func:`to_cpu`, the
+whole-table copy of the ladder's ``batch-cpu`` tier): it lifts PyTorch's
+sync debug mode (``torch.cuda.set_sync_debug_mode``) for its own copy, so
+a caller that runs a path under ``"error"`` catches every sync that is NOT
+counted here."""
 
 from __future__ import annotations
 
 
 class SyncCounter:
-    """A running count of device-to-host reads made through to_host."""
+    """A running count of device-to-host reads made through to_host and
+    to_cpu, and the bytes to_cpu moved."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.cpu_bytes = 0
 
 
 SYNCS = SyncCounter()
@@ -42,3 +45,40 @@ def to_host(t):
         return t.tolist()
     finally:
         torch.cuda.set_sync_debug_mode(mode)
+
+
+def _tree_map(fn, x):
+    """``x`` with ``fn`` applied to every tensor in it (NamedTuples,
+    tuples, lists and None nest)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_tree_map(fn, v) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(fn, v) for v in x)
+    return x
+
+
+def to_cpu(tree):
+    """Copy every tensor of ``tree`` to CPU tensors, counting one sync
+    and the bytes moved (the ``batch-cpu`` tier re-runs a solve on the
+    host's copies)."""
+    import torch
+
+    def copy(t):
+        SYNCS.cpu_bytes += t.numel() * t.element_size()
+        return t.detach().to("cpu", copy=True)
+
+    SYNCS.count += 1
+    mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_available() \
+        else 0
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        return _tree_map(copy, tree)
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)
+

@@ -15,8 +15,9 @@ AddUnschedulableIfNotPresent):
       batch = queue.pop_batch()                      # NextPod, batched
       PreFilter plugins                              # framework
       nt, dn = cache.device_snapshot()               # resident, patched
+      node-search truncation, extenders              # extra_mask/score
       pass A: nominated pods as phantoms -> extra_mask
-      assigned = ladder(batch)                       # batch|sinkhorn -> greedy
+      assigned = ladder(batch)                       # tier, batch-cpu, greedy
       device_validate + ONE readback                 # verdict, rounds, rows
       for pod, node in assigned: assume, reserve, permit, bind
       explain_reduce + ONE readback                  # reasons, FitError text
@@ -41,14 +42,23 @@ whole batch placed; anything less falls through to the dense ladder in
 the same cycle.
 
 Every cycle opens one trace (``Scheduler.obs``, :mod:`.obs.core`) with
-spans at the reference's sites and under its names.
+spans at the reference's sites and under its names, and records the
+reference's metrics (``Scheduler.metrics``, :mod:`.metrics`).
 
-Not ported yet (ROADMAP): warmup (with it the candidate-bucket tuner's
-warmed ladder), the circuit breakers and cycle deadline, the scenario
-cascade, scenario packs, extenders, observability beyond the cycle trace
-(metrics, journeys, the flight recorder, ``/debug/why``), leader fencing,
-recovery and the ambiguous-bind protocol, the mesh, and the
-``batch-single``/``batch-cpu``/``exact`` tiers.
+The degradation ladder is the reference's: the configured tier
+(``batch``, ``sinkhorn``, ``greedy`` or ``exact``), then
+``robustness.fallback_chain`` (``batch-cpu``: the same solve on CPU
+tensors; then the greedy oracle), with bounded in-cycle retries, a
+circuit breaker per tier and a cycle deadline that skips to the floor.
+``Scheduler.from_config`` builds a scheduler from a
+KubeSchedulerConfiguration; ``warmup`` builds the kernels and captures
+the round-loop graphs of every shape a cycle will present.
+
+Not ported yet (ROADMAP): the scenario cascade and scenario packs
+(A.15), observability beyond the cycle trace and the metrics (journeys,
+the flight recorder, ``/debug/why``, the perf and memory ledgers, A.13),
+leader fencing, recovery and the ambiguous-bind protocol (A.14), the
+serve loop (A.16), and the mesh with its ``batch-single`` tier (A.17).
 """
 
 from __future__ import annotations
@@ -64,14 +74,31 @@ import torch
 from kubernetes_tpu_torch import resolve_device
 from kubernetes_tpu_torch.api.types import Pod, is_pod_terminated
 from kubernetes_tpu_torch.cache import SchedulerCache
-from kubernetes_tpu_torch.config import IncrementalConfig
+from kubernetes_tpu_torch.config import (
+    IncrementalConfig,
+    ObservabilityConfig,
+    RecoveryConfig,
+    RobustnessConfig,
+    WarmupConfig,
+)
+from kubernetes_tpu_torch.faults import (
+    CLOSED,
+    OPEN,
+    STATE_CODE,
+    CircuitBreaker,
+    RetryPolicy,
+    SolverFault,
+    SolverResultInvalid,
+)
 from kubernetes_tpu_torch.framework import (
     SKIP,
     WAIT,
     CycleState,
     Framework,
 )
-from kubernetes_tpu_torch.kernels import KernelError
+from kubernetes_tpu_torch import kernels, native
+from kubernetes_tpu_torch.metrics import SchedulerMetrics
+from kubernetes_tpu_torch.nodetree import NodeTree, num_feasible_nodes_to_find
 from kubernetes_tpu_torch.obs.core import Obs
 from kubernetes_tpu_torch.obs.explain import (
     PodExplanation,
@@ -80,11 +107,14 @@ from kubernetes_tpu_torch.obs.explain import (
     explain_reduce,
     read_back,
 )
+from kubernetes_tpu_torch.ops import device_loop
 from kubernetes_tpu_torch.ops.arrays import (
     gather_candidates,
     gather_node_rows,
     map_restricted_assignment,
+    nodes_to_device,
     pods_to_device,
+    scatter_node_rows,
     selectors_to_device,
     topology_to_device,
     volumes_to_device,
@@ -97,10 +127,12 @@ from kubernetes_tpu_torch.ops.assign import (
     greedy_assign,
     nodes_with_usage,
     usage_from_nodes,
+    validate_solution,
 )
 from kubernetes_tpu_torch.ops.fused_score import (
     node_summary,
     partition_columns,
+    patch_node_summary,
 )
 from kubernetes_tpu_torch.ops.predicates import (
     BIT,
@@ -109,17 +141,22 @@ from kubernetes_tpu_torch.ops.predicates import (
     run_predicates,
     static_volume_reasons,
 )
-from kubernetes_tpu_torch.ops.priorities import DEFAULT_WEIGHTS, solver_gates
-from kubernetes_tpu_torch.ops.sync import SYNCS, to_host
+from kubernetes_tpu_torch.ops.priorities import (
+    DEFAULT_WEIGHTS,
+    run_priorities,
+    solver_gates,
+)
+from kubernetes_tpu_torch.ops.sync import SYNCS, to_cpu, to_host
 from kubernetes_tpu_torch.preemption import preempt
 from kubernetes_tpu_torch.queue import SchedulingQueue
-from kubernetes_tpu_torch.snapshot import FIXED_RESOURCE_NAMES
+from kubernetes_tpu_torch.snapshot import FIXED_RESOURCE_NAMES, RES_PODS
 from kubernetes_tpu_torch.utils import klog
 from kubernetes_tpu_torch.utils.interner import bucket_size
 from kubernetes_tpu_torch.volumes import VolumeBinder
 
-#: the ladder tiers this port runs
-TIERS = ("batch", "sinkhorn", "greedy")
+#: the tiers a scheduler may be configured with (``robustness.
+#: fallback_chain`` may add ``batch-cpu``)
+TIERS = ("batch", "sinkhorn", "greedy", "exact")
 
 
 class Binder(Protocol):
@@ -136,10 +173,6 @@ class RecordingBinder:
 
     def bind(self, pod: Pod, node_name: str) -> None:
         self.bindings.append((pod.key(), node_name))
-
-
-class SolverResultInvalid(Exception):
-    """A tier's result failed validation; the ladder moves on."""
 
 
 @dataclass
@@ -198,6 +231,12 @@ class CycleResult:
     cold_blocks: int = 0
     #: chunks the pipelined executor solved (0: the monolithic cycle)
     pipeline_chunks: int = 0
+    #: the ladder's attempts this cycle, in order: ``tier`` for a solve
+    #: that ran (a retry repeats it), ``tier:shed`` for one an open
+    #: breaker or a blown deadline skipped
+    tier_attempts: List[str] = field(default_factory=list)
+    #: round-loop graphs captured during the cycle (0 on a warmed shape)
+    graph_captures: int = 0
 
 
 def _filter_pass(dp, dn, ds, dt, dv=None, sv=None, em=None):
@@ -241,9 +280,10 @@ class Scheduler:
     ``device`` is where the tables and the solve live: ``cuda`` (the
     default; raises without a card) or ``cpu`` (the plain PyTorch
     versions of every kernel). ``solver`` is the first ladder tier
-    (``batch``, ``sinkhorn`` or ``greedy``); ``greedy``, the sequential
-    oracle, is always the last. Every tier's result is checked on the
-    device before anything binds."""
+    (``batch``, ``sinkhorn``, ``greedy`` or ``exact``), then
+    ``robustness.fallback_chain``; ``greedy``, the sequential oracle, is
+    always the floor. Every tier's result is checked on the device before
+    anything binds."""
 
     def __init__(
         self,
@@ -272,6 +312,18 @@ class Scheduler:
         incremental: Optional[IncrementalConfig] = None,
         pipeline_depth: int = 2,
         pipeline_chunk: int = 4096,
+        extenders=(),
+        metrics=None,
+        trace_threshold_s: float = 1.0,
+        percentage_of_nodes_to_score: Optional[int] = None,
+        robustness: Optional[RobustnessConfig] = None,
+        recovery: Optional[RecoveryConfig] = None,
+        fault_injector=None,
+        retry_sleep: Callable[[float], None] = time.sleep,
+        jitter_seed: Optional[int] = None,
+        observability: Optional[ObservabilityConfig] = None,
+        snapshot_max_dirty_frac: Optional[float] = None,
+        warmup: Optional[WarmupConfig] = None,
     ) -> None:
         if solver not in TIERS:
             raise ValueError(f"solver must be one of {TIERS}, got {solver!r}")
@@ -280,9 +332,77 @@ class Scheduler:
         self.framework = framework or Framework(clock=clock)
         self.cache = cache or SchedulerCache(clock=clock, device=self.device)
         self.cache.device = self.device
+        if snapshot_max_dirty_frac is not None:
+            self.cache.max_dirty_frac = snapshot_max_dirty_frac
+        #: the reference's metric set (metrics.py), recorded every cycle
+        self.metrics = metrics or SchedulerMetrics()
         # explicit None check: an empty SchedulingQueue is falsy
         self.queue = queue if queue is not None else SchedulingQueue(
-            clock=clock, less=self.framework.queue_sort_less())
+            clock=clock, less=self.framework.queue_sort_less(),
+            metrics=self.metrics)
+        if getattr(self.queue, "metrics", "absent") is None:
+            self.queue.metrics = self.metrics
+        #: degradation-ladder knobs: cycle deadline, bounded retries,
+        #: breaker thresholds, the fallback chain, result validation
+        self.robustness = (robustness if robustness is not None
+                           else RobustnessConfig())
+        #: crash / failover knobs, kept for the leadership slice (A.14)
+        self.recovery = recovery if recovery is not None else RecoveryConfig()
+        #: faults.FaultInjector (or None): the seeded chaos harness wired
+        #: into the solver entry and the extender transports
+        self.fault_injector = fault_injector
+        rc = self.robustness
+        # per-replica jitter seed: two replicas sharing one RetryPolicy
+        # config must not share the jitter stream (lockstep retry waves)
+        if jitter_seed is None:
+            import os as _os
+            import random as _random
+
+            jitter_seed = (_random.SystemRandom().randrange(1 << 30)
+                           ^ _os.getpid() ^ (id(self) & 0xFFFF))
+        self._jitter_seed = int(jitter_seed)
+        #: bounded-backoff policy of the extender transports; ``sleep``
+        #: injectable so fake-clock tests never block
+        self._transport_retry = RetryPolicy(
+            max_retries=rc.transport_retries, base_s=rc.retry_backoff_base_s,
+            max_s=rc.retry_backoff_max_s, jitter=rc.retry_jitter,
+            seed=self._jitter_seed, sleep=retry_sleep)
+        #: HTTPExtender list (core/extender.go), called after the built-in
+        #: filter pass for interested pods
+        self.extenders = list(extenders)
+        for e in self.extenders:
+            # wire retry + fault hooks into transports that expose the
+            # seam (HTTPExtender); duck-typed so test fakes stay valid
+            if getattr(e, "retry", "absent") is None:
+                e.retry = self._transport_retry
+            if (fault_injector is not None
+                    and getattr(e, "fault_injector", "absent") is None):
+                e.fault_injector = fault_injector
+            if getattr(e, "_clock_defaulted", False):
+                e._clock = clock
+                e._clock_defaulted = False
+        #: per-target circuit breakers ("solver:batch", "extender:<url>"),
+        #: created lazily against this clock
+        self._breakers: Dict[str, CircuitBreaker] = {}
+        #: absolute deadline of the cycle in flight (None = unbounded)
+        self._cycle_deadline: Optional[float] = None
+        #: observability knobs; the port honors the cycle trace, explain
+        #: and the Sinkhorn stats (the rest is ROADMAP A.13)
+        self.observability = (observability if observability is not None
+                              else ObservabilityConfig(
+                                  trace_threshold_s=trace_threshold_s))
+        self.trace_threshold_s = self.observability.trace_threshold_s
+        #: node-search truncation (percentageOfNodesToScore): None scores
+        #: every node; 0 is the reference's adaptive 50%->5% rule; 1-99 a
+        #: fixed percent. A truncated cycle solves on the next K nodes in
+        #: zone round-robin order (NodeTree)
+        self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
+        self.node_tree = NodeTree()
+        #: the warmup's configuration (Scheduler.warmup)
+        self.warmup_config = warmup if warmup is not None else WarmupConfig()
+        #: count of exact -> batch routings (port / volume / topology
+        #: batches the Hungarian cannot model)
+        self.exact_fallbacks = 0
         self.binder = binder or RecordingBinder()
         self.weights = weights
         self.solver = solver
@@ -328,9 +448,9 @@ class Scheduler:
         self._sk_warm_pot = None
         #: restricted service engaged since the last invalidation
         self._incr_active = False
-        #: the candidate-bucket tuner: the warmed bucket ladder (empty
-        #: until warmup is ported, which keeps the bucket pinned), recent
-        #: raw micro-batch sizes, the deepest frame position placed into
+        #: the candidate-bucket tuner: the warmed bucket ladder (filled by
+        #: the warmup; empty, it keeps the bucket pinned), recent raw
+        #: micro-batch sizes, the deepest frame position placed into
         self._warmed_cbuckets: set = set()
         self._tuner_batch_obs: List[int] = []
         self._tuner_depth_max = 0
@@ -344,6 +464,77 @@ class Scheduler:
         self.pipeline_chunk = pipeline_chunk
         #: the cycle tracer (one Trace per cycle, spans on perf_counter)
         self.obs = Obs()
+        #: round-loop graph captures at the start of the cycle in flight
+        self._captures0 = 0
+
+    @classmethod
+    def from_config(cls, cfg, **kw) -> "Scheduler":
+        """Build a Scheduler from a KubeSchedulerConfiguration — the
+        CreateFromProvider / CreateFromConfig seam (factory.go:346,:356),
+        as the reference's ``from_config``. A setting the port does not
+        have yet raises ``cli.ConfigError`` naming its ROADMAP item
+        (``cli.unported_features``); ``device`` and the other
+        constructor arguments pass through ``kw``."""
+        from kubernetes_tpu_torch.cli import ConfigError, unported_features
+        from kubernetes_tpu_torch.config import (
+            default_predicate_mask,
+            default_priority_weights,
+        )
+
+        unported = unported_features(cfg)
+        if unported:
+            raise ConfigError(unported)
+        if cfg.policy is not None:
+            kw.setdefault("pred_mask", cfg.policy.predicate_mask)
+            kw.setdefault("weights", dict(cfg.policy.priority_weights))
+            if cfg.policy.extenders:
+                from kubernetes_tpu_torch.extender import build_extenders
+
+                kw.setdefault("extenders",
+                              build_extenders(cfg.policy.extenders))
+        else:
+            kw.setdefault("pred_mask",
+                          default_predicate_mask(cfg.feature_gates))
+            kw.setdefault("weights",
+                          default_priority_weights(cfg.feature_gates))
+        kw.setdefault("solver", cfg.solver)
+        kw.setdefault("enable_non_preempting",
+                      cfg.feature_gates.enabled("NonPreemptingPriority"))
+        kw.setdefault("per_node_cap", cfg.per_node_cap)
+        kw.setdefault("max_rounds", cfg.max_rounds)
+        kw.setdefault("max_batch", cfg.max_batch)
+        kw.setdefault("scheduler_name", cfg.scheduler_name)
+        kw.setdefault("robustness", cfg.robustness)
+        kw.setdefault("recovery", cfg.recovery)
+        kw.setdefault("observability", cfg.observability)
+        kw.setdefault("explain", cfg.observability.explain)
+        kw.setdefault("explain_top_k", cfg.observability.explain_top_k)
+        kw.setdefault("pipeline_depth", cfg.pipeline_depth)
+        kw.setdefault("pipeline_chunk", cfg.pipeline_chunk)
+        kw.setdefault("snapshot_max_dirty_frac", cfg.snapshot_max_dirty_frac)
+        kw.setdefault("warmup", cfg.warmup)
+        kw.setdefault("incremental", cfg.incremental)
+        if cfg.plugins and "framework" not in kw:
+            # config-driven framework assembly (framework.go:88 NewFramework:
+            # registry factories + per-plugin args); unknown names fail
+            from kubernetes_tpu_torch.framework import PLUGIN_REGISTRY
+
+            built = []
+            for name in cfg.plugins:
+                factory = PLUGIN_REGISTRY.get(name)
+                if factory is None:
+                    raise ValueError(
+                        f"plugins: {name!r} is not registered "
+                        f"(known: {sorted(PLUGIN_REGISTRY)})")
+                built.append(factory(dict(cfg.plugin_config.get(name, {}))))
+            kw["framework"] = Framework(
+                built, clock=kw.get("clock", time.monotonic))
+        # 100 (the config default) = no truncation; 0 = the adaptive rule
+        kw.setdefault(
+            "percentage_of_nodes_to_score",
+            None if cfg.percentage_of_nodes_to_score >= 100
+            else cfg.percentage_of_nodes_to_score)
+        return cls(**kw)
 
     # -- informer handlers -------------------------------------------------
 
@@ -412,13 +603,21 @@ class Scheduler:
 
     def on_node_add(self, node) -> None:
         self.cache.add_node(node)
+        self.node_tree.add_node(node)
         self.queue.move_all_to_active()
 
     def on_node_update(self, node) -> None:
+        old = self.cache.node(node.name)
+        if old is not None:
+            self.node_tree.remove_node(old)
         self.cache.update_node(node)
+        self.node_tree.add_node(node)
         self.queue.move_all_to_active()
 
     def on_node_delete(self, name: str) -> None:
+        old = self.cache.node(name)
+        if old is not None:
+            self.node_tree.remove_node(old)
         self.cache.remove_node(name)
 
     def set_volume_state(self, pvcs=(), pvs=(), classes=()) -> None:
@@ -434,7 +633,10 @@ class Scheduler:
     def _reap_expired_assumptions(self) -> None:
         """Drive cache TTL expiry: an assumption whose bind confirmation
         never arrived frees its capacity and its pod requeues."""
-        for p in self.cache.pop_expired():
+        expired = self.cache.pop_expired()
+        if expired:
+            self.metrics.cache_expired_assumptions.inc(len(expired))
+        for p in expired:
             key = p.key()
             klog.warning("assumed pod %s on %s expired (bind confirmation "
                          "never arrived within %.0fs); requeueing", key,
@@ -452,7 +654,13 @@ class Scheduler:
         """One batched scheduling pass over everything in activeQ."""
         t0 = self.clock()
         syncs0 = SYNCS.count
+        self._captures0 = device_loop.CAPTURES.count
         res = CycleResult()
+        # per-cycle deadline (robustness.cycle_deadline_s): the ladder
+        # skips to the floor once it is blown, and extender calls shed
+        self._cycle_deadline = (
+            t0 + self.robustness.cycle_deadline_s
+            if self.robustness.cycle_deadline_s > 0 else None)
         self.obs.begin_cycle(self.queue.scheduling_cycle)
         self.queue.tick()
         self._reap_expired_assumptions()
@@ -544,16 +752,68 @@ class Scheduler:
 
         extra_mask, extra_score, early_fail = self._plugin_terms(
             batch, dp, dn, ds, node_order)
+        # node-search truncation: restrict this cycle's solve to the next
+        # K nodes in zone rotation (numFeasibleNodesToFind semantics)
+        if self.percentage_of_nodes_to_score is not None:
+            k = num_feasible_nodes_to_find(nt.n,
+                                           self.percentage_of_nodes_to_score)
+            if k < nt.n:
+                subset = set(self.node_tree.take(k))
+                col = np.zeros((dn.valid.shape[0],), bool)
+                for j, name in enumerate(node_order):
+                    col[j] = name in subset
+                cm = torch.from_numpy(col).to(dev)[None, :]
+                extra_mask = cm if extra_mask is None else extra_mask & cm
+        # one shared built-in filter pass against the initial usage, read
+        # by the extenders and the exact solver
+        base_fr = None
+        if self.extenders or self.solver == "exact":
+            base_fr = _filter_pass(dp, dn, ds, dt, dv, sv, self.pred_mask)
+        # scheduler extenders (generic_scheduler.go:539-566): after the
+        # built-in predicates; prioritize adds weight*score to the totals
+        if self.extenders:
+            with self.obs.span("extenders"):
+                em, es = self._run_extenders(batch, base_fr, node_order,
+                                             early_fail)
+            if em is not None:
+                extra_mask = em if extra_mask is None else extra_mask & em
+            if es is not None:
+                extra_score = es if extra_score is None else extra_score + es
+            self.obs.step("extenders done")
         if nominated:
             nom_mask = self._nominated_mask(nominated, node_order, dp, dn,
                                             ds, dt, dv, sv)
             extra_mask = (nom_mask if extra_mask is None
                           else extra_mask & nom_mask)
 
+        solver = self.solver
+        if solver == "exact":
+            # the Hungarian models capacity as per-node slots only: in-batch
+            # coupling through host ports, volumes or topology terms is not
+            # in its constraint matrix, so such batches take the round
+            # solver, which models all three
+            hazards = []
+            if dt is not None and any(
+                    p.affinity.pod_affinity_required
+                    or p.affinity.pod_anti_affinity_required
+                    or p.affinity.pod_affinity_preferred
+                    or p.affinity.pod_anti_affinity_preferred
+                    or p.topology_spread for p in batch):
+                hazards.append("topology")
+            if dv is not None:
+                hazards.append("volumes")
+            if not no_ports:
+                hazards.append("host-ports")
+            if hazards:
+                self.exact_fallbacks += 1
+                self.obs.step(f"exact solver unsafe with "
+                              f"{'+'.join(hazards)}; using round solver")
+                solver = "batch"
         ts = self.clock()
-        ladder = self._solve_ladder(batch, dp, dn, ds, dt, dv, sv,
-                                    extra_mask, extra_score, skip_prio,
-                                    no_ports, no_pod_aff, no_spread, res)
+        ladder = self._solve_ladder(solver, batch, dp, dn, ds, dt, dv, sv,
+                                    base_fr, extra_mask, extra_score,
+                                    skip_prio, no_ports, no_pod_aff,
+                                    no_spread, res)
         res.solve_s = self.clock() - ts
         if ladder is None:
             # every tier failed: requeue the whole batch with backoff
@@ -667,19 +927,56 @@ class Scheduler:
                 self._run_preemption(batch, preemptable_idx,
                                      to_host(rows_dev), node_order, res)
             res.preempt_s = time.perf_counter() - tp
+            self.metrics.preemption_duration.observe(res.preempt_s)
         return self._finish(res, t0, syncs0)
 
     def _finish(self, res: CycleResult, t0: float, syncs0: int):
         res.elapsed_s = self.clock() - t0
         if res.solver_tier and not res.solve_scope:
             res.solve_scope = "full"
+        if res.solver_tier:
+            self.metrics.algorithm_duration.observe(res.solve_s)
         res.host_syncs = SYNCS.count - syncs0
+        res.graph_captures = device_loop.CAPTURES.count - self._captures0
+        if res.graph_captures:
+            self.metrics.graph_captures.inc(res.graph_captures,
+                                            phase="cycle")
+        self._record_metrics(res, res.solve_s)
+        if self.obs.current_trace is not None:
+            self.obs.current_trace.log_if_long(self.trace_threshold_s)
         self.obs.end_cycle()
         klog.V(3).info(
             "cycle: attempted=%d scheduled=%d unschedulable=%d rounds=%d "
             "syncs=%d %.3fs", res.attempted, res.scheduled,
             res.unschedulable, res.rounds, res.host_syncs, res.elapsed_s)
         return res
+
+    def _record_metrics(self, res: CycleResult, solve_s: float = 0.0) -> None:
+        """pkg/scheduler/metrics names: per-pod attempt counts, cycle-level
+        durations, queue-depth gauges. Bind errors already passed
+        scheduling and count only under "error" (the reference's result
+        labels are disjoint per attempt)."""
+        m = self.metrics
+        m.schedule_attempts.inc(res.scheduled, result=m.SCHEDULED)
+        m.schedule_attempts.inc(max(res.unschedulable - res.bind_errors, 0),
+                                result=m.UNSCHEDULABLE)
+        m.schedule_attempts.inc(res.bind_errors, result=m.ERROR)
+        # e2e latency is per pod create-to-bind; a cycle that attempted
+        # but bound nothing observes its elapsed time
+        if res.e2e_latency_s:
+            for v in res.e2e_latency_s.values():
+                m.e2e_scheduling_duration.observe(v)
+        elif res.attempted:
+            m.e2e_scheduling_duration.observe(res.elapsed_s)
+        if res.attempted or res.scheduled or res.unschedulable:
+            m.scheduling_duration.observe(solve_s,
+                                          operation="scheduling_algorithm")
+        sync = getattr(self.queue, "_sync_gauges", None)
+        if sync is not None:
+            sync()
+        else:
+            for q, depth in self.queue.pending_counts().items():
+                m.pending_pods.set(depth, queue=q)
 
     def _plugin_terms(self, batch, dp, dn, ds, node_order):
         """Framework Filter/Score contributions: batch plugins give whole
@@ -774,14 +1071,17 @@ class Scheduler:
             bits = rows[row_of[i]]
             reason_bits = {name: bits[r] for r, name in enumerate(node_order)
                            if name}
+            self.metrics.preemption_attempts.inc()
             result = preempt(
                 pod, nodes, node_pods_of, reason_bits, pdbs,
                 nominated_pods_of=dict(self.queue.nominated.items()),
                 vol_state=self.cache.packer.resolve_volumes,
-                extenders=[],
+                extenders=[e for e in self.extenders
+                           if e.supports_preemption()],
                 enable_non_preempting=self.enable_non_preempting)
             if result is None:
                 continue
+            self.metrics.preemption_victims.inc(len(result.victims))
             now = self.clock()
             for v in result.victims:
                 v.deletion_timestamp = now
@@ -812,6 +1112,78 @@ class Scheduler:
             # delete -> MoveAllToActiveQueue wakeup happens here, or the
             # nominated preemptor waits out the unschedulable flush
             self.queue.move_all_to_active()
+
+    def _run_extenders(self, batch, base_fr, node_order, early_fail):
+        """Call each extender's Filter then Prioritize for interested pods
+        against the built-in-feasible node set (``base_fr``, the cycle's
+        shared filter pass). An open breaker or a blown deadline sheds an
+        extender (ignorable, or ``extender_degrade_to_ignorable``: skipped;
+        otherwise the pod fails); a failing ignorable extender drops out,
+        any other fails its pod (generic_scheduler.go:539-566). Returns
+        the (P, N) mask and score terms, or (None, None)."""
+        from kubernetes_tpu_torch.extender import ExtenderError
+
+        interested = [(i, p) for i, p in enumerate(batch)
+                      if any(e.is_interested(p) for e in self.extenders)]
+        if not interested:
+            return None, None
+        # the built-in-feasible mask crosses to the host for the HTTP
+        # fan-out: one counted read
+        base = np.asarray(to_host(base_fr.mask), bool)
+        rows = {n: j for j, n in enumerate(node_order)}
+        nodes_by_name = {nd.name: nd for nd in self.cache.nodes()}
+        em = np.ones(base.shape, bool)
+        es = np.zeros(base.shape, np.float32)
+        rc = self.robustness
+        for i, pod in interested:
+            feasible = [n for n in node_order if base[i, rows[n]]]
+            allowed = set(feasible)
+            for ext in self.extenders:
+                if not ext.is_interested(pod):
+                    continue
+                ename = ext.name() if hasattr(ext, "name") else repr(ext)
+                br = self._breaker(f"extender:{ename}")
+                shed = (self._cycle_deadline is not None
+                        and self.clock() >= self._cycle_deadline)
+                if shed or not br.allow():
+                    # a configured-ignorable extender never fails pods;
+                    # shedding it is the "unreachable ignorable" case
+                    if rc.extender_degrade_to_ignorable or ext.is_ignorable():
+                        self.metrics.extender_degraded.inc(extender=ename)
+                        continue
+                    allowed = set()
+                    early_fail[i] = f"Extender:{ename} unavailable"
+                    break
+                # clamp the transport timeout to the remaining cycle
+                # budget, and clear it on unbounded cycles
+                if hasattr(ext, "set_call_budget"):
+                    ext.set_call_budget(
+                        max(self._cycle_deadline - self.clock(), 1e-3)
+                        if self._cycle_deadline is not None else None)
+                try:
+                    names, _failed = ext.filter(
+                        pod, [n for n in feasible if n in allowed],
+                        nodes_by_name)
+                    allowed &= set(names)
+                    scores, weight = ext.prioritize(pod, sorted(allowed),
+                                                    nodes_by_name)
+                    br.record_success()
+                    for n, sc in scores.items():
+                        if n in rows:
+                            es[i, rows[n]] += weight * sc
+                except ExtenderError as e:
+                    br.record_failure()
+                    if ext.is_ignorable():
+                        continue  # skip this extender (extender.go:124)
+                    allowed = set()
+                    early_fail[i] = f"Extender:{e}"
+                    break
+            keep = np.zeros(base.shape[1], bool)
+            for n in allowed:
+                keep[rows[n]] = True
+            em[i] = keep
+        return (torch.from_numpy(em).to(self.device),
+                torch.from_numpy(es).to(self.device))
 
     def _build_explain_report(self, cycle, keys, ex_host, n_nodes,
                               res: CycleResult) -> None:
@@ -857,89 +1229,313 @@ class Scheduler:
 
     # -- degradation ladder ------------------------------------------------
 
-    def _run_tier(self, tier, batch, dp, dn, ds, dt, dv, sv, extra_mask,
-                  extra_score, skip_prio, no_ports, no_pod_aff, no_spread):
-        """One solve attempt on one ladder tier: (assigned, usage, rounds).
-        Exceptions propagate to the ladder."""
+    def _breaker(self, target: str) -> CircuitBreaker:
+        """Lazily create the circuit breaker for a ladder tier or an
+        extender endpoint, wired to the breaker-state gauge and the
+        SchedulerDegraded / SchedulerRecovered events."""
+        br = self._breakers.get(target)
+        if br is None:
+            from functools import partial
+
+            rc = self.robustness
+            br = CircuitBreaker(
+                failure_threshold=rc.breaker_failure_threshold,
+                open_duration_s=rc.breaker_open_duration_s,
+                half_open_probes=rc.breaker_half_open_probes,
+                clock=self.clock,
+                on_transition=partial(self._on_breaker_transition, target))
+            self._breakers[target] = br
+            self.metrics.breaker_state.set(0, target=target)
+        return br
+
+    def _on_breaker_transition(self, target: str, old: str, new: str) -> None:
+        from kubernetes_tpu_torch.events import (
+            REASON_DEGRADED,
+            REASON_RECOVERED,
+            ObjectRef,
+        )
+
+        self.metrics.breaker_state.set(STATE_CODE[new], target=target)
+        ref = ObjectRef(name=self.scheduler_name, involved_kind="Scheduler")
+        if new == OPEN:
+            klog.warning("circuit breaker %s: %s -> open (degraded mode)",
+                         target, old)
+            self.event_sink(
+                REASON_DEGRADED, ref,
+                f"circuit breaker for {target} opened; "
+                "routing around it (degraded mode)")
+        elif new == CLOSED and old != CLOSED:
+            klog.V(2).info("circuit breaker %s: %s -> closed", target, old)
+            self.event_sink(
+                REASON_RECOVERED, ref,
+                f"circuit breaker for {target} closed; full service restored")
+
+    def _run_tier(self, tier, batch, dp, dn, ds, dt, dv, sv, base_fr,
+                  extra_mask, extra_score, skip_prio, no_ports, no_pod_aff,
+                  no_spread):
+        """One solve attempt on one ladder tier. Returns ``((assigned,
+        usage, rounds), dp_used, dn_used)``: ``batch-cpu`` solves on CPU
+        copies of the tables and hands back the tables it solved against,
+        so the validator never mixes devices. Exceptions propagate to the
+        ladder."""
+        hook = (self.fault_injector.solver_hook
+                if self.fault_injector is not None else None)
         if tier == "greedy":
             a, u = greedy_assign(
                 dp, dn, ds, self.weights, topo=dt, extra_mask=extra_mask,
                 vol=dv, static_vol=sv, enabled_mask=self.pred_mask,
                 extra_score=extra_score, skip_priorities=skip_prio,
                 no_ports=no_ports, no_pod_affinity=no_pod_aff,
-                no_spread=no_spread)
-            return a, u, len(batch)
-        return batch_assign(
+                no_spread=no_spread, fault_hook=hook,
+                fault_site="solve:greedy")
+            return (a, u, len(batch)), dp, dn
+        if tier == "exact":
+            out = self._exact_solve(dp, dn, ds, dt, base_fr, extra_mask,
+                                    extra_score)
+            if hook is not None:
+                out = hook("solve:exact", *out, dn.valid.shape[0])
+            return out, dp, dn
+        if tier == "batch-cpu":
+            # the host fallback: every table copied to CPU tensors (one
+            # counted transfer) and the identical solve re-run on the
+            # plain PyTorch path, as the reference re-pins to its host
+            # backend
+            (dp, dn, ds, dt, dv, sv, extra_mask, extra_score) = to_cpu(
+                (dp, dn, ds, dt, dv, sv, extra_mask, extra_score))
+        out = batch_assign(
             dp, dn, ds, self.weights, max_rounds=self.max_rounds,
             per_node_cap=self.per_node_cap, topo=dt, extra_mask=extra_mask,
             vol=dv, static_vol=sv, enabled_mask=self.pred_mask,
             extra_score=extra_score, use_sinkhorn=(tier == "sinkhorn"),
             skip_priorities=skip_prio, no_ports=no_ports,
-            no_pod_affinity=no_pod_aff, no_spread=no_spread)
+            no_pod_affinity=no_pod_aff, no_spread=no_spread,
+            fault_hook=hook, fault_site=f"solve:{tier}")
+        return out, dp, dn
 
     def _validated_readback(self, tier, out, dp, dn):
-        """Validate one tier's result on the device and read the
-        assignment back together with the verdict as ONE device-to-host
-        copy, the round count riding it. Returns ``(assigned_host, usage,
-        rounds)`` or raises SolverResultInvalid with the host checker's
-        reason vocabulary."""
+        """Validate one tier's result and read the assignment back
+        together with the verdict as ONE device-to-host copy, the round
+        count riding it. The verdict is computed on the device
+        (``device_validate``); the host checker (``validate_solution``)
+        takes over when the result cannot reach the device (shape) or
+        ``robustness.host_validate`` asks for it. Returns
+        ``(assigned_host, usage, rounds)`` or raises SolverResultInvalid
+        with the host checker's reason vocabulary."""
+        rc = self.robustness
         a_dev, u_dev, rounds = out
-        with self.obs.span("validate"):
-            verdict = device_validate(a_dev, u_dev, dp, dn, self.pred_mask)
-        if verdict is None:
-            raise SolverResultInvalid(f"{tier}: shape")
-        code, _count = verdict
+        code = None
+        if rc.validate_results:
+            with self.obs.span("validate"):
+                verdict = (None if rc.host_validate else device_validate(
+                    a_dev, u_dev, dp, dn, self.pred_mask))
+                if verdict is None:
+                    ok, why = validate_solution(a_dev, u_dev, dp, dn,
+                                                self.pred_mask)
+                    if not ok:
+                        self.metrics.solver_rejections.inc(tier=tier,
+                                                           reason=why)
+                        raise SolverResultInvalid(f"{tier}: {why}")
+                else:
+                    code = verdict[0]
+        dev = a_dev.device
         host = to_host(torch.cat([
-            a_dev[: dp.valid.shape[0]].to(torch.int32), code[None],
-            _rounds_tensor(rounds, code.device)]))
+            a_dev[: dp.valid.shape[0]].to(torch.int32),
+            (code.to(dev)[None] if code is not None
+             else torch.zeros((1,), dtype=torch.int32, device=dev)),
+            _rounds_tensor(rounds, dev)]))
         assigned, code, rounds = np.asarray(host[:-2], np.int64), *host[-2:]
         if code:
-            raise SolverResultInvalid(f"{tier}: {VALIDATE_REASONS[code]}")
+            why = VALIDATE_REASONS[code]
+            self.metrics.solver_rejections.inc(tier=tier, reason=why)
+            raise SolverResultInvalid(f"{tier}: {why}")
         return assigned, u_dev, rounds
 
-    def _solve_ladder(self, batch, dp, dn, ds, dt, dv, sv, extra_mask,
-                      extra_score, skip_prio, no_ports, no_pod_aff,
-                      no_spread, res):
-        """Try the configured tier, then the greedy sequential oracle (the
-        trust floor). A tier that raises a ``RuntimeError`` or returns a
-        result the validator rejects falls through. A hand kernel that
-        fails to build or launch raises ``kernels.KernelError``, which is
-        not a solver fault: it propagates, so a broken kernel never hides
-        behind the greedy tier's plain PyTorch scores. Returns ``(assigned_host, usage, rounds,
-        tier)`` or None when every tier failed."""
-        tiers = [self.solver] + (["greedy"] if self.solver != "greedy"
-                                 else [])
-        for i, tier in enumerate(tiers):
-            try:
-                with self.obs.span(f"solve:{tier}"):
-                    out = self._run_tier(tier, batch, dp, dn, ds, dt, dv, sv,
-                                         extra_mask, extra_score, skip_prio,
-                                         no_ports, no_pod_aff, no_spread)
-                    assigned, usage, rounds = self._validated_readback(
-                        tier, out, dp, dn)
-            except (SolverResultInvalid, RuntimeError) as e:
-                klog.warning("solver tier %s failed (%s); falling back",
-                             tier, e)
-                if i + 1 < len(tiers):
-                    res.solver_fallbacks += 1
+    def _solve_ladder(self, solver, batch, dp, dn, ds, dt, dv, sv, base_fr,
+                      extra_mask, extra_score, skip_prio, no_ports,
+                      no_pod_aff, no_spread, res):
+        """The degradation ladder: the configured tier, then each tier of
+        ``robustness.fallback_chain`` (``batch-cpu``, then the greedy
+        oracle), with a circuit breaker per tier, bounded in-cycle
+        retries, a deadline that skips to the floor, and result
+        validation, so a lying solver never binds an infeasible pod. A
+        solver fault (``faults.SolverFault``: a timeout, a crash, a lost
+        device, a rejected result) or a ``RuntimeError`` (a CUDA OOM is
+        one) falls through. A hand kernel that fails to build or launch
+        raises ``kernels.KernelError``, which is neither: it propagates
+        through every tier, retry and breaker, so a broken kernel never
+        hides behind the plain PyTorch tiers. Returns ``(assigned_host,
+        usage, rounds, tier)`` or None when every tier failed."""
+        rc = self.robustness
+        tiers = [solver]
+        for t in rc.fallback_chain:
+            if t not in tiers:
+                tiers.append(t)
+        if "greedy" in tiers:
+            # the sequential oracle is the trust floor: nothing below it
+            tiers = tiers[: tiers.index("greedy") + 1]
+        terminal = tiers[-1]
+        m = self.metrics
+        deadline = self._cycle_deadline
+        deadline_counted = False
+        i = 0
+        while i < len(tiers):
+            tier = tiers[i]
+            if (deadline is not None and tier != terminal
+                    and self.clock() >= deadline):
+                # budget blown: no time for intermediate tiers — jump to
+                # the floor so the cycle still makes progress
+                if not deadline_counted:
+                    m.deadline_exceeded.inc()
+                    deadline_counted = True
+                m.solver_fallbacks.inc(from_tier=tier, to_tier=terminal)
+                res.solver_fallbacks += 1
+                res.tier_attempts.append(f"{tier}:shed")
+                i = len(tiers) - 1
                 continue
-            return assigned, usage, rounds, tier
+            br = self._breaker(f"solver:{tier}")
+            if not br.allow() and i + 1 < len(tiers):
+                # an open breaker sheds the tier without burning latency;
+                # the terminal tier is always attempted
+                m.solver_fallbacks.inc(from_tier=tier, to_tier=tiers[i + 1])
+                res.solver_fallbacks += 1
+                res.tier_attempts.append(f"{tier}:shed")
+                i += 1
+                continue
+            attempts = 1 + max(0, rc.solver_retries)
+            result = last_err = None
+            for attempt in range(attempts):
+                ts = self.clock()
+                res.tier_attempts.append(tier)
+                with self.obs.span(f"solve:{tier}", attempt=attempt):
+                    try:
+                        out, dp_t, dn_t = self._run_tier(
+                            tier, batch, dp, dn, ds, dt, dv, sv, base_fr,
+                            extra_mask, extra_score, skip_prio, no_ports,
+                            no_pod_aff, no_spread)
+                        result = self._validated_readback(tier, out, dp_t,
+                                                          dn_t)
+                    except (SolverFault, RuntimeError) as e:
+                        last_err = e
+                    finally:
+                        m.solver_tier_duration.observe(self.clock() - ts,
+                                                       tier=tier)
+                if result is not None:
+                    break
+                if attempt + 1 < attempts and not (
+                        deadline is not None and self.clock() >= deadline):
+                    m.solver_retries.inc(tier=tier)
+                    continue
+                break
+            if result is not None:
+                br.record_success()
+                assigned, usage, rounds = result
+                if usage.requested.device != dn.requested.device:
+                    # batch-cpu's usage joins the cycle's device tables
+                    # (the failure pass) on their device
+                    usage = type(usage)(*(t.to(dn.requested.device)
+                                          for t in usage))
+                return assigned, usage, int(rounds), tier
+            br.record_failure()
+            klog.warning("solver tier %s failed (%s); falling back", tier,
+                         last_err)
+            if i + 1 < len(tiers):
+                m.solver_fallbacks.inc(from_tier=tier, to_tier=tiers[i + 1])
+                res.solver_fallbacks += 1
+            i += 1
         return None
+
+    def _exact_solve(self, dp, dn, ds, dt, base_fr, extra_mask, extra_score):
+        """Exact one-shot assignment: filter and score once on the
+        device, read both back, then the Hungarian solver on the host
+        with per-node slot capacities (``native.exact_assign``).
+        Maximizes the batch's total score instead of running auction
+        rounds — for gang / offline packing where quality beats
+        wall-clock. Multi-resource feasibility beyond slot counts is
+        validated sequentially in queue order, and rejected pods re-solve
+        against the updated usage until a fixpoint. In-batch coupling of
+        ports / volumes / topology is not modeled (the cycle routes such
+        batches to ``batch``)."""
+        mask_t = base_fr.mask
+        if extra_mask is not None:
+            mask_t = mask_t & extra_mask
+        score_t = run_priorities(dp, dn, ds, mask_t, self.weights, dt)
+        if extra_score is not None:
+            score_t = score_t + extra_score
+        host = to_cpu((mask_t, score_t, dn.allocatable, dn.valid,
+                       dn.requested, dp.valid, dp.req, dp.order,
+                       dp.priority))
+        mask, score, alloc, node_valid, requested, valid, preq, porder, \
+            prio = (x.numpy() for x in host)
+        order = np.lexsort((porder, -prio))
+        # a Policy bypassing PodFitsResources also bypasses the resource
+        # gating here (the batch solver's admission-guard bypass)
+        res_on = self.pred_mask is None or bool(
+            self.pred_mask & (1 << BIT["PodFitsResources"]))
+        P = mask.shape[0]
+        assigned_final = np.full((P,), -1, np.int32)
+        used = requested.copy()
+        active = valid.copy()
+        rounds = 0
+        for _ in range(16):
+            if not active.any():
+                break
+            rounds += 1
+            fit = np.all(
+                used[None, :, :] + preq[:, None, :]
+                <= alloc[None, :, :] + 1e-6,
+                axis=2) if res_on else np.ones((P, alloc.shape[0]), bool)
+            # slot capacity: the pod-count column is exact; the other
+            # resource columns bound the count via the smallest active
+            # request (an upper bound, validated below)
+            free = np.maximum(alloc - used, 0.0)
+            min_req = np.where(active[:, None], preq, np.inf).min(axis=0)
+            with np.errstate(divide="ignore", invalid="ignore",
+                             over="ignore"):
+                per_res = np.where(
+                    min_req > 0,
+                    np.floor(free / np.maximum(min_req, 1e-30)), np.inf)
+            cap = np.where(node_valid, np.nanmin(per_res, axis=1), 0)
+            cap = np.where(np.isfinite(cap), cap,
+                           free[:, RES_PODS]).astype(np.int64)
+            if not res_on:
+                cap = np.where(node_valid, P, 0).astype(np.int64)
+            m = mask & fit & active[:, None]
+            a = native.exact_assign(score, m, cap)
+            progress = False
+            for p in order:
+                if not active[p] or a[p] < 0:
+                    continue
+                t = a[p]
+                if not res_on or np.all(used[t] + preq[p] <= alloc[t] + 1e-6):
+                    used[t] += preq[p]
+                    assigned_final[p] = t
+                    active[p] = False
+                    progress = True
+            if not progress:
+                break
+        dev = dp.req.device
+        a_t = torch.from_numpy(assigned_final.astype(np.int64)).to(dev)
+        usage = _apply_batch(usage_from_nodes(dn), dp, a_t.clamp_min(0),
+                             (a_t >= 0) & dp.valid)
+        return a_t.to(torch.int32), usage, rounds
 
     # -- pipelined cycle executor ------------------------------------------
 
     def _pipeline_eligible(self, batch, nominated) -> bool:
         """The pipelined executor covers the clean high-throughput path:
-        features that need whole-batch host coupling (host or batch
-        plugins, gang groups, nominated-pod pass A) keep the monolithic
-        cycle. The reference's extender, scenario-pack and
-        ``percentageOfNodesToScore`` checks hold trivially here: the port
-        configures none of them. Depth 1 is the explicit off switch."""
+        features that need whole-batch host coupling (extenders, host or
+        batch plugins, gang groups, nominated-pod pass A, node-search
+        truncation) or a host-resident solver (exact) keep the monolithic
+        cycle. Depth 1 is the explicit off switch."""
         if self.pipeline_depth < 2 or self.pipeline_chunk < 1:
             return False
         if len(batch) <= self.pipeline_chunk:
             return False
-        if self.solver not in TIERS or nominated:
+        if self.solver not in ("batch", "sinkhorn", "greedy"):
+            return False
+        if self.extenders or nominated:
+            return False
+        if self.percentage_of_nodes_to_score is not None:
             return False
         fw = self.framework
         if (fw.has_host_filters() or fw.has_host_scores()
@@ -961,14 +1557,16 @@ class Scheduler:
         by construction. Every chunk pads to ONE bucket, so the whole
         cycle reuses one cached round-loop graph.
 
-        ``dispatch`` never sheds a chunk: the reference's circuit breaker
-        and cycle deadline are not ported yet (ROADMAP A.12). A chunk
-        whose dispatch or readback fails re-solves through the full
-        ladder; a ``KernelError`` is not a solver fault and propagates."""
+        ``dispatch`` sheds a chunk straight to the ladder while the tier's
+        breaker is open or the cycle deadline is blown. A chunk whose
+        dispatch or readback fails records a breaker failure and re-solves
+        through the full ladder (retries, ``batch-cpu``, the greedy
+        oracle); a ``KernelError`` is not a solver fault and propagates."""
         pk = self.cache.packer
         C = self.pipeline_chunk
         chunks = [batch[i:i + C] for i in range(0, len(batch), C)]
         res.pipeline_chunks = len(chunks)
+        self.metrics.pipeline_chunks.inc(len(chunks))
         chunk_pad = bucket_size(C)
         solver = self.solver
         dev = self.device
@@ -994,18 +1592,23 @@ class Scheduler:
                 return pt_c, dp_c, dv_c, sv_c
 
         def dispatch(k, packed, dn_in):
-            """Queue chunk k's solve on the device; None when it failed
-            to enqueue (the chunk then takes the ladder in settle)."""
+            """Queue chunk k's solve on the device; None when the breaker
+            or the deadline shed it or it failed to enqueue (the chunk
+            then takes the ladder in settle)."""
             _pt_c, dp_c, dv_c, sv_c = packed
+            if not self._breaker(f"solver:{solver}").allow():
+                return None
+            if (self._cycle_deadline is not None
+                    and self.clock() >= self._cycle_deadline):
+                return None
             with self.obs.span(f"pipeline:dispatch@{k}", tier=solver):
                 try:
                     return self._run_tier(solver, chunks[k], dp_c, dn_in, ds,
-                                          dt, dv_c, sv_c, None, None,
+                                          dt, dv_c, sv_c, None, None, None,
                                           skip_prio, no_ports, no_pod_aff,
-                                          no_spread)
-                except KernelError:
-                    raise
-                except (SolverResultInvalid, RuntimeError) as e:
+                                          no_spread)[0]
+                except (SolverFault, RuntimeError) as e:
+                    self._breaker(f"solver:{solver}").record_failure()
                     klog.warning("pipelined chunk %d dispatch failed (%s)",
                                  k, e)
                     return None
@@ -1018,23 +1621,28 @@ class Scheduler:
             nonlocal solve_s
             chunk = chunks[k]
             _pt_c, dp_c, dv_c, sv_c = packed
+            br = self._breaker(f"solver:{solver}")
             ts = self.clock()
             if out is not None:
                 try:
                     with self.obs.span(f"pipeline:readback@{k}"):
                         a, u_dev, rounds = self._validated_readback(
                             solver, out, dp_c, dn_in)
+                    br.record_success()
+                    res.tier_attempts.append(solver)
                     res.rounds += rounds
                     solve_s += self.clock() - ts
                     return a[: len(chunk)].copy(), u_dev, solver
-                except KernelError:
-                    raise
-                except (SolverResultInvalid, RuntimeError) as e:
+                except (SolverFault, RuntimeError) as e:
+                    br.record_failure()
                     klog.warning("pipelined chunk %d solve failed (%s); "
                                  "ladder", k, e)
-            ladder = self._solve_ladder(chunk, dp_c, dn_in, ds, dt, dv_c,
-                                        sv_c, None, None, skip_prio,
-                                        no_ports, no_pod_aff, no_spread, res)
+            # shed (open breaker / blown deadline) or failed: this chunk
+            # re-solves through the full ladder
+            ladder = self._solve_ladder(solver, chunk, dp_c, dn_in, ds, dt,
+                                        dv_c, sv_c, None, None, None,
+                                        skip_prio, no_ports, no_pod_aff,
+                                        no_spread, res)
             solve_s += self.clock() - ts
             if ladder is None:
                 for pod in chunk:
@@ -1149,6 +1757,7 @@ class Scheduler:
                                      [rmat_rows[g] for g in preempt_idx],
                                      node_order, res)
             res.preempt_s = time.perf_counter() - tp
+            self.metrics.preemption_duration.observe(res.preempt_s)
         return self._finish(res, t0, syncs0)
 
     # -- the sparsity-first routes (restricted, partitioned) ----------------
@@ -1209,13 +1818,15 @@ class Scheduler:
     def _frame_gates_hold(self, batch, nominated, dn, dt, dv, no_ports,
                           no_pod_aff, no_spread) -> bool:
         """The facts that make a candidate frame complete, shared by both
-        routes: a batch solver tier, no nominated pods, no framework
-        plugin term, and no constraint class that couples across the
-        whole node axis (ports and volumes; topology unless the batch
-        gates prove it vacuous)."""
+        routes: a batch solver tier, no extender, no nominated pods, no
+        node-search truncation, no framework plugin term, and no
+        constraint class that couples across the whole node axis (ports
+        and volumes; topology unless the batch gates prove it vacuous)."""
         if self.solver not in ("batch", "sinkhorn") or dn is None:
             return False
-        if nominated:
+        if self.extenders or nominated:
+            return False
+        if self.percentage_of_nodes_to_score is not None:
             return False
         fw = self.framework
         if (fw.has_host_filters() or fw.has_host_scores()
@@ -1256,7 +1867,7 @@ class Scheduler:
         return True
 
     def _solve_frame(self, dp_f, sub_dn, ds, cand, skip_prio, sk_init=None,
-                     warm=False):
+                     warm=False, site="solve:restricted"):
         """One (P, C) frame: solve it with the stock solver, validate on
         the device, map the candidate-local rows to global node rows and
         read back the mapped rows, the verdict, the deepest frame position
@@ -1270,7 +1881,10 @@ class Scheduler:
             use_sinkhorn=(self.solver == "sinkhorn"),
             skip_priorities=skip_prio, no_ports=True, no_pod_affinity=True,
             no_spread=True, sk_init=sk_init,
-            sk_tol=(inc.warm_tol if warm else None), potentials_out=warm)
+            sk_tol=(inc.warm_tol if warm else None), potentials_out=warm,
+            fault_hook=(self.fault_injector.solver_hook
+                        if self.fault_injector is not None else None),
+            fault_site=site)
         a_local, u_local, rounds = out[:3]
         verdict = device_validate(a_local, u_local, dp_f, sub_dn,
                                   self.pred_mask)
@@ -1336,9 +1950,7 @@ class Scheduler:
                 assigned, rounds, depth, pot = self._solve_frame(
                     dp, sub_dn, ds, cand, skip_prio, sk_init=sk_init,
                     warm=warm)
-        except KernelError:
-            raise
-        except (SolverResultInvalid, RuntimeError) as e:
+        except (SolverFault, RuntimeError) as e:
             klog.warning("restricted solve declined (%s); dense solve", e)
             self._drop_incremental("restricted-error")
             return None
@@ -1432,7 +2044,8 @@ class Scheduler:
                     break
                 got, r, _depth, _pot = self._solve_frame(
                     pending_pods(), gather_node_rows(dn, blocks[b]), ds,
-                    blocks[b], skip_prio, warm=warm)
+                    blocks[b], skip_prio, warm=warm,
+                    site="solve:partitioned")
                 rounds += r
                 take(got)
             if pending[: len(batch)].any():
@@ -1450,12 +2063,11 @@ class Scheduler:
                     node_summary(dn_u, **self._summary_flags), zeros_dirty,
                     dn_u, C)
                 got, r, _depth, _pot = self._solve_frame(
-                    pending_pods(), sub_dn, ds, cand, skip_prio, warm=warm)
+                    pending_pods(), sub_dn, ds, cand, skip_prio, warm=warm,
+                    site="solve:partitioned")
                 rounds += r
                 take(got)
-        except KernelError:
-            raise
-        except (SolverResultInvalid, RuntimeError) as e:
+        except (SolverFault, RuntimeError) as e:
             klog.warning("partitioned cold solve declined (%s); dense "
                          "solve", e)
             return None
@@ -1476,6 +2088,254 @@ class Scheduler:
         if self.explain:
             self._build_explain_report(cycle, [], None, nt.n, res)
         return self._finish(res, t0, syncs0)
+
+    # -- warmup --------------------------------------------------------------
+
+    def warmup(self, sample_pods=(), node_count: Optional[int] = None) -> int:
+        """Warm every bucketed pod-batch shape a cycle can present, so the
+        first pod never waits for the card's first-use work: build the
+        hand kernels, capture the round loop's CUDA graph for every key a
+        real cycle will present (pod bucket, node bucket, the batch's
+        statics and each route the auto-router can choose in round 0),
+        run the filter pass, the nominated-pods variant and, with
+        ``incremental`` on, the restricted route's candidate ladder (the
+        reference's AOT compile warmup, ``warmup.*`` knobs). The warmed
+        graphs stay cached outside the device loop's LRU bound
+        (``device_loop.pinning``), so a warmed shape never captures
+        again: ``CycleResult.graph_captures`` (and the
+        ``scheduler_round_loop_captures_total{phase="cycle"}`` counter)
+        stays 0 on it.
+
+        ``sample_pods`` (recommended) seeds the universes and the
+        host-side solver gates exactly as real cycles will. The node axis
+        is the cache's current cluster, or ``node_count`` before any node
+        has synced. Returns the number of bucketed shapes warmed (the
+        reference's count)."""
+        wu = self.warmup_config
+        pk = self.cache.packer
+        dev = self.device
+        sample = list(sample_pods)
+        for p in sample:
+            pk.intern_pod(p)
+        if self.cache.nodes():
+            nt, dn, _mode = self.cache.device_snapshot()
+        elif node_count:
+            # no cluster yet: a widths-complete zero-row table padded to
+            # the caller's expected node bucket
+            nt = pk.pack_nodes([])
+            dn = nodes_to_device(nt, pad_to=bucket_size(max(node_count, 1)),
+                                 device=dev)
+        else:
+            # warming now would capture shapes with an empty-cluster node
+            # bucket no real cycle can match
+            klog.warning("warmup skipped: no nodes synced and no "
+                         "node_count given — call again after the first "
+                         "node sync")
+            return 0
+        captures0 = device_loop.CAPTURES.count
+        if dev.type == "cuda":
+            kernels.build()
+        ds = selectors_to_device(pk.pack_selector_tables(), device=dev)
+        dt = (topology_to_device(pk.pack_topology_tables(), device=dev)
+              if _has_topo(pk.u) else None)
+        pt_all = pk.pack_pods(sample)
+        gates = solver_gates(nt, pt_all)
+        solver = self.solver if self.solver != "exact" else "batch"
+        buckets = tuple(wu.pod_buckets)
+        if not buckets:
+            # geometric x2 steps up to bucket_size(max_batch), the largest
+            # shape any cycle can present (pipelined chunks pad to
+            # bucket_size(pipeline_chunk), a power of two in this sweep)
+            top = bucket_size(max(self.max_batch, 1))
+            out = []
+            b = bucket_size(max(min(wu.min_bucket, top), 1))
+            while b <= top:
+                out.append(b)
+                b *= 2
+            buckets = tuple(out)
+        has_vol_sample = any(p.volumes for p in sample)
+        compiled = 0
+        with device_loop.pinning():
+            for P in buckets:
+                try:
+                    if self.fault_injector is not None:
+                        self.fault_injector.device_hook("warmup:compile")
+                    compiled += self._warm_bucket(P, pk, sample, nt, dn, ds,
+                                                  dt, solver, gates,
+                                                  has_vol_sample, wu)
+                except (SolverFault, RuntimeError) as e:
+                    # a lost or out-of-memory device (injected or real):
+                    # stop with what warmed so far; the next cycle
+                    # rebuilds the resident table and the ladder absorbs
+                    # the outage. A KernelError propagates
+                    self.metrics.recovery_device_resets.inc()
+                    self.cache.invalidate_snapshot()
+                    self._drop_incremental("device-loss")
+                    klog.warning("warmup aborted at bucket %d: %s", P, e)
+                    return compiled
+            self._warm_delta_scatter(dn)
+            if self.incremental.enabled:
+                compiled += self._warm_incremental(buckets, pk, sample, nt,
+                                                   dn, ds, gates[0])
+        captures = device_loop.CAPTURES.count - captures0
+        if captures:
+            self.metrics.graph_captures.inc(captures, phase="warmup")
+        klog.V(2).info("warmup: %d bucketed solve shapes, %d graphs "
+                       "captured (nodes bucket %d)", compiled, captures,
+                       dn.valid.shape[0])
+        return compiled
+
+    def _warm_bucket(self, P, pk, sample, nt, dn, ds, dt, solver, gates,
+                     has_vol_sample, wu) -> int:
+        """Warm one bucketed solve shape (the body of the warmup sweep);
+        returns 1."""
+        skip_prio, no_ports, no_pod_aff, no_spread = gates
+        dev = self.device
+        dp = pods_to_device(pk.pack_pods(sample[:P]), pad_to=P, device=dev)
+        dv = sv = None
+        if has_vol_sample:
+            # a volume-bearing sample warms the volume-bearing solve (its
+            # row tables scale with the batch's volume rows, so coverage
+            # is exact only for a representative sample)
+            dv = volumes_to_device(pk.pack_volume_tables(sample[:P]),
+                                   device=dev)
+            sv = _static_vol_pass(dp, dn, ds, dv)
+        kw = dict(topo=dt, vol=dv, static_vol=sv,
+                  enabled_mask=self.pred_mask, skip_priorities=skip_prio,
+                  no_ports=no_ports, no_pod_affinity=no_pod_aff,
+                  no_spread=no_spread)
+
+        def solve(extra_mask):
+            if solver == "greedy":
+                return greedy_assign(dp, dn, ds, self.weights,
+                                     extra_mask=extra_mask, **kw)
+            # one graph per route the auto-router can choose in round 0
+            # (``sinkhorn`` always plans: the router stays out)
+            for route in (False, True) if solver == "batch" else (None,):
+                out = batch_assign(
+                    dp, dn, ds, self.weights, max_rounds=self.max_rounds,
+                    per_node_cap=self.per_node_cap, extra_mask=extra_mask,
+                    use_sinkhorn=(solver == "sinkhorn"), route_plan=route,
+                    **kw)
+            return out[0], out[1]
+
+        a, usage = solve(None)
+        if self.robustness.validate_results and not \
+                self.robustness.host_validate:
+            device_validate(a, usage, dp, dn, self.pred_mask)
+        fr_mask = None
+        if wu.include_filter:
+            fr_mask = _filter_pass(dp, dn, ds, dt, dv, sv,
+                                   self.pred_mask).mask
+        if wu.nominated_variant and self.enable_preemption:
+            # the nominated-pods variant (pass A): the cycle after a
+            # preemption feeds a (P, N) mask, a different round-loop graph
+            if fr_mask is None:
+                fr_mask = _filter_pass(dp, dn, ds, dt, dv, sv,
+                                       self.pred_mask).mask
+            solve(fr_mask)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self.metrics.warmup_compiles.inc()
+        return 1
+
+    def _warm_delta_scatter(self, dn) -> None:
+        """Run the resident table's delta scatter once at each dirty-row
+        bucket steady churn presents, on a throwaway copy (the first
+        launch of each kernel loads its module)."""
+        n_pad = dn.valid.shape[0]
+        dev = dn.valid.device
+        for dpb in (4, 8, 16, 32, 64):
+            sub = gather_node_rows(dn, torch.zeros((dpb,), dtype=torch.long,
+                                                   device=dev))
+            resident = dn._replace(**{
+                f: getattr(dn, f).clone() for f in dn._fields})
+            scatter_node_rows(resident, sub,
+                              np.full((dpb,), n_pad, np.int64))
+
+    def _warm_incremental(self, buckets, pk, sample, nt, dn, ds,
+                          skip_prio) -> int:
+        """Warm the restricted route for every pod bucket that can take
+        it: the candidate pick, the node-row gather, the (P, C) solve
+        (cold, and warm-started for the sinkhorn solver), the validator,
+        the global mapping, the summary patch and (``primary``) the
+        partitioned block deal. With ``incremental.auto_tune`` the sweep
+        warms a C ladder {C/2, C, 2C} and records it in
+        ``_warmed_cbuckets``: the tuner moves only between warmed rungs.
+        Returns the (C, P) shapes warmed."""
+        inc = self.incremental
+        dev = self.device
+        n_pad = dn.valid.shape[0]
+        c0 = bucket_size(max(inc.candidate_bucket, 1))
+        ladder = [c0]
+        if inc.auto_tune:
+            ladder = sorted({max(c0 // 2, 16), c0, c0 * 2})
+        ladder = [c for c in ladder if c < n_pad]
+        if not ladder:
+            return 0
+        flags = self._summary_flags
+        summary = node_summary(dn, **flags)
+        zeros_dirty = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
+        for dpb in (4, 8, 16, 32, 64):
+            sub = gather_node_rows(dn, torch.zeros((dpb,), dtype=torch.long,
+                                                   device=dev))
+            patch_node_summary(node_summary(dn, **flags),
+                               node_summary(sub, **flags),
+                               np.full((dpb,), n_pad, np.int64))
+        use_sk = self.solver == "sinkhorn"
+        warm = bool(inc.warm_potentials and use_sk)
+        compiled = 0
+        smallest_bucket = bucket_size(1)
+        dps: Dict[int, object] = {}
+        for C in ladder:
+            cand, sub_dn = gather_candidates(summary, zeros_dirty, dn, C)
+            part_warm = False
+            if inc.primary:
+                B = self._cold_blocks(n_pad, C)
+                if B >= 2:
+                    part_warm = True
+                    blocks = partition_columns(summary, zeros_dirty, B, C)
+                    gather_node_rows(dn, blocks[0])
+            limit = inc.max_batch_frac * C
+            for P in buckets:
+                # warm P iff some eligible batch pads to it: the gate
+                # compares the raw batch size before padding
+                smallest_in_bucket = (1 if P <= smallest_bucket
+                                      else P // 2 + 1)
+                over_limit = smallest_in_bucket > limit
+                if over_limit and not part_warm:
+                    continue
+                if P not in dps:
+                    dps[P] = pods_to_device(pk.pack_pods(sample[:P]),
+                                            pad_to=P, device=dev)
+                dp = dps[P]
+                variants = [None]
+                if warm and not over_limit:
+                    variants.append((
+                        torch.zeros((P,), dtype=torch.float32, device=dev),
+                        torch.zeros((C,), dtype=torch.float32, device=dev)))
+                for sk_init in variants:
+                    out = batch_assign(
+                        dp, sub_dn, ds, self.weights,
+                        max_rounds=self.max_rounds,
+                        per_node_cap=self.per_node_cap,
+                        enabled_mask=self.pred_mask, use_sinkhorn=use_sk,
+                        skip_priorities=skip_prio, no_ports=True,
+                        no_pod_affinity=True, no_spread=True,
+                        sk_init=sk_init,
+                        sk_tol=(inc.warm_tol if warm else None),
+                        potentials_out=warm)
+                    a, usage = out[0], out[1]
+                    if (self.robustness.validate_results
+                            and not self.robustness.host_validate):
+                        device_validate(a, usage, dp, sub_dn, self.pred_mask)
+                    map_restricted_assignment(a.to(torch.int32), cand)
+                compiled += 1
+                self.metrics.warmup_compiles.inc()
+            self._warmed_cbuckets.add(C)
+        klog.V(2).info("incremental warmup: %d restricted solve shapes "
+                       "(C ladder %s)", compiled, ladder)
+        return compiled
 
     # -- assume / bind -----------------------------------------------------
 
@@ -1547,16 +2407,31 @@ class Scheduler:
         s = fw.run_prebind(st, pod, node_name)
         if not s.is_success():
             return reject(f"PreBind:{s.message}")
+        bt0 = self.clock()
         bs = fw.run_bind(st, pod, node_name)
         if bs.code == SKIP:
+            # an interested binder-extender takes the binding over the
+            # default binder (extender.go:360,:382)
+            binder = self.binder
+            for ext in self.extenders:
+                if ext.is_binder() and ext.is_interested(pod):
+                    binder = ext
+                    break
+            if hasattr(binder, "set_call_budget"):
+                binder.set_call_budget(
+                    max(self._cycle_deadline - self.clock(), 1e-3)
+                    if self._cycle_deadline is not None else None)
             try:
-                self.binder.bind(pod, node_name)
+                binder.bind(pod, node_name)
             except Exception as e:  # noqa: BLE001 — binder boundary
                 return reject(f"BindError:{e}")
         elif not bs.is_success():
             return reject(f"Bind:{bs.message}")
+        self.metrics.binding_duration.observe(self.clock() - bt0)
         self.cache.finish_binding(pod.key())
         self.queue.nominated.delete(pod)
+        self.metrics.pod_scheduling_attempts.observe(
+            self.queue.backoff_map.attempts(pod.key()) + 1)
         self.queue.backoff_map.clear_pod(pod.key())
         self.why_pending.pop(pod.key(), None)
         res.scheduled += 1

@@ -131,9 +131,9 @@ def test_gang_rollback_matches():
                                                (KernelError, False)])
 def test_kernel_faults_escape_the_solver_ladder(monkeypatch, fault,
                                                 falls_back):
-    """A solver fault falls through to greedy; a kernel that fails to
-    build or launch stops the cycle instead of hiding behind greedy's
-    plain PyTorch scores."""
+    """A solver fault falls through the ladder (the retry, then
+    batch-cpu, then greedy); a kernel that fails to build or launch stops
+    the cycle instead of hiding behind the plain PyTorch tiers."""
     def broken(*_a, **_k):
         raise fault("injected")
 
@@ -147,7 +147,9 @@ def test_kernel_faults_escape_the_solver_ladder(monkeypatch, fault,
         ts.on_pod_add(to_port(p))
     if falls_back:
         rt = ts.schedule_cycle()
-        assert (rt.solver_tier, rt.solver_fallbacks) == ("greedy", 1)
+        assert (rt.solver_tier, rt.solver_fallbacks) == ("greedy", 2)
+        assert rt.tier_attempts == ["batch", "batch", "batch-cpu",
+                                    "batch-cpu", "greedy"]
         assert rt.scheduled > 0
     else:
         with pytest.raises(KernelError, match="injected"):

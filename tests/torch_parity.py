@@ -455,3 +455,117 @@ def assert_same_cycle(rj, rt, fields=PIPELINE_FIELDS):
         assert getattr(rt, f) == getattr(rj, f), (f, getattr(rt, f),
                                                   getattr(rj, f))
     assert explain_rows(rt.explain) == explain_rows(rj.explain)
+
+
+class FakeClock:
+    def __init__(self, t=0.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
+
+
+#: the counters the ladder increments, compared across the packages
+LADDER_METRICS = ("solver_fallbacks", "solver_retries", "solver_rejections",
+                  "breaker_state", "deadline_exceeded", "extender_degraded",
+                  "schedule_attempts", "cache_expired_assumptions")
+
+#: the CycleResult fields the ladder decides
+LADDER_FIELDS = ("attempted", "scheduled", "unschedulable", "assignments",
+                 "failure_reasons", "solver_tier", "solver_fallbacks")
+
+
+class Pair:
+    """The JAX package's Scheduler and the port's (``device="cpu"``),
+    built with the same arguments (``per_pkg``: a pair of dicts of
+    arguments each package builds from its own modules, such as
+    extenders), each with its own fake clock, event list and (when
+    ``arm`` is given) its own package's FaultInjector seeded and armed
+    the same way. ``cycle`` runs one cycle on each and asserts they agree
+    on LADDER_FIELDS, LADDER_METRICS and the events."""
+
+    def __init__(self, arm=None, seed=0, rc=None, clocks=None, per_pkg=None,
+                 **kw):
+        from kubernetes_tpu.config import RobustnessConfig as JRobustness
+        from kubernetes_tpu.faults import FaultInjector as JInjector
+        from kubernetes_tpu.scheduler import Scheduler as JScheduler
+        from kubernetes_tpu_torch import faults as tfaults
+        from kubernetes_tpu_torch.config import (
+            RobustnessConfig as TRobustness,
+        )
+        from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
+
+        kw.setdefault("enable_preemption", False)
+        self.events = ([], [])
+        self.clocks = clocks or (FakeClock(), FakeClock())
+        self.inj = []
+        self.s = []
+        for k, (S, R, F) in enumerate((
+                (JScheduler, JRobustness, JInjector),
+                (TScheduler, TRobustness, tfaults.FaultInjector))):
+            inj = None
+            if arm is not None:
+                inj = F(seed=seed)
+                for site, kind, count in arm:
+                    inj.arm(site, kind, count=count)
+            self.inj.append(inj)
+            extra = {"device": "cpu"} if S is TScheduler else {}
+            extra.update((per_pkg or ({}, {}))[k])
+            ev = self.events[k]
+            self.s.append(S(
+                clock=self.clocks[k], fault_injector=inj,
+                robustness=R(**(rc if rc is not None
+                                else {"solver_retries": 0})),
+                retry_sleep=lambda _s: None,
+                event_sink=lambda r, o, m, ev=ev: ev.append((r, o.key(), m)),
+                **extra, **kw))
+
+    def feed(self, nodes=(), pods=()):
+        for nd in nodes:
+            self.s[0].on_node_add(nd)
+            self.s[1].on_node_add(to_port(nd))
+        for p in pods:
+            self.s[0].on_pod_add(p)
+            self.s[1].on_pod_add(to_port(p))
+
+    def fill(self, n_nodes=6, n_pods=18, cpu=300):
+        self.feed([make_node(f"n{i}", cpu_milli=4000)
+                   for i in range(n_nodes)],
+                  [make_pod(f"p{i}", cpu_milli=cpu) for i in range(n_pods)])
+
+    def cycle(self):
+        rj, rt = self.s[0].schedule_cycle(), self.s[1].schedule_cycle()
+        for f in LADDER_FIELDS:
+            assert getattr(rt, f) == getattr(rj, f), (f, getattr(rt, f),
+                                                      getattr(rj, f))
+        self.check_metrics()
+        assert self.events[1] == self.events[0]
+        return rt
+
+    def check_metrics(self):
+        for name in LADDER_METRICS:
+            got = getattr(self.s[1].metrics, name)._values
+            want = getattr(self.s[0].metrics, name)._values
+            assert got == want, (name, got, want)
+
+    def advance(self, dt):
+        for c in self.clocks:
+            c.advance(dt)
+
+
+def config_pair(doc: dict, **kw):
+    """Both packages' ``Scheduler.from_config`` built from one
+    KubeSchedulerConfiguration document (decoded by each package's own
+    ``cli.decode_config``), each with a fake clock at 0; the port's on
+    CPU tensors. Returns ``(js, ts)``."""
+    from kubernetes_tpu.cli import decode_config as jdecode
+    from kubernetes_tpu.scheduler import Scheduler as JScheduler
+    from kubernetes_tpu_torch.cli import decode_config as tdecode
+    from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
+
+    kw.setdefault("clock", lambda: 0.0)
+    return (JScheduler.from_config(jdecode(doc), **kw),
+            TScheduler.from_config(tdecode(doc), device="cpu", **kw))
