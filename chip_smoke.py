@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs ten phases and exits
+``nvcc`` per source, in parallel), then runs eleven phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -84,15 +84,37 @@ non-zero if any fails:
    ``batch``. Arm D (5000 nodes): 256 pods through an extender this
    script serves on 127.0.0.1, then ``percentageOfNodesToScore: 50``:
    every bound node passed the extender's filter and lies in its cycle's
-   ``NodeTree.take(k)`` subset.
+   ``NodeTree.take(k)`` subset;
+11. the serve loop, cell ``serve-5k-churn``: the smoke cluster (5000
+   nodes, 1000 bound pods) under create/delete churn in 10 Hz bursts at
+   500 ops/s (``scripts/bench_churn.py``'s default), pods of the smoke
+   cell's shape. Arm A runs ``cli.run`` with the ServingRuntime (window
+   max 20 ms, warmup from bucket 8) behind an elector on an in-memory
+   lock for 30 s: every created pod binds exactly once, no graph is
+   captured after warmup, every flush is bucket-fill or max-wait, one
+   mid-run cycle runs clean under ``torch.cuda.set_sync_debug_mode(
+   "error")`` and one is profiled; arm C floods creates for 10 s through
+   the runtime's mutating APF flow (sheds, every admitted pod bound);
+   arm B is the legacy fixed-interval loop (``--cycle-interval 0.25``)
+   for 20 s; arm D fails over between two ServingRuntimes on one lock and
+   one CAS binder (``solver: sinkhorn``, lease cut to 2 s / 1.5 s /
+   0.5 s), the leader killed at 8 s by ``chaos.KillingBinder`` just
+   after a bind's CAS committed (no release, the torn cycle's binds
+   never relayed to the standby): zero double binds, the standby's
+   reconcile adopts every torn bind, and it binds the rest; arm E runs ``python -m
+   kubernetes_tpu_torch`` as a process (``/healthz``, ``/metrics``, the
+   lock file, rc 0 on SIGTERM) and 128 extender POSTs whose answers
+   equal the same scheduler's on CPU tensors.
 
 Lines of JSON report each phase; the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path, the preempt cell, the sparse cell, the
-pipeline cell and the configured scheduler's arm A, each counted from 0
-just before it runs: ``launches`` is their sum, ``launches_by_path``
-and ``launches_per_cycle`` split it; the sparse cell's frame shapes are
-held and timed again under ``sparse_shapes``), error against the plain
+pipeline cell, the configured scheduler's arm A and the serve loop's
+arms A-D, each counted from 0 just before it runs: ``launches`` is
+their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
+sparse cell's frame shapes are held and timed again under
+``sparse_shapes``, the serve loop's micro-batch shapes of every kernel
+under ``serve_shapes``), error against the plain
 version, times and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
 CUDA-event medians; ``ms_batched`` times back-to-back calls and
 ``device_ms`` is the trace's device time); the last line is the one-line
@@ -100,7 +122,7 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config);
+config, serve);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -125,10 +147,10 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
-              "preempt", "sparse", "pipeline", "config")
+              "preempt", "sparse", "pipeline", "config", "serve")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
-              "config")
+              "config", "serve")
 
 
 def emit(obj) -> None:
@@ -136,6 +158,8 @@ def emit(obj) -> None:
 
 
 def fail(msg: str) -> None:
+    # every thread the script starts is a daemon: a failure ends the
+    # process even while a serve loop is still running
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
@@ -562,8 +586,8 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
     """Times the redesigned kernels at the shapes their main path
     launched, read off the launches: the pair at the smoke cell's first
     launch (its first cycle's batch), the v pass at the plan path's; and
-    every kernel at every shape the sparse phase launched (the pair bit
-    for bit, u and v in both rules)."""
+    every kernel at every shape the sparse and the serve phase launched
+    (the pair bit for bit, u and v in both rules)."""
     import torch
 
     dev = torch.device("cuda")
@@ -593,6 +617,25 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             rows.append({"shape": [P, N], "launches": n, **got})
             torch.cuda.empty_cache()
         out_rows.setdefault(name, {})["sparse_shapes"] = rows
+    # the serve path's micro-batch frames: every kernel at every shape
+    # arms A-D launched (the pair bit for bit, u and v in both rules),
+    # with the wrapper's host share of a single call
+    for name, shapes in paths.get("serve", {}).get("shapes", {}).items():
+        if name not in ARRAY_KERNELS:
+            continue
+        rows = []
+        for (P, N), n in shapes:
+            got = (time_pair(P, N, gen, dev) if name == "fused_pair_normalize"
+                   else time_sinkhorn_pass(name, P, N, gen, dev))
+            if name == "fused_pair_normalize":
+                got["library_ms"] = None
+            per_call = got["device_ms"]["per_call"]
+            got["host_share"] = (None if per_call is None
+                                 else 1.0 - per_call / got["ms"])
+            rows.append({"shape": [P, N], "launches": n, **got})
+            torch.cuda.empty_cache()
+        if rows:
+            out_rows.setdefault(name, {})["serve_shapes"] = rows
 
 
 def launch_counts() -> dict:
@@ -1743,8 +1786,10 @@ def run_pipeline(depth: int, cell=None, chunk: int = 4096, device="cuda",
 
 def phase_pipeline() -> dict:
     """Drives cell ``pipeline-5k-30k`` at full width at depth 2 (the
-    default) and at depth 1, then one profiled pipelined cycle, then a
-    reduced run at depths 2 and 3 on the card and on CPU tensors. Fails
+    default) and at depth 1, then one profiled pipelined cycle, the
+    full node-table upload timed pinned and blocking
+    (:func:`time_full_upload`), then a reduced run at depths 2 and 3 on
+    the card and on CPU tensors. Fails
     unless every pod binds on tier ``batch``, the capacity re-check holds,
     every chunk's dispatch runs clean under sync-debug ``error``, each
     cycle's host syncs are no more than its chunks plus its explain
@@ -1847,6 +1892,8 @@ def phase_pipeline() -> dict:
           "pipeline_chunks": r.pipeline_chunks, "rounds": r.rounds,
           "host_syncs": r.host_syncs, "wall_s_profiled": wall,
           "spans_s": _span_sums(sched.obs.last_trace), **got})
+    emit({"phase": "pipeline-upload", "cell": "pipeline-5k-30k",
+          **time_full_upload(sched.cache.device_snapshot()[0])})
     del sched, prof
     torch.cuda.empty_cache()
 
@@ -1868,6 +1915,46 @@ def phase_pipeline() -> dict:
           "rounds": [r for _a, r, _c in placed["cuda/2"]],
           "identical": ["cuda/2", "cuda/3", "cpu/2"]})
     return main
+
+
+def time_full_upload(table, reps: int = 10) -> dict:
+    """Host milliseconds of one full node-table upload (``nodes_to_device``
+    to the card, then a synchronize), medians over ``reps`` alternating
+    runs of the two copies: the port's ``ops/arrays.upload`` (staged in
+    pinned memory, enqueued non-blocking) and a blocking
+    ``torch.tensor(..., device="cuda")`` per field."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.cache import tree_nbytes
+    from kubernetes_tpu_torch.ops import arrays
+    from kubernetes_tpu_torch.utils.interner import bucket_size
+
+    pinned = arrays.upload
+
+    def blocking(a, device, dtype=None):
+        return torch.tensor(np.asarray(a, dtype=dtype), device=device)
+
+    pad = bucket_size(max(table.n, 1))
+    times: dict = {"pinned": [], "blocking": []}
+    nbytes = 0
+    try:
+        for _ in range(reps):
+            for name, fn in (("pinned", pinned), ("blocking", blocking)):
+                arrays.upload = fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dev = arrays.nodes_to_device(table, pad_to=pad,
+                                             device="cuda")
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                nbytes = tree_nbytes(dev)
+                del dev
+    finally:
+        arrays.upload = pinned
+    return {"rows": table.n, "padded_rows": pad, "bytes": nbytes,
+            **{f"{k}_ms": _pct(v, 50) for k, v in times.items()},
+            **{f"{k}_ms_all": v for k, v in times.items()}}
 
 
 @contextlib.contextmanager
@@ -2448,6 +2535,1070 @@ def phase_config() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the serve loop (cli.run, ServingRuntime, leader election with
+# fenced binds and takeover reconciliation, the extender server)
+# ---------------------------------------------------------------------------
+
+#: ops/s (creates + deletes) the serve arms offer: bench_churn's default
+#: non-mesh rate, in 10 Hz bursts
+SERVE_RATE = 500.0
+#: the micro-batch window's latency ceiling (bench_churn's non-mesh
+#: default; ServingConfig's is 50 ms)
+SERVE_MAX_WAIT = "20ms"
+#: arm C's offered rate, a multiple of SERVE_RATE above what the serve
+#: loop binds at 5000 nodes (so it must shed)
+OVERLOAD_FACTOR = 40
+#: the undelivered events the overload's informer buffer holds (arm C):
+#: a producer that fills it waits for the next delivery
+INFORMER_BUFFER = 4096
+#: the lease cut for arm D, so a takeover fits the run (the defaults are
+#: 15 s / 10 s / 2 s)
+SERVE_LEASE = {"leaseDuration": "2s", "renewDeadline": "1500ms",
+               "retryPeriod": "500ms"}
+
+
+def serve_pod(name: str, i: int, rng, node_name: str = ""):
+    """One pod of the smoke cell's shape: 100m / 500 Mi, preferring one
+    seeded zone at weight 50, the odd ones tolerating the
+    PreferNoSchedule taint."""
+    from kubernetes_tpu_torch.api.types import Toleration
+    from kubernetes_tpu_torch.testing import (
+        make_pod,
+        node_affinity_preferred,
+        req,
+    )
+
+    tol = (Toleration(key=SOFT_TAINT, operator="Exists",
+                      effect="PreferNoSchedule"),)
+    return make_pod(
+        name, cpu_milli=100, memory=500 * 2**20, node_name=node_name,
+        affinity=node_affinity_preferred(
+            (50, [req(ZONE, "In", f"zone-{rng.randrange(10)}")])),
+        tolerations=tol if i % 2 else ())
+
+
+class Churn:
+    """bench_churn's ChurnProducer for the port: creates and deletes in
+    10 Hz bursts at ``rate`` ops/s (half each; a delete retires a bound
+    pod, so the node table churns). Each burst reaches the scheduler as
+    one informer delivery through ``ingest`` (the serving loop's lock).
+    A create is stamped with its creation time on the scheduler's clock
+    (``queued_at``), so ``CycleResult.e2e_latency_s`` is create-to-bind.
+    ``admit`` (arm C) takes an APF seat on the mutating flow for each
+    create and counts the sheds. ``flood`` (arm C, bench_churn's overload
+    arm) offers pods made before the clock starts, in 100 Hz bursts, and
+    hands admitted creates and deletes to a pump thread that delivers
+    them every 2 ms (an informer whose buffer holds INFORMER_BUFFER
+    undelivered events; a full buffer makes the producer wait), so a
+    cycle holding the ingest lock does not stop admission, and the
+    producer spends little of the interpreter lock the loop needs."""
+
+    def __init__(self, ingest, sched, prefix: str, seed: int,
+                 rate: float = SERVE_RATE, duration: float = 30.0,
+                 admit=None, flood: bool = False) -> None:
+        import collections
+        import random
+
+        self.ingest, self.sched = ingest, sched
+        self.prefix, self.rng = prefix, random.Random(seed)
+        self.rate, self.duration = rate, duration
+        self.admit, self.flood = admit, flood
+        self.pods: dict = {}  # key -> Pod, every create admitted
+        self.deleted: set = set()
+        self.shed = 0
+        self.offered = 0
+        self.results: list = []  # (host stamp, CycleResult)
+        self.backlog: list = []  # (key, node) bound, not yet deleted
+        self._seen = 0
+        self._inbox = collections.deque()
+        self.max_queue_depth = 0
+        self.max_undelivered = 0  # the flood's informer buffer, at most
+        self.error = None
+        self._pool = collections.deque(
+            serve_pod(f"{prefix}-{n}", n, self.rng)
+            for n in range(int(rate / 2 * duration) + 1)) if flood else None
+
+    def on_cycle(self, res) -> None:
+        self.results.append((time.perf_counter(), res))
+
+    def _apply(self, events) -> None:
+        for add, pod in events:
+            if add:
+                self.sched.on_pod_add(pod)
+            else:
+                self.sched.on_pod_delete(pod)
+
+    def _deliver(self, events) -> None:
+        if events:
+            self.ingest(self._apply, events)
+        self.max_queue_depth = max(self.max_queue_depth,
+                                   len(self.sched.queue))
+
+    def _create(self, out) -> None:
+        from kubernetes_tpu_torch.serving import RequestRejected
+
+        n = self.offered
+        self.offered += 1
+        pod = (self._pool.popleft() if self._pool
+               else serve_pod(f"{self.prefix}-{n}", n, self.rng))
+        if self.admit is not None:
+            try:
+                self.admit()
+            except RequestRejected:
+                self.shed += 1
+                return
+        pod.queued_at = time.monotonic()
+        self.pods[pod.key()] = pod
+        out.append((True, pod))
+
+    def _delete(self, n: int, out) -> None:
+        import dataclasses
+
+        while self._seen < len(self.results):
+            self.backlog.extend(
+                (k, v) for k, v in self.results[self._seen][1]
+                .assignments.items() if k in self.pods)
+            self._seen += 1
+        for _ in range(max(n, 0)):
+            if not self.backlog:
+                return
+            key, node = self.backlog.pop(0)
+            self.deleted.add(key)
+            out.append((False, dataclasses.replace(self.pods[key],
+                                                   node_name=node)))
+
+    def run(self) -> None:
+        try:
+            if self.flood:
+                self._run_flood()
+            else:
+                self._run_paced()
+        except BaseException as e:  # reported by the arm, never dropped
+            self.error = e
+
+    def _run_paced(self) -> None:
+        start = time.monotonic()
+        issued, next_burst = 0, start
+        while time.monotonic() - start < self.duration:
+            now = time.monotonic()
+            if now < next_burst:
+                time.sleep(next_burst - now)
+            next_burst += 0.1
+            target = self.rate * (min(time.monotonic(),
+                                      start + self.duration) - start)
+            ops = int(target) - issued
+            issued += ops
+            events: list = []
+            for _ in range(ops // 2 + ops % 2):
+                self._create(events)
+            self._delete(ops // 2, events)
+            self._deliver(events)
+
+    def _run_flood(self) -> None:
+        import threading
+
+        done = threading.Event()
+
+        def pump():
+            try:
+                while not done.is_set() or self._inbox:
+                    batch = []
+                    while self._inbox:
+                        batch.append(self._inbox.popleft())
+                    self._deliver(batch)
+                    time.sleep(0.002)
+            except BaseException as e:  # reported by the arm
+                self.error = e
+
+        t = threading.Thread(target=pump, name=f"pump-{self.prefix}",
+                             daemon=True)
+        t.start()
+        start = time.monotonic()
+        issued, next_burst = 0, start
+        try:
+            while time.monotonic() - start < self.duration:
+                now = time.monotonic()
+                if now < next_burst or len(self._inbox) >= INFORMER_BUFFER:
+                    time.sleep(max(next_burst - now, 0.0005))
+                    continue
+                next_burst += 0.01
+                target = self.rate * (min(time.monotonic(),
+                                          start + self.duration) - start)
+                # what does not fit the buffer waits for the next burst
+                ops = min(int(target) - issued,
+                          INFORMER_BUFFER - len(self._inbox))
+                issued += ops
+                events: list = []
+                for _ in range(ops // 2 + ops % 2):
+                    self._create(events)
+                self._delete(ops // 2, events)
+                self._inbox.extend(events)
+                self.max_undelivered = max(self.max_undelivered,
+                                           len(self._inbox))
+        finally:
+            done.set()
+            t.join(timeout=60)
+
+
+def _pct(vals, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(vals), q)) if vals else None
+
+
+def _wait_for(cond, limit_s: float, what: str) -> None:
+    deadline = time.monotonic() + limit_s
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"serve: timed out after {limit_s} s waiting for {what}")
+        time.sleep(0.02)
+
+
+def _bound_once(arm: str, pods: dict, results) -> dict:
+    """Every admitted pod bound exactly once; returns key -> node."""
+    placed: dict = {}
+    for _, r in results:
+        for k, node in r.assignments.items():
+            if k in placed:
+                fail(f"serve/{arm}: {k} bound twice")
+            placed[k] = node
+    missing = [k for k in pods if k not in placed]
+    if missing:
+        fail(f"serve/{arm}: {len(missing)} of {len(pods)} created pods never "
+             f"bound (first {missing[:3]})")
+    return placed
+
+
+def _live_capacity(arm, nodes, bound, churns) -> None:
+    """The host capacity re-check over the pods still placed."""
+    live: dict = {}
+    by_key: dict = {}
+    for ch in churns:
+        for _, r in ch.results:
+            for k, node in r.assignments.items():
+                if k in ch.pods and k not in ch.deleted:
+                    live[k] = node
+        by_key.update(ch.pods)
+    recheck_capacity(nodes, bound, live, by_key)
+
+
+def _serve_cycles(results) -> dict:
+    """The per-cycle summary a serve arm reports."""
+    rs = [r for _, r in results if r.attempted]
+    lats = [v for r in rs for v in r.e2e_latency_s.values()]
+    sizes = [r.attempted for r in rs]
+    flushes: dict = {}
+    for r in rs:
+        flushes[r.flush_trigger or "none"] = flushes.get(
+            r.flush_trigger or "none", 0) + 1
+    return {"cycles": len(rs), "bound": sum(r.scheduled for r in rs),
+            "p50_s": _pct(lats, 50), "p99_s": _pct(lats, 99),
+            "max_s": max(lats) if lats else None,
+            "flush_triggers": flushes,
+            "batch_sizes": {"min": min(sizes, default=0),
+                            "p50": _pct(sizes, 50),
+                            "max": max(sizes, default=0)},
+            "host_syncs_per_cycle": (sum(r.host_syncs for r in rs)
+                                     / max(len(rs), 1)),
+            "graph_captures": sum(r.graph_captures for r in rs),
+            "cycle_s_p50": _pct([r.elapsed_s for r in rs], 50),
+            "solve_s_p50": _pct([r.solve_s for r in rs], 50),
+            "tiers": sorted({r.solver_tier for r in rs})}
+
+
+def _run_cli(cfg, argv, on_ready):
+    """``cli.run(cfg, args, stop)`` on a thread; returns (stop, thread,
+    box) with the handles ``on_ready`` received and any exception the
+    run raised in ``box``."""
+    import threading
+
+    from kubernetes_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(["--port", "0", *argv])
+    stop = threading.Event()
+    box: dict = {}
+    ready = threading.Event()
+
+    def hook(ctx):
+        box.update(ctx)
+        on_ready(ctx)
+        ready.set()
+
+    def target():
+        try:
+            cli.run(cfg, args, stop, on_ready=hook)
+        except BaseException as e:  # re-raised by the arm, never dropped
+            box["error"] = e
+            ready.set()
+
+    t = threading.Thread(target=target, name="cli.run", daemon=True)
+    t.start()
+    _wait_for(ready.is_set, 300, "cli.run to start")
+    if "error" in box:
+        raise box["error"]
+    return stop, t, box
+
+
+def _stop_cli(stop, t, box, arm: str) -> None:
+    stop.set()
+    t.join(timeout=60)
+    if t.is_alive():
+        fail(f"serve/{arm}: cli.run did not stop")
+    if "error" in box:
+        raise box["error"]
+
+
+class ConfirmingBinder:
+    """Binds and confirms at once, as a cluster whose watch delivers the
+    bound pod's MODIFIED event straight away (the simulated cluster's
+    default): the cache's assumption becomes a binding, so no assumption
+    outlives its TTL and requeues a pod that is bound. With ``truth``
+    (arm D) the bind first goes through the shared CAS."""
+
+    def __init__(self, sched, truth=None) -> None:
+        self.sched, self.truth = sched, truth
+
+    def bind(self, pod, node_name: str) -> None:
+        import dataclasses
+
+        if self.truth is not None:
+            self.truth.bind(pod, node_name)
+        self.sched.on_pod_update(pod, dataclasses.replace(
+            pod, node_name=node_name))
+
+
+class CycleHooks:
+    """Wraps a scheduler's ``schedule_cycle`` for the serve arms: one
+    flagged cycle runs under ``torch.cuda.set_sync_debug_mode("error")``
+    (any sync that does not go through the counted ``to_host`` raises,
+    or sends the ladder to a fallback tier, which the arm fails), one
+    under torch.profiler (the device's idle share)."""
+
+    def __init__(self, sched) -> None:
+        import threading
+
+        self.debug = threading.Event()
+        self.profile = threading.Event()
+        self.debug_result = None
+        self.profile_out = None
+        real = sched.schedule_cycle
+
+        def cycle(*a, **kw):
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            if self.debug.is_set() and len(sched.queue):
+                self.debug.clear()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    r = real(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                self.debug_result = r
+                return r
+            if self.profile.is_set() and len(sched.queue):
+                self.profile.clear()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    r = real(*a, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                self.profile_out = {"attempted": r.attempted,
+                                    "wall_s": wall, **busy_share(prof, wall)}
+                return r
+            return real(*a, **kw)
+
+        sched.schedule_cycle = cycle
+
+
+def _serve_config(tmp: str, name: str, **doc):
+    from kubernetes_tpu_torch.cli import load_config_file
+
+    base = {"percentageOfNodesToScore": 100,
+            "warmup": {"enabled": True, "minBucket": 8},
+            "serving": {"enabled": True, "maxWait": SERVE_MAX_WAIT},
+            "leaderElection": {"leaderElect": True}}
+    base.update(doc)
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump({**GV, **base}, f)
+    return path, load_config_file(path)
+
+
+def serve_arm_ac(tmp: str, nodes, bound) -> dict:
+    """Arms A (serving) and C (overload) on one ``cli.run``: the
+    ServingRuntime behind an elector on an InMemoryLock, 30 s of churn
+    at SERVE_RATE, then 10 s of creates flooded through the runtime's
+    mutating APF flow."""
+    import random
+    import threading
+
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.ops import device_loop
+
+    _path, cfg = _serve_config(tmp, "serve-a")
+    hooks: dict = {}
+    rng = random.Random(11)
+    sample = [serve_pod(f"warm-{i}", i, rng) for i in range(64)]
+
+    def on_ready(ctx):
+        sched, rt = ctx["sched"], ctx["runtime"]
+        sched.binder = ConfirmingBinder(sched)
+        feed(sched, nodes, bound, sample)
+        hooks["cycles"] = CycleHooks(sched)
+        hooks["results"] = []
+        rt.loop.on_cycle = lambda r: hooks["results"].append(
+            (time.perf_counter(), r))
+
+    stop, t, box = _run_cli(cfg, ["--device", "cuda"], on_ready)
+    sched, rt, elector = box["sched"], box["runtime"], box["elector"]
+    c0 = device_loop.CAPTURES.count
+    # the gate acquires the lease (takeover reconciliation, which warms
+    # with the 64 queued pods), then the first micro-batch binds them
+    _wait_for(lambda: not rt._warmup_pending and elector.is_leader()
+              and sched.cache.pod_count() >= len(bound) + len(sample),
+              300, "the lease, the warmup and the first micro-batch")
+    torch.cuda.synchronize()
+    warm_captures = device_loop.CAPTURES.count - c0
+    launches_warm = launch_counts()
+    shapes_warm = launch_shapes()
+    kernels.reset_launches()
+    warm_results = list(hooks["results"])
+    n_warm = len(warm_results)
+    # arm A: the churn, with one sync-debug and one profiled cycle
+    prod = Churn(rt.loop.ingest, sched, "sv", seed=12, duration=30.0)
+    rt.loop.on_cycle = lambda r: (hooks["results"].append(
+        (time.perf_counter(), r)), prod.on_cycle(r))
+    pt = threading.Thread(target=prod.run, name="churn-A", daemon=True)
+    t0 = time.perf_counter()
+    pt.start()
+    time.sleep(10.0)
+    hooks["cycles"].debug.set()
+    pt.join(timeout=90)
+    if pt.is_alive() or prod.error:
+        fail(f"serve/A: the producer failed: {prod.error!r}")
+    _wait_for(lambda: len(sched.queue) == 0, 60, "arm A to drain")
+    wall_a = time.perf_counter() - t0
+    n_a_end = len(hooks["results"])
+    # one burst more, its cycle under torch.profiler (outside the timed
+    # churn: the profiler's start and stop hold the loop for seconds)
+    hooks["cycles"].profile.set()
+    extra = Churn(rt.loop.ingest, sched, "pf", seed=14)
+    burst: list = []
+    for _ in range(25):
+        extra._create(burst)
+    extra._deliver(burst)
+    _wait_for(lambda: len(sched.queue) == 0
+              and hooks["cycles"].profile_out is not None, 120,
+              "the profiled cycle")
+    torch.cuda.synchronize()
+    launches_a = launch_counts()
+    shapes_a = launch_shapes()
+    kernels.reset_launches()
+    n_c_start = len(hooks["results"])
+    # arm C: the same runtime, creates flooded through the mutating flow
+    flow = rt.flow
+
+    def admit():
+        flow.release(flow.acquire("mutating"))
+
+    over = Churn(rt.loop.ingest, sched, "ov", seed=13, duration=10.0,
+                 rate=OVERLOAD_FACTOR * SERVE_RATE, admit=admit, flood=True)
+    rt.loop.on_cycle = lambda r: (hooks["results"].append(
+        (time.perf_counter(), r)), over.on_cycle(r))
+    ct = threading.Thread(target=over.run, name="churn-C", daemon=True)
+    t0 = time.perf_counter()
+    ct.start()
+    ct.join(timeout=60)
+    if ct.is_alive() or over.error:
+        fail(f"serve/C: the producer failed: {over.error!r}")
+    wall_c = time.perf_counter() - t0
+    _wait_for(lambda: len(sched.queue) == 0, 120, "arm C to drain")
+    torch.cuda.synchronize()
+    launches_c = launch_counts()
+    shapes_c = launch_shapes()
+    _stop_cli(stop, t, box, "A")
+    if elector.lock.get().holder_identity != "":
+        fail("serve/A: the lease was not released on shutdown")
+    # -- checks ---------------------------------------------------------
+    dbg = hooks["cycles"].debug_result
+    if dbg is None:
+        fail("serve/A: the sync-debug cycle never ran")
+    if dbg.solver_tier != "batch" or dbg.solver_fallbacks \
+            or dbg.scheduled != dbg.attempted:
+        fail(f"serve/A: the sync-debug cycle was not clean: tiers "
+             f"{dbg.tier_attempts}, bound {dbg.scheduled} of {dbg.attempted}")
+    all_results = hooks["results"]
+    a_results = all_results[n_warm:n_a_end]
+    _bound_once("A", prod.pods, all_results)
+    _bound_once("A", extra.pods, all_results)
+    _bound_once("C", over.pods, all_results)
+    _live_capacity("A", nodes, bound, [prod, over])
+    for _, r in all_results:
+        if r.attempted and r.flush_trigger not in ("bucket-fill",
+                                                   "max-wait"):
+            fail(f"serve/A: a cycle flushed by {r.flush_trigger!r}")
+        if r.attempted and (r.solver_tier != "batch" or r.solver_fallbacks):
+            fail(f"serve/A: a cycle solved on {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+    captures_after = sum(r.graph_captures for _, r in all_results)
+    if captures_after:
+        fail(f"serve/A: {captures_after} round-loop graphs captured after "
+             "warmup")
+    if launches_a["fused_pair_normalize"] <= 0:
+        fail("serve/A: the fused-pair kernel was never launched")
+    if over.shed <= 0:
+        fail("serve/C: the overload shed no create")
+    offered_rate = (over.offered + len(over.deleted)) / wall_c
+    a_rate = (len(prod.pods) + len(prod.deleted)) / wall_a
+    if offered_rate < 4 * a_rate:
+        fail(f"serve/C: offered {offered_rate:.0f} ops/s, under 4x arm A's "
+             f"{a_rate:.0f}")
+    lat_a = [v for _, r in a_results for k, v in r.e2e_latency_s.items()
+             if k in prod.pods]
+    lat_c = [v for _, r in all_results[n_c_start:]
+             for k, v in r.e2e_latency_s.items() if k in over.pods]
+    a_rows = _serve_cycles(a_results)
+    a_rows.update({
+        "created": len(prod.pods), "deleted": len(prod.deleted),
+        "wall_s": wall_a, "p50_s": _pct(lat_a, 50), "p99_s": _pct(lat_a, 99),
+        "pods_bound_per_s": len(prod.pods) / wall_a,
+        "ops_per_s": (len(prod.pods) + len(prod.deleted)) / wall_a,
+        "max_queue_depth": prod.max_queue_depth,
+        "warmup_cycles": n_warm, "graph_captures_warmup": warm_captures,
+        "graph_captures_after_warmup": captures_after,
+        "sync_debug_cycle": {"attempted": dbg.attempted,
+                             "host_syncs": dbg.host_syncs,
+                             "tiers": dbg.tier_attempts, "clean": True},
+        "profiled_cycle": hooks["cycles"].profile_out,
+        "launches_warmup": launches_warm, "launches": launches_a,
+        "shapes": shapes_a, "shapes_warmup": shapes_warm,
+        "doorbell_rings": rt.bell.rings_total})
+    offered = over.offered + len(over.deleted)
+    c_rows = {"offered_creates": over.offered, "admitted": len(over.pods),
+              "shed": over.shed, "shed_rate": over.shed / max(over.offered, 1),
+              "offered_ops_per_s": offered / wall_c,
+              "offered_vs_arm_a": (offered / wall_c)
+              / max(a_rows["ops_per_s"], 1e-9),
+              "p99_admitted_s": _pct(lat_c, 99),
+              "p50_admitted_s": _pct(lat_c, 50),
+              "max_queue_depth": over.max_queue_depth,
+              "max_undelivered_events": over.max_undelivered,
+              "shed_bound": rt.shed_bound(), "wall_s": wall_c,
+              # scripts/bench_churn.py's overload criteria, reported (not
+              # gated): admission reads the scheduler's queue, and the
+              # creates it admitted while they sat in this arm's informer
+              # buffer reach the queue only at the next delivery
+              "bench_churn_criteria": {
+                  "queue_bounded_ok": over.max_queue_depth
+                  <= rt.shed_bound() + SERVE_RATE,
+                  "p99_bounded_ok": (_pct(lat_c, 99) or 0.0) < 2.0},
+              "flow": rt.flow.stats(), "launches": launches_c}
+    return {"A": a_rows, "C": c_rows,
+            "launches": {k: launches_warm.get(k, 0) + launches_a.get(k, 0)
+                         + launches_c.get(k, 0) for k in launches_a},
+            "cycles": len(all_results),
+            "shapes": _merge_shapes(shapes_warm, shapes_a, shapes_c)}
+
+
+def serve_arm_b(tmp: str, nodes, bound) -> dict:
+    """Arm B, the legacy loop: the same ``cli.run`` with
+    ``serving.enabled: false`` and ``--cycle-interval 0.25`` at
+    SERVE_RATE for 20 s (bench_churn's fixed arm). The legacy loop has
+    no ingest lock, so the producer and every cycle share one."""
+    import random
+    import threading
+
+    import torch
+
+    _path, cfg = _serve_config(
+        tmp, "serve-b", serving={"enabled": False},
+        warmup={"enabled": True, "podBuckets": [8, 16, 32, 64, 128, 256,
+                                                512, 1024]})
+    lock = threading.RLock()
+    rng = random.Random(21)
+    sample = [serve_pod(f"warm-{i}", i, rng) for i in range(64)]
+    hooks: dict = {}
+
+    def on_ready(ctx):
+        sched = ctx["sched"]
+        sched.binder = ConfirmingBinder(sched)
+        feed(sched, nodes, bound, sample)
+        results = hooks["results"] = []
+        real = sched.schedule_cycle
+
+        def cycle(*a, **kw):
+            with lock:
+                r = real(*a, **kw)
+            results.append((time.perf_counter(), r))
+            if "prod" in hooks:
+                hooks["prod"].on_cycle(r)
+            return r
+
+        sched.schedule_cycle = cycle
+        real_idle = sched.idle_tick
+
+        def idle():
+            with lock:
+                real_idle()
+
+        sched.idle_tick = idle
+
+    stop, t, box = _run_cli(cfg, ["--device", "cuda", "--cycle-interval",
+                                  "0.25"], on_ready)
+    sched = box["sched"]
+    _wait_for(lambda: sched.cache.pod_count() >= len(bound) + len(sample),
+              300, "the legacy loop's lease, warmup and first cycle")
+
+    def ingest(fn, *a):
+        with lock:
+            return fn(*a)
+
+    prod = Churn(ingest, sched, "fx", seed=22, duration=20.0)
+    hooks["prod"] = prod
+    n0 = len(hooks["results"])
+    t0 = time.perf_counter()
+    prod.run()
+    if prod.error:
+        fail(f"serve/B: the producer failed: {prod.error!r}")
+    _wait_for(lambda: len(sched.queue) == 0, 60, "arm B to drain")
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    shapes = launch_shapes()
+    _stop_cli(stop, t, box, "B")
+    results = hooks["results"]
+    _bound_once("B", prod.pods, results)
+    _live_capacity("B", nodes, bound, [prod])
+    lat = [v for _, r in results[n0:] for k, v in r.e2e_latency_s.items()
+           if k in prod.pods]
+    rows = _serve_cycles(results[n0:])
+    rows.update({"created": len(prod.pods), "deleted": len(prod.deleted),
+                 "wall_s": wall, "p50_s": _pct(lat, 50),
+                 "p99_s": _pct(lat, 99),
+                 "pods_bound_per_s": len(prod.pods) / wall,
+                 "launches": launches})
+    return {"B": rows, "launches": launches, "cycles": len(results),
+            "shapes": shapes}
+
+
+class SharedBinder:
+    """The truth both failover replicas bind through: a CAS that refuses
+    a second bind of a key (counted as a double-bind attempt)."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.lock = threading.Lock()
+        self.bound: dict = {}
+        self.double_bind_attempts = 0
+
+    def bind(self, pod, node_name: str) -> None:
+        with self.lock:
+            if pod.key() in self.bound:
+                self.double_bind_attempts += 1
+                raise RuntimeError(f"{pod.key()} is already bound to "
+                                   f"{self.bound[pod.key()]}")
+            self.bound[pod.key()] = node_name
+
+
+def serve_arm_d(tmp: str, nodes, bound) -> dict:
+    """Arm D, failover: two ServingRuntimes on the same card share one
+    InMemoryLock and bind through one SharedBinder (``solver:
+    sinkhorn``, fenced binds and takeover reconciliation on, the lease
+    cut to SERVE_LEASE). Both replicas are fed every create; each cycle's
+    binds are relayed to the peer as watch MODIFIED events when the
+    cycle ends. At 40% of a 20 s run of creates at half SERVE_RATE
+    (bench_churn's failover arm) the leader is killed the way
+    ``chaos.CrashLoop`` kills: ``chaos.KillingBinder`` raises
+    ``SchedulerKilled`` just after a bind's CAS committed, so the cycle
+    dies with binds in the truth that the standby never heard of, and the
+    lease is not released. The standby's takeover reconcile must adopt
+    every such bind (else it would bind them again, which the CAS counts
+    as a double bind)."""
+    import dataclasses
+    import random
+    import threading
+
+    import torch
+
+    from kubernetes_tpu_torch.chaos import CrashPlan, KillingBinder, \
+        SchedulerKilled
+    from kubernetes_tpu_torch.leaderelection import InMemoryLock, \
+        LeaderElector
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.serving import ServingRuntime
+
+    _path, cfg = _serve_config(tmp, "serve-d", solver="sinkhorn",
+                               leaderElection={"leaderElect": True,
+                                               **SERVE_LEASE})
+    truth = SharedBinder()
+    lock = InMemoryLock()
+    rng = random.Random(31)
+    sample = [serve_pod(f"warm-{i}", i, rng) for i in range(64)]
+    pods: dict = {}
+
+    def lister():
+        with truth.lock:
+            placed = dict(truth.bound)
+        return [dataclasses.replace(p, node_name=placed.get(k, ""))
+                for k, p in list(pods.items())]
+
+    class Replica:
+        def __init__(self, name):
+            self.name = name
+            self.sched = Scheduler.from_config(cfg)
+            # armed by raising max_kills: then each bind's CAS is
+            # followed by a kill with probability 1/20 (seeded), so the
+            # kill tends to land inside a micro-batch, after some of its
+            # binds committed
+            self.plan = CrashPlan(seed=8, sites=("bind:post",),
+                                  kill_rate=0.05, max_kills=0)
+            self.sched.binder = KillingBinder(
+                ConfirmingBinder(self.sched, truth), self.plan)
+            feed(self.sched, nodes, bound, [])
+            self.rt = ServingRuntime(self.sched, cfg.serving,
+                                     warmup=cfg.warmup)
+            self.rt.warm_if_pending(sample_pods=sample)
+            self.elector = self.rt.attach_elector(
+                LeaderElector(name, lock, cfg.leader_election),
+                lister=lister)
+            self.stop = threading.Event()
+            self.results: list = []
+            self.dead = False
+            self.killed_at = None
+            self.peer = None
+            self.error = None
+            self.rt.loop.on_cycle = self.on_cycle
+
+        def on_cycle(self, res):
+            self.results.append((time.perf_counter(), res))
+            peer = self.peer
+            if peer is not None and not peer.dead:
+                for key, node in res.assignments.items():
+                    old = pods[key]
+                    peer.rt.loop.ingest(
+                        peer.sched.on_pod_update, old,
+                        dataclasses.replace(old, node_name=node))
+
+        def run(self):
+            try:
+                self.rt.run(self.stop, elector=self.elector,
+                            retry_period_s=cfg.leader_election
+                            .retry_period_s)
+            except SchedulerKilled:
+                self.killed_at = time.perf_counter()
+                self.dead = True
+            except BaseException as e:  # re-raised below
+                self.error = e
+
+    a, b = Replica("replica-a"), Replica("replica-b")
+    a.peer, b.peer = b, a
+    if not a.elector.tick():
+        fail("serve/D: replica a did not take the lease")
+    threads = [threading.Thread(target=r.run, name=r.name, daemon=True)
+               for r in (a, b)]
+    duration, kill_frac = 20.0, 0.4
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    armed = False
+    created = 0
+    prng = random.Random(32)
+    next_burst = time.monotonic()
+    m0 = time.monotonic()
+    while time.monotonic() - m0 < duration:
+        now = time.monotonic()
+        if not armed and now - m0 >= duration * kill_frac:
+            a.plan.max_kills = 1  # the leader's next bind kills it
+            armed = True
+        if now < next_burst:
+            time.sleep(next_burst - now)
+        next_burst += 0.1
+        target = int(SERVE_RATE / 2 * (min(time.monotonic(),
+                                           m0 + duration) - m0))
+        while created < target:
+            pod = serve_pod(f"fo-{created}", created, prng)
+            pod.queued_at = time.monotonic()
+            pods[pod.key()] = pod
+            for r in (a, b):
+                if not r.dead:
+                    r.rt.loop.ingest(r.sched.on_pod_add,
+                                     dataclasses.replace(pod))
+            created += 1
+    _wait_for(lambda: a.dead or a.error is not None, 30, "the leader's kill")
+    if a.error is not None:
+        raise a.error
+    kill_t = a.killed_at
+    _wait_for(lambda: len(truth.bound) >= created or b.error is not None, 90,
+              "the standby to bind every pod")
+    wall = time.perf_counter() - t0
+    for r in (a, b):
+        r.stop.set()
+    for th in threads:
+        th.join(timeout=60)
+        if th.is_alive():
+            fail("serve/D: a replica did not stop")
+    for r in (a, b):
+        if r.error is not None:
+            raise r.error
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    shapes = launch_shapes()
+    if truth.double_bind_attempts:
+        fail(f"serve/D: {truth.double_bind_attempts} double binds")
+    missing = [k for k in pods if k not in truth.bound]
+    if missing:
+        fail(f"serve/D: {len(missing)} pods never bound")
+    placed = {}
+    for r in (a, b):
+        for _, res in r.results:
+            for k, node in res.assignments.items():
+                if k in placed:
+                    fail(f"serve/D: {k} bound twice")
+                placed[k] = node
+    # the killed cycle's binds: in the truth, in no finished cycle
+    torn = sorted(k for k in truth.bound if k not in placed)
+    recheck_capacity(nodes, bound, dict(truth.bound), pods)
+    mb = b.sched.metrics
+    ma = a.sched.metrics
+    recovery = {
+        "takeovers_b": mb.recovery_takeovers.value(),
+        "adopted": mb.recovery_adopted.value(),
+        "forgotten": mb.recovery_forgotten.value(),
+        "requeued": mb.recovery_requeued.value(),
+        "fenced_binds": (ma.recovery_fenced_binds.value()
+                         + mb.recovery_fenced_binds.value()),
+        "drained": (ma.recovery_drained.value()
+                    + mb.recovery_drained.value())}
+    actions = sum(v for k, v in recovery.items() if k != "takeovers_b")
+    if not torn:
+        fail("serve/D: the kill left no bind in flight")
+    if actions <= 0:
+        fail("serve/D: no reconcile action, fenced or drained pod on "
+             "takeover")
+    if recovery["adopted"] < len(torn):
+        fail(f"serve/D: the standby adopted {recovery['adopted']:.0f} of "
+             f"the {len(torn)} binds the killed cycle committed")
+    if launches["sinkhorn_u"] <= 0 or launches["sinkhorn_v"] <= 0:
+        fail("serve/D: the Sinkhorn kernels were never launched")
+    post = [(s, r) for s, r in b.results if s > kill_t and r.scheduled]
+    if not post:
+        fail("serve/D: the standby never bound after the kill")
+    first = min(s for s, _ in post)
+    settle = first + max(1.0, 0.15 * duration)
+    lats = [v for s, r in b.results if s >= settle
+            for v in r.e2e_latency_s.values()]
+    for r in (a, b):
+        for _, res in r.results:
+            if res.attempted and res.flush_trigger not in ("bucket-fill",
+                                                           "max-wait"):
+                fail(f"serve/D: a cycle flushed by {res.flush_trigger!r}")
+    rows = {"created": created, "bound": len(truth.bound), "wall_s": wall,
+            "kill_after_s": kill_t - t0, "takeover_s": first - kill_t,
+            "leader_cycles_before_kill": len(a.results),
+            "standby_cycles_after_kill": len(post),
+            "p99_after_recovery_s": _pct(lats, 99),
+            "p50_after_recovery_s": _pct(lats, 50),
+            "p99_before_kill_s": _pct([v for _, r in a.results
+                                       for v in r.e2e_latency_s.values()],
+                                      99),
+            "double_binds": truth.double_bind_attempts,
+            "torn_binds": len(torn), "recovery": recovery,
+            "tiers": sorted({r.solver_tier for rep in (a, b)
+                             for _, r in rep.results if r.attempted}),
+            "launches": launches, "shapes": shapes}
+    cycles = len(a.results) + len(b.results)
+    del a, b
+    return {"D": rows, "launches": launches, "cycles": cycles}
+
+
+def serve_arm_e(tmp: str, nodes, bound) -> dict:
+    """Arm E: ``python -m kubernetes_tpu_torch --config f.json --port P
+    --lock-file L`` as a process on the card (``/healthz`` answers ``ok``,
+    ``/metrics`` carries ``scheduler_schedule_attempts_total``, the lock
+    file appears, SIGTERM ends it with rc 0); then ``serve_scheduler``
+    with an ``ExtenderServer`` over the 5000-node cluster on 127.0.0.1
+    answers 64 ``filter`` and 64 ``prioritize`` POSTs, each equal to the
+    same scheduler's answer on CPU tensors."""
+    import http.client
+    import random
+    import signal
+    import socket
+    import urllib.request
+
+    from kubernetes_tpu_torch.extender import pod_to_json
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.server import ExtenderServer, serve_scheduler
+
+    # the process
+    path, _cfg = _serve_config(tmp, "serve-e")
+    lock = os.path.join(tmp, "serve-e.lock")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.lower() in ("http_proxy", "https_proxy", "all_proxy")}
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubernetes_tpu_torch", "--config", path,
+         "--port", str(port), "--lock-file", lock],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        body = None
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                fail(f"serve/E: the process exited rc={proc.returncode}: "
+                     f"{proc.stderr.read().decode()[-800:]}")
+            try:
+                body = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=2).read()
+                break
+            except OSError:
+                time.sleep(0.2)
+        healthz_s = time.perf_counter() - t0
+        if body != b"ok":
+            fail(f"serve/E: /healthz answered {body!r}")
+        metrics = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics", timeout=5).read().decode()
+        if "scheduler_schedule_attempts_total" not in metrics:
+            fail("serve/E: /metrics lacks scheduler_schedule_attempts_total")
+        while not os.path.exists(lock) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        if not os.path.exists(lock):
+            fail("serve/E: the lock file never appeared")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            fail(f"serve/E: SIGTERM ended the process with rc {rc}: "
+                 f"{proc.stderr.read().decode()[-800:]}")
+        with open(lock) as f:
+            lease = json.load(f)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    # the extender, in process
+    scheds = {}
+    for dev in ("cuda", "cpu"):
+        sched = Scheduler(device=dev)
+        feed(sched, nodes, bound, [])
+        scheds[dev] = sched
+    srv = serve_scheduler(scheds["cuda"],
+                          extender=ExtenderServer(scheds["cuda"]))
+    ref = ExtenderServer(scheds["cpu"])
+    names = scheds["cpu"].cache.node_order()
+    rng = random.Random(41)
+    ms: dict = {"filter": [], "prioritize": []}
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          srv.server_address[1], timeout=60)
+        for i in range(64):
+            pod = serve_pod(f"ext-{i}", i, rng)
+            body = {"pod": pod_to_json(pod)}
+            if i % 4 == 3:
+                body["pod"]["spec"]["nodeSelector"] = {
+                    ZONE: f"zone-{i % 10}"}
+            if i % 2:
+                body["nodenames"] = names[i::7]
+            for verb in ("filter", "prioritize"):
+                raw = json.dumps(body)
+                t1 = time.perf_counter()
+                conn.request("POST", f"/scheduler/{verb}", raw,
+                             {"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                got = json.loads(resp.read())
+                ms[verb].append((time.perf_counter() - t1) * 1e3)
+                want = json.loads(json.dumps(ref.handle(
+                    verb, json.loads(raw))))
+                if resp.status != 200 or got != want:
+                    fail(f"serve/E: {verb} of {pod.key()} differs from the "
+                         "CPU tensors' answer")
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        os.environ.update(saved)
+    return {"E": {"process": {"healthz_after_s": healthz_s, "rc": rc,
+                              "lease_after_shutdown": lease},
+                  "extender": {"calls": 128, "equal_to_cpu": True,
+                               "filter_ms_p50": _pct(ms["filter"], 50),
+                               "prioritize_ms_p50": _pct(ms["prioritize"],
+                                                         50),
+                               "filter_ms_max": max(ms["filter"]),
+                               "prioritize_ms_max": max(
+                                   ms["prioritize"])}}}
+
+
+def phase_serve() -> dict:
+    """The serve loop, cell ``serve-5k-churn``: the smoke cluster (5000
+    nodes, 1000 bound pods) under create/delete churn, arms A-E (see
+    each). Every configuration is a JSON v1alpha1 document written to a
+    temporary directory. Returns the launches of arms A-D (the serve
+    path: counted from 0 before arm A's ``cli.run`` starts, read at each
+    arm's end) and their cycle count."""
+    import tempfile
+
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    nodes, bound, _pending = smoke_cell(n_pending=0)
+    out = {}
+    launches: dict = {}
+    cycles = 0
+    with tempfile.TemporaryDirectory(prefix="ktt-serve-") as tmp:
+        kernels.reset_launches()
+        ac = serve_arm_ac(tmp, nodes, bound)
+        emit({"phase": "serve", "arm": "A", "cell": "serve-5k-churn",
+              **ac["A"]})
+        emit({"phase": "serve", "arm": "C", "cell": "serve-5k-churn",
+              **ac["C"]})
+        release_graphs()
+        kernels.reset_launches()
+        b = serve_arm_b(tmp, nodes, bound)
+        emit({"phase": "serve", "arm": "B", "cell": "serve-5k-churn",
+              **b["B"]})
+        release_graphs()
+        kernels.reset_launches()
+        d = serve_arm_d(tmp, nodes, bound)
+        emit({"phase": "serve", "arm": "D", "cell": "serve-5k-churn",
+              **d["D"]})
+        release_graphs()
+        e = serve_arm_e(tmp, nodes, bound)
+        emit({"phase": "serve", "arm": "E", "cell": "serve-5k-churn",
+              **e["E"]})
+        for got in (ac, b, d):
+            cycles += got["cycles"]
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cycles": cycles,
+            "shapes": _merge_shapes(ac["shapes"], b["shapes"],
+                                    d["D"]["shapes"])}
+
+
+def _merge_shapes(*runs) -> dict:
+    """Launch shapes of several runs (``launch_shapes()`` each) as one:
+    ``{kernel: [[[P, N], launches], ...]}``, the launches of a shape
+    summed, the shapes in the order of their first launch."""
+    out: dict = {}
+    for run in runs:
+        for name, shapes in run.items():
+            acc = out.setdefault(name, {})
+            for shape, n in shapes:
+                acc[tuple(shape)] = acc.get(tuple(shape), 0) + n
+    return {k: [[list(s), n] for s, n in v.items()] for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2568,7 +3719,8 @@ def main() -> None:
                        ("preempt", phase_preempt),
                        ("sparse", phase_sparse),
                        ("pipeline", phase_pipeline),
-                       ("config", phase_config)):
+                       ("config", phase_config),
+                       ("serve", phase_serve)):
         if phase not in phases:
             continue
         got = run()

@@ -142,6 +142,19 @@ class SchedulerCache:
         return sum(1 for m in self._pods_by_node.values()
                    for p in m.values() if p.pod_group == group)
 
+    def node_count(self) -> int:
+        return len(self._nodes)
+
+    def is_assumed(self, pod_key: str) -> bool:
+        return self._pod_state.get(pod_key) in (_ASSUMED, _EXPIRING)
+
+    def assumed_keys(self) -> List[str]:
+        """Keys of every pod still in an assumed state (ASSUMED or
+        EXPIRING) — what a takeover reconciliation diffs against the
+        relisted truth, and what a deposed leader drains."""
+        return [k for k, st in self._pod_state.items()
+                if st in (_ASSUMED, _EXPIRING)]
+
     def pod(self, key: str) -> Optional[Pod]:
         node = self._pod_node.get(key)
         if node is None:
@@ -398,6 +411,32 @@ class SchedulerCache:
                 self.last_patched_idx.extend(idx)
             self.last_snapshot_mode = "delta"
         return table, self._dev, self.last_snapshot_mode
+
+    def snapshot(self) -> NodeTable:
+        """The host NodeTable, recomputing only dirty rows (the
+        reference's ``snapshot``; a delta it packs is queued for the
+        resident device table)."""
+        table, _mode, _idx, _sub = self._refresh_host()
+        return table
+
+    def drop_device_snapshot(self) -> None:
+        """Release the resident device table; the next
+        :meth:`device_snapshot` re-uploads in full on ``self.device``.
+        The score summary drops with it and its generation bumps, so
+        warm state keyed on the old plane dies too (takeover
+        reconciliation lands here)."""
+        with self._snap_lock:
+            self._dev = None
+            self._dev_pad = 0
+            self._dev_stale = True
+            self._pending_dev.clear()
+            self._summary = None
+            self.last_patched_idx = []
+            self.summary_generation += 1
+
+    def has_device_snapshot(self) -> bool:
+        """Whether a resident device table exists now (no upload)."""
+        return self._dev is not None
 
     # -- the incremental solve's score summary -----------------------------
 

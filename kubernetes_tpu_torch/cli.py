@@ -1,8 +1,10 @@
-"""Executable entry point, the configuration half — the analog of
-``cmd/kube-scheduler`` (``scheduler.go:33`` main → ``app/server.go:65``
-NewSchedulerCommand): flags → ComponentConfig file decode → validation.
-The port's copy of ``kubernetes_tpu/cli.py`` up to the serve loop.
+"""Executable entry point — the analog of ``cmd/kube-scheduler``
+(``scheduler.go:33`` main → ``app/server.go:65`` NewSchedulerCommand →
+``:161`` Run): flags → ComponentConfig file decode → validation → healthz/
+metrics server → leader election → the scheduling loop (the port of
+``kubernetes_tpu/cli.py``).
 
+    python -m kubernetes_tpu_torch --config scheduler.json [--device cpu]
     python -m kubernetes_tpu_torch --validate-only --config scheduler.json
 
 The config file is the ``KubeSchedulerConfiguration`` in JSON or YAML
@@ -18,9 +20,13 @@ with field-path errors like ``apis/config/validation`` does, and a
 configuration that turns on something the port does not have yet is
 refused by :func:`unported_features` (it names the ROADMAP item).
 
-The serve loop itself (healthz/metrics server, leader election, the
-scheduling loop: the reference's ``run``) is not ported yet: without
-``--validate-only``, :func:`main` exits 2 and names ROADMAP item A.16.
+Without ``--validate-only``, :func:`main` runs :func:`run`: the HTTP
+server, the elector on ``--lock-file`` (or in memory), then either the
+serving runtime (``serving.enabled``: doorbell, micro-batch window, APF
+shedding) or the legacy fixed-interval loop, until SIGTERM/SIGINT. The
+scheduler runs on the card (``--device cuda``, the default; without a
+card the process exits non-zero naming it) unless ``--device cpu`` asks
+for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import signal
 import sys
 from typing import List, Optional
 
@@ -691,9 +698,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-pod journey tracer (phase-attributed "
                         "tail-latency timelines at /debug/journeys)")
     p.add_argument("--profile-dir", default=None,
-                   help="artifact directory for triggered jax.profiler "
+                   help="artifact directory for triggered profiler "
                         "captures (empty = profiling off); arms "
                         "incident-triggered and /debug/profile captures")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the scheduler's tables and solve live: the "
+                        "card (default; exits non-zero without one) or "
+                        "the plain PyTorch path on the CPU")
     return p
 
 
@@ -790,13 +801,11 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
     if cfg.scenario.pack:
         errs.append(f"scenario.pack: {cfg.scenario.pack!r} is not ported "
                     "yet (ROADMAP A.15: scenario packs)")
-    if cfg.serving.enabled:
-        errs.append("serving.enabled: the serving loop is not ported yet "
-                    "(ROADMAP A.16: serving and the API surface)")
-    if cfg.recovery != RecoveryConfig():
-        errs.append("recovery: fenced binds, takeover reconciliation and "
-                    "device-loss rebuilds are not ported yet (ROADMAP A.14: "
-                    "leadership and recovery)")
+    rec, rec_default = cfg.recovery, RecoveryConfig()
+    for name in ("device_reset_limit", "device_cooloff_s"):
+        if getattr(rec, name) != getattr(rec_default, name):
+            errs.append(f"recovery.{name}: device-loss recovery is not "
+                        "ported yet (ROADMAP A.14: device loss)")
     rc, rc_default = cfg.robustness, RobustnessConfig()
     if rc.bind_verify_retries != rc_default.bind_verify_retries:
         errs.append("robustness.bindVerifyRetries: the ambiguous-bind "
@@ -821,6 +830,142 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
                         "ported yet (ROADMAP A.13: observability "
                         "backends)")
     return errs
+
+
+def run(cfg: KubeSchedulerConfiguration, args, stop_event=None,
+        on_ready=None) -> None:
+    """The serve loop (app/server.go:161 Run): healthz/metrics server up
+    first, then leader election gates the scheduling loop — a non-leader
+    keeps serving healthz and ticking the elector (active-passive HA).
+    Every exception of a cycle (a ``KernelError`` included) ends the loop
+    and reaches the caller, after the lease is released and the server
+    stopped. ``on_ready`` is the port's addition; the reference's run
+    takes no such hook. It is called once on this thread, just before the
+    loop starts, with what run built: ``{"sched", "runtime", "elector",
+    "server"}`` (``runtime`` is None in the legacy loop). run builds the
+    scheduler and the runtime itself, so a host that embeds it (the
+    tests, the chip smoke test's serve arms) needs the hook to feed pod
+    events through ``runtime.loop.ingest`` and to install its binder."""
+    import os
+    import threading
+
+    from kubernetes_tpu_torch.leaderelection import (
+        FileLock,
+        InMemoryLock,
+        LeaderElector,
+    )
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.server import serve_scheduler
+    from kubernetes_tpu_torch.serving import Doorbell, ServingRuntime
+
+    sched = Scheduler.from_config(cfg, device=args.device)
+    runtime = None
+    fairness = None
+    if cfg.serving.enabled:
+        # the composed serving runtime (serving/compose.py): doorbell +
+        # micro-batch loop + APF admission with the backend-pressure
+        # saturation probe + watch hub. The APF filter lands on the
+        # component's own HTTP surface: extender POSTs classify mutating
+        # and shed with 429 + Retry-After, healthz/metrics/debug stay
+        # exempt
+        runtime = ServingRuntime(sched, cfg.serving, warmup=cfg.warmup)
+        fairness = runtime.flow
+    srv = serve_scheduler(sched, host=args.bind_address, port=args.port,
+                          fairness=fairness)
+    host, port = srv.server_address[:2]
+    print(f"serving healthz/metrics on {host}:{port}", file=sys.stderr)
+
+    stop = stop_event or threading.Event()
+
+    def _sig(_s, _f):
+        stop.set()
+
+    try:
+        signal.signal(signal.SIGTERM, _sig)
+        signal.signal(signal.SIGINT, _sig)
+    except ValueError:
+        # signal handlers can only be installed on the main thread; an
+        # embedded run (tests, a host process driving the loop on a
+        # worker thread) relies on stop_event instead
+        pass
+
+    elector = None
+    if cfg.leader_election.leader_elect:
+        lock = (FileLock(args.lock_file) if args.lock_file
+                else InMemoryLock())
+        elector = LeaderElector(
+            identity=f"{os.uname().nodename}_{os.getpid()}",
+            lock=lock,
+            config=cfg.leader_election,
+        )
+        # recovery wiring: the elector fences every bind, gaining the
+        # lease runs takeover reconciliation, losing it drains in-flight
+        # state; the composed runtime also relists its watchers across
+        # every leadership change
+        if runtime is not None:
+            runtime.attach_elector(elector)
+        else:
+            sched.attach_elector(elector)
+    #: the warmup is LAZY: it waits for the first node sync, or every
+    #: warmed shape would carry an empty-cluster node bucket no real
+    #: cycle matches. The serving runtime owns its own pending flag;
+    #: this one is the legacy loop's
+    warmup_pending = cfg.warmup.enabled
+    # both modes carry the doorbell: the serving loop blocks on it, the
+    # legacy loop uses it to tell "idle" from "work arrived while I was
+    # solving" (the empty-queue skip below)
+    bell = (runtime.bell if runtime is not None
+            else sched.attach_doorbell(Doorbell()))
+
+    def gate() -> bool:
+        """The LEGACY loop's per-iteration admission: leader election (a
+        non-leader keeps serving healthz and ticking the elector) and the
+        lazy warmup. Single-threaded, so no ingest guard; the serving
+        path uses runtime.gate."""
+        nonlocal warmup_pending
+        if elector is not None:
+            if not elector.tick():
+                stop.wait(cfg.leader_election.retry_period_s)
+                return False
+        if warmup_pending and sched.cache.node_count():
+            sample = sched.queue.pending_pods().get("active", [])[:64]
+            n = sched.warmup(sample_pods=sample)
+            print(f"warmup: warmed {n} bucketed solve shapes",
+                  file=sys.stderr)
+            warmup_pending = False
+        return True
+
+    try:
+        if on_ready is not None:
+            on_ready({"sched": sched, "runtime": runtime,
+                      "elector": elector, "server": srv})
+        if runtime is not None:
+            runtime.run(stop, elector=elector,
+                        retry_period_s=cfg.leader_election.retry_period_s)
+        else:
+            while not stop.is_set():
+                if not gate():
+                    continue
+                # idle fast path: an empty activeQ with no doorbell
+                # activity since the last look means a solve could only
+                # be empty — skip it and run queue maintenance instead
+                if (sched.queue.pending_counts().get("active", 0) == 0
+                        and not bell.consume()):
+                    sched.idle_tick()
+                    stop.wait(args.cycle_interval)
+                    continue
+                r = sched.schedule_cycle()
+                if r.attempted == 0:
+                    stop.wait(args.cycle_interval)
+    finally:
+        if (elector is not None and cfg.recovery.release_lease_on_shutdown
+                and elector.is_leader()):
+            # graceful failover: CAS an expired lease record so the
+            # standby acquires on its next tick instead of waiting out
+            # the full lease duration
+            elector.release()
+        srv.shutdown()
+        srv.server_close()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -852,11 +997,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"configuration valid: scheduler={cfg.scheduler_name} "
               f"solver={cfg.solver}")
         return 0
-    print("error: the serve loop is not ported yet (ROADMAP A.16: "
-          "cli.run, server.py, leader election, the serving loop); use "
-          "--validate-only, or build the scheduler with "
-          "Scheduler.from_config", file=sys.stderr)
-    return 2
+    from kubernetes_tpu_torch import resolve_device
+
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    run(cfg, args)
+    return 0
 
 
 if __name__ == "__main__":

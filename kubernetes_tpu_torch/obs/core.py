@@ -11,6 +11,12 @@ puts spans at the reference's sites, under its names (``snapshot``,
 they never synchronise the device, so a span around an enqueue measures
 the host's enqueue, and the readback span is where the host waits.
 
+The serving loop's and the recovery protocol's notes (``note_microbatch``,
+``note_fenced_bind``, ``note_takeover``) land as fields of the cycle's
+trace: ``flush_trigger`` / ``window_s``, ``fenced_binds``, and
+``takeover`` (the elector's epoch, stamped on the first cycle after a
+takeover reconciliation).
+
 Not ported yet (ROADMAP A.13): the flight recorder, the device telemetry
 (compile, transfer and readback accounting), the memory ledger, pod
 journeys and incidents.
@@ -37,11 +43,36 @@ class Obs:
         self.current_trace: Optional[Trace] = None
         self.last_trace: Optional[Trace] = None
         self.traces: Deque[Trace] = collections.deque(maxlen=TRACE_RING)
+        #: a takeover reconciliation runs BETWEEN cycles: its epoch parks
+        #: here until the next begin_cycle stamps it on that cycle's trace
+        self._pending_takeover = 0
 
     def begin_cycle(self, cycle: int = 0) -> Trace:
         self.current_trace = Trace("Scheduling cycle",
                                    clock=time.perf_counter, cycle=cycle)
+        if self._pending_takeover:
+            self.current_trace.fields["takeover"] = self._pending_takeover
+            self._pending_takeover = 0
         return self.current_trace
+
+    def note_microbatch(self, trigger: str, window_s: float) -> None:
+        """The serving loop's micro-batch provenance for this cycle: what
+        flushed the accumulation window (bucket-fill | max-wait) and how
+        long it held."""
+        if self.current_trace is not None:
+            self.current_trace.fields["flush_trigger"] = trigger
+            self.current_trace.fields["window_s"] = window_s
+
+    def note_takeover(self, epoch: int = 1) -> None:
+        """A takeover reconciliation ran (between cycles): the NEXT
+        cycle's trace carries ``takeover=epoch``."""
+        self._pending_takeover = max(int(epoch), 1)
+
+    def note_fenced_bind(self) -> None:
+        """A bind was aborted by the lease fence this cycle."""
+        if self.current_trace is not None:
+            f = self.current_trace.fields
+            f["fenced_binds"] = f.get("fenced_binds", 0) + 1
 
     def span(self, name: str, **fields):
         """Nested span on the in-flight cycle trace (no-op outside a

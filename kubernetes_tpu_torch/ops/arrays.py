@@ -8,6 +8,7 @@ only where they index."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -222,18 +223,28 @@ def _pad_rows(a: np.ndarray, rows: int, fill=0) -> np.ndarray:
     return out
 
 
-def _to(device):
-    """numpy -> a fresh tensor on ``device`` (always a copy: the device
-    tables are updated in place and must never alias host tables).
+def upload(a, device, dtype=None) -> Tensor:
+    """``a`` (a numpy array or a list) as a fresh tensor on ``device`` —
+    always a copy: the device tables are updated in place and must never
+    alias host tables. A CUDA upload is staged in pinned memory and
+    enqueued without blocking the host: a blocking host-to-device copy is
+    a sync, which ``torch.cuda.set_sync_debug_mode("error")`` refuses (the
+    caching host allocator holds the pinned block until the copy ran).
     Raises when ``cuda`` is asked for and no card is visible."""
     dev = resolve_device(device)
-    return lambda a: torch.tensor(np.asarray(a), device=dev)
+    arr = np.asarray(a, dtype=dtype)
+    if dev.type != "cuda":
+        return torch.tensor(arr)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = arr.copy()
+    return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
+
 
 
 def nodes_to_device(t: NodeTable, pad_to: int | None = None,
                     device="cuda") -> DeviceNodes:
     n_pad = pad_to or bucket_size(max(t.n, 1))
-    up = _to(device)
+    up = functools.partial(upload, device=resolve_device(device))
     valid = np.zeros((n_pad,), bool)
     valid[: t.n] = True
     f32 = lambda a: up(_pad_rows(a.astype(np.float32), n_pad))
@@ -282,7 +293,7 @@ def nodes_to_device(t: NodeTable, pad_to: int | None = None,
 def pods_to_device(t: PodTable, pad_to: int | None = None,
                    device="cuda") -> DevicePods:
     p_pad = pad_to or bucket_size(max(t.n, 1))
-    up = _to(device)
+    up = functools.partial(upload, device=resolve_device(device))
     valid = np.zeros((p_pad,), bool)
     valid[: t.n] = True
     f32 = lambda a: up(_pad_rows(a.astype(np.float32), p_pad))
@@ -343,8 +354,8 @@ def scatter_node_rows(resident: DeviceNodes, sub: DeviceNodes,
     keep = np.nonzero(idx < resident.n)[0]
     if len(keep):
         dev = resident.valid.device
-        rows = torch.from_numpy(idx[keep]).to(dev)
-        src = torch.from_numpy(keep).to(dev)
+        rows = upload(idx[keep], dev)
+        src = upload(keep, dev)
         for name in DeviceNodes._fields:
             if name in _NODE_NON_ROW_FIELDS:
                 continue
@@ -400,7 +411,7 @@ def map_restricted_assignment(assigned_local: Tensor,
 
 
 def selectors_to_device(t: SelectorTables, device="cuda") -> DeviceSelectors:
-    up = _to(device)
+    up = functools.partial(upload, device=resolve_device(device))
 
     def pack(n_e, n_t, e_term, e_op, e_pairs, e_key, e_lit, t_prog, t_w=None):
         e_pad = bucket_size(max(n_e, 1))
@@ -460,7 +471,7 @@ def selectors_to_device(t: SelectorTables, device="cuda") -> DeviceSelectors:
 def volumes_to_device(t: VolumeTables, device="cuda") -> DeviceVolumes:
     from kubernetes_tpu_torch.volumes import N_PD_FILTERS
 
-    up = _to(device)
+    up = functools.partial(upload, device=resolve_device(device))
 
     def onehot(idx: np.ndarray, width: int):
         oh = np.zeros((len(idx), width), np.float32)
@@ -496,7 +507,7 @@ def volumes_to_device(t: VolumeTables, device="cuda") -> DeviceVolumes:
 def topology_to_device(t: TopologyTables, device="cuda") -> DeviceTopology:
     """Every row and program table is padded to ``bucket_size(n, 4)``;
     the padded widths decide where pad rows point (the dump program)."""
-    up = _to(device)
+    up = functools.partial(upload, device=resolve_device(device))
     M = t.n_matchers
 
     def onehot(m_idx: np.ndarray, rows: int):
@@ -570,5 +581,5 @@ def from_numpy(kind: str, fields: dict, device="cuda"):
     ``pods``, ``selectors``, ``topology`` or ``volumes``. Dtypes carry
     over as they are."""
     cls = _KINDS[kind]
-    up = _to(device)
+    up = functools.partial(upload, device=resolve_device(device))
     return cls(**{f: up(np.asarray(fields[f])) for f in cls._fields})

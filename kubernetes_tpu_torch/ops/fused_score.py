@@ -176,12 +176,14 @@ def patch_node_summary(summary: NodeSummary, sub: NodeSummary,
     same tensors)."""
     import numpy as np
 
+    from kubernetes_tpu_torch.ops.arrays import upload
+
     idx = np.asarray(idx, np.int64)
     keep = np.nonzero(idx < summary.rank.shape[0])[0]
     if len(keep):
         dev = summary.rank.device
-        rows = torch.from_numpy(idx[keep]).to(dev)
-        src = torch.from_numpy(keep).to(dev)
+        rows = upload(idx[keep], dev)
+        src = upload(keep, dev)
         summary.eligible.index_copy_(0, rows,
                                      sub.eligible.index_select(0, src))
         summary.rank.index_copy_(0, rows, sub.rank.index_select(0, src))

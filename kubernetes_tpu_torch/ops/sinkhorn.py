@@ -201,8 +201,11 @@ def _tol_scan(logk, log_r, log_c, u, v, iters, tol):
         delta = to_host(_delta(u2, u))
         u, v = u2, v2
         i += 1
-    stats = torch.tensor([float(i), delta], dtype=torch.float32,
-                         device=logk.device)
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops.arrays import upload
+
+    stats = upload([float(i), delta], logk.device, np.float32)
     return u, v, stats
 
 

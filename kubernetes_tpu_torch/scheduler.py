@@ -54,11 +54,21 @@ circuit breaker per tier and a cycle deadline that skips to the floor.
 KubeSchedulerConfiguration; ``warmup`` builds the kernels and captures
 the round-loop graphs of every shape a cycle will present.
 
+The serve loop drives the same cycle (``serving/``, ``cli.run``):
+``attach_doorbell`` wires the queue's doorbell, ``idle_tick`` keeps the
+queue alive between cycles, ``schedule_cycle(flush_trigger, window_s)``
+records a micro-batch's provenance, and ``backend_pressure`` feeds the
+APF shedding. Leader election fences every bind (``attach_elector``,
+``_fence_ok``): a deposed leader drains its in-flight state
+(``on_stopped_leading``) and a new one reconciles against the relisted
+truth (``reconcile``) before its first cycle.
+
 Not ported yet (ROADMAP): the scenario cascade and scenario packs
 (A.15), observability beyond the cycle trace and the metrics (journeys,
-the flight recorder, ``/debug/why``, the perf and memory ledgers, A.13),
-leader fencing, recovery and the ambiguous-bind protocol (A.14), the
-serve loop (A.16), and the mesh with its ``batch-single`` tier (A.17).
+the flight recorder, the perf and memory ledgers, A.13), the
+ambiguous-bind protocol and device-loss recovery (A.14), the informer
+and the simulated cluster (A.16), and the mesh with its ``batch-single``
+tier (A.17).
 """
 
 from __future__ import annotations
@@ -117,6 +127,7 @@ from kubernetes_tpu_torch.ops.arrays import (
     scatter_node_rows,
     selectors_to_device,
     topology_to_device,
+    upload,
     volumes_to_device,
 )
 from kubernetes_tpu_torch.ops.assign import (
@@ -237,6 +248,11 @@ class CycleResult:
     tier_attempts: List[str] = field(default_factory=list)
     #: round-loop graphs captured during the cycle (0 on a warmed shape)
     graph_captures: int = 0
+    #: what flushed the micro-batch window into this cycle
+    #: ("bucket-fill" | "max-wait"; "" = not a serving-loop cycle)
+    flush_trigger: str = ""
+    #: how long the micro-batch window accumulated before flushing
+    window_s: float = 0.0
 
 
 def _filter_pass(dp, dn, ds, dt, dv=None, sv=None, em=None):
@@ -346,8 +362,27 @@ class Scheduler:
         #: breaker thresholds, the fallback chain, result validation
         self.robustness = (robustness if robustness is not None
                            else RobustnessConfig())
-        #: crash / failover knobs, kept for the leadership slice (A.14)
+        #: crash / failover knobs (config.RecoveryConfig): fenced binds,
+        #: takeover reconciliation
         self.recovery = recovery if recovery is not None else RecoveryConfig()
+        #: the bind fence (a LeaderElector via attach_elector, or any
+        #: object with allow_bind()/epoch): None = unfenced
+        self.fence = None
+        #: truth lister for takeover reconciliation (attach_elector):
+        #: () -> iterable of truth Pods; None = local-only reconcile
+        self._lister = None
+        #: the ambiguous-bind protocol's parked binds, ROADMAP A.14: the
+        #: port never parks one, so this stays empty; reconcile and the
+        #: stopped-leading drain clear it as the reference does
+        self._ambiguous_binds: Dict[str, object] = {}
+        #: serving doorbell (serving/doorbell.py) — None until a serving
+        #: loop attaches one via attach_doorbell
+        self.doorbell = None
+        #: the ladder tier of the most recent cycle that solved ("" before
+        #: the first) and its tier-to-tier fallbacks: is_degraded reads the
+        #: fallback COUNT (exact's hazard routing to batch is healthy)
+        self.last_solver_tier = ""
+        self.last_solver_fallbacks = 0
         #: faults.FaultInjector (or None): the seeded chaos harness wired
         #: into the solver entry and the extender transports
         self.fault_injector = fault_injector
@@ -628,6 +663,259 @@ class Scheduler:
         self.cache.invalidate_snapshot()
         self.queue.move_all_to_active()
 
+    # -- crash / failover recovery -----------------------------------------
+
+    def attach_elector(self, elector, lister=None):
+        """Wire leader election into the scheduler's recovery protocol:
+        the elector becomes the bind fence (its ``allow_bind`` gates
+        every bind when ``recovery.fenced_binds``), gaining leadership
+        runs takeover reconciliation (:meth:`reconcile`), and losing it
+        drains in-flight state (:meth:`on_stopped_leading`). ``lister``
+        (optional, ``() -> iterable of truth Pods``) gives the
+        reconciliation an authoritative relist source; without one the
+        informer feed is trusted and reconciliation is local-only.
+        Pre-existing elector callbacks are preserved (chained after
+        ours). Returns the elector."""
+        self.fence = elector
+        self._lister = lister
+        prev_start = elector.on_started_leading
+        prev_stop = elector.on_stopped_leading
+
+        def started():
+            self.on_started_leading()
+            prev_start()
+
+        def stopped():
+            self.on_stopped_leading()
+            prev_stop()
+
+        elector.on_started_leading = started
+        elector.on_stopped_leading = stopped
+        return elector
+
+    def on_started_leading(self) -> None:
+        """OnStartedLeading (app/server.go:261): this incarnation just
+        became the writer. Reconcile before the first cycle so a crash
+        of the previous leader between its bind and its local
+        ``finish_binding`` converges instead of leaking."""
+        if not self.recovery.reconcile_on_takeover:
+            return
+        pods = None
+        if self._lister is not None:
+            pods = list(self._lister())
+        self.reconcile(pods)
+
+    def on_stopped_leading(self) -> None:
+        """Deposed (lease lost or released): drain in-flight cycle
+        state. Permit-parked pods are rejected and requeued, local
+        assumptions are forgotten and their pods requeued (if the bind
+        DID commit, the watch MODIFIED event deletes them from the
+        queue; if it did not, the new leader binds them). The queues
+        themselves stay: informers run on standbys."""
+        fw = self.framework
+        drained = 0
+        res = CycleResult()
+        for wp in list(fw.waiting.items()):
+            key = wp.pod.key()
+            fw.waiting.remove(key)
+            self.cache.forget_pod(key)
+            self.volume_binder.forget_pod_volumes(key)
+            fw.run_unreserve(self._cycle_states.get(key) or CycleState(),
+                             wp.pod, wp.node_name)
+            self._fail(wp.pod, self.queue.scheduling_cycle, res,
+                       ("Permit:lost leadership",))
+            self._cycle_states.pop(key, None)
+            drained += 1
+        self._ambiguous_binds.clear()
+        for key in self.cache.assumed_keys():
+            pod = self.cache.pod(key)
+            self.cache.forget_pod(key)
+            self.volume_binder.forget_pod_volumes(key)
+            self._cycle_states.pop(key, None)
+            if pod is not None and self.responsible_for(pod):
+                self.queue.add_if_not_present(
+                    dataclasses.replace(pod, node_name=""))
+            drained += 1
+        if drained:
+            klog.warning("stopped leading: drained %d in-flight pods",
+                         drained)
+            self.metrics.recovery_drained.inc(drained)
+            self._record_metrics(res)
+
+    def reconcile(self, pods=None) -> Dict[str, int]:
+        """Takeover / cold-start reconciliation — converge local state
+        with the truth so the invariant triple holds across a crash: no
+        pod double-bound, no assumption leaked, every schedulable pod
+        eventually bound.
+
+        With ``pods`` (the relisted truth): adopt bound pods this cache
+        does not know, forget assumptions the truth contradicts (pod
+        gone, recreated under a new uid, or bound elsewhere), requeue
+        responsible unbound pods that fell out of the queues, and drop
+        queued pods the truth no longer holds. Always: resweep the
+        unschedulable queue, drop the resident device snapshot (the next
+        cycle uploads it again on ``self.device``), drop the warm-solve
+        state, and re-run the warmup when it is configured (its graphs
+        stay cached, so a re-elected incarnation captures nothing new).
+        Returns the action counts."""
+        adopted = forgotten = requeued = 0
+        if pods is not None:
+            self._ambiguous_binds.clear()
+            truth = {p.key(): p for p in pods}
+            for key in list(self.cache.assumed_keys()):
+                cached = self.cache.pod(key)
+                tp = truth.get(key)
+                ok = (tp is not None and tp.node_name
+                      and cached is not None and tp.uid == cached.uid
+                      and tp.node_name == cached.node_name)
+                if ok:
+                    # the bind DID commit (possibly by a dead
+                    # predecessor): confirm it instead of waiting out
+                    # the TTL
+                    self.cache.add_pod(tp)
+                    adopted += 1
+                else:
+                    self.cache.forget_pod(key)
+                    self.volume_binder.forget_pod_volumes(key)
+                    forgotten += 1
+            for key, tp in truth.items():
+                if is_pod_terminated(tp):
+                    continue
+                if tp.node_name:
+                    cached = self.cache.pod(key)
+                    if cached is None or cached.uid != tp.uid \
+                            or cached.node_name != tp.node_name:
+                        if cached is not None:
+                            self.cache.remove_pod(key)
+                        self.cache.add_pod(tp)
+                        adopted += 1
+                    # bound in the truth: never schedule it again here
+                    self.queue.delete(key)
+                    self.why_pending.pop(key, None)
+                    self._cycle_states.pop(key, None)
+                elif self.responsible_for(tp):
+                    queued = self.queue.pod(key)
+                    if (queued is not None and queued.uid == tp.uid) \
+                            or self.framework.waiting.get(key) is not None:
+                        continue  # already queued/parked with the live uid
+                    if self.cache.pod(key) is not None:
+                        # placed here, unbound in the truth: a
+                        # half-crashed bind — forget and retry
+                        if self.cache.is_assumed(key):
+                            self.volume_binder.forget_pod_volumes(key)
+                        self.cache.remove_pod(key)
+                        forgotten += 1
+                    if queued is not None:
+                        # recreated under the same key with a new uid:
+                        # the truth object replaces the stale one
+                        self.queue.delete(key)
+                    self.queue.add_if_not_present(tp)
+                    requeued += 1
+            for qpods in self.queue.pending_pods().values():
+                for p in qpods:
+                    if p.key() not in truth:
+                        self.queue.delete(p.key())
+                        self._cycle_states.pop(p.key(), None)
+                        self.why_pending.pop(p.key(), None)
+                        self.cache.packer.forget_pod(p.key())
+        self.queue.move_all_to_active()
+        self.cache.invalidate_snapshot()
+        self.cache.drop_device_snapshot()
+        # warm-solve state summarizes a plane the old incarnation solved
+        self._drop_incremental("takeover")
+        epoch = getattr(self.fence, "epoch", 0) or 1
+        self.metrics.recovery_takeovers.inc()
+        if adopted:
+            self.metrics.recovery_adopted.inc(adopted)
+        if forgotten:
+            self.metrics.recovery_forgotten.inc(forgotten)
+        if requeued:
+            self.metrics.recovery_requeued.inc(requeued)
+        self.obs.note_takeover(epoch)
+        klog.V(2).info(
+            "takeover reconciliation (epoch %d): adopted=%d forgotten=%d "
+            "requeued=%d", epoch, adopted, forgotten, requeued)
+        if self.warmup_config.enabled and self.cache.node_count():
+            sample = self.queue.pending_pods().get("active", [])[:64]
+            self.warmup(sample_pods=sample)
+        return {"adopted": adopted, "forgotten": forgotten,
+                "requeued": requeued}
+
+    def _fence_ok(self) -> bool:
+        """May a bind go out now? Unfenced schedulers (no elector
+        attached / fencing disabled) always may."""
+        if self.fence is None or not self.recovery.fenced_binds:
+            return True
+        return self.fence.allow_bind()
+
+    def _fenced(self, pod: Pod, cycle: int, res: CycleResult) -> None:
+        """Abort one pod's bind at the fence: count it, note it on the
+        cycle's trace, requeue through the standard error path (the NEW
+        leader binds it; this one must not race it)."""
+        self.metrics.recovery_fenced_binds.inc()
+        self.obs.note_fenced_bind()
+        self._fail(pod, cycle, res, ("FencedBind:lease lost",))
+
+    # -- the serve loop's hooks ----------------------------------------------
+
+    def is_degraded(self) -> bool:
+        """Is the backend limping? True while the most recent solve had
+        to FALL THROUGH the ladder to reach a result, or while the
+        configured tier's circuit breaker is open. The fallback COUNT is
+        the signal, not the tier name: the exact solver deliberately
+        routes hazardous batches to the round solver as a healthy path.
+        The reference also reads the perf ledger's SLO burn (ROADMAP
+        A.13) and a device cooloff after a device loss (A.14); the port
+        has neither yet."""
+        if self.last_solver_fallbacks > 0:
+            return True
+        br = self._breakers.get(f"solver:{self.solver}")
+        return br is not None and br.state == OPEN
+
+    def backend_pressure(self, degraded_factor: float = 4.0) -> float:
+        """Backend-pressure probe for APF shedding
+        (serving/fairness.FlowController.set_saturation): the active-
+        queue depth, multiplied by ``degraded_factor`` while
+        :meth:`is_degraded` — a solver running on a fallback tier clears
+        its queue slower, so admission must shed EARLIER at the same
+        depth."""
+        depth = float(self.queue.pending_counts().get("active", 0))
+        if depth and self.is_degraded():
+            depth *= max(degraded_factor, 1.0)
+        return depth
+
+    def attach_doorbell(self, bell):
+        """Wire a serving doorbell into this scheduler: the queue rings
+        it on every work-adding incoming event (node and volume events
+        ring through their move-to-active sweeps), and it gains this
+        scheduler's metrics for scheduler_doorbell_rings_total. Returns
+        the bell."""
+        self.doorbell = bell
+        if getattr(bell, "metrics", "absent") is None:
+            bell.metrics = self.metrics
+        if getattr(self.queue, "doorbell", "absent") is None:
+            self.queue.doorbell = bell
+        return bell
+
+    def idle_tick(self) -> None:
+        """Queue maintenance WITHOUT a scheduling cycle — the idle path
+        of both serve loops (legacy fixed-interval and serving mode).
+        Runs the periodic flushes (backoff-complete, unschedulable-
+        leftover — each rings the doorbell when it moves pods), expires
+        stale cache assumptions, and resolves Permit waits, but begins
+        no cycle: no trace, no solve, no metrics churn. The reference's
+        idle tick also verifies ambiguous binds (ROADMAP A.14), runs the
+        scenario repack (A.15) and ticks the perf and memory ledgers
+        (A.13); the port has none of those yet."""
+        self.queue.tick()
+        self._reap_expired_assumptions()
+        res = CycleResult()
+        self._process_waiting(res)
+        if res.unschedulable or res.scheduled:
+            # a Permit wait resolved while idle: its outcome still
+            # reaches the metrics
+            self._record_metrics(res)
+
     # -- the cycle ---------------------------------------------------------
 
     def _reap_expired_assumptions(self) -> None:
@@ -650,18 +938,25 @@ class Scheduler:
             if self.responsible_for(pending):
                 self.queue.add_if_not_present(pending)
 
-    def schedule_cycle(self) -> CycleResult:
-        """One batched scheduling pass over everything in activeQ."""
+    def schedule_cycle(self, flush_trigger: str = "",
+                       window_s: float = 0.0) -> CycleResult:
+        """One batched scheduling pass over everything in activeQ.
+
+        ``flush_trigger``/``window_s`` are the serving loop's micro-batch
+        provenance (what flushed the accumulation window and how long it
+        held), kept on the CycleResult and the cycle's trace."""
         t0 = self.clock()
         syncs0 = SYNCS.count
         self._captures0 = device_loop.CAPTURES.count
-        res = CycleResult()
+        res = CycleResult(flush_trigger=flush_trigger, window_s=window_s)
         # per-cycle deadline (robustness.cycle_deadline_s): the ladder
         # skips to the floor once it is blown, and extender calls shed
         self._cycle_deadline = (
             t0 + self.robustness.cycle_deadline_s
             if self.robustness.cycle_deadline_s > 0 else None)
         self.obs.begin_cycle(self.queue.scheduling_cycle)
+        if flush_trigger:
+            self.obs.note_microbatch(flush_trigger, window_s)
         self.queue.tick()
         self._reap_expired_assumptions()
         self._process_waiting(res)
@@ -762,7 +1057,7 @@ class Scheduler:
                 col = np.zeros((dn.valid.shape[0],), bool)
                 for j, name in enumerate(node_order):
                     col[j] = name in subset
-                cm = torch.from_numpy(col).to(dev)[None, :]
+                cm = upload(col, dev)[None, :]
                 extra_mask = cm if extra_mask is None else extra_mask & cm
         # one shared built-in filter pass against the initial usage, read
         # by the extenders and the exact solver
@@ -847,7 +1142,7 @@ class Scheduler:
             # preemption
             pad = np.full((dp.valid.shape[0],), -1, np.int64)
             pad[: len(batch)] = assigned
-            pad_t = torch.from_numpy(pad).to(dev)
+            pad_t = upload(pad, dev)
             usage = _apply_batch(usage_from_nodes(dn), dp,
                                  pad_t.clamp_min(0), (pad_t >= 0) & dp.valid)
 
@@ -863,7 +1158,7 @@ class Scheduler:
             tx = time.perf_counter()
             fr = _filter_pass(dp, nodes_with_usage(dn, usage), ds, dt, dv,
                               sv, self.pred_mask)
-            rows = torch.tensor(failed_idx, dtype=torch.long, device=dev)
+            rows = upload(failed_idx, dev, np.int64)
             every = torch.ones((len(failed_idx),), dtype=torch.bool,
                                device=dev)
             ex = explain_reduce(
@@ -871,8 +1166,7 @@ class Scheduler:
                 dp.req.index_select(0, rows), dn.allocatable - usage.requested,
                 dn.ready, dn.network_unavailable)
             if self.enable_preemption and preemptable_idx:
-                pre = torch.tensor(preemptable_idx, dtype=torch.long,
-                                   device=dev)
+                pre = upload(preemptable_idx, dev, np.int64)
                 rows_dev = fr.reasons.index_select(0, pre)[:, : nt.n]
             res.explain_s += time.perf_counter() - tx
 
@@ -936,6 +1230,8 @@ class Scheduler:
             res.solve_scope = "full"
         if res.solver_tier:
             self.metrics.algorithm_duration.observe(res.solve_s)
+            self.last_solver_tier = res.solver_tier
+            self.last_solver_fallbacks = res.solver_fallbacks
         res.host_syncs = SYNCS.count - syncs0
         res.graph_captures = device_loop.CAPTURES.count - self._captures0
         if res.graph_captures:
@@ -1005,10 +1301,10 @@ class Scheduler:
                     hm[i, :] = False
                     early_fail[i] = f"HostPlugin:{e}"
             if fw.has_host_filters():
-                m = torch.from_numpy(hm).to(self.device)
+                m = upload(hm, self.device)
                 extra_mask = m if extra_mask is None else (extra_mask & m)
             if fw.has_host_scores():
-                s = torch.from_numpy(hs).to(self.device)
+                s = upload(hs, self.device)
                 extra_score = s if extra_score is None else extra_score + s
         return extra_mask, extra_score, early_fail
 
@@ -1046,8 +1342,8 @@ class Scheduler:
             r = row_of.get(node, -1)
             rows[j], ok[j] = max(r, 0), r >= 0
         u_nom = _apply_batch(usage_from_nodes(dn), dpn,
-                             torch.from_numpy(rows).to(dev),
-                             torch.from_numpy(ok).to(dev) & dpn.valid)
+                             upload(rows, dev),
+                             upload(ok, dev) & dpn.valid)
         return _filter_pass(dp, nodes_with_usage(dn, u_nom), ds, dt, dv,
                             sv, self.pred_mask).mask
 
@@ -1182,8 +1478,7 @@ class Scheduler:
             for n in allowed:
                 keep[rows[n]] = True
             em[i] = keep
-        return (torch.from_numpy(em).to(self.device),
-                torch.from_numpy(es).to(self.device))
+        return upload(em, self.device), upload(es, self.device)
 
     def _build_explain_report(self, cycle, keys, ex_host, n_nodes,
                               res: CycleResult) -> None:
@@ -1514,7 +1809,7 @@ class Scheduler:
             if not progress:
                 break
         dev = dp.req.device
-        a_t = torch.from_numpy(assigned_final.astype(np.int64)).to(dev)
+        a_t = upload(assigned_final, dev, np.int64)
         usage = _apply_batch(usage_from_nodes(dn), dp, a_t.clamp_min(0),
                              (a_t >= 0) & dp.valid)
         return a_t.to(torch.int32), usage, rounds
@@ -1664,7 +1959,7 @@ class Scheduler:
             tx = time.perf_counter()
             fr = _filter_pass(dp_c, dn_cur, ds, dt, dv_c, sv_c,
                               self.pred_mask)
-            rows = torch.tensor(failed_idx, dtype=torch.long, device=dev)
+            rows = upload(failed_idx, dev, np.int64)
             reasons = fr.reasons.index_select(0, rows)
             ex = explain_reduce(
                 reasons, dn_cur.valid,
@@ -1932,8 +2227,7 @@ class Scheduler:
         idxs = list(self.cache.last_patched_idx)
         dirty = torch.zeros((n_pad,), dtype=torch.bool, device=self.device)
         if idxs:
-            dirty[torch.tensor(idxs, dtype=torch.long,
-                               device=self.device)] = True
+            dirty[upload(idxs, self.device, np.int64)] = True
         # a lazy rebuild recomputed the whole summary: no reuse this cycle
         reuse = (0.0 if self.cache.last_summary_rebuilt
                  else max(0.0, 1.0 - len(idxs) / max(nt.n, 1)))
@@ -2031,8 +2325,7 @@ class Scheduler:
                     pending[i] = False
 
         def pending_pods():
-            return dp._replace(valid=dp.valid & torch.from_numpy(
-                pending.copy()).to(dev))
+            return dp._replace(valid=dp.valid & upload(pending, dev))
 
         ts = self.clock()
         solve_span = self.obs.current_trace.begin_span("solve:partitioned",
@@ -2054,7 +2347,7 @@ class Scheduler:
                 # this is where cross-block usage first meets)
                 acc = np.full((P_pad,), -1, np.int64)
                 acc[: len(batch)] = assigned
-                acc_t = torch.from_numpy(acc).to(dev)
+                acc_t = upload(acc, dev)
                 u = _apply_batch(usage_from_nodes(dn), dp,
                                  acc_t.clamp_min(0),
                                  (acc_t >= 0) & dp.valid)
@@ -2342,7 +2635,15 @@ class Scheduler:
     def _admit_pod(self, pod: Pod, node_name: str, cycle: int,
                    res: CycleResult) -> None:
         """The per-pod admission tail for a PLACED pod: AssumePodVolumes →
-        Reserve → cache assume → Permit → bind."""
+        Reserve → cache assume → Permit → bind. Shared by the monolithic
+        bind loop, the sparse routes and the pipelined executor's
+        per-chunk bind stage."""
+        if not self._fence_ok():
+            # deposed mid-cycle: abort BEFORE assuming — the new leader
+            # owns this pod now; racing its bind at the hub CAS is the
+            # exact split-brain window the fence closes
+            self._fenced(pod, cycle, res)
+            return
         fw = self.framework
         st = self._cycle_states.get(pod.key()) or CycleState()
         # a reservation held from a previous cycle (Permit-parked pod

@@ -182,14 +182,14 @@ def test_cli_validate_only_exit_codes(tmp_path, capsys, doc, rc, line):
 
 
 @pytest.mark.parametrize("doc, item", [
-    ({"serving": {"enabled": True}}, "A.16"),
+    ({"robustness": {"watch_progress_deadline_s": 7.0}}, "A.16"),
     ({"parallel": {"mesh": 4}}, "A.17"),
     ({"parallel": {"mesh": "auto"}}, "A.17"),
     ({"scenario": {"pack": "consolidation"}}, "A.15"),
     ({"observability": {"journeys": {"enabled": False}}}, "A.13"),
     ({"observability": {"audit_interval_s": 5.0}}, "A.13"),
     ({"device_resident_snapshot": False}, "A.14"),
-    ({"recovery": {"fenced_binds": False}}, "A.14"),
+    ({"recovery": {"device_reset_limit": 4}}, "A.14"),
     ({"robustness": {"bind_verify_retries": 5}}, "A.14"),
 ])
 def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
@@ -211,11 +211,19 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
 
 
 def test_cli_without_validate_only_names_the_serve_loop_item(tmp_path,
-                                                            capsys):
+                                                            capsys,
+                                                            monkeypatch):
+    """Without --validate-only, main runs the serve loop, which starts on
+    the card unless --device cpu asks otherwise: with no card it exits 1
+    naming it, before any server or elector starts."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     f = tmp_path / "cfg.json"
     f.write_text(json.dumps({"scheduler_name": "x"}))
-    assert PORT.cli.main(["--config", str(f)]) == 2
-    assert "ROADMAP A.16" in capsys.readouterr().err
+    assert PORT.cli.main(["--config", str(f)]) == 1
+    err = capsys.readouterr().err
+    assert "device 'cuda' requested" in err and "serving" not in err
 
 
 def test_version_flag(capsys):

@@ -569,3 +569,85 @@ def config_pair(doc: dict, **kw):
     kw.setdefault("clock", lambda: 0.0)
     return (JScheduler.from_config(jdecode(doc), **kw),
             TScheduler.from_config(tdecode(doc), device="cpu", **kw))
+
+
+class Conflict(Exception):
+    """A stale-view write the hub's CAS refused."""
+
+
+class _CasBinder:
+    """The hub's Binding subresource as a binder: a CAS that refuses a
+    deleted, recreated or already-bound pod and counts the refusals."""
+
+    def __init__(self, hub) -> None:
+        self.hub = hub
+        self.conflicts = 0
+
+    def bind(self, pod, node_name: str) -> None:
+        try:
+            self.hub.confirm_binding(pod, node_name)
+        except Conflict:
+            self.conflicts += 1
+            raise
+
+
+class MiniHub:
+    """The slice of the JAX package's simulated cluster
+    (``sim.HollowCluster`` with its defaults: no bind failures, watch
+    events delivered at once) that ``chaos.CrashLoop`` and the failover
+    tests drive, for either package's API types: the truth maps, the
+    CAS binder and the watch feed, delivered to every scheduler in
+    ``subscribers`` (``sched`` sets the only one, as a restarted
+    incarnation re-points the hub's feed)."""
+
+    def __init__(self) -> None:
+        self.clock = FakeClock()
+        self.truth_pods = {}
+        self.truth_nodes = {}
+        self.subscribers = []
+        self.bound_total = 0
+        self._revision = 0
+        self.binder = _CasBinder(self)
+
+    @property
+    def sched(self):
+        return self.subscribers[0] if self.subscribers else None
+
+    @sched.setter
+    def sched(self, s) -> None:
+        self.subscribers = [s]
+
+    def _emit(self, fn) -> None:
+        self._revision += 1
+        for s in list(self.subscribers):
+            fn(s)
+
+    def add_node(self, node) -> None:
+        self.truth_nodes[node.name] = node
+        self._emit(lambda s: s.on_node_add(node))
+
+    def create_pod(self, pod) -> None:
+        if not pod.uid:
+            pod.uid = f"{pod.key()}#u{self._revision + 1}"
+        self.truth_pods[pod.key()] = pod
+        self._emit(lambda s: s.on_pod_add(pod))
+
+    def delete_pod(self, key: str) -> None:
+        pod = self.truth_pods.pop(key, None)
+        if pod is not None:
+            self._emit(lambda s: s.on_pod_delete(pod))
+
+    def confirm_binding(self, pod, node_name: str) -> None:
+        key = pod.key()
+        cur = self.truth_pods.get(key)
+        if cur is None:
+            raise Conflict(f'pods "{key}" not found (deleted mid-bind)')
+        if cur.uid != pod.uid:
+            raise Conflict(f'pods "{key}" uid changed (recreated mid-bind)')
+        if cur.node_name:
+            raise Conflict(f'pods "{key}" is already assigned to node '
+                           f'"{cur.node_name}"')
+        new = dataclasses.replace(cur, node_name=node_name)
+        self.truth_pods[key] = new
+        self.bound_total += 1
+        self._emit(lambda s: s.on_pod_update(cur, new))
