@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs eleven phases and exits
+``nvcc`` per source, in parallel), then runs twelve phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -104,17 +104,35 @@ non-zero if any fails:
    reconcile adopts every torn bind, and it binds the rest; arm E runs ``python -m
    kubernetes_tpu_torch`` as a process (``/healthz``, ``/metrics``, the
    lock file, rc 0 on SIGTERM) and 128 extender POSTs whose answers
-   equal the same scheduler's on CPU tensors.
+   equal the same scheduler's on CPU tensors;
+12. the hollow cluster, cell ``hollow-5k-controllers``: arm A builds
+   ``sim.HollowCluster`` (admission, one tick of watch delay, a competing
+   writer, flaky binds) with its scheduler on the card at its defaults,
+   5000 smoke-cell nodes, a DaemonSet (a pod per node), 2500 pods of
+   Deployments and zone-preferring bare pods, a Job of 500 and a
+   StatefulSet of 5 (the pod count cut, ``HOLLOW_FULL``); it steps until
+   every pod is bound, then 10 churn steps (pods killed, nodes removed,
+   50 kubelets killed and healed), ``check_consistency`` after every
+   step, one step profiled; the same traffic at 500 nodes and 3000 pods
+   must give the same truth step by step on the card and on CPU tensors;
+   arm B serves the hub over ``restapi.RestServer`` on 127.0.0.1 and
+   feeds a second scheduler (``Scheduler.from_config``, ``solver:
+   sinkhorn``, ``watchProgressDeadline: 5s``) only through a
+   ``sim.Reflector``: 2000 pods created over REST, an NDJSON watch that
+   must see every binding once, a compaction (410 and relists), a stalled
+   watch relisting past the deadline, the protobuf refusals (406, 415).
 
 Lines of JSON report each phase; the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path, the preempt cell, the sparse cell, the
-pipeline cell, the configured scheduler's arm A and the serve loop's
-arms A-D, each counted from 0 just before it runs: ``launches`` is
+pipeline cell, the configured scheduler's arm A, the serve loop's
+arms A-D and the hollow cluster's arms A and B, each counted from 0 just
+before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
 ``sparse_shapes``, the serve loop's micro-batch shapes of every kernel
-under ``serve_shapes``), error against the plain
+under ``serve_shapes`` and the hollow cluster's under
+``hollow_shapes``), error against the plain
 version, times and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
 CUDA-event medians; ``ms_batched`` times back-to-back calls and
 ``device_ms`` is the trace's device time); the last line is the one-line
@@ -122,7 +140,7 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config, serve);
+config, serve, hollow);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -147,10 +165,10 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
-              "preempt", "sparse", "pipeline", "config", "serve")
+              "preempt", "sparse", "pipeline", "config", "serve", "hollow")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
-              "config", "serve")
+              "config", "serve", "hollow")
 
 
 def emit(obj) -> None:
@@ -617,10 +635,14 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             rows.append({"shape": [P, N], "launches": n, **got})
             torch.cuda.empty_cache()
         out_rows.setdefault(name, {})["sparse_shapes"] = rows
-    # the serve path's micro-batch frames: every kernel at every shape
-    # arms A-D launched (the pair bit for bit, u and v in both rules),
-    # with the wrapper's host share of a single call
-    for name, shapes in paths.get("serve", {}).get("shapes", {}).items():
+    # the serve path's micro-batch frames (arms A-D) and the hollow
+    # cluster's cycles (arms A and B): every kernel at every shape they
+    # launched (the pair bit for bit, u and v in both rules), with the
+    # wrapper's host share of a single call
+    for phase, name, shapes in [
+            (phase, name, shapes) for phase in ("serve", "hollow")
+            for name, shapes in paths.get(phase, {}).get("shapes",
+                                                         {}).items()]:
         if name not in ARRAY_KERNELS:
             continue
         rows = []
@@ -635,7 +657,7 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             rows.append({"shape": [P, N], "launches": n, **got})
             torch.cuda.empty_cache()
         if rows:
-            out_rows.setdefault(name, {})["serve_shapes"] = rows
+            out_rows.setdefault(name, {})[f"{phase}_shapes"] = rows
 
 
 def launch_counts() -> dict:
@@ -3585,6 +3607,527 @@ def phase_serve() -> dict:
                                     d["D"]["shapes"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the hollow cluster, its informer and the REST registry
+# ---------------------------------------------------------------------------
+
+#: cell ``hollow-5k-controllers``, arm A: kubemark's and scheduler_perf's
+#: 5000 nodes of the smoke cell's shape. The pod count is cut from the
+#: reference bench's 30,000 (PERF.md §4): every kubelet's sync scans the
+#: whole truth map (``HollowKubelet.pods``), so a hub step costs host time
+#: in proportion to nodes x pods
+HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 5}
+#: the CUDA-against-CPU run: arm A's traffic at 500 nodes and 3000 pods
+HOLLOW_REDUCED = {"n_nodes": 500, "n_deploy": 1995, "n_job": 500,
+                  "n_sts": 5}
+HOLLOW_CHURN_STEPS = 10
+HOLLOW_KILLED_KUBELETS = 50
+#: a churn step and an arm B step are a minute of hub time: a killed
+#: kubelet's node is tainted unreachable after the 40 s grace and its pods
+#: are evicted when the 300 s default toleration (admission) runs out,
+#: inside the churn window; a pod whose bind failed leaves the
+#: unschedulable queue at its next 60 s flush, one step later
+HOLLOW_MINUTE_DT = 60.0
+#: arm B: pods created over REST, half for each scheduler
+HOLLOW_REST_PODS = 2000
+
+
+def hollow_hub(device="cuda", n_nodes=5000, n_deploy=2500, n_job=500,
+               n_sts=5, seed=7):
+    """Arm A's hub: ``HollowCluster`` with admission, one tick of watch
+    delay, a competing writer and flaky binds; its scheduler on
+    ``device`` at its defaults. The smoke cell's nodes (10 zones, every
+    10th with the PreferNoSchedule taint); one DaemonSet (a pod per node,
+    pinned by required hostname affinity); ``n_deploy`` pods of 100m /
+    500 Mi, half in five Deployments and half bare pods each preferring a
+    seeded zone (the hub's Deployment template carries no affinity); a
+    Job of ``n_job`` completions run in parallel; a StatefulSet of
+    ``n_sts``."""
+    import random
+
+    from kubernetes_tpu_torch.sim import (
+        DaemonSet,
+        Deployment,
+        HollowCluster,
+        Job,
+        StatefulSet,
+    )
+    from kubernetes_tpu_torch.testing import (
+        make_pod,
+        node_affinity_preferred,
+        req,
+    )
+
+    kw = {} if device == "cuda" else {"scheduler_kw": {"device": device}}
+    hub = HollowCluster(seed=seed, admission=True, event_delay_ticks=1,
+                        competing_bind_rate=0.01, bind_fail_rate=0.01, **kw)
+    nodes, _, _ = smoke_cell(n_nodes, 0, 0, seed)
+    for nd in nodes:
+        hub.add_node(nd)
+    hub.add_daemonset(DaemonSet("node-agent"))
+    half = n_deploy // 2
+    for i in range(5):
+        hub.add_deployment(Deployment(
+            f"web-{i}", replicas=half // 5 + (i < half % 5),
+            cpu_milli=100, memory=500 * 2**20))
+    rng = random.Random(seed)
+    for i in range(n_deploy - half):
+        hub.create_pod(make_pod(
+            f"zonal-{i}", cpu_milli=100, memory=500 * 2**20,
+            affinity=node_affinity_preferred(
+                (50, [req(ZONE, "In", f"zone-{rng.randrange(10)}")]))))
+    hub.add_job(Job("batch", completions=n_job, parallelism=n_job))
+    hub.add_statefulset(StatefulSet("db", replicas=n_sts))
+    return hub
+
+
+class HollowProbe:
+    """Times a hub's steps from outside: the wall seconds of each step,
+    of the scheduling cycle inside it (``schedule_cycle`` wrapped) and of
+    the cycle's solve spans (the hub's clock is simulated, so
+    ``CycleResult.solve_s`` reads 0), and the pods the node-lifecycle
+    controller evicted (``monitor_node_health`` wrapped)."""
+
+    def __init__(self, hub, tier: str = "batch") -> None:
+        self.hub, self.tier = hub, tier
+        self.res, self.cycle_s, self.evicted = None, 0.0, 0
+        cycle, health = hub.sched.schedule_cycle, hub.monitor_node_health
+
+        def timed_cycle(*a, **k):
+            t0 = time.perf_counter()
+            self.res = cycle(*a, **k)
+            self.cycle_s = time.perf_counter() - t0
+            return self.res
+
+        def counted_health():
+            n0 = len(hub.truth_pods)
+            health()
+            self.evicted += n0 - len(hub.truth_pods)
+
+        hub.sched.schedule_cycle = timed_cycle
+        hub.monitor_node_health = counted_health
+
+    def step(self, kind: str, dt: float = 15.0) -> dict:
+        hub = self.hub
+        c0, e0 = hub.binder.conflicts, self.evicted
+        t0 = time.perf_counter()
+        hub.step(dt)
+        step_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        hub.check_consistency()
+        check_s = time.perf_counter() - t1
+        r = self.res
+        if r.solver_tier not in ("", self.tier) or r.solver_fallbacks:
+            fail(f"hollow: a cycle solved on tier {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+        solve_s = (sum(_solve_spans(hub.sched.obs.last_trace).values())
+                   if r.attempted else 0.0)
+        return {"kind": kind, "step_s": step_s, "cycle_s": self.cycle_s,
+                "solve_s": solve_s, "controllers_s": step_s - self.cycle_s,
+                "check_s": check_s, "pods": len(hub.truth_pods),
+                "bound": sum(1 for p in hub.truth_pods.values()
+                             if p.node_name),
+                "attempted": r.attempted, "scheduled": r.scheduled,
+                "conflicts": hub.binder.conflicts - c0,
+                "evictions": self.evicted - e0, "rounds": r.rounds,
+                "revision": hub._revision}
+
+
+def hollow_drive(probe, n_sts: int, seed: int = 7, max_bind_steps: int = 40,
+                 profile_step: bool = False):
+    """Steps the probe's hub until every pod is bound (the StatefulSet's
+    last ordinal included), then ``HOLLOW_CHURN_STEPS`` churn steps: each
+    kills 200 bound pods and removes 5 nodes (``hub.churn``); the first
+    kills ``HOLLOW_KILLED_KUBELETS`` kubelets (their nodes are tainted at
+    the second, their pods evicted at the eighth), the ninth heals them.
+    ``check_consistency`` after every step. Returns the per-step rows,
+    the per-step truth (bindings, revision, bound count) and, with
+    ``profile_step``, the device's busy share of one profiled bind
+    step."""
+    import random
+
+    hub = probe.hub
+    rows, truths, prof = [], [], None
+
+    def record(row):
+        rows.append(row)
+        truths.append(({k: p.node_name for k, p in hub.truth_pods.items()},
+                       hub._revision, row["bound"]))
+
+    for k in range(max_bind_steps):
+        if profile_step and k == 1:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                row = probe.step("bind")
+                torch.cuda.synchronize()
+            prof = {"step": k, **busy_share(p, time.perf_counter() - t0)}
+        else:
+            row = probe.step("bind")
+        record(row)
+        sts = [p for key, p in hub.truth_pods.items()
+               if key.startswith("default/db-")]
+        if (hub.pending_count() == 0 and len(sts) == n_sts
+                and row["attempted"] == 0):
+            break
+    else:
+        fail(f"hollow: {hub.pending_count()} pods still pending after "
+             f"{max_bind_steps} steps")
+    rng = random.Random(seed)
+    victims = rng.sample(sorted(hub.truth_nodes), HOLLOW_KILLED_KUBELETS)
+    for k in range(HOLLOW_CHURN_STEPS):
+        hub.churn(kill_pods=200, flap_nodes=5)
+        if k == 0:
+            for name in victims:
+                hub.kill_kubelet(name)
+        if k == 8:
+            for name in victims:
+                hub.heal_kubelet(name)
+        record(probe.step("churn", HOLLOW_MINUTE_DT))
+    return rows, truths, prof
+
+
+def hollow_arm_a() -> dict:
+    """Arm A: the hub on the card at full width (``HOLLOW_FULL``), one
+    profiled bind step; ``debugger.compare`` of the scheduler against the
+    truth must be empty at the end."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.api.types import is_pod_terminated
+    from kubernetes_tpu_torch.debugger import compare
+
+    t0 = time.perf_counter()
+    hub = hollow_hub(**HOLLOW_FULL)
+    build_s = time.perf_counter() - t0
+    probe = HollowProbe(hub)
+    kernels.reset_launches()
+    rows, _truths, prof = hollow_drive(probe, HOLLOW_FULL["n_sts"],
+                                       profile_step=True)
+    launches, shapes = launch_counts(), launch_shapes()
+    truth = {k: p.node_name for k, p in hub.truth_pods.items()
+             if not is_pod_terminated(p)}
+    diffs = compare(hub.sched, truth, list(hub.truth_nodes))
+    if diffs[0] or diffs[1]:
+        fail(f"hollow: scheduler cache differs from the truth: "
+             f"{diffs[0][:3]} {diffs[1][:3]}")
+    if launches["fused_pair_normalize"] <= 0:
+        fail("hollow: arm A never launched the fused-pair kernel")
+    steps = [r["step_s"] for r in rows]
+    host = sum(r["controllers_s"] for r in rows) / sum(steps)
+    return {"probe": probe, "launches": launches, "shapes": shapes,
+            "cycles": sum(1 for r in rows if r["attempted"]),
+            "line": {"build_s": build_s, "steps": len(rows),
+                     "bind_steps": sum(r["kind"] == "bind" for r in rows),
+                     "rows": rows, "step_s_p50": _pct(steps, 50),
+                     "step_s_max": max(steps), "host_share": host,
+                     "pods_created": hub.bound_total,
+                     "conflicts": hub.binder.conflicts,
+                     "competing_bound": hub.competing_bound,
+                     "evictions": sum(r["evictions"] for r in rows),
+                     "profiled_step": prof, "launches": launches}}
+
+
+def hollow_equality() -> dict:
+    """Arm A's traffic at ``HOLLOW_REDUCED``, the hub's scheduler on the
+    card and then on CPU tensors: after every step the truth bindings,
+    the hub revision and the bound count must be equal."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        hub = hollow_hub(device=dev, **HOLLOW_REDUCED)
+        _rows, truths, _ = hollow_drive(HollowProbe(hub),
+                                        HOLLOW_REDUCED["n_sts"])
+        runs[dev] = truths
+    a, b = runs["cuda"], runs["cpu"]
+    if len(a) != len(b):
+        fail(f"hollow: CUDA ran {len(a)} steps, CPU {len(b)}")
+    for k, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            fail(f"hollow: step {k}: CUDA and CPU truth differ "
+                 f"(revision {x[1]} vs {y[1]}, bound {x[2]} vs {y[2]})")
+    return {"steps": len(a), "pods": len(a[-1][0]), "revision": a[-1][1],
+            "bound": a[-1][2]}
+
+
+class WatchClient:
+    """An NDJSON watch client of ``/api/v1/watch/pods`` over kubectl's
+    ``RestClient``, scoped by a label selector: each poll resumes at the
+    resourceVersion the last frame carried; a 410 relists
+    (``GET /api/v1/pods``) and resumes at the list's revision. It counts
+    each pod's bindings (its node going from empty to set) and fails on a
+    frame at or below a revision it already saw for that pod."""
+
+    def __init__(self, rest, selector: str) -> None:
+        self.rest, self.selector = rest, selector
+        self.node: dict = {}
+        self.rv_of: dict = {}
+        self.bindings: dict = {}
+        self.bound_at: dict = {}
+        self.gone = self.polls = 0
+        self.rv = self._relist(count=False)
+
+    def _see(self, key, node, rv) -> None:
+        if rv <= self.rv_of.get(key, 0):
+            fail(f"hollow: watch frame for {key} at rv {rv} repeats rv "
+                 f"{self.rv_of[key]}")
+        self.rv_of[key] = rv
+        if node and not self.node.get(key):
+            self.bindings[key] = self.bindings.get(key, 0) + 1
+            self.bound_at.setdefault(key, time.perf_counter())
+        self.node[key] = node
+
+    def _relist(self, count: bool = True) -> int:
+        code, doc = self.rest.call(
+            "GET", f"/api/v1/pods?labelSelector={self.selector}")
+        if code != 200:
+            fail(f"hollow: relist answered {code}: {doc}")
+        if count:
+            self.gone += 1
+        for item in doc["items"]:
+            m = item["metadata"]
+            key = f"{m['namespace']}/{m['name']}"
+            rv = int(m["resourceVersion"])
+            if rv > self.rv_of.get(key, 0):
+                self._see(key, item["spec"].get("nodeName", ""), rv)
+        return int(doc["metadata"]["resourceVersion"])
+
+    def poll(self) -> None:
+        import http.client
+
+        self.polls += 1
+        conn = http.client.HTTPConnection(self.rest.host, self.rest.port,
+                                          timeout=30)
+        conn.request("GET", f"/api/v1/watch/pods?resourceVersion={self.rv}"
+                            f"&labelSelector={self.selector}")
+        r = conn.getresponse()
+        data = r.read()
+        conn.close()
+        if r.status == 410:
+            self.rv = self._relist()
+            return
+        if r.status != 200:
+            fail(f"hollow: watch answered {r.status}: {data[:200]!r}")
+        for line in data.splitlines():
+            if not line.strip():
+                continue
+            ev = json.loads(line)
+            m = ev["object"]["metadata"]
+            rv = int(m["resourceVersion"])
+            self.rv = max(self.rv, rv)
+            if ev["type"] == "BOOKMARK":
+                continue
+            key = f"{m['namespace']}/{m['name']}"
+            node = ("" if ev["type"] == "DELETED"
+                    else ev["object"]["spec"].get("nodeName", ""))
+            self._see(key, node, rv)
+
+
+def hollow_arm_b(probe, tmp: str) -> dict:
+    """Arm B on arm A's hub (stepped through arm A's ``probe``): the REST
+    registry on 127.0.0.1 with an audit
+    log, a second scheduler built with ``Scheduler.from_config`` (JSON
+    v1alpha1: ``schedulerName: second``, ``solver: sinkhorn``,
+    ``robustness.watchProgressDeadline: 5s``, and
+    ``percentageOfNodesToScore: 100`` for the dense solve, as the
+    ``config`` phase sets it) on the card, fed only by a
+    ``sim.Reflector`` and binding through the hub's binder. 2000 pods are
+    created over REST POST (kubectl's ``RestClient``), half for each
+    scheduler; an NDJSON watch client must see every binding once. Then
+    a compaction (the watch client gets 410 and relists, the Reflector
+    relists), a cursor that eats every frame while the hub advances (the
+    Reflector's progress deadline forces a relist), and the protobuf
+    refusals."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.api.types import is_pod_terminated
+    from kubernetes_tpu_torch.debugger import compare
+    from kubernetes_tpu_torch.extender import pod_to_json
+    from kubernetes_tpu_torch.kubectl import RestClient
+    from kubernetes_tpu_torch.restapi import AuditLog, RestServer
+    from kubernetes_tpu_torch.sim import Reflector
+    from kubernetes_tpu_torch.testing import make_pod
+
+    stall = {"on": False}
+
+    class Eater:
+        """The stall seam: while ``stall["on"]`` the stream delivers
+        nothing (a half-open watch); the cursor itself still advances."""
+
+        def __init__(self, cur) -> None:
+            self.cur = cur
+
+        def poll(self):
+            got = self.cur.poll()
+            return [] if stall["on"] else got
+
+    hub = probe.hub
+    audit = AuditLog()
+    server = RestServer(hub, audit=audit)
+    port = server.serve()
+    try:
+        sched2 = configured({"schedulerName": "second",
+                             "solver": "sinkhorn",
+                             "percentageOfNodesToScore": 100,
+                             "robustness": {"watchProgressDeadline": "5s"}},
+                            tmp, "hollow-second", device="cuda",
+                            clock=hub.clock, binder=hub.binder)
+        refl = Reflector(hub, sched2, clock=hub.clock, cursor_wrap=Eater)
+        if refl.progress_deadline_s != 5.0:
+            fail(f"hollow: the Reflector's deadline is "
+                 f"{refl.progress_deadline_s}, not the file's 5 s")
+        kernels.reset_launches()
+        refl.list_and_watch()
+        rest = RestClient(f"127.0.0.1:{port}")
+        watch = WatchClient(rest, "arm%3Drest")
+        keys, create_ms, created_at = [], [], {}
+        for i in range(HOLLOW_REST_PODS):
+            pod = make_pod(f"rest-{i}", cpu_milli=100, memory=500 * 2**20,
+                           labels={"arm": "rest"})
+            if i % 2:
+                pod.scheduler_name = "second"
+            t0 = time.perf_counter()
+            code, out = rest.call("POST", "/api/v1/namespaces/default/pods",
+                                  pod_to_json(pod))
+            create_ms.append((time.perf_counter() - t0) * 1e3)
+            if code != 201:
+                fail(f"hollow: REST create answered {code}: {out}")
+            keys.append(pod.key())
+            created_at[pod.key()] = time.perf_counter()
+            if i % 200 == 199:
+                watch.poll()
+        probe_rows, cycles2 = [], []
+        for k in range(20):
+            with hub.lock:
+                row = probe.step("rest", HOLLOW_MINUTE_DT)
+                refl.pump()
+                t1 = time.perf_counter()
+                r2 = sched2.schedule_cycle()
+                cyc2_s = time.perf_counter() - t1
+                refl.pump()
+            if r2.attempted and (r2.solver_tier != "sinkhorn"
+                                 or r2.solver_fallbacks):
+                fail(f"hollow: the second scheduler solved on "
+                     f"{r2.solver_tier!r} after {r2.solver_fallbacks} "
+                     "fallbacks")
+            cycles2.append(r2.attempted > 0)
+            watch.poll()
+            probe_rows.append({**row, "cycle2_s": cyc2_s,
+                               "attempted2": r2.attempted,
+                               "scheduled2": r2.scheduled,
+                               "rounds2": r2.rounds})
+            if all(watch.node.get(key) for key in keys):
+                break
+        else:
+            fail(f"hollow: {sum(not watch.node.get(k) for k in keys)} REST "
+                 "pods unbound after 20 steps")
+        once = [k for k in keys if watch.bindings.get(k) != 1]
+        if once:
+            fail(f"hollow: the watch saw {len(once)} bindings other than "
+                 f"once, e.g. {once[:3]}")
+        launches = launch_counts()
+        shapes = launch_shapes()
+        # the second scheduler's plan rounds (arm B's pods take the lean
+        # round, so the pair is arm A's to launch)
+        for name in ("sinkhorn_u", "sinkhorn_v"):
+            if launches[name] <= 0:
+                fail(f"hollow: arm B never launched {name}")
+        # compaction: the hub advances past the watch client and the
+        # Reflector, then compacts; both relist
+        relists0, gone0 = refl.relists, watch.gone
+        rest.call("POST", "/api/v1/namespaces/default/pods",
+                  pod_to_json(make_pod("rest-late", labels={"arm": "rest"})))
+        with hub.lock:
+            probe.step("rest", HOLLOW_MINUTE_DT)
+            hub.compact()
+            refl.pump()
+        watch.poll()
+        if refl.relists <= relists0 or watch.gone <= gone0:
+            fail(f"hollow: compaction gave reflector relists "
+                 f"{relists0}->{refl.relists}, watch relists "
+                 f"{gone0}->{watch.gone}")
+        # the stall: the stream eats every frame while the hub advances
+        stalled0 = refl.stalled_relists
+        stall["on"] = True
+        rest.call("POST", "/api/v1/namespaces/default/pods",
+                  pod_to_json(make_pod("rest-stall", labels={"arm": "rest"})))
+        with hub.lock:
+            refl.pump()
+            probe.step("rest", HOLLOW_MINUTE_DT)
+            refl.pump()
+        stall["on"] = False
+        if refl.stalled_relists < stalled0 + 1:
+            fail("hollow: a stalled watch past the deadline did not relist")
+        with hub.lock:
+            refl.pump()
+            truth = {k: p.node_name for k, p in hub.truth_pods.items()
+                     if not is_pod_terminated(p)}
+            diffs = compare(sched2, truth, list(hub.truth_nodes))
+        if diffs[0] or diffs[1]:
+            fail(f"hollow: the Reflector-fed scheduler differs from the "
+                 f"truth: {diffs[0][:3]} {diffs[1][:3]}")
+        refusals = {}
+        for name, method, hdr in (
+                ("accept", "GET", {"Accept": "application/vnd.kubernetes."
+                                             "protobuf"}),
+                ("content_type", "POST",
+                 {"Content-Type": "application/vnd.kubernetes.protobuf"})):
+            code, doc = rest.call(
+                method, "/api/v1/namespaces/default/pods"
+                if method == "POST" else "/api/v1/pods",
+                {} if method == "POST" else None, headers=hdr)
+            if (code not in (406, 415) or doc.get("kind") != "Status"
+                    or "A.16.3" not in doc.get("message", "")):
+                fail(f"hollow: a protobuf {name} got {code}: {doc}")
+            refusals[name] = code
+        lat = [watch.bound_at[k] - created_at[k] for k in keys]
+        return {"launches": launches, "shapes": shapes,
+                "cycles": sum(cycles2),
+                "line": {"rest_pods": len(keys),
+                         "create_ms_p50": _pct(create_ms, 50),
+                         "create_ms_p99": _pct(create_ms, 99),
+                         "create_to_bind_s_p50": _pct(lat, 50),
+                         "create_to_bind_s_p99": _pct(lat, 99),
+                         "steps": probe_rows, "watch_polls": watch.polls,
+                         "watch_relists": watch.gone,
+                         "relists": refl.relists,
+                         "stalled_relists": refl.stalled_relists,
+                         "deduped": refl.deduped,
+                         "audit_entries": len(audit.entries),
+                         "protobuf": refusals, "launches": launches}}
+    finally:
+        server.close()
+
+
+def phase_hollow() -> dict:
+    """Cell ``hollow-5k-controllers``: arm A (the hub on the card at full
+    width), the CUDA-against-CPU run, then arm B (the REST registry, the
+    Reflector-fed second scheduler) on arm A's hub. Returns the launches
+    of arms A and B (each counted from 0 just before it runs)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    a = hollow_arm_a()
+    emit({"phase": "hollow", "arm": "A", "cell": "hollow-5k-controllers",
+          "wall_s": time.perf_counter() - t0, **a["line"]})
+    release_graphs()
+    t0 = time.perf_counter()
+    eq = hollow_equality()
+    emit({"phase": "hollow", "arm": "equality",
+          "cell": "hollow-5k-controllers",
+          "wall_s": time.perf_counter() - t0, **eq})
+    release_graphs()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ktt-hollow-") as tmp:
+        b = hollow_arm_b(a["probe"], tmp)
+    emit({"phase": "hollow", "arm": "B", "cell": "hollow-5k-controllers",
+          "wall_s": time.perf_counter() - t0, **b["line"]})
+    launches = {k: a["launches"][k] + b["launches"][k]
+                for k in a["launches"]}
+    return {"launches": launches, "cycles": a["cycles"] + b["cycles"],
+            "shapes": _merge_shapes(a["shapes"], b["shapes"])}
+
+
 def _merge_shapes(*runs) -> dict:
     """Launch shapes of several runs (``launch_shapes()`` each) as one:
     ``{kernel: [[[P, N], launches], ...]}``, the launches of a shape
@@ -3720,7 +4263,8 @@ def main() -> None:
                        ("sparse", phase_sparse),
                        ("pipeline", phase_pipeline),
                        ("config", phase_config),
-                       ("serve", phase_serve)):
+                       ("serve", phase_serve),
+                       ("hollow", phase_hollow)):
         if phase not in phases:
             continue
         got = run()

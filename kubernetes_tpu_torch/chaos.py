@@ -26,12 +26,12 @@ The hub is duck-typed: ``clock`` (callable, with ``advance``),
 ``binder`` (``bind`` with a CAS that raises on a stale view, and a
 ``conflicts`` count), ``sched`` (where the hub delivers watch events),
 ``truth_nodes`` / ``truth_pods``, ``add_node``, ``create_pod`` and
-``bound_total``. The reference drives it with its simulated cluster
-(``sim.HollowCluster``), which the port does not have yet (ROADMAP A.16).
-Not ported yet: the mesh, network and HA-replica harnesses
-(``MeshChaos``, ``NetChaos``, ``AmbiguousBinder``, ``FuzzedCursor``,
-``HAReplica``), which need the simulated cluster, the mesh or the
-ambiguous-bind protocol (ROADMAP A.14, A.16, A.17).
+``bound_total``: the port's simulated cluster (``sim.HollowCluster``),
+as in the reference, or any stand-in with that surface. Not ported yet:
+the mesh, network and HA-replica harnesses (``MeshChaos``, ``NetChaos``,
+``AmbiguousBinder``, ``FuzzedCursor``, ``HAReplica``; ROADMAP A.14:
+``HAReplica`` and ``FuzzedCursor`` need only the simulated cluster, the
+others the ambiguous-bind protocol or the mesh, A.17).
 """
 
 from __future__ import annotations

@@ -19,6 +19,8 @@ decoded object (app/options/options.go). Invalid configs are rejected
 with field-path errors like ``apis/config/validation`` does, and a
 configuration that turns on something the port does not have yet is
 refused by :func:`unported_features` (it names the ROADMAP item).
+``robustness.watchProgressDeadline`` is honoured: every ``sim.Reflector``
+built on the configured scheduler takes it as its progress deadline.
 
 Without ``--validate-only``, :func:`main` runs :func:`run`: the HTTP
 server, the elector on ``--lock-file`` (or in memory), then either the
@@ -810,9 +812,6 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
     if rc.bind_verify_retries != rc_default.bind_verify_retries:
         errs.append("robustness.bindVerifyRetries: the ambiguous-bind "
                     "protocol is not ported yet (ROADMAP A.14)")
-    if rc.watch_progress_deadline_s != rc_default.watch_progress_deadline_s:
-        errs.append("robustness.watchProgressDeadline: the informer is not "
-                    "ported yet (ROADMAP A.16)")
     if not cfg.device_resident_snapshot:
         errs.append("deviceResidentSnapshot: false (host-mode snapshots) "
                     "is not ported yet (ROADMAP A.14: device-loss "

@@ -24,7 +24,14 @@ import urllib.error
 import urllib.request
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from kubernetes_tpu_torch.api.types import Pod
+from kubernetes_tpu_torch.api import quantity
+from kubernetes_tpu_torch.api.types import (
+    Node,
+    NodeCondition,
+    Pod,
+    Resources,
+    Taint,
+)
 from kubernetes_tpu_torch.config import ExtenderConfig
 
 # ---------------------------------------------------------------------------
@@ -165,6 +172,85 @@ def node_to_json(node) -> dict:
         },
         "status": status,
     }
+
+
+def node_from_json(d: dict) -> Node:
+    """Inverse of :func:`node_to_json` for the fields the kernels read
+    (the reference keeps it in ``grpc_shim.py``, which needs protobuf;
+    ROADMAP A.16.3)."""
+    meta = d.get("metadata", {})
+    status = d.get("status", {})
+    alloc = status.get("allocatable") or {}
+    res = Resources(
+        cpu_milli=quantity.parse_cpu(alloc.get("cpu", "0")),
+        memory=quantity.parse_quantity(alloc.get("memory", "0")),
+        pods=quantity.parse_quantity(alloc.get("pods", "110")),
+    )
+    for name, q in alloc.items():
+        if name not in ("cpu", "memory", "pods", "ephemeral-storage"):
+            res.scalars[name] = quantity.parse_quantity(q)
+    if "ephemeral-storage" in alloc:
+        res.ephemeral_storage = quantity.parse_quantity(alloc["ephemeral-storage"])
+    spec = d.get("spec") or {}
+    taints = tuple(
+        Taint(key=t.get("key", ""), value=t.get("value", ""),
+              effect=t.get("effect", ""))
+        for t in (spec.get("taints") or [])
+    )
+    # conditions: the two mandatory-predicate inputs plus the pressure
+    # flags (CheckNodeConditionPredicate reads Ready/NetworkUnavailable;
+    # absent Ready stays True — node_to_json always emits it)
+    flags = {
+        c.get("type"): c.get("status") == "True"
+        for c in (status.get("conditions") or [])
+    }
+    cond = NodeCondition(
+        ready=flags.get("Ready", True),
+        memory_pressure=flags.get("MemoryPressure", False),
+        disk_pressure=flags.get("DiskPressure", False),
+        pid_pressure=flags.get("PIDPressure", False),
+        network_unavailable=flags.get("NetworkUnavailable", False),
+    )
+    images = {}
+    for img in status.get("images") or []:
+        for name in img.get("names") or []:
+            images[name] = float(img.get("sizeBytes", 0))
+    avoid = ()
+    ann = (meta.get("annotations") or {}).get(
+        "scheduler.alpha.kubernetes.io/preferAvoidPods"
+    )
+    if ann:
+        try:
+            avoid = tuple(
+                e["podSignature"]["podController"]["uid"]
+                for e in json.loads(ann).get("preferAvoidPods", [])
+                if e.get("podSignature", {}).get("podController", {}).get("uid")
+            )
+        except (ValueError, TypeError, KeyError, AttributeError):
+            avoid = ()  # malformed annotation ignored, like the reference
+    labels = dict(meta.get("labels") or {})
+    # the kubelet self-labels every node with kubernetes.io/hostname
+    # (pkg/kubelet well-known labels); nodes ingested without it would
+    # break hostname-pinned placement (DaemonSet affinity)
+    if meta.get("name"):
+        labels.setdefault("kubernetes.io/hostname", meta["name"])
+    # annotations round-trip EXCEPT preferAvoidPods, which parses into
+    # the dedicated field (node_to_json re-emits it from there — keeping
+    # both would double it on the next serialization)
+    annotations = {k: v for k, v in (meta.get("annotations") or {}).items()
+                   if k != "scheduler.alpha.kubernetes.io/preferAvoidPods"}
+    return Node(
+        name=meta.get("name", ""),
+        labels=labels,
+        allocatable=res,
+        taints=taints,
+        conditions=cond,
+        unschedulable=bool(spec.get("unschedulable", False)),
+        images=images,
+        prefer_avoid_owner_uids=avoid,
+        annotations=annotations,
+        pod_cidr=spec.get("podCIDR", ""),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ interface.go:100), which makes failover observable/mediated by the
 control plane itself. The elector is tick-driven (no background threads)
 so the caller controls time. (The port of ``kubernetes_tpu/
 leaderelection.py``; :class:`LeaseLock`'s hub is duck-typed — any object
-with ``get_lease`` and ``cas_lease`` — since the port has no simulated
-cluster yet, ROADMAP A.16.)"""
+with ``get_lease`` and ``cas_lease``: the port's ``sim.HollowCluster`` or
+a stand-in.)"""
 
 from __future__ import annotations
 

@@ -65,9 +65,9 @@ truth (``reconcile``) before its first cycle.
 
 Not ported yet (ROADMAP): the scenario cascade and scenario packs
 (A.15), observability beyond the cycle trace and the metrics (journeys,
-the flight recorder, the perf and memory ledgers, A.13), the
-ambiguous-bind protocol and device-loss recovery (A.14), the informer
-and the simulated cluster (A.16), and the mesh with its ``batch-single``
+the flight recorder, the perf and memory ledgers, the auditor that
+``_note_gone`` reports to, A.13), the ambiguous-bind protocol and
+device-loss recovery (A.14), and the mesh with its ``batch-single``
 tier (A.17).
 """
 
@@ -378,6 +378,9 @@ class Scheduler:
         #: serving doorbell (serving/doorbell.py) — None until a serving
         #: loop attaches one via attach_doorbell
         self.doorbell = None
+        #: state-conservation auditor (the reference's obs/audit.py,
+        #: ROADMAP A.13): None until it is ported; _note_gone reports to it
+        self.auditor = None
         #: the ladder tier of the most recent cycle that solved ("" before
         #: the first) and its tier-to-tier fallbacks: is_degraded reads the
         #: fallback COUNT (exact's hazard routing to batch is healthy)
@@ -615,9 +618,11 @@ class Scheduler:
             self.queue.delete(old.key())
             self._cycle_states.pop(old.key(), None)
             self.why_pending.pop(old.key(), None)
+            self._note_gone(old.key())
 
     def on_pod_delete(self, pod: Pod) -> None:
         key = pod.key()
+        self._note_gone(key)
         wp = self.framework.waiting.get(key)
         if wp is not None:
             # a Permit-parked pod is assumed and holds capacity
@@ -662,6 +667,26 @@ class Scheduler:
         self.cache.packer.set_volume_state(pvcs, pvs, classes)
         self.cache.invalidate_snapshot()
         self.queue.move_all_to_active()
+
+    def set_attached_residue(self, residue) -> None:
+        """Actual-state feed from the attach-detach controller
+        (attach_detach_controller.go:102): per-node PV names attached
+        without a live pod deriving them (detach-grace stragglers). They
+        occupy attach-limit slots, so the snapshot is invalidated and,
+        since a detach can free a slot a pending pod waits on, the
+        unschedulable queue resweeps like any volume-state change."""
+        self.cache.packer.attached_residue = dict(residue)
+        self.cache.invalidate_snapshot()
+        self.queue.move_all_to_active()
+
+    def _note_gone(self, key: str) -> None:
+        """A pod legitimately left the state machine (watch delete,
+        responsible-to-not transition, terminating skip, reconcile drop):
+        tell the attached state-conservation auditor. The auditor and the
+        journey tracer the reference also closes here are ROADMAP A.13,
+        so ``self.auditor`` stays None until then and this is a no-op."""
+        if self.auditor is not None:
+            self.auditor.note_gone(key)
 
     # -- crash / failover recovery -----------------------------------------
 
@@ -815,6 +840,7 @@ class Scheduler:
                 for p in qpods:
                     if p.key() not in truth:
                         self.queue.delete(p.key())
+                        self._note_gone(p.key())
                         self._cycle_states.pop(p.key(), None)
                         self.why_pending.pop(p.key(), None)
                         self.cache.packer.forget_pod(p.key())
@@ -966,6 +992,9 @@ class Scheduler:
             return self._finish(res, t0, syncs0)
         cycle = self.queue.scheduling_cycle
         # skipPodSchedule (scheduler.go:335): pods marked for deletion drop
+        for p in batch:
+            if p.deletion_timestamp:
+                self._note_gone(p.key())
         batch = [p for p in batch if not p.deletion_timestamp]
         res.attempted = len(batch)
         # PreFilter (framework.go RunPrefilterPlugins): a non-success aborts

@@ -36,7 +36,7 @@ UNPORTED_DEBUG = {
     "/debug/journeys": "the pod journey tracer (ROADMAP A.13)",
     "/debug/incidents": "the incident recorder (ROADMAP A.13)",
     "/debug/profile": "on-demand profiling (ROADMAP A.13)",
-    "/debug/soak": "the soak engine (ROADMAP A.16)",
+    "/debug/soak": "the soak engine (ROADMAP A.13)",
 }
 
 

@@ -205,6 +205,7 @@ def test_serving_run_takes_the_lease_binds_and_releases(monkeypatch,
     ("recovery", RecoveryConfig(fenced_binds=False)),
     ("recovery", RecoveryConfig(reconcile_on_takeover=False,
                                 release_lease_on_shutdown=False)),
+    ("robustness", RobustnessConfig(watch_progress_deadline_s=7.0)),
 ])
 def test_serving_and_leadership_settings_are_ported(field, value):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})
@@ -216,7 +217,6 @@ def test_serving_and_leadership_settings_are_ported(field, value):
     ("recovery", RecoveryConfig(device_reset_limit=4), "A.14"),
     ("recovery", RecoveryConfig(device_cooloff_s=1.0), "A.14"),
     ("robustness", RobustnessConfig(bind_verify_retries=5), "A.14"),
-    ("robustness", RobustnessConfig(watch_progress_deadline_s=7.0), "A.16"),
     ("observability", ObservabilityConfig(audit_interval_s=5.0), "A.13"),
     ("device_resident_snapshot", False, "A.14"),
 ])

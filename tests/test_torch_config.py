@@ -182,7 +182,6 @@ def test_cli_validate_only_exit_codes(tmp_path, capsys, doc, rc, line):
 
 
 @pytest.mark.parametrize("doc, item", [
-    ({"robustness": {"watch_progress_deadline_s": 7.0}}, "A.16"),
     ({"parallel": {"mesh": 4}}, "A.17"),
     ({"parallel": {"mesh": "auto"}}, "A.17"),
     ({"scenario": {"pack": "consolidation"}}, "A.15"),
@@ -208,6 +207,27 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
     cfg = PORT.cli.load_config_file(str(f))
     with pytest.raises(PORT.cli.ConfigError, match=f"ROADMAP {item}"):
         Scheduler.from_config(cfg, device="cpu")
+
+
+def test_watch_progress_deadline_is_accepted_like_the_reference(tmp_path,
+                                                                capsys):
+    """The informer is ported (``sim.Reflector`` honours the deadline),
+    so ``robustness.watchProgressDeadline`` validates and builds in the
+    port exactly as in the reference."""
+    f = tmp_path / "cfg.json"
+    f.write_text(json.dumps(
+        {"robustness": {"watch_progress_deadline_s": 7.0}}))
+    outs = []
+    for m in (REF, PORT):
+        got = m.cli.main(["--validate-only", "--config", str(f)])
+        cap = capsys.readouterr()
+        outs.append((got, cap.out, cap.err))
+    assert outs[1] == outs[0] and outs[1][0] == 0
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    cfg = PORT.cli.load_config_file(str(f))
+    sched = Scheduler.from_config(cfg, device="cpu")
+    assert sched.robustness.watch_progress_deadline_s == 7.0
 
 
 def test_cli_without_validate_only_names_the_serve_loop_item(tmp_path,

@@ -51,6 +51,32 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_port_imports_neither_protobuf_nor_grpc():
+    """The card's machine has no ``protobuf`` or ``grpcio``: no module of
+    the port may import them, the gRPC shim or the generated ``proto``
+    stubs (the protobuf codec and the gRPC seam are ROADMAP A.16.3)."""
+    mods = _port_modules()
+    assert {"kubernetes_tpu_torch.restapi", "kubernetes_tpu_torch.kubectl",
+            "kubernetes_tpu_torch.sim"} <= set(mods)
+    assert not any(m.endswith((".grpc_shim", ".protobuf")) or ".proto" in m
+                   for m in mods)
+    code = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] == 'grpc'\n"
+        "             or m == 'google.protobuf'\n"
+        "             or m.startswith('google.protobuf.')\n"
+        "             or m.endswith('.grpc_shim') or '_pb2' in m)\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_port_files_byte_compile():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _dirs, filenames in os.walk(PORT):
@@ -72,6 +98,20 @@ def test_entry_points_default_to_cuda_and_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device()
     assert Scheduler(device="cpu").device.type == "cpu"
+
+
+def test_hollow_cluster_builds_its_scheduler_on_the_card(monkeypatch):
+    """The hub builds the port's Scheduler at its defaults: on the card,
+    raising without one, never a quiet fall back to the CPU."""
+    from kubernetes_tpu_torch.sim import HollowCluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        HollowCluster()
+    with pytest.raises(RuntimeError, match="cuda"):
+        HollowCluster(seed=4, admission=True, scheduler_kw={})
+    hub = HollowCluster(scheduler_kw={"device": "cpu"})
+    assert hub.sched.device.type == "cpu"
 
 
 def test_table_converters_default_to_cuda_and_refuse_cpu_fallback(

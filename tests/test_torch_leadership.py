@@ -391,6 +391,28 @@ def test_crashloop_invariant_triple_matches_reference(seed):
     assert got["conflicts"] == 0 and got["leaked_assumptions"] == []
 
 
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_crashloop_on_the_ports_hollow_cluster_matches_reference(seed):
+    """The port's CrashLoop on the port's own simulated cluster
+    (``sim.HollowCluster``, CAS binder and watch feed as the reference's)
+    beside the reference's CrashLoop on its own: the same report, the
+    invariant triple included."""
+    from kubernetes_tpu.chaos import CrashLoop as JLoop
+    from kubernetes_tpu.sim import HollowCluster as JHub
+    from kubernetes_tpu_torch.chaos import CrashLoop as TLoop
+    from kubernetes_tpu_torch.sim import HollowCluster as THub
+
+    want = JLoop(JHub(seed=seed), seed=seed, kill_rate=0.25,
+                 max_kills=5).run(n_pods=24, n_nodes=5)
+    hub = THub(seed=seed, scheduler_kw={"device": "cpu"})
+    got = TLoop(hub, seed=seed, kill_rate=0.25, max_kills=5,
+                scheduler_kw={"device": "cpu"}).run(n_pods=24, n_nodes=5)
+    assert got == want
+    assert got["all_bound"] and got["bound_total"] == got["n_pods"]
+    assert got["conflicts"] == 0 and got["leaked_assumptions"] == []
+    hub.check_consistency()
+
+
 def test_crashloop_restart_adopts_a_committed_bind():
     """Killed after the hub committed but before finish_binding: the next
     incarnation adopts the bind from the relist and never re-binds."""

@@ -510,14 +510,17 @@ def test_warm_carry_through_churn_matches_the_reference(monkeypatch, primary,
     seeded pods on the 96-node cluster (C = 32), a bound pod deleted
     every third cycle. Every cycle agrees with the reference on
     ROUTE_FIELDS, and after every restricted cycle both packages hold a
-    carry under the same key (pod bucket, C, summary generation)."""
+    carry under the same key (pod bucket, C, summary generation). The
+    carry engages: on most restricted cycles the key held before the
+    cycle is the cycle's own, so the solve starts from the carried
+    potentials, on the same cycles in both packages."""
     monkeypatch.setenv("KTPU_PALLAS", "1")
     js, ts = incremental_pair(solver="sinkhorn", primary=primary,
                               candidate_bucket=32)
     rng = random.Random(seed)
     placed = []
     events = [("node_add", nd) for nd in incremental_cluster()]
-    restricted = 0
+    restricted, engaged = 0, []
     for c in range(10):
         shapes = {}
         for i in range(8):
@@ -532,6 +535,7 @@ def test_warm_carry_through_churn_matches_the_reference(monkeypatch, primary,
             name, cpu, mem, node = placed.pop(rng.randrange(len(placed)))
             events.append(("pod_delete", make_pod(
                 name, cpu_milli=cpu, memory=mem, node_name=node)))
+        held = [s._sk_warm_pot and s._sk_warm_pot[0] for s in (js, ts)]
         r = drive_pair(js, ts, [events])[0]
         events = []
         assert r.unschedulable == 0
@@ -543,7 +547,11 @@ def test_warm_carry_through_churn_matches_the_reference(monkeypatch, primary,
             assert ts._sk_warm_pot[0] == js._sk_warm_pot[0]
             assert ts._sk_warm_pot[0][1:] == (32,
                                               ts.cache.summary_generation)
+            engaged.append([h == s._sk_warm_pot[0]
+                            for h, s in zip(held, (js, ts))])
     assert restricted >= 5
+    assert all(j == t for j, t in engaged), engaged
+    assert sum(t for _, t in engaged) >= restricted - 2, engaged
 
 
 @pytest.mark.parametrize("exc, declines", [(KernelError, False),
