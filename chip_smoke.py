@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs twelve phases and exits
+``nvcc`` per source, in parallel), then runs thirteen phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -120,19 +120,42 @@ non-zero if any fails:
    sinkhorn``, ``watchProgressDeadline: 5s``) only through a
    ``sim.Reflector``: 2000 pods created over REST, an NDJSON watch that
    must see every binding once, a compaction (410 and relists), a stalled
-   watch relisting past the deadline, the protobuf refusals (406, 415).
+   watch relisting past the deadline, the protobuf refusals (406, 415);
+13. the recovery paths: arm A, cell ``netchaos-5k``, ``chaos.NetChaos``
+   at the reference's default fault rates (ambiguous bind timeouts, bind
+   errors, verification GET timeouts, a dropping, duplicating and
+   reordering watch, a relist storm) on a ``sim.HollowCluster`` of the
+   smoke cell's 5000 nodes and 10,000 pending pods, once with the default
+   solver and once with ``solver: sinkhorn``: every pod bound, no
+   double-bind attempt, no auditor violation, nothing leaked or parked;
+   the same at 500 nodes x 1000 pods on the card and on CPU tensors must
+   give equal reports. Arm B, cell ``devloss-5k``: six cycles of 1024 pods
+   on the smoke cluster through ``Scheduler.from_config`` (recovery
+   {deviceResetLimit: 2, deviceCooloff: 30s}, warmup) while the
+   ``snapshot:device`` seam fails (one ``device_lost``, then three: host
+   mode through the cooloff, resident again after it; the same with
+   ``device_oom``), with ``deviceResidentSnapshot: false``, and after a
+   warmup that lost the device: every cycle places as a fault-free
+   twin's, resets equal the faults injected, no graph is captured after
+   warmup and every cycle runs under sync-debug ``error``; the
+   allocator's bytes around each drop of the resident table. Arm C, cell
+   ``ha-5k``: two ``chaos.HAReplica`` on one hub of 5000 nodes, 2000 pods
+   created while the leader is killed: the standby takes over and binds
+   every pod exactly once. No other phase may reset the device or run a
+   host-mode cycle.
 
 Lines of JSON report each phase; the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path, the preempt cell, the sparse cell, the
 pipeline cell, the configured scheduler's arm A, the serve loop's
-arms A-D and the hollow cluster's arms A and B, each counted from 0 just
-before it runs: ``launches`` is
+arms A-D, the hollow cluster's arms A and B and the recovery phase's
+arms A-C, each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
 ``sparse_shapes``, the serve loop's micro-batch shapes of every kernel
-under ``serve_shapes`` and the hollow cluster's under
-``hollow_shapes``), error against the plain
+under ``serve_shapes``, the hollow cluster's under ``hollow_shapes``
+and the recovery cells' under ``recovery_shapes``), error against the
+plain
 version, times and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
 CUDA-event medians; ``ms_batched`` times back-to-back calls and
 ``device_ms`` is the trace's device time); the last line is the one-line
@@ -140,7 +163,7 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config, serve, hollow);
+config, serve, hollow, recovery);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -165,10 +188,11 @@ HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
-              "preempt", "sparse", "pipeline", "config", "serve", "hollow")
+              "preempt", "sparse", "pipeline", "config", "serve", "hollow",
+              "recovery")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
-              "config", "serve", "hollow")
+              "config", "serve", "hollow", "recovery")
 
 
 def emit(obj) -> None:
@@ -635,12 +659,13 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             rows.append({"shape": [P, N], "launches": n, **got})
             torch.cuda.empty_cache()
         out_rows.setdefault(name, {})["sparse_shapes"] = rows
-    # the serve path's micro-batch frames (arms A-D) and the hollow
-    # cluster's cycles (arms A and B): every kernel at every shape they
-    # launched (the pair bit for bit, u and v in both rules), with the
-    # wrapper's host share of a single call
+    # the serve path's micro-batch frames (arms A-D), the hollow
+    # cluster's cycles (arms A and B) and the recovery cells' (arms A-C):
+    # every kernel at every shape they launched (the pair bit for bit, u
+    # and v in both rules), with the wrapper's host share of a single call
     for phase, name, shapes in [
-            (phase, name, shapes) for phase in ("serve", "hollow")
+            (phase, name, shapes) for phase in ("serve", "hollow",
+                                                "recovery")
             for name, shapes in paths.get(phase, {}).get("shapes",
                                                          {}).items()]:
         if name not in ARRAY_KERNELS:
@@ -4142,6 +4167,460 @@ def _merge_shapes(*runs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the recovery paths — the ambiguous-bind protocol under network
+# chaos, device-loss recovery with host mode, HA failover
+# ---------------------------------------------------------------------------
+
+#: arm A's cell ``netchaos-5k`` (the smoke cell's nodes, 10,000 pending
+#: pods) and its CUDA-against-CPU run
+NETCHAOS_FULL = {"n_nodes": 5000, "n_pods": 10000}
+NETCHAOS_REDUCED = {"n_nodes": 500, "n_pods": 1000}
+#: arm B's cell ``devloss-5k``: the smoke cluster, six cycles of a batch
+DEVLOSS = {"n_nodes": 5000, "n_bound": 1000, "batch": 1024, "cycles": 6}
+#: arm C's cell ``ha-5k``: pods created in batches, the leader killed after
+#: half of them
+HA = {"n_nodes": 5000, "n_pods": 2000, "batches": 10}
+#: the reference's failover lease (tests/test_crash_recovery.py ``_LE``)
+HA_LEASE = {"lease_duration_s": 15, "renew_deadline_s": 10,
+            "retry_period_s": 2}
+
+
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launches_since(before: dict) -> dict:
+    """The array kernels' launches since ``before`` (a ``launch_counts()``
+    read)."""
+    now = launch_counts()
+    return {k: now[k] - before.get(k, 0) for k in ARRAY_KERNELS}
+
+
+def netchaos_run(device: str, n_nodes: int, n_pods: int,
+                 solver: str = "batch", seed: int = 7) -> dict:
+    """One ``chaos.NetChaos`` run at the reference's default fault rates
+    on a ``sim.HollowCluster(seed)`` the caller's shape fills: the smoke
+    cell's nodes and ``n_pods`` of its zone-preferring pending pods (half
+    tolerating the taint), driven by ``run(n_pods=0, n_nodes=0)``. Fails
+    unless it converged with every pod bound, no double-bind attempt, no
+    auditor violation, nothing leaked or parked, and no cycle fell back
+    off ``solver``. Returns the report and the host timings."""
+    from kubernetes_tpu_torch.chaos import NetChaos
+    from kubernetes_tpu_torch.sim import HollowCluster
+
+    hub = HollowCluster(seed=seed, scheduler_kw={"device": device})
+    nodes, _, pending = smoke_cell(n_nodes, 0, n_pods, seed)
+    for nd in nodes:
+        hub.add_node(nd)
+    for p in pending:
+        hub.create_pod(p)
+    nc = NetChaos(hub, seed=seed,
+                  scheduler_kw={"device": device, "solver": solver})
+    real = nc.sched.schedule_cycle
+    cycles, ends = [], []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        r = real(*a, **kw)
+        _sync(device)
+        t1 = time.perf_counter()
+        cycles.append((r, t1 - t0, _solve_spans(nc.sched.obs.last_trace)))
+        ends.append(t1)
+        return r
+
+    nc.sched.schedule_cycle = timed
+    before = launch_counts()
+    t0 = time.perf_counter()
+    rep = nc.run(n_pods=0, n_nodes=0)
+    wall = time.perf_counter() - t0
+    launches = _launches_since(before)
+    tag = f"recovery/A/{solver}/{device}/{n_nodes}"
+    if not (rep["converged"] and rep["all_bound"]):
+        fail(f"{tag}: did not converge: {rep}")
+    if rep["double_bind_attempts"] or rep["invariant_violations"]:
+        fail(f"{tag}: {rep['double_bind_attempts']} double-bind attempts, "
+             f"violations {rep['violations']}")
+    if rep["leaked_assumptions"] or rep["parked_ambiguous"]:
+        fail(f"{tag}: leaked {rep['leaked_assumptions'][:3]}, parked "
+             f"{rep['parked_ambiguous'][:3]}")
+    if rep["bound_total"] != n_pods:
+        fail(f"{tag}: the hub bound {rep['bound_total']} of {n_pods}")
+    for r, _, _ in cycles:
+        if r.solver_tier not in ("", solver) or r.solver_fallbacks:
+            fail(f"{tag}: a cycle solved on {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+    steps = [b - a for a, b in zip([t0] + ends[:-1], ends)]
+    cyc = [s for _, s, _ in cycles if s > 0]
+    return {"report": rep, "wall_s": wall, "steps": rep["steps"],
+            "launches": launches,
+            "step_s_p50": _pct(steps, 50), "step_s_max": max(steps),
+            "cycle_s_sum": sum(cyc), "cycle_s_p50": _pct(cyc, 50),
+            "cycle_s_max": max(cyc),
+            "solve_s_sum": sum(sum(sp.values()) for _, _, sp in cycles),
+            "attempted": [r.attempted for r, _, _ in cycles][:16],
+            "snapshot_modes": sorted({r.snapshot_mode for r, _, _ in cycles
+                                      if r.snapshot_mode})}
+
+
+def recovery_arm_a() -> dict:
+    """Arm A, cell ``netchaos-5k``: ``NetChaos`` on the card at full width
+    with the default solver (the pair on every general round) and with
+    ``solver: sinkhorn`` (u and v every plan round); then the reduced
+    shape on the card and on CPU tensors, whose reports must be equal
+    field by field, for each solver."""
+    out = {}
+    for solver in ("batch", "sinkhorn"):
+        got = netchaos_run("cuda", solver=solver, **NETCHAOS_FULL)
+        rep = got.pop("report")
+        out[solver] = {**got, **{k: rep[k] for k in (
+            "bound_total", "binds_attempted", "ambiguous_timeouts",
+            "timeouts_committed", "timeouts_uncommitted", "faults_fired",
+            "watch_deduped", "relists", "stalled_relists",
+            "invariant_violations", "double_bind_attempts")}}
+        release_graphs()
+    eq = {}
+    for solver in ("batch", "sinkhorn"):
+        a = netchaos_run("cuda", solver=solver, **NETCHAOS_REDUCED)
+        b = netchaos_run("cpu", solver=solver, **NETCHAOS_REDUCED)
+        if a["report"] != b["report"]:
+            diff = {k: (a["report"][k], b["report"].get(k))
+                    for k in a["report"] if a["report"][k] != b["report"][k]}
+            fail(f"recovery/A/{solver}: the card's report differs from the "
+                 f"CPU's at {NETCHAOS_REDUCED}: {diff}")
+        eq[solver] = {"equal": True, "steps": a["steps"],
+                      "cuda_wall_s": a["wall_s"], "cpu_wall_s": b["wall_s"],
+                      "cuda_launches": a["launches"]}
+        release_graphs()
+    cycles = (sum(v["steps"] for v in out.values())
+              + sum(v["steps"] for v in eq.values()))
+    return {"full": out, "equality": {**NETCHAOS_REDUCED, **eq},
+            "cycles": cycles}
+
+
+class _AllocatorProbe:
+    """Wraps a cache's ``drop_device_snapshot``: the caching allocator's
+    allocated and reserved bytes just before and just after each drop."""
+
+    def __init__(self, cache) -> None:
+        import torch
+
+        self.rows = []
+        real = cache.drop_device_snapshot
+
+        def drop():
+            before = (torch.cuda.memory_allocated(),
+                      torch.cuda.memory_reserved())
+            real()
+            self.rows.append({
+                "allocated_before": before[0], "reserved_before": before[1],
+                "allocated_after": torch.cuda.memory_allocated(),
+                "reserved_after": torch.cuda.memory_reserved()})
+
+        cache.drop_device_snapshot = drop
+
+
+def _devloss_scheduler(tmp, name, pods, inj=None, resident=True,
+                       warm=True):
+    """A ``Scheduler.from_config`` of arm B's JSON document (recovery
+    {deviceResetLimit: 2, deviceCooloff: 30s}, warmup on, every node
+    scored) on a hand-advanced clock, fed the smoke cluster, warmed with
+    the first 64 pods as ``cli.run``'s gate does. Its binder confirms
+    each bind at once (the watch's MODIFIED event)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import device_loop
+
+    doc = {"recovery": {"deviceResetLimit": 2, "deviceCooloff": "30s"},
+           "warmup": {"enabled": True}, "percentageOfNodesToScore": 100}
+    if not resident:
+        doc["deviceResidentSnapshot"] = False
+    clk = _Clock()
+    sched = configured(doc, tmp, name, clock=clk, fault_injector=inj)
+    sched.binder = ConfirmingBinder(sched)
+    nodes, bound, _ = smoke_cell(DEVLOSS["n_nodes"], DEVLOSS["n_bound"], 0)
+    feed(sched, nodes, bound, [])
+    c0 = device_loop.CAPTURES.count
+    warmed = sched.warmup(sample_pods=pods[:64]) if warm else 0
+    torch.cuda.synchronize()
+    return sched, clk, {"warmed": warmed,
+                        "warm_captures": device_loop.CAPTURES.count - c0}
+
+
+def _devloss_cycle(sched, clk, pods, k, tag):
+    """Cycle ``k``: the batch's pods in, one cycle under
+    ``torch.cuda.set_sync_debug_mode("error")`` (an uncounted sync
+    raises), the clock one second on."""
+    import torch
+
+    for p in pods[k * DEVLOSS["batch"]:(k + 1) * DEVLOSS["batch"]]:
+        sched.on_pod_add(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = sched.schedule_cycle()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if r.solver_fallbacks or r.solver_tier != "batch":
+        fail(f"{tag}: cycle {k + 1} solved on {r.solver_tier!r} after "
+             f"{r.solver_fallbacks} fallbacks")
+    clk.t += 1.0
+    return r, wall
+
+
+#: arm B's fault script: cycle -> (faults armed at ``snapshot:device``
+#: before it, seconds the clock jumps before it, its expected snapshot
+#: mode, whether the scheduler is degraded after it)
+DEVLOSS_SCRIPT = ((0, 0.0, ("full", "clean", "delta"), False),
+                  (1, 0.0, ("full",), False),
+                  (3, 0.0, ("host",), True),
+                  (0, 0.0, ("host",), True),
+                  (0, 0.0, ("host",), True),
+                  (0, 31.0, ("full",), False))
+
+
+def recovery_arm_b(tmp: str) -> dict:
+    """Arm B, cell ``devloss-5k``: a fault-free twin's placements over six
+    cycles of 1024 zone-preferring pods, then for ``device_lost`` and for
+    ``device_oom`` a scheduler whose ``snapshot:device`` seam fails as
+    ``DEVLOSS_SCRIPT`` says (one reset and a rebuild; the budget blown and
+    host mode; two cycles inside the 30 s cooloff; resident again after
+    it), a scheduler with ``deviceResidentSnapshot: false``, and one whose
+    warmup loses the device. Every cycle must place as the twin's, reset
+    exactly as often as faults were injected, capture no graph after a
+    complete warmup and run clean under sync-debug ``error``. Reports the
+    allocator's bytes around each drop, and around a drop and rebuild of
+    the resident table by hand."""
+    import gc
+
+    import torch
+
+    from kubernetes_tpu_torch.cache import tree_nbytes
+    from kubernetes_tpu_torch.faults import FaultInjector
+    from kubernetes_tpu_torch.scheduler import RECOVERY
+
+    n = DEVLOSS["batch"] * DEVLOSS["cycles"]
+    _, _, pods = smoke_cell(DEVLOSS["n_nodes"], 0, n, seed=11)
+    out = {}
+    before = launch_counts()
+    twin, clk, warm = _devloss_scheduler(tmp, "twin", pods)
+    want = []
+    for k in range(DEVLOSS["cycles"]):
+        r, _ = _devloss_cycle(twin, clk, pods, k, "recovery/B/twin")
+        if r.scheduled != DEVLOSS["batch"]:
+            fail(f"recovery/B/twin: cycle {k + 1} bound {r.scheduled}")
+        want.append(dict(r.assignments))
+    out["twin"] = warm
+    del twin
+    for kind in ("device_lost", "device_oom"):
+        inj = FaultInjector(seed=7)
+        sched, clk, warm = _devloss_scheduler(tmp, kind, pods, inj)
+        probe = _AllocatorProbe(sched.cache)
+        rows, injected = [], 0
+        RECOVERY.reset()
+        for k, (shots, jump, modes, degraded) in enumerate(DEVLOSS_SCRIPT):
+            if shots:
+                inj.arm("snapshot:device", kind, count=shots)
+                injected += shots
+            clk.t += jump
+            r, wall = _devloss_cycle(sched, clk, pods, k,
+                                     f"recovery/B/{kind}")
+            resets = sched.metrics.recovery_device_resets.value()
+            row = {"cycle": k + 1, "mode": r.snapshot_mode,
+                   "degraded": sched.is_degraded(), "resets": resets,
+                   "graph_captures": r.graph_captures,
+                   "host_syncs": r.host_syncs, "cycle_s": wall}
+            rows.append(row)
+            if r.assignments != want[k]:
+                bad = sum(r.assignments.get(p) != v
+                          for p, v in want[k].items())
+                fail(f"recovery/B/{kind}: cycle {k + 1} placed {bad} pods "
+                     "unlike the fault-free twin")
+            if r.snapshot_mode not in modes or row["degraded"] != degraded:
+                fail(f"recovery/B/{kind}: cycle {k + 1}: {row}, expected "
+                     f"mode in {modes}, degraded {degraded}")
+            if resets != injected or r.graph_captures:
+                fail(f"recovery/B/{kind}: cycle {k + 1}: {resets} resets for "
+                     f"{injected} injected faults, {r.graph_captures} "
+                     "graphs captured after warmup")
+        if RECOVERY.device_resets != injected or RECOVERY.host_cycles != 3:
+            fail(f"recovery/B/{kind}: process tally "
+                 f"{RECOVERY.device_resets} resets, {RECOVERY.host_cycles} "
+                 "host-mode cycles")
+        out[kind] = {**warm, "cycles": rows, "injected": injected,
+                     "drops": list(probe.rows)}
+        if kind == "device_lost":
+            # a drop and a rebuild by hand: what the allocator does
+            gc.collect()
+            torch.cuda.synchronize()
+            table = tree_nbytes(sched.cache._dev)
+            a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            sched.cache.drop_device_snapshot()
+            gc.collect()
+            a1, r1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            sched.cache.device_snapshot()
+            torch.cuda.synchronize()
+            a2, r2 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            out["allocator"] = {
+                "table_bytes": table, "allocated": [a0, a1, a2],
+                "reserved": [r0, r1, r2],
+                "drop_freed_allocated": a0 - a1,
+                "drop_freed_reserved": r0 - r1,
+                "rebuild_reused_reserved": r2 == r1}
+        del sched, probe
+    # host mode all along: deviceResidentSnapshot false
+    sched, clk, warm = _devloss_scheduler(tmp, "host", pods, resident=False)
+    modes, caps = [], 0
+    for k in range(DEVLOSS["cycles"]):
+        r, _ = _devloss_cycle(sched, clk, pods, k, "recovery/B/host")
+        if r.assignments != want[k]:
+            fail(f"recovery/B/host: cycle {k + 1} placed unlike the "
+                 "resident twin")
+        modes.append(r.snapshot_mode)
+        caps += r.graph_captures
+    if set(modes) != {"host"} or caps or sched.cache.has_device_snapshot():
+        fail(f"recovery/B/host: modes {modes}, {caps} captures, resident "
+             f"table {sched.cache.has_device_snapshot()}")
+    out["host_mode"] = {**warm, "modes": modes, "graph_captures": caps}
+    del sched
+    # the warmup loses the device: it aborts, the next cycle places right
+    inj = FaultInjector(seed=7).arm("warmup:compile", "device_lost", count=1)
+    sched, clk, warm = _devloss_scheduler(tmp, "warmup", pods, inj)
+    resets = sched.metrics.recovery_device_resets.value()
+    if warm["warmed"] != 0 or resets != 1 or \
+            sched.cache.has_device_snapshot():
+        fail(f"recovery/B/warmup: warmed {warm['warmed']} shapes, {resets} "
+             "resets, resident table kept")
+    r, _ = _devloss_cycle(sched, clk, pods, 0, "recovery/B/warmup")
+    if r.assignments != want[0] or r.snapshot_mode != "full":
+        fail("recovery/B/warmup: the cycle after the aborted warmup placed "
+             f"unlike the twin ({r.snapshot_mode})")
+    out["warmup_abort"] = {**warm, "resets": resets,
+                           "next_cycle_mode": r.snapshot_mode,
+                           "next_cycle_captures": r.graph_captures}
+    del sched
+    out["launches"] = _launches_since(before)
+    return out
+
+
+def recovery_arm_c() -> dict:
+    """Arm C, cell ``ha-5k``: two ``chaos.HAReplica`` on one
+    ``sim.HollowCluster`` of the smoke cell's 5000 nodes, the reference
+    failover test's lease (15 s / 10 s / 2 s). Pods of the smoke cell's
+    shape are created in ``HA["batches"]`` batches, one per 2 s tick; the
+    leader is ``kill()``ed after half of them, mid-churn. Fails unless
+    the standby takes over and every pod is bound exactly once (the
+    hub's CAS saw no conflict), and the standby leaks no assumption.
+    Reports the takeover seconds on the hub's clock (the kill to the
+    standby's first bind) and the host seconds of the takeover tick."""
+    from kubernetes_tpu_torch.chaos import HAReplica
+    from kubernetes_tpu_torch.config import LeaderElectionConfig
+    from kubernetes_tpu_torch.sim import HollowCluster
+
+    hub = HollowCluster(seed=7, scheduler_kw={"device": "cuda"})
+    nodes, _, pending = smoke_cell(HA["n_nodes"], 0, HA["n_pods"], seed=13)
+    for nd in nodes:
+        hub.add_node(nd)
+    le = LeaderElectionConfig(**HA_LEASE)
+    launches0 = launch_counts()
+    t0 = time.perf_counter()
+    a, b = HAReplica("a", hub, le), HAReplica("b", hub, le)
+    build_s = time.perf_counter() - t0
+    per = HA["n_pods"] // HA["batches"]
+    kill_at, takeover, tick_s = None, None, []
+    bound_at_kill = 0
+    for tick in range(HA["batches"] + 40):
+        if tick < HA["batches"]:
+            for p in pending[tick * per:(tick + 1) * per]:
+                hub.create_pod(p)
+        if tick == HA["batches"] // 2:
+            a.kill()
+            kill_at = hub.clock()
+            bound_at_kill = hub.bound_total
+        before = hub.bound_total
+        t1 = time.perf_counter()
+        a.tick()
+        b.tick()
+        wall = time.perf_counter() - t1
+        tick_s.append(wall)
+        if (kill_at is not None and takeover is None
+                and hub.bound_total > before):
+            takeover = {"sim_s": hub.clock() - kill_at,
+                        "tick_wall_s": wall, "tick": tick}
+        if tick >= HA["batches"] and hub.bound_total == HA["n_pods"]:
+            break
+        hub.clock.advance(2.0)
+    # settle: the standby's informer confirms its own last binds
+    hub.clock.advance(31.0)
+    b.tick()
+    b.sched.idle_tick()
+    unbound = [k for k, p in hub.truth_pods.items() if not p.node_name]
+    if unbound or hub.bound_total != HA["n_pods"]:
+        fail(f"recovery/C: {len(unbound)} pods unbound, the hub bound "
+             f"{hub.bound_total} of {HA['n_pods']}")
+    if hub.binder.conflicts:
+        fail(f"recovery/C: {hub.binder.conflicts} binds refused by the "
+             "hub's CAS (a second bind of a bound pod)")
+    if not b.elector.is_leader() or takeover is None:
+        fail("recovery/C: the standby never took over")
+    if b.sched.cache.assumed_keys():
+        fail(f"recovery/C: the standby leaks "
+             f"{len(b.sched.cache.assumed_keys())} assumptions")
+    hub.check_consistency()
+    return {"build_s": build_s, "ticks": len(tick_s),
+            "tick_s_p50": _pct(tick_s, 50), "tick_s_max": max(tick_s),
+            "bound_at_kill": bound_at_kill, "takeover": takeover,
+            "leader_cycles": a.cycles, "standby_cycles": b.cycles,
+            "takeovers": b.sched.metrics.recovery_takeovers.value(),
+            "adopted": b.sched.metrics.recovery_adopted.value(),
+            "bound_total": hub.bound_total,
+            "conflicts": hub.binder.conflicts,
+            "dead_leader_torn_assumptions": len(a.sched.cache.assumed_keys()),
+            "launches": _launches_since(launches0)}
+
+
+def phase_recovery() -> dict:
+    """The recovery paths: arm A (``netchaos-5k``), arm B (``devloss-5k``)
+    and arm C (``ha-5k``), each counted from 0 together. Returns their
+    launches, cycles and launch shapes; fails unless the pair, u and v
+    each launched."""
+    import tempfile
+
+    from kubernetes_tpu_torch import kernels
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    a = recovery_arm_a()
+    emit({"phase": "recovery", "arm": "A", "cell": "netchaos-5k",
+          "wall_s": time.perf_counter() - t0, **a})
+    release_graphs()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ktt-recovery-") as tmp:
+        b = recovery_arm_b(tmp)
+    emit({"phase": "recovery", "arm": "B", "cell": "devloss-5k",
+          "wall_s": time.perf_counter() - t0, **b})
+    release_graphs()
+    t0 = time.perf_counter()
+    c = recovery_arm_c()
+    emit({"phase": "recovery", "arm": "C", "cell": "ha-5k",
+          "wall_s": time.perf_counter() - t0, **c})
+    launches, shapes = launch_counts(), launch_shapes()
+    for name in ARRAY_KERNELS:
+        if launches[name] <= 0:
+            fail(f"recovery: {name} was never launched")
+    # arm B: the twin, the two fault kinds and host mode, six cycles
+    # each, and the cycle after the aborted warmup
+    cycles = (a["cycles"] + 4 * DEVLOSS["cycles"] + 1 + c["leader_cycles"]
+              + c["standby_cycles"])
+    return {"launches": launches, "cycles": cycles, "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4236,6 +4715,7 @@ def main() -> None:
              "CUDA card")
     sys.path.insert(0, HERE)
     from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.scheduler import RECOVERY
 
     smi = gpu_line()
     t0 = time.perf_counter()
@@ -4264,10 +4744,19 @@ def main() -> None:
                        ("pipeline", phase_pipeline),
                        ("config", phase_config),
                        ("serve", phase_serve),
-                       ("hollow", phase_hollow)):
+                       ("hollow", phase_hollow),
+                       ("recovery", phase_recovery)):
         if phase not in phases:
             continue
+        RECOVERY.reset()
         got = run()
+        if phase != "recovery" and (RECOVERY.device_resets
+                                    or RECOVERY.host_cycles):
+            # only the recovery phase injects device faults: anywhere
+            # else a reset or a host-mode cycle is a real fault passing
+            # as a quiet fallback
+            fail(f"{phase}: {RECOVERY.device_resets} device resets, "
+                 f"{RECOVERY.host_cycles} host-mode cycles")
         if phase in MAIN_PATHS:
             paths[phase] = got
         release_graphs()

@@ -25,6 +25,14 @@ Reference: ``pkg/scheduler/internal/cache/cache.go``.
    full upload drops it (rebuilt lazily by :meth:`score_summary`) and
    bumps ``summary_generation``; a delta drain patches exactly the rows
    it scatters, in the same drain; a clean cycle touches nothing.
+
+4. **Device loss**: ``fault_injector`` (the scheduler attaches its own) is
+   consulted at the head of :meth:`SchedulerCache.device_snapshot`, the
+   ``snapshot:device`` chaos seam, so an injected ``device_lost`` /
+   ``device_oom`` raises where a real CUDA error in the upload or the
+   scatter would; :meth:`SchedulerCache.drop_device_snapshot` releases the
+   resident tensors for the rebuild (the scheduler's
+   ``_device_snapshot_recovering``).
 """
 
 from __future__ import annotations
@@ -120,6 +128,9 @@ class SchedulerCache:
                                "prefer_packed": False}
         #: the last score_summary() call rebuilt the summary from scratch
         self.last_summary_rebuilt = False
+        #: faults.FaultInjector (or None): the ``snapshot:device`` chaos
+        #: seam, attached by the scheduler that owns this cache
+        self.fault_injector = None
 
     # -- introspection -----------------------------------------------------
 
@@ -154,6 +165,14 @@ class SchedulerCache:
         relisted truth, and what a deposed leader drains."""
         return [k for k, st in self._pod_state.items()
                 if st in (_ASSUMED, _EXPIRING)]
+
+    def pod_states(self) -> Dict[str, str]:
+        """key -> "assumed" | "bound" for every cached pod — the
+        state-conservation auditor's view (obs/audit.py): assumed covers
+        ASSUMED and EXPIRING (bind in flight / TTL armed), bound is the
+        watch-confirmed ADDED state."""
+        return {k: ("assumed" if s in (_ASSUMED, _EXPIRING) else "bound")
+                for k, s in self._pod_state.items()}
 
     def pod(self, key: str) -> Optional[Pod]:
         node = self._pod_node.get(key)
@@ -205,6 +224,11 @@ class SchedulerCache:
             if p is not None:
                 out.append(p)
         return out
+
+    def cleanup_expired(self) -> List[str]:
+        """Key-returning wrapper over :meth:`pop_expired` (the reference's
+        original surface)."""
+        return [p.key() for p in self.pop_expired()]
 
     # -- watch-driven mutations -------------------------------------------
 
@@ -360,6 +384,12 @@ class SchedulerCache:
         )
         from kubernetes_tpu_torch.utils.interner import bucket_size
 
+        if self.fault_injector is not None:
+            # chaos seam: an armed device_lost/device_oom rule raises
+            # here, standing in for a CUDA error during the upload or the
+            # scatter; the scheduler's recovery drops the resident table
+            # and rebuilds it from the host mirror
+            self.fault_injector.device_hook("snapshot:device")
         table, _mode, _idx, _sub = self._refresh_host()
         n_pad = bucket_size(max(table.n, 1))
         self.last_upload_rows = 0
@@ -424,7 +454,9 @@ class SchedulerCache:
         :meth:`device_snapshot` re-uploads in full on ``self.device``.
         The score summary drops with it and its generation bumps, so
         warm state keyed on the old plane dies too (takeover
-        reconciliation lands here)."""
+        reconciliation and device-loss recovery land here). Only the
+        references go: PyTorch's caching allocator keeps the blocks
+        for the rebuild unless ``torch.cuda.empty_cache`` returns them."""
         with self._snap_lock:
             self._dev = None
             self._dev_pad = 0

@@ -803,25 +803,13 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
     if cfg.scenario.pack:
         errs.append(f"scenario.pack: {cfg.scenario.pack!r} is not ported "
                     "yet (ROADMAP A.15: scenario packs)")
-    rec, rec_default = cfg.recovery, RecoveryConfig()
-    for name in ("device_reset_limit", "device_cooloff_s"):
-        if getattr(rec, name) != getattr(rec_default, name):
-            errs.append(f"recovery.{name}: device-loss recovery is not "
-                        "ported yet (ROADMAP A.14: device loss)")
-    rc, rc_default = cfg.robustness, RobustnessConfig()
-    if rc.bind_verify_retries != rc_default.bind_verify_retries:
-        errs.append("robustness.bindVerifyRetries: the ambiguous-bind "
-                    "protocol is not ported yet (ROADMAP A.14)")
-    if not cfg.device_resident_snapshot:
-        errs.append("deviceResidentSnapshot: false (host-mode snapshots) "
-                    "is not ported yet (ROADMAP A.14: device-loss "
-                    "recovery and its host mode)")
     oc = cfg.observability
     default = ObservabilityConfig()
-    # the port runs the cycle trace, the explain report and the Sinkhorn
-    # stats; every other observability field drives a backend of A.13
+    # the port runs the cycle trace, the explain report, the Sinkhorn
+    # stats and the auditor's sweep; every other observability field
+    # drives a backend of A.13
     honored = {"trace_threshold_s", "sinkhorn_telemetry", "explain",
-               "explain_top_k"}
+               "explain_top_k", "audit_interval_s"}
     for f in dataclasses.fields(ObservabilityConfig):
         if f.name not in honored and (getattr(oc, f.name)
                                       != getattr(default, f.name)):

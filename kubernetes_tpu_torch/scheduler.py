@@ -11,10 +11,12 @@ unplaced pod through the reference's error path (record backoff →
 AddUnschedulableIfNotPresent):
 
     cycle():
-      queue.tick(); reap expired assumptions
+      queue.tick(); reap expired assumptions         # verified by GET
+      re-probe parked ambiguous binds
       batch = queue.pop_batch()                      # NextPod, batched
       PreFilter plugins                              # framework
-      nt, dn = cache.device_snapshot()               # resident, patched
+      nt, dn = cache.device_snapshot()               # resident, patched;
+                                                     # rebuilt on a loss
       node-search truncation, extenders              # extra_mask/score
       pass A: nominated pods as phantoms -> extra_mask
       assigned = ladder(batch)                       # tier, batch-cpu, greedy
@@ -63,12 +65,29 @@ APF shedding. Leader election fences every bind (``attach_elector``,
 (``on_stopped_leading``) and a new one reconciles against the relisted
 truth (``reconcile``) before its first cycle.
 
+Recovery (the reference's network and device faults): a bind that times
+out AMBIGUOUSLY (``faults.RPCTimeout``: the hub may have committed before
+the answer was lost) is never retried blind. With a ``pod_reader`` (a
+GET of the pod from the hub) it is resolved by read-your-write: adopted,
+requeued, or, when the GET is unreachable too, parked assumed without a
+TTL and re-probed every cycle and idle tick (``_handle_ambiguous_bind``,
+``_verify_ambiguous_binds``); without one it stays assumed until its TTL.
+The TTL reaper verifies expired assumptions the same way. A device error
+in the resident snapshot (a CUDA out-of-memory error, or the injected
+``snapshot:device`` faults) drops and rebuilds the resident table up to
+``recovery.device_reset_limit`` times a cycle; past that the cycles run
+in host mode (the host table uploaded whole every cycle, as
+``device_resident_snapshot=False`` does always) for
+``recovery.device_cooloff_s``, and ``is_degraded`` says so
+(``_device_snapshot_recovering``). A ``kernels.KernelError`` is never
+taken for a device loss. ``attach_auditor`` wires the state-conservation
+auditor (``obs/audit.py``).
+
 Not ported yet (ROADMAP): the scenario cascade and scenario packs
-(A.15), observability beyond the cycle trace and the metrics (journeys,
-the flight recorder, the perf and memory ledgers, the auditor that
-``_note_gone`` reports to, A.13), the ambiguous-bind protocol and
-device-loss recovery (A.14), and the mesh with its ``batch-single``
-tier (A.17).
+(A.15), observability beyond the cycle trace, the metrics and the
+auditor (journeys, the flight recorder, the perf and memory ledgers,
+A.13), and the mesh with its ``batch-single`` tier and the shard-loss
+harness (A.17).
 """
 
 from __future__ import annotations
@@ -97,6 +116,7 @@ from kubernetes_tpu_torch.faults import (
     STATE_CODE,
     CircuitBreaker,
     RetryPolicy,
+    RPCTimeout,
     SolverFault,
     SolverResultInvalid,
 )
@@ -170,6 +190,26 @@ from kubernetes_tpu_torch.volumes import VolumeBinder
 TIERS = ("batch", "sinkhorn", "greedy", "exact")
 
 
+class RecoveryTally:
+    """Process-wide running counts of device-loss recovery, over every
+    scheduler: resident-table resets (each also counts on its scheduler's
+    ``scheduler_recovery_device_resets_total``) and cycles that ran in
+    host mode. A caller that injects no fault can zero them before a run
+    and hold them at 0 after it, so a real device fault never passes as a
+    quiet fallback."""
+
+    def __init__(self) -> None:
+        self.device_resets = 0
+        self.host_cycles = 0
+
+    def reset(self) -> None:
+        self.device_resets = 0
+        self.host_cycles = 0
+
+
+RECOVERY = RecoveryTally()
+
+
 class Binder(Protocol):
     """The scheduler's only write — POST pods/{name}/binding."""
 
@@ -208,7 +248,10 @@ class CycleResult:
     solver_tier: str = ""
     #: tier-to-tier fallbacks taken this cycle
     solver_fallbacks: int = 0
-    #: how the cycle's snapshot was produced: full | delta | clean
+    #: how the cycle's snapshot was produced: full | delta | clean (the
+    #: resident table), "host" (the host table uploaded whole: the
+    #: device-loss cooloff, or device_resident_snapshot off), "" = the
+    #: cycle ended before the snapshot
     snapshot_mode: str = ""
     #: host clock seconds from the start of the solve to its readback
     solve_s: float = 0.0
@@ -336,8 +379,10 @@ class Scheduler:
         recovery: Optional[RecoveryConfig] = None,
         fault_injector=None,
         retry_sleep: Callable[[float], None] = time.sleep,
+        pod_reader: Optional[Callable[[str], Optional[Pod]]] = None,
         jitter_seed: Optional[int] = None,
         observability: Optional[ObservabilityConfig] = None,
+        device_resident_snapshot: bool = True,
         snapshot_max_dirty_frac: Optional[float] = None,
         warmup: Optional[WarmupConfig] = None,
     ) -> None:
@@ -371,15 +416,27 @@ class Scheduler:
         #: truth lister for takeover reconciliation (attach_elector):
         #: () -> iterable of truth Pods; None = local-only reconcile
         self._lister = None
-        #: the ambiguous-bind protocol's parked binds, ROADMAP A.14: the
-        #: port never parks one, so this stays empty; reconcile and the
-        #: stopped-leading drain clear it as the reference does
-        self._ambiguous_binds: Dict[str, object] = {}
+        #: host-mode snapshot window after a device-loss recovery ran out
+        #: of its per-cycle rebuild budget (a deadline on ``clock``; 0 =
+        #: the device is considered healthy)
+        self._device_cooloff_until = 0.0
+        #: keep the packed node table on the device across cycles (False:
+        #: host mode every cycle, the whole table uploaded each time)
+        self.device_resident_snapshot = device_resident_snapshot
+        #: hub GET for the ambiguous-bind read-your-write verification
+        #: (``key -> Pod | None``, raising on transport failure). None =
+        #: no reader: an ambiguous bind waits on the assume TTL instead
+        self.pod_reader = pod_reader
+        #: ambiguous binds whose verification GET was itself unreachable:
+        #: key -> (pod, node_name, cycle_state or None for a park the TTL
+        #: reap made). The pod stays ASSUMED (capacity held, no TTL) and
+        #: every cycle / idle tick re-probes (_verify_ambiguous_binds)
+        self._ambiguous_binds: Dict[str, Tuple] = {}
         #: serving doorbell (serving/doorbell.py) — None until a serving
         #: loop attaches one via attach_doorbell
         self.doorbell = None
-        #: state-conservation auditor (the reference's obs/audit.py,
-        #: ROADMAP A.13): None until it is ported; _note_gone reports to it
+        #: state-conservation auditor (obs/audit.py) — None until
+        #: attach_auditor; _note_gone reports legitimate exits to it
         self.auditor = None
         #: the ladder tier of the most recent cycle that solved ("" before
         #: the first) and its tier-to-tier fallbacks: is_degraded reads the
@@ -405,6 +462,18 @@ class Scheduler:
             max_retries=rc.transport_retries, base_s=rc.retry_backoff_base_s,
             max_s=rc.retry_backoff_max_s, jitter=rc.retry_jitter,
             seed=self._jitter_seed, sleep=retry_sleep)
+        #: bounded verification GETs per ambiguous bind, full jitter on the
+        #: same per-replica stream, offset so the two policies differ
+        self._bind_verify_retry = RetryPolicy(
+            max_retries=rc.bind_verify_retries,
+            base_s=rc.retry_backoff_base_s, max_s=rc.retry_backoff_max_s,
+            jitter=rc.retry_jitter, seed=self._jitter_seed + 1,
+            sleep=retry_sleep)
+        # the device-snapshot chaos seam rides the same injector as the
+        # solver and transport seams (duck-typed attach, like extenders)
+        if (fault_injector is not None
+                and getattr(self.cache, "fault_injector", "absent") is None):
+            self.cache.fault_injector = fault_injector
         #: HTTPExtender list (core/extender.go), called after the built-in
         #: filter pass for interested pods
         self.extenders = list(extenders)
@@ -549,6 +618,7 @@ class Scheduler:
         kw.setdefault("explain_top_k", cfg.observability.explain_top_k)
         kw.setdefault("pipeline_depth", cfg.pipeline_depth)
         kw.setdefault("pipeline_chunk", cfg.pipeline_chunk)
+        kw.setdefault("device_resident_snapshot", cfg.device_resident_snapshot)
         kw.setdefault("snapshot_max_dirty_frac", cfg.snapshot_max_dirty_frac)
         kw.setdefault("warmup", cfg.warmup)
         kw.setdefault("incremental", cfg.incremental)
@@ -623,6 +693,15 @@ class Scheduler:
     def on_pod_delete(self, pod: Pod) -> None:
         key = pod.key()
         self._note_gone(key)
+        # a parked ambiguous bind resolves by deletion: the pod is gone
+        # whatever the RPC did, and a park holds no TTL, so nothing else
+        # would free its capacity
+        parked = self._ambiguous_binds.pop(key, None)
+        if parked is not None and self.cache.is_assumed(key):
+            apod, anode, ast = parked
+            self.cache.forget_pod(key)
+            self.volume_binder.forget_pod_volumes(key)
+            self.framework.run_unreserve(ast or CycleState(), apod, anode)
         wp = self.framework.waiting.get(key)
         if wp is not None:
             # a Permit-parked pod is assumed and holds capacity
@@ -682,13 +761,30 @@ class Scheduler:
     def _note_gone(self, key: str) -> None:
         """A pod legitimately left the state machine (watch delete,
         responsible-to-not transition, terminating skip, reconcile drop):
-        tell the attached state-conservation auditor. The auditor and the
-        journey tracer the reference also closes here are ROADMAP A.13,
-        so ``self.auditor`` stays None until then and this is a no-op."""
+        tell the attached state-conservation auditor (no-op without one).
+        The journey tracer the reference also closes here is ROADMAP
+        A.13."""
         if self.auditor is not None:
             self.auditor.note_gone(key)
 
-    # -- crash / failover recovery -----------------------------------------
+    # -- crash / failover / device-loss recovery -----------------------------
+
+    def attach_auditor(self, auditor):
+        """Wire a state-conservation auditor (obs/audit.py): the scheduler
+        reports legitimate pod exits (watch deletes, terminating skips,
+        reconcile drops) via ``note_gone`` so the auditor's conservation
+        rule never counts an explained exit as a lost pod. Attaches
+        metrics / event sink / obs when the auditor has none. Returns the
+        auditor."""
+        self.auditor = auditor
+        if getattr(auditor, "metrics", "absent") is None:
+            auditor.metrics = self.metrics
+        if getattr(auditor, "event_sink", "absent") is None:
+            auditor.event_sink = (
+                lambda reason, obj, msg: self.event_sink(reason, obj, msg))
+        if getattr(auditor, "obs", "absent") is None:
+            auditor.obs = self.obs
+        return auditor
 
     def attach_elector(self, elector, lister=None):
         """Wire leader election into the scheduler's recovery protocol:
@@ -849,6 +945,7 @@ class Scheduler:
         self.cache.drop_device_snapshot()
         # warm-solve state summarizes a plane the old incarnation solved
         self._drop_incremental("takeover")
+        self._device_cooloff_until = 0.0
         epoch = getattr(self.fence, "epoch", 0) or 1
         self.metrics.recovery_takeovers.inc()
         if adopted:
@@ -885,14 +982,16 @@ class Scheduler:
     # -- the serve loop's hooks ----------------------------------------------
 
     def is_degraded(self) -> bool:
-        """Is the backend limping? True while the most recent solve had
-        to FALL THROUGH the ladder to reach a result, or while the
-        configured tier's circuit breaker is open. The fallback COUNT is
-        the signal, not the tier name: the exact solver deliberately
+        """Is the backend limping? True while the device is in its
+        post-loss cooloff (host-mode snapshots), while the most recent
+        solve had to FALL THROUGH the ladder to reach a result, or while
+        the configured tier's circuit breaker is open. The fallback COUNT
+        is the signal, not the tier name: the exact solver deliberately
         routes hazardous batches to the round solver as a healthy path.
         The reference also reads the perf ledger's SLO burn (ROADMAP
-        A.13) and a device cooloff after a device loss (A.14); the port
-        has neither yet."""
+        A.13); the port has no perf ledger yet."""
+        if self.clock() < self._device_cooloff_until:
+            return True
         if self.last_solver_fallbacks > 0:
             return True
         br = self._breakers.get(f"solver:{self.solver}")
@@ -929,12 +1028,13 @@ class Scheduler:
         Runs the periodic flushes (backoff-complete, unschedulable-
         leftover — each rings the doorbell when it moves pods), expires
         stale cache assumptions, and resolves Permit waits, but begins
-        no cycle: no trace, no solve, no metrics churn. The reference's
-        idle tick also verifies ambiguous binds (ROADMAP A.14), runs the
-        scenario repack (A.15) and ticks the perf and memory ledgers
-        (A.13); the port has none of those yet."""
+        no cycle: no trace, no solve, no metrics churn. It re-probes the
+        parked ambiguous binds as a cycle does. The reference's idle tick
+        also runs the scenario repack (A.15) and ticks the perf and
+        memory ledgers (A.13); the port has none of those yet."""
         self.queue.tick()
         self._reap_expired_assumptions()
+        self._verify_ambiguous_binds()
         res = CycleResult()
         self._process_waiting(res)
         if res.unschedulable or res.scheduled:
@@ -942,16 +1042,66 @@ class Scheduler:
             # reaches the metrics
             self._record_metrics(res)
 
+    def run_until_settled(self, max_cycles: int = 50) -> List[CycleResult]:
+        """Drive cycles until one neither attempts nor schedules a pod
+        (tests and the simulated cluster's harnesses); returns every
+        cycle's result, the settled one last."""
+        out = []
+        for _ in range(max_cycles):
+            r = self.schedule_cycle()
+            out.append(r)
+            if r.scheduled == 0 and r.attempted == 0:
+                break
+        return out
+
     # -- the cycle ---------------------------------------------------------
 
     def _reap_expired_assumptions(self) -> None:
-        """Drive cache TTL expiry: an assumption whose bind confirmation
-        never arrived frees its capacity and its pod requeues."""
+        """Drive cache TTL expiry and converge each expired pod.
+
+        An expired assumption is the SAME ambiguity class as a timed-out
+        bind: the commit very likely landed and only the watch
+        confirmation was lost. With a ``pod_reader`` the expiry resolves
+        by read-your-write verification — adopt a hub-confirmed binding,
+        requeue only when verified unbound, park (re-assumed, no TTL)
+        while the hub is unreachable — so the reap never blind-requeues a
+        pod whose retry would bind it a second time. Without a reader the
+        optimistic path remains: requeue, and if the pod IS bound (the
+        watch merely slow) the MODIFIED event deletes it from the queue."""
         expired = self.cache.pop_expired()
-        if expired:
-            self.metrics.cache_expired_assumptions.inc(len(expired))
+        if not expired:
+            return
+        self.metrics.cache_expired_assumptions.inc(len(expired))
         for p in expired:
             key = p.key()
+            if self.pod_reader is not None:
+                resolution = self._resolve_ambiguous_bind(p, p.node_name)
+                self.metrics.bind_ambiguous.inc(
+                    resolution=f"expired-{resolution or 'deferred'}")
+                if resolution == "adopted":
+                    # the hub HAS the binding: re-add it bound
+                    self.cache.add_pod(p)
+                    klog.V(2).info(
+                        "assumed pod %s expired but the hub confirms the "
+                        "binding to %s — adopted, not requeued", key,
+                        p.node_name)
+                    continue
+                if resolution is None:
+                    # verification unreachable too: park assumed (no TTL)
+                    # and re-probe each cycle / idle tick
+                    self.cache.assume_pod(p, p.node_name)
+                    self._ambiguous_binds[key] = (p, p.node_name, None)
+                    klog.warning("assumed pod %s expired and verification "
+                                 "is unreachable; parked assumed", key)
+                    continue
+                if resolution in ("conflict", "gone"):
+                    # deleted, recreated under a new uid, or bound by
+                    # another writer: drop the stale local copy; the
+                    # watch or a relist delivers the truth object
+                    self.volume_binder.forget_pod_volumes(key)
+                    self._note_gone(key)
+                    continue
+                # "requeued": verified unbound, safe to retry below
             klog.warning("assumed pod %s on %s expired (bind confirmation "
                          "never arrived within %.0fs); requeueing", key,
                          p.node_name, self.cache.ttl_s)
@@ -963,6 +1113,78 @@ class Scheduler:
                 f"{self.cache.ttl_s:.0f}s; capacity freed, pod requeued")
             if self.responsible_for(pending):
                 self.queue.add_if_not_present(pending)
+
+    def _device_snapshot_recovering(self):
+        """``cache.device_snapshot()`` with device-loss recovery: an error
+        from the resident path (a CUDA out-of-memory error, a lost card,
+        or the injected ``snapshot:device`` faults standing in for one)
+        drops the resident tensors and rebuilds them from the host mirror,
+        up to ``recovery.device_reset_limit`` times in a cycle; past that
+        the scheduler runs host-mode snapshots for
+        ``recovery.device_cooloff_s`` (the ladder meanwhile absorbs solve
+        failures), then probes the device again. Returns ``(table,
+        dev_or_None, mode)``: ``None`` and ``"host"`` on the fallback,
+        where the caller uploads the host table itself. A
+        ``kernels.KernelError`` is a kernel fault, not a device loss: it
+        propagates. An error that leaves the CUDA context unusable (an
+        illegal address, a device-side assert) is not recoverable in the
+        process; the rebuild then fails again and the cycle raises."""
+        if self.clock() < self._device_cooloff_until:
+            return self.cache.snapshot(), None, "host"
+        attempts = 0
+        while True:
+            try:
+                out = self.cache.device_snapshot()
+                if attempts:
+                    klog.V(2).info("device snapshot rebuilt after %d "
+                                   "reset(s)", attempts)
+                return out
+            except kernels.KernelError:
+                raise
+            except Exception as e:  # noqa: BLE001 — a device error
+                attempts += 1
+                self._note_device_reset("snapshot:device", e)
+                klog.warning("device snapshot failed (%s); dropping "
+                             "resident table (reset %d/%d)", e, attempts,
+                             self.recovery.device_reset_limit)
+                self.cache.drop_device_snapshot()
+                # the score summary died with the resident table; the
+                # potential carry must not survive the device either
+                self._drop_incremental("device-loss")
+                if attempts > self.recovery.device_reset_limit:
+                    self._device_cooloff_until = (
+                        self.clock() + self.recovery.device_cooloff_s)
+                    klog.warning("device snapshot rebuild budget "
+                                 "exhausted; host-mode snapshots for "
+                                 "%.1fs", self.recovery.device_cooloff_s)
+                    return self.cache.snapshot(), None, "host"
+
+    def _note_device_reset(self, site: str, e: Exception) -> None:
+        """Count one device reset: the scheduler's metric, the cycle's
+        trace (or the next one's, between cycles), the process tally."""
+        self.metrics.recovery_device_resets.inc()
+        self.obs.note_device_reset()
+        self.obs.note_oom_forensic(f"{site}:{type(e).__name__}")
+        RECOVERY.device_resets += 1
+
+    def _cycle_snapshot(self):
+        """The cycle's node snapshot: ``(table, dev, mode)`` with ``dev``
+        always on ``self.device``. The resident path (with device-loss
+        recovery), or host mode: the host table packed and uploaded whole
+        through the pinned non-blocking staging of ``ops/arrays.upload``,
+        at the resident table's padded shape, so the warmed round-loop
+        graphs serve host-mode cycles too."""
+        if self.device_resident_snapshot:
+            nt, dn, mode = self._device_snapshot_recovering()
+        else:
+            nt, dn, mode = self.cache.snapshot(), None, "host"
+        if dn is None:
+            dn = nodes_to_device(nt, device=self.device)
+            RECOVERY.host_cycles += 1
+        rows = nt.n if mode == "host" else self.cache.last_upload_rows
+        self.metrics.snapshot_packs.inc(mode=mode)
+        self.metrics.snapshot_rows_packed.inc(rows)
+        return nt, dn, mode
 
     def schedule_cycle(self, flush_trigger: str = "",
                        window_s: float = 0.0) -> CycleResult:
@@ -985,6 +1207,7 @@ class Scheduler:
             self.obs.note_microbatch(flush_trigger, window_s)
         self.queue.tick()
         self._reap_expired_assumptions()
+        self._verify_ambiguous_binds()
         self._process_waiting(res)
         batch = self.queue.pop_batch(self.max_batch)
         if not batch:
@@ -1027,7 +1250,7 @@ class Scheduler:
                 pk.intern_pod(p)
             for p, _ in nominated:
                 pk.intern_pod(p)
-            nt, dn, res.snapshot_mode = self.cache.device_snapshot()
+            nt, dn, res.snapshot_mode = self._cycle_snapshot()
             node_order = self.cache.node_order()
             pt = pk.pack_pods(batch)
             skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
@@ -2440,7 +2663,17 @@ class Scheduler:
         for p in sample:
             pk.intern_pod(p)
         if self.cache.nodes():
-            nt, dn, _mode = self.cache.device_snapshot()
+            if self.device_resident_snapshot:
+                nt, dn, _mode = self._device_snapshot_recovering()
+            else:
+                nt, dn = self.cache.snapshot(), None
+            if dn is None:
+                # host mode (cooling off, or not resident): warm on the
+                # host table at the padded shape a host-mode cycle
+                # uploads, which is the resident one's (one card, no
+                # mesh: the reference's separate host-fallback sweep has
+                # no other shape to warm here)
+                dn = nodes_to_device(nt, device=dev)
         elif node_count:
             # no cluster yet: a widths-complete zero-row table padded to
             # the caller's expected node bucket
@@ -2485,20 +2718,37 @@ class Scheduler:
                     compiled += self._warm_bucket(P, pk, sample, nt, dn, ds,
                                                   dt, solver, gates,
                                                   has_vol_sample, wu)
-                except (SolverFault, RuntimeError) as e:
-                    # a lost or out-of-memory device (injected or real):
-                    # stop with what warmed so far; the next cycle
-                    # rebuilds the resident table and the ladder absorbs
-                    # the outage. A KernelError propagates
-                    self.metrics.recovery_device_resets.inc()
-                    self.cache.invalidate_snapshot()
+                except kernels.KernelError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — a device error
+                    # a lost or out-of-memory device (injected, or a CUDA
+                    # error; warmup runs inside a takeover reconcile,
+                    # where crashing the new leader is the worst outcome):
+                    # stop with what warmed so far. The next cycle
+                    # rebuilds the resident table through
+                    # _device_snapshot_recovering, the ladder absorbs a
+                    # solve failure, and the next re-arm warms again
+                    self._note_device_reset("warmup:compile", e)
+                    self.cache.drop_device_snapshot()
                     self._drop_incremental("device-loss")
                     klog.warning("warmup aborted at bucket %d: %s", P, e)
                     return compiled
-            self._warm_delta_scatter(dn)
+            if self.device_resident_snapshot:
+                # the delta scatter runs only against a resident table
+                try:
+                    self._warm_delta_scatter(dn)
+                except kernels.KernelError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — a device error
+                    klog.warning("delta-scatter warmup aborted: %s", e)
             if self.incremental.enabled:
-                compiled += self._warm_incremental(buckets, pk, sample, nt,
-                                                   dn, ds, gates[0])
+                try:
+                    compiled += self._warm_incremental(buckets, pk, sample,
+                                                       nt, dn, ds, gates[0])
+                except kernels.KernelError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — a device error
+                    klog.warning("incremental warmup aborted: %s", e)
         captures = device_loop.CAPTURES.count - captures0
         if captures:
             self.metrics.graph_captures.inc(captures, phase="warmup")
@@ -2754,7 +3004,18 @@ class Scheduler:
             try:
                 binder.bind(pod, node_name)
             except Exception as e:  # noqa: BLE001 — binder boundary
-                return reject(f"BindError:{e}")
+                if not self._bind_ambiguous(e):
+                    # a definite failure: forget and retry
+                    return reject(f"BindError:{e}")
+                # the AMBIGUOUS class: the hub may have committed before
+                # the answer was lost. Never retried blind: resolved by
+                # read-your-write (adopt, requeue), parked when the GET
+                # is unreachable too, left to the TTL without a reader
+                verdict = self._handle_ambiguous_bind(pod, node_name, st,
+                                                      e, reject)
+                if verdict is not True:
+                    return bool(verdict)
+                # adopted: the bind did land — the normal success tail
         elif not bs.is_success():
             return reject(f"Bind:{bs.message}")
         self.metrics.binding_duration.observe(self.clock() - bt0)
@@ -2772,6 +3033,174 @@ class Scheduler:
         self._cycle_states.pop(pod.key(), None)
         self.event_sink("Scheduled", pod, node_name)
         return True
+
+    # -- the ambiguous-outcome bind protocol ----------------------------------
+
+    def _bind_ambiguous(self, e: Exception) -> bool:
+        """Is this bind failure the AMBIGUOUS class (the hub may have
+        committed before the answer was lost)? ``faults.RPCTimeout``
+        always is; a raw transport timeout (``socket.timeout`` /
+        ``TimeoutError``) is too, but only a scheduler WITH a reader can
+        do better than reject-and-requeue for it."""
+        if isinstance(e, RPCTimeout):
+            return True
+        return self.pod_reader is not None and isinstance(e, TimeoutError)
+
+    def _resolve_ambiguous_bind(self, pod: Pod, node_name: str):
+        """Read-your-write verification of an ambiguously timed-out bind:
+        GET the pod from the hub (bounded retries, full jitter on the
+        per-replica stream) and compare uid and nodeName.
+
+        Returns ``"adopted"`` (the hub HAS our binding — confirm, never
+        bind again), ``"requeued"`` (verified unbound — a retry through
+        the requeue path is safe), ``"conflict"`` (bound elsewhere or
+        recreated under a new uid), ``"gone"`` (deleted mid-bind),
+        ``"ttl-parked"`` (no reader — the assume TTL or the watch settles
+        it), or ``None`` when the GET itself stayed unreachable (the
+        caller parks the pod and re-probes later)."""
+        if self.pod_reader is None:
+            return "ttl-parked"
+        key = pod.key()
+        # the cycle deadline bounds IN-CYCLE verification; on the idle
+        # paths (parked re-probes, the TTL reap) the last cycle's deadline
+        # is stale and would zero the retry budget
+        deadline = self._cycle_deadline
+        if deadline is not None and self.clock() >= deadline:
+            deadline = None
+        try:
+            cur = self._bind_verify_retry.call(
+                lambda: self.pod_reader(key), deadline_s=deadline,
+                clock=self.clock)
+        except Exception as e:  # noqa: BLE001 — the hub GET boundary
+            klog.warning("ambiguous bind of %s -> %s: verification GET "
+                         "failed (%s); parking", key, node_name, e)
+            return None
+        if cur is None:
+            return "gone"
+        if getattr(cur, "uid", None) != pod.uid:
+            return "conflict"
+        if cur.node_name == node_name:
+            return "adopted"
+        if cur.node_name:
+            return "conflict"
+        return "requeued"
+
+    def _handle_ambiguous_bind(self, pod: Pod, node_name: str, st,
+                               exc: Exception, reject) -> object:
+        """Resolve one in-cycle ambiguous bind timeout. Returns ``True``
+        when the hub turned out to have committed (the caller proceeds to
+        the success tail), ``False`` when the pod was requeued, parked or
+        dropped here."""
+        key = pod.key()
+        self.obs.note_ambiguous_bind()
+        resolution = self._resolve_ambiguous_bind(pod, node_name)
+        self.metrics.bind_ambiguous.inc(resolution=resolution or "deferred")
+        if resolution is None:
+            # the hub is unreachable for verification too: the pod stays
+            # ASSUMED (capacity held, NO TTL — a TTL reap would requeue
+            # and risk a second bind) and every cycle / idle tick
+            # re-probes until the hub answers
+            klog.warning("bind of %s -> %s timed out ambiguously and "
+                         "verification is unreachable; parked assumed",
+                         key, node_name)
+            self._ambiguous_binds[key] = (pod, node_name, st)
+            self._cycle_states.pop(key, None)
+            return False
+        if resolution == "adopted":
+            klog.V(2).info("ambiguous bind of %s -> %s resolved: the hub "
+                           "committed — adopted, not bound again", key,
+                           node_name)
+            return True
+        if resolution == "ttl-parked":
+            # no reader: arm the assume TTL; the watch MODIFIED confirms
+            # a committed bind, the TTL reap requeues an uncommitted one
+            self.cache.finish_binding(key)
+            self._cycle_states.pop(key, None)
+            return False
+        if resolution == "requeued":
+            reject(f"BindAmbiguous:verified not committed ({exc})")
+            return False
+        # conflict / gone: the forget-and-requeue path of a definite bind
+        # error; the watch (or a reconcile) drops stale queue entries
+        reject(f"BindError:ambiguous bind resolved as {resolution}: {exc}")
+        return False
+
+    def _verify_ambiguous_binds(self) -> None:
+        """Re-probe every parked ambiguous bind (the cycle's head and the
+        idle tick): the watch may have settled it meanwhile (a confirmed
+        add), else the verification GET is retried and the pod adopted or
+        requeued exactly like the in-cycle resolution."""
+        if not self._ambiguous_binds:
+            return
+        res = CycleResult()
+        resolved = False
+        for key, (pod, node_name, st) in list(self._ambiguous_binds.items()):
+            # st is None only for a park the TTL reap made: that pod's
+            # original bind already ran the success tail, so an adoption
+            # confirms the cache and nothing else, and its verdicts keep
+            # the expired-* labels
+            reap_origin = st is None
+            watch_settled = not self.cache.is_assumed(key)
+            if watch_settled:
+                # the watch answered first (a delete pops the park in
+                # on_pod_delete, a reconcile clears parks wholesale, so
+                # a confirmed add is the only live way here); an in-cycle
+                # park still owes the success tail its bind never reached
+                del self._ambiguous_binds[key]
+                if self.cache.pod(key) is None:
+                    continue
+                resolution = "adopted"
+            else:
+                resolution = self._resolve_ambiguous_bind(pod, node_name)
+                if resolution is None:
+                    continue  # the hub is still unreachable: stay parked
+                del self._ambiguous_binds[key]
+            self.metrics.bind_ambiguous.inc(
+                resolution=(f"expired-{resolution}" if reap_origin
+                            else resolution))
+            resolved = True
+            st = st or CycleState()
+            if resolution == "ttl-parked":
+                # the reader went away: back to TTL semantics
+                self.cache.finish_binding(key)
+                continue
+            if resolution == "adopted":
+                if not watch_settled:
+                    # the GET is hub truth like a relist: confirm the
+                    # binding outright, never arm a TTL whose reap would
+                    # requeue a pod the hub provably bound
+                    self.cache.add_pod(self.cache.pod(key) or pod)
+                if reap_origin:
+                    klog.V(2).info("parked expired assumption of %s -> %s "
+                                   "resolved: adopted", key, node_name)
+                    continue
+                self.queue.nominated.delete(pod)
+                self.metrics.pod_scheduling_attempts.observe(
+                    self.queue.backoff_map.attempts(key) + 1)
+                self.queue.backoff_map.clear_pod(key)
+                self.why_pending.pop(key, None)
+                res.scheduled += 1
+                res.assignments[key] = node_name
+                res.e2e_latency_s[key] = max(
+                    self.clock() - getattr(pod, "queued_at", self.clock()),
+                    0.0)
+                self.framework.run_postbind(st, pod, node_name)
+                self.event_sink("Scheduled", pod, node_name)
+                klog.V(2).info("parked ambiguous bind of %s -> %s "
+                               "resolved: adopted", key, node_name)
+                continue
+            self.cache.forget_pod(key)
+            self.volume_binder.forget_pod_volumes(key)
+            self.framework.run_unreserve(st, pod, node_name)
+            res.bind_errors += 1
+            if resolution == "requeued":
+                reasons = ("BindAmbiguous:verified not committed",)
+            else:
+                reasons = ("BindError:ambiguous bind resolved as "
+                           f"{resolution}",)
+            self._fail(pod, self.queue.scheduling_cycle, res, reasons)
+        if resolved:
+            self._record_metrics(res)
 
     def _process_waiting(self, res: CycleResult) -> None:
         """Resolve Permit waits: allowed pods proceed to binding; rejected

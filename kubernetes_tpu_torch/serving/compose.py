@@ -19,8 +19,9 @@ What composing changes (vs. the pieces in isolation):
   on the hot path;
 - **APF shedding**: the mutating flow's saturation probe is
   :meth:`Scheduler.backend_pressure` — active-queue depth INFLATED
-  while the ladder runs degraded — not bare queue length, so a limping
-  backend sheds earlier at the same depth;
+  while the ladder runs degraded or the device cools off after a loss —
+  not bare queue length, so a limping backend sheds earlier at the same
+  depth;
 - **takeover**: ``attach_elector`` chains the scheduler's recovery
   callbacks (fenced binds, reconcile, stopped-leading drain) AND the
   watch hub's relist eviction — watchers of a deposed or newly-elected
@@ -28,10 +29,13 @@ What composing changes (vs. the pieces in isolation):
   two leaderships — and :meth:`gate` runs the elector tick under the
   loop's ingest lock.
 
-Not ported yet: the reference's mesh branch (ROADMAP A.17), the perf
-ledger's SLO watchdog and the state-conservation auditor (A.13; a
-configuration that asks for the auditor is refused by
-``cli.unported_features``).
+- **auditing**: with ``observability.audit_interval_s`` > 0 the runtime
+  attaches the state-conservation auditor (``obs/audit.py``) and runs
+  its structural sweep as a maintenance hook between loop iterations,
+  under the ingest lock (:meth:`maybe_audit`).
+
+Not ported yet: the reference's mesh branch (ROADMAP A.17) and the perf
+ledger's SLO watchdog (A.13).
 """
 
 from __future__ import annotations
@@ -100,8 +104,51 @@ class ServingRuntime:
         # -- watch fan-out -------------------------------------------------
         self.hub = WatchHub(buffer=self.config.watch_buffer,
                             metrics=sched.metrics)
-        #: the state-conservation auditor is ROADMAP A.13
+        # -- state-conservation auditor (obs/audit.py) ---------------------
+        #: runs the structural invariants (multi-state, capacity,
+        #: truthless conservation) every ``observability.
+        #: audit_interval_s`` seconds BETWEEN loop iterations, under the
+        #: ingest lock (never mid-cycle). 0 = off (the default: chaos
+        #: harnesses attach their own)
         self.auditor = None
+        obs_cfg = getattr(sched, "observability", None)
+        self._audit_interval = float(
+            getattr(obs_cfg, "audit_interval_s", 0.0) or 0.0)
+        self._next_audit = 0.0
+        if self._audit_interval > 0:
+            from kubernetes_tpu_torch.obs.audit import StateAuditor
+
+            self.auditor = sched.attach_auditor(StateAuditor())
+            self.add_maintenance(self.maybe_audit)
+
+    def add_maintenance(self, fn: Callable[[], object]) -> Callable:
+        """CHAIN a per-iteration maintenance hook onto the serving loop
+        (run between run_once iterations, never mid-cycle): hooks compose
+        on one runtime without knowing about each other and run in
+        attachment order. Returns ``fn``."""
+        prev = self.loop.maintenance
+
+        def chained() -> None:
+            if prev is not None:
+                prev()
+            fn()
+
+        self.loop.maintenance = chained
+        return fn
+
+    def maybe_audit(self) -> int:
+        """The low-frequency state-conservation sweep: run the structural
+        invariants when the interval elapsed, under the ingest lock so
+        producers and leadership side-effects are quiesced. Returns the
+        violations found this call (0 = clean or not due yet)."""
+        if self.auditor is None:
+            return 0
+        now = self.clock()
+        if now < self._next_audit:
+            return 0
+        self._next_audit = now + self._audit_interval
+        with self.loop.lock:
+            return len(self.auditor.audit(self.sched))
 
     def shed_bound(self) -> int:
         """The mutating flow's pressure bound: configured, or auto =

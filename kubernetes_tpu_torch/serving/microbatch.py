@@ -177,9 +177,12 @@ class ServingLoop:
         #: ingest through this lock (use :meth:`ingest`). Doorbell waits
         #: happen OUTSIDE it — feeding never blocks on a solve's wall
         #: time, only on its critical sections. (The reference builds it
-        #: through the scheduler's lock sanitizer and runs a maintenance
-        #: hook between iterations for its auditor: ROADMAP A.13.)
+        #: through the scheduler's lock sanitizer: ROADMAP A.13.)
         self.lock = threading.RLock()
+        #: per-iteration maintenance hook run by :meth:`run` BETWEEN
+        #: run_once iterations (never mid-cycle): the composed runtime
+        #: parks its low-frequency state-conservation audit here
+        self.maintenance: Optional[Callable[[], None]] = None
 
     def ingest(self, fn, *args, **kwargs):
         """Run an event-feed callable (scheduler.on_pod_add, ...) under
@@ -229,3 +232,5 @@ class ServingLoop:
             if gate is not None and not gate():
                 continue
             self.run_once()
+            if self.maintenance is not None:
+                self.maintenance()

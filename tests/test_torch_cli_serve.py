@@ -23,11 +23,16 @@ import pytest
 
 from kubernetes_tpu_torch import cli
 from kubernetes_tpu_torch.config import (
+    IncidentsConfig,
+    JourneysConfig,
     KubeSchedulerConfiguration,
     LeaderElectionConfig,
+    LedgerConfig,
     ObservabilityConfig,
+    ParallelConfig,
     RecoveryConfig,
     RobustnessConfig,
+    ScenarioConfig,
     ServingConfig,
 )
 from kubernetes_tpu_torch.scheduler import Scheduler
@@ -206,6 +211,11 @@ def test_serving_run_takes_the_lease_binds_and_releases(monkeypatch,
     ("recovery", RecoveryConfig(reconcile_on_takeover=False,
                                 release_lease_on_shutdown=False)),
     ("robustness", RobustnessConfig(watch_progress_deadline_s=7.0)),
+    ("recovery", RecoveryConfig(device_reset_limit=4)),
+    ("recovery", RecoveryConfig(device_cooloff_s=1.0)),
+    ("robustness", RobustnessConfig(bind_verify_retries=5)),
+    ("observability", ObservabilityConfig(audit_interval_s=5.0)),
+    ("device_resident_snapshot", False),
 ])
 def test_serving_and_leadership_settings_are_ported(field, value):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})
@@ -214,11 +224,14 @@ def test_serving_and_leadership_settings_are_ported(field, value):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("recovery", RecoveryConfig(device_reset_limit=4), "A.14"),
-    ("recovery", RecoveryConfig(device_cooloff_s=1.0), "A.14"),
-    ("robustness", RobustnessConfig(bind_verify_retries=5), "A.14"),
-    ("observability", ObservabilityConfig(audit_interval_s=5.0), "A.13"),
-    ("device_resident_snapshot", False, "A.14"),
+    ("parallel", ParallelConfig(mesh=4), "A.17"),
+    ("scenario", ScenarioConfig(pack="consolidation"), "A.15"),
+    ("observability", ObservabilityConfig(
+        journeys=JourneysConfig(enabled=False)), "A.13"),
+    ("observability", ObservabilityConfig(
+        ledger=LedgerConfig(enabled=False)), "A.13"),
+    ("observability", ObservabilityConfig(
+        incidents=IncidentsConfig(enabled=False)), "A.13"),
 ])
 def test_unported_settings_stay_refused(field, value, item):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})

@@ -186,10 +186,10 @@ def test_cli_validate_only_exit_codes(tmp_path, capsys, doc, rc, line):
     ({"parallel": {"mesh": "auto"}}, "A.17"),
     ({"scenario": {"pack": "consolidation"}}, "A.15"),
     ({"observability": {"journeys": {"enabled": False}}}, "A.13"),
-    ({"observability": {"audit_interval_s": 5.0}}, "A.13"),
-    ({"device_resident_snapshot": False}, "A.14"),
-    ({"recovery": {"device_reset_limit": 4}}, "A.14"),
-    ({"robustness": {"bind_verify_retries": 5}}, "A.14"),
+    ({"observability": {"ledger": {"enabled": False}}}, "A.13"),
+    ({"observability": {"incidents": {"enabled": False}}}, "A.13"),
+    ({"observability": {"memory_ledger": {"enabled": False}}}, "A.13"),
+    ({"parallel": {"mesh": 2}}, "A.17"),
 ])
 def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
     """A valid configuration that turns on something the port does not
@@ -207,6 +207,40 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
     cfg = PORT.cli.load_config_file(str(f))
     with pytest.raises(PORT.cli.ConfigError, match=f"ROADMAP {item}"):
         Scheduler.from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("doc, field, want", [
+    ({"device_resident_snapshot": False}, "device_resident_snapshot", False),
+    ({"recovery": {"device_reset_limit": 4}}, "recovery.device_reset_limit",
+     4),
+    ({"recovery": {"device_cooloff_s": 2.5}}, "recovery.device_cooloff_s",
+     2.5),
+    ({"robustness": {"bind_verify_retries": 5}},
+     "robustness.bind_verify_retries", 5),
+    ({"observability": {"audit_interval_s": 5.0}},
+     "observability.audit_interval_s", 5.0),
+])
+def test_recovery_settings_are_accepted_like_the_reference(tmp_path, capsys,
+                                                           doc, field, want):
+    """The recovery paths are ported (the ambiguous-bind protocol,
+    device-loss recovery with host mode, the auditor's sweep): their
+    settings validate as in the reference and reach the scheduler."""
+    f = tmp_path / "cfg.json"
+    f.write_text(json.dumps(doc))
+    outs = []
+    for m in (REF, PORT):
+        got = m.cli.main(["--validate-only", "--config", str(f)])
+        cap = capsys.readouterr()
+        outs.append((got, cap.out, cap.err))
+    assert outs[1] == outs[0] and outs[1][0] == 0
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    cfg = PORT.cli.load_config_file(str(f))
+    sched = Scheduler.from_config(cfg, device="cpu")
+    got = sched
+    for name in field.split("."):
+        got = getattr(got, name)
+    assert got == want
 
 
 def test_watch_progress_deadline_is_accepted_like_the_reference(tmp_path,
