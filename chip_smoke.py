@@ -26,8 +26,12 @@ non-zero if any fails:
    cycle pipelines in 2 chunks at the defaults, the 1808-pod one does
    not);
 4. the plan path: ``Scheduler(solver="sinkhorn")`` on the same cluster
-   with 4096 pending pods, then the tied-preferences workload through
-   the default auto-router;
+   with 4096 pending pods (one Sinkhorn stats sample a cycle, riding the
+   solve's readback, on the flight record and in
+   ``scheduler_sinkhorn_iterations``), the same path reduced (500 nodes,
+   1024 pods) on the card and on CPU tensors with equal placements and
+   stats (the residual within atol 1e-5 / rtol 1e-4), then the
+   tied-preferences workload through the default auto-router;
 5. the topology path at full width, cell ``topo-5k-mixed``: the same
    cluster with 10,000 pending pods mixing preferred zones, hostname pod
    anti-affinity, zone pod affinity, and hard and soft topology spread,
@@ -51,15 +55,24 @@ non-zero if any fails:
    deletes and 16-128 new pods (restricted to 256 candidate columns), a
    node added mid-run (partitioned again) and a last cycle whose misfit
    pod sends the cycle to the dense ladder; checked by the exact scope
-   sequence, the capacity re-check and the misfit's FitError;
+   sequence, the capacity re-check, the misfit's FitError and the
+   incremental metric families (a count per cycle by scope, the reuse
+   gauge, the warm state's drops);
 9. the pipelined cycle executor at full width, cell ``pipeline-5k-30k``
    (the reference bench's headline: 5000 nodes, 1000 bound, 30,000
    pending smoke pods in batches of 8192, each cycle in 2 chunks of at
    most 4096), at depth 2 and at depth 1: every chunk's dispatch runs
-   under ``torch.cuda.set_sync_debug_mode("error")``, each cycle's host
-   syncs are bounded by its chunks, explain readbacks and router
-   decisions, and the spans' host seconds (pack, dispatch, readback,
-   bind), rounds and pods/s are printed; then one profiled pipelined
+   under ``torch.cuda.set_sync_debug_mode("error")`` (at depth 2 the
+   whole cycle does, the observability facade at its defaults), each
+   cycle's host syncs are bounded by its chunks, explain readbacks and
+   router decisions, and the spans' host seconds (pack, dispatch,
+   readback, bind), rounds and pods/s are printed; at depth 2 every cycle
+   leaves one flight record whose spans are its trace's and whose
+   readback bytes are the bytes ``ops/sync.to_host`` moved, with no
+   retrace or graph capture after the first cycle; the depth-2 run again
+   with the facade and the journeys off must place and sync alike (both
+   runs' cycle seconds printed: the facade's host cost); then one
+   profiled pipelined
    cycle (the device's idle share) and a reduced run (500 nodes, 3000
    pods, chunks of 512) whose depth-2, depth-3 and CPU placements must
    agree. The device round loop (``csrc/graph_loop.cu``) is then held
@@ -93,7 +106,13 @@ non-zero if any fails:
    lock for 30 s: every created pod binds exactly once, no graph is
    captured after warmup, every flush is bucket-fill or max-wait, one
    mid-run cycle runs clean under ``torch.cuda.set_sync_debug_mode(
-   "error")`` and one is profiled; arm C floods creates for 10 s through
+   "error")`` and one is profiled; a ``soak.SoakEngine`` attached for the
+   arm runs the churn as a traffic phase between clean phases, and its
+   leak sentinels' growth verdict must find no leak; every bound pod
+   closes its journey (create-to-bind p50 / p99 printed beside the
+   cycle results'), and ``/debug/flightrecorder``, ``/debug/journeys``
+   (``?pod=`` one bound pod's timeline), ``/debug/soak`` and the
+   unschedulable families on ``/metrics`` answer; arm C floods creates for 10 s through
    the runtime's mutating APF flow (sheds, every admitted pod bound);
    arm B is the legacy fixed-interval loop (``--cycle-interval 0.25``)
    for 20 s; arm D fails over between two ServingRuntimes on one lock and
@@ -101,7 +120,9 @@ non-zero if any fails:
    0.5 s), the leader killed at 8 s by ``chaos.KillingBinder`` just
    after a bind's CAS committed (no release, the torn cycle's binds
    never relayed to the standby): zero double binds, the standby's
-   reconcile adopts every torn bind, and it binds the rest; arm E runs ``python -m
+   reconcile adopts every torn bind, and it binds the rest, both
+   replicas observe the Sinkhorn families and a standby record carries
+   the takeover; arm E runs ``python -m
    kubernetes_tpu_torch`` as a process (``/healthz``, ``/metrics``, the
    lock file, rc 0 on SIGTERM) and 128 extender POSTs whose answers
    equal the same scheduler's on CPU tensors;
@@ -111,9 +132,10 @@ non-zero if any fails:
    5000 smoke-cell nodes, a DaemonSet (a pod per node), 2500 pods of
    Deployments and zone-preferring bare pods, a Job of 500 and a
    StatefulSet of 5 (the pod count cut, ``HOLLOW_FULL``); it steps until
-   every pod is bound, then 10 churn steps (pods killed, nodes removed,
-   50 kubelets killed and healed), ``check_consistency`` after every
-   step, one step profiled; the same traffic at 500 nodes and 3000 pods
+   every pod is bound, then 4 churn steps of 320 s (pods killed, nodes
+   removed, 50 kubelets killed, their pods evicted, healed),
+   ``check_consistency`` after every step, one step profiled; the same
+   traffic at 500 nodes and 3000 pods
    must give the same truth step by step on the card and on CPU tensors;
    arm B serves the hub over ``restapi.RestServer`` on 127.0.0.1 and
    feeds a second scheduler (``Scheduler.from_config``, ``solver:
@@ -127,8 +149,10 @@ non-zero if any fails:
    reordering watch, a relist storm) on a ``sim.HollowCluster`` of the
    smoke cell's 5000 nodes and 10,000 pending pods, once with the default
    solver and once with ``solver: sinkhorn``: every pod bound, no
-   double-bind attempt, no auditor violation, nothing leaked or parked;
-   the same at 500 nodes x 1000 pods on the card and on CPU tensors must
+   double-bind attempt, no auditor violation, nothing leaked or parked,
+   the flight records' ambiguous binds and violations the harness's
+   counts; the same at 500 nodes x 1000 pods on the card and on CPU
+   tensors must
    give equal reports. Arm B, cell ``devloss-5k``: six cycles of 1024 pods
    on the smoke cluster through ``Scheduler.from_config`` (recovery
    {deviceResetLimit: 2, deviceCooloff: 30s}, warmup) while the
@@ -136,7 +160,9 @@ non-zero if any fails:
    mode through the cooloff, resident again after it; the same with
    ``device_oom``), with ``deviceResidentSnapshot: false``, and after a
    warmup that lost the device: every cycle places as a fault-free
-   twin's, resets equal the faults injected, no graph is captured after
+   twin's, resets equal the faults injected (and the flight records'
+   device resets with their forensic flags, the aborted warmup's flag
+   parked for the next record), no graph is captured after
    warmup and every cycle runs under sync-debug ``error``; the
    allocator's bytes around each drop of the resident table. Arm C, cell
    ``ha-5k``: two ``chaos.HAReplica`` on one hub of 5000 nodes, 2000 pods
@@ -144,7 +170,8 @@ non-zero if any fails:
    every pod exactly once. No other phase may reset the device or run a
    host-mode cycle.
 
-Lines of JSON report each phase; the line before the last lists every
+Lines of JSON report each phase, then the whole run's seconds and each
+phase's (``"phase": "total"``); the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path, the preempt cell, the sparse cell, the
 pipeline cell, the configured scheduler's arm A, the serve loop's
@@ -884,12 +911,24 @@ def phase_plan() -> dict:
                  f"{r.solver_fallbacks} fallbacks")
     recheck_capacity(nodes, bound, assignments,
                      {p.key(): p for p in pending})
+    # the convergence stats rode every cycle's solve readback: one sample
+    # a cycle, on the flight record and in the two families
+    stats = [(rec.sinkhorn_iters, rec.sinkhorn_residual)
+             for rec in sched.obs.recorder.records()]
+    m = sched.metrics
+    if (len(stats) != len(results) or any(i < 0 for i, _ in stats)
+            or m.sinkhorn_iterations.count() != len(results)):
+        fail(f"plan: Sinkhorn stats {stats}, "
+             f"{m.sinkhorn_iterations.count()} samples for {len(results)} "
+             "cycles")
     emit({"phase": "plan", "solver": "sinkhorn", "nodes": len(nodes),
           "pending": len(pending), "scheduled": len(assignments),
           "cycle_s": [r.elapsed_s for r in results],
           "rounds": [r.rounds for r in results],
           "host_syncs": [r.host_syncs for r in results],
-          "launches": launches})
+          "sinkhorn_stats": stats, "launches": launches})
+    del sched
+    emit({"phase": "plan-stats", **plan_stats_parity()})
 
     # the tied-preferences workload through the DEFAULT auto-router
     t_nodes, t_pods, points = tied_preferences_workload()
@@ -920,6 +959,36 @@ def phase_plan() -> dict:
         fail(f"tied: auto-router quality {quality}")
     emit({"phase": "plan-tied", "quality_points": quality})
     return {"launches": launches, "cycles": len(results), "shapes": shapes}
+
+
+def plan_stats_parity() -> dict:
+    """The plan path reduced (500 nodes, 100 bound, 1024 pending) through
+    ``Scheduler(solver="sinkhorn")`` on the card and on CPU tensors: the
+    placements equal, ``scheduler_sinkhorn_iterations`` equal sample for
+    sample, ``scheduler_sinkhorn_final_residual`` within atol 1e-5 / rtol
+    1e-4 (the Sinkhorn tolerance of tests/test_torch_sinkhorn.py)."""
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        nodes, bound, pending = smoke_cell(500, 100, 1024, seed=3)
+        sched = Scheduler(solver="sinkhorn", device=dev)
+        results = drive(sched, nodes, bound, pending)
+        m = sched.metrics
+        got[dev] = ([r.assignments for r in results],
+                    m.sinkhorn_iterations.expose(),
+                    m.sinkhorn_residual.value())
+    (a_c, it_c, res_c), (a_h, it_h, res_h) = got["cuda"], got["cpu"]
+    if a_c != a_h:
+        fail("plan/stats: the card placed unlike the CPU")
+    if it_c != it_h or not it_c:
+        fail(f"plan/stats: iterations {it_c} on the card, {it_h} on CPU")
+    if abs(res_c - res_h) > 1e-5 + 1e-4 * abs(res_h):
+        fail(f"plan/stats: final residual {res_c} on the card, {res_h} on "
+             "CPU")
+    return {"nodes": 500, "pending": 1024, "cycles": len(a_c),
+            "sinkhorn_iterations": it_c[-2:], "residual_cuda": res_c,
+            "residual_cpu": res_h, "equal": True}
 
 
 def topo_cell(n_nodes=5000, n_bound=1000, n_pending=10000, seed=7,
@@ -1543,13 +1612,15 @@ def _route_declines():
     return Declines()
 
 
-def run_sparse(solver, device="cuda", candidate_bucket=256, **traffic):
+def run_sparse(solver, device="cuda", candidate_bucket=256, keep=None,
+               **traffic):
     """Drive ``sparse_traffic`` through ``Scheduler(device=..., incremental=
     IncrementalConfig(enabled=True, primary=True, ...))`` with preemption
     off (the sinkhorn arm with warm potentials at tolerance 1e-3). Every
     bind is confirmed by the watch's add right after its cycle, as the
     API server would. Returns ``(results, wall seconds per cycle, the
-    cell, the final pod -> node map, the routes' decline warnings)``."""
+    cell, the final pod -> node map, the routes' decline warnings)``;
+    ``keep`` (a dict) receives the scheduler under ``"sched"``."""
     import logging
     import random
 
@@ -1565,6 +1636,8 @@ def run_sparse(solver, device="cuda", candidate_bucket=256, **traffic):
     # is on the same clock as the cycle walls measured here
     sched = Scheduler(device=device, solver=solver, enable_preemption=False,
                       incremental=inc, clock=time.perf_counter)
+    if keep is not None:
+        keep["sched"] = sched
     cell = sparse_traffic(**traffic)
     nodes, bound, cycles, _scopes, _misfit = cell
     for nd in nodes:
@@ -1585,6 +1658,35 @@ def run_sparse(solver, device="cuda", candidate_bucket=256, **traffic):
         port_log.removeHandler(declines)
     return (results, walls, cell, {k: p.node_name for k, p in placed.items()},
             declines.messages)
+
+
+def sparse_families(solver, sched, results) -> dict:
+    """The incremental families (and, on the sinkhorn arm, the Sinkhorn
+    ones) have the samples the run's cycles give them: one count per
+    cycle by its solve scope, the reuse gauge at the last cycle's
+    fraction, the warm state's drops counted. Returns their samples."""
+    m = sched.metrics
+    scopes: dict = {}
+    for r in results:
+        scopes[r.solve_scope] = scopes.get(r.solve_scope, 0) + 1
+    for scope, n in scopes.items():
+        if m.incremental_cycles.value(scope=scope) != n:
+            fail(f"sparse/{solver}: scheduler_incremental_cycles_total"
+                 f"{{scope={scope!r}}} is not its {n} cycles")
+    if m.incremental_reuse_fraction.value() != results[-1].reuse_frac:
+        fail(f"sparse/{solver}: the reuse gauge reads "
+             f"{m.incremental_reuse_fraction.value()}")
+    out = {"incremental_cycles": m.incremental_cycles.expose(),
+           "incremental_invalidations":
+           m.incremental_invalidations.expose()}
+    if not out["incremental_invalidations"]:
+        fail(f"sparse/{solver}: the node add dropped no warm state")
+    if solver == "sinkhorn":
+        out["sinkhorn_iterations_count"] = m.sinkhorn_iterations.count()
+        out["sinkhorn_final_residual"] = m.sinkhorn_residual.value()
+        if not out["sinkhorn_iterations_count"]:
+            fail("sparse/sinkhorn: no Sinkhorn convergence sample")
+    return out
 
 
 def _drive_sparse(sched, cycles, placed, rng, results, walls, on_card):
@@ -1649,8 +1751,10 @@ def phase_sparse() -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
-        results, walls, cell, final, declines = run_sparse(solver)
+        box: dict = {}
+        results, walls, cell, final, declines = run_sparse(solver, keep=box)
         torch.cuda.synchronize()
+        families = sparse_families(solver, box.pop("sched"), results)
         launches = launch_counts()
         arm_shapes = launch_shapes()
         nodes, bound, traffic, want_scopes, misfit = cell
@@ -1711,6 +1815,7 @@ def phase_sparse() -> dict:
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
               "launches": launches, "shapes": {
                   k: v for k, v in arm_shapes.items() if v},
+              "metric_families": families,
               "recheck": "capacity clean"})
         for k, v in launches.items():
             total[k] += v
@@ -1808,27 +1913,74 @@ def _span_sums(trace) -> dict:
 
 
 def run_pipeline(depth: int, cell=None, chunk: int = 4096, device="cuda",
-                 check: bool = True):
+                 check: bool = True, facade: list = None, **kw):
     """One run of the cell through ``Scheduler(device=..., pipeline_depth=
-    depth, pipeline_chunk=chunk)`` until the queue drains. Returns the
-    per-cycle results, the router reads per cycle and the dispatch
-    check."""
+    depth, pipeline_chunk=chunk, **kw)`` until the queue drains. Returns
+    the per-cycle results, the router reads per cycle and the dispatch
+    check. With ``facade`` (a list), every whole cycle runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` and ``facade`` receives,
+    per cycle, the observability facade's flight record (None when it
+    recorded none), its trace's spans and the bytes ``ops/sync.to_host``
+    moved in the cycle."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.sync import SYNCS
     from kubernetes_tpu_torch.scheduler import Scheduler
 
     nodes, bound, pending = cell if cell is not None else pipeline_cell()
     sched = Scheduler(device=device, pipeline_depth=depth,
-                      pipeline_chunk=chunk)
+                      pipeline_chunk=chunk, **kw)
     dc = DispatchCheck(sched) if check else None
     feed(sched, nodes, bound, pending)
     results, reads = [], []
     for _ in range(16):
         n0 = len(dc.reads) if dc else 0
-        r = sched.schedule_cycle()
+        n_rec = sched.obs.recorder.recorded
+        moved = SYNCS.d2h_bytes
+        if facade is not None:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            r = sched.schedule_cycle()
+        finally:
+            if facade is not None:
+                torch.cuda.set_sync_debug_mode(0)
         if r.attempted == 0:
             break
         results.append((r, _span_sums(sched.obs.last_trace)))
         reads.append(sum(dc.reads[n0:]) if dc else 0)
+        if facade is not None:
+            rec = (sched.obs.recorder.records()[-1]
+                   if sched.obs.recorder.recorded > n_rec else None)
+            facade.append((rec, sched.obs.last_trace.span_durations(),
+                           SYNCS.d2h_bytes - moved))
     return results, reads, dc
+
+
+def check_facade(tag: str, results, facade) -> dict:
+    """The observability facade on a pipelined run: one flight record per
+    eventful cycle, its spans the cycle trace's, its readback bytes the
+    bytes ``to_host`` moved in the cycle, no signature retrace and no
+    graph capture after the first cycle. Returns the summary."""
+    for k, ((r, _), (rec, spans, moved)) in enumerate(zip(results, facade)):
+        if rec is None:
+            fail(f"{tag}: cycle {k + 1} left no flight record")
+        if rec.spans != spans:
+            fail(f"{tag}: cycle {k + 1}'s record spans {sorted(rec.spans)} "
+                 f"differ from its trace's {sorted(spans)}")
+        if rec.readback_bytes != moved:
+            fail(f"{tag}: cycle {k + 1} records {rec.readback_bytes} "
+                 f"readback bytes, to_host moved {moved}")
+        if (rec.attempted, rec.scheduled, rec.tier) != (
+                r.attempted, r.scheduled, r.solver_tier):
+            fail(f"{tag}: cycle {k + 1}'s record disagrees with its result")
+        if k and (rec.retraces or r.graph_captures):
+            fail(f"{tag}: cycle {k + 1}: {rec.retraces} retraces, "
+                 f"{r.graph_captures} graph captures after the first cycle")
+    return {"records": len(facade),
+            "readback_bytes": [rec.readback_bytes for rec, _, _ in facade],
+            "retraces": [rec.retraces for rec, _, _ in facade],
+            "batch_shapes": sorted({rec.batch_shape for rec, _, _ in facade}),
+            "whole_cycle_sync_debug": "error"}
 
 
 def phase_pipeline() -> dict:
@@ -1857,7 +2009,8 @@ def phase_pipeline() -> dict:
         cell = pipeline_cell()
         torch.cuda.synchronize()
         kernels.reset_launches()
-        results, reads, dc = run_pipeline(depth, cell)
+        facade = [] if depth == 2 else None
+        results, reads, dc = run_pipeline(depth, cell, facade=facade)
         torch.cuda.synchronize()
         launches = launch_counts()
         shapes = launch_shapes()
@@ -1909,6 +2062,9 @@ def phase_pipeline() -> dict:
         if depth == 2:
             main = {"launches": launches, "cycles": len(rs),
                     "shapes": shapes, "inputs": dc.inputs}
+            out[depth]["facade"] = check_facade("pipeline/depth 2",
+                                                results, facade)
+            facade_on = rs
         emit({"phase": "pipeline", "cell": "pipeline-5k-30k",
               "nodes": len(nodes), "bound": len(bound),
               "pending": len(pending), "scheduled": scheduled,
@@ -1916,6 +2072,34 @@ def phase_pipeline() -> dict:
               "launches": launches, **out[depth]})
         del cell, results, dc
         torch.cuda.empty_cache()
+
+    # the facade's host cost: the depth-2 run again with the flight
+    # recorder, the trace ring and the journeys off; its placements must
+    # be the facade-on run's
+    from kubernetes_tpu_torch.config import (
+        JourneysConfig,
+        ObservabilityConfig,
+    )
+
+    off = ObservabilityConfig(enabled=False,
+                              journeys=JourneysConfig(enabled=False))
+    results, _reads, _dc = run_pipeline(2, pipeline_cell(),
+                                        observability=off)
+    rs_off = [r for r, _ in results]
+    if [r.assignments for r in rs_off] != [r.assignments
+                                            for r in facade_on]:
+        fail("pipeline/facade off: placements differ from the facade-on "
+             "run's")
+    if [r.host_syncs for r in rs_off] != [r.host_syncs for r in facade_on]:
+        fail(f"pipeline/facade: host syncs {[r.host_syncs for r in facade_on]}"
+             f" with the facade, {[r.host_syncs for r in rs_off]} without")
+    emit({"phase": "pipeline-facade", "cell": "pipeline-5k-30k",
+          "depth": 2, "cycle_s_facade_on": [r.elapsed_s for r in facade_on],
+          "cycle_s_facade_off": [r.elapsed_s for r in rs_off],
+          "spans_s_facade_on": out[2]["spans_s"],
+          "spans_s_facade_off": [sp for _, sp in results],
+          "host_syncs_facade_off": [r.host_syncs for r in rs_off]})
+    del results, rs_off, facade_on
 
     # one pipelined cycle under the profiler (the second: the first
     # captures the round loop)
@@ -2108,6 +2292,32 @@ def _solve_spans(trace) -> dict:
     return {k: v for k, v in trace.span_durations().items()
             if k.startswith(("solve:", "pipeline:dispatch",
                              "pipeline:readback"))}
+
+
+class SolveTimer:
+    """Host seconds a scheduler spends solving, on ``perf_counter``:
+    its tier runs (the dispatch), its validated readbacks and its sparse
+    frames, summed since the last ``take()``. The cycle's spans read the
+    scheduler's clock, which a simulated hub holds still inside a cycle,
+    so they give 0 there."""
+
+    def __init__(self, sched) -> None:
+        self.total = 0.0
+        for name in ("_run_tier", "_validated_readback", "_solve_frame"):
+            setattr(sched, name, self._timed(getattr(sched, name)))
+
+    def _timed(self, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.total += time.perf_counter() - t0
+        return run
+
+    def take(self) -> float:
+        got, self.total = self.total, 0.0
+        return got
 
 
 def config_arm_a(tmp: str) -> dict:
@@ -2604,9 +2814,10 @@ SERVE_LEASE = {"leaseDuration": "2s", "renewDeadline": "1500ms",
                "retryPeriod": "500ms"}
 
 
-def serve_pod(name: str, i: int, rng, node_name: str = ""):
-    """One pod of the smoke cell's shape: 100m / 500 Mi, preferring one
-    seeded zone at weight 50, the odd ones tolerating the
+def serve_pod(name: str, i: int, rng, node_name: str = "",
+              cpu_milli: int = 100):
+    """One pod of the smoke cell's shape: 100m (``cpu_milli``) / 500 Mi,
+    preferring one seeded zone at weight 50, the odd ones tolerating the
     PreferNoSchedule taint."""
     from kubernetes_tpu_torch.api.types import Toleration
     from kubernetes_tpu_torch.testing import (
@@ -2618,7 +2829,7 @@ def serve_pod(name: str, i: int, rng, node_name: str = ""):
     tol = (Toleration(key=SOFT_TAINT, operator="Exists",
                       effect="PreferNoSchedule"),)
     return make_pod(
-        name, cpu_milli=100, memory=500 * 2**20, node_name=node_name,
+        name, cpu_milli=cpu_milli, memory=500 * 2**20, node_name=node_name,
         affinity=node_affinity_preferred(
             (50, [req(ZONE, "In", f"zone-{rng.randrange(10)}")])),
         tolerations=tol if i % 2 else ())
@@ -2896,22 +3107,39 @@ def _stop_cli(stop, t, box, arm: str) -> None:
 
 
 class ConfirmingBinder:
-    """Binds and confirms at once, as a cluster whose watch delivers the
-    bound pod's MODIFIED event straight away (the simulated cluster's
-    default): the cache's assumption becomes a binding, so no assumption
-    outlives its TTL and requeues a pod that is bound. With ``truth``
-    (arm D) the bind first goes through the shared CAS."""
+    """Binds and has the bound pod's MODIFIED event delivered as soon as
+    the cycle that bound it returns, as a cluster whose watch answers at
+    once (the simulated cluster's default) and whose informer delivers
+    between cycles: the cache's assumption becomes a binding, so no
+    assumption outlives its TTL and requeues a pod that is bound, and the
+    bind's own success tail (the journey's close) runs before the event,
+    as it does against a real informer. With ``truth`` (arm D) the bind
+    first goes through the shared CAS."""
 
     def __init__(self, sched, truth=None) -> None:
         self.sched, self.truth = sched, truth
+        self.confirmed: list = []
+        real = sched.schedule_cycle
+
+        def cycle(*a, **kw):
+            r = real(*a, **kw)
+            self.deliver()
+            return r
+
+        sched.schedule_cycle = cycle
 
     def bind(self, pod, node_name: str) -> None:
-        import dataclasses
-
         if self.truth is not None:
             self.truth.bind(pod, node_name)
-        self.sched.on_pod_update(pod, dataclasses.replace(
-            pod, node_name=node_name))
+        self.confirmed.append((pod, node_name))
+
+    def deliver(self) -> None:
+        import dataclasses
+
+        done, self.confirmed = self.confirmed, []
+        for pod, node_name in done:
+            self.sched.on_pod_update(pod, dataclasses.replace(
+                pod, node_name=node_name))
 
 
 class CycleHooks:
@@ -2974,6 +3202,128 @@ def _serve_config(tmp: str, name: str, **doc):
     return path, load_config_file(path)
 
 
+def serve_soak(sched, rt):
+    """A ``SoakEngine`` attached to the serving scheduler (so
+    ``/debug/soak`` serves it): the leak sentinels over the scheduler,
+    its registry and ``scheduler_pending_pods``' freshness, sampled
+    under the serving loop's ingest lock; the standard counters, the
+    clean-zero ones those a serve arm must not move."""
+    from kubernetes_tpu_torch.soak import (
+        SoakEngine,
+        SoakSentinels,
+        standard_counters,
+    )
+
+    sent = SoakSentinels(sched=sched, registry=sched.metrics.registry,
+                         fresh_gauges=["scheduler_pending_pods"])
+    sample = sent.sample
+    sent.sample = lambda *a, **k: rt.loop.ingest(sample, *a, **k)
+    return SoakEngine([], sent, counters=standard_counters(sched),
+                      clean_zero=("retraces", "fenced_binds",
+                                  "journey_drops"),
+                      clock=time.monotonic, sleep=time.sleep, step_s=1.0,
+                      sample_every_s=5.0).attach(sched)
+
+
+def serve_soak_verdict(engine, sched) -> dict:
+    """The sentinels' growth verdict over the arm's clean phases; a leak
+    or a failed phase fails the run. The churn adds live pods by design
+    (creates outnumber deletes), so the series keyed by live pods may grow
+    up to the live pod count, never past it. The process's resident set
+    is printed and not judged: the arm lasts seconds, in which the
+    allocators' pools still grow (the reference's 64 MB row is for
+    windows of hours)."""
+    live = sched.cache.pod_count()
+    tol = engine.sentinels.tolerance
+    for key in ("sched.cache_pods", "sched.packer_pod_refs",
+                "sched.packer_vec_cache"):
+        tol[key] = float(live)
+    tol["rss_kb"] = float("inf")
+    growth = engine.sentinels.growth_report()
+    leaking = sorted(k for k, v in growth.items() if v["growing"])
+    bad = [r for r in engine.reports if not r["ok"]]
+    if leaking or bad:
+        fail(f"serve/A: soak sentinels leaking "
+             f"{ {k: growth[k] for k in leaking} } with {live} live pods, "
+             f"phases failed "
+             f"{[(r['name'], r['violations']) for r in bad]}")
+    return {"phases": [(r["name"], r["kind"], r["ok"])
+                       for r in engine.reports],
+            "clean_samples": sum(1 for r in engine.sentinels.samples
+                                 if r["clean"]),
+            "live_pods": live, "leaking": leaking,
+            "rss_kb": [r["values"]["rss_kb"] for r in engine.sentinels.samples
+                       if r["clean"]],
+            "grew": {k: v["growth"] for k, v in growth.items()
+                     if v["growth"] > 0}}
+
+
+def journey_spy(sched) -> list:
+    """(pod key, create-to-bind seconds) of every journey the tracker
+    closes bound, as it closes (the tracker keeps only its slowest and
+    sampled journeys)."""
+    jt = sched.obs.journeys
+    rows: list = []
+    retain = jt._retain
+
+    def spy(j, now):
+        rows.append((j.key, j.e2e_s))
+        retain(j, now)
+
+    jt._retain = spy
+    return rows
+
+
+def serve_debug_routes(srv, sched) -> dict:
+    """GET the serving scheduler's debug routes: ``/debug/flightrecorder``
+    (its cycle records), ``/debug/journeys`` and one bound pod's timeline
+    through ``?pod=``, ``/debug/soak`` (the attached engine) and
+    ``/metrics`` (the unschedulable families' samples)."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return r.status, r.read().decode()
+
+    st, body = get("/debug/flightrecorder")
+    fr = json.loads(body)["flight_recorder"]
+    if st != 200 or not fr["records"] or any(
+            "cycle" not in rec for rec in fr["records"]):
+        fail(f"serve/A: /debug/flightrecorder answered {st} with "
+             f"{len(fr['records'])} records")
+    st, body = get("/debug/journeys")
+    snap = json.loads(body)
+    if st != 200 or not snap["slowest"]:
+        fail(f"serve/A: /debug/journeys answered {st}: {body[:200]}")
+    pod = snap["slowest"][0]["pod"]
+    st, body = get(f"/debug/journeys?pod={pod}")
+    tl = json.loads(body)
+    if st != 200 or tl["outcome"] != "bound" or abs(
+            sum(tl["phase_share"].values()) - 1.0) > 2e-3:
+        fail(f"serve/A: the timeline of {pod}: {st} {body[:300]}")
+    st, body = get("/debug/soak")
+    soak = json.loads(body)
+    if st != 200 or not soak["phases_done"]:
+        fail(f"serve/A: /debug/soak answered {st}: {body[:200]}")
+    st, body = get("/metrics")
+    samples = [line for line in body.splitlines()
+               if line.startswith(("scheduler_unschedulable_pods_total{",
+                                   "scheduler_unschedulable_node_counts{"))]
+    if st != 200 or len({line.split("{")[0] for line in samples}) != 2:
+        fail(f"serve/A: /metrics has no unschedulable samples: {samples}")
+    return {"flightrecorder_records": len(fr["records"]),
+            "flightrecorder_recorded": fr["recorded"],
+            "journeys": {k: snap[k] for k in ("created", "bound", "gone",
+                                              "dropped", "pending")},
+            "timeline": {"pod": pod, "e2e_s": tl["e2e_s"],
+                         "phases_s": tl["phases_s"]},
+            "soak_phases_done": [p["name"] for p in soak["phases_done"]],
+            "unschedulable_samples": samples,
+            "sinkhorn_samples": sched.metrics.sinkhorn_iterations.count()}
+
+
 def serve_arm_ac(tmp: str, nodes, bound) -> dict:
     """Arms A (serving) and C (overload) on one ``cli.run``: the
     ServingRuntime behind an elector on an InMemoryLock, 30 s of churn
@@ -2986,6 +3336,7 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
 
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.ops import device_loop
+    from kubernetes_tpu_torch.soak import SoakPhase
 
     _path, cfg = _serve_config(tmp, "serve-a")
     hooks: dict = {}
@@ -3016,6 +3367,13 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
     kernels.reset_launches()
     warm_results = list(hooks["results"])
     n_warm = len(warm_results)
+    # the soak engine attached for the arm (/debug/soak): a clean phase
+    # after the warmup, the churn as a traffic phase, clean phases at the
+    # drained points after it; the leak sentinels sample under the loop's
+    # ingest lock
+    engine = serve_soak(sched, rt)
+    engine.run_phase(SoakPhase("warm", 0.0, "clean"))
+    journey_e2e = journey_spy(sched)
     # arm A: the churn, with one sync-debug and one profiled cycle
     prod = Churn(rt.loop.ingest, sched, "sv", seed=12, duration=30.0)
     rt.loop.on_cycle = lambda r: (hooks["results"].append(
@@ -3023,14 +3381,30 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
     pt = threading.Thread(target=prod.run, name="churn-A", daemon=True)
     t0 = time.perf_counter()
     pt.start()
-    time.sleep(10.0)
-    hooks["cycles"].debug.set()
+    debug_fired: list = []
+
+    def tick(elapsed):
+        if elapsed >= 10.0 and not debug_fired:
+            debug_fired.append(elapsed)
+            hooks["cycles"].debug.set()
+
+    engine.run_phase(SoakPhase("serve-A", 30.0, "traffic", tick=tick))
     pt.join(timeout=90)
     if pt.is_alive() or prod.error:
         fail(f"serve/A: the producer failed: {prod.error!r}")
     _wait_for(lambda: len(sched.queue) == 0, 60, "arm A to drain")
     wall_a = time.perf_counter() - t0
     n_a_end = len(hooks["results"])
+    engine.run_phase(SoakPhase("drained-A", 0.0, "clean"))
+    # one pod of the churn's shape that no node can hold: the explain
+    # path's families get samples (a pod of another shape would present a
+    # solve the warmup did not cover)
+    too_big = serve_pod("serve-too-big", 1, rng, cpu_milli=10**9)
+    rt.loop.ingest(sched.on_pod_add, too_big)
+    _wait_for(lambda: sched.metrics.unschedulable_pods.expose(), 30,
+              "the unschedulable pod's cycle")
+    rt.loop.ingest(sched.on_pod_delete, too_big)
+    debug_routes = serve_debug_routes(box["server"], sched)
     # one burst more, its cycle under torch.profiler (outside the timed
     # churn: the profiler's start and stop hold the loop for seconds)
     hooks["cycles"].profile.set()
@@ -3042,6 +3416,8 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
     _wait_for(lambda: len(sched.queue) == 0
               and hooks["cycles"].profile_out is not None, 120,
               "the profiled cycle")
+    engine.run_phase(SoakPhase("drained-profiled", 0.0, "clean"))
+    soak = serve_soak_verdict(engine, sched)
     torch.cuda.synchronize()
     launches_a = launch_counts()
     shapes_a = launch_shapes()
@@ -3107,12 +3483,24 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
              f"{a_rate:.0f}")
     lat_a = [v for _, r in a_results for k, v in r.e2e_latency_s.items()
              if k in prod.pods]
+    lat_j = [v for k, v in journey_e2e if k in prod.pods]
+    # every churn pod that bound closed its journey (beyond the tracker's
+    # pending cap a pod is counted as dropped, not tracked)
+    bound_a = {k for _, r in a_results for k in r.assignments
+               if k in prod.pods}
+    untracked = bound_a - {k for k, _ in journey_e2e}
+    if len(untracked) > sched.obs.journeys.dropped_total:
+        fail(f"serve/A: {len(untracked)} bound pods closed no journey "
+             f"({sched.obs.journeys.dropped_total} dropped at the cap)")
     lat_c = [v for _, r in all_results[n_c_start:]
              for k, v in r.e2e_latency_s.items() if k in over.pods]
     a_rows = _serve_cycles(a_results)
     a_rows.update({
         "created": len(prod.pods), "deleted": len(prod.deleted),
         "wall_s": wall_a, "p50_s": _pct(lat_a, 50), "p99_s": _pct(lat_a, 99),
+        "journey_p50_s": _pct(lat_j, 50), "journey_p99_s": _pct(lat_j, 99),
+        "journeys_bound": len(lat_j), "debug_routes": debug_routes,
+        "soak": soak,
         "pods_bound_per_s": len(prod.pods) / wall_a,
         "ops_per_s": (len(prod.pods) + len(prod.deleted)) / wall_a,
         "max_queue_depth": prod.max_queue_depth,
@@ -3268,6 +3656,7 @@ def serve_arm_d(tmp: str, nodes, bound) -> dict:
     every such bind (else it would bind them again, which the CAS counts
     as a double bind)."""
     import dataclasses
+    import math
     import random
     import threading
 
@@ -3433,6 +3822,23 @@ def serve_arm_d(tmp: str, nodes, bound) -> dict:
              f"the {len(torn)} binds the killed cycle committed")
     if launches["sinkhorn_u"] <= 0 or launches["sinkhorn_v"] <= 0:
         fail("serve/D: the Sinkhorn kernels were never launched")
+    # the Sinkhorn families: one sample per flight record whose plan ran
+    # (the stats ride each solve's readback), on both replicas; the
+    # standby's first record after the kill carries the takeover
+    stats = {}
+    for r in (a, b):
+        recs = r.sched.obs.recorder.records()
+        planned = sum(1 for rec in recs if rec.sinkhorn_iters >= 0)
+        m = r.sched.metrics
+        if (not planned or m.sinkhorn_iterations.count() < planned
+                or not math.isfinite(m.sinkhorn_residual.value())):
+            fail(f"serve/D: {r.name}: {planned} planned records, "
+                 f"{m.sinkhorn_iterations.count()} iteration samples")
+        stats[r.name] = {"records": r.sched.obs.recorder.recorded,
+                         "samples": m.sinkhorn_iterations.count(),
+                         "final_residual": m.sinkhorn_residual.value()}
+    if not any(rec.takeover for rec in b.sched.obs.recorder.records()):
+        fail("serve/D: no standby flight record carries the takeover")
     post = [(s, r) for s, r in b.results if s > kill_t and r.scheduled]
     if not post:
         fail("serve/D: the standby never bound after the kill")
@@ -3456,6 +3862,7 @@ def serve_arm_d(tmp: str, nodes, bound) -> dict:
                                       99),
             "double_binds": truth.double_bind_attempts,
             "torn_binds": len(torn), "recovery": recovery,
+            "sinkhorn_stats": stats,
             "tiers": sorted({r.solver_tier for rep in (a, b)
                              for _, r in rep.results if r.attempted}),
             "launches": launches, "shapes": shapes}
@@ -3645,14 +4052,17 @@ HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 5}
 #: the CUDA-against-CPU run: arm A's traffic at 500 nodes and 3000 pods
 HOLLOW_REDUCED = {"n_nodes": 500, "n_deploy": 1995, "n_job": 500,
                   "n_sts": 5}
-HOLLOW_CHURN_STEPS = 10
+HOLLOW_CHURN_STEPS = 4
 HOLLOW_KILLED_KUBELETS = 50
-#: a churn step and an arm B step are a minute of hub time: a killed
-#: kubelet's node is tainted unreachable after the 40 s grace and its pods
-#: are evicted when the 300 s default toleration (admission) runs out,
-#: inside the churn window; a pod whose bind failed leaves the
-#: unschedulable queue at its next 60 s flush, one step later
+#: an arm B step is a minute of hub time: a pod whose bind failed leaves
+#: the unschedulable queue at its next 60 s flush, one step later
 HOLLOW_MINUTE_DT = 60.0
+#: a churn step is 320 s of hub time, so the 4 churn steps still cover the
+#: whole kubelet outage: the killed kubelets' nodes are tainted unreachable
+#: at the second step (the 40 s grace passed), their pods evicted at the
+#: third (the 300 s default toleration ran out) and the kubelets healed
+#: at the fourth
+HOLLOW_CHURN_DT = 320.0
 #: arm B: pods created over REST, half for each scheduler
 HOLLOW_REST_PODS = 2000
 
@@ -3709,13 +4119,15 @@ def hollow_hub(device="cuda", n_nodes=5000, n_deploy=2500, n_job=500,
 class HollowProbe:
     """Times a hub's steps from outside: the wall seconds of each step,
     of the scheduling cycle inside it (``schedule_cycle`` wrapped) and of
-    the cycle's solve spans (the hub's clock is simulated, so
-    ``CycleResult.solve_s`` reads 0), and the pods the node-lifecycle
-    controller evicted (``monitor_node_health`` wrapped)."""
+    its solve (:class:`SolveTimer`: the hub's clock is simulated, so
+    ``CycleResult.solve_s`` and the trace's spans read 0), and the pods
+    the node-lifecycle controller evicted (``monitor_node_health``
+    wrapped)."""
 
     def __init__(self, hub, tier: str = "batch") -> None:
         self.hub, self.tier = hub, tier
         self.res, self.cycle_s, self.evicted = None, 0.0, 0
+        self.solve = SolveTimer(hub.sched)
         cycle, health = hub.sched.schedule_cycle, hub.monitor_node_health
 
         def timed_cycle(*a, **k):
@@ -3735,6 +4147,7 @@ class HollowProbe:
     def step(self, kind: str, dt: float = 15.0) -> dict:
         hub = self.hub
         c0, e0 = hub.binder.conflicts, self.evicted
+        self.solve.take()
         t0 = time.perf_counter()
         hub.step(dt)
         step_s = time.perf_counter() - t0
@@ -3745,8 +4158,7 @@ class HollowProbe:
         if r.solver_tier not in ("", self.tier) or r.solver_fallbacks:
             fail(f"hollow: a cycle solved on tier {r.solver_tier!r} after "
                  f"{r.solver_fallbacks} fallbacks")
-        solve_s = (sum(_solve_spans(hub.sched.obs.last_trace).values())
-                   if r.attempted else 0.0)
+        solve_s = self.solve.take()
         return {"kind": kind, "step_s": step_s, "cycle_s": self.cycle_s,
                 "solve_s": solve_s, "controllers_s": step_s - self.cycle_s,
                 "check_s": check_s, "pods": len(hub.truth_pods),
@@ -3761,10 +4173,11 @@ class HollowProbe:
 def hollow_drive(probe, n_sts: int, seed: int = 7, max_bind_steps: int = 40,
                  profile_step: bool = False):
     """Steps the probe's hub until every pod is bound (the StatefulSet's
-    last ordinal included), then ``HOLLOW_CHURN_STEPS`` churn steps: each
-    kills 200 bound pods and removes 5 nodes (``hub.churn``); the first
-    kills ``HOLLOW_KILLED_KUBELETS`` kubelets (their nodes are tainted at
-    the second, their pods evicted at the eighth), the ninth heals them.
+    last ordinal included), then ``HOLLOW_CHURN_STEPS`` churn steps of
+    ``HOLLOW_CHURN_DT``: each kills 200 bound pods and removes 5 nodes
+    (``hub.churn``); the first kills ``HOLLOW_KILLED_KUBELETS`` kubelets
+    (their nodes are tainted at the second, their pods evicted at the
+    third), the last heals them.
     ``check_consistency`` after every step. Returns the per-step rows,
     the per-step truth (bindings, revision, bound count) and, with
     ``profile_step``, the device's busy share of one profiled bind
@@ -3809,10 +4222,10 @@ def hollow_drive(probe, n_sts: int, seed: int = 7, max_bind_steps: int = 40,
         if k == 0:
             for name in victims:
                 hub.kill_kubelet(name)
-        if k == 8:
+        if k == HOLLOW_CHURN_STEPS - 1:
             for name in victims:
                 hub.heal_kubelet(name)
-        record(probe.step("churn", HOLLOW_MINUTE_DT))
+        record(probe.step("churn", HOLLOW_CHURN_DT))
     return rows, truths, prof
 
 
@@ -3840,6 +4253,8 @@ def hollow_arm_a() -> dict:
              f"{diffs[0][:3]} {diffs[1][:3]}")
     if launches["fused_pair_normalize"] <= 0:
         fail("hollow: arm A never launched the fused-pair kernel")
+    if sum(r["evictions"] for r in rows) <= 0:
+        fail("hollow: the killed kubelets' pods were never evicted")
     steps = [r["step_s"] for r in rows]
     host = sum(r["controllers_s"] for r in rows) / sum(steps)
     return {"probe": probe, "launches": launches, "shapes": shapes,
@@ -4220,18 +4635,32 @@ def netchaos_run(device: str, n_nodes: int, n_pods: int,
     nc = NetChaos(hub, seed=seed,
                   scheduler_kw={"device": device, "solver": solver})
     real = nc.sched.schedule_cycle
+    solve = SolveTimer(nc.sched)
     cycles, ends = [], []
 
     def timed(*a, **kw):
+        solve.take()
         t0 = time.perf_counter()
         r = real(*a, **kw)
         _sync(device)
         t1 = time.perf_counter()
-        cycles.append((r, t1 - t0, _solve_spans(nc.sched.obs.last_trace)))
+        cycles.append((r, t1 - t0, solve.take()))
         ends.append(t1)
         return r
 
     nc.sched.schedule_cycle = timed
+    # the flight records' recovery counts, summed as each is recorded (a
+    # run records more cycles than the recorder's ring holds)
+    flagged = {"ambiguous_binds": 0, "invariant_violations": 0, "records": 0}
+    record = nc.sched.obs.recorder.record
+
+    def counted(rec):
+        flagged["ambiguous_binds"] += rec.ambiguous_binds
+        flagged["invariant_violations"] += rec.invariant_violations
+        flagged["records"] += 1
+        record(rec)
+
+    nc.sched.obs.recorder.record = counted
     before = launch_counts()
     t0 = time.perf_counter()
     rep = nc.run(n_pods=0, n_nodes=0)
@@ -4248,6 +4677,12 @@ def netchaos_run(device: str, n_nodes: int, n_pods: int,
              f"{rep['parked_ambiguous'][:3]}")
     if rep["bound_total"] != n_pods:
         fail(f"{tag}: the hub bound {rep['bound_total']} of {n_pods}")
+    if (flagged["ambiguous_binds"] != rep["ambiguous_timeouts"]
+            or flagged["invariant_violations"]
+            != rep["invariant_violations"]):
+        fail(f"{tag}: the flight records flag {flagged}, the harness "
+             f"counted {rep['ambiguous_timeouts']} ambiguous timeouts and "
+             f"{rep['invariant_violations']} violations")
     for r, _, _ in cycles:
         if r.solver_tier not in ("", solver) or r.solver_fallbacks:
             fail(f"{tag}: a cycle solved on {r.solver_tier!r} after "
@@ -4259,7 +4694,8 @@ def netchaos_run(device: str, n_nodes: int, n_pods: int,
             "step_s_p50": _pct(steps, 50), "step_s_max": max(steps),
             "cycle_s_sum": sum(cyc), "cycle_s_p50": _pct(cyc, 50),
             "cycle_s_max": max(cyc),
-            "solve_s_sum": sum(sum(sp.values()) for _, _, sp in cycles),
+            "solve_s_sum": sum(sp for _, _, sp in cycles),
+            "records_flagged": flagged,
             "attempted": [r.attempted for r, _, _ in cycles][:16],
             "snapshot_modes": sorted({r.snapshot_mode for r, _, _ in cycles
                                       if r.snapshot_mode})}
@@ -4452,8 +4888,16 @@ def recovery_arm_b(tmp: str) -> dict:
             fail(f"recovery/B/{kind}: process tally "
                  f"{RECOVERY.device_resets} resets, {RECOVERY.host_cycles} "
                  "host-mode cycles")
+        # the flight records carry every reset with its forensic flag
+        flags = [(rec.device_resets, rec.oom_forensic)
+                 for rec in sched.obs.recorder.records()]
+        if (sum(n for n, _ in flags) != injected or any(
+                (n > 0) != f.startswith("snapshot:device:")
+                for n, f in flags)):
+            fail(f"recovery/B/{kind}: flight records {flags} for {injected} "
+                 "injected faults")
         out[kind] = {**warm, "cycles": rows, "injected": injected,
-                     "drops": list(probe.rows)}
+                     "drops": list(probe.rows), "records": flags}
         if kind == "device_lost":
             # a drop and a rebuild by hand: what the allocator does
             gc.collect()
@@ -4500,9 +4944,16 @@ def recovery_arm_b(tmp: str) -> dict:
     if r.assignments != want[0] or r.snapshot_mode != "full":
         fail("recovery/B/warmup: the cycle after the aborted warmup placed "
              f"unlike the twin ({r.snapshot_mode})")
+    # the warmup's loss came between cycles: its flag parks for the next
+    # cycle's flight record
+    parked = sched.obs.recorder.records()[-1].oom_forensic
+    if not parked.startswith("warmup:compile:"):
+        fail(f"recovery/B/warmup: the next record's forensic flag is "
+             f"{parked!r}")
     out["warmup_abort"] = {**warm, "resets": resets,
                            "next_cycle_mode": r.snapshot_mode,
-                           "next_cycle_captures": r.graph_captures}
+                           "next_cycle_captures": r.graph_captures,
+                           "next_record_forensic": parked}
     del sched
     out["launches"] = _launches_since(before)
     return out
@@ -4695,6 +5146,7 @@ def gpu_line() -> str:
 
 
 def main() -> None:
+    script_t0 = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of: "
@@ -4735,6 +5187,7 @@ def main() -> None:
         emit({"phase": "kernels", "ok": True})
 
     paths = {}
+    phase_s = {}
     for phase, run in (("smoke", lambda: phase_cell("smoke")),
                        ("plan", phase_plan),
                        ("topology", lambda: phase_cell("topology")),
@@ -4749,7 +5202,9 @@ def main() -> None:
         if phase not in phases:
             continue
         RECOVERY.reset()
+        t_phase = time.perf_counter()
         got = run()
+        phase_s[phase] = time.perf_counter() - t_phase
         if phase != "recovery" and (RECOVERY.device_resets
                                     or RECOVERY.host_cycles):
             # only the recovery phase injects device faults: anywhere
@@ -4785,6 +5240,8 @@ def main() -> None:
         if set(MAIN_PATHS) <= set(paths) and r["launches"] <= 0:
             fail(f"kernel {name} was never launched on the main paths")
         out.append(r)
+    emit({"phase": "total", "seconds": time.perf_counter() - script_t0,
+          "kernel_build_s": build_s, "phase_seconds": phase_s})
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -77,6 +77,7 @@ class SchedulerCache:
         clock: Callable[[], float] = time.monotonic,
         max_dirty_frac: float = 0.25,
         device="cuda",
+        lock_factory=None,
     ) -> None:
         import torch
 
@@ -105,7 +106,7 @@ class SchedulerCache:
         self._dev_stale: bool = True
         #: serializes snapshot refreshes: the mutators and the refresh
         #: share the host table and the pending-delta queue
-        self._snap_lock = make_lock(None, "cache.snap", "rlock")
+        self._snap_lock = make_lock(lock_factory, "cache.snap", "rlock")
         #: how the last device_snapshot() was produced: full | delta | clean
         self.last_snapshot_mode: str = ""
         #: host rows (re)packed + uploaded by the last call

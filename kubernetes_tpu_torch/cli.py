@@ -805,17 +805,15 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
                     "yet (ROADMAP A.15: scenario packs)")
     oc = cfg.observability
     default = ObservabilityConfig()
-    # the port runs the cycle trace, the explain report, the Sinkhorn
-    # stats and the auditor's sweep; every other observability field
-    # drives a backend of A.13
-    honored = {"trace_threshold_s", "sinkhorn_telemetry", "explain",
-               "explain_top_k", "audit_interval_s"}
-    for f in dataclasses.fields(ObservabilityConfig):
-        if f.name not in honored and (getattr(oc, f.name)
-                                      != getattr(default, f.name)):
-            errs.append(f"observability.{f.name}: only the cycle trace is "
-                        "ported yet (ROADMAP A.13: observability "
-                        "backends)")
+    # the port runs the facade, its trace ring and flight recorder, the
+    # transfer and capture telemetry, the journeys, the lock sanitizer,
+    # the explain report, the Sinkhorn stats and the auditor's sweep; the
+    # ledgers and the incident recorder are A.13's second slice
+    for name in ("ledger", "memory_ledger", "incidents"):
+        if getattr(oc, name) != getattr(default, name):
+            errs.append(f"observability.{name}: not ported yet (ROADMAP "
+                        "A.13 slice 2: the perf and memory ledgers and "
+                        "the incident recorder)")
     return errs
 
 

@@ -4,7 +4,8 @@ prints the cache, ``comparer.go`` diffs cache/queue state against the
 apiserver's). The sim harness uses the comparer as its consistency oracle;
 a host shim can wire :func:`install_signal_handler` for the SIGUSR2
 behavior. (The port's copy of ``kubernetes_tpu/debugger.py``; ``dump``
-skips the observability backends the port does not have yet.)"""
+prints the flight recorder, and skips the memory ledger and the incident
+recorder the port does not have yet, ROADMAP A.13 slice 2.)"""
 
 from __future__ import annotations
 
@@ -35,8 +36,6 @@ def dump(scheduler) -> str:
     for q, depth in scheduler.queue.pending_counts().items():
         lines.append(f"  {q}: {depth}")
     obs = getattr(scheduler, "obs", None)
-    # the flight recorder, the memory ledger and the incident recorder
-    # are ROADMAP A.13: the port's obs has none of them yet
     recorder = getattr(obs, "recorder", None)
     if recorder is not None:
         lines.append(recorder.dump())

@@ -130,17 +130,18 @@ _POD_FIELDS = ("best_bit", "best_gain", "feasible", "pod_bits", "not_ready",
                "net_unavail")
 
 
-def read_back(ex: ExplainResult) -> dict:
+def read_back(ex: ExplainResult, read=to_host) -> dict:
     """Every field of ``ex`` on the host, read back as ONE counted
     transfer of a flat int32 concatenation: a dict of int64 numpy arrays
-    keyed like :class:`ExplainResult`."""
+    keyed like :class:`ExplainResult`. ``read`` is the transfer (the
+    scheduler passes its telemetry's readback at site ``explain``)."""
     P, B = ex.per_pod.shape
     R = ex.insufficient.shape[1]
     rows = torch.cat([ex.per_pod, ex.one_bit, ex.insufficient,
                       torch.stack([getattr(ex, f) for f in _POD_FIELDS], 1)],
                      1)
     W = rows.shape[1]
-    flat = np.asarray(to_host(torch.cat(
+    flat = np.asarray(read(torch.cat(
         [rows.flatten(), ex.pair_hist, ex.pods_blocked])), np.int64)
     host = flat[: P * W].reshape(P, W)
     out = {"per_pod": host[:, :B], "one_bit": host[:, B:2 * B],

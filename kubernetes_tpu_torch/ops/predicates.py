@@ -57,7 +57,7 @@ BIT = {name: i for i, name in enumerate(PREDICATE_BITS)}
 # Human-readable failure text per predicate bit, mirroring the reference's
 # error vars (algorithm/predicates/error.go:35-79) so FitError events read
 # identically. CheckNodeCondition and PodFitsResources are special-cased in
-# :func:`fit_error_message_from_counts`.
+# :func:`fit_error_message` and :func:`fit_error_message_from_counts`.
 REASON_MESSAGES = {
     "CheckNodeUnschedulable": "node(s) were unschedulable",
     "PodToleratesNodeTaints": "node(s) had taints that the pod didn't tolerate",
@@ -79,6 +79,67 @@ REASON_MESSAGES = {
 
 _I32_MAX = 2**31 - 1
 _I32_MIN = -(2**31)
+
+
+def fit_error_message(rrow, nvalid, req, free, ready, net_unavail,
+                      res_names) -> str:
+    """FitError.Error() parity (core/generic_scheduler.go:105-122) from
+    one pod's raw reason row: "0/N nodes are available: <count> <reason>,
+    ..." with per-reason node counts sorted as strings (the reference's
+    host-side builder; :func:`fit_error_message_from_counts` gives the
+    same text from the device reductions).
+
+    ``rrow`` (N,) int32 reason bits for one pod; ``nvalid`` (N,) node
+    validity; ``req`` (R,) the pod's request; ``free`` (N, R) allocatable
+    minus final usage; ``ready``/``net_unavail`` (N,) node flags;
+    ``res_names`` resource-column names. All numpy, host-side.
+
+    PodFitsResources splits into per-resource "Insufficient <res>"
+    (error.go:111); CheckNodeCondition into "node(s) were not ready" and
+    "node(s) had unavailable network" (error.go:67,:69)."""
+    import numpy as np
+
+    hist: dict = {}
+    r = np.asarray(rrow)[nvalid]
+    n = int(np.count_nonzero(nvalid))
+    for name, b in BIT.items():
+        fired = ((r >> b) & 1).astype(bool)
+        cnt = int(fired.sum())
+        if not cnt:
+            continue
+        if name == "PodFitsResources":
+            fv = free[nvalid]
+            # all-zero-request pods fail ONLY on the pod-count cap
+            # (resource_fit_mask's pods_only branch; predicates.go:803-809)
+            nonzero = any(
+                req[ri] > 0 for ri in range(len(res_names))
+                if res_names[ri] != "pods"
+            )
+            cols = (
+                range(len(res_names)) if nonzero
+                else [res_names.index("pods")]
+            )
+            for ri in cols:
+                c = int((fired & (req[ri] > fv[:, ri] + 1e-6)).sum())
+                if c:
+                    key = f"Insufficient {res_names[ri]}"
+                    hist[key] = hist.get(key, 0) + c
+        elif name == "CheckNodeCondition":
+            c_nr = int((fired & ~ready[nvalid]).sum())
+            c_nu = int((fired & net_unavail[nvalid]).sum())
+            if c_nr:
+                hist["node(s) were not ready"] = (
+                    hist.get("node(s) were not ready", 0) + c_nr
+                )
+            if c_nu:
+                hist["node(s) had unavailable network"] = (
+                    hist.get("node(s) had unavailable network", 0) + c_nu
+                )
+        else:
+            msg = REASON_MESSAGES[name]
+            hist[msg] = hist.get(msg, 0) + cnt
+    parts = sorted(f"{v} {k}" for k, v in hist.items())
+    return f"0/{n} nodes are available: {', '.join(parts)}."
 
 
 def fit_error_message_from_counts(counts_row, insufficient_row, not_ready,

@@ -19,10 +19,11 @@ from __future__ import annotations
 
 class SyncCounter:
     """A running count of device-to-host reads made through to_host and
-    to_cpu, and the bytes to_cpu moved."""
+    to_cpu, the bytes to_host read back and the bytes to_cpu moved."""
 
     def __init__(self) -> None:
         self.count = 0
+        self.d2h_bytes = 0
         self.cpu_bytes = 0
 
 
@@ -31,8 +32,9 @@ SYNCS = SyncCounter()
 
 def to_host(t):
     """Read a tensor back to the host (Python scalars or nested lists),
-    counting one sync."""
+    counting one sync and its bytes."""
     SYNCS.count += 1
+    SYNCS.d2h_bytes += t.numel() * t.element_size()
     if t.device.type != "cuda":
         return t.tolist()
     import torch

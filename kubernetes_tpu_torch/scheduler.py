@@ -43,9 +43,14 @@ restricted route did not take solves PARTITIONED, in B capacity-balanced
 whole batch placed; anything less falls through to the dense ladder in
 the same cycle.
 
-Every cycle opens one trace (``Scheduler.obs``, :mod:`.obs.core`) with
-spans at the reference's sites and under its names, and records the
-reference's metrics (``Scheduler.metrics``, :mod:`.metrics`).
+Every cycle goes through the observability facade (``Scheduler.obs``,
+:mod:`.obs.core`) as the reference's does: one trace on the scheduler's
+clock with spans at the reference's sites and under its names, the
+reference's notes, one flight record per eventful cycle
+(``obs.recorder``), pod journeys fed from the queue and the bind path
+(``obs.journeys``), and the readbacks charged to their sites
+(``obs.jax``). It records the reference's metrics (``Scheduler.metrics``,
+:mod:`.metrics`); ``state_sizes`` is what the soak's leak sentinels read.
 
 The degradation ladder is the reference's: the configured tier
 (``batch``, ``sinkhorn``, ``greedy`` or ``exact``), then
@@ -84,9 +89,8 @@ taken for a device loss. ``attach_auditor`` wires the state-conservation
 auditor (``obs/audit.py``).
 
 Not ported yet (ROADMAP): the scenario cascade and scenario packs
-(A.15), observability beyond the cycle trace, the metrics and the
-auditor (journeys, the flight recorder, the perf and memory ledgers,
-A.13), and the mesh with its ``batch-single`` tier and the shard-loss
+(A.15), the perf and memory ledgers and the incident recorder (A.13
+slice 2), and the mesh with its ``batch-single`` tier and the shard-loss
 harness (A.17).
 """
 
@@ -129,7 +133,7 @@ from kubernetes_tpu_torch.framework import (
 from kubernetes_tpu_torch import kernels, native
 from kubernetes_tpu_torch.metrics import SchedulerMetrics
 from kubernetes_tpu_torch.nodetree import NodeTree, num_feasible_nodes_to_find
-from kubernetes_tpu_torch.obs.core import Obs
+from kubernetes_tpu_torch.obs.core import Observability
 from kubernetes_tpu_torch.obs.explain import (
     PodExplanation,
     UnschedulableReport,
@@ -177,12 +181,13 @@ from kubernetes_tpu_torch.ops.priorities import (
     run_priorities,
     solver_gates,
 )
-from kubernetes_tpu_torch.ops.sync import SYNCS, to_cpu, to_host
+from kubernetes_tpu_torch.ops.sync import SYNCS, to_cpu
 from kubernetes_tpu_torch.preemption import preempt
 from kubernetes_tpu_torch.queue import SchedulingQueue
+from kubernetes_tpu_torch.sanitize import LockSanitizer
 from kubernetes_tpu_torch.snapshot import FIXED_RESOURCE_NAMES, RES_PODS
 from kubernetes_tpu_torch.utils import klog
-from kubernetes_tpu_torch.utils.interner import bucket_size
+from kubernetes_tpu_torch.utils.interner import Interner, bucket_size
 from kubernetes_tpu_torch.volumes import VolumeBinder
 
 #: the tiers a scheduler may be configured with (``robustness.
@@ -320,6 +325,17 @@ def _rounds_tensor(rounds, device) -> torch.Tensor:
     return torch.full((1,), int(rounds), dtype=torch.int32, device=device)
 
 
+def _stats_bits(stats, device) -> torch.Tensor:
+    """The (2,) f32 Sinkhorn stats as two int32 words (a bit cast), so
+    they ride an int32 readback payload unchanged."""
+    return stats.to(device=device, dtype=torch.float32).view(torch.int32)
+
+
+def _stats_host(words) -> List[float]:
+    """Decode :func:`_stats_bits`'s two words read back to the host."""
+    return np.asarray(words, np.int32).view(np.float32).tolist()
+
+
 def _has_topo(u) -> bool:
     """Whether the packer's universe holds any inter-pod affinity or
     topology spread term (then the cycle packs the topology tables)."""
@@ -391,18 +407,47 @@ class Scheduler:
         self.device = resolve_device(device)
         self.scheduler_name = scheduler_name
         self.framework = framework or Framework(clock=clock)
-        self.cache = cache or SchedulerCache(clock=clock, device=self.device)
+        #: the reference's metric set (metrics.py), recorded every cycle
+        self.metrics = metrics or SchedulerMetrics()
+        #: observability knobs (config.ObservabilityConfig): the facade,
+        #: its flight recorder, journeys and telemetry, explain and the
+        #: Sinkhorn stats (the ledgers and incidents are ROADMAP A.13)
+        self.observability = (observability if observability is not None
+                              else ObservabilityConfig(
+                                  trace_threshold_s=trace_threshold_s))
+        self.trace_threshold_s = self.observability.trace_threshold_s
+        #: instrumented-lock runtime sanitizer (sanitize.py), armed by
+        #: observability.lock_sanitizer.enabled: every lock the facade,
+        #: the cache and the serving loop build goes through it, and a
+        #: finding counts on scheduler_lock_sanitizer_findings_total{kind}
+        self.lock_sanitizer = None
+        ls_config = self.observability.lock_sanitizer
+        if ls_config.enabled:
+            self.lock_sanitizer = LockSanitizer(
+                ls_config, clock=clock,
+                on_finding=lambda kind: (
+                    self.metrics.lock_sanitizer_findings.inc(kind=kind)))
+        lock_factory = (self.lock_sanitizer.factory()
+                        if self.lock_sanitizer is not None else None)
+        #: the observability facade (obs/core.py) on the scheduler's clock
+        self.obs = Observability(self.observability, metrics=self.metrics,
+                                 clock=clock,
+                                 lock_sanitizer=self.lock_sanitizer)
+        self.cache = cache or SchedulerCache(clock=clock, device=self.device,
+                                             lock_factory=lock_factory)
         self.cache.device = self.device
         if snapshot_max_dirty_frac is not None:
             self.cache.max_dirty_frac = snapshot_max_dirty_frac
-        #: the reference's metric set (metrics.py), recorded every cycle
-        self.metrics = metrics or SchedulerMetrics()
         # explicit None check: an empty SchedulingQueue is falsy
         self.queue = queue if queue is not None else SchedulingQueue(
             clock=clock, less=self.framework.queue_sort_less(),
             metrics=self.metrics)
         if getattr(self.queue, "metrics", "absent") is None:
             self.queue.metrics = self.metrics
+        # the journey tracer rides the queue's residency seams (add,
+        # sub-queue transitions, pop): the same duck attach as metrics
+        if getattr(self.queue, "journeys", "absent") is None:
+            self.queue.journeys = self.obs.journeys
         #: degradation-ladder knobs: cycle deadline, bounded retries,
         #: breaker thresholds, the fallback chain, result validation
         self.robustness = (robustness if robustness is not None
@@ -493,12 +538,6 @@ class Scheduler:
         self._breakers: Dict[str, CircuitBreaker] = {}
         #: absolute deadline of the cycle in flight (None = unbounded)
         self._cycle_deadline: Optional[float] = None
-        #: observability knobs; the port honors the cycle trace, explain
-        #: and the Sinkhorn stats (the rest is ROADMAP A.13)
-        self.observability = (observability if observability is not None
-                              else ObservabilityConfig(
-                                  trace_threshold_s=trace_threshold_s))
-        self.trace_threshold_s = self.observability.trace_threshold_s
         #: node-search truncation (percentageOfNodesToScore): None scores
         #: every node; 0 is the reference's adaptive 50%->5% rule; 1-99 a
         #: fixed percent. A truncated cycle solves on the next K nodes in
@@ -569,8 +608,9 @@ class Scheduler:
         #: cycle (every depth >= 2 places identically)
         self.pipeline_depth = pipeline_depth
         self.pipeline_chunk = pipeline_chunk
-        #: the cycle tracer (one Trace per cycle, spans on perf_counter)
-        self.obs = Obs()
+        #: reason labels ever set on scheduler_unschedulable_node_counts:
+        #: a reason that stops firing drops to 0 instead of going stale
+        self._explain_reasons_seen: set = set()
         #: round-loop graph captures at the start of the cycle in flight
         self._captures0 = 0
 
@@ -679,6 +719,9 @@ class Scheduler:
             # scheduling queue (a bind by another writer)
             self.cache.add_pod(new)
             self.queue.delete(new.key())
+            # journey: our own bind already closed it (this no-ops); a
+            # competing writer's bind closes it here as gone
+            self.obs.journeys.note_gone(new.key())
             self.queue.assigned_pod_added(new)
         elif self.responsible_for(new):
             if new != old:
@@ -761,11 +804,11 @@ class Scheduler:
     def _note_gone(self, key: str) -> None:
         """A pod legitimately left the state machine (watch delete,
         responsible-to-not transition, terminating skip, reconcile drop):
-        tell the attached state-conservation auditor (no-op without one).
-        The journey tracer the reference also closes here is ROADMAP
-        A.13."""
+        tell the attached state-conservation auditor (no-op without one)
+        and close its journey."""
         if self.auditor is not None:
             self.auditor.note_gone(key)
+        self.obs.journeys.note_gone(key)
 
     # -- crash / failover / device-loss recovery -----------------------------
 
@@ -914,6 +957,9 @@ class Scheduler:
                     self.queue.delete(key)
                     self.why_pending.pop(key, None)
                     self._cycle_states.pop(key, None)
+                    # a bind this incarnation did not make: the journey
+                    # closes as gone (no bound outcome, no e2e sample)
+                    self.obs.journeys.note_gone(key)
                 elif self.responsible_for(tp):
                     queued = self.queue.pod(key)
                     if (queued is not None and queued.uid == tp.uid) \
@@ -972,11 +1018,12 @@ class Scheduler:
         return self.fence.allow_bind()
 
     def _fenced(self, pod: Pod, cycle: int, res: CycleResult) -> None:
-        """Abort one pod's bind at the fence: count it, note it on the
-        cycle's trace, requeue through the standard error path (the NEW
-        leader binds it; this one must not race it)."""
+        """Abort one pod's bind at the fence: count it, flag the flight
+        record and the journey, requeue through the standard error path
+        (the NEW leader binds it; this one must not race it)."""
         self.metrics.recovery_fenced_binds.inc()
         self.obs.note_fenced_bind()
+        self.obs.journeys.note_fenced(pod.key())
         self._fail(pod, cycle, res, ("FencedBind:lease lost",))
 
     # -- the serve loop's hooks ----------------------------------------------
@@ -1042,6 +1089,51 @@ class Scheduler:
             # reaches the metrics
             self._record_metrics(res)
 
+    def state_sizes(self) -> Dict[str, int]:
+        """Sizes of every unbounded-unless-maintained structure this
+        scheduler owns — the leak-sentinel surface (soak.SoakSentinels).
+        Pure dict-length reads. The keys are the reference's but those of
+        its memory ledger and incident recorder (``mem_residents``,
+        ``mem_census_arrays`` and the incident ring, ROADMAP A.13 slice
+        2)."""
+        packer = self.cache.packer
+        u = packer.u
+        interned = sum(
+            len(v) for v in vars(u).values() if isinstance(v, Interner))
+        return {
+            # per-pod side state — exit paths must pop these
+            "why_pending": len(self.why_pending),
+            "ambiguous_binds": len(self._ambiguous_binds),
+            "cycle_states": len(self._cycle_states),
+            "waiting_pods": len(self.framework.waiting),
+            # bounded-by-construction state, watched anyway
+            "breakers": len(self._breakers),
+            "explain_reasons_seen": len(self._explain_reasons_seen),
+            "sk_warm_potentials": 0 if self._sk_warm_pot is None else 1,
+            "queue_pending": sum(self.queue.pending_counts().values()),
+            "cache_assumed": len(self.cache.assumed_keys()),
+            "cache_pods": self.cache.pod_count(),
+            # packer per-pod caches (forget_pod-cleaned) + LRU memos
+            "packer_pod_refs": len(packer._pod_refs),
+            "packer_vol_cache": len(packer._vol_cache),
+            "packer_vol_pods": len(packer._vol_pods),
+            "packer_vec_cache": len(packer._vec_cache),
+            "packer_pod_table_memo": len(packer._pod_table_memo),
+            "packer_vol_table_memo": len(packer._vol_table_memo),
+            # interner dedupe floors grow with vocabulary, not churn
+            "interned_items": interned,
+            "universe_matcher_memo": len(u._matcher_row_memo),
+            "universe_owner_sets_memo": len(u._owner_sets_memo),
+            # device-side state: the drop edges must zero these
+            "dev_node_table": (
+                1 if self.cache.has_device_snapshot() else 0),
+            "dev_score_summary": (
+                1 if self.cache.has_score_summary() else 0),
+            # pending journeys drain with traffic; the completed tiers
+            # plateau at their caps
+            **self.obs.journeys.sizes(),
+        }
+
     def run_until_settled(self, max_cycles: int = 50) -> List[CycleResult]:
         """Drive cycles until one neither attempts nor schedules a pod
         (tests and the simulated cluster's harnesses); returns every
@@ -1091,6 +1183,8 @@ class Scheduler:
                     # and re-probe each cycle / idle tick
                     self.cache.assume_pod(p, p.node_name)
                     self._ambiguous_binds[key] = (p, p.node_name, None)
+                    self.obs.journeys.note_ambiguous_park(
+                        key, "assume-expired")
                     klog.warning("assumed pod %s expired and verification "
                                  "is unreachable; parked assumed", key)
                     continue
@@ -1214,6 +1308,7 @@ class Scheduler:
             self._explain_retire_if_drained()
             return self._finish(res, t0, syncs0)
         cycle = self.queue.scheduling_cycle
+        self.obs.note_cycle(cycle)
         # skipPodSchedule (scheduler.go:335): pods marked for deletion drop
         for p in batch:
             if p.deletion_timestamp:
@@ -1269,6 +1364,10 @@ class Scheduler:
                 dv = volumes_to_device(pk.pack_volume_tables(batch),
                                        device=dev)
                 sv = _static_vol_pass(dp, dn, ds, dv)
+            self.obs.step(f"snapshot packed ({len(batch)} pods, {nt.n} "
+                          f"nodes, {res.snapshot_mode})")
+        self._note_snapshot(res.snapshot_mode, nt, dn, dp, ds, dt, dv,
+                            len(batch), use_pipeline)
 
         if use_pipeline:
             # the pipelined executor owns the rest of the cycle on the
@@ -1356,6 +1455,14 @@ class Scheduler:
                 self.obs.step(f"exact solver unsafe with "
                               f"{'+'.join(hazards)}; using round solver")
                 solver = "batch"
+        # the solve site's signature (shapes, dtypes and statics; no
+        # device read): a new one after warmup is a new round-loop graph
+        self.obs.jax.record_call(
+            "solve", dp, dn, ds, dt, dv,
+            static=(solver, tuple(skip_prio), no_ports, no_pod_aff,
+                    no_spread, self.pred_mask, self.per_node_cap,
+                    self.max_rounds, extra_mask is None,
+                    extra_score is None, False))
         ts = self.clock()
         ladder = self._solve_ladder(solver, batch, dp, dn, ds, dt, dv, sv,
                                     base_fr, extra_mask, extra_score,
@@ -1369,6 +1476,7 @@ class Scheduler:
             return self._finish(res, t0, syncs0)
         assigned, usage, res.rounds, res.solver_tier = ladder
         assigned = assigned[: len(batch)].copy()
+        self.obs.step(f"solve done ({res.rounds} rounds)")
 
         # gang scheduling (PodGroup all-or-nothing): a group binds only
         # when ALL its present members placed AND at least minMember are
@@ -1433,7 +1541,8 @@ class Scheduler:
         fit_msgs: Dict[int, str] = {}
         ex_host = None
         if ex is not None:
-            ex_host = read_back(ex)
+            with self.obs.span("pipeline:readback@reasons"):
+                ex_host = read_back(ex, self._reader("explain"))
             res_names = (list(FIXED_RESOURCE_NAMES)
                          + pk.u.scalar_resources.items())[: pt.req.shape[1]]
             for j, i in enumerate(failed_idx):
@@ -1462,6 +1571,7 @@ class Scheduler:
                 res)
         res.explain_s += time.perf_counter() - tx
         self.obs.current_trace.end_span(bind_span)
+        self.obs.step(f"bound {res.scheduled}, failed {res.unschedulable}")
 
         # preemption (scheduler.go:493 -> preempt): failed pods try to
         # evict lower-priority pods; winners get a nominated node and
@@ -1469,17 +1579,63 @@ class Scheduler:
         if rows_dev is not None:
             tp = time.perf_counter()
             res.preempt_rows_bytes = rows_dev.numel() * rows_dev.element_size()
+            with self.obs.span("pipeline:readback@preempt"):
+                rows = self.obs.jax.readback("preempt-reasons", rows_dev)
+            pt0 = self.clock()
             with self.obs.span("preemption"):
-                self._run_preemption(batch, preemptable_idx,
-                                     to_host(rows_dev), node_order, res)
+                self._run_preemption(batch, preemptable_idx, rows,
+                                     node_order, res)
+            self.metrics.preemption_duration.observe(self.clock() - pt0)
             res.preempt_s = time.perf_counter() - tp
-            self.metrics.preemption_duration.observe(res.preempt_s)
-        return self._finish(res, t0, syncs0)
+            self.obs.step(f"preemption ({res.preempted} victims)")
+        return self._finish(res, t0, syncs0, cycle)
 
-    def _finish(self, res: CycleResult, t0: float, syncs0: int):
+    def _reader(self, site: str):
+        """The telemetry's readback at ``site``, as a one-argument read."""
+        return lambda t: self.obs.jax.readback(site, t)
+
+    def _note_snapshot(self, mode, nt, dn, dp, ds, dt, dv, n_batch,
+                       use_pipeline) -> None:
+        """The cycle's snapshot provenance for its flight record: the
+        mode and the rows re-packed, the host-to-device bytes (the whole
+        node table on a full or host upload, the delta's rows else) and
+        the batch-shape digest."""
+        rows = nt.n if mode == "host" else self.cache.last_upload_rows
+        self.obs.note_snapshot(mode, rows)
+        uploads = [t for t in (dp, ds, dt, dv) if t is not None]
+        if mode in ("host", "full"):
+            uploads.append(dn)
+        elif self.cache.last_upload_nbytes:
+            self.obs.jax.record_transfer("snapshot", "h2d",
+                                         self.cache.last_upload_nbytes)
+        self.obs.jax.record_upload("snapshot", *uploads)
+        self.obs.note_batch_shape(
+            f"P{dp.valid.shape[0] if dp is not None else n_batch}"
+            f"xN{dn.valid.shape[0]}"
+            + ("+topo" if dt is not None else "")
+            + ("+vol" if dv is not None else "")
+            + (f"+pipe{self.pipeline_chunk}" if use_pipeline else ""))
+
+    def _finish(self, res: CycleResult, t0: float, syncs0: int,
+                cycle: Optional[int] = None):
+        """The shared end of every cycle path. ``cycle`` is given on the
+        paths that solved to the bind (the reference's ``_finish_cycle``):
+        those note the solve scope, count the incremental cycle and
+        backfill the journeys' attempt rows; the early returns (an empty
+        batch, a batch lost to PreFilter, a solver outage) do not."""
         res.elapsed_s = self.clock() - t0
         if res.solver_tier and not res.solve_scope:
             res.solve_scope = "full"
+        if cycle is not None:
+            if res.solve_scope:
+                self.obs.note_solve_scope(res.solve_scope, res.reuse_frac)
+                if self.incremental.enabled:
+                    self.metrics.incremental_cycles.inc(
+                        scope=res.solve_scope)
+                    self.metrics.incremental_reuse_fraction.set(
+                        res.reuse_frac)
+            self.obs.journeys.finish_cycle(cycle, res.solver_tier,
+                                           res.solve_scope)
         if res.solver_tier:
             self.metrics.algorithm_duration.observe(res.solve_s)
             self.last_solver_tier = res.solver_tier
@@ -1492,7 +1648,7 @@ class Scheduler:
         self._record_metrics(res, res.solve_s)
         if self.obs.current_trace is not None:
             self.obs.current_trace.log_if_long(self.trace_threshold_s)
-        self.obs.end_cycle()
+        self.obs.end_cycle(res)
         klog.V(3).info(
             "cycle: attempted=%d scheduled=%d unschedulable=%d rounds=%d "
             "syncs=%d %.3fs", res.attempted, res.scheduled,
@@ -1634,6 +1790,7 @@ class Scheduler:
             for v in result.victims:
                 v.deletion_timestamp = now
                 self.event_sink("Preempted", v, f"by {pod.key()}")
+                self.obs.journeys.note_evicted(v.key(), pod.key())
                 if self.victim_deleter is not None:
                     # the deletion goes through the API; the victim stays
                     # cached as terminating until the watch delete arrives
@@ -1677,7 +1834,8 @@ class Scheduler:
             return None, None
         # the built-in-feasible mask crosses to the host for the HTTP
         # fan-out: one counted read
-        base = np.asarray(to_host(base_fr.mask), bool)
+        base = np.asarray(self.obs.jax.readback("extender-mask",
+                                                base_fr.mask), bool)
         rows = {n: j for j, n in enumerate(node_order)}
         nodes_by_name = {nd.name: nd for nd in self.cache.nodes()}
         em = np.ones(base.shape, bool)
@@ -1759,12 +1917,25 @@ class Scheduler:
         res.explain = report
         self.last_explain = report
         self.why_pending.update(report.pods)
+        self.obs.note_explain(report)
+        m = self.metrics
+        for reason, npods in report.reason_pods.items():
+            m.unschedulable_pods.inc(npods, reason=reason)
+        # the gauges show THIS cycle's exclusion counts; a reason that
+        # fired before but not now drops to zero instead of going stale
+        for reason in self._explain_reasons_seen - set(
+                report.reason_node_counts):
+            m.unschedulable_node_counts.set(0, reason=reason)
+        for reason, pairs in report.reason_node_counts.items():
+            m.unschedulable_node_counts.set(pairs, reason=reason)
+            self._explain_reasons_seen.add(reason)
 
     def _explain_retire_if_drained(self) -> None:
         """An idle cycle popped nothing: when every pod the last report
         analyzed has since left (bind and delete drop their why_pending
-        rows), retire the report instead of reporting them forever. Pods
-        parked in backoff or unschedulable keep their rows."""
+        rows), retire the report and zero the reason gauges instead of
+        reporting them forever. Pods parked in backoff or unschedulable
+        keep their rows."""
         if not self.explain or self.why_pending or self.last_explain is None:
             return
         if not (self.last_explain.pods
@@ -1773,6 +1944,8 @@ class Scheduler:
         self.last_explain = UnschedulableReport(
             cycle=self.queue.scheduling_cycle,
             n_nodes=self.last_explain.n_nodes)
+        for reason in self._explain_reasons_seen:
+            self.metrics.unschedulable_node_counts.set(0, reason=reason)
 
     # -- degradation ladder ------------------------------------------------
 
@@ -1803,6 +1976,7 @@ class Scheduler:
         )
 
         self.metrics.breaker_state.set(STATE_CODE[new], target=target)
+        self.obs.note_breaker(target, old, new)
         ref = ObjectRef(name=self.scheduler_name, involved_kind="Scheduler")
         if new == OPEN:
             klog.warning("circuit breaker %s: %s -> open (degraded mode)",
@@ -1849,6 +2023,9 @@ class Scheduler:
             # backend
             (dp, dn, ds, dt, dv, sv, extra_mask, extra_score) = to_cpu(
                 (dp, dn, ds, dt, dv, sv, extra_mask, extra_score))
+        # the Sinkhorn stats ride the solve as a (2,) device pair and the
+        # tier's one readback brings them back (_validated_readback); the
+        # host fallback, as the reference's, solves without them
         out = batch_assign(
             dp, dn, ds, self.weights, max_rounds=self.max_rounds,
             per_node_cap=self.per_node_cap, topo=dt, extra_mask=extra_mask,
@@ -1856,7 +2033,9 @@ class Scheduler:
             extra_score=extra_score, use_sinkhorn=(tier == "sinkhorn"),
             skip_priorities=skip_prio, no_ports=no_ports,
             no_pod_affinity=no_pod_aff, no_spread=no_spread,
-            fault_hook=hook, fault_site=f"solve:{tier}")
+            fault_hook=hook, fault_site=f"solve:{tier}",
+            stats_out=(self.observability.sinkhorn_telemetry
+                       and tier != "batch-cpu"))
         return out, dp, dn
 
     def _validated_readback(self, tier, out, dp, dn):
@@ -1865,12 +2044,15 @@ class Scheduler:
         count riding it. The verdict is computed on the device
         (``device_validate``); the host checker (``validate_solution``)
         takes over when the result cannot reach the device (shape) or
-        ``robustness.host_validate`` asks for it. Returns
+        ``robustness.host_validate`` asks for it. A tier that returned
+        its Sinkhorn stats (a fourth element) has them ride the same copy,
+        bit-cast to int32, and noted for the cycle's record. Returns
         ``(assigned_host, usage, rounds)`` or raises SolverResultInvalid
         with the host checker's reason vocabulary."""
         rc = self.robustness
-        a_dev, u_dev, rounds = out
-        code = None
+        a_dev, u_dev, rounds = out[:3]
+        stats = out[3] if len(out) > 3 else None
+        verdict = None
         if rc.validate_results:
             with self.obs.span("validate"):
                 verdict = (None if rc.host_validate else device_validate(
@@ -1882,15 +2064,25 @@ class Scheduler:
                         self.metrics.solver_rejections.inc(tier=tier,
                                                            reason=why)
                         raise SolverResultInvalid(f"{tier}: {why}")
-                else:
-                    code = verdict[0]
+        # the payload, as the reference's: the assignment and the round
+        # count, the device verdict and its valid count when the device
+        # rendered it, the Sinkhorn stats when the tier returned them
         dev = a_dev.device
-        host = to_host(torch.cat([
-            a_dev[: dp.valid.shape[0]].to(torch.int32),
-            (code.to(dev)[None] if code is not None
-             else torch.zeros((1,), dtype=torch.int32, device=dev)),
-            _rounds_tensor(rounds, dev)]))
-        assigned, code, rounds = np.asarray(host[:-2], np.int64), *host[-2:]
+        parts = [a_dev[: dp.valid.shape[0]].to(torch.int32),
+                 _rounds_tensor(rounds, dev)]
+        if verdict is not None:
+            parts.append(torch.stack([v.to(dev, torch.int32)
+                                      for v in verdict]))
+        if stats is not None:
+            parts.append(_stats_bits(stats, dev))
+        host = self.obs.jax.readback("solve-result", torch.cat(parts))
+        if stats is not None:
+            self.obs.note_sinkhorn(_stats_host(host[-2:]))
+            host = host[:-2]
+        code = 0
+        if verdict is not None:
+            code, host = host[-2], host[:-2]
+        assigned, rounds = np.asarray(host[:-1], np.int64), host[-1]
         if code:
             why = VALIDATE_REASONS[code]
             self.metrics.solver_rejections.inc(tier=tier, reason=why)
@@ -1933,6 +2125,7 @@ class Scheduler:
                 # the floor so the cycle still makes progress
                 if not deadline_counted:
                     m.deadline_exceeded.inc()
+                    self.obs.note_deadline_exceeded()
                     deadline_counted = True
                 m.solver_fallbacks.inc(from_tier=tier, to_tier=terminal)
                 res.solver_fallbacks += 1
@@ -1971,6 +2164,7 @@ class Scheduler:
                 if attempt + 1 < attempts and not (
                         deadline is not None and self.clock() >= deadline):
                     m.solver_retries.inc(tier=tier)
+                    self.obs.note_retry()
                     continue
                 break
             if result is not None:
@@ -2126,6 +2320,9 @@ class Scheduler:
         fit_msgs: Dict[int, str] = {}
         rmat_rows: Dict[int, list] = {}
         ex_parts: List[dict] = []
+        statics = (solver, tuple(skip_prio), no_ports, no_pod_aff,
+                   no_spread, self.pred_mask, self.per_node_cap,
+                   self.max_rounds, True, True, False)
 
         def pack_chunk(k):
             with self.obs.span(f"pipeline:pack@{k}", pods=len(chunks[k])):
@@ -2136,6 +2333,9 @@ class Scheduler:
                     dv_c = volumes_to_device(
                         pk.pack_volume_tables(chunks[k]), device=dev)
                     sv_c = _static_vol_pass(dp_c, dn, ds, dv_c)
+                # the pod tables are the steady cycle's largest upload
+                self.obs.jax.record_upload(
+                    "snapshot", dp_c, *([dv_c] if dv_c is not None else []))
                 return pt_c, dp_c, dv_c, sv_c
 
         def dispatch(k, packed, dn_in):
@@ -2149,6 +2349,8 @@ class Scheduler:
                     and self.clock() >= self._cycle_deadline):
                 return None
             with self.obs.span(f"pipeline:dispatch@{k}", tier=solver):
+                self.obs.jax.record_call("solve", dp_c, dn_in, ds, dt, dv_c,
+                                         static=statics)
                 try:
                     return self._run_tier(solver, chunks[k], dp_c, dn_in, ds,
                                           dt, dv_c, sv_c, None, None, None,
@@ -2219,14 +2421,14 @@ class Scheduler:
                 dp_c.req.index_select(0, rows),
                 dn_cur.allocatable - dn_cur.requested, dn_cur.ready,
                 dn_cur.network_unavailable)
-            ex_h = read_back(ex)
+            ex_h = read_back(ex, self._reader("explain"))
             ex_parts.append(ex_h)
             rmat = None
             if self.enable_preemption:
                 rows_dev = reasons[:, : nt.n]
                 res.preempt_rows_bytes += (rows_dev.numel()
                                            * rows_dev.element_size())
-                rmat = to_host(rows_dev)
+                rmat = self.obs.jax.readback("preempt-reasons", rows_dev)
             for j, i in enumerate(failed_idx):
                 g = offset + i
                 bits = int(ex_h["pod_bits"][j])
@@ -2299,13 +2501,15 @@ class Scheduler:
         preempt_idx = [g for g in failed_global if g in rmat_rows]
         if self.enable_preemption and preempt_idx:
             tp = time.perf_counter()
+            pt0 = self.clock()
             with self.obs.span("preemption"):
                 self._run_preemption(batch, preempt_idx,
                                      [rmat_rows[g] for g in preempt_idx],
                                      node_order, res)
+            self.metrics.preemption_duration.observe(self.clock() - pt0)
             res.preempt_s = time.perf_counter() - tp
-            self.metrics.preemption_duration.observe(res.preempt_s)
-        return self._finish(res, t0, syncs0)
+            self.obs.step(f"preemption ({res.preempted} victims)")
+        return self._finish(res, t0, syncs0, cycle)
 
     # -- the sparsity-first routes (restricted, partitioned) ----------------
 
@@ -2329,12 +2533,18 @@ class Scheduler:
         drops (rebuilt lazily from the resident table) and the Sinkhorn
         carry dies. Reasons: full-snapshot (node-set change, pack-epoch
         or interner growth, explicit invalidation), dirty-frac,
-        restricted-error."""
+        restricted-error. Counted on
+        ``scheduler_incremental_invalidations_total{reason}`` only when
+        warm state existed to drop, as the reference counts it."""
         klog.V(4).info("incremental state dropped: %s", reason)
+        live = self.cache.has_score_summary()
+        had = self._incr_active or self._sk_warm_pot is not None or live
         self._sk_warm_pot = None
         self._incr_active = False
-        if self.cache.has_score_summary():
+        if live:
             self.cache.drop_score_summary()
+        if had and self.incremental.enabled:
+            self.metrics.incremental_invalidations.inc(reason=reason)
 
     def _note_tuner_batch(self, raw: int) -> None:
         """Feed one raw micro-batch size into the tuner's window (the last
@@ -2414,14 +2624,23 @@ class Scheduler:
         return True
 
     def _solve_frame(self, dp_f, sub_dn, ds, cand, skip_prio, sk_init=None,
-                     warm=False, site="solve:restricted"):
+                     warm=False, site="solve:restricted",
+                     readback_site="solve-result"):
         """One (P, C) frame: solve it with the stock solver, validate on
         the device, map the candidate-local rows to global node rows and
-        read back the mapped rows, the verdict, the deepest frame position
-        and the round count as ONE transfer. Returns ``(assigned (P_pad,) host,
+        read back the mapped rows, the verdict, the deepest frame position,
+        the round count and (sinkhorn solver) the Sinkhorn stats as ONE
+        transfer at ``readback_site``. Returns ``(assigned (P_pad,) host,
         rounds, depth, potentials or None)``; raises SolverResultInvalid
         on a failed verdict."""
         inc = self.incremental
+        want_stats = bool(self.observability.sinkhorn_telemetry
+                          and self.solver == "sinkhorn")
+        self.obs.jax.record_call(
+            "solve", dp_f, sub_dn, ds,
+            static=("restricted", self.solver, tuple(skip_prio),
+                    self.pred_mask, self.per_node_cap, self.max_rounds,
+                    sk_init is None, True, False))
         out = batch_assign(
             dp_f, sub_dn, ds, self.weights, max_rounds=self.max_rounds,
             per_node_cap=self.per_node_cap, enabled_mask=self.pred_mask,
@@ -2429,6 +2648,7 @@ class Scheduler:
             skip_priorities=skip_prio, no_ports=True, no_pod_affinity=True,
             no_spread=True, sk_init=sk_init,
             sk_tol=(inc.warm_tol if warm else None), potentials_out=warm,
+            stats_out=want_stats,
             fault_hook=(self.fault_injector.solver_hook
                         if self.fault_injector is not None else None),
             fault_site=site)
@@ -2440,15 +2660,20 @@ class Scheduler:
         code, _count = verdict
         a_local = a_local[: dp_f.valid.shape[0]].to(torch.int32)
         depth = torch.where(dp_f.valid & (a_local >= 0), a_local, -1).amax()
-        host = to_host(torch.cat([
-            map_restricted_assignment(a_local, cand),
-            torch.stack([code.to(torch.int32), depth.to(torch.int32)]),
-            _rounds_tensor(rounds, code.device)]))
+        parts = [map_restricted_assignment(a_local, cand),
+                 torch.stack([code.to(torch.int32), depth.to(torch.int32)]),
+                 _rounds_tensor(rounds, code.device)]
+        if want_stats:
+            parts.append(_stats_bits(out[3], code.device))
+        host = self.obs.jax.readback(readback_site, torch.cat(parts))
+        if want_stats:
+            self.obs.note_sinkhorn(_stats_host(host[-2:]))
+            host = host[:-2]
         code, depth, rounds = host[-3:]
         if code:
             raise SolverResultInvalid(f"frame: {VALIDATE_REASONS[code]}")
         return (np.asarray(host[:-3], np.int64), rounds, depth,
-                out[3] if warm else None)
+                out[-1] if warm else None)
 
     def _restricted_tail(self, batch, cycle, res, t0, syncs0, nt, dn, ds,
                          dp, node_order, skip_prio):
@@ -2470,6 +2695,7 @@ class Scheduler:
                 g[1] = max(g[1], gp.pod_group_min_available)
         for gname, (cnt, need) in gang_need.items():
             if cnt + self.cache.group_members(gname) < need:
+                self.metrics.incremental_cycles.inc(scope="declined")
                 return None
         summary = self.cache.score_summary()
         if summary is None:
@@ -2489,6 +2715,9 @@ class Scheduler:
         if warm and self._sk_warm_pot is not None \
                 and self._sk_warm_pot[0] == pot_key:
             sk_init = self._sk_warm_pot[1]
+        # the candidate pick is a site of its own, as in the reference
+        self.obs.jax.record_call("incremental", summary.rank,
+                                 static=(C, n_pad, False, 1, True, None))
         ts = self.clock()
         try:
             with self.obs.span("solve:restricted"):
@@ -2499,11 +2728,14 @@ class Scheduler:
         except (SolverFault, RuntimeError) as e:
             klog.warning("restricted solve declined (%s); dense solve", e)
             self._drop_incremental("restricted-error")
+            self.metrics.incremental_cycles.inc(scope="declined")
             return None
         self._tuner_depth_max = max(self._tuner_depth_max, depth + 1)
         placed = assigned[: len(batch)]
         if (placed < 0).any():
-            return None  # under-placed: the dense ladder decides
+            # under-placed: the dense ladder decides
+            self.metrics.incremental_cycles.inc(scope="under-placed")
+            return None
         if warm and pot is not None:
             self._sk_warm_pot = (pot_key, pot)
         self._incr_active = True
@@ -2512,14 +2744,17 @@ class Scheduler:
         res.solve_scope = "restricted"
         res.reuse_frac = round(reuse, 4)
         res.solve_s = self.clock() - ts
+        self.obs.step(f"restricted solve done ({res.rounds} rounds, C={C}, "
+                      f"reuse={reuse:.3f})")
         with self.obs.span("bind"):
             for i, pod in enumerate(batch):
                 self._admit_pod(pod, node_order[int(placed[i])], cycle, res)
+        self.obs.step(f"bound {res.scheduled}, failed {res.unschedulable}")
         if self.explain:
             # nothing failed the filter pass (everything placed), but the
             # admission tail's failures still get report rows
             self._build_explain_report(cycle, [], None, nt.n, res)
-        return self._finish(res, t0, syncs0)
+        return self._finish(res, t0, syncs0, cycle)
 
     def _cold_blocks(self, n_pad: int, C: int) -> int:
         """Blocks of the partitioned cold solve: ``cold_blocks``, or (0 =
@@ -2579,6 +2814,8 @@ class Scheduler:
         def pending_pods():
             return dp._replace(valid=dp.valid & upload(pending, dev))
 
+        self.obs.jax.record_call("partition", summary.rank,
+                                 static=(B, C, n_pad, 1, False))
         ts = self.clock()
         solve_span = self.obs.current_trace.begin_span("solve:partitioned",
                                                         blocks=B)
@@ -2590,7 +2827,7 @@ class Scheduler:
                 got, r, _depth, _pot = self._solve_frame(
                     pending_pods(), gather_node_rows(dn, blocks[b]), ds,
                     blocks[b], skip_prio, warm=warm,
-                    site="solve:partitioned")
+                    site="solve:partitioned", readback_site="cold-block")
                 rounds += r
                 take(got)
             if pending[: len(batch)].any():
@@ -2604,35 +2841,43 @@ class Scheduler:
                                  acc_t.clamp_min(0),
                                  (acc_t >= 0) & dp.valid)
                 dn_u = nodes_with_usage(dn, u)
-                cand, sub_dn = gather_candidates(
-                    node_summary(dn_u, **self._summary_flags), zeros_dirty,
-                    dn_u, C)
+                sum_u = node_summary(dn_u, **self._summary_flags)
+                self.obs.jax.record_call(
+                    "incremental", sum_u.rank,
+                    static=(C, n_pad, False, 1, True, None))
+                cand, sub_dn = gather_candidates(sum_u, zeros_dirty, dn_u, C)
                 got, r, _depth, _pot = self._solve_frame(
                     pending_pods(), sub_dn, ds, cand, skip_prio, warm=warm,
-                    site="solve:partitioned")
+                    site="solve:partitioned", readback_site="cold-block")
                 rounds += r
                 take(got)
         except (SolverFault, RuntimeError) as e:
             klog.warning("partitioned cold solve declined (%s); dense "
                          "solve", e)
+            self.metrics.incremental_cycles.inc(scope="declined")
             return None
         finally:
             self.obs.current_trace.end_span(solve_span)
         if pending[: len(batch)].any():
-            return None  # under-placed: the dense ladder decides
+            # under-placed: the dense ladder decides
+            self.metrics.incremental_cycles.inc(scope="under-placed")
+            return None
         res.rounds = rounds
         res.solver_tier = self.solver
         res.solve_scope = "partitioned"
         res.cold_blocks = B
         res.reuse_frac = 0.0
         res.solve_s = self.clock() - ts
+        self.obs.step(f"partitioned cold solve done ({res.rounds} rounds, "
+                      f"B={B}, C={C})")
         with self.obs.span("bind"):
             for i, pod in enumerate(batch):
                 self._admit_pod(pod, node_order[int(assigned[i])], cycle,
                                 res)
+        self.obs.step(f"bound {res.scheduled}, failed {res.unschedulable}")
         if self.explain:
             self._build_explain_report(cycle, [], None, nt.n, res)
-        return self._finish(res, t0, syncs0)
+        return self._finish(res, t0, syncs0, cycle)
 
     # -- warmup --------------------------------------------------------------
 
@@ -2776,19 +3021,29 @@ class Scheduler:
                   enabled_mask=self.pred_mask, skip_priorities=skip_prio,
                   no_ports=no_ports, no_pod_affinity=no_pod_aff,
                   no_spread=no_spread)
+        # the solve site's signature, as a cycle digests it: the warmup's
+        # captures are deliberate, never retraces
+        statics = (solver, tuple(skip_prio), no_ports, no_pod_aff,
+                   no_spread, self.pred_mask, self.per_node_cap,
+                   self.max_rounds, True, True, False)
 
         def solve(extra_mask):
+            self.obs.jax.record_call(
+                "solve", dp, dn, ds, dt, dv,
+                static=statics[:8] + (extra_mask is None,) + statics[9:],
+                warmup=True)
             if solver == "greedy":
                 return greedy_assign(dp, dn, ds, self.weights,
                                      extra_mask=extra_mask, **kw)
             # one graph per route the auto-router can choose in round 0
-            # (``sinkhorn`` always plans: the router stays out)
+            # (``sinkhorn`` always plans: the router stays out); the stats
+            # flag joins the graph key, so it is the cycles' own
             for route in (False, True) if solver == "batch" else (None,):
                 out = batch_assign(
                     dp, dn, ds, self.weights, max_rounds=self.max_rounds,
                     per_node_cap=self.per_node_cap, extra_mask=extra_mask,
                     use_sinkhorn=(solver == "sinkhorn"), route_plan=route,
-                    **kw)
+                    stats_out=self.observability.sinkhorn_telemetry, **kw)
             return out[0], out[1]
 
         a, usage = solve(None)
@@ -2856,16 +3111,23 @@ class Scheduler:
                                np.full((dpb,), n_pad, np.int64))
         use_sk = self.solver == "sinkhorn"
         warm = bool(inc.warm_potentials and use_sk)
+        want_stats = bool(self.observability.sinkhorn_telemetry and use_sk)
         compiled = 0
         smallest_bucket = bucket_size(1)
         dps: Dict[int, object] = {}
         for C in ladder:
+            self.obs.jax.record_call(
+                "incremental", summary.rank,
+                static=(C, n_pad, False, 1, True, None), warmup=True)
             cand, sub_dn = gather_candidates(summary, zeros_dirty, dn, C)
             part_warm = False
             if inc.primary:
                 B = self._cold_blocks(n_pad, C)
                 if B >= 2:
                     part_warm = True
+                    self.obs.jax.record_call(
+                        "partition", summary.rank,
+                        static=(B, C, n_pad, 1, False), warmup=True)
                     blocks = partition_columns(summary, zeros_dirty, B, C)
                     gather_node_rows(dn, blocks[0])
             limit = inc.max_batch_frac * C
@@ -2887,6 +3149,13 @@ class Scheduler:
                         torch.zeros((P,), dtype=torch.float32, device=dev),
                         torch.zeros((C,), dtype=torch.float32, device=dev)))
                 for sk_init in variants:
+                    self.obs.jax.record_call(
+                        "solve", dp, sub_dn, ds,
+                        static=("restricted", self.solver, tuple(skip_prio),
+                                self.pred_mask, self.per_node_cap,
+                                self.max_rounds, sk_init is None, True,
+                                False),
+                        warmup=True)
                     out = batch_assign(
                         dp, sub_dn, ds, self.weights,
                         max_rounds=self.max_rounds,
@@ -2894,7 +3163,7 @@ class Scheduler:
                         enabled_mask=self.pred_mask, use_sinkhorn=use_sk,
                         skip_priorities=skip_prio, no_ports=True,
                         no_pod_affinity=True, no_spread=True,
-                        sk_init=sk_init,
+                        stats_out=want_stats, sk_init=sk_init,
                         sk_tol=(inc.warm_tol if warm else None),
                         potentials_out=warm)
                     a, usage = out[0], out[1]
@@ -2951,6 +3220,7 @@ class Scheduler:
         ps = fw.run_permit(st, pod, node_name)
         if ps.code == WAIT:
             res.waiting += 1
+            self.obs.journeys.note_permit_park(pod.key())
             return
         if not ps.is_success():
             self.cache.forget_pod(pod.key())
@@ -2987,6 +3257,7 @@ class Scheduler:
         s = fw.run_prebind(st, pod, node_name)
         if not s.is_success():
             return reject(f"PreBind:{s.message}")
+        self.obs.journeys.note_bind_start(pod.key())
         bt0 = self.clock()
         bs = fw.run_bind(st, pod, node_name)
         if bs.code == SKIP:
@@ -3029,6 +3300,7 @@ class Scheduler:
         res.assignments[pod.key()] = node_name
         res.e2e_latency_s[pod.key()] = max(
             self.clock() - getattr(pod, "queued_at", self.clock()), 0.0)
+        self.obs.journeys.note_bound(pod.key(), cycle)
         fw.run_postbind(st, pod, node_name)
         self._cycle_states.pop(pod.key(), None)
         self.event_sink("Scheduled", pod, node_name)
@@ -3104,6 +3376,7 @@ class Scheduler:
                          "verification is unreachable; parked assumed",
                          key, node_name)
             self._ambiguous_binds[key] = (pod, node_name, st)
+            self.obs.journeys.note_ambiguous_park(key, "bind-timeout")
             self._cycle_states.pop(key, None)
             return False
         if resolution == "adopted":
@@ -3184,6 +3457,8 @@ class Scheduler:
                 res.e2e_latency_s[key] = max(
                     self.clock() - getattr(pod, "queued_at", self.clock()),
                     0.0)
+                self.obs.journeys.note_bound(
+                    key, self.queue.scheduling_cycle)
                 self.framework.run_postbind(st, pod, node_name)
                 self.event_sink("Scheduled", pod, node_name)
                 klog.V(2).info("parked ambiguous bind of %s -> %s "
@@ -3229,6 +3504,10 @@ class Scheduler:
         res.failure_reasons[pod.key()] = tuple(reasons)
         if message is not None:
             res.fit_errors[pod.key()] = message
+        # the journey's attempt row (tier and scope backfilled when the
+        # cycle closes); the queue re-add below ends its solve phase
+        self.obs.journeys.note_attempt_failed(
+            pod.key(), cycle, reasons[0] if reasons else "")
         self._cycle_states.pop(pod.key(), None)
         self.queue.record_failure(pod)
         self.queue.add_unschedulable_if_not_present(pod, cycle)

@@ -6,8 +6,11 @@ Two serving roles, mirroring the reference's two integration surfaces:
 - :func:`serve_scheduler` — the component's own ``/healthz`` + ``/metrics``
   endpoints (app/server.go:214-234 installs these on every scheduler),
   plus ``/version``, ``/debug/traces`` (Chrome trace-event document of
-  the retained cycle traces) and ``/debug/why`` (the pending-pod
-  explanations).
+  the retained cycle traces), ``/debug/why`` (the pending-pod
+  explanations), ``/debug/flightrecorder`` (the flight recorder's ring
+  and the transfer telemetry), ``/debug/journeys`` (pod journeys,
+  ``?pod=`` for one timeline) and ``/debug/soak`` (an attached soak
+  engine's live status).
 - :class:`ExtenderServer` — the *reverse* integration seam: this
   framework served AS a scheduler extender. A stock Go kube-scheduler
   configured with an HTTPExtender pointing here (verbs
@@ -16,7 +19,9 @@ Two serving roles, mirroring the reference's two integration surfaces:
   own control loop; wire shapes follow pkg/scheduler/api/types.go:284-345.
 
 The reference's other debug routes serve backends the port does not
-have yet; they answer 404 naming the ROADMAP item (:data:`UNPORTED_DEBUG`).
+have yet (the perf and memory ledgers, the incident recorder and its
+profiler); they answer 404 naming the ROADMAP item
+(:data:`UNPORTED_DEBUG`).
 """
 
 from __future__ import annotations
@@ -30,13 +35,10 @@ from kubernetes_tpu_torch.api.types import OwnerReference, Pod, Resources
 
 #: the reference's debug routes whose backends are not ported yet
 UNPORTED_DEBUG = {
-    "/debug/flightrecorder": "the flight recorder (ROADMAP A.13)",
-    "/debug/ledger": "the perf ledger (ROADMAP A.13)",
-    "/debug/memory": "the device-memory ledger (ROADMAP A.13)",
-    "/debug/journeys": "the pod journey tracer (ROADMAP A.13)",
-    "/debug/incidents": "the incident recorder (ROADMAP A.13)",
-    "/debug/profile": "on-demand profiling (ROADMAP A.13)",
-    "/debug/soak": "the soak engine (ROADMAP A.13)",
+    "/debug/ledger": "the perf ledger (ROADMAP A.13 slice 2)",
+    "/debug/memory": "the device-memory ledger (ROADMAP A.13 slice 2)",
+    "/debug/incidents": "the incident recorder (ROADMAP A.13 slice 2)",
+    "/debug/profile": "on-demand profiling (ROADMAP A.13 slice 2)",
 }
 
 
@@ -248,6 +250,40 @@ def why_payload(sched, path: str):
     return 200, doc
 
 
+def journeys_payload(sched, path: str):
+    """The ``/debug/journeys`` body (obs/journey.py): ``?pod=<ns/name or
+    name>`` returns that pod's full timeline — phase decomposition,
+    attempt rows, raw events; without an argument, the slowest-K
+    completed table plus the oldest in-flight journeys. Returns
+    ``(status, json-able dict)``."""
+    import heapq
+    from urllib.parse import parse_qs, urlparse
+
+    q = parse_qs(urlparse(path).query)
+    pod = (q.get("pod") or [""])[0]
+    obs = getattr(sched, "obs", None)
+    journeys = getattr(obs, "journeys", None)
+    if journeys is None or not getattr(journeys, "enabled", False):
+        return 404, {"error": "no journey tracker on this scheduler"}
+    if not pod:
+        return 200, journeys.snapshot()
+    doc = journeys.timeline(pod)
+    if doc is None and "/" not in pod:
+        # bare names resolve like /debug/why: default namespace first,
+        # then a unique suffix match across namespaces
+        doc = journeys.timeline(f"default/{pod}")
+        if doc is None:
+            known = journeys.keys()
+            hits = [k for k in known if k.endswith(f"/{pod}")]
+            doc = journeys.timeline(hits[0]) if len(hits) == 1 else None
+    if doc is None:
+        return 404, {
+            "error": f"no journey retained for {pod!r}",
+            "known": heapq.nsmallest(50, journeys.keys()),
+        }
+    return 200, doc
+
+
 def serve_scheduler(
     scheduler,
     host: str = "127.0.0.1",
@@ -327,10 +363,35 @@ def serve_scheduler(
                     self._respond(404, b"no observability layer",
                                   "text/plain")
                 else:
-                    self._respond(200, json.dumps(obs.chrome_trace()).encode(),
+                    self._respond(200, obs.export_chrome_trace().encode(),
                                   "application/json")
+            elif self.path == "/debug/flightrecorder":
+                obs = getattr(sched, "obs", None)
+                if obs is None:
+                    self._respond(404, b"no observability layer",
+                                  "text/plain")
+                else:
+                    self._respond(
+                        200, json.dumps(obs.debug_payload()).encode(),
+                        "application/json")
+            elif self.path == "/debug/soak":
+                # the soak engine (soak.py) attached via
+                # SoakEngine.attach(sched): current phase, per-phase
+                # verdicts so far, live sentinel snapshot
+                soak = getattr(sched, "soak", None)
+                if soak is None:
+                    self._respond(404, b"no soak engine attached",
+                                  "text/plain")
+                else:
+                    self._respond(
+                        200, json.dumps(soak.status()).encode(),
+                        "application/json")
             elif route == "/debug/why":
                 code, doc = why_payload(sched, self.path)
+                self._respond(code, json.dumps(doc).encode(),
+                              "application/json")
+            elif route == "/debug/journeys":
+                code, doc = journeys_payload(sched, self.path)
                 self._respond(code, json.dumps(doc).encode(),
                               "application/json")
             elif route in UNPORTED_DEBUG:

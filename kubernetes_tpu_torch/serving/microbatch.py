@@ -176,9 +176,13 @@ class ServingLoop:
         #: informer pump (or a producer) running on another thread must
         #: ingest through this lock (use :meth:`ingest`). Doorbell waits
         #: happen OUTSIDE it — feeding never blocks on a solve's wall
-        #: time, only on its critical sections. (The reference builds it
-        #: through the scheduler's lock sanitizer: ROADMAP A.13.)
-        self.lock = threading.RLock()
+        #: time, only on its critical sections. Built through the
+        #: scheduler's lock sanitizer when one is armed: this is the
+        #: lock every cross-thread feed takes, so it belongs in the
+        #: acquisition-order graph.
+        san = getattr(sched, "lock_sanitizer", None)
+        self.lock = (san.make_lock("serving.loop", "rlock")
+                     if san is not None else threading.RLock())
         #: per-iteration maintenance hook run by :meth:`run` BETWEEN
         #: run_once iterations (never mid-cycle): the composed runtime
         #: parks its low-frequency state-conservation audit here

@@ -28,6 +28,8 @@ from kubernetes_tpu_torch.config import (
     KubeSchedulerConfiguration,
     LeaderElectionConfig,
     LedgerConfig,
+    LockSanitizerConfig,
+    MemoryLedgerConfig,
     ObservabilityConfig,
     ParallelConfig,
     RecoveryConfig,
@@ -216,6 +218,14 @@ def test_serving_run_takes_the_lease_binds_and_releases(monkeypatch,
     ("robustness", RobustnessConfig(bind_verify_retries=5)),
     ("observability", ObservabilityConfig(audit_interval_s=5.0)),
     ("device_resident_snapshot", False),
+    ("observability", ObservabilityConfig(
+        journeys=JourneysConfig(enabled=False))),
+    ("observability", ObservabilityConfig(
+        enabled=False, trace_sampling=0.5, recorder_capacity=8,
+        trace_ring_capacity=4, retrace_storm_threshold=2,
+        retrace_storm_window=16)),
+    ("observability", ObservabilityConfig(
+        lock_sanitizer=LockSanitizerConfig(enabled=True))),
 ])
 def test_serving_and_leadership_settings_are_ported(field, value):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})
@@ -227,7 +237,7 @@ def test_serving_and_leadership_settings_are_ported(field, value):
     ("parallel", ParallelConfig(mesh=4), "A.17"),
     ("scenario", ScenarioConfig(pack="consolidation"), "A.15"),
     ("observability", ObservabilityConfig(
-        journeys=JourneysConfig(enabled=False)), "A.13"),
+        memory_ledger=MemoryLedgerConfig(enabled=False)), "A.13"),
     ("observability", ObservabilityConfig(
         ledger=LedgerConfig(enabled=False)), "A.13"),
     ("observability", ObservabilityConfig(

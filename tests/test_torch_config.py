@@ -185,7 +185,7 @@ def test_cli_validate_only_exit_codes(tmp_path, capsys, doc, rc, line):
     ({"parallel": {"mesh": 4}}, "A.17"),
     ({"parallel": {"mesh": "auto"}}, "A.17"),
     ({"scenario": {"pack": "consolidation"}}, "A.15"),
-    ({"observability": {"journeys": {"enabled": False}}}, "A.13"),
+    ({"observability": {"memory_ledger": {"preflight": False}}}, "A.13"),
     ({"observability": {"ledger": {"enabled": False}}}, "A.13"),
     ({"observability": {"incidents": {"enabled": False}}}, "A.13"),
     ({"observability": {"memory_ledger": {"enabled": False}}}, "A.13"),

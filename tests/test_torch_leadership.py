@@ -145,10 +145,10 @@ def test_fenced_bind_aborts_a_deposed_leader():
     assert got[1] == [] and got[4] == {"default/p0":
                                        ("FencedBind:lease lost",)}
     assert got[5] == 1 and got[-2] == 1
-    # the port's trace carries the fence's count
+    # the port's flight record carries the fence's count
     _, s = _fenced_cycle(PKGS["port"])
-    fenced = [t for t in s.obs.traces if t.fields.get("fenced_binds")]
-    assert len(fenced) == 1 and fenced[0].fields["fenced_binds"] == 1
+    fenced = [r for r in s.obs.recorder.records() if r.fenced_binds]
+    assert len(fenced) == 1 and fenced[0].fenced_binds == 1
 
 
 def test_fence_disabled_by_config():
@@ -266,7 +266,7 @@ def test_reconcile_rebuilds_the_device_snapshot_and_flags_the_trace():
     s.on_pod_add(to_port(make_pod("p")))
     r = s.schedule_cycle()
     assert r.snapshot_mode == "full" and s.cache.has_device_snapshot()
-    assert s.obs.last_trace.fields["takeover"] == 1
+    assert s.obs.recorder.records()[-1].takeover == 1
     assert s._ambiguous_binds == {}
 
 

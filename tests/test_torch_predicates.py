@@ -139,6 +139,43 @@ def test_failure_reductions_and_fit_error_text_match(seed):
             int(np.asarray(ex.pod_bits)[i]))
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_fit_error_message_matches_the_reference(seed):
+    """The raw-row FitError builder (``fit_error_message``, the
+    reference's ``ops/predicates.py:90``) on the port's reason rows gives
+    the reference's text on its own rows, and the text the device
+    reductions give (``fit_error_message_from_counts``)."""
+    rng = random.Random(500 + seed)
+    nodes, scheduled, pending = random_cluster(rng, n_nodes=9, n_sched=8,
+                                               n_pending=12)
+    jdn, jdp, jds, _dv, nt, pt, pk = jax_tables(nodes, scheduled, pending)
+    dn, dp, ds, _ = port_tables(jdn, jdp, jds)
+    jr = jp.run_predicates(jdp, jdn, jds)
+    tr = tp.run_predicates(dp, dn, ds)
+    res_names = (list(FIXED_RESOURCE_NAMES)
+                 + pk.u.scalar_resources.items())[: pt.req.shape[1]]
+    jfree = np.asarray(jdn.allocatable - jdn.requested)
+    tfree = (dn.allocatable - dn.requested).numpy()
+    counts = tp.failure_counts(tr.reasons, dn.valid, dp.req,
+                               dn.allocatable - dn.requested, dn.ready,
+                               dn.network_unavailable)
+    for i in range(len(pending)):
+        want = jp.fit_error_message(
+            np.asarray(jr.reasons)[i], np.asarray(jdn.valid), pt.req[i],
+            jfree, np.asarray(jdn.ready), np.asarray(jdn.network_unavailable),
+            res_names)
+        got = tp.fit_error_message(
+            tr.reasons[i].numpy(), dn.valid.numpy(), pt.req[i], tfree,
+            dn.ready.numpy(), dn.network_unavailable.numpy(), res_names)
+        assert got == want
+        if int(counts["bits"][i]):
+            assert got == tp.fit_error_message_from_counts(
+                counts["per_reason"][i].numpy(),
+                counts["insufficient"][i].numpy(),
+                int(counts["not_ready"][i]), int(counts["net_unavail"][i]),
+                nt.n, pt.req[i], res_names)
+
+
 def test_resource_fit_mask_matches():
     g = np.random.default_rng(9)
     req = g.choice([0.0, 100.0, 500.0, 2000.0], size=(16, 4)).astype(

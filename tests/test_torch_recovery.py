@@ -178,8 +178,8 @@ def test_device_loss_rebuilds_resident_snapshot():
                 fi.fired_total("snapshot:device"))
 
     assert both(script) == (1, "full", 1, 1)
-    # the port notes the reset on the cycle's trace (the reference on its
-    # flight record)
+    # the port notes the reset on the cycle's flight record, as the
+    # reference does
     fi = tfaults.FaultInjector(seed=0).arm("snapshot:device", "device_lost",
                                            count=1)
     s = tscheduler.Scheduler(clock=FakeClock(), enable_preemption=False,
@@ -187,9 +187,9 @@ def test_device_loss_rebuilds_resident_snapshot():
     s.on_node_add(ttesting.make_node("n0"))
     s.on_pod_add(ttesting.make_pod("p0"))
     s.schedule_cycle()
-    assert s.obs.last_trace.fields["device_resets"] == 1
-    assert s.obs.last_trace.fields["oom_forensic"] == \
-        "snapshot:device:DeviceLost"
+    rec = s.obs.recorder.records()[-1]
+    assert rec.device_resets == 1
+    assert rec.oom_forensic == "snapshot:device:DeviceLost"
 
 
 @pytest.mark.parametrize("kind", ["device_lost", "device_oom"])

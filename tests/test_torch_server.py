@@ -1,7 +1,9 @@
 """The port's HTTP shim (``kubernetes_tpu_torch/server.py``) against the
 JAX package's (``kubernetes_tpu/server.py``): the wire decode
 (``parse_quantity``, ``pod_from_json``), the extender's ``filter`` and
-``prioritize`` answers and ``/debug/why`` must be JSON-equal on the same
+``prioritize`` answers, ``/debug/why``, ``/debug/journeys``,
+``/debug/soak`` and ``/debug/flightrecorder`` (its records but the fields
+of the reference's A.13 slice 2 backends) must be JSON-equal on the same
 seeded cluster (the port on CPU tensors); the routes, the APF 429 with
 ``Retry-After``, and the extender's one counted readback per call."""
 
@@ -190,6 +192,83 @@ def test_routes_over_http(pair):
     finally:
         plain.shutdown()
         plain.server_close()
+
+
+#: flight-record fields of the reference's A.13 slice 2 backends, and the
+#: readback bytes each package counts over its own payloads
+NOT_COMPARED = ("modeled_s", "model_efficiency", "model_basis", "slo", "mem",
+                "preflight", "readback_bytes")
+
+
+def _both_get(pair, path):
+    """GET ``path`` from both packages' servers: ((status, body) port,
+    (status, body) reference); a non-JSON body comes back as bytes."""
+    out = []
+    for sched, mod in zip(pair[::-1], (tserver, jserver)):
+        srv = mod.serve_scheduler(sched, port=0)
+        try:
+            st, _, body = _get(srv.server_address[1], "GET", path)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        try:
+            body = json.loads(body)
+        except ValueError:
+            pass
+        out.append((st, body))
+    return out
+
+
+def test_flightrecorder_route_serves_the_references_records(pair):
+    (st, got), (jst, want) = _both_get(pair, "/debug/flightrecorder")
+    assert st == jst == 200
+    rec, jrec = got["flight_recorder"], want["flight_recorder"]
+    assert len(rec["records"]) == 1
+    assert ({k: v for k, v in rec.items() if k != "records"}
+            == {k: v for k, v in jrec.items() if k != "records"})
+    assert ([{k: v for k, v in r.items() if k not in NOT_COMPARED}
+             for r in rec["records"]]
+            == [{k: v for k, v in r.items() if k not in NOT_COMPARED}
+                for r in jrec["records"]])
+    assert got["jax"]["sites"] == want["jax"]["sites"]
+    assert set(got["jax"]["transfers"]) >= {"solve-result:d2h",
+                                            "explain:d2h", "snapshot:h2d"}
+
+
+@pytest.mark.parametrize("query", ["", "?pod=pod-1", "?pod=default/pod-2",
+                                   "?pod=nope"])
+def test_journeys_route_matches_the_reference(pair, query):
+    (st, got), (jst, want) = _both_get(pair, f"/debug/journeys{query}")
+    assert (st, got) == (jst, want)
+    assert st == (404 if query == "?pod=nope" else 200)
+
+
+def test_soak_route_serves_an_attached_engine(pair):
+    js, ts = pair
+    assert [b[0] for b in _both_get(pair, "/debug/soak")] == [404, 404]
+    import kubernetes_tpu.soak as jsoak
+    import kubernetes_tpu_torch.soak as tsoak
+
+    try:
+        for sched, mod in ((js, jsoak), (ts, tsoak)):
+            sent = mod.SoakSentinels(sched=sched, rss_reader=lambda: 0)
+            mod.SoakEngine([mod.SoakPhase("idle", 0.0, "clean")], sent,
+                           clock=lambda: 0.0, sleep=lambda _s: None).attach(
+                               sched).run()
+        (st, got), (jst, want) = _both_get(pair, "/debug/soak")
+        assert st == jst == 200
+        assert got["phases_done"] == want["phases_done"] == [
+            {"name": "idle", "kind": "clean", "ok": True}]
+        assert got["current_phase"] is want["current_phase"] is None
+        # the sentinels of this facade (the scheduler's own sizes move
+        # with whatever the module's other cases fed the pair)
+        keep = ("obs.", "jax.", "journey.", "sched.journey_")
+        assert ({k: v for k, v in got["sentinels"]["last"]["values"].items()
+                 if k.startswith(keep)}
+                == {k: v for k, v in want["sentinels"]["last"]["values"]
+                    .items() if k.startswith(keep)})
+    finally:
+        del js.soak, ts.soak
 
 
 def test_extender_posts_shed_with_429_and_retry_after(pair):

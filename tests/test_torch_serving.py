@@ -211,8 +211,9 @@ def test_flush_provenance_reaches_the_result_and_trace():
     s, conv = _scheduler("port", n_nodes=2, clock=FakeClock())
     s.on_pod_add(conv(make_pod("p", cpu_milli=100)))
     s.schedule_cycle(flush_trigger="max-wait", window_s=0.05)
-    assert s.obs.last_trace.fields["flush_trigger"] == "max-wait"
-    assert s.obs.last_trace.fields["window_s"] == 0.05
+    rec = s.obs.recorder.records()[-1]
+    assert rec.flush_trigger == "max-wait"
+    assert rec.window_s == 0.05
 
 
 def test_e2e_latency_is_per_pod_create_to_bind():

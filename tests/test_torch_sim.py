@@ -223,17 +223,3 @@ def test_scenarios_exercise_what_they_name(tmp_path):
     # elsewhere, and the taints lifted once the kubelets healed
     assert max(tainted) == 3 and tainted[-1] == 0
     assert hub.bound_total > 40 + 16
-
-
-def test_debugger_dump_is_the_reference_dump_without_its_recorder():
-    """``debugger.dump`` prints the cache and the queue as the
-    reference's does; the reference then appends its flight recorder
-    (ROADMAP A.13), which the port's observability does not have yet.
-    Before the fix the port's dump raised AttributeError there."""
-    import kubernetes_tpu.debugger as jdebugger
-    import kubernetes_tpu_torch.debugger as tdebugger
-
-    ref, port = (list(churn(pkg, None))[5] for pkg in (REF, PORT))
-    want, got = jdebugger.dump(ref.sched), tdebugger.dump(port.sched)
-    assert "Dump of scheduling queue:" in got and "node n0" in got
-    assert want.startswith(got + "\n")
