@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs thirteen phases and exits
+``nvcc`` per source, in parallel), then runs fourteen phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -70,9 +70,10 @@ non-zero if any fails:
    leaves one flight record whose spans are its trace's and whose
    readback bytes are the bytes ``ops/sync.to_host`` moved, with no
    retrace or graph capture after the first cycle; the depth-2 run again
-   with the facade and the journeys off must place and sync alike (both
-   runs' cycle seconds printed: the facade's host cost); then one
-   profiled pipelined
+   with the facade, the journeys and the perf and memory ledgers and the
+   incident recorder off must place and sync alike, and once more on
+   (on, off, on: every run's cycle seconds printed, the facade's host
+   cost); then one profiled pipelined
    cycle (the device's idle share) and a reduced run (500 nodes, 3000
    pods, chunks of 512) whose depth-2, depth-3 and CPU placements must
    agree. The device round loop (``csrc/graph_loop.cu``) is then held
@@ -86,7 +87,7 @@ non-zero if any fails:
    scheduler warms with the first 64 pending pods after the node sync
    (as ``cli.run``'s gate does); no cycle may capture a round-loop graph
    after warmup, every pod binds on the configured tier, placements equal
-   a hand-built ``Scheduler``. Arm B, the ladder (5000 nodes, 4096
+   a hand-built ``Scheduler``. Arm B, the ladder (5000 nodes, 1024
    pending): each raising and poisoning fault kind at ``solve:batch``
    gives the retry then ``batch-cpu`` with the fault-free placements; the
    breaker opens, sheds and half-opens on a hand-advanced clock; a blown
@@ -164,25 +165,50 @@ non-zero if any fails:
    device resets with their forensic flags, the aborted warmup's flag
    parked for the next record), no graph is captured after
    warmup and every cycle runs under sync-debug ``error``; the
-   allocator's bytes around each drop of the resident table. Arm C, cell
-   ``ha-5k``: two ``chaos.HAReplica`` on one hub of 5000 nodes, 2000 pods
-   created while the leader is killed: the standby takes over and binds
-   every pod exactly once. No other phase may reset the device or run a
-   host-mode cycle.
+   allocator's bytes around each drop of the resident table; every reset
+   leaves the memory ledger's forensic flag (``oom@snapshot:device
+   top=cache.node_table:...``), one ``oom`` incident bundle and the
+   ranked record on ``/debug/memory``. Arm C, cell ``ha-5k``: two
+   ``chaos.HAReplica`` on one hub of 5000 nodes, 2000 pods created while
+   the leader is killed: the standby takes over and binds every pod
+   exactly once. No other phase may reset the device or run a host-mode
+   cycle;
+14. the device backends of observability, cell ``ledger-5k``: the smoke
+   cell's cluster, every scheduler from a JSON v1alpha1 file through
+   ``Scheduler.from_config``, monolithic cycles, warmup at pod buckets
+   1024-8192 (N = 8192). Arm A: the backends at their defaults against a
+   twin with all three off over 4 cycles of 8192 pods and one at each
+   smaller bucket: equal placements and host syncs, 0 graph captures
+   after warmup, the cost model's efficiency in (0, 8] with a basis from
+   the second cycle, one memory-ledger entry a cycle from the allocator
+   with preflight ``ok``, each bucket's captured bytes at least 90% of a
+   live cycle's peak at that bucket, the backends' host seconds. Arm B:
+   ``memoryLedger.limitBytes`` from A's table so an 8192 batch splits to
+   4096 and places as a twin capped at 4096, every pod binds, then a
+   limit under the smallest bucket sheds every cycle with every pod kept
+   queued, the preflight counter equal to the verdicts, no out-of-memory
+   record. Arm C: ``costDriftRatio: 2.0`` over 2 s / 4 s windows; bursts
+   of 8192 pods after 64-pod cycles burn it (``slo``, the event, the
+   scheduler degraded at 4x pressure, one ``slo-burn`` bundle and its
+   ``torch.profiler`` trace naming the fused pair's kernel, no profiler
+   error), 64-pod cycles recover it, and ``/debug/ledger``,
+   ``/debug/memory``, ``/debug/incidents`` and ``/debug/profile`` answer
+   over HTTP with the reference's keys.
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
 kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path, the preempt cell, the sparse cell, the
 pipeline cell, the configured scheduler's arm A, the serve loop's
-arms A-D, the hollow cluster's arms A and B and the recovery phase's
-arms A-C, each counted from 0 just before it runs: ``launches`` is
+arms A-D, the hollow cluster's arms A and B, the recovery phase's
+arms A-C and the ledger phase's arms A-C, each counted from 0 just
+before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
 ``sparse_shapes``, the serve loop's micro-batch shapes of every kernel
-under ``serve_shapes``, the hollow cluster's under ``hollow_shapes``
-and the recovery cells' under ``recovery_shapes``), error against the
-plain
+under ``serve_shapes``, the hollow cluster's under ``hollow_shapes``,
+the recovery cells' under ``recovery_shapes`` and the ledger cell's
+under ``ledger_shapes``), error against the plain
 version, times and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
 CUDA-event medians; ``ms_batched`` times back-to-back calls and
 ``device_ms`` is the trace's device time); the last line is the one-line
@@ -190,7 +216,7 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config, serve, hollow, recovery);
+config, serve, hollow, recovery, ledger);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -216,10 +242,10 @@ F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
               "preempt", "sparse", "pipeline", "config", "serve", "hollow",
-              "recovery")
+              "recovery", "ledger")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
-              "config", "serve", "hollow", "recovery")
+              "config", "serve", "hollow", "recovery", "ledger")
 
 
 def emit(obj) -> None:
@@ -687,12 +713,13 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             torch.cuda.empty_cache()
         out_rows.setdefault(name, {})["sparse_shapes"] = rows
     # the serve path's micro-batch frames (arms A-D), the hollow
-    # cluster's cycles (arms A and B) and the recovery cells' (arms A-C):
-    # every kernel at every shape they launched (the pair bit for bit, u
-    # and v in both rules), with the wrapper's host share of a single call
+    # cluster's cycles (arms A and B), the recovery cells' (arms A-C) and
+    # the ledger cell's (arms A-C): every kernel at every shape they
+    # launched (the pair bit for bit, u and v in both rules), with the
+    # wrapper's host share of a single call
     for phase, name, shapes in [
             (phase, name, shapes) for phase in ("serve", "hollow",
-                                                "recovery")
+                                                "recovery", "ledger")
             for name, shapes in paths.get(phase, {}).get("shapes",
                                                          {}).items()]:
         if name not in ARRAY_KERNELS:
@@ -2074,18 +2101,32 @@ def phase_pipeline() -> dict:
         torch.cuda.empty_cache()
 
     # the facade's host cost: the depth-2 run again with the flight
-    # recorder, the trace ring and the journeys off; its placements must
-    # be the facade-on run's
+    # recorder, the trace ring, the journeys and the three device backends
+    # (the perf and memory ledgers, the incident recorder) off; its
+    # placements and syncs must be the facade-on run's
     from kubernetes_tpu_torch.config import (
+        IncidentsConfig,
         JourneysConfig,
+        LedgerConfig,
+        MemoryLedgerConfig,
         ObservabilityConfig,
     )
 
     off = ObservabilityConfig(enabled=False,
-                              journeys=JourneysConfig(enabled=False))
+                              journeys=JourneysConfig(enabled=False),
+                              ledger=LedgerConfig(enabled=False),
+                              memory_ledger=MemoryLedgerConfig(enabled=False),
+                              incidents=IncidentsConfig(enabled=False))
     results, _reads, _dc = run_pipeline(2, pipeline_cell(),
                                         observability=off)
     rs_off = [r for r, _ in results]
+    # and on again, so the two settings alternate (on, off, on)
+    again, _reads, _dc = run_pipeline(2, pipeline_cell())
+    rs_again = [r for r, _ in again]
+    if [r.assignments for r in rs_again] != [r.assignments
+                                              for r in facade_on]:
+        fail("pipeline/facade on again: placements differ from the first "
+             "facade-on run's")
     if [r.assignments for r in rs_off] != [r.assignments
                                             for r in facade_on]:
         fail("pipeline/facade off: placements differ from the facade-on "
@@ -2096,10 +2137,12 @@ def phase_pipeline() -> dict:
     emit({"phase": "pipeline-facade", "cell": "pipeline-5k-30k",
           "depth": 2, "cycle_s_facade_on": [r.elapsed_s for r in facade_on],
           "cycle_s_facade_off": [r.elapsed_s for r in rs_off],
+          "cycle_s_facade_on_again": [r.elapsed_s for r in rs_again],
+          "spans_s_facade_on_again": [sp for _, sp in again],
           "spans_s_facade_on": out[2]["spans_s"],
           "spans_s_facade_off": [sp for _, sp in results],
           "host_syncs_facade_off": [r.host_syncs for r in rs_off]})
-    del results, rs_off, facade_on
+    del results, rs_off, facade_on, again, rs_again
 
     # one pipelined cycle under the profiler (the second: the first
     # captures the round loop)
@@ -2294,17 +2337,15 @@ def _solve_spans(trace) -> dict:
                              "pipeline:readback"))}
 
 
-class SolveTimer:
-    """Host seconds a scheduler spends solving, on ``perf_counter``:
-    its tier runs (the dispatch), its validated readbacks and its sparse
-    frames, summed since the last ``take()``. The cycle's spans read the
-    scheduler's clock, which a simulated hub holds still inside a cycle,
-    so they give 0 there."""
+class HostTimer:
+    """Host seconds spent in the given methods (``(object, name)`` pairs,
+    each wrapped in place), on ``perf_counter``, summed since the last
+    ``take()``."""
 
-    def __init__(self, sched) -> None:
+    def __init__(self, targets) -> None:
         self.total = 0.0
-        for name in ("_run_tier", "_validated_readback", "_solve_frame"):
-            setattr(sched, name, self._timed(getattr(sched, name)))
+        for obj, name in targets:
+            setattr(obj, name, self._timed(getattr(obj, name)))
 
     def _timed(self, fn):
         def run(*a, **kw):
@@ -2318,6 +2359,15 @@ class SolveTimer:
     def take(self) -> float:
         got, self.total = self.total, 0.0
         return got
+
+
+def SolveTimer(sched) -> HostTimer:
+    """Host seconds a scheduler spends solving: its tier runs (the
+    dispatch), its validated readbacks and its sparse frames. The cycle's
+    spans read the scheduler's clock, which a simulated hub holds still
+    inside a cycle, so they give 0 there."""
+    return HostTimer((sched, name) for name in (
+        "_run_tier", "_validated_readback", "_solve_frame"))
 
 
 def config_arm_a(tmp: str) -> dict:
@@ -2480,11 +2530,19 @@ def _ladder_cycle(sched, pods):
     return r, time.perf_counter() - t0
 
 
+#: arm B's batch: each of its ten fault kinds ends in one ``batch-cpu``
+#: solve of this many pods against the 8192-column table on the host's
+#: CPU (at 4096 pods each took 5-10 s; cut to keep the script under half
+#: its time limit, every kind and every check kept)
+CONFIG_B_PODS = 1024
+
+
 def config_arm_b(tmp: str) -> dict:
     """Arm B: the ladder on the smoke cluster (5000 nodes, 1000 bound)
-    with 4096 pending pods, one monolithic cycle. A ``FaultInjector``
-    fails ``solve:batch`` with each raising kind and each poisoning kind
-    in turn: the retry runs, then ``batch-cpu`` places the batch, equal to
+    with ``CONFIG_B_PODS`` pending pods, one monolithic cycle. A
+    ``FaultInjector`` fails ``solve:batch`` with each raising kind and
+    each poisoning kind in turn: the retry runs, then ``batch-cpu`` places
+    the batch, equal to
     the same cycle without a fault. Then, on 64-pod cycles: the breaker
     opens after ``breakerFailureThreshold`` cycles, sheds the tier, and
     half-opens after ``breakerOpenDuration`` on a hand-advanced clock; a
@@ -2495,7 +2553,7 @@ def config_arm_b(tmp: str) -> dict:
     from kubernetes_tpu_torch import faults, kernels
     from kubernetes_tpu_torch.testing import make_pod
 
-    nodes, bound, pending = smoke_cell(n_pending=4096)
+    nodes, bound, pending = smoke_cell(n_pending=CONFIG_B_PODS)
     doc = {"solver": "batch", "percentageOfNodesToScore": 100}
     base = configured(doc, tmp, "arm-b")
     feed(base, nodes, bound, pending)
@@ -4119,7 +4177,7 @@ def hollow_hub(device="cuda", n_nodes=5000, n_deploy=2500, n_job=500,
 class HollowProbe:
     """Times a hub's steps from outside: the wall seconds of each step,
     of the scheduling cycle inside it (``schedule_cycle`` wrapped) and of
-    its solve (:class:`SolveTimer`: the hub's clock is simulated, so
+    its solve (:func:`SolveTimer`: the hub's clock is simulated, so
     ``CycleResult.solve_s`` and the trace's spans read 0), and the pods
     the node-lifecycle controller evicted (``monitor_node_health``
     wrapped)."""
@@ -4888,16 +4946,29 @@ def recovery_arm_b(tmp: str) -> dict:
             fail(f"recovery/B/{kind}: process tally "
                  f"{RECOVERY.device_resets} resets, {RECOVERY.host_cycles} "
                  "host-mode cycles")
-        # the flight records carry every reset with its forensic flag
+        # the flight records carry every reset with the memory ledger's
+        # forensic flag (oom@<site> top=<name>:<bytes>B)
         flags = [(rec.device_resets, rec.oom_forensic)
                  for rec in sched.obs.recorder.records()]
         if (sum(n for n, _ in flags) != injected or any(
-                (n > 0) != f.startswith("snapshot:device:")
+                (n > 0) != f.startswith("oom@snapshot:device")
                 for n, f in flags)):
             fail(f"recovery/B/{kind}: flight records {flags} for {injected} "
                  "injected faults")
+        # one oom incident bundle (the rest inside its cooldown), and the
+        # forensic ring on /debug/memory, its top resident the node table
+        bundles = [b["trigger"] for b in sched.obs.incidents.incidents()]
+        status, memory = debug_get(sched, "/debug/memory")
+        ooms = memory.get("oom_records", [])
+        if status != 200 or bundles != ["oom"] or len(ooms) != injected or \
+                ooms[0]["top_residents"][0]["name"] != "cache.node_table":
+            fail(f"recovery/B/{kind}: bundles {bundles}, {len(ooms)} "
+                 f"forensic records for {injected} faults, top residents "
+                 f"{ooms[0]['top_residents'] if ooms else None}")
         out[kind] = {**warm, "cycles": rows, "injected": injected,
-                     "drops": list(probe.rows), "records": flags}
+                     "drops": list(probe.rows), "records": flags,
+                     "incident_bundles": bundles,
+                     "forensic_top_residents": ooms[0]["top_residents"]}
         if kind == "device_lost":
             # a drop and a rebuild by hand: what the allocator does
             gc.collect()
@@ -4947,7 +5018,7 @@ def recovery_arm_b(tmp: str) -> dict:
     # the warmup's loss came between cycles: its flag parks for the next
     # cycle's flight record
     parked = sched.obs.recorder.records()[-1].oom_forensic
-    if not parked.startswith("warmup:compile:"):
+    if not parked.startswith("oom@warmup:compile"):
         fail(f"recovery/B/warmup: the next record's forensic flag is "
              f"{parked!r}")
     out["warmup_abort"] = {**warm, "resets": resets,
@@ -5072,6 +5143,463 @@ def phase_recovery() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the device backends of observability (cell ledger-5k)
+# ---------------------------------------------------------------------------
+
+#: cell ``ledger-5k``: the smoke cell's cluster (5000 nodes over 10 zones,
+#: 1000 bound, every 10th node PreferNoSchedule; pending pods 100m / 500 Mi
+#: preferring a seeded zone), monolithic cycles (``pipelineDepth: 1``, so
+#: the preflight may split), warmup at pod buckets 1024-8192 (N = 8192).
+#: Arm A's cycles: four at the largest bucket, then one at each smaller
+#: bucket, each bucket's live peak held against its captured bytes. Arm
+#: C: healthy cycles of 64 pods, then bursts of 8192, then 64-pod cycles
+#: until the fast window clears (at most ``c_recover_s``)
+LEDGER = {"n_nodes": 5000, "n_bound": 1000,
+          "buckets": (1024, 2048, 4096, 8192),
+          "a_batches": (8192, 8192, 8192, 8192, 4096, 2048, 1024),
+          "c_small": 64, "c_healthy": 6, "c_burst": 8192, "c_bursts": 4,
+          "c_recover_s": 12.0}
+
+#: the reference's top-level keys of each route's JSON body
+#: (kubernetes_tpu/obs/ledger.py snapshot, memledger.py snapshot,
+#: incidents.py snapshot, server.py profile_payload)
+LEDGER_ROUTE_KEYS = {
+    "/debug/ledger": {"observed", "retained", "model", "slo",
+                      "model_efficiency", "distributions", "entries"},
+    "/debug/memory": {"enabled", "observed", "samples", "modeled_bytes",
+                      "measured_bytes", "peak_bytes", "census", "devices",
+                      "residents", "buckets", "preflight", "watermarks",
+                      "entries", "oom_records", "limit_bytes",
+                      "model_efficiency"},
+    "/debug/incidents": {"enabled", "capacity", "total", "by_trigger",
+                         "profiles_taken", "profile_active",
+                         "profile_errors", "incidents"},
+    "/debug/profile?cycles=2": {"started", "cycles", "profile_dir",
+                                "profiles_taken", "note"},
+}
+
+#: the backends' per-cycle host work: the perf ledger's fold, the memory
+#: ledger's sample, preflight and registration, the incident triggers
+BACKEND_CALLS = (("ledger", "observe_cycle"), ("memledger", "observe_cycle"),
+                 ("memledger", "preflight"), ("memledger", "register_tree"),
+                 ("incidents", "observe_cycle"))
+
+
+def _ledger_n() -> int:
+    """The cell's padded node count (8192 at 5000 nodes)."""
+    from kubernetes_tpu_torch.utils.interner import bucket_size
+
+    return bucket_size(LEDGER["n_nodes"])
+
+
+def _ledger_doc(buckets=None, **observability) -> dict:
+    doc = {"percentageOfNodesToScore": 100, "pipelineDepth": 1,
+           "warmup": {"enabled": True,
+                      "podBuckets": list(buckets or LEDGER["buckets"])}}
+    if observability:
+        doc["observability"] = observability
+    return doc
+
+
+def _ledger_scheduler(tmp, name, nodes, bound, sample, buckets=None, kw=None,
+                      **observability):
+    """``Scheduler.from_config`` of the cell's document on the card, fed
+    the cluster and warmed with ``sample`` as ``cli.run``'s gate does.
+    Returns the scheduler and its warmup's summary."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import device_loop
+
+    release_graphs()
+    sched = configured(_ledger_doc(buckets, **observability), tmp, name,
+                       **(kw or {}))
+    feed(sched, nodes, bound, [])
+    c0 = device_loop.CAPTURES.count
+    t0 = time.perf_counter()
+    warmed = sched.warmup(sample_pods=sample)
+    torch.cuda.synchronize()
+    return sched, {"warmed": warmed, "warmup_s": time.perf_counter() - t0,
+                   "warm_captures": device_loop.CAPTURES.count - c0}
+
+
+def _ledger_cycle(sched, pods, timer=None, live_peak=False) -> dict:
+    """Pods in, one cycle, the card synchronised; with ``live_peak`` the
+    allocator's peak over the cycle's start (reset just before it)."""
+    import torch
+
+    for p in pods:
+        sched.on_pod_add(p)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    if live_peak:
+        torch.cuda.reset_peak_memory_stats()
+    if timer is not None:
+        timer.take()
+    n_rec = sched.obs.recorder.recorded
+    t0 = time.perf_counter()
+    r = sched.schedule_cycle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = (sched.obs.recorder.records()[-1]
+           if sched.obs.recorder.recorded > n_rec else None)
+    return {"r": r, "wall": wall, "rec": rec,
+            "spans": sched.obs.last_trace.span_durations(),
+            "backend_s": timer.take() if timer is not None else None,
+            "live_peak": (torch.cuda.max_memory_allocated() - start
+                          if live_peak else None)}
+
+
+def _tier_ok(tag, rows) -> None:
+    for k, row in enumerate(rows):
+        r = row["r"]
+        if r.attempted and (r.solver_tier != "batch" or r.solver_fallbacks):
+            fail(f"{tag}: cycle {k + 1} solved on {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+
+
+def ledger_arm_a(tmp, nodes, bound, pods) -> dict:
+    """Arm A, the backends at their defaults against a twin with all three
+    off: equal placements and host syncs, no graph captured after warmup,
+    the cost model's verdict on every cycle from the second, one memory
+    ledger entry a cycle from the allocator with preflight ``ok``, and
+    each warmed bucket's captured bytes against a live cycle's peak at
+    that bucket."""
+    import torch
+
+    batches = LEDGER["a_batches"]
+    runs = {}
+    for arm, obs in (("defaults", {}),
+                     ("backends-off", {"ledger": {"enabled": False},
+                                       "memoryLedger": {"enabled": False},
+                                       "incidents": {"enabled": False}})):
+        sched, warm = _ledger_scheduler(tmp, f"ledger-a-{arm}", nodes, bound,
+                                        pods[:64], **obs)
+        timer = (HostTimer((getattr(sched.obs, attr), name)
+                           for attr, name in BACKEND_CALLS)
+                 if arm == "defaults" else None)
+        rows, i = [], 0
+        for n in batches:
+            rows.append(_ledger_cycle(sched, pods[i:i + n], timer,
+                                      live_peak=arm == "defaults"))
+            i += n
+        _tier_ok(f"ledger/A/{arm}", rows)
+        if warm["warmed"] <= 0 or warm["warm_captures"] <= 0:
+            fail(f"ledger/A/{arm}: warmup {warm}")
+        caps = [row["r"].graph_captures for row in rows]
+        if any(caps):
+            fail(f"ledger/A/{arm}: graphs captured after warmup: {caps}")
+        if [row["r"].attempted for row in rows] != list(batches):
+            fail(f"ledger/A/{arm}: cycles attempted "
+                 f"{[row['r'].attempted for row in rows]}")
+        runs[arm] = (sched, warm, rows)
+        if arm == "defaults":
+            ml = sched.obs.memledger
+            table = {P: dict(e) for (P, N, m), e in
+                     sorted(ml.bucket_table().items()) if N == _ledger_n()}
+            snap = ml.snapshot()
+            ledger_snap = sched.obs.ledger.snapshot()
+            eff_gauge = sched.metrics.cycle_model_efficiency.value()
+            total_memory = torch.cuda.get_device_properties(0).total_memory
+        del sched
+    on, off = runs["defaults"][2], runs["backends-off"][2]
+    for k, (a, b) in enumerate(zip(on, off)):
+        if a["r"].assignments != b["r"].assignments:
+            fail(f"ledger/A: cycle {k + 1} placed unlike the backends-off "
+                 "twin")
+        if a["r"].host_syncs != b["r"].host_syncs:
+            fail(f"ledger/A: cycle {k + 1}: {a['r'].host_syncs} host syncs, "
+                 f"{b['r'].host_syncs} with the backends off")
+    # the perf ledger's verdict, from the second cycle on
+    for k, row in enumerate(on[1:], start=2):
+        rec, r = row["rec"], row["r"]
+        if not (0 < r.model_efficiency <= 8 and rec is not None
+                and rec.model_basis and rec.model_efficiency
+                == r.model_efficiency):
+            fail(f"ledger/A: cycle {k}: efficiency {r.model_efficiency}, "
+                 f"basis {rec.model_basis if rec else None!r}")
+    if not 0 < eff_gauge <= 8:
+        fail(f"ledger/A: scheduler_cycle_model_efficiency {eff_gauge}")
+    # the memory ledger: one entry a cycle, the allocator's counters
+    entries = snap["entries"]
+    if len(entries) != len(on) or any(e["preflight"] != "ok"
+                                      for e in entries):
+        fail(f"ledger/A: memory entries {entries}")
+    if set(snap["devices"]) != {"0"} or \
+            snap["devices"]["0"]["limit"] != total_memory:
+        fail(f"ledger/A: measured side {snap['devices']} (limit "
+             f"{total_memory})")
+    sampled = [e for e in entries if e["measured_bytes"] >= 0]
+    if not sampled or any(e["measured_bytes"] <= e["modeled_bytes"]
+                          for e in sampled):
+        fail(f"ledger/A: allocator samples {sampled}")
+    # each warmed bucket against a live cycle's peak at that bucket
+    if sorted(table) != sorted(LEDGER["buckets"]):
+        fail(f"ledger/A: bucket table {sorted(table)}")
+    live = {}
+    for n, row in zip(batches, on):
+        live.setdefault(n, row["live_peak"])
+    peaks = {P: {"captured_total_bytes": table[P]["total_bytes"],
+                 "captured": table[P], "live_cycle_peak_bytes": live[P],
+                 "captured_over_live": table[P]["total_bytes"] / live[P]}
+             for P in table}
+    for P, row in peaks.items():
+        if row["captured_total_bytes"] < 0.9 * row["live_cycle_peak_bytes"]:
+            fail(f"ledger/A: bucket {P} captured {row['captured_total_bytes']}"
+                 f" bytes, under 90% of a live cycle's peak "
+                 f"{row['live_cycle_peak_bytes']}")
+    # the backends' host cost on the warm cycles at the largest bucket
+    warm = range(1, 4)
+    on_s = [on[k]["wall"] for k in warm]
+    off_s = [off[k]["wall"] for k in warm]
+    backend_s = [on[k]["backend_s"] for k in warm]
+    return {
+        "warmup": {arm: runs[arm][1] for arm in runs},
+        "bucket_peaks": peaks,
+        "cycle_s_defaults": [row["wall"] for row in on],
+        "cycle_s_backends_off": [row["wall"] for row in off],
+        "host_syncs": [row["r"].host_syncs for row in on],
+        "model_efficiency": [row["r"].model_efficiency for row in on],
+        "model_basis": [row["rec"].model_basis if row["rec"] else ""
+                        for row in on],
+        "modeled_s": [row["r"].modeled_s for row in on],
+        "solve_s": [row["r"].solve_s for row in on],
+        "anchors": ledger_snap["model"]["anchors"],
+        "signatures": ledger_snap["model"]["signatures"],
+        "memory_entries": entries,
+        "backend_s_warm": backend_s,
+        "backend_share_of_warm_cycle_pct": [
+            100.0 * b / w for b, w in zip(backend_s, on_s)],
+        "warm_cycle_s_delta_pct": 100.0 * (statistics.median(on_s)
+                                           - statistics.median(off_s))
+        / statistics.median(off_s),
+        "cycles": 2 * len(on), "table": table}
+
+
+def ledger_arm_b(tmp, nodes, bound, pods, table) -> dict:
+    """Arm B, the capacity preflight: ``memoryLedger.limitBytes`` from
+    arm A's table, so that limit x 0.9 lies between the 4096 and 8192
+    buckets. An 8192 batch splits to 4096 and places as a twin whose batch
+    is capped at 4096; every pod binds over the next cycles; then a limit
+    under the smallest bucket sheds every cycle, binding nothing and
+    keeping every pod queued; the verdict counter equals the verdicts."""
+    top, half, shed_n = (LEDGER["buckets"][-1], LEDGER["buckets"][-2],
+                         LEDGER["buckets"][1])
+    big, small = table[top]["total_bytes"], table[half]["total_bytes"]
+    limit = int((big + small) / 2 / 0.9)
+    sched, warm = _ledger_scheduler(tmp, "ledger-b", nodes, bound, pods[:64],
+                                    memoryLedger={"limitBytes": limit})
+    ml = sched.obs.memledger
+    tb = {P: e["total_bytes"] for (P, N, m), e in ml.bucket_table().items()
+          if N == _ledger_n()}
+    budget = ml.limit_bytes() * ml.config.headroom_frac
+    if not tb.get(half, budget + 1) <= budget < tb.get(top, 0):
+        fail(f"ledger/B: the budget {budget} does not lie between this "
+             f"scheduler's {half} and {top} buckets {tb}")
+    twin = configured(_ledger_doc(memoryLedger={"enabled": False}), tmp,
+                      "ledger-b-twin", max_batch=half)
+    feed(twin, nodes, bound, [])
+    verdicts = {"ok": 0, "split": 0, "shed": 0}
+    split = _ledger_cycle(sched, pods[:top])
+    want = _ledger_cycle(twin, pods[:top])
+    del twin
+    verdicts["split"] += 1
+    r = split["r"]
+    if r.attempted != half or split["rec"].preflight != "split":
+        fail(f"ledger/B: the {top} batch attempted {r.attempted} "
+             f"(preflight {split['rec'].preflight!r})")
+    if r.assignments != want["r"].assignments:
+        n = sum(r.assignments.get(k) != v
+                for k, v in want["r"].assignments.items())
+        fail(f"ledger/B: the split cycle placed {n} pods unlike the twin "
+             f"capped at {half}")
+    rows = [split]
+    bound_total = r.scheduled
+    for _ in range(4):
+        if sum(sched.queue.pending_counts().values()) == 0:
+            break
+        rows.append(_ledger_cycle(sched, []))
+        verdicts["ok"] += 1
+        bound_total += rows[-1]["r"].scheduled
+    _tier_ok("ledger/B", rows)
+    if bound_total != top or any(row["r"].graph_captures for row in rows):
+        fail(f"ledger/B: bound {bound_total} of {top}, captures "
+             f"{[row['r'].graph_captures for row in rows]}")
+    # a limit under the smallest bucket: every cycle sheds
+    ml.config.limit_bytes = int(min(tb.values()) * ml.config.headroom_frac
+                                / 2)
+    shed = []
+    for k in range(2):
+        shed.append(_ledger_cycle(
+            sched, pods[top:top + shed_n] if k == 0 else []))
+        verdicts["shed"] += 1
+    queued = sum(sched.queue.pending_counts().values())
+    if any(row["r"].attempted or row["r"].scheduled for row in shed) or \
+            queued != shed_n:
+        fail(f"ledger/B: shed cycles attempted "
+             f"{[row['r'].attempted for row in shed]}, {queued} queued")
+    counted = {a: sched.metrics.memory_preflight.value(action=a)
+               for a in verdicts}
+    if counted != verdicts or dict(ml.preflights) != verdicts:
+        fail(f"ledger/B: preflight counter {counted}, ledger "
+             f"{ml.preflights}, verdicts {verdicts}")
+    if ml.oom_records():
+        fail(f"ledger/B: {len(ml.oom_records())} out-of-memory records")
+    return {"warmup": warm, "limit_bytes": limit, "budget_bytes": budget,
+            "buckets_total_bytes": tb,
+            "split_cycle_s": split["wall"], "twin_4096_cycle_s": want["wall"],
+            "split_cycle_spans_s": split["spans"],
+            "twin_4096_cycle_spans_s": want["spans"],
+            "cycle_s": [row["wall"] for row in rows],
+            "attempted": [row["r"].attempted for row in rows],
+            "shed_cycle_s": [row["wall"] for row in shed],
+            "preflight_total": counted, "oom_records": 0,
+            "cycles": len(rows) + len(shed) + 1}
+
+
+def ledger_arm_c(tmp, nodes, bound, pods) -> dict:
+    """Arm C, the SLO watchdog and the incidents: ``costDriftRatio: 2.0``
+    over 2 s / 4 s windows, incidents profiling 2 cycles once. Healthy
+    64-pod cycles set the baseline; bursts of 8192 pods (a backlog after a
+    quiet spell: their solves cost more than twice the baseline by real
+    work) burn it: ``slo`` on the record, a ``SchedulerSLOBurn`` event,
+    the scheduler degraded (APF pressure x4), one ``slo-burn`` bundle and
+    a ``torch.profiler`` trace naming the fused pair's kernel; 64-pod
+    cycles until the fast window clears recover it. The four debug routes
+    then answer over HTTP with the reference's keys."""
+    small, n_burst = LEDGER["c_small"], LEDGER["c_burst"]
+    prof_dir = os.path.join(tmp, "profiles")
+    events = []
+    sched, warm = _ledger_scheduler(
+        tmp, "ledger-c", nodes, bound, pods[:64], buckets=(small, n_burst),
+        kw={"event_sink": lambda reason, obj, msg: events.append(
+            (reason, msg))},
+        ledger={"costDriftRatio": 2.0, "fastWindow": "2s",
+                "slowWindow": "4s"},
+        incidents={"profileCycles": 2, "maxProfiles": 1,
+                   "profileDir": prof_dir})
+    i = 0
+
+    def take(n):
+        nonlocal i
+        i += n
+        return pods[i - n:i]
+
+    rows = [_ledger_cycle(sched, take(small))
+            for _ in range(LEDGER["c_healthy"])]
+    baseline = dict(sched.obs.ledger.watchdog.snapshot()["cost_baseline_s"])
+    burst = [_ledger_cycle(sched, take(n_burst))
+             for _ in range(LEDGER["c_bursts"])]
+    slo = [row["rec"].slo if row["rec"] else "" for row in burst]
+    for p in take(small):
+        sched.on_pod_add(p)
+    depth = float(sched.queue.pending_counts().get("active", 0))
+    degraded = sched.is_degraded()
+    pressure = sched.backend_pressure(degraded_factor=4.0)
+    inc = sched.obs.incidents
+    burn_bundles = [b for b in inc.incidents() if b["trigger"] == "slo-burn"]
+    if "cost_drift" not in slo:
+        fail(f"ledger/C: the bursts' records say slo {slo} (baseline "
+             f"{baseline}, burst solve s "
+             f"{[row['r'].solve_s for row in burst]})")
+    if not any(e[0] == "SchedulerSLOBurn" for e in events):
+        fail(f"ledger/C: no SchedulerSLOBurn event in {events}")
+    if not degraded or depth <= 0 or pressure != 4.0 * depth:
+        fail(f"ledger/C: degraded {degraded}, pressure {pressure} at depth "
+             f"{depth}")
+    if len(burn_bundles) != 1:
+        fail(f"ledger/C: {len(burn_bundles)} slo-burn bundles")
+    # recovery: healthy cycles until the fast window clears
+    t_end = time.perf_counter() + LEDGER["c_recover_s"]
+    recover = []
+    while time.perf_counter() < t_end:
+        recover.append(_ledger_cycle(sched, take(small)))
+        if any(e[0] == "SchedulerSLORecovered" for e in events) and \
+                not sched.is_degraded():
+            break
+        time.sleep(0.2)
+    if not any(e[0] == "SchedulerSLORecovered" for e in events) or \
+            sched.is_degraded():
+        fail(f"ledger/C: no recovery within {LEDGER['c_recover_s']} s: "
+             f"{events}")
+    _tier_ok("ledger/C", rows + burst + recover)
+    # the incident's profiler capture: a trace of the card's kernels
+    if inc.profile_errors or len(inc.profile_paths) != 1:
+        fail(f"ledger/C: {inc.profile_errors} profiler errors, traces "
+             f"{inc.profile_paths}")
+    with open(inc.profile_paths[0]) as f:
+        trace = json.load(f)
+    kernels_seen = sorted({e["name"][:80] for e in trace["traceEvents"]
+                           if e.get("cat") == "kernel"})
+    pair = [k for k in kernels_seen if "fused_pair" in k]
+    if not pair:
+        fail(f"ledger/C: the incident's trace names no fused_pair_normalize"
+             f" kernel among {kernels_seen[:20]}")
+    # the four routes over HTTP
+    routes = {}
+    for path, keys in LEDGER_ROUTE_KEYS.items():
+        status, doc = debug_get(sched, path)
+        if status != (409 if "profile" in path else 200) or set(doc) != keys:
+            fail(f"ledger/C: {path} answered {status} with keys "
+                 f"{sorted(doc)}")
+        routes[path] = status
+    return {"warmup": warm, "baseline_s": baseline,
+            "healthy_solve_s": [row["r"].solve_s for row in rows],
+            "burst_solve_s": [row["r"].solve_s for row in burst],
+            "burst_cycle_s": [row["wall"] for row in burst],
+            "burst_slo": slo,
+            "slo_events": [e[0] for e in events if e[0].startswith(
+                "SchedulerSLO")],
+            "degraded_pressure": pressure, "active_depth": depth,
+            "bundles": [(b["trigger"], b["cycle"]) for b in inc.incidents()],
+            "recovery_cycles": len(recover),
+            "profile_trace": os.path.basename(
+                os.path.dirname(inc.profile_paths[0])),
+            "profile_errors": inc.profile_errors,
+            "pair_kernels_in_trace": pair, "routes": routes,
+            "cycles": len(rows) + len(burst) + len(recover)}
+
+
+def phase_ledger() -> dict:
+    """Cell ``ledger-5k``: arms A (the defaults against the backends off),
+    B (the capacity preflight) and C (the SLO watchdog and the incidents),
+    each scheduler from a JSON v1alpha1 file through
+    ``Scheduler.from_config``, counted from 0 together. Returns their
+    launches, cycles and launch shapes; fails unless the pair
+    launched."""
+    import tempfile
+
+    from kubernetes_tpu_torch import kernels
+
+    nodes, bound, _ = smoke_cell(LEDGER["n_nodes"], LEDGER["n_bound"], 0)
+    # arm A's cycles, or arm C's (its bursts and up to 64 recovery cycles)
+    n_pods = max(sum(LEDGER["a_batches"]),
+                 LEDGER["c_small"] * (LEDGER["c_healthy"] + 65)
+                 + LEDGER["c_burst"] * LEDGER["c_bursts"])
+    pods = smoke_cell(LEDGER["n_nodes"], 0, n_pods, seed=17)[2]
+    kernels.reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ktt-ledger-") as tmp:
+        t0 = time.perf_counter()
+        a = ledger_arm_a(tmp, nodes, bound, pods)
+        table = a.pop("table")
+        emit({"phase": "ledger", "arm": "A", "cell": "ledger-5k",
+              "wall_s": time.perf_counter() - t0, **a})
+        t0 = time.perf_counter()
+        b = ledger_arm_b(tmp, nodes, bound, pods, table)
+        emit({"phase": "ledger", "arm": "B", "cell": "ledger-5k",
+              "wall_s": time.perf_counter() - t0, **b})
+        t0 = time.perf_counter()
+        c = ledger_arm_c(tmp, nodes, bound, pods)
+        emit({"phase": "ledger", "arm": "C", "cell": "ledger-5k",
+              "wall_s": time.perf_counter() - t0, **c})
+    out["launches"], out["shapes"] = launch_counts(), launch_shapes()
+    if out["launches"]["fused_pair_normalize"] <= 0:
+        fail("ledger: fused_pair_normalize was never launched")
+    out["cycles"] = a["cycles"] + b["cycles"] + c["cycles"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5120,6 +5648,27 @@ def ptxas_summary(reports: dict) -> dict:
                 sm = re.search(r"(\d+) bytes smem", ln)
                 got["static_smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def debug_get(sched, path: str):
+    """GET ``path`` from the port's server over a scheduler, on
+    127.0.0.1: ``(status, JSON body)``."""
+    import http.client
+
+    from kubernetes_tpu_torch.server import serve_scheduler
+
+    srv = serve_scheduler(sched, host="127.0.0.1", port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                          timeout=30)
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    return resp.status, json.loads(body)
 
 
 def release_graphs() -> None:
@@ -5198,7 +5747,8 @@ def main() -> None:
                        ("config", phase_config),
                        ("serve", phase_serve),
                        ("hollow", phase_hollow),
-                       ("recovery", phase_recovery)):
+                       ("recovery", phase_recovery),
+                       ("ledger", phase_ledger)):
         if phase not in phases:
             continue
         RECOVERY.reset()

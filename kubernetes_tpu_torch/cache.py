@@ -132,6 +132,11 @@ class SchedulerCache:
         #: faults.FaultInjector (or None): the ``snapshot:device`` chaos
         #: seam, attached by the scheduler that owns this cache
         self.fault_injector = None
+        #: obs.memledger.MemoryLedger (or None): byte accounting for the
+        #: resident table and the score summary, attached by the
+        #: scheduler; registrations ride this cache's own upload and drop
+        #: edges, so the ledger never shows a resident already dropped
+        self.memledger = None
 
     # -- introspection -----------------------------------------------------
 
@@ -407,11 +412,14 @@ class SchedulerCache:
             self.last_snapshot_mode = "full"
             self.last_upload_rows = table.n
             self.last_upload_nbytes = tree_nbytes(self._dev)
+            self._mem_register("cache.node_table", self._dev,
+                               shape=f"N{n_pad}")
             if self._score_cache_on:
                 # the whole plane changed: rebuild lazily, and the
                 # generation bump kills warm state keyed on the old one
                 self._summary = None
                 self.summary_generation += 1
+                self._mem_deregister("cache.score_summary")
         elif not self._pending_dev:
             self.last_snapshot_mode = "clean"
         else:
@@ -466,10 +474,25 @@ class SchedulerCache:
             self._summary = None
             self.last_patched_idx = []
             self.summary_generation += 1
+            # every ledger byte this cache owns dies with the drop
+            self._mem_deregister("cache.node_table", "cache.score_summary")
 
     def has_device_snapshot(self) -> bool:
         """Whether a resident device table exists now (no upload)."""
         return self._dev is not None
+
+    def _mem_register(self, name: str, tree, shape: str = "") -> None:
+        """Register a resident tree of tensors with the attached memory
+        ledger by its metadata bytes (no-op unattached or disabled)."""
+        ml = self.memledger
+        if ml is not None and getattr(ml, "enabled", False):
+            ml.register_tree(name, tree, shape=shape)
+
+    def _mem_deregister(self, *names: str) -> None:
+        ml = self.memledger
+        if ml is not None and getattr(ml, "enabled", False):
+            for n in names:
+                ml.deregister(n)
 
     # -- the incremental solve's score summary -----------------------------
 
@@ -483,6 +506,7 @@ class SchedulerCache:
                                "prefer_packed": bool(prefer_packed)}
         self._summary = None
         self.summary_generation += 1
+        self._mem_deregister("cache.score_summary")
 
     def drop_score_summary(self) -> None:
         """Drop only the summary (the resident table stays coherent): the
@@ -491,6 +515,7 @@ class SchedulerCache:
         with self._snap_lock:
             self._summary = None
             self.summary_generation += 1
+            self._mem_deregister("cache.score_summary")
 
     def has_score_summary(self) -> bool:
         """Whether a summary exists now (no lazy build)."""
@@ -511,6 +536,8 @@ class SchedulerCache:
                 self._summary = node_summary(self._dev,
                                              **self._summary_flags)
                 self.last_summary_rebuilt = True
+                self._mem_register("cache.score_summary", self._summary,
+                                   shape=f"N{self._dev_pad}")
             return self._summary
 
     def _full_repack(self) -> NodeTable:

@@ -803,17 +803,6 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
     if cfg.scenario.pack:
         errs.append(f"scenario.pack: {cfg.scenario.pack!r} is not ported "
                     "yet (ROADMAP A.15: scenario packs)")
-    oc = cfg.observability
-    default = ObservabilityConfig()
-    # the port runs the facade, its trace ring and flight recorder, the
-    # transfer and capture telemetry, the journeys, the lock sanitizer,
-    # the explain report, the Sinkhorn stats and the auditor's sweep; the
-    # ledgers and the incident recorder are A.13's second slice
-    for name in ("ledger", "memory_ledger", "incidents"):
-        if getattr(oc, name) != getattr(default, name):
-            errs.append(f"observability.{name}: not ported yet (ROADMAP "
-                        "A.13 slice 2: the perf and memory ledgers and "
-                        "the incident recorder)")
     return errs
 
 

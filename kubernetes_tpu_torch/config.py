@@ -273,8 +273,9 @@ class MemoryLedgerConfig:
     limit_bytes: int = 0
     #: ledger entry ring capacity (cycles) and watermark history length
     history: int = 128
-    #: max arrays the ``jax.live_arrays`` census walks per sample (the
-    #: bounded fallback measured side on backends without memory_stats)
+    #: max tensors the CPU census holds and counts per sample (the
+    #: bounded fallback measured side where no allocator counts: weak
+    #: references to the registered residents' CPU tensors)
     census_limit: int = 4096
 
 

@@ -4,8 +4,7 @@ prints the cache, ``comparer.go`` diffs cache/queue state against the
 apiserver's). The sim harness uses the comparer as its consistency oracle;
 a host shim can wire :func:`install_signal_handler` for the SIGUSR2
 behavior. (The port's copy of ``kubernetes_tpu/debugger.py``; ``dump``
-prints the flight recorder, and skips the memory ledger and the incident
-recorder the port does not have yet, ROADMAP A.13 slice 2.)"""
+prints the flight recorder, the memory ledger and the incident ring.)"""
 
 from __future__ import annotations
 

@@ -14,11 +14,19 @@
 - :mod:`kubernetes_tpu_torch.obs.explain` — the batched schedulability
   explainer (``/debug/why``, the record's top reasons, the
   ``scheduler_unschedulable_*`` metrics).
+- :mod:`kubernetes_tpu_torch.obs.ledger` — the perf ledger: per-cycle
+  phase-cost distributions against the cost model
+  (``scheduler_cycle_model_efficiency``) and the multi-window SLO
+  burn-rate watchdog (``/debug/ledger``).
+- :mod:`kubernetes_tpu_torch.obs.memledger` — the device-memory ledger:
+  modeled residents against the allocator's counters, the capacity
+  preflight and the OOM forensics (``/debug/memory``).
+- :mod:`kubernetes_tpu_torch.obs.incidents` — incident bundles and the
+  ``torch.profiler`` capture (``/debug/incidents``, ``/debug/profile``).
 - :mod:`kubernetes_tpu_torch.obs.audit` — the state-conservation auditor.
 
 :class:`kubernetes_tpu_torch.obs.core.Observability` is the facade the
-scheduler owns. The perf ledger, the device-memory ledger and the
-incident recorder are ROADMAP A.13 slice 2.
+scheduler owns.
 """
 
 from kubernetes_tpu_torch.obs.audit import INVARIANTS, StateAuditor, Violation
@@ -36,6 +44,12 @@ from kubernetes_tpu_torch.obs.jaxtel import (
     tree_nbytes,
 )
 from kubernetes_tpu_torch.obs.journey import Journey, JourneyTracker
+from kubernetes_tpu_torch.obs.ledger import (
+    CycleCostModel,
+    LedgerEntry,
+    PerfLedger,
+    SLOWatchdog,
+)
 from kubernetes_tpu_torch.obs.recorder import CycleRecord, FlightRecorder
 from kubernetes_tpu_torch.obs.trace import (
     DEFAULT_THRESHOLD_S,
@@ -59,6 +73,10 @@ __all__ = [
     "tree_nbytes",
     "Journey",
     "JourneyTracker",
+    "CycleCostModel",
+    "LedgerEntry",
+    "PerfLedger",
+    "SLOWatchdog",
     "CycleRecord",
     "FlightRecorder",
     "Span",

@@ -34,9 +34,8 @@ consistent by design — watch lag alone must never page anyone.
 
 Violations land on ``scheduler_invariant_violations_total{invariant}``,
 as a spam-filtered ``InvariantViolation`` event, and as the cycle
-trace's ``invariant_violations`` field (``Obs.note_invariant_violations``;
-the reference also flags its flight record, which the port does not have
-yet, ROADMAP A.13). The chaos suites run :meth:`audit` continuously with
+trace's ``invariant_violations`` field and the flight record's
+``invariants=`` flag (``Obs.note_invariant_violations``). The chaos suites run :meth:`audit` continuously with
 hub truth; :class:`~kubernetes_tpu_torch.serving.compose.ServingRuntime`
 runs the structural checks at ``observability.audit_interval_s``.
 

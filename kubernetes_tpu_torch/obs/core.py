@@ -1,9 +1,11 @@
 """The Observability facade the scheduler owns (the port of
 ``kubernetes_tpu/obs/core.py``): one object tying the cycle tracer, the
 transfer and capture telemetry (:mod:`.jaxtel`), the flight recorder
-(:mod:`.recorder`) and the pod journeys (:mod:`.journey`) to the typed
-config (:class:`kubernetes_tpu_torch.config.ObservabilityConfig`) and the
-metrics registry.
+(:mod:`.recorder`), the pod journeys (:mod:`.journey`), the perf ledger
+and its SLO watchdog (:mod:`.ledger`), the device-memory ledger
+(:mod:`.memledger`) and the incident recorder (:mod:`.incidents`) to the
+typed config (:class:`kubernetes_tpu_torch.config.ObservabilityConfig`)
+and the metrics registry.
 
 Lifecycle per scheduling cycle::
 
@@ -27,13 +29,8 @@ with no site; ``end_cycle`` charges their bytes to the site
 ``solver-internal`` so a record's ``readback_bytes`` is every byte the
 cycle read back.
 
-Not built yet (ROADMAP A.13 slice 2): the perf ledger and its SLO
-watchdog, the device-memory ledger and the incident recorder.
-``end_cycle`` skips those steps, so a record's ``slo``, ``modeled_s``,
-``model_efficiency``, ``model_basis`` and ``mem_*`` keep
-:class:`CycleRecord`'s defaults. ``note_mesh`` / ``note_mesh_cycle``
-(A.17) and ``note_scenario`` (A.15) are the reference's paths with no
-caller yet.
+``note_mesh`` / ``note_mesh_cycle`` (A.17) and ``note_scenario`` (A.15)
+are the reference's paths with no caller yet.
 """
 
 from __future__ import annotations
@@ -45,8 +42,11 @@ from collections import deque
 from contextlib import nullcontext
 from typing import Callable, Optional
 
+from kubernetes_tpu_torch.obs.incidents import IncidentRecorder
 from kubernetes_tpu_torch.obs.jaxtel import JaxTelemetry
 from kubernetes_tpu_torch.obs.journey import JourneyTracker
+from kubernetes_tpu_torch.obs.ledger import PerfLedger
+from kubernetes_tpu_torch.obs.memledger import MemoryLedger
 from kubernetes_tpu_torch.obs.recorder import CycleRecord, FlightRecorder
 from kubernetes_tpu_torch.obs.trace import Trace, chrome_trace_json
 from kubernetes_tpu_torch.ops.sync import SYNCS
@@ -79,11 +79,31 @@ class Observability:
         )
         self.recorder = FlightRecorder(config.recorder_capacity,
                                        lock_factory=lf)
+        #: perf ledger + SLO watchdog (obs/ledger.py): consumes each
+        #: eventful cycle's record at end_cycle
+        self.ledger = PerfLedger(getattr(config, "ledger", None),
+                                 metrics=metrics, clock=clock,
+                                 lock_factory=lf)
+        #: device-memory ledger (obs/memledger.py): modeled residents,
+        #: the cycle-boundary measured sample, the preflight's peak
+        #: table and the OOM forensics
+        self.memledger = MemoryLedger(getattr(config, "memory_ledger",
+                                              None),
+                                      metrics=metrics, clock=clock,
+                                      lock_factory=lf)
         #: per-pod journey tracer (obs/journey.py): fed by the queue and
-        #: the driver's seams, read by /debug/journeys
+        #: the scheduler's seams, read by /debug/journeys and the incident
+        #: bundles
         self.journeys = JourneyTracker(getattr(config, "journeys", None),
                                        metrics=metrics, clock=clock,
                                        lock_factory=lf)
+        #: incident autopsies (obs/incidents.py): its five triggers are
+        #: evaluated against each eventful cycle record at end_cycle
+        self.incidents = IncidentRecorder(
+            getattr(config, "incidents", None), metrics=metrics,
+            clock=clock, lock_factory=lf, recorder=self.recorder,
+            ledger=self.ledger, memledger=self.memledger, jaxtel=self.jax,
+            journeys=self.journeys)
         self.traces: deque = deque(maxlen=max(1, config.trace_ring_capacity))
         #: guards the traces ring: the scheduler thread appends while the
         #: /debug/traces handler thread snapshots
@@ -362,7 +382,37 @@ class Observability:
             preflight=s.get("preflight", ""),
             oom_forensic=s.get("oom_forensic", ""),
         )
+        # perf ledger: fold the cycle's phase costs in, confront them
+        # with the cost model, run the SLO watchdog, then stamp the
+        # verdict on the record, the CycleResult and the trace's counter
+        # track. Host math over the spans already collected, no sync;
+        # phases use CHILD-EXCLUSIVE durations (a validate nested in
+        # solve:batch counts once), the record keeps the inclusive view
+        entry = self.ledger.observe_cycle(rec, res,
+                                          spans=trace.self_durations())
+        if entry is not None:
+            rec.slo = entry.slo
+            if entry.efficiency >= 0:
+                rec.modeled_s = entry.modeled_s
+                rec.model_efficiency = entry.efficiency
+                rec.model_basis = entry.model_basis
+                if res is not None:
+                    res.modeled_s = entry.modeled_s
+                    res.model_efficiency = entry.efficiency
+                trace.counter("model_efficiency", eff=entry.efficiency)
+        # memory ledger: the cycle-boundary measured sample (allocator
+        # counters on the card, host reads only) against the modeled
+        # residents
+        mentry = self.memledger.observe_cycle(rec)
+        if mentry is not None:
+            rec.mem_modeled_bytes = mentry["modeled_bytes"]
+            rec.mem_measured_bytes = mentry["measured_bytes"]
+            rec.mem_efficiency = mentry["efficiency"]
         self.recorder.record(rec)
+        # incident triggers, from state already in hand (the watchdog's
+        # burn count, the storm counters, the record's own fields); after
+        # recorder.record so the bundle's flight window holds this cycle
+        self.incidents.observe_cycle(rec)
         self._eventful_seq += 1
         if self._sampled(self._eventful_seq):
             with self._traces_lock:

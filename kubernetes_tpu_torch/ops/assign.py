@@ -836,6 +836,50 @@ def batch_assign(
     return ret
 
 
+def solve_cost_analysis(pods: DevicePods, nodes: DeviceNodes,
+                        sel: DeviceSelectors,
+                        weights: Optional[Dict[str, float]] = None,
+                        **solve_kwargs) -> Optional[dict]:
+    """The work of one round of the dense batch solve at this signature
+    (the perf ledger's model-side capture, obs/ledger.py): the bytes and
+    operations the round's hand kernels move at the padded (P, N),
+    counted from the shapes (:func:`~kubernetes_tpu_torch.obs.ledger.
+    round_work`). Takes :func:`batch_assign`'s arguments and returns the
+    reference's keys, ``{"flops", "bytes_accessed"}``, where the
+    reference reads XLA's ``cost_analysis()`` of the compiled program.
+    Host arithmetic only: no device work."""
+    from kubernetes_tpu_torch.obs.ledger import round_work
+
+    return round_work(int(pods.valid.shape[0]), int(nodes.valid.shape[0]),
+                      use_sinkhorn=bool(solve_kwargs.get("use_sinkhorn")))
+
+
+def solve_memory_analysis(pods: DevicePods, nodes: DeviceNodes,
+                          sel: DeviceSelectors,
+                          weights: Optional[Dict[str, float]] = None,
+                          **solve_kwargs) -> Optional[dict]:
+    """The device-memory footprint of the dense batch solve at this
+    signature (the memory ledger's preflight capture, obs/memledger.py):
+    runs :func:`batch_assign` with these arguments once and measures the
+    allocator's peak over the run's start (the first solve at a warmed
+    bucket captures its round-loop graph, so the graph's private pool is
+    in it), plus the argument and output bytes. Returns the reference's
+    keys (``argument_bytes``, ``output_bytes``, ``temp_bytes``,
+    ``total_bytes``, ...), or None on CPU tensors, where no allocator
+    counts. A fault of the solve (a ``KernelError`` included)
+    propagates."""
+    from kubernetes_tpu_torch.obs.jaxtel import tree_nbytes
+    from kubernetes_tpu_torch.obs.memledger import capture_memory_analysis
+
+    args = tree_nbytes(pods, nodes, sel, *(
+        solve_kwargs.get(k) for k in ("topo", "vol", "static_vol",
+                                      "extra_mask", "extra_score")
+        if solve_kwargs.get(k) is not None))
+    return capture_memory_analysis(
+        lambda: batch_assign(pods, nodes, sel, weights, **solve_kwargs),
+        pods.valid.device, args)
+
+
 def validate_solution(assigned, usage: UsageState, pods: DevicePods,
                       nodes: DeviceNodes,
                       enabled_mask: Optional[int] = None) -> Tuple[bool, str]:

@@ -88,9 +88,18 @@ in host mode (the host table uploaded whole every cycle, as
 taken for a device loss. ``attach_auditor`` wires the state-conservation
 auditor (``obs/audit.py``).
 
+Observability's device backends (``obs/ledger.py``,
+``obs/memledger.py``, ``obs/incidents.py``) ride the cycle: before the
+batch is uploaded, the capacity preflight judges its padded shape against
+the warmed buckets' measured peaks and splits an over-budget batch down
+to a warmed bucket that fits, or sheds it back to the queue (a pipelined
+batch sheds); a device loss records a ranked forensic snapshot of the
+residents before the drop; while the SLO watchdog burns, ``is_degraded``
+reads true; warmup anchors the cost model with one timed replay and
+measures each bucket's peak.
+
 Not ported yet (ROADMAP): the scenario cascade and scenario packs
-(A.15), the perf and memory ledgers and the incident recorder (A.13
-slice 2), and the mesh with its ``batch-single`` tier and the shard-loss
+(A.15), and the mesh with its ``batch-single`` tier and the shard-loss
 harness (A.17).
 """
 
@@ -301,6 +310,12 @@ class CycleResult:
     flush_trigger: str = ""
     #: how long the micro-batch window accumulated before flushing
     window_s: float = 0.0
+    #: perf-ledger verdict (obs/ledger.py), stamped at end_cycle: the
+    #: cost model's predicted solve seconds for this cycle's batch shape
+    #: and modeled/measured (-1 = not populated: no solve ran, or the
+    #: ledger is off)
+    modeled_s: float = -1.0
+    model_efficiency: float = -1.0
 
 
 def _filter_pass(dp, dn, ds, dt, dv=None, sv=None, em=None):
@@ -410,8 +425,9 @@ class Scheduler:
         #: the reference's metric set (metrics.py), recorded every cycle
         self.metrics = metrics or SchedulerMetrics()
         #: observability knobs (config.ObservabilityConfig): the facade,
-        #: its flight recorder, journeys and telemetry, explain and the
-        #: Sinkhorn stats (the ledgers and incidents are ROADMAP A.13)
+        #: its flight recorder, journeys and telemetry, the perf and
+        #: memory ledgers, the incident recorder, explain and the
+        #: Sinkhorn stats
         self.observability = (observability if observability is not None
                               else ObservabilityConfig(
                                   trace_threshold_s=trace_threshold_s))
@@ -436,6 +452,12 @@ class Scheduler:
         self.cache = cache or SchedulerCache(clock=clock, device=self.device,
                                              lock_factory=lock_factory)
         self.cache.device = self.device
+        # the memory ledger measures this scheduler's device, and its
+        # resident accounting rides the cache's own upload and drop edges
+        # (duck attach: cache fakes without the attribute stay valid)
+        self.obs.memledger.device = self.device
+        if getattr(self.cache, "memledger", "absent") is None:
+            self.cache.memledger = self.obs.memledger
         if snapshot_max_dirty_frac is not None:
             self.cache.max_dirty_frac = snapshot_max_dirty_frac
         # explicit None check: an empty SchedulingQueue is falsy
@@ -448,6 +470,8 @@ class Scheduler:
         # sub-queue transitions, pop): the same duck attach as metrics
         if getattr(self.queue, "journeys", "absent") is None:
             self.queue.journeys = self.obs.journeys
+        # the incident bundles embed the queue depths at trigger time
+        self.obs.incidents.queue_snapshot = self.queue.pending_counts
         #: degradation-ladder knobs: cycle deadline, bounded retries,
         #: breaker thresholds, the fallback chain, result validation
         self.robustness = (robustness if robustness is not None
@@ -558,6 +582,11 @@ class Scheduler:
         self.clock = clock
         #: event_sink(reason, pod, message) — Scheduled / FailedScheduling
         self.event_sink = event_sink or (lambda *_: None)
+        # the SLO watchdog emits SchedulerSLOBurn / SchedulerSLORecovered
+        # through the same sink, late-bound so a sink attached after
+        # construction still receives them
+        self.obs.ledger.event_sink = (
+            lambda reason, obj, msg: self.event_sink(reason, obj, msg))
         #: enabled-predicate bitmask; None = every predicate enforced
         self.pred_mask = pred_mask
         #: per-pod CycleState, alive from prefilter to bind/fail
@@ -1035,9 +1064,12 @@ class Scheduler:
         the configured tier's circuit breaker is open. The fallback COUNT
         is the signal, not the tier name: the exact solver deliberately
         routes hazardous batches to the round solver as a healthy path.
-        The reference also reads the perf ledger's SLO burn (ROADMAP
-        A.13); the port has no perf ledger yet."""
+        A sustained SLO burn (the perf ledger's watchdog,
+        ``ledger.engage_pressure``) reads degraded too, so APF sheds
+        earlier at the same depth."""
         if self.clock() < self._device_cooloff_until:
+            return True
+        if self.obs.ledger.pressure_engaged():
             return True
         if self.last_solver_fallbacks > 0:
             return True
@@ -1076,12 +1108,15 @@ class Scheduler:
         leftover — each rings the doorbell when it moves pods), expires
         stale cache assumptions, and resolves Permit waits, but begins
         no cycle: no trace, no solve, no metrics churn. It re-probes the
-        parked ambiguous binds as a cycle does. The reference's idle tick
-        also runs the scenario repack (A.15) and ticks the perf and
-        memory ledgers (A.13); the port has none of those yet."""
+        parked ambiguous binds as a cycle does, keeps the SLO windows
+        (and the recovery transition) live and takes the memory ledger's
+        idle sample. The reference's idle tick also runs the scenario
+        repack (A.15)."""
         self.queue.tick()
         self._reap_expired_assumptions()
         self._verify_ambiguous_binds()
+        self.obs.ledger.tick()
+        self.obs.memledger.tick()
         res = CycleResult()
         self._process_waiting(res)
         if res.unschedulable or res.scheduled:
@@ -1092,10 +1127,7 @@ class Scheduler:
     def state_sizes(self) -> Dict[str, int]:
         """Sizes of every unbounded-unless-maintained structure this
         scheduler owns — the leak-sentinel surface (soak.SoakSentinels).
-        Pure dict-length reads. The keys are the reference's but those of
-        its memory ledger and incident recorder (``mem_residents``,
-        ``mem_census_arrays`` and the incident ring, ROADMAP A.13 slice
-        2)."""
+        Pure dict-length reads, with the reference's keys."""
         packer = self.cache.packer
         u = packer.u
         interned = sum(
@@ -1129,9 +1161,12 @@ class Scheduler:
                 1 if self.cache.has_device_snapshot() else 0),
             "dev_score_summary": (
                 1 if self.cache.has_score_summary() else 0),
+            "mem_residents": self.obs.memledger.resident_count(),
+            "mem_census_arrays": self.obs.memledger.census_count(),
             # pending journeys drain with traffic; the completed tiers
-            # plateau at their caps
+            # and the incident ring plateau at their caps
             **self.obs.journeys.sizes(),
+            **self.obs.incidents.sizes(),
         }
 
     def run_until_settled(self, max_cycles: int = 50) -> List[CycleResult]:
@@ -1253,12 +1288,20 @@ class Scheduler:
                                  "%.1fs", self.recovery.device_cooloff_s)
                     return self.cache.snapshot(), None, "host"
 
-    def _note_device_reset(self, site: str, e: Exception) -> None:
+    def _note_device_reset(self, site: str, e: Exception,
+                           shapes: str = "") -> None:
         """Count one device reset: the scheduler's metric, the cycle's
-        trace (or the next one's, between cycles), the process tally."""
+        trace (or the next one's, between cycles), the process tally; and
+        the memory ledger's ranked forensic record, taken BEFORE the
+        caller drops the residents, whose ``oom@<site> top=<name>:<bytes>B``
+        flag lands on the cycle's flight record."""
         self.metrics.recovery_device_resets.inc()
         self.obs.note_device_reset()
-        self.obs.note_oom_forensic(f"{site}:{type(e).__name__}")
+        ml = self.obs.memledger
+        if ml.enabled:
+            rec = ml.record_oom(site, error=str(e), shapes=shapes,
+                                cycle=self.queue.scheduling_cycle)
+            self.obs.note_oom_forensic(ml.oom_flag(rec))
         RECOVERY.device_resets += 1
 
     def _cycle_snapshot(self):
@@ -1349,9 +1392,56 @@ class Scheduler:
             node_order = self.cache.node_order()
             pt = pk.pack_pods(batch)
             skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
+            # capacity preflight (obs/memledger.py): the cycle's padded
+            # solve shape against the warmed buckets' measured peaks,
+            # BEFORE the pod batch is uploaded. An over-budget shape
+            # splits down to the largest warmed bucket that fits (the
+            # tail requeued for the next cycle) or sheds the whole batch:
+            # a deliberate requeue beats running out of device memory
+            # mid-solve. A pipelined cycle solves at the chunk shape, so
+            # it preflights that and sheds rather than splits (the chunk
+            # is already the smallest unit)
+            preflight_shed = False
+            pad_p = 0  # the preflight's padding override (0 = default)
+            ml = self.obs.memledger
+            if ml.preflight_on and batch:
+                eff_p = bucket_size(max(
+                    min(len(batch), self.pipeline_chunk) if use_pipeline
+                    else len(batch), 1))
+                act, split_p, verdict = ml.preflight(
+                    eff_p, int(dn.valid.shape[0]), 0)
+                self.obs.note_preflight(act)
+                if act == "split" and not use_pipeline and split_p > 0:
+                    if split_p < len(batch):
+                        for p in batch[split_p:]:
+                            self._cycle_states.pop(p.key(), None)
+                            self.queue.add_if_not_present(p)
+                        self.obs.step(f"preflight split {len(batch)} -> "
+                                      f"{split_p} pods ({verdict})")
+                        batch = batch[:split_p]
+                        res.attempted = len(batch)
+                        # re-pack at the trimmed shape (the gates of the
+                        # superset's pack stay valid for a subset: they
+                        # can only be conservative)
+                        pt = pk.pack_pods(batch)
+                    # the default padding of the remaining batch may
+                    # still round up past the budget: pin the padding to
+                    # the warmed bucket the preflight cleared
+                    pad_p = split_p
+                elif act == "shed" or (act == "split" and use_pipeline):
+                    for p in batch:
+                        self._cycle_states.pop(p.key(), None)
+                        self.queue.add_if_not_present(p)
+                    self.obs.step(f"preflight shed {len(batch)} pods "
+                                  f"({verdict})")
+                    batch = []
+                    res.attempted = 0
+                    preflight_shed = True
+                    use_pipeline = False
             # a pipelined cycle packs and uploads its pods chunk by chunk
-            dp = None if use_pipeline else pods_to_device(
-                pt, pad_to=bucket_size(max(len(batch), 1)), device=dev)
+            dp = None if use_pipeline or preflight_shed else pods_to_device(
+                pt, pad_to=pad_p or bucket_size(max(len(batch), 1)),
+                device=dev)
             ds = selectors_to_device(pk.pack_selector_tables(), device=dev)
             # the topology universe only grows: once any affinity or
             # spread term was interned, every cycle packs the tables (the
@@ -1364,10 +1454,18 @@ class Scheduler:
                 dv = volumes_to_device(pk.pack_volume_tables(batch),
                                        device=dev)
                 sv = _static_vol_pass(dp, dn, ds, dv)
+            # this cycle's padded operand tables, re-registered every
+            # cycle at the current shape
+            ml.register_tree("scheduler.pod_batch", dp, ds, dt, dv)
             self.obs.step(f"snapshot packed ({len(batch)} pods, {nt.n} "
                           f"nodes, {res.snapshot_mode})")
         self._note_snapshot(res.snapshot_mode, nt, dn, dp, ds, dt, dv,
                             len(batch), use_pipeline)
+        if preflight_shed:
+            # the preflight requeued the whole batch: the cycle still
+            # closes its snapshot accounting and flight record, and never
+            # uploads the pods or touches the solver
+            return self._finish(res, t0, syncs0)
 
         if use_pipeline:
             # the pipelined executor owns the rest of the cycle on the
@@ -2541,6 +2639,10 @@ class Scheduler:
         had = self._incr_active or self._sk_warm_pot is not None or live
         self._sk_warm_pot = None
         self._incr_active = False
+        # the scheduler's own residents (the warm carry, the last pod
+        # batch, the candidate frame): gone on a device loss, re-registered
+        # by the next cycle otherwise
+        self.obs.memledger.deregister_prefix("scheduler.")
         if live:
             self.cache.drop_score_summary()
         if had and self.incremental.enabled:
@@ -2736,8 +2838,16 @@ class Scheduler:
             # under-placed: the dense ladder decides
             self.metrics.incremental_cycles.inc(scope="under-placed")
             return None
+        # the cycle's candidate-frame residents: the gathered (C, .)
+        # sub-table and its (C,) index map (the frame's temporaries are in
+        # the warmup's measured bucket peak)
+        ml = self.obs.memledger
+        ml.register_tree("scheduler.candidate_frame", sub_dn, cand,
+                         shape=f"C{C}of{n_pad}")
         if warm and pot is not None:
             self._sk_warm_pot = (pot_key, pot)
+            ml.register_tree("scheduler.sk_warm_potentials", pot,
+                             shape=f"P{pot_key[0]}xC{pot_key[1]}")
         self._incr_active = True
         res.rounds = rounds
         res.solver_tier = self.solver
@@ -2962,7 +3072,8 @@ class Scheduler:
                         self.fault_injector.device_hook("warmup:compile")
                     compiled += self._warm_bucket(P, pk, sample, nt, dn, ds,
                                                   dt, solver, gates,
-                                                  has_vol_sample, wu)
+                                                  has_vol_sample, wu,
+                                                  anchor=(compiled == 0))
                 except kernels.KernelError:
                     raise
                 except Exception as e:  # noqa: BLE001 — a device error
@@ -2973,7 +3084,9 @@ class Scheduler:
                     # rebuilds the resident table through
                     # _device_snapshot_recovering, the ladder absorbs a
                     # solve failure, and the next re-arm warms again
-                    self._note_device_reset("warmup:compile", e)
+                    self._note_device_reset(
+                        "warmup:compile", e,
+                        shapes=f"P{P}xN{int(dn.valid.shape[0])}")
                     self.cache.drop_device_snapshot()
                     self._drop_incremental("device-loss")
                     klog.warning("warmup aborted at bucket %d: %s", P, e)
@@ -2993,6 +3106,11 @@ class Scheduler:
                 except kernels.KernelError:
                     raise
                 except Exception as e:  # noqa: BLE001 — a device error
+                    # the restricted buckets' first solves (their peak
+                    # captures among them) failed on the device: counted
+                    # and recorded like any device reset, never only a
+                    # log line; the cold route still serves every cycle
+                    self._note_device_reset("warmup:incremental", e)
                     klog.warning("incremental warmup aborted: %s", e)
         captures = device_loop.CAPTURES.count - captures0
         if captures:
@@ -3003,9 +3121,12 @@ class Scheduler:
         return compiled
 
     def _warm_bucket(self, P, pk, sample, nt, dn, ds, dt, solver, gates,
-                     has_vol_sample, wu) -> int:
+                     has_vol_sample, wu, anchor: bool = False) -> int:
         """Warm one bucketed solve shape (the body of the warmup sweep);
-        returns 1."""
+        returns 1. The bucket's first solve is measured for the capacity
+        preflight's peak table (``_capture_bucket_memory``); with
+        ``anchor`` (the sweep's first bucket) one timed warm replay then
+        anchors the perf ledger's cost model (``_anchor_cost_model``)."""
         skip_prio, no_ports, no_pod_aff, no_spread = gates
         dev = self.device
         dp = pods_to_device(pk.pack_pods(sample[:P]), pad_to=P, device=dev)
@@ -3027,6 +3148,13 @@ class Scheduler:
                    no_spread, self.pred_mask, self.per_node_cap,
                    self.max_rounds, True, True, False)
 
+        # the cycles' own solve arguments; the stats flag joins the graph
+        # key, so it is the cycles' own too
+        solve_kwargs = dict(
+            max_rounds=self.max_rounds, per_node_cap=self.per_node_cap,
+            use_sinkhorn=(solver == "sinkhorn"),
+            stats_out=self.observability.sinkhorn_telemetry, **kw)
+
         def solve(extra_mask):
             self.obs.jax.record_call(
                 "solve", dp, dn, ds, dt, dv,
@@ -3036,17 +3164,20 @@ class Scheduler:
                 return greedy_assign(dp, dn, ds, self.weights,
                                      extra_mask=extra_mask, **kw)
             # one graph per route the auto-router can choose in round 0
-            # (``sinkhorn`` always plans: the router stays out); the stats
-            # flag joins the graph key, so it is the cycles' own
+            # (``sinkhorn`` always plans: the router stays out)
             for route in (False, True) if solver == "batch" else (None,):
-                out = batch_assign(
-                    dp, dn, ds, self.weights, max_rounds=self.max_rounds,
-                    per_node_cap=self.per_node_cap, extra_mask=extra_mask,
-                    use_sinkhorn=(solver == "sinkhorn"), route_plan=route,
-                    stats_out=self.observability.sinkhorn_telemetry, **kw)
+                out = batch_assign(dp, dn, ds, self.weights,
+                                   extra_mask=extra_mask, route_plan=route,
+                                   **solve_kwargs)
             return out[0], out[1]
 
+        if solver != "greedy" and self.obs.memledger.preflight_on:
+            # every bucket feeds the preflight's table, measured on its
+            # first solve, which captures the bucket's round-loop graph
+            self._capture_bucket_memory(dp, dn, ds, solve_kwargs)
         a, usage = solve(None)
+        if anchor and solver != "greedy" and self.obs.ledger.enabled:
+            self._anchor_cost_model(dp, dn, ds, solve_kwargs)
         if self.robustness.validate_results and not \
                 self.robustness.host_validate:
             device_validate(a, usage, dp, dn, self.pred_mask)
@@ -3065,6 +3196,60 @@ class Scheduler:
             torch.cuda.synchronize(dev)
         self.metrics.warmup_compiles.inc()
         return 1
+
+    def _anchor_cost_model(self, dp, dn, ds, solve_kwargs) -> None:
+        """The perf ledger's model side at warmup (obs/ledger.py): the
+        analytic work of one round at this (P, N)
+        (``ops/assign.solve_cost_analysis``) and ONE timed warm replay of
+        the just-captured solve as the per-round rate anchor. The replay
+        can take more than one round, so the anchor records the executed
+        round count (a warmup-only readback, site ``ledger-anchor``): an
+        R-round wall credited to one round would inflate the per-round
+        rate R times. Every error propagates: a ``KernelError`` leaves
+        ``warmup``, and a device error (a CUDA out-of-memory error
+        included) reaches warmup's device-loss handler, as the same
+        solve's error would outside the accounting."""
+        from kubernetes_tpu_torch.ops.assign import solve_cost_analysis
+
+        ledger = self.obs.ledger
+        P_pad = int(dp.valid.shape[0])
+        N_pad = int(dn.valid.shape[0])
+        ca = solve_cost_analysis(dp, dn, ds, self.weights, **solve_kwargs)
+        if ca is not None:
+            ledger.model.record_signature(
+                P_pad, N_pad, ca["flops"], ca["bytes_accessed"])
+        if dp.valid.is_cuda:
+            torch.cuda.synchronize(dp.valid.device)  # not the capture
+        t0 = time.perf_counter()
+        out = batch_assign(dp, dn, ds, self.weights, **solve_kwargs)
+        rounds = int(self.obs.jax.readback("ledger-anchor", out[2]))
+        elapsed = time.perf_counter() - t0
+        ledger.model.record_anchor("full", P_pad, N_pad, 0, elapsed,
+                                   rounds=max(rounds, 1))
+
+    def _capture_bucket_memory(self, dp, dn, ds, solve_kwargs) -> None:
+        """The memory ledger's per-bucket peak (obs/memledger.py): one
+        measured solve at this warmed (P, N)
+        (``ops/assign.solve_memory_analysis``) into the preflight's table.
+        A measurement that found the bucket's graph already captured (a
+        second warmup in the process) reads only a replay: the larger
+        entry stays. On CPU tensors nothing is measured and nothing lands
+        (the preflight then calls the shape unwarmed). Every error
+        propagates: this is the bucket's first real solve, so a device
+        error (a CUDA out-of-memory error included) reaches the caller's
+        device-loss handler (``warmup``'s ``oom@`` forensics and snapshot
+        drop, or the restricted sweep's abort), and a ``KernelError``
+        leaves ``warmup``."""
+        from kubernetes_tpu_torch.ops.assign import solve_memory_analysis
+
+        ml = self.obs.memledger
+        ma = solve_memory_analysis(dp, dn, ds, self.weights, **solve_kwargs)
+        if ma is None:
+            return
+        key = (int(dp.valid.shape[0]), int(dn.valid.shape[0]), 0)
+        cur = ml.bucket_table().get(key)
+        if cur is None or cur["total_bytes"] <= ma["total_bytes"]:
+            ml.record_bucket_memory(*key, ma)
 
     def _warm_delta_scatter(self, dn) -> None:
         """Run the resident table's delta scatter once at each dirty-row
@@ -3148,6 +3333,18 @@ class Scheduler:
                     variants.append((
                         torch.zeros((P,), dtype=torch.float32, device=dev),
                         torch.zeros((C,), dtype=torch.float32, device=dev)))
+                if self.obs.memledger.preflight_on:
+                    # the preflight's table learns the restricted (P, C)
+                    # frames too, measured on the cold variant's capture
+                    self._capture_bucket_memory(
+                        dp, sub_dn, ds, dict(
+                            max_rounds=self.max_rounds,
+                            per_node_cap=self.per_node_cap,
+                            enabled_mask=self.pred_mask,
+                            use_sinkhorn=use_sk,
+                            skip_priorities=skip_prio, no_ports=True,
+                            no_pod_affinity=True, no_spread=True,
+                            stats_out=want_stats))
                 for sk_init in variants:
                     self.obs.jax.record_call(
                         "solve", dp, sub_dn, ds,

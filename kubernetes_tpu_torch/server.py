@@ -9,19 +9,17 @@ Two serving roles, mirroring the reference's two integration surfaces:
   the retained cycle traces), ``/debug/why`` (the pending-pod
   explanations), ``/debug/flightrecorder`` (the flight recorder's ring
   and the transfer telemetry), ``/debug/journeys`` (pod journeys,
-  ``?pod=`` for one timeline) and ``/debug/soak`` (an attached soak
-  engine's live status).
+  ``?pod=`` for one timeline), ``/debug/soak`` (an attached soak
+  engine's live status), ``/debug/ledger`` (the perf ledger and its SLO
+  watchdog), ``/debug/memory`` (the device-memory ledger),
+  ``/debug/incidents`` (the incident ring) and ``/debug/profile``
+  (``?cycles=N`` arms a ``torch.profiler`` capture).
 - :class:`ExtenderServer` — the *reverse* integration seam: this
   framework served AS a scheduler extender. A stock Go kube-scheduler
   configured with an HTTPExtender pointing here (verbs
   ``filter``/``prioritize``, ``nodeCacheCapable: true``) offloads
   filtering/scoring to the port's (pods x nodes) passes while keeping its
   own control loop; wire shapes follow pkg/scheduler/api/types.go:284-345.
-
-The reference's other debug routes serve backends the port does not
-have yet (the perf and memory ledgers, the incident recorder and its
-profiler); they answer 404 naming the ROADMAP item
-(:data:`UNPORTED_DEBUG`).
 """
 
 from __future__ import annotations
@@ -33,12 +31,13 @@ from typing import Dict, Optional
 
 from kubernetes_tpu_torch.api.types import OwnerReference, Pod, Resources
 
-#: the reference's debug routes whose backends are not ported yet
-UNPORTED_DEBUG = {
-    "/debug/ledger": "the perf ledger (ROADMAP A.13 slice 2)",
-    "/debug/memory": "the device-memory ledger (ROADMAP A.13 slice 2)",
-    "/debug/incidents": "the incident recorder (ROADMAP A.13 slice 2)",
-    "/debug/profile": "on-demand profiling (ROADMAP A.13 slice 2)",
+
+#: debug route -> (Observability attribute, what it is): the routes that
+#: serve a backend's snapshot()
+_SNAPSHOT_ROUTES = {
+    "/debug/ledger": ("ledger", "perf ledger"),
+    "/debug/memory": ("memledger", "memory ledger"),
+    "/debug/incidents": ("incidents", "incident recorder"),
 }
 
 
@@ -284,6 +283,34 @@ def journeys_payload(sched, path: str):
     return 200, doc
 
 
+def profile_payload(sched, path: str):
+    """The ``/debug/profile`` body: arm an on-demand ``torch.profiler``
+    capture of the next ``?cycles=N`` cycle closes (obs/incidents.py,
+    bounded by the incidents config's profile_dir and max_profiles).
+    Returns ``(status, json-able dict)``."""
+    from urllib.parse import parse_qs, urlparse
+
+    q = parse_qs(urlparse(path).query)
+    obs = getattr(sched, "obs", None)
+    incidents = getattr(obs, "incidents", None)
+    if incidents is None:
+        return 404, {"error": "no incident recorder on this scheduler"}
+    try:
+        cycles = int((q.get("cycles") or ["8"])[0])
+    except ValueError:
+        return 400, {"error": "cycles must be an integer"}
+    started = incidents.arm_profile(cycles, tag="debug")
+    return (200 if started else 409), {
+        "started": started,
+        "cycles": cycles,
+        "profile_dir": str(getattr(incidents.config, "profile_dir", "")),
+        "profiles_taken": incidents.profiles_taken,
+        "note": ("" if started else
+                 "not started: profiling disabled (empty profile_dir), "
+                 "a capture is already active, or max_profiles reached"),
+    }
+
+
 def serve_scheduler(
     scheduler,
     host: str = "127.0.0.1",
@@ -394,10 +421,23 @@ def serve_scheduler(
                 code, doc = journeys_payload(sched, self.path)
                 self._respond(code, json.dumps(doc).encode(),
                               "application/json")
-            elif route in UNPORTED_DEBUG:
-                self._respond(
-                    404, f"not ported yet: {UNPORTED_DEBUG[route]}".encode(),
-                    "text/plain")
+            elif self.path in _SNAPSHOT_ROUTES:
+                # the perf ledger, the memory ledger, the incident ring:
+                # each snapshot() is thread-safe (the scheduler thread
+                # keeps observing while this handler serializes)
+                attr, what = _SNAPSHOT_ROUTES[self.path]
+                backend = getattr(getattr(sched, "obs", None), attr, None)
+                if backend is None:
+                    self._respond(404, f"no {what} on this scheduler"
+                                  .encode(), "text/plain")
+                else:
+                    self._respond(
+                        200, json.dumps(backend.snapshot()).encode(),
+                        "application/json")
+            elif route == "/debug/profile":
+                code, doc = profile_payload(sched, self.path)
+                self._respond(code, json.dumps(doc).encode(),
+                              "application/json")
             else:
                 self._respond(404, b"not found", "text/plain")
 

@@ -19,9 +19,9 @@ What composing changes (vs. the pieces in isolation):
   on the hot path;
 - **APF shedding**: the mutating flow's saturation probe is
   :meth:`Scheduler.backend_pressure` — active-queue depth INFLATED
-  while the ladder runs degraded or the device cools off after a loss —
-  not bare queue length, so a limping backend sheds earlier at the same
-  depth;
+  while the ladder runs degraded, the device cools off after a loss, or
+  the perf ledger's SLO watchdog is burning (obs/ledger.py) — not bare
+  queue length, so a limping backend sheds earlier at the same depth;
 - **takeover**: ``attach_elector`` chains the scheduler's recovery
   callbacks (fenced binds, reconcile, stopped-leading drain) AND the
   watch hub's relist eviction — watchers of a deposed or newly-elected
@@ -34,8 +34,7 @@ What composing changes (vs. the pieces in isolation):
   its structural sweep as a maintenance hook between loop iterations,
   under the ingest lock (:meth:`maybe_audit`).
 
-Not ported yet: the reference's mesh branch (ROADMAP A.17) and the perf
-ledger's SLO watchdog (A.13).
+Not ported yet: the reference's mesh branch (ROADMAP A.17).
 """
 
 from __future__ import annotations
@@ -99,8 +98,11 @@ class ServingRuntime:
             "mutating",
             lambda: sched.backend_pressure(degraded_factor=factor),
             maximum=float(self.shed_bound()))
-        #: the perf ledger and its SLO watchdog are ROADMAP A.13
-        self.ledger = None
+        #: the SLO surface (obs/ledger.py): the serving loop's per-pod
+        #: create-to-bind latencies feed the watchdog through end_cycle,
+        #: and a sustained burn inflates the backend_pressure probe wired
+        #: above (getattr: duck-typed scheduler fakes stay valid)
+        self.ledger = getattr(getattr(sched, "obs", None), "ledger", None)
         # -- watch fan-out -------------------------------------------------
         self.hub = WatchHub(buffer=self.config.watch_buffer,
                             metrics=sched.metrics)

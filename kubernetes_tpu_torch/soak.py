@@ -30,9 +30,7 @@ The engine attaches itself to the scheduler (``sched.soak``) so
 duck-typed way ``/debug/ledger`` serves the perf ledger.
 
 Nothing here imports torch: the soak is host-side orchestration; the
-device stays behind the scheduler's existing seams. The port has no perf
-ledger yet (ROADMAP A.13 slice 2), so :func:`standard_counters` has no
-``slo_burns`` counter.
+device stays behind the scheduler's existing seams.
 """
 
 from __future__ import annotations
@@ -542,6 +540,7 @@ def standard_counters(sched, auditor=None, extra=None
     readers (double-bind attempts from a chaos binder, ...)."""
     obs = sched.obs
     counters: Dict[str, Callable[[], float]] = {
+        "slo_burns": lambda: float(obs.ledger.watchdog.burns_total()),
         "retraces": lambda: float(obs.jax.retrace_total()),
         "fenced_binds": lambda: float(
             sched.metrics.recovery_fenced_binds.value()),

@@ -226,6 +226,12 @@ def test_serving_run_takes_the_lease_binds_and_releases(monkeypatch,
         retrace_storm_window=16)),
     ("observability", ObservabilityConfig(
         lock_sanitizer=LockSanitizerConfig(enabled=True))),
+    ("observability", ObservabilityConfig(
+        memory_ledger=MemoryLedgerConfig(enabled=False))),
+    ("observability", ObservabilityConfig(
+        ledger=LedgerConfig(enabled=False))),
+    ("observability", ObservabilityConfig(
+        incidents=IncidentsConfig(enabled=False))),
 ])
 def test_serving_and_leadership_settings_are_ported(field, value):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})
@@ -236,12 +242,6 @@ def test_serving_and_leadership_settings_are_ported(field, value):
 @pytest.mark.parametrize("field,value,item", [
     ("parallel", ParallelConfig(mesh=4), "A.17"),
     ("scenario", ScenarioConfig(pack="consolidation"), "A.15"),
-    ("observability", ObservabilityConfig(
-        memory_ledger=MemoryLedgerConfig(enabled=False)), "A.13"),
-    ("observability", ObservabilityConfig(
-        ledger=LedgerConfig(enabled=False)), "A.13"),
-    ("observability", ObservabilityConfig(
-        incidents=IncidentsConfig(enabled=False)), "A.13"),
 ])
 def test_unported_settings_stay_refused(field, value, item):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})

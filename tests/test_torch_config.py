@@ -185,10 +185,6 @@ def test_cli_validate_only_exit_codes(tmp_path, capsys, doc, rc, line):
     ({"parallel": {"mesh": 4}}, "A.17"),
     ({"parallel": {"mesh": "auto"}}, "A.17"),
     ({"scenario": {"pack": "consolidation"}}, "A.15"),
-    ({"observability": {"memory_ledger": {"preflight": False}}}, "A.13"),
-    ({"observability": {"ledger": {"enabled": False}}}, "A.13"),
-    ({"observability": {"incidents": {"enabled": False}}}, "A.13"),
-    ({"observability": {"memory_ledger": {"enabled": False}}}, "A.13"),
     ({"parallel": {"mesh": 2}}, "A.17"),
 ])
 def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
@@ -207,6 +203,34 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
     cfg = PORT.cli.load_config_file(str(f))
     with pytest.raises(PORT.cli.ConfigError, match=f"ROADMAP {item}"):
         Scheduler.from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("doc, backend, field, want", [
+    ({"observability": {"memory_ledger": {"preflight": False}}},
+     "memledger", "preflight", False),
+    ({"observability": {"ledger": {"enabled": False}}},
+     "ledger", "enabled", False),
+    ({"observability": {"incidents": {"enabled": False}}},
+     "incidents", "enabled", False),
+    ({"observability": {"memory_ledger": {"enabled": False}}},
+     "memledger", "enabled", False),
+])
+def test_observability_backends_are_honoured(tmp_path, capsys, doc, backend,
+                                             field, want):
+    """The perf ledger, the memory ledger and the incident recorder are
+    ported: a configuration that sets them validates like the reference's
+    (rc 0) and reaches the scheduler's backend through from_config."""
+    f = tmp_path / "cfg.json"
+    f.write_text(json.dumps(doc))
+    for m in (REF, PORT):
+        assert m.cli.main(["--validate-only", "--config", str(f)]) == 0
+        capsys.readouterr()
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    cfg = PORT.cli.load_config_file(str(f))
+    assert PORT.cli.unported_features(cfg) == []
+    sched = Scheduler.from_config(cfg, device="cpu")
+    assert getattr(getattr(sched.obs, backend).config, field) == want
 
 
 @pytest.mark.parametrize("doc, field, want", [

@@ -1,7 +1,7 @@
 """Pod journeys in the port (``obs/journey.py``, the queue's residency
 seams, the scheduler's bind-path notes and ``/debug/journeys``) held
 against the JAX package: the cases of tests/test_journey.py that do not
-need the incident recorder (ROADMAP A.13 slice 2).
+concern journeys (the incident cases are in tests/test_torch_incidents.py).
 
 Every case runs one script through both packages on a fake clock and
 compares what it returns: timelines (phases, shares, attempt rows, raw

@@ -14,7 +14,18 @@ reads the scheduler's injected clock as the reference's does.
 C.2: ``scheduler_sinkhorn_iterations`` and
 ``scheduler_sinkhorn_final_residual``: the stats ride the solve's own
 readback. Iterations are compared exactly, the residual at the Sinkhorn
-tolerance of tests/test_torch_sinkhorn.py (``atol=1e-5, rtol=1e-4``)."""
+tolerance of tests/test_torch_sinkhorn.py (``atol=1e-5, rtol=1e-4``).
+
+The device backends of observability, exactly:
+``scheduler_cycle_model_efficiency``, ``scheduler_cycle_phase_seconds``,
+``scheduler_slo_burn_rate`` (the perf ledger and its watchdog, over
+cycles whose spans a fake clock sets), and
+``scheduler_device_memory_bytes{kind="modeled"}``,
+``scheduler_memory_model_efficiency`` and
+``scheduler_memory_preflight_total`` (the memory ledger, through driven
+cycles that split, shed and fit against the same injected bucket table).
+The measured series of ``scheduler_device_memory_bytes`` (the CPU census)
+are each package's own and are not compared."""
 
 import random
 
@@ -217,3 +228,122 @@ def test_sinkhorn_families_match_on_tied_preferences(solver):
     assert rt.assignments == rj.assignments
     its, _ = _sinkhorn_families(js, ts)
     assert "scheduler_sinkhorn_iterations_count 1" in its
+
+
+# ---------------------------------------------------------------------------
+# the device backends: the perf ledger and the memory ledger
+# ---------------------------------------------------------------------------
+
+
+def _feed(cycle_result, s, clk, cycle, latencies, solve_s):
+    obs = s.obs
+    obs.begin_cycle(cycle)
+    obs.note_batch_shape("P8xN8" if cycle % 3 else "P16xN8")
+    with obs.span("snapshot"):
+        clk.advance(solve_s / 4)
+    with obs.span("solve:batch"):
+        clk.advance(solve_s)
+        if cycle % 2:
+            with obs.span("validate"):
+                clk.advance(solve_s / 8)
+    res = cycle_result(
+        attempted=max(len(latencies), 1), scheduled=len(latencies),
+        rounds=1 + cycle % 2, solver_tier="batch",
+        e2e_latency_s={f"e{cycle}-{i}": v for i, v in enumerate(latencies)})
+    obs.end_cycle(res)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ledger_families_match_the_reference(seed):
+    """Seeded cycles through both facades (the spans set on one fake
+    clock each): the efficiency and modeled-cost gauges, the per-phase
+    gauge and both windows of both objectives' burn rates, after every
+    cycle."""
+    import kubernetes_tpu.config as jconfig
+    import kubernetes_tpu.scheduler as jscheduler
+    import kubernetes_tpu_torch.config as tconfig
+    import kubernetes_tpu_torch.scheduler as tscheduler
+
+    out = []
+    for config, sched in ((jconfig, jscheduler), (tconfig, tscheduler)):
+        rng = random.Random(seed)
+        clk = FakeClock(100.0)
+        s = sched.Scheduler(
+            enable_preemption=False, clock=clk,
+            observability=config.ObservabilityConfig(
+                ledger=config.LedgerConfig(
+                    e2e_p99_objective_s=0.05, cost_drift_ratio=2.0,
+                    fast_window_s=4.0, slow_window_s=16.0)),
+            **({"device": "cpu"} if sched is tscheduler else {}))
+        rows = []
+        for c in range(40):
+            slow = rng.random() < 0.3
+            lat = [rng.expovariate(10.0 if slow else 100.0)
+                   for _ in range(rng.randrange(0, 5))]
+            _feed(sched.CycleResult, s, clk, c, lat,
+                  rng.expovariate(50.0 if slow else 500.0))
+            clk.advance(rng.uniform(0.1, 1.0))
+            rows.append([_samples(s, a) for a in (
+                "cycle_model_efficiency", "cycle_modeled_cost",
+                "cycle_phase_seconds", "slo_burn_rate")])
+        out.append(rows)
+    assert out[1] == out[0]
+    last = out[1][-1]
+    assert any('phase="validate"' in line for line in last[2])
+    assert any('objective="cost_drift"' in line for line in last[3])
+
+
+def _table(s, totals):
+    ml = s.obs.memledger
+    for P, total in totals.items():
+        ml.record_bucket_memory(P, 8, 0, {"argument_bytes": 1,
+                                          "output_bytes": 2,
+                                          "temp_bytes": 3, "code_bytes": 0,
+                                          "alias_bytes": 0,
+                                          "total_bytes": total})
+
+
+def _modeled(lines):
+    return [line for line in lines if 'kind="modeled"' in line]
+
+
+def test_memory_families_match_the_reference():
+    """Cycles that fit, split and shed against the same injected bucket
+    table: the preflight counter by action and the modeled resident bytes
+    after every cycle, and the efficiency gauge (-1 on the sample-free
+    cycles that follow the first, as in the reference)."""
+    js, ts = scheduler_pair(enable_preemption=False)
+    rng = random.Random(3)
+    nodes = [make_node(f"n{i}", cpu_milli=16000, memory=2**35)
+             for i in range(4)]
+    feed_cluster(js, ts, nodes, [])
+    for s in (js, ts):
+        _table(s, {8: 400, 16: 900, 32: 1800})
+    rows = []
+    for c, (n, limit) in enumerate(((6, 1000), (16, 1000), (20, 999),
+                                    (4, 100), (3, 0), (30, 2100))):
+        pods = [make_pod(f"c{c}-{i}", cpu_milli=rng.choice((50, 100, 200)))
+                for i in range(n)]
+        feed_cluster(js, ts, [], pods)
+        for s in (js, ts):
+            s.obs.memledger.config.limit_bytes = limit
+        rj, rt = js.schedule_cycle(), ts.schedule_cycle()
+        assert (rt.attempted, rt.assignments) == (rj.attempted,
+                                                  rj.assignments)
+        # the first boundary samples (the efficiency then divides by a
+        # measured census, each package's own); the later ones are
+        # sample-free on the constant clock and publish -1 in both
+        eff = "memory_model_efficiency"
+        got = [_samples(ts, "memory_preflight"),
+               _modeled(_samples(ts, "device_memory_bytes")),
+               _samples(ts, eff) if c else len(_samples(ts, eff))]
+        want = [_samples(js, "memory_preflight"),
+                _modeled(_samples(js, "device_memory_bytes")),
+                _samples(js, eff) if c else len(_samples(js, eff))]
+        assert got == want, (c, got, want)
+        rows.append(got)
+    counts = {line.split('"')[1]: float(line.split()[-1])
+              for line in rows[-1][0]}
+    assert counts["split"] >= 1 and counts["shed"] >= 1
+    assert counts["ok"] >= 1
+    assert rows[-1][2] == ["scheduler_memory_model_efficiency -1.0"]

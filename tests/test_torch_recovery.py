@@ -178,18 +178,29 @@ def test_device_loss_rebuilds_resident_snapshot():
                 fi.fired_total("snapshot:device"))
 
     assert both(script) == (1, "full", 1, 1)
-    # the port notes the reset on the cycle's flight record, as the
-    # reference does
-    fi = tfaults.FaultInjector(seed=0).arm("snapshot:device", "device_lost",
-                                           count=1)
-    s = tscheduler.Scheduler(clock=FakeClock(), enable_preemption=False,
-                             fault_injector=fi, device="cpu")
-    s.on_node_add(ttesting.make_node("n0"))
-    s.on_pod_add(ttesting.make_pod("p0"))
-    s.schedule_cycle()
-    rec = s.obs.recorder.records()[-1]
-    assert rec.device_resets == 1
-    assert rec.oom_forensic == "snapshot:device:DeviceLost"
+
+    # the reset lands on the cycle's flight record with the memory
+    # ledger's forensic flag, and the ranked record in its ring, as the
+    # reference's (a second loss, once the node table was resident)
+    def forensic(pkg):
+        fi = pkg.faults.FaultInjector(seed=0)
+        s = pkg.scheduler.Scheduler(clock=FakeClock(), enable_preemption=False,
+                                    fault_injector=fi, **pkg.kw)
+        s.on_node_add(pkg.testing.make_node("n0"))
+        for i in range(2):
+            if i:
+                fi.arm("snapshot:device", "device_lost", count=1)
+            s.on_pod_add(pkg.testing.make_pod(f"p{i}"))
+            s.schedule_cycle()
+        rec = s.obs.recorder.records()[-1]
+        return (rec.device_resets, rec.oom_forensic,
+                [{k: v for k, v in o.items()
+                  if k not in ("measured_bytes", "watermarks", "error")}
+                 for o in s.obs.memledger.oom_records()])
+
+    resets, flag, ooms = both(forensic)
+    assert resets == 1 and flag.startswith("oom@snapshot:device top=")
+    assert ooms[0]["top_residents"][0]["name"] == "cache.node_table"
 
 
 @pytest.mark.parametrize("kind", ["device_lost", "device_oom"])

@@ -2,9 +2,13 @@
 JAX package's (``kubernetes_tpu/server.py``): the wire decode
 (``parse_quantity``, ``pod_from_json``), the extender's ``filter`` and
 ``prioritize`` answers, ``/debug/why``, ``/debug/journeys``,
-``/debug/soak`` and ``/debug/flightrecorder`` (its records but the fields
-of the reference's A.13 slice 2 backends) must be JSON-equal on the same
-seeded cluster (the port on CPU tensors); the routes, the APF 429 with
+``/debug/soak``, ``/debug/flightrecorder``, ``/debug/ledger``,
+``/debug/memory``, ``/debug/incidents`` and ``/debug/profile`` must be
+JSON-equal on the same seeded cluster (the port on CPU tensors), but for
+what each package measures on its own: the readback bytes of its own
+payloads, the memory ledger's measured census (the reference counts the
+process's live JAX arrays, the port its live CPU tensors) and the phase
+seconds the ledger folds from real clocks; the routes, the APF 429 with
 ``Retry-After``, and the extender's one counted readback per call."""
 
 import dataclasses
@@ -170,9 +174,12 @@ def test_routes_over_http(pair):
             st, _, body = _get(port, "GET", path)
             jst, _, jbody = _get(jport, "GET", path)
             assert (st, json.loads(body)) == (jst, json.loads(jbody))
-        for path, item in tserver.UNPORTED_DEBUG.items():
+        for path in ("/debug/ledger", "/debug/memory", "/debug/incidents",
+                     "/debug/profile"):
             st, _, body = _get(port, "GET", path)
-            assert st == 404 and b"ROADMAP A.1" in body, path
+            jst, _, jbody = _get(jport, "GET", path)
+            assert st == jst and st in (200, 409), path
+            assert json.loads(body).keys() == json.loads(jbody).keys(), path
         assert _get(port, "GET", "/nope")[0] == 404
         for verb in ("filter", "prioritize"):
             payload = _payloads(js)[1]
@@ -194,10 +201,18 @@ def test_routes_over_http(pair):
         plain.server_close()
 
 
-#: flight-record fields of the reference's A.13 slice 2 backends, and the
-#: readback bytes each package counts over its own payloads
-NOT_COMPARED = ("modeled_s", "model_efficiency", "model_basis", "slo", "mem",
-                "preflight", "readback_bytes")
+#: the readback bytes each package counts over its own payloads
+NOT_COMPARED = ("readback_bytes",)
+#: the memory ledger's measured fields of a record's ``mem`` block
+MEASURED_MEM = ("measured_bytes", "efficiency")
+
+
+def _compared(r: dict) -> dict:
+    r = {k: v for k, v in r.items() if k not in NOT_COMPARED}
+    if "mem" in r:
+        r["mem"] = {k: v for k, v in r["mem"].items()
+                    if k not in MEASURED_MEM}
+    return r
 
 
 def _both_get(pair, path):
@@ -226,10 +241,8 @@ def test_flightrecorder_route_serves_the_references_records(pair):
     assert len(rec["records"]) == 1
     assert ({k: v for k, v in rec.items() if k != "records"}
             == {k: v for k, v in jrec.items() if k != "records"})
-    assert ([{k: v for k, v in r.items() if k not in NOT_COMPARED}
-             for r in rec["records"]]
-            == [{k: v for k, v in r.items() if k not in NOT_COMPARED}
-                for r in jrec["records"]])
+    assert ([_compared(r) for r in rec["records"]]
+            == [_compared(r) for r in jrec["records"]])
     assert got["jax"]["sites"] == want["jax"]["sites"]
     assert set(got["jax"]["transfers"]) >= {"solve-result:d2h",
                                             "explain:d2h", "snapshot:h2d"}
@@ -295,3 +308,32 @@ def test_extender_posts_shed_with_429_and_retry_after(pair):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+def _memory_unmeasured(doc: dict) -> dict:
+    """``/debug/memory`` without what the memory ledger measured (its
+    census, peak, per-device rows and the efficiency made from them)."""
+    doc = {k: v for k, v in doc.items()
+           if k not in ("measured_bytes", "peak_bytes", "census", "devices",
+                        "model_efficiency")}
+    doc["watermarks"] = [{k: v for k, v in w.items() if k != "measured"}
+                         for w in doc["watermarks"]]
+    doc["entries"] = [{k: v for k, v in e.items()
+                       if k not in ("measured_bytes", "efficiency")}
+                      for e in doc["entries"]]
+    return doc
+
+
+@pytest.mark.parametrize("path", ["/debug/ledger", "/debug/memory",
+                                  "/debug/incidents",
+                                  "/debug/profile?cycles=2"])
+def test_device_backend_routes_match_the_reference(pair, path):
+    """The perf ledger, the memory ledger (but its measured side), the
+    incident ring and the profiler's arming answer as the reference's do
+    (no profile directory is configured: both refuse to arm, 409)."""
+    (st, got), (jst, want) = _both_get(pair, path)
+    assert st == jst == (409 if "profile" in path else 200)
+    if path == "/debug/memory":
+        got, want = _memory_unmeasured(got), _memory_unmeasured(want)
+        assert got["residents"] and got["modeled_bytes"] > 0
+    assert got == want

@@ -487,9 +487,10 @@ def test_runtime_composition_matches_reference():
                 rt2.shed_bound(), rt2.sched.warmup_config.min_bucket]
 
     assert _both(script) == [8, 64, 64, 128, True, True, 7, 512]
-    # the perf ledger and the auditor are not ported (ROADMAP A.13)
+    # the runtime's SLO surface is the scheduler's perf ledger; the
+    # auditor stays off at the default audit interval
     rt = tserving.ServingRuntime(_scheduler("port", n_nodes=1)[0])
-    assert rt.ledger is None and rt.auditor is None
+    assert rt.ledger is rt.sched.obs.ledger and rt.auditor is None
 
 
 def test_backend_pressure_inflates_while_degraded():
