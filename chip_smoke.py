@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs fourteen phases and exits
+``nvcc`` per source, in parallel), then runs fifteen phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -148,7 +148,7 @@ non-zero if any fails:
    at the reference's default fault rates (ambiguous bind timeouts, bind
    errors, verification GET timeouts, a dropping, duplicating and
    reordering watch, a relist storm) on a ``sim.HollowCluster`` of the
-   smoke cell's 5000 nodes and 10,000 pending pods, once with the default
+   smoke cell's 5000 nodes and 2000 pending pods, once with the default
    solver and once with ``solver: sinkhorn``: every pod bound, no
    double-bind attempt, no auditor violation, nothing leaked or parked,
    the flight records' ambiguous binds and violations the harness's
@@ -193,7 +193,32 @@ non-zero if any fails:
    ``torch.profiler`` trace naming the fused pair's kernel, no profiler
    error), 64-pod cycles recover it, and ``/debug/ledger``,
    ``/debug/memory``, ``/debug/incidents`` and ``/debug/profile`` answer
-   over HTTP with the reference's keys.
+   over HTTP with the reference's keys;
+15. the scenario packs, every scheduler from a JSON v1alpha1 file with a
+   ``scenario:`` block through ``Scheduler.from_config``. Arm A, cell
+   ``scenario-5k-consolidation``: the smoke cell through ``pack:
+   consolidation`` under ``solver: batch`` and ``solver: sinkhorn``,
+   each beside a stock twin: equal pods placed, the device's
+   ``nodes_used`` strictly below the twin's and equal to the host's
+   count (headroom, fragmentation and priority headroom re-counted on
+   the host), the capacity re-check. Arm B, cell ``scenario-5k-gang``:
+   the reference bench's BASELINE config 4 (5000 nodes over 10 zones,
+   1000 gangs of 32) through ``pack: gang-topology`` beside a stock
+   twin: every gang whole (success 1.0, 0 partial binds), the locality
+   the host counts, at or above the twin's. Arm C: the preempt cell's
+   wave 1 under ``pack: consolidation, preemptInBatch: true``: every
+   preemptor binds in the cycle that preempted for it, every displaced
+   pod re-places or requeues, no guarded pod evicted, capacity clean,
+   ``scheduler_scenario_cascade_victims_total`` the victims evicted.
+   Arm D: ``sparse-5k-churn``'s traffic with small gangs through the
+   restricted route under ``pack: gang-topology, quality: false`` (a
+   restricted cycle with a hint, every gang on its home slice), and the
+   re-pack on a hand-advanced clock (no drain between intervals, at most
+   ``repackMaxPods`` a sweep, ``nodes_used`` falling). Then each pack
+   warmed (0 captures and retraces over three cycles), both packs at 500
+   nodes x 1024 pods equal on the card and on CPU tensors, and one
+   quality-on cycle of each under sync-debug ``error`` making one sync
+   more than its quality-off twin.
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
@@ -201,14 +226,15 @@ kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path, the preempt cell, the sparse cell, the
 pipeline cell, the configured scheduler's arm A, the serve loop's
 arms A-D, the hollow cluster's arms A and B, the recovery phase's
-arms A-C and the ledger phase's arms A-C, each counted from 0 just
-before it runs: ``launches`` is
+arms A-C, the ledger phase's arms A-C and the scenario phase's arms,
+each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
 ``sparse_shapes``, the serve loop's micro-batch shapes of every kernel
 under ``serve_shapes``, the hollow cluster's under ``hollow_shapes``,
-the recovery cells' under ``recovery_shapes`` and the ledger cell's
-under ``ledger_shapes``), error against the plain
+the recovery cells' under ``recovery_shapes``, the ledger cell's
+under ``ledger_shapes`` and the scenario arms' under
+``scenario_shapes``), error against the plain
 version, times and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
 CUDA-event medians; ``ms_batched`` times back-to-back calls and
 ``device_ms`` is the trace's device time); the last line is the one-line
@@ -216,7 +242,7 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config, serve, hollow, recovery, ledger);
+config, serve, hollow, recovery, ledger, scenario);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -242,10 +268,10 @@ F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
               "preempt", "sparse", "pipeline", "config", "serve", "hollow",
-              "recovery", "ledger")
+              "recovery", "ledger", "scenario")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
-              "config", "serve", "hollow", "recovery", "ledger")
+              "config", "serve", "hollow", "recovery", "ledger", "scenario")
 
 
 def emit(obj) -> None:
@@ -713,13 +739,14 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             torch.cuda.empty_cache()
         out_rows.setdefault(name, {})["sparse_shapes"] = rows
     # the serve path's micro-batch frames (arms A-D), the hollow
-    # cluster's cycles (arms A and B), the recovery cells' (arms A-C) and
-    # the ledger cell's (arms A-C): every kernel at every shape they
-    # launched (the pair bit for bit, u and v in both rules), with the
-    # wrapper's host share of a single call
+    # cluster's cycles (arms A and B), the recovery cells' (arms A-C),
+    # the ledger cell's (arms A-C) and the scenario arms': every kernel at
+    # every shape they launched (the pair bit for bit, u and v in both
+    # rules), with the wrapper's host share of a single call
     for phase, name, shapes in [
             (phase, name, shapes) for phase in ("serve", "hollow",
-                                                "recovery", "ledger")
+                                                "recovery", "ledger",
+                                                "scenario")
             for name, shapes in paths.get(phase, {}).get("shapes",
                                                          {}).items()]:
         if name not in ARRAY_KERNELS:
@@ -4644,9 +4671,12 @@ def _merge_shapes(*runs) -> dict:
 # chaos, device-loss recovery with host mode, HA failover
 # ---------------------------------------------------------------------------
 
-#: arm A's cell ``netchaos-5k`` (the smoke cell's nodes, 10,000 pending
-#: pods) and its CUDA-against-CPU run
-NETCHAOS_FULL = {"n_nodes": 5000, "n_pods": 10000}
+#: arm A's cell ``netchaos-5k`` (the smoke cell's nodes and 2000 of its
+#: pending pods: the run takes about 361 steps at any size and the
+#: truth-mode audit of every step is O(pods + nodes), so the pods were cut
+#: from 10,000 to pay for the ``scenario`` phase) and its CUDA-against-CPU
+#: run
+NETCHAOS_FULL = {"n_nodes": 5000, "n_pods": 2000}
 NETCHAOS_REDUCED = {"n_nodes": 500, "n_pods": 1000}
 #: arm B's cell ``devloss-5k``: the smoke cluster, six cycles of a batch
 DEVLOSS = {"n_nodes": 5000, "n_bound": 1000, "batch": 1024, "cycles": 6}
@@ -5600,6 +5630,803 @@ def phase_ledger() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the scenario packs
+# ---------------------------------------------------------------------------
+
+#: the phase's cells: arm A's consolidation cell (the smoke cell), arm B's
+#: gangs (the reference bench's BASELINE config 4, ``bench.py:1217-1250``),
+#: arm D's restricted steady cycles and re-pack sweeps, the warmed cells'
+#: cycles and the CUDA/CPU equality shape
+SCENARIO = {"n_nodes": 5000, "n_bound": 1000, "n_pending": 10000,
+            "gangs": 1000, "gang_size": 32, "gang_max_batch": 8192,
+            "restricted_cycles": 12, "restricted_gangs": 3,
+            "restricted_gang_size": 4, "restricted_plain": 20,
+            "repack_interval_s": 30.0, "repack_max_pods": 64,
+            "repack_sweeps": 3, "warm_bucket": 256, "warm_pods": 200,
+            "eq_nodes": 500, "eq_pods": 1024, "preempt_ordinary": 4064,
+            "restricted_burst": 1024}
+
+#: the quality vector's fractions, CUDA against CPU (the unit test's
+#: tolerance, tests/test_torch_scenario_cost.py)
+QUALITY_RTOL, QUALITY_ATOL = 1e-5, 1e-6
+QUALITY_COUNTS = ("nodes_used", "nodes_used_batch", "placed")
+QUALITY_FRACTIONS = ("headroom", "fragmentation", "priority_headroom",
+                     "free_cpu_frac")
+
+
+def _scenario_doc(pack: str = "", **kw) -> dict:
+    """The v1alpha1 document of a scenario arm: ``scenario: {pack, ...}``
+    (no block for a stock twin) with ``percentageOfNodesToScore: 100``
+    (the v1alpha1 default 0 truncates the node search) and the given
+    top-level fields (``scenario_`` prefixed keys go into the block)."""
+    doc = {"percentageOfNodesToScore": 100}
+    sc = {k[len("scenario_"):]: v for k, v in kw.items()
+          if k.startswith("scenario_")}
+    doc.update({k: v for k, v in kw.items() if not k.startswith("scenario_")})
+    if pack:
+        doc["scenario"] = {"pack": pack, **sc}
+    return doc
+
+
+def _host_locality(groups: dict, zone_of: dict, superpod: int = 4) -> float:
+    """Mean over placed gangs of the mean pairwise hop saving against
+    cross-fabric (0 same zone, 1 same superpod, 2 fabric), from the node
+    names' zones: the host's own count, independent of the port."""
+    import itertools
+
+    per = []
+    for nodes in groups.values():
+        if len(nodes) < 2:
+            continue
+        zs = [int(zone_of[n].rsplit("-", 1)[1]) if zone_of.get(n) else -1
+              for n in nodes]
+        saves = []
+        for a, b in itertools.combinations(zs, 2):
+            if a >= 0 and b >= 0 and a == b:
+                saves.append(2)
+            elif a >= 0 and b >= 0 and a // superpod == b // superpod:
+                saves.append(1)
+            else:
+                saves.append(0)
+        per.append(sum(saves) / len(saves))
+    return sum(per) / len(per) if per else 0.0
+
+
+#: the pack's host work, timed apart: the cost term (the gang pack's
+#: home-slice greedy inside it), the host scores after the quality read
+PACK_HOST = ("cost", "quality_host")
+#: the scenario spans of a cycle's trace
+SCENARIO_SPANS = ("scenario:cost", "pipeline:readback@quality")
+
+
+def _scenario_run(sched, pods, max_cycles=16):
+    """Feed ``pods`` and run cycles until the queue drains (at most
+    ``max_cycles``); the card synchronised around each. Returns
+    ``[(result, wall seconds)]``; each result also carries, as
+    ``scenario_host``, its scenario spans' seconds and the pack's host
+    methods' (``PACK_HOST``, on ``perf_counter``)."""
+    import torch
+
+    timer = (HostTimer((sched.scenario_pack, m) for m in PACK_HOST)
+             if sched.scenario_pack is not None else None)
+    for p in pods:
+        sched.on_pod_add(p)
+    out = []
+    for _ in range(max_cycles):
+        torch.cuda.synchronize()
+        if timer is not None:
+            timer.take()
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        torch.cuda.synchronize()
+        if r.attempted == 0:
+            break
+        spans = sched.obs.last_trace.span_durations()
+        r.scenario_host = {**{k: spans.get(k, 0.0) for k in SCENARIO_SPANS},
+                           "pack_host_s": (timer.take() if timer is not None
+                                           else 0.0)}
+        out.append((r, time.perf_counter() - t0))
+    return out
+
+
+def _distinct_nodes(bound, assignments) -> int:
+    return len({p.node_name for p in bound} | set(assignments.values()))
+
+
+def _host_quality(nodes, bound, placed, pods_by_key, last) -> dict:
+    """The quality fields counted on the host, independent of the port,
+    in f64: ``nodes_used`` (nodes holding a pod), ``headroom`` (mean over
+    nodes of min(cpu, memory) free fraction), ``fragmentation`` (the share
+    of free CPU on nodes whose free CPU is under the last batch's mean
+    request) and ``priority_headroom`` (the last batch's placed pods'
+    node free fraction, weighted by priority - min + 1). ``placed`` maps
+    every placed pod to its node, ``last`` is the last cycle's result."""
+    used = {nd.name: [0.0, 0.0, 0] for nd in nodes}
+    for p in bound:
+        u = used[p.node_name]
+        u[0] += p.requests.cpu_milli
+        u[1] += p.requests.memory
+        u[2] += 1
+    for key, node in placed.items():
+        p = pods_by_key[key]
+        u = used[node]
+        u[0] += p.requests.cpu_milli
+        u[1] += p.requests.memory
+        u[2] += 1
+    frac, free_cpu = {}, {}
+    for nd in nodes:
+        a, u = nd.allocatable, used[nd.name]
+        free_cpu[nd.name] = max(a.cpu_milli - u[0], 0.0)
+        frac[nd.name] = min(free_cpu[nd.name] / max(a.cpu_milli, 1e-9),
+                            max(a.memory - u[1], 0.0) / max(a.memory, 1e-9))
+    batch = list(last.assignments) + list(last.failure_reasons)
+    mean_req = (sum(pods_by_key[k].requests.cpu_milli for k in batch)
+                / max(len(batch), 1))
+    total_free = sum(free_cpu.values())
+    stranded = sum(v for v in free_cpu.values() if v < max(mean_req, 1e-9))
+    pri = {k: pods_by_key[k].priority for k in last.assignments}
+    lo = min(pri.values(), default=0)
+    w = {k: v - lo + 1.0 for k, v in pri.items()}
+    ph = (sum(w[k] * frac[n] for k, n in last.assignments.items())
+          / max(sum(w.values()), 1e-9))
+    return {"nodes_used": sum(1 for u in used.values() if u[2]),
+            "headroom": sum(frac.values()) / max(len(nodes), 1),
+            "fragmentation": stranded / max(total_free, 1e-9),
+            "priority_headroom": ph}
+
+
+def _tier_clean(tag, results, solver) -> None:
+    for r, _w in results:
+        if r.solver_tier != solver or r.solver_fallbacks:
+            fail(f"{tag}: a cycle solved on {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+
+
+def scenario_arm_a(tmp: str) -> dict:
+    """Arm A, cell ``scenario-5k-consolidation``: the smoke cell (5000
+    nodes over 10 zones, 1000 bound, 10,000 pending of 100m / 500 Mi)
+    through ``pack: consolidation`` at its defaults, under ``solver:
+    batch`` and ``solver: sinkhorn``, each beside a stock twin with the
+    same solver. Fails unless every pack solve places as many pods as its
+    twin, the pack's ``nodes_used`` (the device reduction) is strictly
+    below the twin's and equals the host's count of distinct nodes, and
+    the capacity re-check passes."""
+    out = {}
+    for solver in ("batch", "sinkhorn"):
+        row = {}
+        for arm, pack in (("pack", "consolidation"), ("twin", "")):
+            nodes, bound, pending = smoke_cell(SCENARIO["n_nodes"],
+                                               SCENARIO["n_bound"],
+                                               SCENARIO["n_pending"])
+            sched = configured(_scenario_doc(pack, solver=solver), tmp,
+                               f"scn-a-{solver}-{arm}")
+            feed(sched, nodes, bound, [])
+            results = _scenario_run(sched, pending)
+            tag = f"scenario/A/{solver}/{arm}"
+            _tier_clean(tag, results, solver)
+            placed = {}
+            for r, _w in results:
+                placed.update(r.assignments)
+            recheck_capacity(nodes, bound, placed,
+                             {p.key(): p for p in pending})
+            host_used = _distinct_nodes(bound, placed)
+            rs = [r for r, _w in results]
+            by_key = {p.key(): p for p in pending}
+            host_q = _host_quality(nodes, bound, placed, by_key, rs[-1])
+            row[arm] = {"scheduled": sum(r.scheduled for r in rs),
+                        "attempted": [r.attempted for r in rs],
+                        "pipeline_chunks": [r.pipeline_chunks for r in rs],
+                        "rounds": [r.rounds for r in rs],
+                        "host_syncs": [r.host_syncs for r in rs],
+                        "cycle_s": [w for _r, w in results],
+                        "solve_s": [r.solve_s for r in rs],
+                        "scenario_host": [r.scenario_host for r in rs],
+                        "nodes_used_host": host_used,
+                        "host_quality": host_q}
+            if pack:
+                q = rs[-1].scenario_quality
+                if not q:
+                    fail(f"{tag}: no quality block on the last cycle")
+                if q["nodes_used"] != host_used:
+                    fail(f"{tag}: nodes_used {q['nodes_used']} on the "
+                         f"device, {host_used} on the host")
+                for k in ("headroom", "fragmentation", "priority_headroom"):
+                    if abs(q[k] - host_q[k]) > 1e-3:
+                        fail(f"{tag}: {k} {q[k]} on the device, "
+                             f"{host_q[k]} on the host")
+                row[arm].update({k: q[k] for k in (
+                    "nodes_used", "nodes_used_batch", "placed", "headroom",
+                    "fragmentation", "priority_headroom", "free_cpu_frac")})
+                row[arm]["quality_by_cycle"] = [r.scenario_quality
+                                                for r in rs]
+                rec = sched.obs.recorder.records()[-1]
+                if rec.scenario != q:
+                    fail(f"{tag}: the flight record's scenario block "
+                         f"{rec.scenario} is not the cycle's {q}")
+            del sched
+            release_graphs()
+        pk, tw = row["pack"], row["twin"]
+        if pk["scheduled"] != tw["scheduled"]:
+            fail(f"scenario/A/{solver}: the pack placed {pk['scheduled']}, "
+                 f"its twin {tw['scheduled']}")
+        if not pk["nodes_used"] < tw["nodes_used_host"]:
+            fail(f"scenario/A/{solver}: nodes_used {pk['nodes_used']} is "
+                 f"not below the twin's {tw['nodes_used_host']}")
+        out[solver] = row
+    out["cycles"] = sum(len(row[a]["attempted"]) for row in out.values()
+                        for a in ("pack", "twin"))
+    return out
+
+
+def scenario_arm_b(tmp: str) -> dict:
+    """Arm B, cell ``scenario-5k-gang``: the reference bench's BASELINE
+    config 4 (5000 nodes over 10 zones, 1000 gangs of 32
+    ``make_gang_pods`` pods of 100m / 500 Mi) with ``pack:
+    gang-topology`` at its defaults and ``maxBatch: 8192``, beside a stock
+    twin. Fails unless every gang places whole (success rate 1.0 on
+    every cycle, 0 partial binds), the pack's locality equals the host's
+    count and is at or above the twin's, and the capacity re-check
+    passes."""
+    from kubernetes_tpu_torch.models.cluster import make_gang_pods, make_nodes
+
+    row = {}
+    for arm, pack in (("pack", "gang-topology"), ("twin", "")):
+        nodes = make_nodes(SCENARIO["n_nodes"], zones=10)
+        pods = make_gang_pods(SCENARIO["gangs"], SCENARIO["gang_size"])
+        zone_of = {nd.name: nd.labels.get(ZONE) for nd in nodes}
+        sched = configured(_scenario_doc(
+            pack, maxBatch=SCENARIO["gang_max_batch"]), tmp,
+            f"scn-b-{arm}")
+        feed(sched, nodes, [], [])
+        results = _scenario_run(sched, pods)
+        tag = f"scenario/B/{arm}"
+        _tier_clean(tag, results, "batch")
+        placed = {}
+        for r, _w in results:
+            placed.update(r.assignments)
+        recheck_capacity(nodes, [], placed, {p.key(): p for p in pods})
+        groups: dict = {}
+        for p in pods:
+            groups.setdefault(p.pod_group, []).append(placed.get(p.key()))
+        whole = sum(1 for v in groups.values() if all(v))
+        partial = sum(1 for v in groups.values() if any(v) and not all(v))
+        locality = _host_locality(groups, zone_of)
+        rs = [r for r, _w in results]
+        row[arm] = {"scheduled": sum(r.scheduled for r in rs),
+                    "attempted": [r.attempted for r in rs],
+                    "rounds": [r.rounds for r in rs],
+                    "host_syncs": [r.host_syncs for r in rs],
+                    "cycle_s": [w for _r, w in results],
+                    "solve_s": [r.solve_s for r in rs],
+                    "gangs_whole_host": whole, "gangs_partial_host": partial,
+                    "gang_locality_host": locality}
+        if partial or whole != len(groups):
+            fail(f"{tag}: {whole} of {len(groups)} gangs whole, {partial} "
+                 "partial")
+        if pack:
+            qs = [r.scenario_quality for r in rs]
+            for q in qs:
+                if q["gang_success_rate"] != 1.0 or q["gang_partial_binds"]:
+                    fail(f"{tag}: a cycle's gang scores {q}")
+            row[arm].update({
+                "gang_success_rate": [q["gang_success_rate"] for q in qs],
+                "gang_partial_binds": [q["gang_partial_binds"] for q in qs],
+                "gang_locality": [q.get("gang_locality") for q in qs],
+                "scenario_host": [r.scenario_host for r in rs]})
+            # each cycle's locality is over its own gangs; their mean
+            # weighted by gangs is the host's over all of them
+            n_g = [q["gang_groups"] for q in qs]
+            mean_q = sum(q["gang_locality"] * g
+                         for q, g in zip(qs, n_g)) / sum(n_g)
+            if abs(mean_q - locality) > 1e-3:
+                fail(f"{tag}: the cycles' locality {mean_q} is not the "
+                     f"host's {locality}")
+        del sched
+        release_graphs()
+    if row["pack"]["gang_locality_host"] < row["twin"]["gang_locality_host"]:
+        fail(f"scenario/B: locality {row['pack']['gang_locality_host']} "
+             f"below the twin's {row['twin']['gang_locality_host']}")
+    row["cycles"] = sum(len(v["attempted"]) for v in row.values())
+    return row
+
+
+def scenario_arm_c(tmp: str) -> dict:
+    """Arm C, the cascade: cell ``preempt-5k-burst`` (wave 1: 4064
+    ordinary pods and 32 preemptors on 5000 full nodes, a PDB) under
+    ``pack: consolidation, preemptInBatch: true`` on a hand-advanced
+    clock, until every preemptor is bound. Fails unless every preemptor
+    binds in the cycle that preempted for it, on the node its victims
+    left, every displaced pod re-places in that cycle or requeues, no
+    guarded pod is evicted, the capacity re-check passes and
+    ``scheduler_scenario_cascade_victims_total`` equals the victims
+    evicted."""
+    import torch
+
+    nodes, bound, wave1, _poachers, pdb = preempt_cell(
+        n_nodes=SCENARIO["n_nodes"], n_ordinary=SCENARIO["preempt_ordinary"])
+    clock = FakeClock()
+    events = []
+    sched = configured(
+        _scenario_doc("consolidation", scenario_preemptInBatch=True), tmp,
+        "scn-c", clock=clock, pdb_lister=lambda: [pdb],
+        event_sink=lambda r, p, m: events.append((r, p, m)))
+    feed(sched, nodes, bound, wave1)
+    by_key = {p.key(): p for p in bound + wave1}
+    preemptors = {p.key() for p in wave1
+                  if p.priority == PREEMPTOR_PRIORITY}
+    results, walls, by_cycle = [], [], []
+    bound_keys: set = set()
+    for _ in range(6):
+        del events[:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        results.append(r)
+        by_cycle.append(list(events))
+        bound_keys.update(r.assignments)
+        if preemptors <= bound_keys:
+            break
+        clock.t += 11.0  # past the longest backoff (10 s)
+    missing = preemptors - bound_keys
+    if missing:
+        fail(f"scenario/C: {len(missing)} preemptors never bound")
+    victims, gone = [], set()
+    replaced = requeued = 0
+    for k, (r, evs) in enumerate(zip(results, by_cycle)):
+        for reason, v, msg in evs:
+            if reason != "Preempted":
+                continue
+            pre = msg[len("by "):].split(" ")[0]
+            if not msg.endswith("(cascade)"):
+                fail(f"scenario/C: victim {v.key()} evicted outside the "
+                     f"cascade ({msg!r})")
+            if pre not in r.assignments:
+                fail(f"scenario/C: preemptor {pre} did not bind in cycle "
+                     f"{k + 1}, which preempted {v.key()} for it")
+            if v.priority >= by_key[pre].priority:
+                fail(f"scenario/C: victim {v.key()} is not of lower "
+                     "priority")
+            if v.labels.get("app") == "guarded":
+                fail(f"scenario/C: guarded pod {v.key()} was evicted")
+            if v.key() in r.assignments:
+                replaced += 1
+            elif (v.key() in r.failure_reasons
+                  and sched.queue.pod(v.key()) is not None) or any(
+                      v.key() in later.assignments
+                      for later in results[k + 1:]):
+                requeued += 1
+            else:
+                fail(f"scenario/C: displaced pod {v.key()} neither "
+                     "re-placed nor requeued")
+            victims.append(v.key())
+            gone.add(v.key())
+    if len(set(victims)) != len(victims):
+        fail("scenario/C: a victim was evicted twice")
+    counted = sched.metrics.scenario_cascade_victims.value()
+    if counted != len(victims) or sum(r.preempted for r in results) \
+            != len(victims):
+        fail(f"scenario/C: {len(victims)} victims evicted, "
+             f"scheduler_scenario_cascade_victims_total {counted}, "
+             f"preempted {[r.preempted for r in results]}")
+    if not victims:
+        fail("scenario/C: the cascade evicted nobody")
+    assignments = {}
+    for r in results:
+        assignments.update(r.assignments)
+    recheck_capacity(nodes, [p for p in bound if p.key() not in gone],
+                     assignments, by_key)
+    for r in results:
+        if r.solver_tier != "batch" or r.solver_fallbacks:
+            fail(f"scenario/C: a cycle solved on {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+    out = {"cycles": len(results), "wall_s": walls,
+           "attempted": [r.attempted for r in results],
+           "scheduled": [r.scheduled for r in results],
+           "preempted": [r.preempted for r in results],
+           "nominations": [len(r.nominations) for r in results],
+           "preempt_s": [r.preempt_s for r in results],
+           "host_syncs": [r.host_syncs for r in results],
+           "victims": len(victims), "displaced_replaced_same_cycle":
+           replaced, "displaced_requeued": requeued,
+           "cascade_victims_total": counted,
+           "displaced_replaced_total":
+           sched.metrics.scenario_displaced_replaced.value(),
+           "quality": [r.scenario_quality for r in results]}
+    del sched
+    release_graphs()
+    return out
+
+
+def scenario_restricted(tmp: str) -> dict:
+    """Arm D, the restricted route: ``sparse-5k-churn``'s cluster and
+    pods through ``incremental: {enabled, primary, candidateBucket: 256}``
+    with ``pack: gang-topology, quality: false``: a 1024-pod burst, then
+    steady cycles of 8 deletes and a micro-batch of 20 plain pods and 3
+    gangs of 4 (no zone preference; they tolerate the taint). Fails
+    unless a restricted cycle ran with a non-empty hint and every gang of
+    a restricted cycle bound whole inside its home slice (none lost it to
+    the top-C cut)."""
+    import dataclasses
+    import random
+
+    from kubernetes_tpu_torch.api.types import Toleration
+    from kubernetes_tpu_torch.testing import make_pod
+
+    nodes, bound, cycles, _scopes, _misfit = sparse_traffic(
+        n_nodes=SCENARIO["n_nodes"], n_bound=SCENARIO["n_bound"],
+        burst=SCENARIO["restricted_burst"],
+        steady=2 * SCENARIO["restricted_cycles"] + 2)
+    sched = configured(_scenario_doc(
+        "gang-topology", scenario_quality=False,
+        incremental={"enabled": True, "primary": True,
+                     "candidateBucket": 256}), tmp, "scn-d-restricted",
+        enable_preemption=False)
+    pack = sched.scenario_pack
+    cur = []  # the hint calls of the cycle in flight
+    real_hint = pack.candidate_hint
+
+    def spy(batch, nt, node_order):
+        h = real_hint(batch, nt, node_order)
+        home = pack._home_zones(batch, nt)
+        zone = nt.zone_id[: nt.n]
+        cur.append({
+            "hinted": 0 if h is None else int(h.sum()),
+            "home": {p.key(): int(home[i]) for i, p in enumerate(batch)
+                     if p.pod_group},
+            "zone_of_node": {node_order[j]: int(zone[j])
+                             for j in range(nt.n)}})
+        return h
+
+    pack.candidate_hint = spy
+    rng = random.Random(5)
+    gangs = [0]
+    # gang members tolerate the autoscaler's taint: zone-0's nodes all
+    # carry it (node i is in zone i % 10), and a gang homed there would
+    # otherwise trade its home for TaintToleration's 10 points
+    tol = (Toleration(key=SOFT_TAINT, operator="Exists",
+                      effect="PreferNoSchedule"),)
+
+    def gang_pods():
+        out = []
+        for _ in range(SCENARIO["restricted_gangs"]):
+            g = gangs[0]
+            gangs[0] += 1
+            size = SCENARIO["restricted_gang_size"]
+            out += [make_pod(f"dl-{g}-{m}", cpu_milli=100,
+                             memory=500 * 2**20, pod_group=f"dl-{g}",
+                             pod_group_min_available=size, tolerations=tol)
+                    for m in range(size)]
+        return out
+
+    # the burst, then the steady micro-batches with gangs mixed in (the
+    # traffic's node add and misfit cycles are left out: a node add takes
+    # the cycle off the restricted route)
+    steady = [(add, pend[: SCENARIO["restricted_plain"]] + gang_pods(), dl)
+              for add, pend, dl in cycles[1:-1] if not add]
+    steady = steady[: SCENARIO["restricted_cycles"]]
+
+    placed = {p.key(): p for p in bound}
+    feed(sched, nodes, bound, [])
+    results, walls, hints = [], [], []
+    for add, pending, deletes in [cycles[0]] + steady:
+        del cur[:]
+        for key in rng.sample(sorted(placed), deletes):
+            sched.on_pod_delete(placed.pop(key))
+        for p in pending:
+            sched.on_pod_add(p)
+        by_key = {p.key(): p for p in pending}
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        walls.append(time.perf_counter() - t0)
+        results.append(r)
+        hints.append(cur[-1] if cur else None)
+        for key, node in r.assignments.items():
+            p = dataclasses.replace(by_key[key], node_name=node)
+            sched.on_pod_add(p)
+            placed[key] = p
+    restricted_hinted = 0
+    gangs_checked = 0
+    for r, h in zip(results, hints):
+        if r.solve_scope != "restricted" or h is None or not h["home"]:
+            continue
+        if h["hinted"] > 0:
+            restricted_hinted += 1
+        groups: dict = {}
+        for key, home in h["home"].items():
+            groups.setdefault(key.rsplit("-", 1)[0], []).append((key, home))
+        for members in groups.values():
+            for key, home in members:
+                node = r.assignments.get(key)
+                if node is None:
+                    fail(f"scenario/D: gang pod {key} unbound on a "
+                         "restricted cycle")
+                if h["zone_of_node"][node] != home:
+                    fail(f"scenario/D: gang pod {key} on {node} (zone id "
+                         f"{h['zone_of_node'][node]}), home {home}")
+            gangs_checked += 1
+    if not restricted_hinted:
+        fail(f"scenario/D: no restricted cycle ran with a hint (scopes "
+             f"{[r.solve_scope for r in results]})")
+    recheck_capacity(nodes, [], {k: p.node_name for k, p in placed.items()},
+                     placed)
+    out = {"cycles": len(results),
+           "scopes": [r.solve_scope for r in results],
+           "restricted_hinted_cycles": restricted_hinted,
+           "gangs_home_checked": gangs_checked,
+           "hinted_columns": [h and h["hinted"] for h in hints],
+           "cycle_s": walls, "host_syncs": [r.host_syncs for r in results]}
+    del sched
+    release_graphs()
+    return out
+
+
+def scenario_repack(tmp: str) -> dict:
+    """Arm D, the re-pack: the smoke cell's 5000 nodes with its 1000 bound
+    pods, one a node (a fragmented cluster), through ``pack:
+    consolidation`` with ``repackInterval: 30s`` and ``repackMaxPods:
+    64`` on a hand-advanced clock: cycles every 10-15 s, every bind
+    confirmed. Fails unless the cycles between intervals drain nothing,
+    each sweep drains at most ``repackMaxPods`` pods, and ``nodes_used``
+    falls sweep after sweep (each drained pod re-placed in its sweep's
+    cycle)."""
+    import dataclasses
+
+    nodes, bound, _ = smoke_cell(SCENARIO["n_nodes"], SCENARIO["n_bound"], 0)
+    clock = FakeClock()
+    sched = configured(_scenario_doc(
+        "consolidation", scenario_repackInterval=(
+            f"{int(SCENARIO['repack_interval_s'])}s"),
+        scenario_repackMaxPods=SCENARIO["repack_max_pods"]), tmp,
+        "scn-d-repack", clock=clock)
+    feed(sched, nodes, bound, [])
+    by_key = {p.key(): p for p in bound}
+    drained_total = sched.metrics.scenario_repack_drained
+    used = [_distinct_nodes(bound, {})]
+    rows = []
+    step = 0
+    for step_s in [0.0] + [10.0, 11.0, 10.0] * SCENARIO["repack_sweeps"]:
+        clock.t += step_s
+        before = drained_total.value()
+        sweeps0 = sched.metrics.scenario_repacks.value()
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        wall = time.perf_counter() - t0
+        drained = drained_total.value() - before
+        swept = sched.metrics.scenario_repacks.value() - sweeps0
+        for key, node in r.assignments.items():
+            by_key[key] = dataclasses.replace(by_key[key], node_name=node)
+            sched.on_pod_add(by_key[key])
+        rows.append({"t": clock.t, "drained": drained, "sweep": swept,
+                     "scheduled": r.scheduled,
+                     "nodes_used": r.scenario_quality.get("nodes_used"),
+                     "wall_s": wall})
+        step += 1
+        if drained > SCENARIO["repack_max_pods"]:
+            fail(f"scenario/D/repack: a sweep drained {drained} pods")
+        if swept and r.scheduled != drained:
+            fail(f"scenario/D/repack: the sweep at {clock.t}s drained "
+                 f"{drained}, its cycle placed {r.scheduled}")
+        if swept:
+            used.append(r.scenario_quality["nodes_used"])
+            host = len({p.node_name for p in by_key.values()})
+            if used[-1] != host:
+                fail(f"scenario/D/repack: nodes_used {used[-1]}, host "
+                     f"{host}")
+    sweep_times = [row["t"] for row in rows if row["sweep"]]
+    for row in rows:
+        if row["drained"] and not row["sweep"]:
+            fail("scenario/D/repack: pods drained outside a sweep")
+    gaps = [b - a for a, b in zip(sweep_times, sweep_times[1:])]
+    if any(g < SCENARIO["repack_interval_s"] for g in gaps):
+        fail(f"scenario/D/repack: sweeps at {sweep_times}")
+    if len(used) < 3 or any(b >= a for a, b in zip(used, used[1:])):
+        fail(f"scenario/D/repack: nodes_used {used} does not fall sweep "
+             "after sweep")
+    out = {"cycles": len(rows), "rows": rows, "nodes_used": used,
+           "sweeps": len(sweep_times)}
+    del sched
+    release_graphs()
+    return out
+
+
+def _gang_smoke_pods(n, seed, group_size=8, prefix="gw"):
+    """``n`` smoke-cell pods (100m / 500 Mi, a preferred zone, half
+    tolerating the taint) named ``prefix-i``, in gangs of ``group_size``
+    (0: no gangs)."""
+    import dataclasses
+
+    pods = smoke_cell(0, 0, n, seed)[2]
+    return [dataclasses.replace(
+        p, name=f"{prefix}-{i}",
+        pod_group=f"{prefix}-g{i // group_size}" if group_size else "",
+        pod_group_min_available=group_size) for i, p in enumerate(pods)]
+
+
+def scenario_warm(tmp: str) -> dict:
+    """Each pack's scheduler (the smoke cluster, ``warmup: {enabled,
+    podBuckets: [256]}``) warms with a sample of its cycles' pods, then
+    runs three cycles of 200: 0 graph captures and 0 signature retraces
+    after the warmup."""
+    from kubernetes_tpu_torch.ops import device_loop
+
+    out = {}
+    for pack in ("consolidation", "gang-topology"):
+        nodes, bound, _ = smoke_cell(SCENARIO["n_nodes"],
+                                     SCENARIO["n_bound"], 0)
+        n = SCENARIO["warm_pods"]
+        make = ((lambda k: _gang_smoke_pods(n, 40 + k, group_size=0,
+                                            prefix=f"cw{k}"))
+                if pack == "consolidation"
+                else (lambda k: _gang_smoke_pods(n, 40 + k,
+                                                 prefix=f"gw{k}")))
+        sched = configured(_scenario_doc(
+            pack, warmup={"enabled": True,
+                          "podBuckets": [SCENARIO["warm_bucket"]]}), tmp,
+            f"scn-warm-{pack}", enable_preemption=False)
+        feed(sched, nodes, bound, [])
+        c0 = device_loop.CAPTURES.count
+        t0 = time.perf_counter()
+        warmed = sched.warmup(sample_pods=make(9)[:64])
+        warm_s = time.perf_counter() - t0
+        warm_captures = device_loop.CAPTURES.count - c0
+        rows = []
+        for k in range(3):
+            results = _scenario_run(sched, make(k), max_cycles=1)
+            r, w = results[0]
+            rows.append({"scheduled": r.scheduled, "captures":
+                         r.graph_captures, "syncs": r.host_syncs,
+                         "cycle_s": w, "quality": r.scenario_quality})
+        retraces = sched.obs.jax.retrace_total()
+        if warmed <= 0 or warm_captures <= 0:
+            fail(f"scenario/warm/{pack}: warmup warmed {warmed}, captured "
+                 f"{warm_captures}")
+        if any(row["captures"] for row in rows) or retraces:
+            fail(f"scenario/warm/{pack}: {[row['captures'] for row in rows]}"
+                 f" captures, {retraces} retraces after warmup")
+        if any(row["scheduled"] != n for row in rows):
+            fail(f"scenario/warm/{pack}: {[row['scheduled'] for row in rows]}"
+                 f" of {n} bound")
+        out[pack] = {"warmed": warmed, "warmup_s": warm_s,
+                     "warm_captures": warm_captures, "rows": rows,
+                     "retraces": retraces}
+        del sched
+        release_graphs()
+    out["cycles"] = 6
+    return out
+
+
+def _equality_run(tmp, pack, device, quality=True, sync_check=False):
+    """One cycle of the equality cell (500 nodes, 1024 pods) with ``pack``
+    on ``device``: the result, the raw quality vector read back, and the
+    cycle's host syncs (with ``sync_check`` the whole cycle under
+    ``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+
+    nodes, bound, _ = smoke_cell(SCENARIO["eq_nodes"], 100, 0)
+    n = SCENARIO["eq_pods"]
+    pods = _gang_smoke_pods(n, 23, prefix="eq",
+                            group_size=32 if pack == "gang-topology" else 0)
+    sched = configured(_scenario_doc(pack, scenario_quality=quality), tmp,
+                       f"scn-eq-{pack}-{device}-{quality}", device=device,
+                       enable_preemption=False)
+    feed(sched, nodes, bound, pods)
+    raw = []
+    real = sched.obs.jax.readback
+
+    def spy(site, x):
+        got = real(site, x)
+        if site == "scenario-quality":
+            raw.append(list(got))
+        return got
+
+    sched.obs.jax.readback = spy
+    if sync_check:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = sched.schedule_cycle()
+    finally:
+        if sync_check:
+            torch.cuda.set_sync_debug_mode(0)
+    del sched
+    return r, (raw[-1] if raw else None)
+
+
+def scenario_equality(tmp: str) -> dict:
+    """Both packs at 500 nodes x 1024 pods on the card and on CPU tensors:
+    equal placements and counts, the four fractions within the unit
+    test's tolerance. Then one quality-on cycle of each pack under
+    ``torch.cuda.set_sync_debug_mode("error")``: its host syncs are its
+    quality-off twin's plus one (the ``scenario-quality`` read)."""
+    out = {}
+    for pack in ("consolidation", "gang-topology"):
+        rc, qc = _equality_run(tmp, pack, "cuda")
+        rh, qh = _equality_run(tmp, pack, "cpu")
+        if rc.assignments != rh.assignments:
+            n = sum(rh.assignments.get(k) != v
+                    for k, v in rc.assignments.items())
+            fail(f"scenario/eq/{pack}: placements differ on {n} pods")
+        fields = ("nodes_used", "nodes_used_batch", "placed", "headroom",
+                  "fragmentation", "priority_headroom", "free_cpu_frac")
+        got = dict(zip(fields, qc))
+        want = dict(zip(fields, qh))
+        for k in QUALITY_COUNTS:
+            if got[k] != want[k]:
+                fail(f"scenario/eq/{pack}: {k} {got[k]} on the card, "
+                     f"{want[k]} on the CPU")
+        err = {}
+        for k in QUALITY_FRACTIONS:
+            err[k] = abs(got[k] - want[k])
+            if err[k] > QUALITY_ATOL + QUALITY_RTOL * abs(want[k]):
+                fail(f"scenario/eq/{pack}: {k} {got[k]} on the card, "
+                     f"{want[k]} on the CPU")
+        release_graphs()
+        on, _q = _equality_run(tmp, pack, "cuda", sync_check=True)
+        off, _q = _equality_run(tmp, pack, "cuda", quality=False,
+                                sync_check=True)
+        stock, _q = _equality_run(tmp, "", "cuda", sync_check=True) \
+            if pack == "consolidation" else (None, None)
+        if on.host_syncs != off.host_syncs + 1:
+            fail(f"scenario/eq/{pack}: a quality-on cycle made "
+                 f"{on.host_syncs} syncs, its quality-off twin "
+                 f"{off.host_syncs}")
+        if on.assignments != off.assignments:
+            fail(f"scenario/eq/{pack}: quality on and off placed apart")
+        out[pack] = {"equal": True, "scheduled": rc.scheduled,
+                     "quality_cuda": got, "quality_cpu": want,
+                     "fraction_abs_err": err,
+                     "syncs_quality_on": on.host_syncs,
+                     "syncs_quality_off": off.host_syncs,
+                     "syncs_stock": (stock.host_syncs if stock is not None
+                                     else None)}
+        release_graphs()
+    out["cycles"] = 9  # 2 x (card, CPU, quality on, off) + the stock one
+    return out
+
+
+def phase_scenario() -> dict:
+    """The scenario packs on the card, every scheduler from a JSON v1alpha1
+    file through ``Scheduler.from_config``: arm A (consolidation, both
+    solvers, beside stock twins), arm B (gang-topology on the BASELINE
+    gangs), arm C (the in-batch cascade on the preempt cell), arm D (the
+    restricted route with the gang pack's hint, and the re-pack), each
+    pack's warmup, and the CUDA/CPU equality and sync checks, all counted
+    from 0 together. Fails unless the pair and the u and v passes
+    launched (the pair under the gang pack on the smoke cell's pods; u / v
+    under ``solver: sinkhorn``)."""
+    import tempfile
+
+    from kubernetes_tpu_torch import kernels
+
+    kernels.reset_launches()
+    out = {}
+    cycles = 0
+    with tempfile.TemporaryDirectory(prefix="ktt-scenario-") as tmp:
+        for arm, run in (("A", scenario_arm_a), ("B", scenario_arm_b),
+                         ("C", scenario_arm_c),
+                         ("D-restricted", scenario_restricted),
+                         ("D-repack", scenario_repack),
+                         ("warmup", scenario_warm),
+                         ("equality", scenario_equality)):
+            t0 = time.perf_counter()
+            before = launch_counts()
+            got = run(tmp)
+            wall = time.perf_counter() - t0
+            launches = _launches_since(before)
+            emit({"phase": "scenario", "arm": arm, "wall_s": wall,
+                  "launches": launches, **got})
+            out[arm] = {"wall_s": wall, "launches": launches}
+            cycles += got["cycles"]
+    launches, shapes = launch_counts(), launch_shapes()
+    for name in ARRAY_KERNELS:
+        if launches[name] <= 0:
+            fail(f"scenario: {name} was never launched")
+    return {"launches": launches, "shapes": shapes, "cycles": cycles,
+            "arms": out}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5748,7 +6575,8 @@ def main() -> None:
                        ("serve", phase_serve),
                        ("hollow", phase_hollow),
                        ("recovery", phase_recovery),
-                       ("ledger", phase_ledger)):
+                       ("ledger", phase_ledger),
+                       ("scenario", phase_scenario)):
         if phase not in phases:
             continue
         RECOVERY.reset()

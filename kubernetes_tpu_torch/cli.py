@@ -59,13 +59,10 @@ from kubernetes_tpu_torch.config import (
     WarmupConfig,
     load_policy,
 )
+from kubernetes_tpu_torch.scenarios.packs import SCENARIO_REGISTRY
 
 VALID_SOLVERS = ("batch", "greedy", "exact", "sinkhorn")
 
-#: the scenario packs the reference registers (scenarios/packs.py:207);
-#: the packs themselves are ROADMAP A.15, so the port keeps their names
-#: only, to validate a configuration as the reference does
-SCENARIO_REGISTRY = ("consolidation", "gang-topology")
 
 #: component-base leader-election jitter factor (leaderelection.go:56) —
 #: renewDeadline must exceed retryPeriod * JitterFactor
@@ -800,9 +797,6 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
     if mesh not in ("off", 1):
         errs.append(f"parallel.mesh: {mesh!r} is not ported yet (ROADMAP "
                     "A.17: node-axis sharding; the port runs one card)")
-    if cfg.scenario.pack:
-        errs.append(f"scenario.pack: {cfg.scenario.pack!r} is not ported "
-                    "yet (ROADMAP A.15: scenario packs)")
     return errs
 
 

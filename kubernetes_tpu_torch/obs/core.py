@@ -29,8 +29,9 @@ with no site; ``end_cycle`` charges their bytes to the site
 ``solver-internal`` so a record's ``readback_bytes`` is every byte the
 cycle read back.
 
-``note_mesh`` / ``note_mesh_cycle`` (A.17) and ``note_scenario`` (A.15)
-are the reference's paths with no caller yet.
+``note_scenario`` takes a scenario cycle's placement-quality scores
+(``Scheduler._publish_scenario_quality``); ``note_mesh`` /
+``note_mesh_cycle`` (A.17) are the reference's paths with no caller yet.
 """
 
 from __future__ import annotations
@@ -283,7 +284,8 @@ class Observability:
         self._sinkhorn_stats = stats
 
     def note_scenario(self, scores: dict) -> None:
-        """The cycle's scenario placement-quality scores (A.15)."""
+        """The cycle's scenario placement-quality scores (the flight
+        record's ``scenario`` block)."""
         self._scratch["scenario"] = dict(scores)
 
     def note_explain(self, report) -> None:

@@ -98,9 +98,24 @@ residents before the drop; while the SLO watchdog burns, ``is_degraded``
 reads true; warmup anchors the cost model with one timed replay and
 measures each bucket's peak.
 
-Not ported yet (ROADMAP): the scenario cascade and scenario packs
-(A.15), and the mesh with its ``batch-single`` tier and the shard-loss
-harness (A.17).
+A scenario pack (``scenario=ScenarioConfig(pack=...)``,
+:mod:`.scenarios`) swaps the solve objective: its priority weights
+replace the configured set at construction, so every ladder tier sees
+them, and its (P, N) cost term joins ``extra_score`` on the dense cycle,
+the restricted frame (with the pack's candidate hint) and each pipelined
+chunk. With ``scenario.quality`` a device reduction of the final usage
+and assignment is read back once after the bind loop
+(``CycleResult.scenario_quality``, the flight record, the
+``scheduler_scenario_quality`` gauges); such cycles stay monolithic.
+Consolidation with ``preemptInBatch`` runs preemption as an in-batch
+cascade (``_run_preemption_cascade``): victims are evicted and the
+preemptors and displaced pods re-solve in the same cycle. With
+``repackInterval`` a sweep before the batch pops (and on the idle tick)
+drains the least-used nodes whose pods the rest can absorb
+(``maybe_repack``).
+
+Not ported yet (ROADMAP): the mesh with its ``batch-single`` tier and
+the shard-loss harness (A.17).
 """
 
 from __future__ import annotations
@@ -121,6 +136,7 @@ from kubernetes_tpu_torch.config import (
     ObservabilityConfig,
     RecoveryConfig,
     RobustnessConfig,
+    ScenarioConfig,
     WarmupConfig,
 )
 from kubernetes_tpu_torch.faults import (
@@ -190,10 +206,14 @@ from kubernetes_tpu_torch.ops.priorities import (
     run_priorities,
     solver_gates,
 )
+from kubernetes_tpu_torch.ops.scenario_cost import quality_reduce
 from kubernetes_tpu_torch.ops.sync import SYNCS, to_cpu
 from kubernetes_tpu_torch.preemption import preempt
 from kubernetes_tpu_torch.queue import SchedulingQueue
 from kubernetes_tpu_torch.sanitize import LockSanitizer
+from kubernetes_tpu_torch.scenarios.cascade import select_cascade
+from kubernetes_tpu_torch.scenarios.packs import resolve_pack
+from kubernetes_tpu_torch.scenarios.quality import decode_quality
 from kubernetes_tpu_torch.snapshot import FIXED_RESOURCE_NAMES, RES_PODS
 from kubernetes_tpu_torch.utils import klog
 from kubernetes_tpu_torch.utils.interner import Interner, bucket_size
@@ -310,6 +330,11 @@ class CycleResult:
     flush_trigger: str = ""
     #: how long the micro-batch window accumulated before flushing
     window_s: float = 0.0
+    #: scenario-pack placement-quality scores for this cycle (empty =
+    #: scenario mode off or quality off): the device-reduced nodes_used /
+    #: headroom / fragmentation vector plus the pack's host-side gang
+    #: bookkeeping
+    scenario_quality: Dict[str, float] = field(default_factory=dict)
     #: perf-ledger verdict (obs/ledger.py), stamped at end_cycle: the
     #: cost model's predicted solve seconds for this cycle's batch shape
     #: and modeled/measured (-1 = not populated: no solve ran, or the
@@ -397,6 +422,7 @@ class Scheduler:
         max_preemptions_per_cycle: int = 16,
         pdb_lister: Optional[Callable[[], List]] = None,
         victim_deleter: Optional[Callable[[Pod], None]] = None,
+        repack_evictor: Optional[Callable[[Pod], None]] = None,
         explain: bool = True,
         explain_top_k: int = 3,
         incremental: Optional[IncrementalConfig] = None,
@@ -416,6 +442,7 @@ class Scheduler:
         device_resident_snapshot: bool = True,
         snapshot_max_dirty_frac: Optional[float] = None,
         warmup: Optional[WarmupConfig] = None,
+        scenario: Optional[ScenarioConfig] = None,
     ) -> None:
         if solver not in TIERS:
             raise ValueError(f"solver must be one of {TIERS}, got {solver!r}")
@@ -575,6 +602,17 @@ class Scheduler:
         self.exact_fallbacks = 0
         self.binder = binder or RecordingBinder()
         self.weights = weights
+        #: the scenario pack (scenarios.resolve_pack): its weight override
+        #: lands here, so every ladder tier and the warmup see it, and its
+        #: (P, N) cost term joins extra_score each cycle. None = the stock
+        #: objective
+        self.scenario = scenario if scenario is not None else ScenarioConfig()
+        self.scenario_pack = resolve_pack(self.scenario)
+        if self.scenario_pack is not None:
+            self.weights = self.scenario_pack.weights(self.weights)
+        #: score labels ever set on scheduler_scenario_quality: a score a
+        #: cycle stops reporting drops to 0 instead of going stale
+        self._scenario_scores_seen: set = set()
         self.solver = solver
         self.per_node_cap = per_node_cap
         self.max_rounds = max_rounds
@@ -604,6 +642,14 @@ class Scheduler:
         #: Default: mark it terminating and remove it from the cache at
         #: once (grace period 0)
         self.victim_deleter = victim_deleter
+        #: repack_evictor(pod): drains a BOUND pod for the steady-state
+        #: re-pack (scenario.repack_interval_s). Default: unbind locally
+        #: and requeue (grace period 0); a hub integration posts the
+        #: eviction and lets the watch converge the local state
+        self.repack_evictor = repack_evictor
+        #: clock of the last re-pack sweep; None = cadence not started
+        #: (the first interval elapses before the first drain)
+        self._last_repack_at: Optional[float] = None
         #: build the per-cycle UnschedulableReport, keeping top_k
         #: relaxations per pod
         self.explain = explain
@@ -690,6 +736,7 @@ class Scheduler:
         kw.setdefault("device_resident_snapshot", cfg.device_resident_snapshot)
         kw.setdefault("snapshot_max_dirty_frac", cfg.snapshot_max_dirty_frac)
         kw.setdefault("warmup", cfg.warmup)
+        kw.setdefault("scenario", cfg.scenario)
         kw.setdefault("incremental", cfg.incremental)
         if cfg.plugins and "framework" not in kw:
             # config-driven framework assembly (framework.go:88 NewFramework:
@@ -1108,13 +1155,14 @@ class Scheduler:
         leftover — each rings the doorbell when it moves pods), expires
         stale cache assumptions, and resolves Permit waits, but begins
         no cycle: no trace, no solve, no metrics churn. It re-probes the
-        parked ambiguous binds as a cycle does, keeps the SLO windows
+        parked ambiguous binds as a cycle does, runs the scenario re-pack
+        sweep when it is due (``maybe_repack``), keeps the SLO windows
         (and the recovery transition) live and takes the memory ledger's
-        idle sample. The reference's idle tick also runs the scenario
-        repack (A.15)."""
+        idle sample."""
         self.queue.tick()
         self._reap_expired_assumptions()
         self._verify_ambiguous_binds()
+        self.maybe_repack()
         self.obs.ledger.tick()
         self.obs.memledger.tick()
         res = CycleResult()
@@ -1345,6 +1393,9 @@ class Scheduler:
         self.queue.tick()
         self._reap_expired_assumptions()
         self._verify_ambiguous_binds()
+        # the re-pack sweep runs BEFORE the batch pops: the pods it drains
+        # re-enter this same cycle's solve under the pack's objective
+        self.maybe_repack()
         self._process_waiting(res)
         batch = self.queue.pop_batch(self.max_batch)
         if not batch:
@@ -1524,6 +1575,16 @@ class Scheduler:
             if es is not None:
                 extra_score = es if extra_score is None else extra_score + es
             self.obs.step("extenders done")
+        # the scenario pack's (P, N) cost term joins the plugin/extender
+        # score seam, so it rides every ladder tier (batch, batch-cpu, the
+        # greedy oracle) and the exact solver unchanged
+        if self.scenario_pack is not None:
+            with self.obs.span("scenario:cost"):
+                sc_cost = self.scenario_pack.cost(batch, nt, node_order, dp,
+                                                  dn)
+            if sc_cost is not None:
+                extra_score = (sc_cost if extra_score is None
+                               else extra_score + sc_cost)
         if nominated:
             nom_mask = self._nominated_mask(nominated, node_order, dp, dn,
                                             ds, dt, dv, sv)
@@ -1603,6 +1664,15 @@ class Scheduler:
             pad_t = upload(pad, dev)
             usage = _apply_batch(usage_from_nodes(dn), dp,
                                  pad_t.clamp_min(0), (pad_t >= 0) & dp.valid)
+        # scenario quality: dispatched now (final usage, final assignment,
+        # gang rollbacks applied) so the device reduces while the host
+        # binds; its (7,) vector is read back after the bind loop
+        q_dev = None
+        if self.scenario_pack is not None and self.scenario.quality:
+            pad_a = np.full((dp.valid.shape[0],), -1, np.int32)
+            pad_a[: len(batch)] = assigned
+            q_dev = quality_reduce(upload(pad_a, dev), usage.requested, dp,
+                                   dn)
 
         # reasons for the unplaced: one filter pass against the final
         # usage (without the nominated phantoms, as in the reference),
@@ -1670,6 +1740,10 @@ class Scheduler:
         res.explain_s += time.perf_counter() - tx
         self.obs.current_trace.end_span(bind_span)
         self.obs.step(f"bound {res.scheduled}, failed {res.unschedulable}")
+        if q_dev is not None:
+            with self.obs.span("pipeline:readback@quality"):
+                qvec = self.obs.jax.readback("scenario-quality", q_dev)
+            self._take_scenario_quality(res, qvec, batch, assigned, nt)
 
         # preemption (scheduler.go:493 -> preempt): failed pods try to
         # evict lower-priority pods; winners get a nominated node and
@@ -1681,8 +1755,16 @@ class Scheduler:
                 rows = self.obs.jax.readback("preempt-reasons", rows_dev)
             pt0 = self.clock()
             with self.obs.span("preemption"):
-                self._run_preemption(batch, preemptable_idx, rows,
-                                     node_order, res)
+                if (self.scenario_pack is not None
+                        and self.scenario_pack.wants_cascade):
+                    # victims and displaced pods re-enter one more dense
+                    # solve in this same cycle instead of the per-pod
+                    # nominate-and-wait loop
+                    self._run_preemption_cascade(batch, preemptable_idx,
+                                                 rows, node_order, res)
+                else:
+                    self._run_preemption(batch, preemptable_idx, rows,
+                                         node_order, res)
             self.metrics.preemption_duration.observe(self.clock() - pt0)
             res.preempt_s = time.perf_counter() - tp
             self.obs.step(f"preemption ({res.preempted} victims)")
@@ -1915,6 +1997,341 @@ class Scheduler:
             # delete -> MoveAllToActiveQueue wakeup happens here, or the
             # nominated preemptor waits out the unschedulable flush
             self.queue.move_all_to_active()
+
+    def _take_scenario_quality(self, res: CycleResult, qvec, batch,
+                               assigned, nt) -> None:
+        """Decode the read-back quality vector, fold in the pack's host
+        scores and publish the cycle's quality dict."""
+        quality = decode_quality(qvec)
+        quality.update(self.scenario_pack.quality_host(batch, assigned, nt))
+        res.scenario_quality = quality
+        self._publish_scenario_quality(quality)
+
+    def _publish_scenario_quality(self, quality) -> None:
+        """Fan one cycle's quality dict out to the flight record and the
+        gauge family: a score that stopped being reported (a gangless
+        cycle after a gang cycle) drops to 0 instead of going stale."""
+        self.obs.note_scenario(quality)
+        for k in self._scenario_scores_seen - set(quality):
+            self.metrics.scenario_quality.set(0.0, score=k)
+        for k, v in quality.items():
+            self.metrics.scenario_quality.set(float(v), score=k)
+            self._scenario_scores_seen.add(k)
+
+    def _run_preemption_cascade(self, batch, preemptable_idx, rows,
+                                node_order, res: CycleResult) -> None:
+        """The in-batch preemption cascade of the scenario packs: victim
+        selection runs the port's own ``preemption.preempt`` for every
+        preemptor against one shared state (earlier evictions visible to
+        later preemptors, ``scenarios/cascade.select_cascade``), then the
+        victims are evicted and the preemptors and displaced pods re-solve
+        in THIS cycle (``_cascade_solve``) instead of the stock path's
+        nominate-and-wait loop. A single-pod batch selects the stock
+        path's victim set by construction. ``rows[j]`` is the failure
+        pass's reason row of ``batch[preemptable_idx[j]]``."""
+        nodes = self.cache.nodes()
+        node_pods_of = {nd.name: self.cache.pods_on(nd.name) for nd in nodes}
+        pdbs = list(self.pdb_lister())
+        row_of = {i: j for j, i in enumerate(preemptable_idx)}
+        order = sorted(preemptable_idx, key=lambda i: -batch[i].priority)
+        preemptors = [(batch[i], {
+            name: rows[row_of[i]][r]
+            for r, name in enumerate(node_order) if name
+        }) for i in order]
+        sel = select_cascade(
+            preemptors, nodes, node_pods_of, pdbs,
+            nominated_pods_of=dict(self.queue.nominated.items()),
+            vol_state=self.cache.packer.resolve_volumes,
+            extenders=[e for e in self.extenders if e.supports_preemption()],
+            enable_non_preempting=self.enable_non_preempting,
+            max_preemptions=self.max_preemptions_per_cycle,
+            # the stock loop's per-processed-pod accounting
+            on_attempt=self.metrics.preemption_attempts.inc)
+        if not sel.chosen:
+            return
+        now = self.clock()
+        if sel.victims:
+            self.metrics.preemption_victims.inc(len(sel.victims))
+            self.metrics.scenario_cascade_victims.inc(len(sel.victims))
+        # the preemptors that re-solve this cycle: never a gang member
+        # (binding one member solo would sidestep the all-or-nothing
+        # rollback; gang preemptors keep the stock nomination)
+        solve_keys = {batch[i].key() for i in order
+                      if batch[i].key() in sel.chosen
+                      and not batch[i].pod_group}
+        displaced = []
+        requeue_only = []
+        for v in sel.victims:
+            v.deletion_timestamp = now
+            self.event_sink("Preempted", v,
+                            f"by {sel.victim_of[v.key()]} (cascade)")
+            self.obs.journeys.note_evicted(v.key(), sel.victim_of[v.key()])
+            if self.victim_deleter is not None:
+                # the deletion goes through the hub: the victim holds its
+                # capacity as terminating until the watch delete lands, so
+                # it cannot re-enter this cycle's solve
+                self.victim_deleter(v)
+            else:
+                self.cache.remove_pod(v.key())
+                if not self.responsible_for(v):
+                    continue
+                pending = dataclasses.replace(v, node_name="",
+                                              deletion_timestamp=0.0)
+                if sel.victim_of[v.key()] in solve_keys:
+                    displaced.append(pending)
+                else:
+                    # the evacuated capacity is promised to a
+                    # nominated-only preemptor: re-solving this victim
+                    # now could retake it (the cascade solve has no pass-A
+                    # phantoms), so it requeues, as the stock path's
+                    # victims do
+                    requeue_only.append(pending)
+        for p in sel.clear_nominations:
+            p.nominated_node_name = ""
+            self.queue.nominated.delete(p)
+        res.preempted += len(sel.victims)
+        # the re-solve: preemptors first, displaced victims in the same
+        # dense batch, bounded by scenario.cascade_max_pods
+        resolve_pods = [batch[i] for i in order
+                        if batch[i].key() in solve_keys]
+        budget = max(self.scenario.cascade_max_pods, 1)
+        overflow = (resolve_pods + displaced)[budget:]
+        resolve_pods = (resolve_pods + displaced)[:budget]
+        if self.victim_deleter is not None or not sel.victims:
+            # nothing newly usable was freed (hub-delete mode holds the
+            # victims' capacity; a victimless win evacuated nothing): the
+            # re-solve could place nothing the main solve did not, so the
+            # preemptors go straight to their nominations
+            placed, q2 = set(), None
+        else:
+            placed, q2 = self._cascade_solve(resolve_pods, res)
+        cycle = self.queue.scheduling_cycle
+        for p in requeue_only:
+            self._fail(p, cycle, res, ("CascadeUnplaced",))
+        for p in overflow:
+            # a displaced pod the budget cut was already evicted: it
+            # requeues through the standard error path (a preemptor in the
+            # overflow keeps its failure row and its nomination)
+            if p.key() not in res.failure_reasons:
+                self._fail(p, cycle, res, ("CascadeUnplaced",))
+        for p in displaced:
+            if p.key() in placed:
+                self.metrics.scenario_displaced_replaced.inc()
+        if q2:
+            # the cascade changed the cluster: the cluster-state fields
+            # come from the cascade solve's final usage; the batch fields
+            # (placed, nodes_used_batch, priority_headroom) keep
+            # describing the main solve
+            for k in ("nodes_used", "headroom", "fragmentation",
+                      "free_cpu_frac"):
+                res.scenario_quality[k] = q2[k]
+            self._publish_scenario_quality(res.scenario_quality)
+        # preemptors the re-solve did not place keep the stock semantics:
+        # nominated onto the chosen node, retried next cycle
+        for i in order:
+            key = batch[i].key()
+            if key in sel.chosen and key not in placed:
+                batch[i].nominated_node_name = sel.chosen[key]
+                self.queue.nominated.add(batch[i], sel.chosen[key])
+                res.nominations[key] = sel.chosen[key]
+        if sel.victims and self.victim_deleter is None:
+            # the inline (grace 0) deletes' watch wakeup
+            self.queue.move_all_to_active()
+
+    def _cascade_pad(self, n: int) -> int:
+        """Pod bucket of a cascade re-solve. With warmup on, snapped up to
+        a warmed bucket (the smallest explicit bucket that fits, or at
+        least ``min_bucket`` for the geometric sweep), so a cascade never
+        captures on the hot path; a cascade larger than every warmed
+        bucket keeps its natural one."""
+        pad = bucket_size(max(n, 1))
+        wu = self.warmup_config
+        if not wu.enabled:
+            return pad
+        explicit = sorted(b for b in wu.pod_buckets if b >= pad)
+        if explicit:
+            return explicit[0]
+        if not wu.pod_buckets:
+            return max(pad, bucket_size(max(min(wu.min_bucket,
+                                                self.max_batch), 1)))
+        return pad
+
+    def _cascade_solve(self, pods_list, res: CycleResult):
+        """One dense solve of the cascade's preemptors and displaced pods
+        against the evacuated cluster: a fresh snapshot (the victims'
+        rows are dirty, so the resident table takes the delta scatter),
+        the full ladder with its validation, the pack's cost term, and the
+        admission tail for each placed pod. Returns ``(placed keys,
+        quality dict or None)``; the quality is reduced from the cascade's
+        FINAL usage. A ``KernelError`` propagates."""
+        placed: set = set()
+        if not pods_list:
+            return placed, None
+        pk = self.cache.packer
+        dev = self.device
+        for p in pods_list:
+            pk.intern_pod(p)
+        if self.device_resident_snapshot:
+            nt, dn, _ = self._device_snapshot_recovering()
+        else:
+            nt, dn = self.cache.snapshot(), None
+        if dn is None:
+            dn = nodes_to_device(nt, device=dev)
+        node_order = self.cache.node_order()
+        pt = pk.pack_pods(pods_list)
+        skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
+        dp = pods_to_device(pt, pad_to=self._cascade_pad(len(pods_list)),
+                            device=dev)
+        ds = selectors_to_device(pk.pack_selector_tables(), device=dev)
+        dt = (topology_to_device(pk.pack_topology_tables(), device=dev)
+              if _has_topo(pk.u) else None)
+        dv = sv = None
+        if any(p.volumes for p in pods_list):
+            dv = volumes_to_device(pk.pack_volume_tables(pods_list),
+                                   device=dev)
+            sv = _static_vol_pass(dp, dn, ds, dv)
+        extra_score = None
+        if self.scenario_pack is not None:
+            extra_score = self.scenario_pack.cost(pods_list, nt, node_order,
+                                                  dp, dn)
+        solver = self.solver if self.solver != "exact" else "batch"
+        self.obs.jax.record_call(
+            "solve", dp, dn, ds, dt, dv,
+            static=(solver, tuple(skip_prio), no_ports, no_pod_aff,
+                    no_spread, self.pred_mask, self.per_node_cap,
+                    self.max_rounds, True, extra_score is None, False))
+        ladder = self._solve_ladder(solver, pods_list, dp, dn, ds, dt, dv,
+                                    sv, None, None, extra_score, skip_prio,
+                                    no_ports, no_pod_aff, no_spread, res)
+        cycle = self.queue.scheduling_cycle
+        if ladder is None:
+            for p in pods_list:
+                if p.key() not in res.failure_reasons:
+                    self._fail(p, cycle, res, ("SolverUnavailable",))
+            return placed, None
+        assigned, usage2, _rounds, _tier = ladder
+        q2 = None
+        if self.scenario.quality:
+            pad_a = np.full((dp.valid.shape[0],), -1, np.int32)
+            pad_a[: len(pods_list)] = assigned[: len(pods_list)]
+            with self.obs.span("pipeline:readback@quality"):
+                q2 = decode_quality(self.obs.jax.readback(
+                    "scenario-quality",
+                    quality_reduce(upload(pad_a, dev), usage2.requested, dp,
+                                   dn)))
+        assigned = assigned[: len(pods_list)]
+        for i, p in enumerate(pods_list):
+            t = int(assigned[i])
+            if t < 0:
+                # a displaced pod requeues through the standard error
+                # path; an unplaced preemptor keeps the failure row the
+                # main bind loop recorded and gets its nomination from the
+                # caller
+                if p.key() not in res.failure_reasons:
+                    self._fail(p, cycle, res, ("CascadeUnplaced",))
+                continue
+            # a preemptor was already failed by the main bind loop: its
+            # queue entry and failure row are superseded by this bind
+            self.queue.delete(p.key())
+            had_row = p.key() in res.failure_reasons
+            before_sched = res.scheduled
+            before_unsched = res.unschedulable
+            before_wait = res.waiting
+            self._admit_pod(p, node_order[t], cycle, res)
+            if res.scheduled > before_sched or res.waiting > before_wait:
+                # bound, or parked by a Permit plugin (assumed, capacity
+                # held): it left the unschedulable state and must not also
+                # be nominated (pass A would count its capacity twice)
+                placed.add(p.key())
+                if had_row:
+                    res.unschedulable -= 1
+                    res.failure_reasons.pop(p.key(), None)
+                    res.fit_errors.pop(p.key(), None)
+                    self.why_pending.pop(p.key(), None)
+            elif had_row and res.unschedulable > before_unsched:
+                # the admission tail failed a pod the main bind loop
+                # already counted: one pod, one unschedulable
+                res.unschedulable -= 1
+        return placed, q2
+
+    def maybe_repack(self) -> int:
+        """The steady-state consolidation re-pack
+        (``scenario.repackInterval``): every interval, drain the pods off
+        the least-utilized FULLY emptiable nodes (nodes holding only this
+        scheduler's bound, non-assumed, non-terminating pods, whose load
+        the rest of the occupied cluster can absorb) and requeue them, so
+        the next cycles' objective packs them tight again. At most
+        ``scenario.repackMaxPods`` pods a sweep; returns the pods drained
+        (0 off cadence or without a pack). Called before a cycle pops its
+        batch and from :meth:`idle_tick`."""
+        interval = self.scenario.repack_interval_s
+        if interval <= 0 or self.scenario_pack is None:
+            return 0
+        now = self.clock()
+        if self._last_repack_at is None:
+            # the cadence starts at the first observation: a full interval
+            # of churn elapses before the first drain
+            self._last_repack_at = now
+            return 0
+        if now - self._last_repack_at < interval:
+            return 0
+        self._last_repack_at = now
+        free: Dict[str, Tuple[float, int]] = {}
+        occupied = []
+        for nd in self.cache.nodes():
+            pods = self.cache.pods_on(nd.name)
+            used = sum(p.requests.cpu_milli for p in pods)
+            free[nd.name] = (nd.allocatable.cpu_milli - used,
+                             nd.allocatable.pods - len(pods))
+            if pods:
+                occupied.append(
+                    (used / max(nd.allocatable.cpu_milli, 1.0), nd.name,
+                     pods))
+        if len(occupied) < 2:
+            return 0  # nothing to consolidate into
+        occupied.sort(key=lambda t: (t[0], t[1]))
+        budget = max(self.scenario.repack_max_pods, 1)
+        emptied: set = set()
+        drained = 0
+        for _util, name, pods in occupied:
+            movable = [p for p in pods
+                       if self.responsible_for(p)
+                       and not self.cache.is_assumed(p.key())
+                       and not p.deletion_timestamp]
+            if len(movable) != len(pods):
+                continue  # foreign or in-flight pods pin the node
+            if not movable or len(movable) > budget - drained:
+                continue
+            need_cpu = sum(p.requests.cpu_milli for p in movable)
+            # a feasibility heuristic only (the solver places): never
+            # drain pods the other occupied nodes cannot possibly hold
+            absorb_cpu = absorb_slots = 0
+            for _u2, n2, _pods2 in occupied:
+                if n2 == name or n2 in emptied:
+                    continue
+                c, sl = free[n2]
+                absorb_cpu += max(c, 0)
+                absorb_slots += max(sl, 0)
+            if need_cpu > absorb_cpu or len(movable) > absorb_slots:
+                continue
+            for p in movable:
+                if self.repack_evictor is not None:
+                    self.repack_evictor(p)
+                else:
+                    self.cache.remove_pod(p.key())
+                    self.queue.add_if_not_present(dataclasses.replace(
+                        p, node_name="", deletion_timestamp=0.0))
+            emptied.add(name)
+            drained += len(movable)
+            if drained >= budget:
+                break
+        if drained:
+            self.metrics.scenario_repacks.inc()
+            self.metrics.scenario_repack_drained.inc(drained)
+            self.queue.move_all_to_active()
+            klog.V(2).info("steady-state re-pack: drained %d pods off %d "
+                           "nodes", drained, len(emptied))
+        return drained
 
     def _run_extenders(self, batch, base_fr, node_order, early_fail):
         """Call each extender's Filter then Prioritize for interested pods
@@ -2380,6 +2797,15 @@ class Scheduler:
         if (fw.has_host_filters() or fw.has_host_scores()
                 or fw.has_batch_filters() or fw.has_batch_scores()):
             return False
+        if self.scenario_pack is not None and (
+                not self.scenario_pack.restricted_ok
+                or self.scenario.quality):
+            # a restricted_ok pack's cost term is per column, so it
+            # evaluates per chunk exactly and rides the pipeline; the
+            # quality reduction wants the whole batch's final usage, so a
+            # quality-on scenario cycle stays monolithic, as does a pack
+            # whose cost needs the whole node axis
+            return False
         # gangs stay monolithic: all-or-nothing groups straddling chunk
         # boundaries would need cross-chunk rollback
         return not any(p.pod_group for p in batch)
@@ -2418,9 +2844,13 @@ class Scheduler:
         fit_msgs: Dict[int, str] = {}
         rmat_rows: Dict[int, list] = {}
         ex_parts: List[dict] = []
+        # a restricted_ok scenario pack's per-column cost joins each
+        # chunk's solve as extra_score (the _pipeline_eligible contract);
+        # the statics' score flag flips with it, as the warmed signature's
+        pack = self.scenario_pack
         statics = (solver, tuple(skip_prio), no_ports, no_pod_aff,
                    no_spread, self.pred_mask, self.per_node_cap,
-                   self.max_rounds, True, True, False)
+                   self.max_rounds, True, pack is None, False)
 
         def pack_chunk(k):
             with self.obs.span(f"pipeline:pack@{k}", pods=len(chunks[k])):
@@ -2446,12 +2876,19 @@ class Scheduler:
             if (self._cycle_deadline is not None
                     and self.clock() >= self._cycle_deadline):
                 return None
+            sc = None
+            if pack is not None:
+                # the chunk's pack cost against the chunk's node view:
+                # per column by the restricted_ok contract, so chunking
+                # keeps the objective exactly
+                with self.obs.span(f"scenario:cost@{k}"):
+                    sc = pack.cost(chunks[k], nt, node_order, dp_c, dn_in)
             with self.obs.span(f"pipeline:dispatch@{k}", tier=solver):
                 self.obs.jax.record_call("solve", dp_c, dn_in, ds, dt, dv_c,
                                          static=statics)
                 try:
                     return self._run_tier(solver, chunks[k], dp_c, dn_in, ds,
-                                          dt, dv_c, sv_c, None, None, None,
+                                          dt, dv_c, sv_c, None, None, sc,
                                           skip_prio, no_ports, no_pod_aff,
                                           no_spread)[0]
                 except (SolverFault, RuntimeError) as e:
@@ -2485,9 +2922,12 @@ class Scheduler:
                     klog.warning("pipelined chunk %d solve failed (%s); "
                                  "ladder", k, e)
             # shed (open breaker / blown deadline) or failed: this chunk
-            # re-solves through the full ladder
+            # re-solves through the full ladder, the pack's cost rebuilt so
+            # the objective survives the fallback tiers
+            sc = (pack.cost(chunk, nt, node_order, dp_c, dn_in)
+                  if pack is not None else None)
             ladder = self._solve_ladder(solver, chunk, dp_c, dn_in, ds, dt,
-                                        dv_c, sv_c, None, None, None,
+                                        dv_c, sv_c, None, None, sc,
                                         skip_prio, no_ports, no_pod_aff,
                                         no_spread, res)
             solve_s += self.clock() - ts
@@ -2713,6 +3153,12 @@ class Scheduler:
         if not self._frame_gates_hold(batch, nominated, dn, dt, dv,
                                       no_ports, no_pod_aff, no_spread):
             return False
+        if (self.scenario_pack is not None
+                and not self.scenario_pack.restricted_ok):
+            # a pack whose cost needs the whole node axis keeps the dense
+            # oracle; a restricted_ok pack's cost is per column and joins
+            # the frame (its candidate hint reserves quota columns)
+            return False
         # the tuner sees the raw batch size before the bucket compare
         self._note_tuner_batch(len(batch))
         n_pad = dn.valid.shape[0]
@@ -2727,14 +3173,16 @@ class Scheduler:
 
     def _solve_frame(self, dp_f, sub_dn, ds, cand, skip_prio, sk_init=None,
                      warm=False, site="solve:restricted",
-                     readback_site="solve-result"):
-        """One (P, C) frame: solve it with the stock solver, validate on
+                     readback_site="solve-result", extra_score=None):
+        """One (P, C) frame: solve it with the stock solver (and the
+        scenario pack's cost on the frame, ``extra_score``), validate on
         the device, map the candidate-local rows to global node rows and
         read back the mapped rows, the verdict, the deepest frame position,
         the round count and (sinkhorn solver) the Sinkhorn stats as ONE
         transfer at ``readback_site``. Returns ``(assigned (P_pad,) host,
-        rounds, depth, potentials or None)``; raises SolverResultInvalid
-        on a failed verdict."""
+        rounds, depth, potentials or None, (local rows, local usage))``,
+        the last two on the device; raises SolverResultInvalid on a failed
+        verdict."""
         inc = self.incremental
         want_stats = bool(self.observability.sinkhorn_telemetry
                           and self.solver == "sinkhorn")
@@ -2742,10 +3190,11 @@ class Scheduler:
             "solve", dp_f, sub_dn, ds,
             static=("restricted", self.solver, tuple(skip_prio),
                     self.pred_mask, self.per_node_cap, self.max_rounds,
-                    sk_init is None, True, False))
+                    sk_init is None, extra_score is None, False))
         out = batch_assign(
             dp_f, sub_dn, ds, self.weights, max_rounds=self.max_rounds,
             per_node_cap=self.per_node_cap, enabled_mask=self.pred_mask,
+            extra_score=extra_score,
             use_sinkhorn=(self.solver == "sinkhorn"),
             skip_priorities=skip_prio, no_ports=True, no_pod_affinity=True,
             no_spread=True, sk_init=sk_init,
@@ -2775,7 +3224,7 @@ class Scheduler:
         if code:
             raise SolverResultInvalid(f"frame: {VALIDATE_REASONS[code]}")
         return (np.asarray(host[:-3], np.int64), rounds, depth,
-                out[-1] if warm else None)
+                out[-1] if warm else None, (a_local, u_local))
 
     def _restricted_tail(self, batch, cycle, res, t0, syncs0, nt, dn, ds,
                          dp, node_order, skip_prio):
@@ -2817,16 +3266,38 @@ class Scheduler:
         if warm and self._sk_warm_pot is not None \
                 and self._sk_warm_pot[0] == pot_key:
             sk_init = self._sk_warm_pot[1]
+        # the pack's candidate columns (a gang's home slice) get a reserved
+        # split of the frame, capped at groupQuotaFrac so a hinted zone
+        # never crowds the plainly ranked candidates out
+        hint = hq = None
+        if self.scenario_pack is not None:
+            hm = self.scenario_pack.candidate_hint(batch, nt, node_order)
+            if hm is not None:
+                h = np.zeros((n_pad,), bool)
+                h[: hm.shape[0]] = hm
+                hint = upload(h, self.device)
+                hq = max(int(inc.group_quota_frac * C), 1)
         # the candidate pick is a site of its own, as in the reference
         self.obs.jax.record_call("incremental", summary.rank,
-                                 static=(C, n_pad, False, 1, True, None))
+                                 static=(C, n_pad, False, 1, hint is None,
+                                         hq))
         ts = self.clock()
         try:
             with self.obs.span("solve:restricted"):
-                cand, sub_dn = gather_candidates(summary, dirty, dn, C)
-                assigned, rounds, depth, pot = self._solve_frame(
+                cand, sub_dn = gather_candidates(summary, dirty, dn, C,
+                                                 hint_mask=hint,
+                                                 hint_quota=hq or 0)
+                # the restricted_ok pack's cost on the gathered frame: the
+                # term is per column, so it equals the dense term
+                # restricted to the candidate columns
+                extra_score = None
+                if self.scenario_pack is not None:
+                    with self.obs.span("scenario:cost"):
+                        extra_score = self.scenario_pack.cost(
+                            batch, nt, node_order, dp, sub_dn)
+                assigned, rounds, depth, pot, frame = self._solve_frame(
                     dp, sub_dn, ds, cand, skip_prio, sk_init=sk_init,
-                    warm=warm)
+                    warm=warm, extra_score=extra_score)
         except (SolverFault, RuntimeError) as e:
             klog.warning("restricted solve declined (%s); dense solve", e)
             self._drop_incremental("restricted-error")
@@ -2849,6 +3320,14 @@ class Scheduler:
             ml.register_tree("scheduler.sk_warm_potentials", pot,
                              shape=f"P{pot_key[0]}xC{pot_key[1]}")
         self._incr_active = True
+        # scenario quality on the restricted route: reduced over the
+        # candidate frame (every placement lands inside it, so the counts
+        # and gang scores are exact; the capacity-shaped scores are
+        # frame-local), dispatched before the bind and read after it
+        q_dev = None
+        if self.scenario_pack is not None and self.scenario.quality:
+            a_local, u_local = frame
+            q_dev = quality_reduce(a_local, u_local.requested, dp, sub_dn)
         res.rounds = rounds
         res.solver_tier = self.solver
         res.solve_scope = "restricted"
@@ -2860,6 +3339,9 @@ class Scheduler:
             for i, pod in enumerate(batch):
                 self._admit_pod(pod, node_order[int(placed[i])], cycle, res)
         self.obs.step(f"bound {res.scheduled}, failed {res.unschedulable}")
+        if q_dev is not None:
+            qvec = self.obs.jax.readback("scenario-quality", q_dev)
+            self._take_scenario_quality(res, qvec, batch, placed, nt)
         if self.explain:
             # nothing failed the filter pass (everything placed), but the
             # admission tail's failures still get report rows
@@ -2876,13 +3358,18 @@ class Scheduler:
     def _partitioned_cold_eligible(self, batch, nominated, dn, dt, dv,
                                    no_ports, no_pod_aff, no_spread) -> bool:
         """May this cycle take the partitioned cold solve? ``primary`` on,
-        the frame gates, no gang (its rollback wants the dense plane), and
-        at least two blocks of C columns in the padded table."""
+        the frame gates, no scenario pack and no gang (the pack's quality
+        and the gang rollback want the dense plane), and at least two
+        blocks of C columns in the padded table."""
         inc = self.incremental
         if not (inc.enabled and inc.primary) or not batch:
             return False
         if not self._frame_gates_hold(batch, nominated, dn, dt, dv,
                                       no_ports, no_pod_aff, no_spread):
+            return False
+        if self.scenario_pack is not None:
+            # a pack's cold solve keeps the dense oracle (its quality and
+            # the gang rollback want the full plane when solving cold)
             return False
         if any(p.pod_group for p in batch):
             return False
@@ -2934,7 +3421,7 @@ class Scheduler:
             for b in range(B):
                 if not pending[: len(batch)].any():
                     break
-                got, r, _depth, _pot = self._solve_frame(
+                got, r, _depth, _pot, _frame = self._solve_frame(
                     pending_pods(), gather_node_rows(dn, blocks[b]), ds,
                     blocks[b], skip_prio, warm=warm,
                     site="solve:partitioned", readback_site="cold-block")
@@ -2956,7 +3443,7 @@ class Scheduler:
                     "incremental", sum_u.rank,
                     static=(C, n_pad, False, 1, True, None))
                 cand, sub_dn = gather_candidates(sum_u, zeros_dirty, dn_u, C)
-                got, r, _depth, _pot = self._solve_frame(
+                got, r, _depth, _pot, _frame = self._solve_frame(
                     pending_pods(), sub_dn, ds, cand, skip_prio, warm=warm,
                     site="solve:partitioned", readback_site="cold-block")
                 rounds += r
@@ -3138,15 +3625,22 @@ class Scheduler:
             dv = volumes_to_device(pk.pack_volume_tables(sample[:P]),
                                    device=dev)
             sv = _static_vol_pass(dp, dn, ds, dv)
+        extra_score = None
+        if self.scenario_pack is not None:
+            # a scenario cycle's extra_score is the pack's cost, built the
+            # way the cycles build it (dtype and device included): the
+            # round loop's graph key carries its presence and shape
+            extra_score = self.scenario_pack.cost(
+                sample[:P], nt, self.cache.node_order(), dp, dn)
         kw = dict(topo=dt, vol=dv, static_vol=sv,
                   enabled_mask=self.pred_mask, skip_priorities=skip_prio,
                   no_ports=no_ports, no_pod_affinity=no_pod_aff,
-                  no_spread=no_spread)
+                  no_spread=no_spread, extra_score=extra_score)
         # the solve site's signature, as a cycle digests it: the warmup's
         # captures are deliberate, never retraces
         statics = (solver, tuple(skip_prio), no_ports, no_pod_aff,
                    no_spread, self.pred_mask, self.per_node_cap,
-                   self.max_rounds, True, True, False)
+                   self.max_rounds, True, extra_score is None, False)
 
         # the cycles' own solve arguments; the stats flag joins the graph
         # key, so it is the cycles' own too
@@ -3181,6 +3675,12 @@ class Scheduler:
         if self.robustness.validate_results and not \
                 self.robustness.host_validate:
             device_validate(a, usage, dp, dn, self.pred_mask)
+        if self.scenario_pack is not None and self.scenario.quality:
+            # the quality reduction rides every scenario cycle's readback:
+            # its first run per bucket belongs here, with the uploaded
+            # assignment vector the cycles pass
+            quality_reduce(upload(np.full((P,), -1, np.int32), dev),
+                           usage.requested, dp, dn)
         fr_mask = None
         if wu.include_filter:
             fr_mask = _filter_pass(dp, dn, ds, dt, dv, sv,
@@ -3297,6 +3797,10 @@ class Scheduler:
         use_sk = self.solver == "sinkhorn"
         warm = bool(inc.warm_potentials and use_sk)
         want_stats = bool(self.observability.sinkhorn_telemetry and use_sk)
+        pack = (self.scenario_pack
+                if (self.scenario_pack is not None
+                    and self.scenario_pack.restricted_ok) else None)
+        node_order = self.cache.node_order()
         compiled = 0
         smallest_bucket = bucket_size(1)
         dps: Dict[int, object] = {}
@@ -3305,6 +3809,18 @@ class Scheduler:
                 "incremental", summary.rank,
                 static=(C, n_pad, False, 1, True, None), warmup=True)
             cand, sub_dn = gather_candidates(summary, zeros_dirty, dn, C)
+            if pack is not None:
+                # the hinted pick (two disjoint top-k's) is a site of its
+                # own: run it once with a placeholder mask
+                hq = max(int(inc.group_quota_frac * C), 1)
+                self.obs.jax.record_call(
+                    "incremental", summary.rank,
+                    static=(C, n_pad, False, 1, False, hq), warmup=True)
+                gather_candidates(
+                    summary, zeros_dirty, dn, C,
+                    hint_mask=torch.zeros((n_pad,), dtype=torch.bool,
+                                          device=dev),
+                    hint_quota=hq)
             part_warm = False
             if inc.primary:
                 B = self._cold_blocks(n_pad, C)
@@ -3328,11 +3844,22 @@ class Scheduler:
                     dps[P] = pods_to_device(pk.pack_pods(sample[:P]),
                                             pad_to=P, device=dev)
                 dp = dps[P]
-                variants = [None]
+                extra = None
+                if pack is not None and not over_limit:
+                    # the pack's cost on the gathered frame, as a restricted
+                    # cycle feeds it (the partitioned route takes none)
+                    extra = pack.cost(sample[:P], nt, node_order, dp, sub_dn)
+                zp = None
                 if warm and not over_limit:
-                    variants.append((
-                        torch.zeros((P,), dtype=torch.float32, device=dev),
-                        torch.zeros((C,), dtype=torch.float32, device=dev)))
+                    zp = (torch.zeros((P,), dtype=torch.float32, device=dev),
+                          torch.zeros((C,), dtype=torch.float32, device=dev))
+                variants = [(None, None)]
+                if zp is not None:
+                    variants.append((zp, None))
+                if extra is not None:
+                    variants.append((None, extra))
+                    if zp is not None:
+                        variants.append((zp, extra))
                 if self.obs.memledger.preflight_on:
                     # the preflight's table learns the restricted (P, C)
                     # frames too, measured on the cold variant's capture
@@ -3345,19 +3872,20 @@ class Scheduler:
                             skip_priorities=skip_prio, no_ports=True,
                             no_pod_affinity=True, no_spread=True,
                             stats_out=want_stats))
-                for sk_init in variants:
+                for sk_init, extra_score in variants:
                     self.obs.jax.record_call(
                         "solve", dp, sub_dn, ds,
                         static=("restricted", self.solver, tuple(skip_prio),
                                 self.pred_mask, self.per_node_cap,
-                                self.max_rounds, sk_init is None, True,
-                                False),
+                                self.max_rounds, sk_init is None,
+                                extra_score is None, False),
                         warmup=True)
                     out = batch_assign(
                         dp, sub_dn, ds, self.weights,
                         max_rounds=self.max_rounds,
                         per_node_cap=self.per_node_cap,
                         enabled_mask=self.pred_mask, use_sinkhorn=use_sk,
+                        extra_score=extra_score,
                         skip_priorities=skip_prio, no_ports=True,
                         no_pod_affinity=True, no_spread=True,
                         stats_out=want_stats, sk_init=sk_init,
@@ -3368,6 +3896,12 @@ class Scheduler:
                             and not self.robustness.host_validate):
                         device_validate(a, usage, dp, sub_dn, self.pred_mask)
                     map_restricted_assignment(a.to(torch.int32), cand)
+                if (pack is not None and self.scenario.quality
+                        and not over_limit):
+                    # the frame-local quality reduction of a restricted
+                    # scenario cycle
+                    quality_reduce(a.to(torch.int32), usage.requested, dp,
+                                   sub_dn)
                 compiled += 1
                 self.metrics.warmup_compiles.inc()
             self._warmed_cbuckets.add(C)

@@ -232,6 +232,8 @@ def test_serving_run_takes_the_lease_binds_and_releases(monkeypatch,
         ledger=LedgerConfig(enabled=False))),
     ("observability", ObservabilityConfig(
         incidents=IncidentsConfig(enabled=False))),
+    ("scenario", ScenarioConfig(pack="consolidation")),
+    ("scenario", ScenarioConfig(pack="gang-topology", quality=False)),
 ])
 def test_serving_and_leadership_settings_are_ported(field, value):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})
@@ -241,7 +243,6 @@ def test_serving_and_leadership_settings_are_ported(field, value):
 
 @pytest.mark.parametrize("field,value,item", [
     ("parallel", ParallelConfig(mesh=4), "A.17"),
-    ("scenario", ScenarioConfig(pack="consolidation"), "A.15"),
 ])
 def test_unported_settings_stay_refused(field, value, item):
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})

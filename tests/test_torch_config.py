@@ -184,7 +184,6 @@ def test_cli_validate_only_exit_codes(tmp_path, capsys, doc, rc, line):
 @pytest.mark.parametrize("doc, item", [
     ({"parallel": {"mesh": 4}}, "A.17"),
     ({"parallel": {"mesh": "auto"}}, "A.17"),
-    ({"scenario": {"pack": "consolidation"}}, "A.15"),
     ({"parallel": {"mesh": 2}}, "A.17"),
 ])
 def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
@@ -203,6 +202,38 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
     cfg = PORT.cli.load_config_file(str(f))
     with pytest.raises(PORT.cli.ConfigError, match=f"ROADMAP {item}"):
         Scheduler.from_config(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("spelling", ["native", "v1alpha1"])
+@pytest.mark.parametrize("pack", ["consolidation", "gang-topology"])
+def test_scenario_packs_are_ported(tmp_path, capsys, pack, spelling):
+    """Both scenario packs are ported: a configuration naming one, in
+    either spelling, validates like the reference's (rc 0), passes
+    ``unported_features``, and ``Scheduler.from_config`` builds the named
+    pack with the reference's priority weights."""
+    doc = {"scenario": {"pack": pack}}
+    if spelling == "v1alpha1":
+        doc.update(apiVersion="kubescheduler.config.k8s.io/v1alpha1",
+                   kind="KubeSchedulerConfiguration",
+                   percentageOfNodesToScore=100)
+    f = tmp_path / "cfg.json"
+    f.write_text(json.dumps(doc))
+    for m in (REF, PORT):
+        assert m.cli.main(["--validate-only", "--config", str(f)]) == 0
+        capsys.readouterr()
+    from kubernetes_tpu.scheduler import Scheduler as JScheduler
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    cfg = PORT.cli.load_config_file(str(f))
+    assert cfg.scenario.pack == pack
+    assert PORT.cli.unported_features(cfg) == []
+    sched = Scheduler.from_config(cfg, device="cpu")
+    ref = JScheduler.from_config(REF.cli.load_config_file(str(f)))
+    assert sched.scenario_pack.name == ref.scenario_pack.name == pack
+    assert type(sched.scenario_pack).__name__ == \
+        type(ref.scenario_pack).__name__
+    assert sched.weights == ref.weights
+    assert sched.scenario == PORT.cli.load_config_file(str(f)).scenario
 
 
 @pytest.mark.parametrize("doc, backend, field, want", [

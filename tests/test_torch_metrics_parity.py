@@ -25,8 +25,16 @@ cycles whose spans a fake clock sets), and
 ``scheduler_memory_preflight_total`` (the memory ledger, through driven
 cycles that split, shed and fit against the same injected bucket table).
 The measured series of ``scheduler_device_memory_bytes`` (the CPU census)
-are each package's own and are not compared."""
+are each package's own and are not compared.
 
+The scenario packs' families, exactly: ``scheduler_scenario_quality``,
+``scheduler_scenario_cascade_victims_total``,
+``scheduler_scenario_displaced_replaced_total``,
+``scheduler_scenario_repacks_total`` and
+``scheduler_scenario_repack_drained_total``, over a consolidation cycle,
+a cascade and a re-pack sweep."""
+
+import dataclasses
 import random
 
 import pytest
@@ -347,3 +355,82 @@ def test_memory_families_match_the_reference():
     assert counts["split"] >= 1 and counts["shed"] >= 1
     assert counts["ok"] >= 1
     assert rows[-1][2] == ["scheduler_memory_model_efficiency -1.0"]
+
+
+# ---------------------------------------------------------------------------
+# the scenario packs' families
+# ---------------------------------------------------------------------------
+
+SCENARIO_FAMILIES = ("scenario_quality", "scenario_cascade_victims",
+                     "scenario_displaced_replaced", "scenario_repacks",
+                     "scenario_repack_drained")
+
+
+def _confirm(s, res):
+    """Relay the bind confirmations a watch stream would deliver."""
+    for key, node in dict(res.assignments).items():
+        cached = s.cache.pod(key)
+        if cached is not None:
+            s.on_pod_update(cached, dataclasses.replace(cached,
+                                                        node_name=node))
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_scenario_families_match_the_reference(seed):
+    """The five ``scheduler_scenario_*`` families, sample for sample,
+    after a seeded consolidation cycle, a cascade (victims evicted and
+    re-placed in the same cycle) and a re-pack sweep on a fake clock."""
+    import kubernetes_tpu.config as jconfig
+    import kubernetes_tpu_torch.config as tconfig
+    from kubernetes_tpu.scheduler import Scheduler as JScheduler
+    from kubernetes_tpu_torch.scheduler import Scheduler as TScheduler
+
+    rng = random.Random(seed)
+    clocks = (FakeClock(), FakeClock())
+
+    def build(S, clock, cfg, **kw):
+        return S(clock=clock, scenario=cfg.ScenarioConfig(
+            pack="consolidation", fill_block=1, preempt_in_batch=True,
+            repack_interval_s=5.0, repack_max_pods=4), **kw)
+
+    js = build(JScheduler, clocks[0], jconfig)
+    ts = build(TScheduler, clocks[1], tconfig, device="cpu")
+    nodes = [make_node(f"n{i}", cpu_milli=4000, memory=8 * 2**30)
+             for i in range(6)]
+    bound = [make_pod(f"low{i}", cpu_milli=rng.choice([600, 800]),
+                      memory=2**28, node_name=f"n{i % 6}")
+             for i in range(8)]
+    feed_cluster(js, ts, nodes, bound)
+    # a consolidation cycle (it also arms the re-pack cadence)
+    pods = [make_pod(f"p{i}", cpu_milli=rng.choice([200, 300]),
+                     memory=2**28) for i in range(10)]
+    feed_cluster(js, ts, [], pods)
+    rj, rt = js.schedule_cycle(), ts.schedule_cycle()
+    assert rt.assignments == rj.assignments
+    assert rt.scenario_quality["placed"] == 10
+    for attr in SCENARIO_FAMILIES:
+        _same_family(js, ts, attr)
+    _confirm(js, rj)
+    _confirm(ts, rt)
+    # a cascade: a preemptor that fits nowhere without evictions
+    feed_cluster(js, ts, [], [make_pod("high", cpu_milli=3900,
+                                       memory=2**28, priority=100)])
+    rj, rt = js.schedule_cycle(), ts.schedule_cycle()
+    assert (rt.preempted, rt.assignments) == (rj.preempted, rj.assignments)
+    assert rt.preempted > 0 and "default/high" in rt.assignments
+    victims = _same_family(js, ts, "scenario_cascade_victims")
+    assert victims == [
+        f"scheduler_scenario_cascade_victims_total {float(rt.preempted)}"]
+    for attr in SCENARIO_FAMILIES:
+        _same_family(js, ts, attr)
+    _confirm(js, rj)
+    _confirm(ts, rt)
+    # a re-pack sweep, an interval after the cadence armed
+    for c in clocks:
+        c.advance(6.0)
+    drained = (ts.maybe_repack(), js.maybe_repack())
+    assert drained[0] == drained[1] > 0
+    sweeps = _same_family(js, ts, "scenario_repacks")
+    assert sweeps == ["scheduler_scenario_repacks_total 1.0"]
+    for attr in SCENARIO_FAMILIES:
+        _same_family(js, ts, attr)

@@ -4,14 +4,15 @@ against the JAX package: the sentinel and engine cases of
 tests/test_soak.py, each run through both packages on a fake clock and
 compared on what it returns.
 
-Left out: the consolidation re-pack cases and the scenario pack of the
-reference's ``MiniSoak`` (ROADMAP A.15: scenario packs), and the memory
-ledger's measured census (``mem.census_arrays``: the reference counts the
-process's live JAX arrays, the port its live CPU tensors, so the count
-depends on what else the process holds): the fake-clock soak here runs
-both packages without the pack and compares everything else, the
-``slo_burns`` and ``incidents`` counters and the other ``mem.*`` /
-``incident.*`` sentinels included."""
+The consolidation re-pack cases run through both packages too, and the
+fake-clock soak runs twice: without a scenario pack, and with the
+reference ``MiniSoak``'s consolidation pack (re-pack cadence off).
+
+Left out: the memory ledger's measured census (``mem.census_arrays``:
+the reference counts the process's live JAX arrays, the port its live
+CPU tensors, so the count depends on what else the process holds);
+everything else is compared, the ``slo_burns`` and ``incidents``
+counters and the other ``mem.*`` / ``incident.*`` sentinels included."""
 
 import dataclasses
 import random
@@ -78,6 +79,9 @@ class Truth:
 
     def delete(self, key: str) -> None:
         self.spec.pop(key, None)
+        self.bound.pop(key, None)
+
+    def unbind(self, key: str) -> None:
         self.bound.pop(key, None)
 
     def bind(self, pod, node_name: str) -> None:
@@ -320,25 +324,149 @@ def test_warmup_registers_nominated_solve_variant():
 
 
 # ---------------------------------------------------------------------------
+# the steady-state consolidation re-pack
+# ---------------------------------------------------------------------------
+
+
+def _repack_sched(pkg, interval: float = 5.0):
+    t = Truth(pkg.faults)
+    s, clock = _sched(
+        pkg, t, scenario=pkg.config.ScenarioConfig(
+            pack="consolidation", repack_interval_s=interval,
+            repack_max_pods=8))
+    for i in range(3):
+        s.on_node_add(pkg.testing.make_node(f"n{i}", cpu_milli=8000,
+                                            pods=32))
+
+    def evictor(p):
+        # the hub seam: unbind at the truth, then converge the local
+        # state as a watch relay would
+        t.unbind(p.key())
+        s.cache.remove_pod(p.key())
+        s.queue.add_if_not_present(dataclasses.replace(
+            p, node_name="", deletion_timestamp=0.0))
+
+    s.repack_evictor = evictor
+    return s, t, clock
+
+
+def test_repack_consolidates_fragmented_cluster():
+    """A straggler stranded alone on its node is drained by the sweep a
+    full interval after the cadence armed, and the next cycle packs it
+    onto the occupied node: the nodes used fall, nothing binds twice and
+    nothing is lost, as in the reference."""
+    def script(pkg):
+        s, t, clock = _repack_sched(pkg, interval=5.0)
+        for i in range(5):
+            p = pkg.testing.make_pod(f"c{i}", cpu_milli=1000, node_name="n0")
+            t.register(p)
+            t.bound[p.key()] = "n0"
+            s.on_pod_add(p)
+        straggler = pkg.testing.make_pod("straggler", cpu_milli=1000,
+                                         node_name="n1")
+        t.register(straggler)
+        t.bound[straggler.key()] = "n1"
+        s.on_pod_add(straggler)
+        before = len(set(t.bound.values()))
+        armed = s.maybe_repack()
+        clock.advance(6.0)
+        drained = s.maybe_repack()
+        evicted = t.bound.get("default/straggler")
+        res = s.schedule_cycle()
+        _confirm(s, res)
+        return (before, armed, drained, s.metrics.scenario_repacks.value(),
+                s.metrics.scenario_repack_drained.value(), evicted,
+                res.scheduled, res.assignments, len(set(t.bound.values())),
+                t.double_bind_attempts,
+                sum(s.queue.pending_counts().values()))
+
+    (before, armed, drained, sweeps, pods, evicted, scheduled, _a, after,
+     doubles, pending) = both(script)
+    assert before == 2 and armed == 0 and drained == 1
+    assert sweeps == 1 and pods == 1 and evicted is None
+    assert scheduled == 1 and after < before
+    assert doubles == 0 and pending == 0
+
+
+def test_repack_off_cadence_and_packless_are_noops():
+    def script(pkg):
+        s, _t, _clock = _repack_sched(pkg, interval=0.0)
+        out = [s.maybe_repack()]  # interval 0 = off
+        s2, _t2, clock2 = _repack_sched(pkg, interval=5.0)
+        out.append(s2.maybe_repack())  # arms the cadence
+        clock2.advance(1.0)
+        out.append(s2.maybe_repack())  # inside the interval
+        s3, _clock3 = _sched(pkg, Truth(pkg.faults))
+        out.append(s3.maybe_repack())  # no pack
+        return out
+
+    assert both(script) == [0, 0, 0, 0]
+
+
+def test_repack_skips_nodes_with_assumed_pods():
+    """Assumed (not yet watch-confirmed) pods pin their node: draining a
+    pod whose bind is still settling would race its confirmation."""
+    def script(pkg):
+        s, t, clock = _repack_sched(pkg, interval=5.0)
+        for i in range(3):
+            p = pkg.testing.make_pod(f"a{i}", cpu_milli=1000)
+            t.register(p)
+            s.on_pod_add(p)
+        res = s.schedule_cycle()
+        out = [res.scheduled, res.assignments, s.maybe_repack()]
+        clock.advance(6.0)
+        return out + [s.maybe_repack(), s.metrics.scenario_repacks.value()]
+
+    scheduled, _a, first, second, sweeps = both(script)
+    assert scheduled == 3 and first == second == sweeps == 0
+
+
+def test_idle_tick_runs_the_repack_sweep():
+    """The idle tick drains on the same cadence as a cycle would."""
+    def script(pkg):
+        s, t, clock = _repack_sched(pkg, interval=5.0)
+        for i, node in enumerate(("n0", "n0", "n1")):
+            p = pkg.testing.make_pod(f"c{i}", cpu_milli=1000, node_name=node)
+            t.register(p)
+            t.bound[p.key()] = node
+            s.on_pod_add(p)
+        s.idle_tick()
+        clock.advance(6.0)
+        s.idle_tick()
+        return (s.metrics.scenario_repacks.value(),
+                s.metrics.scenario_repack_drained.value(),
+                sorted(t.bound), sum(s.queue.pending_counts().values()))
+
+    sweeps, pods, bound, pending = both(script)
+    assert sweeps == 1 and pods == 1 and pending == 1
+    assert "default/c2" not in bound
+
+
+# ---------------------------------------------------------------------------
 # the composed fake-clock soak
 # ---------------------------------------------------------------------------
 
 
 class MiniSoak:
-    """The reference's day-in-the-life arc compressed to a fake clock,
-    without its scenario pack: one scheduler, one truth, scripted
-    traffic, chaos and preemption phases, the auditor and the sentinels
-    armed throughout. Single-threaded, so every phase boundary is exact."""
+    """The reference's day-in-the-life arc compressed to a fake clock: one
+    scheduler, one truth, scripted traffic, chaos and preemption phases,
+    the auditor and the sentinels armed throughout; with ``pack`` the
+    reference ``MiniSoak``'s consolidation pack (re-pack cadence off).
+    Single-threaded, so every phase boundary is exact."""
 
-    def __init__(self, pkg, seed: int) -> None:
+    def __init__(self, pkg, seed: int, pack: str = "") -> None:
         self.pkg = pkg
         self.rng = random.Random(seed)
         self.clock = FakeClock()
         self.injector = pkg.faults.FaultInjector(seed=seed)
         self.truth = Truth(pkg.faults)
+        kw = {}
+        if pack:
+            kw["scenario"] = pkg.config.ScenarioConfig(
+                pack=pack, repack_interval_s=0.0, repack_max_pods=8)
         self.sched, _ = _sched(pkg, self.truth, clock=self.clock,
                                enable_preemption=True,
-                               fault_injector=self.injector)
+                               fault_injector=self.injector, **kw)
         for i in range(2):
             self.sched.on_node_add(
                 pkg.testing.make_node(f"n{i}", cpu_milli=8000, pods=64))
@@ -378,8 +506,8 @@ class MiniSoak:
         self.auditor.audit(self.sched, truth_pods=self.truth.list_pods())
 
 
-def _soak(pkg, seed):
-    m = MiniSoak(pkg, seed)
+def _soak(pkg, seed, pack=""):
+    m = MiniSoak(pkg, seed, pack)
     sent = pkg.soak.SoakSentinels(
         sched=m.sched, registry=m.sched.metrics.registry,
         fresh_gauges=["scheduler_pending_pods"], rss_reader=lambda: 0)
@@ -471,5 +599,32 @@ def test_fake_clock_soak_sequence(seed):
     assert all(r["ok"] for r in phases), phases
     assert verdict["ok"] and verdict["sentinels_flat"]
     assert bound == spec and len(done) == 6
+    if created > 16:
+        assert victims > 0
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_fake_clock_soak_sequence_with_pack(seed):
+    """The same arc under the reference ``MiniSoak``'s consolidation pack:
+    every cycle carries the pack's cost and quality, and the phase
+    reports, counters, verdicts, end state and the last cycle's quality
+    equal the reference's."""
+    def script(pkg):
+        m, record = _soak(pkg, seed, pack="consolidation")
+        phases = [{**r, "counters_delta": _ported(r["counters_delta"])}
+                  for r in record["phases"]]
+        return (phases, _ported(record["counters_total"]),
+                _ported(record["sentinels"]["growth"]), record["verdict"],
+                m.truth.double_bind_attempts, m.auditor.violations_total,
+                len(m.truth.bound), len(m.truth.spec), m.created,
+                m.sched.metrics.preemption_victims.value(),
+                m.sched.obs.recorder.records()[-1].scenario)
+
+    (phases, _totals, _growth, verdict, doubles, violations, bound, spec,
+     created, victims, quality) = both(script)
+    assert doubles == 0 and violations == 0
+    assert all(r["ok"] for r in phases), phases
+    assert verdict["ok"] and verdict["sentinels_flat"]
+    assert bound == spec and quality["placed"] >= 0
     if created > 16:
         assert victims > 0
