@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs fifteen phases and exits
+``nvcc`` per source, in parallel), then runs sixteen phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -133,8 +133,9 @@ non-zero if any fails:
    5000 smoke-cell nodes, a DaemonSet (a pod per node), 2500 pods of
    Deployments and zone-preferring bare pods, a Job of 500 and a
    StatefulSet of 5 (the pod count cut, ``HOLLOW_FULL``); it steps until
-   every pod is bound, then 4 churn steps of 320 s (pods killed, nodes
-   removed, 50 kubelets killed, their pods evicted, healed),
+   every pod is bound, then 3 churn steps of 320 s (pods killed, nodes
+   removed, 50 kubelets killed, their pods evicted; healed after the
+   last, their nodes restored in arm B's first step),
    ``check_consistency`` after every step, one step profiled; the same
    traffic at 500 nodes and 3000 pods
    must give the same truth step by step on the card and on CPU tensors;
@@ -143,7 +144,8 @@ non-zero if any fails:
    sinkhorn``, ``watchProgressDeadline: 5s``) only through a
    ``sim.Reflector``: 2000 pods created over REST, an NDJSON watch that
    must see every binding once, a compaction (410 and relists), a stalled
-   watch relisting past the deadline, the protobuf refusals (406, 415);
+   watch relisting past the deadline, the whole node and pod lists in
+   protobuf decoding to the JSON lists' objects;
 13. the recovery paths: arm A, cell ``netchaos-5k``, ``chaos.NetChaos``
    at the reference's default fault rates (ambiguous bind timeouts, bind
    errors, verification GET timeouts, a dropping, duplicating and
@@ -218,7 +220,28 @@ non-zero if any fails:
    warmed (0 captures and retraces over three cycles), both packs at 500
    nodes x 1024 pods equal on the card and on CPU tensors, and one
    quality-on cycle of each under sync-debug ``error`` making one sync
-   more than its quality-off twin.
+   more than its quality-off twin;
+16. the protobuf codec and the gRPC seam, cell ``grpc-5k-deltas``, over
+   ``grpc_shim.serve_grpc`` on 127.0.0.1 where ``grpcio`` imports, else
+   over an in-process loopback that serializes every message each way
+   with the port's codec (the line names the transport; both are token
+   gated and a forged token must be refused). Arm A: the smoke cell's
+   cluster (5000 nodes, 1000 bound) listed from a ``sim.HollowCluster``
+   by ``SnapshotDeltaBridge`` as typed deltas, 4096 pending pods
+   arriving as PodDelta ADDs, a service-side ``Scheduler(device=
+   "cuda")`` scheduling until its queue is empty and binding through the
+   hub's CAS binder, then 64 pods through Filter and Prioritize (node
+   names only, each answer equal to the ``ExtenderServer`` JSON verbs')
+   and Bind; every streamed payload decodes as its JSON does, every ack
+   is its delta's revision and the hub's, every pod binds exactly once;
+   one GetState rendered by kubectl's ``get``, ``top`` and
+   ``describe``; the REST node and pod lists in protobuf, whole and
+   paged, equal to the JSON lists; the 5000-node list's bytes and host
+   encode / decode seconds against JSON. Arm B: the reference
+   integration test's convergence under ``solver="sinkhorn"`` on 1000 of
+   the smoke nodes and 500 of its pods, then a ReplicaSet, a churn step
+   and the controller's refeed. Arm C: arm A's stream at 500 nodes x
+   1024 pods places equally on the card and on CPU tensors.
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
@@ -226,7 +249,8 @@ kernel with its launches on the main paths (the smoke cell, the plan
 path, the topology path, the preempt cell, the sparse cell, the
 pipeline cell, the configured scheduler's arm A, the serve loop's
 arms A-D, the hollow cluster's arms A and B, the recovery phase's
-arms A-C, the ledger phase's arms A-C and the scenario phase's arms,
+arms A-C, the ledger phase's arms A-C, the scenario phase's arms and
+the grpc phase's arms A-C,
 each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
@@ -242,7 +266,7 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config, serve, hollow, recovery, ledger, scenario);
+config, serve, hollow, recovery, ledger, scenario, grpc);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -268,10 +292,11 @@ F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
               "preempt", "sparse", "pipeline", "config", "serve", "hollow",
-              "recovery", "ledger", "scenario")
+              "recovery", "ledger", "scenario", "grpc")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
-              "config", "serve", "hollow", "recovery", "ledger", "scenario")
+              "config", "serve", "hollow", "recovery", "ledger", "scenario",
+              "grpc")
 
 
 def emit(obj) -> None:
@@ -4137,16 +4162,16 @@ HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 5}
 #: the CUDA-against-CPU run: arm A's traffic at 500 nodes and 3000 pods
 HOLLOW_REDUCED = {"n_nodes": 500, "n_deploy": 1995, "n_job": 500,
                   "n_sts": 5}
-HOLLOW_CHURN_STEPS = 4
+HOLLOW_CHURN_STEPS = 3
 HOLLOW_KILLED_KUBELETS = 50
 #: an arm B step is a minute of hub time: a pod whose bind failed leaves
 #: the unschedulable queue at its next 60 s flush, one step later
 HOLLOW_MINUTE_DT = 60.0
-#: a churn step is 320 s of hub time, so the 4 churn steps still cover the
-#: whole kubelet outage: the killed kubelets' nodes are tainted unreachable
-#: at the second step (the 40 s grace passed), their pods evicted at the
-#: third (the 300 s default toleration ran out) and the kubelets healed
-#: at the fourth
+#: a churn step is 320 s of hub time, so the 3 churn steps still cover the
+#: kubelet outage: the killed kubelets' nodes are tainted unreachable at
+#: the second step (the 40 s grace passed) and their pods evicted at the
+#: third (the 300 s default toleration ran out); the kubelets are healed
+#: after it, and arm B's first step on the same hub restores their nodes
 HOLLOW_CHURN_DT = 320.0
 #: arm B: pods created over REST, half for each scheduler
 HOLLOW_REST_PODS = 2000
@@ -4262,7 +4287,8 @@ def hollow_drive(probe, n_sts: int, seed: int = 7, max_bind_steps: int = 40,
     ``HOLLOW_CHURN_DT``: each kills 200 bound pods and removes 5 nodes
     (``hub.churn``); the first kills ``HOLLOW_KILLED_KUBELETS`` kubelets
     (their nodes are tainted at the second, their pods evicted at the
-    third), the last heals them.
+    third); after the last they are healed (the next step on the hub,
+    arm B's, restores their nodes).
     ``check_consistency`` after every step. Returns the per-step rows,
     the per-step truth (bindings, revision, bound count) and, with
     ``profile_step``, the device's busy share of one profiled bind
@@ -4307,10 +4333,9 @@ def hollow_drive(probe, n_sts: int, seed: int = 7, max_bind_steps: int = 40,
         if k == 0:
             for name in victims:
                 hub.kill_kubelet(name)
-        if k == HOLLOW_CHURN_STEPS - 1:
-            for name in victims:
-                hub.heal_kubelet(name)
         record(probe.step("churn", HOLLOW_CHURN_DT))
+    for name in victims:
+        hub.heal_kubelet(name)
     return rows, truths, prof
 
 
@@ -4449,6 +4474,98 @@ class WatchClient:
             self._see(key, node, rv)
 
 
+def proto_call(rest, method: str, path: str, body: bytes = None,
+               headers=None):
+    """One request to the REST registry with ``Accept:
+    application/vnd.kubernetes.protobuf``: ``(status, Content-Type,
+    raw body)``."""
+    import http.client
+
+    from kubernetes_tpu_torch.api.protobuf import PROTO_CONTENT_TYPE
+
+    conn = http.client.HTTPConnection(rest.host, rest.port, timeout=60)
+    conn.request(method, path, body,
+                 {"Accept": PROTO_CONTENT_TYPE, **(headers or {})})
+    r = conn.getresponse()
+    data = r.read()
+    conn.close()
+    return r.status, r.getheader("Content-Type"), data
+
+
+def rest_protobuf(rest, phase: str, page=None) -> dict:
+    """The node and pod lists of the REST registry in protobuf, whole and
+    (with ``page``) in pages of ``page`` (continue tokens, ``remaining``),
+    each decoded with the port's codec and held against the JSON list's
+    objects; then a protobuf-encoded request body, which is read as JSON
+    (400) as the reference reads it. Fails on any difference; returns
+    the counts and the whole lists' bytes."""
+    from kubernetes_tpu_torch.api.protobuf import (
+        PROTO_CONTENT_TYPE,
+        decode_envelope,
+        encode_envelope,
+        node_from_pb,
+        pod_from_pb,
+        pod_to_pb,
+    )
+    from kubernetes_tpu_torch.extender import node_from_json
+    from kubernetes_tpu_torch.proto import corev1
+    from kubernetes_tpu_torch.server import pod_from_json
+    from kubernetes_tpu_torch.testing import make_pod
+
+    out = {}
+    for res, kind, cls, from_pb, from_json in (
+            ("nodes", "NodeList", corev1.NodeListMsg, node_from_pb,
+             node_from_json),
+            ("pods", "PodList", corev1.PodListMsg, pod_from_pb,
+             pod_from_json)):
+        path = f"/api/v1/{res}"
+        code, doc = rest.call("GET", path)
+        if code != 200:
+            fail(f"{phase}: JSON {path} answered {code}")
+        want = [from_json(d) for d in doc["items"]]
+        status, ctype, body = proto_call(rest, "GET", path)
+        if status != 200 or ctype != PROTO_CONTENT_TYPE:
+            fail(f"{phase}: protobuf {path} answered {status} {ctype}")
+        whole_bytes = len(body)
+        got_kind, raw = decode_envelope(body)
+        whole = cls.FromString(raw)
+        if (got_kind != kind or whole.continue_token
+                or whole.remaining != -1
+                or [from_pb(m) for m in whole.items] != want):
+            fail(f"{phase}: protobuf {path} differs from the JSON list "
+                 f"({got_kind}, {len(whole.items)} of {len(want)} items)")
+        pages, items, token = 0, [], ""
+        while page:
+            q = f"?limit={page}" + (f"&continue={token}" if token else "")
+            status, _, body = proto_call(rest, "GET", path + q)
+            if status != 200:
+                fail(f"{phase}: protobuf page {path}{q} answered {status}")
+            lst = cls.FromString(decode_envelope(body)[1])
+            items += lst.items
+            pages += 1
+            left = len(want) - len(items)
+            if lst.remaining != (left if lst.continue_token else -1):
+                fail(f"{phase}: page {pages} of {path} says "
+                     f"remaining={lst.remaining}, {left} left")
+            token = lst.continue_token
+            if not token:
+                break
+        if page and [from_pb(m) for m in items] != want:
+            fail(f"{phase}: protobuf pages of {path} differ from the JSON "
+                 "list")
+        out[res] = {"items": len(want), "pages": pages,
+                    "protobuf_bytes": whole_bytes,
+                    "json_bytes": len(json.dumps(doc))}
+    status, _, _ = proto_call(
+        rest, "POST", "/api/v1/namespaces/default/pods",
+        encode_envelope("Pod", pod_to_pb(make_pod("proto-body"))),
+        {"Content-Type": PROTO_CONTENT_TYPE})
+    if status != 400:
+        fail(f"{phase}: a protobuf request body answered {status}, not 400")
+    out["protobuf_body_status"] = status
+    return out
+
+
 def hollow_arm_b(probe, tmp: str) -> dict:
     """Arm B on arm A's hub (stepped through arm A's ``probe``): the REST
     registry on 127.0.0.1 with an audit
@@ -4462,8 +4579,8 @@ def hollow_arm_b(probe, tmp: str) -> dict:
     scheduler; an NDJSON watch client must see every binding once. Then
     a compaction (the watch client gets 410 and relists, the Reflector
     relists), a cursor that eats every frame while the hub advances (the
-    Reflector's progress deadline forces a relist), and the protobuf
-    refusals."""
+    Reflector's progress deadline forces a relist), and the node and pod
+    lists negotiated in protobuf (``rest_protobuf``)."""
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.api.types import is_pod_terminated
     from kubernetes_tpu_torch.debugger import compare
@@ -4591,20 +4708,8 @@ def hollow_arm_b(probe, tmp: str) -> dict:
         if diffs[0] or diffs[1]:
             fail(f"hollow: the Reflector-fed scheduler differs from the "
                  f"truth: {diffs[0][:3]} {diffs[1][:3]}")
-        refusals = {}
-        for name, method, hdr in (
-                ("accept", "GET", {"Accept": "application/vnd.kubernetes."
-                                             "protobuf"}),
-                ("content_type", "POST",
-                 {"Content-Type": "application/vnd.kubernetes.protobuf"})):
-            code, doc = rest.call(
-                method, "/api/v1/namespaces/default/pods"
-                if method == "POST" else "/api/v1/pods",
-                {} if method == "POST" else None, headers=hdr)
-            if (code not in (406, 415) or doc.get("kind") != "Status"
-                    or "A.16.3" not in doc.get("message", "")):
-                fail(f"hollow: a protobuf {name} got {code}: {doc}")
-            refusals[name] = code
+        # whole lists only: the grpc phase pages them at full width
+        protobuf = rest_protobuf(rest, "hollow")
         lat = [watch.bound_at[k] - created_at[k] for k in keys]
         return {"launches": launches, "shapes": shapes,
                 "cycles": sum(cycles2),
@@ -4619,7 +4724,7 @@ def hollow_arm_b(probe, tmp: str) -> dict:
                          "stalled_relists": refl.stalled_relists,
                          "deduped": refl.deduped,
                          "audit_entries": len(audit.entries),
-                         "protobuf": refusals, "launches": launches}}
+                         "protobuf": protobuf, "launches": launches}}
     finally:
         server.close()
 
@@ -6427,6 +6532,645 @@ def phase_scenario() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the protobuf codec and the gRPC seam
+# ---------------------------------------------------------------------------
+
+#: cell ``grpc-5k-deltas``: arm A at full width (the smoke cell's cluster,
+#: 4096 delta-fed pods, 64 pods through the extender verbs and Bind), arm
+#: B the reference integration test's convergence on a hub cut to 1000
+#: nodes and 500 pods (each hub step is seconds of host Python at 5000
+#: nodes), arm C arm A's stream cut to 500 nodes for the CUDA/CPU run
+GRPC = {"n_nodes": 5000, "n_bound": 1000, "n_pending": 4096,
+        "n_verb_pods": 64, "rest_page": 1000, "codec_reps": 3,
+        "hub_nodes": 1000, "hub_pods": 500, "hub_replicas": 64,
+        "hub_killed": 16,
+        "eq_nodes": 500, "eq_bound": 100, "eq_pending": 1024,
+        "eq_verb_pods": 16}
+GRPC_TOKEN = "chip-smoke-seam-token"
+
+
+class LoopbackSeam:
+    """The seam's transport where ``grpcio`` is absent: in process, but
+    every request and every response is serialized with the port's codec
+    and parsed on the other side (the classes of ``grpc_shim.METHODS``),
+    and every verb passes the service's bearer-token gate
+    (``grpc_shim._authed``) with the client's metadata. The client half
+    has the verbs of ``GrpcSchedulerClient`` and kubectl's
+    ``get_state_snapshot``; ``sent`` / ``received`` count the bytes."""
+
+    target = "loopback"
+
+    class Refused(Exception):
+        """The token gate aborted the call (grpc's UNAUTHENTICATED)."""
+
+    def __init__(self, svc, token, client_token) -> None:
+        from kubernetes_tpu_torch import grpc_shim
+
+        self.sent = self.received = 0
+        md = ([("authorization", f"Bearer {client_token}")]
+              if client_token else [])
+        refused = self.Refused
+
+        class Context:
+            def invocation_metadata(self):
+                return md
+
+            def abort(self, code, details):
+                raise refused(f"{code}: {details}")
+
+        ctx = Context()
+        for streaming, method, req, resp in grpc_shim.METHODS.values():
+            behavior = grpc_shim._authed(getattr(svc, method), token,
+                                         "UNAUTHENTICATED")
+            make = self._stream if streaming else self._unary
+            setattr(self, method, make(behavior, ctx, req, resp))
+
+    def _unary(self, behavior, ctx, req, resp):
+        def call(request):
+            data = request.SerializeToString()
+            self.sent += len(data)
+            out = behavior(req.FromString(data), ctx).SerializeToString()
+            self.received += len(out)
+            return resp.FromString(out)
+
+        return call
+
+    def _stream(self, behavior, ctx, req, resp):
+        def call(requests):
+            def wire():
+                for r in requests:
+                    data = r.SerializeToString()
+                    self.sent += len(data)
+                    yield req.FromString(data)
+
+            for ack in behavior(wire(), ctx):
+                out = ack.SerializeToString()
+                self.received += len(out)
+                yield resp.FromString(out)
+
+        return call
+
+    def get_state_snapshot(self):
+        from kubernetes_tpu_torch.proto import extender as pb
+
+        return self.get_state(pb.StateRequest())
+
+    def close(self) -> None:
+        pass
+
+
+def grpc_seam(svc, client_token=GRPC_TOKEN):
+    """The seam's client over ``svc``: ``serve_grpc`` on 127.0.0.1 (token
+    gated) with a ``GrpcSchedulerClient`` where ``grpcio`` imports, else
+    the :class:`LoopbackSeam`. Returns ``(client, kubectl client, close,
+    transport)``; the transport names the one that ran."""
+    from kubernetes_tpu_torch import grpc_shim, kubectl
+
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        seam = LoopbackSeam(svc, GRPC_TOKEN, client_token)
+        return seam, seam, seam.close, "loopback (grpcio absent)"
+    server, port = grpc_shim.serve_grpc(svc.scheduler, service=svc,
+                                        token=GRPC_TOKEN)
+    client = grpc_shim.GrpcSchedulerClient(f"127.0.0.1:{port}",
+                                           token=client_token)
+    kc = kubectl._Client(f"127.0.0.1:{port}", token=client_token)
+
+    def close():
+        client.close()
+        kc.close()
+        server.stop(grace=None)
+
+    return client, kc, close, "grpc (serve_grpc on 127.0.0.1)"
+
+
+def token_refused(svc) -> bool:
+    """A client with a wrong token is refused by the seam's gate."""
+    from kubernetes_tpu_torch.proto import extender as pb
+
+    client, _, close, _ = grpc_seam(svc, client_token="forged")
+    try:
+        client.get_state(pb.StateRequest())
+    except Exception as e:  # grpc.RpcError or LoopbackSeam.Refused
+        code = getattr(e, "code", None)
+        return "UNAUTHENTICATED" in str(code() if callable(code) else e)
+    finally:
+        close()
+    return False
+
+
+class AckTap:
+    """Wraps a client's ``sync_state``: records (delta revision, acked
+    revision) for every delta sent."""
+
+    def __init__(self, client) -> None:
+        self.client = client
+        self.pairs: list = []
+
+    def sync_state(self, requests):
+        sent = []
+
+        def tap():
+            for d in requests:
+                sent.append(d.revision)
+                yield d
+
+        # one ack per delta, in order
+        for i, ack in enumerate(self.client.sync_state(tap())):
+            self.pairs.append((sent[i], ack.revision))
+            yield ack
+
+
+class CountingBinder:
+    """The hub's CAS Binding subresource (``sim.FlakyBinder`` with no
+    injected failures), counting the binds of each pod."""
+
+    def __init__(self, hub) -> None:
+        import random
+
+        from kubernetes_tpu_torch.sim import FlakyBinder
+
+        self.inner = FlakyBinder(hub, 0.0, random.Random(0))
+        self.count: dict = {}
+
+    @property
+    def conflicts(self) -> int:
+        return self.inner.conflicts
+
+    def bind(self, pod, node_name: str) -> None:
+        self.inner.bind(pod, node_name)
+        self.count[pod.key()] = self.count.get(pod.key(), 0) + 1
+
+
+def checked_bridge(hub, client, phase: str):
+    """A ``SnapshotDeltaBridge`` whose every typed payload is checked as it
+    is streamed: the bytes decode (``from_pb``) to the object the JSON
+    slice gives (``from_json(to_json(x))`` through ``json.dumps``)."""
+    from kubernetes_tpu_torch.api.protobuf import (
+        node_from_pb,
+        node_to_pb,
+        pod_from_pb,
+    )
+    from kubernetes_tpu_torch.extender import node_from_json
+    from kubernetes_tpu_torch.grpc_shim import SnapshotDeltaBridge
+    from kubernetes_tpu_torch.proto import corev1
+    from kubernetes_tpu_torch.server import pod_from_json
+
+    class CheckedBridge(SnapshotDeltaBridge):
+        checked = 0
+
+        def _payload(self, obj, to_pb, to_json, pb_field, json_field):
+            got = super()._payload(obj, to_pb, to_json, pb_field, json_field)
+            if obj is None:
+                return got
+            if pb_field not in got:
+                fail(f"{phase}: the bridge sent {json_field}, not typed "
+                     "payloads (KTPU_PROTO_FEED)")
+            node = to_pb is node_to_pb
+            msg = (corev1.NodeMsg if node else corev1.PodMsg).FromString(
+                got[pb_field])
+            back = (node_from_pb if node else pod_from_pb)(msg)
+            want = (node_from_json if node else pod_from_json)(
+                json.loads(json.dumps(to_json(obj))))
+            if back != want:
+                fail(f"{phase}: {json_field[:3]} {getattr(obj, 'name', '')} "
+                     "decodes from its typed payload unlike its JSON")
+            CheckedBridge.checked += 1
+            return got
+
+    return CheckedBridge(hub, client)
+
+
+class RevisionCheck:
+    """After each pump: every delta was acked with its own revision, and
+    the last ack is the hub's revision of its last node or pod event
+    (read by a cursor of its own)."""
+
+    def __init__(self, hub, acks: AckTap, phase: str) -> None:
+        self.last = hub.list_state()[0]
+        self.cursor = hub.watch(self.last)
+        self.acks, self.phase = acks, phase
+        self.checks = 0
+
+    def __call__(self) -> None:
+        for rev, key, _etype, _obj in self.cursor.poll():
+            if key.startswith(("nodes/", "pods/")):
+                self.last = max(self.last, rev)
+        bad = [p for p in self.acks.pairs if p[0] != p[1]]
+        if bad:
+            fail(f"{self.phase}: acks differ from their deltas' revisions: "
+                 f"{bad[:3]}")
+        if self.acks.pairs and self.acks.pairs[-1][1] != self.last:
+            fail(f"{self.phase}: acked revision {self.acks.pairs[-1][1]}, "
+                 f"the hub's is {self.last}")
+        self.checks += 1
+
+
+def _kubectl_render(kc, snap, n_nodes: int, n_pods: int) -> dict:
+    """One GetState rendered by kubectl's ``cmd_get``, ``cmd_top`` and
+    ``cmd_describe`` through a ``State``; output captured and checked."""
+    import contextlib
+    import io
+
+    from kubernetes_tpu_torch import kubectl
+
+    class OneState:
+        """kubectl's client over one snapshot: every verb reads ``snap``;
+        Filter and Prioritize still go over the seam."""
+
+        def get_state_snapshot(self):
+            return snap
+
+        def __getattr__(self, name):
+            return getattr(kc, name)
+
+    st = kubectl.State(snap)
+    first_pod = st.bound[0]["metadata"]["name"]
+    out = {}
+    for name, fn, ns in (
+            ("get_nodes", kubectl.cmd_get, {"kind": "nodes"}),
+            ("get_pods", kubectl.cmd_get, {"kind": "pods",
+                                           "namespace": None,
+                                           "all_namespaces": True}),
+            ("top_nodes", kubectl.cmd_top, {"kind": "nodes"}),
+            ("describe_node", kubectl.cmd_describe,
+             {"kind": "node", "name": "node-1"}),
+            ("describe_pod", kubectl.cmd_describe,
+             {"kind": "pod", "name": first_pod})):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(OneState(), argparse.Namespace(**ns))
+        text = buf.getvalue()
+        if rc != 0:
+            fail(f"grpc: kubectl {name} exited {rc}")
+        out[name] = text
+    lines = {k: v.count("\n") for k, v in out.items()}
+    if (lines["get_nodes"] != n_nodes + 1 or lines["top_nodes"] != n_nodes + 1
+            or lines["get_pods"] != n_pods + 1
+            or out["get_pods"].count(" Bound ") != n_pods
+            or "Pods (" not in out["describe_node"]
+            or "Node:       node-" not in out["describe_pod"]
+            or len(st.nodes) != n_nodes or len(st.bound) != n_pods
+            or st.pending):
+        fail(f"grpc: kubectl rendered {lines} over {len(st.nodes)} nodes, "
+             f"{len(st.bound)} bound and {len(st.pending)} pending pods")
+    return {"lines": lines, "revision": st.revision}
+
+
+def codec_times(hub, reps: int) -> dict:
+    """The whole node list on the card's host: bytes, encode and decode
+    seconds of the protobuf envelope (the port's codec) and of JSON
+    (``json.dumps`` / ``json.loads`` of the same list), the median of
+    ``reps`` runs each; both decodes must give the same nodes."""
+    from kubernetes_tpu_torch.api.protobuf import (
+        decode_envelope,
+        encode_envelope,
+        node_from_pb,
+        node_list_to_pb,
+    )
+    from kubernetes_tpu_torch.extender import node_from_json, node_to_json
+    from kubernetes_tpu_torch.proto import corev1
+
+    nodes = sorted(hub.truth_nodes.values(), key=lambda n: n.name)
+    times = {"pb_encode_s": [], "json_encode_s": [], "pb_decode_s": [],
+             "json_decode_s": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pb_bytes = encode_envelope("NodeList", node_list_to_pb(nodes, 1))
+        t1 = time.perf_counter()
+        js_bytes = json.dumps({"kind": "NodeList", "apiVersion": "v1",
+                               "items": [node_to_json(n) for n in nodes]}
+                              ).encode()
+        t2 = time.perf_counter()
+        back_pb = [node_from_pb(m) for m in corev1.NodeListMsg.FromString(
+            decode_envelope(pb_bytes)[1]).items]
+        t3 = time.perf_counter()
+        back_js = [node_from_json(d) for d in json.loads(js_bytes)["items"]]
+        t4 = time.perf_counter()
+        for k, v in zip(times, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            times[k].append(v)
+    if back_pb != back_js:
+        fail("grpc: the protobuf node list decodes unlike the JSON one")
+    return {"nodes": len(nodes), "pb_bytes": len(pb_bytes),
+            "json_bytes": len(js_bytes),
+            "bytes_ratio_json_over_pb": len(js_bytes) / len(pb_bytes),
+            **{k: statistics.median(v) for k, v in times.items()}}
+
+
+def grpc_stream(device: str, n_nodes: int, n_bound: int, n_pending: int,
+                n_verb_pods: int, full: bool, seed: int = 7) -> dict:
+    """Arm A (``full``) or its reduced run: the smoke cell's cluster on a
+    ``sim.HollowCluster``, listed by a checked ``SnapshotDeltaBridge`` as
+    typed deltas; ``n_pending`` pods created in the hub arrive as PodDelta
+    ADDs; a service-side ``Scheduler(device=device)`` (default solver)
+    schedules cycles until its queue is empty, binding through the hub's
+    CAS binder, the watch echo confirming; then ``n_verb_pods`` more pods
+    go through the seam's Filter (every node name), Prioritize (the
+    feasible names) and Bind (the best score), each answer held against
+    the ``ExtenderServer`` JSON verbs'. With ``full``, one GetState
+    rendered by kubectl, the REST lists in protobuf and the codec's
+    times. Every pod must bind exactly once."""
+    from kubernetes_tpu_torch.extender import pod_to_json
+    from kubernetes_tpu_torch.grpc_shim import TpuSchedulerService
+    from kubernetes_tpu_torch.kubectl import RestClient
+    from kubernetes_tpu_torch.proto import extender as pb
+    from kubernetes_tpu_torch.restapi import RestServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.sim import HollowCluster
+
+    tag = f"grpc[{device}]"
+    t_start = time.perf_counter()
+    nodes, bound, pending = smoke_cell(n_nodes, n_bound,
+                                       n_pending + n_verb_pods, seed)
+    pending, verb_pods = pending[:n_pending], pending[n_pending:]
+    # the hub's own scheduler is never cycled: the service's schedules
+    hub = HollowCluster(seed=seed, scheduler_kw={"device": device})
+    for nd in nodes:
+        hub.add_node(nd)
+    for p in bound:
+        hub.create_pod(p)
+    binder = CountingBinder(hub)
+    sched = Scheduler(device=device, clock=hub.clock, binder=binder)
+    svc = TpuSchedulerService(sched)
+    client, kc, close, transport = grpc_seam(svc)
+    acks = AckTap(client)
+    try:
+        revs = RevisionCheck(hub, acks, tag)
+        t0 = time.perf_counter()
+        bridge = checked_bridge(hub, acks, tag)
+        list_s = time.perf_counter() - t0
+        revs()
+        for p in pending:
+            hub.create_pod(p)
+        t0 = time.perf_counter()
+        bridge.pump()
+        feed_s = time.perf_counter() - t0
+        revs()
+        if sched.cache.node_count() != n_nodes or len(sched.queue) != len(
+                pending):
+            fail(f"{tag}: the service holds {sched.cache.node_count()} "
+                 f"nodes and {len(sched.queue)} queued pods")
+        cycles, cycle_s, echo_s = [], [], 0.0
+        for _ in range(16):
+            t0 = time.perf_counter()
+            with svc.lock:
+                r = sched.schedule_cycle()
+            cycle_s.append(time.perf_counter() - t0)
+            if r.attempted == 0:
+                break
+            if r.solver_tier != "batch" or r.solver_fallbacks:
+                fail(f"{tag}: a cycle solved on {r.solver_tier!r} after "
+                     f"{r.solver_fallbacks} fallbacks")
+            cycles.append(r)
+            t0 = time.perf_counter()
+            bridge.pump()
+            echo_s += time.perf_counter() - t0
+            revs()
+        if len(sched.queue):
+            fail(f"{tag}: {len(sched.queue)} pods still queued")
+        # the extender verbs and Bind over the seam, node names only
+        for p in verb_pods:
+            hub.create_pod(p)
+        bridge.pump()
+        revs()
+        names = [nd.name for nd in nodes]
+        verbs_s, verb_rows = 0.0, []
+        for p in verb_pods:
+            doc = pod_to_json(hub.truth_pods[p.key()])
+            t0 = time.perf_counter()
+            fr = client.filter(pb.ExtenderArgs(pod_json=json.dumps(doc),
+                                               node_names=names))
+            feasible = list(fr.node_names)
+            pr = client.prioritize(pb.ExtenderArgs(
+                pod_json=json.dumps(doc), node_names=feasible))
+            verbs_s += time.perf_counter() - t0
+            want_f = svc.extender.handle("filter", {"pod": doc,
+                                                    "nodenames": names})
+            want_p = svc.extender.handle("prioritize",
+                                         {"pod": doc, "nodenames": feasible})
+            if (fr.error or feasible != want_f["nodenames"]
+                    or dict(fr.failed_nodes) != want_f["failedNodes"]
+                    or pr.error
+                    or [(i.host, i.score) for i in pr.items]
+                    != [(d["host"], d["score"]) for d in want_p]):
+                fail(f"{tag}: Filter/Prioritize for {p.key()} differ from "
+                     "the ExtenderServer JSON verbs")
+            if not pr.items:
+                fail(f"{tag}: no feasible node for {p.key()}")
+            best = max(pr.items, key=lambda i: i.score)
+            t0 = time.perf_counter()
+            res = client.bind(pb.Binding(pod_key=p.key(), node=best.host))
+            verbs_s += time.perf_counter() - t0
+            if not res.ok:
+                fail(f"{tag}: Bind {p.key()} -> {best.host}: {res.error}")
+            verb_rows.append((len(feasible), best.score))
+        bridge.pump()
+        revs()
+        keys = [p.key() for p in pending + verb_pods]
+        once = [k for k in keys if binder.count.get(k) != 1
+                or not hub.truth_pods[k].node_name]
+        if once or binder.conflicts or any(sched.cache.is_assumed(k)
+                                           for k in keys):
+            fail(f"{tag}: {len(once)} pods not bound exactly once (e.g. "
+                 f"{once[:3]}), {binder.conflicts} conflicts")
+        assignments = {k: hub.truth_pods[k].node_name for k in keys}
+        by_key = {p.key(): p for p in pending + verb_pods}
+        recheck_capacity(nodes, bound, assignments, by_key)
+        if not token_refused(svc):
+            fail(f"{tag}: a forged token passed the seam's gate")
+        out = {"transport": transport, "nodes": n_nodes,
+               "bound": n_bound, "pending": n_pending,
+               "verb_pods": n_verb_pods, "cycles": len(cycles),
+               "attempted": [r.attempted for r in cycles],
+               "pipeline_chunks": [r.pipeline_chunks for r in cycles],
+               "rounds": [r.rounds for r in cycles],
+               "cycle_s": cycle_s, "list_s": list_s, "feed_s": feed_s,
+               "echo_s": echo_s, "verbs_s": verbs_s,
+               "verb_feasible_min": min(f for f, _ in verb_rows),
+               "streamed_checked": type(bridge).checked,
+               "acks": len(acks.pairs), "ack_checks": revs.checks,
+               "placements": sorted(assignments.items())}
+        if isinstance(client, LoopbackSeam):
+            out["loopback_bytes"] = {"sent": client.sent,
+                                     "received": client.received}
+        if full:
+            t0 = time.perf_counter()
+            snap = kc.get_state_snapshot()
+            out["get_state_s"] = time.perf_counter() - t0
+            out["kubectl"] = _kubectl_render(
+                kc, snap, n_nodes, n_bound + n_pending + n_verb_pods)
+            server = RestServer(hub)
+            port = server.serve()
+            try:
+                t0 = time.perf_counter()
+                out["rest"] = rest_protobuf(RestClient(f"127.0.0.1:{port}"),
+                                            tag, GRPC["rest_page"])
+                out["rest_s"] = time.perf_counter() - t0
+            finally:
+                server.close()
+            out["codec"] = codec_times(hub, GRPC["codec_reps"])
+    finally:
+        close()
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def grpc_converge() -> dict:
+    """Arm B, the reference integration test's convergence
+    (``tests/test_integration_grpc_hub.py``) on the card: a hub of 1000 of
+    the smoke cell's nodes and 500 of its pods driven by a remote service
+    (``solver="sinkhorn"``) through the bridge — pump, a cycle under the
+    service lock, pump — until every pod is bound, the service's cache
+    equal to the hub's truth and no assumption left to expire; then a
+    ReplicaSet placed, one churn step killing bound pods and the
+    controller's refeed placed again."""
+    from kubernetes_tpu_torch.debugger import compare
+    from kubernetes_tpu_torch.grpc_shim import TpuSchedulerService
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.sim import HollowCluster, ReplicaSet
+
+    t_start = time.perf_counter()
+    nodes, _, pending = smoke_cell(GRPC["hub_nodes"], 0, GRPC["hub_pods"])
+    hub = HollowCluster(seed=21, scheduler_kw={"device": "cuda"})
+    for nd in nodes:
+        hub.add_node(nd)
+    for p in pending:
+        hub.create_pod(p)
+    binder = CountingBinder(hub)
+    remote = Scheduler(device="cuda", solver="sinkhorn", clock=hub.clock,
+                       enable_preemption=False, binder=binder)
+    svc = TpuSchedulerService(remote)
+    client, _, close, transport = grpc_seam(svc)
+    steps = []
+
+    def step() -> int:
+        bridge.pump()
+        t0 = time.perf_counter()
+        with svc.lock:
+            r = remote.schedule_cycle()
+        steps.append(time.perf_counter() - t0)
+        if r.attempted and (r.solver_tier != "sinkhorn"
+                            or r.solver_fallbacks):
+            fail(f"grpc: arm B solved on {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+        bridge.pump()
+        return r.scheduled
+
+    def oracle(when: str) -> None:
+        truth = {k: p.node_name for k, p in hub.truth_pods.items()}
+        nd, pd = compare(remote, truth, list(hub.truth_nodes))
+        if nd or pd:
+            fail(f"grpc: arm B's service differs from the hub {when}: "
+                 f"{nd[:3]} {pd[:3]}")
+
+    try:
+        bridge = checked_bridge(hub, client, "grpc[B]")
+        total = 0
+        for _ in range(10):
+            total += step()
+            hub.clock.advance(2.0)
+            if total >= len(pending):
+                break
+        if total != len(pending) or hub.bound_total != len(pending) \
+                or binder.conflicts:
+            fail(f"grpc: arm B bound {total} of {len(pending)} "
+                 f"(hub {hub.bound_total}, {binder.conflicts} conflicts)")
+        oracle("after convergence")
+        converge_steps = len(steps)
+        hub.clock.advance(60.0)
+        if remote.cache.cleanup_expired():
+            fail("grpc: arm B left assumptions to expire")
+        hub.add_replicaset(ReplicaSet("web", replicas=GRPC["hub_replicas"]))
+        for _ in range(4):
+            hub.reconcile_controllers()
+            step()
+            hub.clock.advance(2.0)
+        hub.churn(kill_pods=GRPC["hub_killed"])
+        for _ in range(6):
+            hub.reconcile_controllers()
+            step()
+            hub.clock.advance(2.0)
+        rs = hub.replicasets["web"]
+        live = [hub.truth_pods[k] for k in rs.live if k in hub.truth_pods]
+        unbound = [k for k, p in hub.truth_pods.items() if not p.node_name]
+        if len(live) != GRPC["hub_replicas"] or unbound:
+            fail(f"grpc: arm B after churn: {len(live)} replicas live, "
+                 f"{len(unbound)} pods unbound")
+        oracle("after the churn step")
+        twice = [k for k, n in binder.count.items() if n != 1]
+        if twice:
+            fail(f"grpc: arm B bound {twice[:3]} more than once")
+    finally:
+        close()
+    return {"transport": transport, "nodes": len(nodes),
+            "pods": len(pending), "converge_steps": converge_steps,
+            "steps": len(steps), "cycle_s": steps,
+            "binds": sum(binder.count.values()),
+            "streamed_checked": type(bridge).checked,
+            "wall_s": time.perf_counter() - t_start}
+
+
+def phase_grpc() -> dict:
+    """Cell ``grpc-5k-deltas``: the protobuf codec and the gRPC seam on
+    the card's machine, over ``serve_grpc`` where ``grpcio`` imports and
+    the in-process loopback where it does not (the line names which).
+    Arm A at full width (the general round: the nodes' soft taints keep
+    TaintToleration live, the wire slice leaves the pods no preference,
+    so the pair cannot launch), arm B (``solver: sinkhorn``) must launch
+    u and v, arm C holds arm A's stream at 500 nodes equal on CUDA and on
+    CPU tensors; all counted from 0 together."""
+    from kubernetes_tpu_torch import kernels
+
+    kernels.reset_launches()
+    out = {}
+    before = launch_counts()
+    a = grpc_stream("cuda", GRPC["n_nodes"], GRPC["n_bound"],
+                    GRPC["n_pending"], GRPC["n_verb_pods"], full=True)
+    a["launches"] = _launches_since(before)
+    # no pair here: the wire slice (JSON and protobuf alike, the
+    # reference's too) carries no affinity and no tolerations, so a
+    # delta-fed scheduler gates NodeAffinityPriority off, and the fused
+    # pair runs only with both NodeAffinity and TaintToleration live
+    cycles = a["cycles"]
+    a.pop("placements")
+    emit({"phase": "grpc", "arm": "A", "cell": "grpc-5k-deltas", **a})
+    out["A"] = {"wall_s": a["wall_s"], "launches": a["launches"]}
+    release_graphs()
+    before = launch_counts()
+    b = grpc_converge()
+    b["launches"] = _launches_since(before)
+    for name in ("sinkhorn_u", "sinkhorn_v"):
+        if b["launches"][name] <= 0:
+            fail(f"grpc: arm B never launched {name}")
+    cycles += b["steps"]
+    emit({"phase": "grpc", "arm": "B", "cell": "grpc-5k-deltas", **b})
+    out["B"] = {"wall_s": b["wall_s"], "launches": b["launches"]}
+    release_graphs()
+    before = launch_counts()
+    runs = {dev: grpc_stream(dev, GRPC["eq_nodes"], GRPC["eq_bound"],
+                             GRPC["eq_pending"], GRPC["eq_verb_pods"],
+                             full=False)
+            for dev in ("cuda", "cpu")}
+    launches_c = _launches_since(before)
+    if runs["cuda"]["placements"] != runs["cpu"]["placements"]:
+        diff = [(a_, b_) for a_, b_ in zip(runs["cuda"]["placements"],
+                                          runs["cpu"]["placements"])
+                if a_ != b_]
+        fail(f"grpc: arm C's placements differ on CUDA and CPU: {diff[:3]}")
+    cycles += runs["cuda"]["cycles"]
+    emit({"phase": "grpc", "arm": "C", "cell": "grpc-5k-deltas",
+          "equal_placements": len(runs["cuda"]["placements"]),
+          "launches": launches_c,
+          **{f"{dev}_{k}": runs[dev][k] for dev in runs
+             for k in ("wall_s", "cycle_s", "transport")}})
+    out["C"] = {"wall_s": runs["cuda"]["wall_s"] + runs["cpu"]["wall_s"],
+                "launches": launches_c}
+    return {"launches": launch_counts(), "shapes": launch_shapes(),
+            "cycles": cycles, "arms": out}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -6576,7 +7320,8 @@ def main() -> None:
                        ("hollow", phase_hollow),
                        ("recovery", phase_recovery),
                        ("ledger", phase_ledger),
-                       ("scenario", phase_scenario)):
+                       ("scenario", phase_scenario),
+                       ("grpc", phase_grpc)):
         if phase not in phases:
             continue
         RECOVERY.reset()

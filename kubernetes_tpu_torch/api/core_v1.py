@@ -11,7 +11,8 @@ while the conversion functions themselves are the ALREADY-TESTED wire
 converters the REST seam uses (extender.pod_to_json/node_to_json/
 node_from_json, server.pod_from_json): one converter set, two access
 paths, zero drift. (The port's copy of ``kubernetes_tpu/api/core_v1.py``;
-the reference keeps ``node_from_json`` in ``grpc_shim.py``.)
+``node_from_json`` lives in ``extender.py`` beside ``node_to_json``, and
+``grpc_shim`` re-exports it.)
 
 The versioned "types" here are deliberately thin mapping holders (the
 wire document), not field-by-field dataclasses: the wire shape is

@@ -176,8 +176,8 @@ def node_to_json(node) -> dict:
 
 def node_from_json(d: dict) -> Node:
     """Inverse of :func:`node_to_json` for the fields the kernels read
-    (the reference keeps it in ``grpc_shim.py``, which needs protobuf;
-    ROADMAP A.16.3)."""
+    (``grpc_shim.node_from_json`` is this function; the REST registry
+    and the scheme decode nodes with it too)."""
     meta = d.get("metadata", {})
     status = d.get("status", {})
     alloc = status.get("allocatable") or {}

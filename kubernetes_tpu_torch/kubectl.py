@@ -1,7 +1,16 @@
 """``ktpu`` — the kubectl-shaped operator CLI for this framework's scope
 (the `pkg/kubectl` analog restricted to what the scheduler service owns):
-the REST half of the JAX package's ``kubectl.py``, which mutates and reads
-cluster state through the REST registry.
+inspect the service's resident snapshot over the gRPC seam, EXPLAIN
+scheduling decisions with the real device kernels, and mutate cluster
+state through the REST registry.
+
+Read verbs (gRPC seam, --server HOST:PORT — grpc_shim.py; needs grpcio):
+
+    python -m kubernetes_tpu_torch.kubectl --server 127.0.0.1:PORT get nodes
+    python -m kubernetes_tpu_torch.kubectl --server ... get pods
+    python -m kubernetes_tpu_torch.kubectl --server ... describe pod web-0
+    python -m kubernetes_tpu_torch.kubectl --server ... describe node n3
+    python -m kubernetes_tpu_torch.kubectl --server ... top nodes
 
 Verbs (REST registry, --api-server HOST:PORT — restapi.py):
 
@@ -14,13 +23,15 @@ Verbs (REST registry, --api-server HOST:PORT — restapi.py):
     python -m kubernetes_tpu_torch.kubectl --api-server ... scale deployment/web --replicas 3
     python -m kubernetes_tpu_torch.kubectl --api-server ... rollout status deployment/web
 
-``cordon`` is the kubectl drain primitive: a resourceVersion-preconditioned
-PUT retried on 409, the client side of GuaranteedUpdate.
-
-The read verbs over the scheduler's resident snapshot (``--server``:
-``get nodes|pods``, ``top nodes``, ``describe pod|node``) need the gRPC
-seam (``grpc_shim.py``, ``proto/``), which is not ported (ROADMAP A.16.3):
-they exit 1 with a message naming that item.
+``describe pod`` on a pending pod runs the Filter/Prioritize verbs against
+every node in the snapshot and prints the per-node failure reasons /
+scores — `kubectl describe pod` events plus `kubectl get events` rolled
+into the scheduler's own explanation (FitError text shapes). ``cordon``
+is the kubectl drain primitive: a resourceVersion-preconditioned PUT
+retried on 409, the client side of GuaranteedUpdate. The read verbs take
+any client with ``get_state_snapshot``, ``filter`` and ``prioritize``
+(:class:`_Client` over gRPC, or another transport of the same messages).
+Without grpcio, ``--server`` exits 1 with one line naming it.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ import argparse
 import json
 import os
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 def _fmt_table(headers: List[str], rows: List[List[str]]) -> str:
@@ -41,6 +52,240 @@ def _fmt_table(headers: List[str], rows: List[List[str]]) -> str:
         str(c).ljust(w) for c, w in zip(cells, widths)
     ).rstrip()
     return "\n".join([line(headers)] + [line(r) for r in rows])
+
+
+def _parse_mem(n: float) -> str:
+    for unit, div in (("Gi", 2**30), ("Mi", 2**20), ("Ki", 2**10)):
+        if n >= div:
+            return f"{n / div:.1f}{unit}"
+    return str(int(n))
+
+
+class State:
+    """Decoded GetState snapshot."""
+
+    def __init__(self, snap) -> None:
+        self.revision = snap.revision
+        self.nodes = [json.loads(j) for j in snap.node_json]
+        self.bound = [json.loads(j) for j in snap.pod_json]
+        #: list of (queue name, pod doc) — provenance from the service
+        self.pending_q = []
+        for j in snap.pending_json:
+            doc = json.loads(j)
+            self.pending_q.append((doc["queue"], doc["pod"]))
+        self.pending = [p for _, p in self.pending_q]
+
+    def node_names(self) -> List[str]:
+        return [n["metadata"]["name"] for n in self.nodes]
+
+    def find_pod(self, name: str) -> Optional[dict]:
+        ns, _, bare = name.rpartition("/")
+        ns = ns or None
+        for p in self.pending + self.bound:
+            m = p["metadata"]
+            if m["name"] == bare and (ns is None or m["namespace"] == ns):
+                return p
+        return None
+
+    def usage_by_node(self) -> Dict[str, Dict[str, float]]:
+        out: Dict[str, Dict[str, float]] = {}
+        for p in self.bound:
+            nd = p["spec"].get("nodeName")
+            if not nd:
+                continue
+            u = out.setdefault(nd, {"cpu": 0.0, "memory": 0.0, "pods": 0})
+            for c in p["spec"].get("containers", []):
+                req = (c.get("resources") or {}).get("requests") or {}
+                from kubernetes_tpu_torch.server import parse_quantity
+
+                u["cpu"] += parse_quantity(req.get("cpu", "0"), is_cpu=True)
+                u["memory"] += parse_quantity(req.get("memory", "0"))
+            u["pods"] += 1
+        return out
+
+
+def _node_status(nd: dict) -> str:
+    conds = {c["type"]: c["status"] == "True"
+             for c in nd.get("status", {}).get("conditions", [])}
+    parts = ["Ready" if conds.get("Ready", True) else "NotReady"]
+    if nd.get("spec", {}).get("unschedulable"):
+        parts.append("SchedulingDisabled")
+    for k in ("MemoryPressure", "DiskPressure", "PIDPressure"):
+        if conds.get(k):
+            parts.append(k)
+    return ",".join(parts)
+
+
+def cmd_get(client, args) -> int:
+    st = State(client.get_state_snapshot())
+    if args.kind in ("nodes", "node", "no"):
+        rows = []
+        for nd in st.nodes:
+            alloc = nd["status"]["allocatable"]
+            taints = nd.get("spec", {}).get("taints", [])
+            rows.append([
+                nd["metadata"]["name"], _node_status(nd),
+                str(len(taints)), alloc.get("cpu", "?"),
+                _parse_mem(float(alloc.get("memory", 0))),
+                alloc.get("pods", "?"),
+            ])
+        print(_fmt_table(
+            ["NAME", "STATUS", "TAINTS", "CPU", "MEMORY", "PODS"], rows))
+    elif args.kind in ("pods", "pod", "po"):
+        # kubectl-parity scoping: -n selects a namespace (defaulting to
+        # "default", like kubectl), -A lists every namespace
+        want_ns = None if getattr(args, "all_namespaces", False) \
+            else getattr(args, "namespace", None)
+        rows = []
+        for p in st.bound:
+            m = p["metadata"]
+            if want_ns and m["namespace"] != want_ns:
+                continue
+            rows.append([m["namespace"], m["name"], "Bound",
+                         p["spec"].get("nodeName", ""),
+                         str(p["spec"].get("priority", 0))])
+        for q, p in st.pending_q:
+            m = p["metadata"]
+            if want_ns and m["namespace"] != want_ns:
+                continue
+            status = "Pending" if q == "active" else f"Pending({q})"
+            rows.append([m["namespace"], m["name"], status, "",
+                         str(p["spec"].get("priority", 0))])
+        print(_fmt_table(
+            ["NAMESPACE", "NAME", "STATUS", "NODE", "PRIORITY"], rows))
+    else:
+        print(f"error: unknown kind {args.kind!r}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_top(client, args) -> int:
+    st = State(client.get_state_snapshot())
+    usage = st.usage_by_node()
+    from kubernetes_tpu_torch.server import parse_quantity
+
+    rows = []
+    for nd in st.nodes:
+        name = nd["metadata"]["name"]
+        alloc = nd["status"]["allocatable"]
+        cap_cpu = parse_quantity(alloc.get("cpu", "0"), is_cpu=True)
+        cap_mem = parse_quantity(alloc.get("memory", "0"))
+        u = usage.get(name, {"cpu": 0.0, "memory": 0.0, "pods": 0})
+        rows.append([
+            name,
+            f"{u['cpu']:.0f}m",
+            f"{100 * u['cpu'] / cap_cpu:.0f}%" if cap_cpu else "-",
+            _parse_mem(u["memory"]),
+            f"{100 * u['memory'] / cap_mem:.0f}%" if cap_mem else "-",
+            str(u["pods"]),
+        ])
+    print(_fmt_table(
+        ["NAME", "CPU(req)", "CPU%", "MEMORY(req)", "MEMORY%", "PODS"], rows))
+    return 0
+
+
+def _pending_breakdown(failed_nodes: Dict[str, str], n_total: int,
+                       feasible: int) -> List[str]:
+    """kubectl-describe enrichment for a pending pod: aggregate the
+    filter verb's per-node failure reasons into the reference's
+    "0/N nodes are available: <count> <reason>, ..." line (FitError
+    shape, per-reason NODE counts) plus the top one-bit-away
+    relaxations — a node whose failure set is a single predicate is
+    opened by relaxing exactly that predicate (obs/explain.py
+    semantics, recomputed client-side from the wire reasons)."""
+    from kubernetes_tpu_torch.obs.explain import reason_message
+    from kubernetes_tpu_torch.ops.predicates import PREDICATE_BITS
+
+    predicates = set(PREDICATE_BITS)
+    per_reason: Dict[str, int] = {}
+    one_bit: Dict[str, int] = {}
+    for _node, why in failed_nodes.items():
+        names = [w for w in why.split(",") if w]
+        for nm in names:
+            per_reason[nm] = per_reason.get(nm, 0) + 1
+        # wire sentinels ("infeasible", "node not in snapshot") stay in
+        # the 0/N line but are not predicates — "relax infeasible" is
+        # not actionable advice
+        if len(names) == 1 and names[0] in predicates:
+            one_bit[names[0]] = one_bit.get(names[0], 0) + 1
+    lines: List[str] = []
+    if not feasible and per_reason:
+        parts = sorted(
+            f"{c} {reason_message(n)}" for n, c in per_reason.items())
+        lines.append(
+            f"Status: 0/{n_total} nodes are available: "
+            f"{', '.join(parts)}.")
+    if not feasible and one_bit:
+        lines.append("One-bit-away (single relaxation -> nodes opened):")
+        for nm, c in sorted(one_bit.items(),
+                            key=lambda kv: (-kv[1], kv[0]))[:3]:
+            lines.append(f"  relax {nm}: +{c} node(s)")
+    return lines
+
+
+def cmd_describe(client, args) -> int:
+    from kubernetes_tpu_torch.proto import extender as pb
+
+    st = State(client.get_state_snapshot())
+    if args.kind in ("pod", "pods", "po"):
+        p = st.find_pod(args.name)
+        if p is None:
+            print(f'error: pod "{args.name}" not found', file=sys.stderr)
+            return 1
+        m = p["metadata"]
+        print(f"Name:       {m['name']}")
+        print(f"Namespace:  {m['namespace']}")
+        print(f"Priority:   {p['spec'].get('priority', 0)}")
+        print(f"Labels:     {m.get('labels') or {}}")
+        node = p["spec"].get("nodeName", "")
+        print(f"Node:       {node or '<none>'}")
+        if not node:
+            # explain: run the real Filter/Prioritize verbs over the
+            # snapshot (the scheduler's own kernels answer)
+            fr = client.filter(pb.ExtenderArgs(
+                pod_json=json.dumps(p), node_names=st.node_names()))
+            print("\nScheduling explanation (Filter):")
+            if fr.error:
+                print(f"  error: {fr.error}")
+            for line in _pending_breakdown(
+                    dict(fr.failed_nodes),
+                    len(fr.node_names) + len(fr.failed_nodes),
+                    len(fr.node_names)):
+                print(line)
+            for n in fr.node_names:
+                print(f"  {n}: feasible")
+            for n, why in sorted(fr.failed_nodes.items()):
+                print(f"  {n}: {why}")
+            if fr.node_names:
+                pr = client.prioritize(pb.ExtenderArgs(
+                    pod_json=json.dumps(p),
+                    node_names=list(fr.node_names)))
+                print("Scores (0-10):")
+                for item in sorted(pr.items, key=lambda i: -i.score):
+                    print(f"  {item.host}: {item.score}")
+        return 0
+    if args.kind in ("node", "nodes", "no"):
+        nd = next((n for n in st.nodes
+                   if n["metadata"]["name"] == args.name), None)
+        if nd is None:
+            print(f'error: node "{args.name}" not found', file=sys.stderr)
+            return 1
+        print(f"Name:    {nd['metadata']['name']}")
+        print(f"Status:  {_node_status(nd)}")
+        print(f"Labels:  {nd['metadata'].get('labels') or {}}")
+        taints = nd.get("spec", {}).get("taints", [])
+        print(f"Taints:  {taints or '<none>'}")
+        print(f"Allocatable: {nd['status']['allocatable']}")
+        u = st.usage_by_node().get(args.name)
+        if u:
+            print(f"Requested:   cpu {u['cpu']:.0f}m, "
+                  f"memory {_parse_mem(u['memory'])}, pods {u['pods']}")
+        pods = [p["metadata"]["name"] for p in st.bound
+                if p["spec"].get("nodeName") == args.name]
+        print(f"Pods ({len(pods)}): {', '.join(sorted(pods)) or '<none>'}")
+        return 0
+    print(f"error: unknown kind {args.kind!r}", file=sys.stderr)
+    return 1
 
 
 class RestClient:
@@ -546,6 +791,23 @@ def cmd_cordon(rest: RestClient, args, unschedulable: bool) -> int:
     return 1
 
 
+class _Client:
+    """Thin wrapper adding get_state_snapshot() sugar."""
+
+    def __init__(self, target: str, token=None):
+        from kubernetes_tpu_torch.grpc_shim import GrpcSchedulerClient
+        from kubernetes_tpu_torch.proto import extender as pb
+
+        self._c = GrpcSchedulerClient(target, token=token)
+        self._pb = pb
+
+    def get_state_snapshot(self):
+        return self._c.get_state(self._pb.StateRequest())
+
+    def __getattr__(self, name):
+        return getattr(self._c, name)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="ktpu", description="kubectl-shaped CLI for the TPU scheduler"
@@ -693,10 +955,33 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if not args.server:
         p.error(f"{args.cmd} requires --server")
-    print(f"Error: {args.cmd} {args.kind} reads the scheduler's snapshot "
-          f"over the gRPC seam, which is not ported (ROADMAP A.16.3); "
-          f"the REST verbs take --api-server", file=sys.stderr)
-    return 1
+    try:
+        client = _Client(args.server, token=args.token)
+    except ImportError as e:
+        # the read verbs' transport is grpcio: without it, one line
+        # naming it, never a fall back to another transport
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    import grpc
+
+    try:
+        if args.cmd == "get":
+            return cmd_get(client, args)
+        if args.cmd == "top":
+            return cmd_top(client, args)
+        return cmd_describe(client, args)
+    except grpc.RpcError as e:
+        # kubectl-style one-line failures, not tracebacks: an
+        # UNAUTHENTICATED here means the service is token-gated —
+        # say how to supply one
+        hint = (" (pass --token or set KTPU_TOKEN)"
+                if e.code() == grpc.StatusCode.UNAUTHENTICATED else "")
+        print(f"Error from server: {e.code().name}: {e.details()}{hint}",
+              file=sys.stderr)
+        return 1
+    finally:
+        client.close()
+
 
 if __name__ == "__main__":
     sys.exit(main())

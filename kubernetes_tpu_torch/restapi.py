@@ -30,11 +30,10 @@ facade the reference builds in staging/src/k8s.io/apiserver:
 Status errors use the metav1.Status shape so a client-go-style consumer
 can switch on reason/code.
 
-The port's copy of ``kubernetes_tpu/restapi.py``. The protobuf wire codec
-(``api/protobuf.py``) is not ported (ROADMAP A.16.3): a request that asks
-for it (``Accept``) answers 406 and one that sends it (``Content-Type``)
-answers 415, both Status-shaped and naming the item; neither falls back to
-JSON.
+The port's copy of ``kubernetes_tpu/restapi.py``. Node and pod lists and
+single objects answer ``Accept: application/vnd.kubernetes.protobuf`` in
+the port's proto3 codec (``api/protobuf.py``) behind the k8s magic
+envelope, as the reference does; request bodies are read as JSON.
 """
 
 from __future__ import annotations
@@ -71,12 +70,6 @@ from kubernetes_tpu_torch.extender import (
 )
 from kubernetes_tpu_torch.server import pod_from_json
 from kubernetes_tpu_torch.sim import Compacted, Conflict, HollowCluster
-
-#: the Kubernetes protobuf media type (the reference's
-#: ``api/protobuf.py``), refused by the port until ROADMAP A.16.3
-PROTO_CONTENT_TYPE = "application/vnd.kubernetes.protobuf"
-PROTO_REFUSAL = ("the protobuf wire codec is not ported (ROADMAP A.16.3); "
-                 "use application/json")
 
 
 class AuditLog:
@@ -985,11 +978,7 @@ class RestServer:
 
     @staticmethod
     def _read_body(h):
-        """Parsed JSON body, or None (after a 400 response) on garbage,
-        or after a 415 on a protobuf body (ROADMAP A.16.3)."""
-        if PROTO_CONTENT_TYPE in (h.headers.get("Content-Type") or ""):
-            h._fail(415, "UnsupportedMediaType", PROTO_REFUSAL)
-            return None
+        """Parsed JSON body, or None (after a 400 response) on garbage."""
         n = int(h.headers.get("Content-Length", 0))
         raw = h.rfile.read(n) or b"{}"
         h._body_read = True  # _drain_body must not read the socket again
@@ -1065,18 +1054,27 @@ class RestServer:
         if seg[0] == "watch":
             return self._watch(h, seg[1:], parse_qs(url.query))
         if seg == ["nodes"]:
+            from kubernetes_tpu_torch.api.protobuf import node_list_to_pb
+
             return self._serve_list(
                 h, parse_qs(url.query), "NodeList",
                 list(hub.truth_nodes.values()),
                 node_fields, lambda n: n.labels,
                 lambda n: _with_rv(node_to_json(n), hub, f"nodes/{n.name}"),
-                lambda n: n.name, proto=True)
+                lambda n: n.name, to_pb_list=node_list_to_pb)
         if len(seg) == 2 and seg[0] == "nodes":
             n = hub.truth_nodes.get(seg[1])
             if n is None:
                 return h._fail(404, "NotFound", f'nodes "{seg[1]}" not found')
             if self._wants_proto(h):
-                return h._fail(406, "NotAcceptable", PROTO_REFUSAL)
+                from kubernetes_tpu_torch.api.protobuf import (
+                    PROTO_CONTENT_TYPE,
+                    encode_envelope,
+                    node_to_pb,
+                )
+
+                return h._send_raw(200, PROTO_CONTENT_TYPE,
+                                   encode_envelope("Node", node_to_pb(n)))
             return h._respond(200, _with_rv(node_to_json(n), hub,
                                             f"nodes/{n.name}"))
         if seg[0] == "namespaces" and len(seg) <= 2:
@@ -1213,6 +1211,8 @@ class RestServer:
                 "data": dict(cm.get("data", {})),
             }, hub, f"configmaps/{key}"))
         if seg == ["pods"]:
+            from kubernetes_tpu_torch.api.protobuf import pod_list_to_pb
+
             return self._serve_list(
                 h, parse_qs(url.query), "PodList",
                 [p for p in hub.truth_pods.values()
@@ -1220,13 +1220,20 @@ class RestServer:
                 pod_fields, lambda p: p.labels,
                 lambda p: _with_rv(pod_to_json(p), hub,
                                    f"pods/{p.key()}"),
-                lambda p: p.key(), proto=True)
+                lambda p: p.key(), to_pb_list=pod_list_to_pb)
         if len(seg) == 2 and seg[0] == "pods" and ns is not None:
             p = hub.truth_pods.get(f"{ns}/{seg[1]}")
             if p is None:
                 return h._fail(404, "NotFound", f'pods "{seg[1]}" not found')
             if self._wants_proto(h):
-                return h._fail(406, "NotAcceptable", PROTO_REFUSAL)
+                from kubernetes_tpu_torch.api.protobuf import (
+                    PROTO_CONTENT_TYPE,
+                    encode_envelope,
+                    pod_to_pb,
+                )
+
+                return h._send_raw(200, PROTO_CONTENT_TYPE,
+                                   encode_envelope("Pod", pod_to_pb(p)))
             return h._respond(200, _with_rv(pod_to_json(p), hub,
                                             f"pods/{p.key()}"))
         return h._fail(404, "NotFound", h.path)
@@ -1436,10 +1443,12 @@ class RestServer:
 
     @staticmethod
     def _wants_proto(h) -> bool:
+        from kubernetes_tpu_torch.api.protobuf import PROTO_CONTENT_TYPE
+
         return PROTO_CONTENT_TYPE in (h.headers.get("Accept") or "")
 
     def _serve_list(self, h, query, kind, objs, obj_fields, obj_labels,
-                    to_json, key_of, proto=False) -> None:
+                    to_json, key_of, to_pb_list=None) -> None:
         """One list pipeline for the selectable kinds: ListOptions parse →
         hub-side selector evaluation BEFORE any serialization (the watch
         cache's reason to exist — pod/strategy.go:197 MatchPod) → key-
@@ -1492,10 +1501,20 @@ class RestServer:
                 # selector'd lists (the apiserver can't compute it
                 # exactly there and leaves the field unset)
                 meta["remainingItemCount"] = remaining
-        if proto and self._wants_proto(h):
-            # where the reference answers in the protobuf codec
-            # (protobuf.go:95), the port refuses rather than answer JSON
-            return h._fail(406, "NotAcceptable", PROTO_REFUSAL)
+        if to_pb_list is not None and self._wants_proto(h):
+            # Accept: application/vnd.kubernetes.protobuf — the typed
+            # codec behind the k8s magic envelope (protobuf.go:95); the
+            # big-list wire-efficiency path
+            from kubernetes_tpu_torch.api.protobuf import (
+                PROTO_CONTENT_TYPE,
+                encode_envelope,
+            )
+
+            msg = to_pb_list(selected, int(meta["resourceVersion"]))
+            msg.continue_token = meta.get("continue", "")
+            msg.remaining = meta.get("remainingItemCount", -1)
+            return h._send_raw(200, PROTO_CONTENT_TYPE,
+                               encode_envelope(kind, msg))
         return h._respond(200, {
             "kind": kind, "apiVersion": "v1", "metadata": meta,
             "items": [to_json(o) for o in selected],

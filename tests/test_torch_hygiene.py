@@ -52,14 +52,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_imports_neither_protobuf_nor_grpc():
-    """The card's machine has no ``protobuf`` or ``grpcio``: no module of
-    the port may import them, the gRPC shim or the generated ``proto``
-    stubs (the protobuf codec and the gRPC seam are ROADMAP A.16.3)."""
+    """The card's machine has no ``protobuf`` or ``grpcio``: the port keeps
+    its own proto3 codec (``proto/``, no generated ``*_pb2.py`` file), and
+    importing every module of the port, the gRPC seam and the codec
+    included, loads no ``grpc``, no ``google.protobuf`` and no ``_pb2``
+    module."""
     mods = _port_modules()
     assert {"kubernetes_tpu_torch.restapi", "kubernetes_tpu_torch.kubectl",
-            "kubernetes_tpu_torch.sim"} <= set(mods)
-    assert not any(m.endswith((".grpc_shim", ".protobuf")) or ".proto" in m
-                   for m in mods)
+            "kubernetes_tpu_torch.sim", "kubernetes_tpu_torch.grpc_shim",
+            "kubernetes_tpu_torch.api.protobuf",
+            "kubernetes_tpu_torch.proto.wire"} <= set(mods)
+    pb2 = [os.path.join(d, f) for d, _dirs, files in os.walk(PORT)
+           for f in files if f.endswith("_pb2.py")]
+    assert pb2 == []
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -69,12 +74,47 @@ def test_port_imports_neither_protobuf_nor_grpc():
         "bad = sorted(m for m in new if m.split('.')[0] == 'grpc'\n"
         "             or m == 'google.protobuf'\n"
         "             or m.startswith('google.protobuf.')\n"
-        "             or m.endswith('.grpc_shim') or '_pb2' in m)\n"
+        "             or '_pb2' in m)\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_grpc_transport_raises_naming_grpcio_where_it_is_absent():
+    """Without ``grpc`` importable, the seam's codec, service and bridge
+    still import and work, and ``serve_grpc``, ``_handlers`` and
+    ``GrpcSchedulerClient`` raise ImportError naming ``grpcio`` (never a
+    fall back to another transport)."""
+    code = (
+        "import json, sys\n"
+        "sys.modules['grpc'] = None\n"
+        "from kubernetes_tpu_torch import grpc_shim\n"
+        "from kubernetes_tpu_torch.proto import extender as pb\n"
+        "from kubernetes_tpu_torch.scheduler import Scheduler\n"
+        "sched = Scheduler(device='cpu', enable_preemption=False)\n"
+        "svc = grpc_shim.TpuSchedulerService(sched)\n"
+        "acks = list(svc.sync_state(iter([pb.SnapshotDelta(revision=4)]),"
+        " None))\n"
+        "out = {'ack': acks[0].revision}\n"
+        "for name, call in (\n"
+        "        ('serve_grpc', lambda: grpc_shim.serve_grpc(sched)),\n"
+        "        ('_handlers', lambda: grpc_shim._handlers(svc)),\n"
+        "        ('client', lambda: grpc_shim.GrpcSchedulerClient('x:1'))):\n"
+        "    try:\n"
+        "        call()\n"
+        "        out[name] = None\n"
+        "    except ImportError as e:\n"
+        "        out[name] = str(e)\n"
+        "print(json.dumps(out))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got.pop("ack") == 4
+    for name, msg in got.items():
+        assert msg and "grpcio is not installed" in msg, name
 
 
 def test_port_files_byte_compile():

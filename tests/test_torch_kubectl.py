@@ -3,7 +3,8 @@
 the JAX package's: the same verbs, in the same order, against a
 ``RestServer`` over each package's ``HollowCluster``; every exit code,
 stdout and stderr must be equal. The read verbs over the gRPC seam
-(``--server``) are ROADMAP A.16.3 in the port and have their own test."""
+(``--server``) are held the same way against each package's own
+``serve_grpc``."""
 
 import json
 import types
@@ -129,18 +130,77 @@ def test_unreachable_server_is_a_clean_error(capsys):
         assert rc == 1 and "cannot reach" in out.err and not out.out
 
 
+def grpc_session(pkg, argv, capsys):
+    """One read verb over the gRPC seam: a scheduler on CPU tensors (the
+    port's) or the JAX package's behind its ``serve_grpc``, fed a small
+    cluster through its client (a bound pod, a pod placed by a cycle, a
+    pod no node fits), then ``kubectl --server``. Returns (rc, stdout,
+    stderr)."""
+    import importlib
+    import json as _json
+
+    from torch_parity import scheduler_pair
+
+    root = pkg.kubectl.__name__.rsplit(".", 1)[0]
+    shim = importlib.import_module(f"{root}.grpc_shim")
+    ext = importlib.import_module(f"{root}.extender")
+    msgs = importlib.import_module(
+        "kubernetes_tpu.proto.extender_pb2" if pkg is REF
+        else "kubernetes_tpu_torch.proto.extender")
+    js, ts = scheduler_pair(enable_preemption=False)
+    sched = js if pkg is REF else ts
+    server, port = shim.serve_grpc(sched)
+    client = shim.GrpcSchedulerClient(f"127.0.0.1:{port}")
+    try:
+        t = pkg.testing
+        d = msgs.SnapshotDelta(revision=3)
+        for nd in (t.make_node("n0", cpu_milli=4000, labels={"disk": "ssd"}),
+                   t.make_node("n1", cpu_milli=1000),
+                   t.make_node("n2", cpu_milli=500)):
+            d.nodes.add(op=msgs.NodeDelta.ADD, name=nd.name,
+                        node_json=_json.dumps(ext.node_to_json(nd)))
+        for p in (t.make_pod("db", cpu_milli=300, node_name="n1"),
+                  t.make_pod("api", cpu_milli=700, namespace="team-a"),
+                  t.make_pod("web", cpu_milli=9000)):
+            d.pods.add(op=msgs.PodDelta.ADD, key=p.key(),
+                       pod_json=_json.dumps(ext.pod_to_json(p)))
+        list(client.sync_state(iter([d])))
+        sched.schedule_cycle()
+        rc = pkg.kubectl.main(["--server", f"127.0.0.1:{port}", *argv])
+        out = capsys.readouterr()
+        return rc, out.out, out.err
+    finally:
+        client.close()
+        server.stop(grace=None)
+
+
 @pytest.mark.parametrize("argv", [
     ["get", "nodes"], ["get", "pods", "-A"], ["top", "nodes"],
     ["describe", "pod", "web"], ["describe", "node", "n0"],
 ])
-def test_grpc_read_verbs_are_refused_naming_the_roadmap_item(argv, capsys):
-    """The reference reads these from the scheduler's snapshot over its
-    gRPC seam, which needs grpcio and protobuf (ROADMAP A.16.3): the port
-    exits non-zero with one line naming the item, never a traceback."""
-    rc = tkubectl.main(["--server", "127.0.0.1:9", *argv])
-    out = capsys.readouterr()
-    assert rc == 1 and not out.out
-    assert "ROADMAP A.16.3" in out.err and out.err.count("\n") == 1
+def test_grpc_read_verbs_match_reference(argv, capsys):
+    """The read verbs over the gRPC seam (``--server``) print what the
+    JAX package's print over its own seam: the same exit code, stdout and
+    stderr."""
+    pytest.importorskip("grpc")
+    want = grpc_session(REF, argv, capsys)
+    got = grpc_session(PORT, argv, capsys)
+    assert got == want
+    assert got[0] == 0 and got[1] and not got[2]
     with pytest.raises(SystemExit) as e:
         tkubectl.main(argv)  # no --server: the reference's usage error
     assert e.value.code == 2
+
+
+def test_grpc_read_verbs_without_grpcio_name_it(monkeypatch, capsys):
+    """Where grpcio is not installed (the card's machine), ``--server``
+    exits 1 with one line on stderr naming it, never a traceback or
+    another transport."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "grpc", None)
+    rc = tkubectl.main(["--server", "127.0.0.1:9", "get", "nodes"])
+    out = capsys.readouterr()
+    assert rc == 1 and not out.out
+    assert "grpcio is not installed" in out.err
+    assert out.err.count("\n") == 1

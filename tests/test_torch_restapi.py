@@ -6,7 +6,8 @@ rather than the state are left out of the comparison: the OpenAPI
 document's ``info.title``. The audit entries are compared without
 ``latency_s``, the one field that carries wall time. Neither package's
 bodies carry other wall time (timestamps come from the hub's simulated
-clock). The port's protobuf refusals have their own test."""
+clock). Protobuf negotiation has its own test, which decodes the bodies
+with the codec and compares the messages."""
 
 import http.client
 import json
@@ -289,39 +290,123 @@ def test_rest_fairness_sheds_like_reference():
     assert rejected == {"readonly/queue-full": 1}
 
 
-def test_protobuf_is_refused_not_answered_in_json():
-    """The protobuf codec is ROADMAP A.16.3: a protobuf Accept where the
-    reference would answer in it is 406, a protobuf body 415, both
-    Status-shaped and naming the item; never a JSON fallback."""
-    hub = tsim.HollowCluster(seed=2, scheduler_kw=dict(PORT.kw))
-    srv = trest.RestServer(hub)
-    c = Client(srv.serve())
+def proto_script(pkg):
+    """Protobuf negotiation: node and pod lists (whole, paged with
+    continue tokens, selected), single objects, a missing object, and
+    request bodies sent as protobuf. Returns (status, Content-Type,
+    body) of every request, a protobuf body decoded to (kind, message)
+    with the port's codec."""
+    from kubernetes_tpu_torch.api.protobuf import decode_envelope
+    from kubernetes_tpu_torch.proto import corev1
+
+    hub = pkg.sim.HollowCluster(seed=2, scheduler_kw=dict(pkg.kw))
+    srv = pkg.rest.RestServer(hub)
+    port = srv.serve()
     proto = "application/vnd.kubernetes.protobuf"
+    out = []
+
+    def call(method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        conn.request(method, path, body, headers or {})
+        r = conn.getresponse()
+        data = r.read()
+        ctype = r.getheader("Content-Type")
+        conn.close()
+        if ctype == proto:
+            kind, raw = decode_envelope(data)
+            cls = getattr(corev1, {"PodList": "PodListMsg",
+                                   "NodeList": "NodeListMsg"}.get(
+                kind, kind + "Msg"))
+            doc = (kind, cls.FromString(raw))
+        else:
+            doc = json.loads(data) if data else None
+        out.append((method, path, r.status, ctype, doc))
+        return doc
+
     try:
-        c("POST", "/api/v1/nodes", NODE)
-        c("POST", "/api/v1/namespaces/default/pods", pod_doc("p0"))
-        for path in ("/api/v1/pods", "/api/v1/nodes", "/api/v1/nodes/n0",
-                     "/api/v1/namespaces/default/pods/p0"):
-            code, doc = c("GET", path, headers={"Accept": proto})
-            assert code == 406, path
-            assert doc["kind"] == "Status" and doc["code"] == 406
-            assert doc["reason"] == "NotAcceptable"
-            assert "ROADMAP A.16.3" in doc["message"]
-        for method, path in (("POST", "/api/v1/namespaces/default/pods"),
-                             ("PUT", "/api/v1/nodes/n0"),
-                             ("POST", "/api/v1/namespaces/default/pods/p0/"
-                                      "binding")):
-            code, doc = c(method, path, {}, headers={"Content-Type": proto})
-            assert code == 415, path
-            assert doc["reason"] == "UnsupportedMediaType"
-            assert "ROADMAP A.16.3" in doc["message"]
-        # JSON clients are untouched
-        assert c("GET", "/api/v1/pods",
-                 headers={"Accept": "application/json"})[0] == 200
-        assert "default/p0" in hub.truth_pods
-        assert not hub.truth_pods["default/p0"].node_name
+        for i in range(3):
+            call("POST", "/api/v1/nodes", json.dumps(
+                {**NODE, "metadata": {"name": f"n{i}", "labels": {
+                    "kubernetes.io/hostname": f"n{i}",
+                    "tier": "a" if i % 2 else "b"}}}))
+        for i in range(5):
+            call("POST", "/api/v1/namespaces/default/pods",
+                 json.dumps(pod_doc(f"p{i}", labels={"app": f"a{i % 2}"})))
+        call("POST", "/api/v1/namespaces/default/pods/p0/binding",
+             json.dumps({"target": {"name": "n0"}}))
+        accept = {"Accept": proto}
+        for path in ("/api/v1/pods", "/api/v1/nodes",
+                     "/api/v1/namespaces/default/pods",
+                     "/api/v1/pods?labelSelector=app%3Da1",
+                     "/api/v1/nodes?labelSelector=tier%3Da",
+                     "/api/v1/nodes/n0", "/api/v1/nodes/nope",
+                     "/api/v1/namespaces/default/pods/p0",
+                     "/api/v1/namespaces/default/pods/nope"):
+            call("GET", path, headers=accept)
+        for path in ("/api/v1/pods?limit=2", "/api/v1/nodes?limit=2"):
+            doc = call("GET", path, headers=accept)
+            tok = doc[1].continue_token
+            call("GET", f"{path}&continue={tok}", headers=accept)
+        # the same lists in JSON, for the objects they must hold
+        call("GET", "/api/v1/pods")
+        call("GET", "/api/v1/nodes")
+        # request bodies are read as JSON whatever they are labelled
+        from kubernetes_tpu_torch.api.protobuf import (
+            encode_envelope,
+            pod_to_pb,
+        )
+        from kubernetes_tpu_torch.testing import make_pod
+
+        call("POST", "/api/v1/namespaces/default/pods",
+             encode_envelope("Pod", pod_to_pb(make_pod("pb-body"))),
+             {"Content-Type": proto})
+        call("POST", "/api/v1/namespaces/default/pods",
+             json.dumps(pod_doc("json-body")), {"Content-Type": proto})
+        call("PUT", "/api/v1/nodes/n1", b"\x0a\x02n1",
+             {"Content-Type": proto})
     finally:
         srv.close()
+    return out
+
+
+def test_protobuf_negotiation_matches_reference():
+    """``Accept: application/vnd.kubernetes.protobuf`` answers lists
+    (whole, paged, selected) and single objects in the codec behind the
+    magic envelope, as the reference does: equal statuses, content types
+    and decoded messages; a protobuf body is read as JSON by both."""
+    from kubernetes_tpu_torch.api.protobuf import node_from_pb, pod_from_pb
+    from kubernetes_tpu_torch.extender import node_from_json
+    from kubernetes_tpu_torch.server import pod_from_json
+
+    want, got = proto_script(REF), proto_script(PORT)
+    assert len(got) == len(want)
+    for w, g in zip(want, got):
+        assert g == w, w[:3]
+    proto = "application/vnd.kubernetes.protobuf"
+    pb = {p: (st, doc) for m, p, st, ct, doc in got
+          if m == "GET" and ct == proto}
+    js = {p: doc for m, p, st, ct, doc in got
+          if m == "GET" and ct != proto}
+    st, (kind, lst) = pb["/api/v1/pods"]
+    assert (st, kind) == (200, "PodList") and len(lst.items) == 5
+    assert lst.remaining == -1 and not lst.continue_token
+    assert [pod_from_pb(m) for m in lst.items] == [
+        pod_from_json(d) for d in js["/api/v1/pods"]["items"]]
+    _, (_, nodes) = pb["/api/v1/nodes"]
+    assert [node_from_pb(m) for m in nodes.items] == [
+        node_from_json(d) for d in js["/api/v1/nodes"]["items"]]
+    _, (_, page) = pb["/api/v1/pods?limit=2"]
+    assert len(page.items) == 2 and page.remaining == 3
+    assert page.continue_token
+    _, (_, sel) = pb["/api/v1/pods?labelSelector=app%3Da1"]
+    assert len(sel.items) == 2 and sel.remaining == -1
+    assert pb["/api/v1/nodes/n0"][1][0] == "Node"
+    assert pb["/api/v1/namespaces/default/pods/p0"][1][1].node_name == "n0"
+    assert js["/api/v1/nodes/nope"]["code"] == 404
+    posts = [(st, (doc or {}).get("reason")) for m, p, st, ct, doc in got
+             if m in ("POST", "PUT") and "binding" not in p][-3:]
+    assert posts[0] == (400, "BadRequest") and posts[1][0] == 201
+    assert posts[2] == (400, "BadRequest")
 
 
 def test_node_from_json_round_trips_like_the_reference():
