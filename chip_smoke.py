@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs sixteen phases and exits
+``nvcc`` per source, in parallel), then runs seventeen phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -132,7 +132,7 @@ non-zero if any fails:
    writer, flaky binds) with its scheduler on the card at its defaults,
    5000 smoke-cell nodes, a DaemonSet (a pod per node), 2500 pods of
    Deployments and zone-preferring bare pods, a Job of 500 and a
-   StatefulSet of 5 (the pod count cut, ``HOLLOW_FULL``); it steps until
+   StatefulSet of 3 (the pod count cut, ``HOLLOW_FULL``); it steps until
    every pod is bound, then 3 churn steps of 320 s (pods killed, nodes
    removed, 50 kubelets killed, their pods evicted; healed after the
    last, their nodes restored in arm B's first step),
@@ -241,7 +241,26 @@ non-zero if any fails:
    integration test's convergence under ``solver="sinkhorn"`` on 1000 of
    the smoke nodes and 500 of its pods, then a ReplicaSet, a churn step
    and the controller's refeed. Arm C: arm A's stream at 500 nodes x
-   1024 pods places equally on the card and on CPU tensors.
+   1024 pods places equally on the card and on CPU tensors;
+17. the node-axis mesh on one card (``parallel.mesh``), every scheduler a
+   JSON v1alpha1 file through ``Scheduler.from_config``. Arm A: the smoke
+   cell at full width under ``parallel: {mesh: auto}`` (a mesh of 1 on
+   one card) beside a mesh-off twin: equal placements, rounds and host
+   syncs, the pair launched as often, ``+mesh1`` in every batch shape,
+   the gauge and each flight record's mesh at 1, one cycle under
+   sync-debug ``error``. Arm B: a logical 8-shard mesh (8 copies of the
+   card) over ``sparse-5k-churn``'s cluster, a 1024 burst and 8 steady
+   cycles under ``batch`` and ``sinkhorn``, beside an unsharded twin: the
+   same scopes and placements, every pod bound once, u and v launched;
+   at 500 nodes the same on the card and on CPU tensors. Arm C: a lost
+   device at ``solve:batch`` answered by the ``batch-single`` rung
+   (every pod bound, as the fault-free twin), and a ``KernelError`` on
+   the rung reaching the caller. Arm D: ``chaos.MeshChaos`` loses a
+   shard mid-run (host mode through a 5 s cooloff on a hand-advanced
+   clock, the flight records' mesh 0 then 8, resets equal to the shots,
+   the healed table back on the mesh), then a composed
+   ``ServingRuntime`` on a 2-shard mesh loses one mid-churn: every pod
+   bound exactly once, no graph captured after warmup.
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
@@ -250,7 +269,7 @@ path, the topology path, the preempt cell, the sparse cell, the
 pipeline cell, the configured scheduler's arm A, the serve loop's
 arms A-D, the hollow cluster's arms A and B, the recovery phase's
 arms A-C, the ledger phase's arms A-C, the scenario phase's arms and
-the grpc phase's arms A-C,
+the grpc phase's arms A-C and the mesh phase's arms A-D,
 each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
@@ -266,7 +285,7 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config, serve, hollow, recovery, ledger, scenario, grpc);
+config, serve, hollow, recovery, ledger, scenario, grpc, mesh);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -292,11 +311,14 @@ F32_OPS_S = 67e12
 
 ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
               "preempt", "sparse", "pipeline", "config", "serve", "hollow",
-              "recovery", "ledger", "scenario", "grpc")
+              "recovery", "ledger", "scenario", "grpc", "mesh")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
               "config", "serve", "hollow", "recovery", "ledger", "scenario",
-              "grpc")
+              "grpc", "mesh")
+#: the phases that inject device faults (any other phase fails on a
+#: device reset or a host-mode cycle)
+FAULT_PHASES = ("recovery", "mesh")
 
 
 def emit(obj) -> None:
@@ -4157,11 +4179,13 @@ def phase_serve() -> dict:
 #: 5000 nodes of the smoke cell's shape. The pod count is cut from the
 #: reference bench's 30,000 (PERF.md §4): every kubelet's sync scans the
 #: whole truth map (``HollowKubelet.pods``), so a hub step costs host time
-#: in proportion to nodes x pods
-HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 5}
+#: in proportion to nodes x pods. The StatefulSet's ordinals bind two
+#: steps apart, so its size sets the bind steps: 5 until the mesh phase
+#: came, 3 since (four fewer 5-10 s steps pay for that phase)
+HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 3}
 #: the CUDA-against-CPU run: arm A's traffic at 500 nodes and 3000 pods
 HOLLOW_REDUCED = {"n_nodes": 500, "n_deploy": 1995, "n_job": 500,
-                  "n_sts": 5}
+                  "n_sts": 3}
 HOLLOW_CHURN_STEPS = 3
 HOLLOW_KILLED_KUBELETS = 50
 #: an arm B step is a minute of hub time: a pod whose bind failed leaves
@@ -7171,6 +7195,531 @@ def phase_grpc() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the node-axis mesh on one card
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's sizes: arm A the smoke cell at full width, arm B
+#: ``sparse-5k-churn``'s cluster with a 1024 burst and 8 steady cycles (and
+#: at 500 nodes on the card and on CPU tensors), arm C one ladder cycle of
+#: 1024 pods, arm D the smoke cluster under 256-pod cycles and a composed
+#: serving churn on a 2-shard mesh
+MESH = {"n_nodes": 5000, "n_bound": 1000, "n_pending": 10000,
+        "shards": 8, "burst": 1024, "steady": 8,
+        "eq_nodes": 500, "eq_bound": 100, "eq_burst": 512,
+        "ladder_pods": 1024, "chaos_pods": 256, "serve_shards": 2,
+        "serve_batches": (3, 5, 8, 2, 6, 5, 4)}
+
+
+@contextlib.contextmanager
+def logical_devices(n: int):
+    """``parallel.mesh`` resolves against ``n`` copies of the one device
+    (the card, or the CPU for a CPU scheduler): a logical mesh of ``n``
+    shards on it, as the port's tests run 8 on the CPU."""
+    import torch
+
+    from kubernetes_tpu_torch.parallel import mesh as pmesh
+
+    real = pmesh.local_devices
+    pmesh.local_devices = lambda kind="cuda": [
+        torch.device("cpu") if kind == "cpu" else torch.device("cuda", 0)
+    ] * n
+    try:
+        yield
+    finally:
+        pmesh.local_devices = real
+
+
+def _mesh_doc(mesh=None, **doc) -> dict:
+    out = {"percentageOfNodesToScore": 100, **doc}
+    if mesh is not None:
+        out["parallel"] = {"mesh": mesh}
+    return out
+
+
+def _mesh_cycles(sched, pending, sync_error_at=None):
+    """Feed ``pending`` and run cycles until the queue is empty; cycle
+    ``sync_error_at`` runs under ``torch.cuda.set_sync_debug_mode(
+    "error")``. Returns (results, records, wall seconds)."""
+    import torch
+
+    for p in pending:
+        sched.on_pod_add(p)
+    results, records = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(16):
+        if not sched.queue.pending_pods()["active"]:
+            break
+        if k == sync_error_at:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            r = sched.schedule_cycle()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        results.append(r)
+        records.append(sched.obs.recorder.records()[-1])
+    torch.cuda.synchronize()
+    return results, records, time.perf_counter() - t0
+
+
+def mesh_arm_a(tmp: str) -> dict:
+    """Arm A: the smoke cell at full width through ``parallel: {mesh:
+    auto}`` (a mesh of 1 on one card) beside a mesh-off twin, both
+    ``Scheduler.from_config``. Fails unless placements, rounds and host
+    syncs are equal cycle for cycle, the pair launched as often on both
+    (and at all), the mesh run's batch shapes carry ``+mesh1``, its gauge
+    and every flight record's mesh read 1 (the twin's 0), and its second
+    cycle ran clean under sync-debug ``error``. ``cycles`` counts both
+    runs, as the phase's launch count does."""
+    nodes, bound, pending = smoke_cell(MESH["n_nodes"], MESH["n_bound"],
+                                       MESH["n_pending"])
+    by_key = {p.key(): p for p in pending}
+    runs = {}
+    for name, mesh in (("off", None), ("auto", "auto")):
+        sched = configured(_mesh_doc(mesh), tmp, f"mesh-a-{name}",
+                           enable_preemption=False)
+        feed(sched, nodes, bound, [])
+        before = launch_counts()
+        results, records, wall = _mesh_cycles(
+            sched, pending, sync_error_at=1 if mesh else None)
+        runs[name] = {
+            "sched": sched, "results": results, "records": records,
+            "wall_s": wall, "launches": _launches_since(before)}
+        for r in results:
+            if r.solver_tier != "batch" or r.solver_fallbacks:
+                fail(f"mesh/A/{name}: a cycle solved on {r.solver_tier!r} "
+                     f"after {r.solver_fallbacks} fallbacks")
+        release_graphs()
+    off, on = runs["off"], runs["auto"]
+    for key in ("assignments", "rounds", "host_syncs", "snapshot_mode",
+                "pipeline_chunks"):
+        a = [getattr(r, key) for r in off["results"]]
+        b = [getattr(r, key) for r in on["results"]]
+        if a != b:
+            fail(f"mesh/A: {key} differ from the mesh-off twin's"
+                 + ("" if key == "assignments" else f": {b} != {a}"))
+    pair = "fused_pair_normalize"
+    if not (on["launches"][pair] == off["launches"][pair] > 0):
+        fail(f"mesh/A: the pair launched {on['launches'][pair]} times on "
+             f"the mesh, {off['launches'][pair]} off it")
+    shapes = [rec.batch_shape for rec in on["records"]]
+    if not all(s.endswith("+mesh1") for s in shapes):
+        fail(f"mesh/A: batch shapes {shapes} lack +mesh1")
+    if any("+mesh" in rec.batch_shape for rec in off["records"]):
+        fail("mesh/A: the mesh-off twin's batch shape names a mesh")
+    gauge = on["sched"].metrics.mesh_devices.value()
+    flags = [rec.mesh for rec in on["records"]]
+    if (gauge != 1 or flags != [1] * len(flags) or on["sched"].mesh.size != 1
+            or off["sched"].metrics.mesh_devices.value() != 0
+            or any(rec.mesh for rec in off["records"])):
+        fail(f"mesh/A: gauge {gauge}, flight records' mesh {flags}")
+    if on["sched"].cache.resident_mesh is not on["sched"].mesh:
+        fail("mesh/A: the resident table is not on the mesh")
+    placed = {k: v for r in on["results"] for k, v in r.assignments.items()}
+    if len(placed) != len(pending):
+        fail(f"mesh/A: bound {len(placed)} of {len(pending)}")
+    recheck_capacity(nodes, bound, placed, by_key)
+    return {"cell": "smoke-5k-prefaffinity", "mesh": 1,
+            "pods": len(pending),
+            "cycles": len(on["results"]) + len(off["results"]),
+            "batch_shapes": shapes, "flight_record_mesh": flags,
+            "rounds": [r.rounds for r in on["results"]],
+            "host_syncs": [r.host_syncs for r in on["results"]],
+            "sync_error_cycle": 1, "wall_s": on["wall_s"],
+            "twin_wall_s": off["wall_s"],
+            "solve_s": [r.solve_s for r in on["results"]],
+            "twin_solve_s": [r.solve_s for r in off["results"]],
+            # reported, never gated: the cost model's collective term
+            # has no meaning for shards that share one card
+            "model_efficiency": [r.model_efficiency for r in on["results"]],
+            "twin_model_efficiency": [r.model_efficiency
+                                      for r in off["results"]],
+            "launches": on["launches"], "twin_launches": off["launches"]}
+
+
+def mesh_sparse(tmp: str, name: str, solver: str, shards, device="cuda",
+                **traffic):
+    """``sparse_traffic`` (a burst, then steady cycles) through
+    ``Scheduler.from_config`` with ``incremental {enabled, primary,
+    candidateBucket: 256}`` (warm potentials at 1e-3 under sinkhorn) and
+    ``parallel: {mesh: shards}`` over logical devices. Returns (results,
+    the cell, the final pod -> node map, launches, wall seconds)."""
+    import random
+
+    doc = _mesh_doc(shards, solver=solver, incremental={
+        "enabled": True, "primary": True, "candidateBucket": 256,
+        "warmPotentials": True, "warmTol": 1e-3})
+    with logical_devices(shards or 1):
+        sched = configured(doc, tmp, name, device=device,
+                           enable_preemption=False)
+    if (shards or 0) != (sched.mesh.size if sched.mesh else 0):
+        fail(f"mesh/B: asked for {shards} shards, built "
+             f"{sched.mesh and sched.mesh.size}")
+    cell = sparse_traffic(**traffic)
+    nodes, bound, cycles, _scopes, _misfit = cell
+    placed = {}
+    for nd in nodes:
+        sched.on_node_add(nd)
+    for p in bound:
+        sched.on_pod_add(p)
+        placed[p.key()] = p
+    results, walls = [], []
+    before = launch_counts()
+    _drive_sparse(sched, cycles, placed, random.Random(11), results, walls,
+                  device == "cuda")
+    launches = _launches_since(before)
+    for r in results:
+        if r.solver_tier != solver or r.solver_fallbacks:
+            fail(f"mesh/B/{name}: a cycle solved on {r.solver_tier!r} after "
+                 f"{r.solver_fallbacks} fallbacks")
+    if shards and sched.obs.recorder.records()[-1].mesh != shards:
+        fail(f"mesh/B/{name}: the flight record's mesh is not {shards}")
+    return (results, cell, {k: p.node_name for k, p in placed.items()},
+            launches, sum(walls))
+
+
+def mesh_arm_b(tmp: str) -> dict:
+    """Arm B: a logical 8-shard mesh on the card over ``sparse-5k-churn``'s
+    cluster (a 1024 burst, then 8 steady cycles), under ``batch`` and
+    ``sinkhorn``, beside an unsharded twin: the same scope sequence (the
+    traffic's), the same placements (the per-shard candidate pick merges
+    to the single pass's), every pod that fits bound once, capacity clean,
+    u and v launched under sinkhorn; then the same traffic at 500 nodes
+    places equally on the card and on CPU tensors at 8 shards. ``cycles``
+    counts every card run's cycles (twins and 500-node runs included), as
+    the phase's launch count does."""
+    shards = MESH["shards"]
+    traffic = dict(n_nodes=MESH["n_nodes"], n_bound=MESH["n_bound"],
+                   burst=MESH["burst"], steady=MESH["steady"])
+    out = {}
+    launches = {k: 0 for k in ARRAY_KERNELS}
+    card_cycles = 0
+    for solver in ("batch", "sinkhorn"):
+        twin, _, twin_final, _, twin_s = mesh_sparse(
+            tmp, f"mesh-b-{solver}-off", solver, None, **traffic)
+        release_graphs()
+        results, cell, final, got, wall = mesh_sparse(
+            tmp, f"mesh-b-{solver}", solver, shards, **traffic)
+        release_graphs()
+        card_cycles += len(twin) + len(results)
+        nodes, bound, cycles, want_scopes, _misfit = cell
+        scopes = [r.solve_scope for r in results]
+        if (scopes != [r.solve_scope for r in twin]
+                or not {"restricted", "partitioned"} <= set(scopes)):
+            fail(f"mesh/B/{solver}: scopes {scopes} != the twin's "
+                 f"{[r.solve_scope for r in twin]}, or a sparse route "
+                 "never ran")
+        if final != twin_final:
+            fail(f"mesh/B/{solver}: placements differ from the twin's")
+        pending = [p for _a, ps, _d in cycles for p in ps]
+        keys = [k for r in results for k in r.assignments]
+        if len(keys) != len(set(keys)) or len(keys) != len(pending) - 1:
+            fail(f"mesh/B/{solver}: {len(keys)} binds ({len(set(keys))} "
+                 f"pods) of {len(pending) - 1} that fit")
+        all_nodes = nodes + [nd for add, _p, _d in cycles for nd in add]
+        recheck_capacity(all_nodes, [], final,
+                         {p.key(): p for p in bound + pending})
+        if got["fused_pair_normalize"] <= 0:
+            fail(f"mesh/B/{solver}: the pair never launched")
+        if solver == "sinkhorn" and (got["sinkhorn_u"] <= 0
+                                     or got["sinkhorn_v"] <= 0):
+            fail(f"mesh/B/sinkhorn: u / v not launched ({got})")
+        for k in launches:
+            launches[k] += got[k]
+        out[solver] = {"scopes": scopes, "traffic_scopes": want_scopes,
+                       "cycles": len(results),
+                       "binds": len(keys), "wall_s": wall,
+                       "twin_wall_s": twin_s, "launches": got,
+                       "rounds": [r.rounds for r in results],
+                       "model_efficiency": [r.model_efficiency
+                                            for r in results]}
+    eq = dict(n_nodes=MESH["eq_nodes"], n_bound=MESH["eq_bound"],
+              burst=MESH["eq_burst"], steady=MESH["steady"])
+    for solver in ("batch", "sinkhorn"):
+        cuda = mesh_sparse(tmp, f"mesh-b-eq-{solver}", solver, shards, **eq)
+        release_graphs()
+        cpu = mesh_sparse(tmp, f"mesh-b-eq-{solver}-cpu", solver, shards,
+                          device="cpu", **eq)
+        if cuda[2] != cpu[2] or [r.solve_scope for r in cuda[0]] != [
+                r.solve_scope for r in cpu[0]]:
+            fail(f"mesh/B/{solver}: 500-node placements differ on CUDA and "
+                 "CPU at 8 shards")
+        for k in launches:
+            launches[k] += cuda[3][k]
+        card_cycles += len(cuda[0])
+        out[f"equal_{solver}"] = len(cuda[2])
+    out["launches"] = launches
+    out["cycles"] = card_cycles
+    return out
+
+
+class _LostThenKernelFault:
+    """``solve:batch`` loses its device; the ``batch-single`` rung then
+    hits a broken kernel, which must reach the caller."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch import faults, kernels
+
+        self.sites = []
+        self.lost = faults.DeviceLost
+        self.kernel_error = kernels.KernelError
+
+    def solver_hook(self, site, assigned, usage, rounds, n_nodes):
+        self.sites.append(site)
+        if site == "solve:batch":
+            raise self.lost(f"injected device loss at {site}")
+        raise self.kernel_error(f"injected kernel fault at {site}")
+
+    def device_hook(self, site):
+        return None
+
+
+def mesh_arm_c(tmp: str) -> dict:
+    """Arm C: ``solve:batch`` armed with ``device_lost`` once (retries 0)
+    on arm A's cluster under ``parallel: {mesh: auto}``, one cycle of 1024
+    pods: the ladder's ``batch-single`` rung places every pod, as a
+    fault-free twin, with the pair launched on it; then a rung whose
+    kernel fails: the ``KernelError`` reaches the caller (the rung
+    swallows none) and ``batch-cpu`` is never tried. ``cycles`` counts
+    all three."""
+    from kubernetes_tpu_torch import faults, kernels
+
+    nodes, bound, pending = smoke_cell(MESH["n_nodes"], MESH["n_bound"],
+                                       MESH["ladder_pods"])
+    doc = _mesh_doc("auto", robustness={"solverRetries": 0})
+    got = {}
+    for name, inj in (("twin", None),
+                      ("lost", faults.FaultInjector(seed=0).arm(
+                          "solve:batch", "device_lost", count=1))):
+        sched = configured(doc, tmp, f"mesh-c-{name}", fault_injector=inj,
+                           enable_preemption=False)
+        feed(sched, nodes, bound, [])
+        before = launch_counts()
+        r, wall = _ladder_cycle(sched, pending)
+        got[name] = (r, wall, _launches_since(before))
+        release_graphs()
+    r, wall, launches = got["lost"]
+    twin = got["twin"][0]
+    if r.solver_tier != "batch-single" or r.solver_fallbacks != 1:
+        fail(f"mesh/C: tier {r.solver_tier!r} after {r.solver_fallbacks} "
+             "fallbacks, not batch-single after 1")
+    if r.scheduled != len(pending) or r.assignments != twin.assignments:
+        fail(f"mesh/C: batch-single bound {r.scheduled} of {len(pending)}, "
+             "or not as the fault-free twin")
+    if launches["fused_pair_normalize"] <= 0:
+        fail("mesh/C: the batch-single rung never launched the pair")
+    inj = _LostThenKernelFault()
+    sched = configured(doc, tmp, "mesh-c-kernel", fault_injector=inj,
+                       enable_preemption=False)
+    feed(sched, nodes, bound, [])
+    try:
+        _ladder_cycle(sched, pending[:64])
+        fail("mesh/C: a KernelError on the batch-single rung was swallowed")
+    except kernels.KernelError:
+        pass
+    if inj.sites != ["solve:batch", "solve:batch-single"]:
+        fail(f"mesh/C: the ladder tried {inj.sites} around a kernel fault")
+    release_graphs()
+    return {"cell": "smoke-5k-prefaffinity", "pods": len(pending),
+            "tier": r.solver_tier, "fallbacks": r.solver_fallbacks,
+            "tier_attempts": r.tier_attempts, "cycle_s": wall,
+            "twin_cycle_s": got["twin"][1], "launches": launches,
+            "kernel_error_sites": inj.sites, "cycles": 3}
+
+
+def mesh_arm_d(tmp: str) -> dict:
+    """Arm D: ``chaos.MeshChaos.lose_shard`` mid-run on a logical 8-shard
+    mesh over the smoke cluster (``deviceResetLimit: 1``, a 5 s cooloff on
+    a hand-advanced clock, 256-pod cycles): host mode through the
+    cooloff, the resident table back on the mesh after it, the flight
+    records' mesh 0 in host mode and 8 else, resets equal to the shots
+    fired. Then a composed ``ServingRuntime`` on a 2-shard mesh (warmed,
+    so with the host-fallback sweep) loses a shard mid-churn: every
+    created pod binds exactly once, and no round-loop graph is captured
+    and no solve retraced through loss, cooloff and heal."""
+    import torch
+
+    from kubernetes_tpu_torch import chaos
+
+    shards = MESH["shards"]
+    rec_doc = {"recovery": {"deviceResetLimit": 1, "deviceCooloff": "5s"}}
+    nodes, bound, pending = smoke_cell(MESH["n_nodes"], MESH["n_bound"],
+                                       6 * MESH["chaos_pods"])
+    clk = _Clock()
+    with logical_devices(shards):
+        sched = configured(_mesh_doc(shards, **rec_doc), tmp, "mesh-d",
+                           clock=clk, enable_preemption=False)
+    sched.binder = ConfirmingBinder(sched)
+    feed(sched, nodes, bound, [])
+    ch = chaos.MeshChaos(sched, shard=3)
+    # cycle -> seconds the clock moves before it; the shard is lost
+    # before cycle 2
+    script = (0.0, 1.0, 1.0, 2.0, 6.0, 1.0)
+    modes, flags, walls = [], [], []
+    before = launch_counts()
+    n = MESH["chaos_pods"]
+    for k, dt in enumerate(script):
+        clk.t += dt
+        if k == 2:
+            ch.lose_shard(clk())
+        for p in pending[k * n:(k + 1) * n]:
+            sched.on_pod_add(p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sched.schedule_cycle()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ch.observe(r, clk())
+        if r.scheduled != n:
+            fail(f"mesh/D: cycle {k} bound {r.scheduled} of {n}")
+        modes.append(r.snapshot_mode)
+        flags.append(sched.obs.recorder.records()[-1].mesh)
+    launches = _launches_since(before)
+    rep = ch.report()
+    resets = sched.metrics.recovery_device_resets.value()
+    if (modes[2:5] != ["host", "host", "full"]
+            or "host" in modes[:2] + modes[5:]):
+        fail(f"mesh/D: snapshot modes {modes}")
+    if flags != [shards, shards, 0, 0, shards, shards]:
+        fail(f"mesh/D: flight records' mesh {flags}")
+    if not (resets == rep["shard_losses_fired"] == 2
+            and rep["healed_sharded"] and rep["host_mode_cycles"] == 2):
+        fail(f"mesh/D: resets {resets}, chaos report {rep}")
+    resident = sched.cache.resident_mesh
+    if resident is None or resident.size != shards:
+        fail("mesh/D: the healed resident table is not on the mesh")
+    release_graphs()
+    serve = mesh_serve_churn(tmp)
+    launches = {k: launches[k] + serve["launches"][k] for k in launches}
+    return {"cell": "smoke-5k-prefaffinity", "shards": shards,
+            "modes": modes, "flight_record_mesh": flags,
+            "cycle_s": walls, "chaos": rep, "device_resets": resets,
+            "serve": serve, "launches": launches,
+            "cycles": len(script) + serve["cycles"]}
+
+
+def mesh_serve_churn(tmp: str) -> dict:
+    """The composed runtime on a logical 2-shard mesh over the smoke
+    cluster: warmed (pod buckets 8 and 16; the runtime forces the
+    host-fallback sweep), churn batches flushed at once, a shard lost
+    after the fourth, the cooloff's host-mode cycle, the sharded heal."""
+    import torch
+
+    from kubernetes_tpu_torch import chaos
+    from kubernetes_tpu_torch.config import ServingConfig
+    from kubernetes_tpu_torch.ops import device_loop
+    from kubernetes_tpu_torch.serving import ServingRuntime
+    from kubernetes_tpu_torch.testing import make_pod
+
+    shards = MESH["serve_shards"]
+    clk = _Clock()
+    doc = _mesh_doc(shards, recovery={"deviceResetLimit": 1,
+                                      "deviceCooloff": "5s"},
+                    warmup={"enabled": True, "podBuckets": [8, 16]})
+    with logical_devices(shards):
+        sched = configured(doc, tmp, "mesh-d-serve", clock=clk,
+                           enable_preemption=False)
+    truth: dict = {}
+    doubles = [0]
+
+    class CasBinder:
+        def bind(self, pod, node_name):
+            if pod.key() in truth:
+                doubles[0] += 1
+                raise RuntimeError(f"{pod.key()} bound twice")
+            truth[pod.key()] = node_name
+
+    sched.binder = CasBinder()
+    nodes, bound, _ = smoke_cell(MESH["n_nodes"], MESH["n_bound"], 0)
+    feed(sched, nodes, bound, [])
+    rt = ServingRuntime(sched, ServingConfig(
+        enabled=True, min_wait_s=0.0, max_wait_s=0.0, target_bucket=16,
+        idle_wait_s=0.05), clock=clk)
+    if not sched.warmup_config.host_fallback:
+        fail("mesh/D: the composed runtime did not force the host-fallback "
+             "warmup under a mesh")
+    c0 = device_loop.CAPTURES.count
+    warmed = rt.warm_if_pending(sample_pods=[make_pod(
+        "warm", cpu_milli=100, memory=500 * 2**20)])
+    torch.cuda.synchronize()
+    warm_captures = device_loop.CAPTURES.count - c0
+    c1 = device_loop.CAPTURES.count
+    ch = chaos.MeshChaos(sched, shard=1)
+    created, arc, walls = [], [], []
+    before = launch_counts()
+    seq = 0
+    for k, n in enumerate(MESH["serve_batches"]):
+        if k == 4:
+            ch.lose_shard(clk())
+        if k == 5:
+            clk.t += 6.0  # past the cooloff: the heal probe
+        for _ in range(n):
+            p = make_pod(f"mesh-serve-{seq}", cpu_milli=100,
+                         memory=500 * 2**20)
+            seq += 1
+            created.append(p.key())
+            rt.loop.ingest(sched.on_pod_add, p)
+        t0 = time.perf_counter()
+        r = rt.loop.run_once()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r is None or r.scheduled != n:
+            fail(f"mesh/D/serve: batch {k} bound "
+                 f"{None if r is None else r.scheduled} of {n}")
+        ch.observe(r, clk())
+        arc.append((r.snapshot_mode, sched.obs.recorder.records()[-1].mesh))
+        clk.t += 0.25
+    captures = device_loop.CAPTURES.count - c1
+    launches = _launches_since(before)
+    rep = ch.report()
+    if doubles[0] or sorted(truth) != sorted(created):
+        fail(f"mesh/D/serve: {doubles[0]} double binds, {len(truth)} of "
+             f"{len(created)} pods bound")
+    if [m for m, _ in arc][4:6] != ["host", "full"] or [
+            f for _, f in arc] != [shards] * 4 + [0] + [shards] * 2:
+        fail(f"mesh/D/serve: the arc's modes and mesh flags {arc}")
+    if not rep["healed_sharded"] or rep["host_mode_cycles"] != 1:
+        fail(f"mesh/D/serve: chaos report {rep}")
+    retraces = sched.obs.jax.retrace_total()
+    if captures or retraces or not warm_captures:
+        fail(f"mesh/D/serve: {captures} graph captures and {retraces} "
+             f"retraces after warmup ({warm_captures} in it)")
+    release_graphs()
+    return {"shards": shards, "warmed": warmed,
+            "warm_captures": warm_captures, "captures_after_warmup":
+            captures, "retraces": retraces, "arc": arc, "chaos": rep,
+            "binds": len(truth), "cycle_s": walls, "launches": launches,
+            "cycles": len(arc)}
+
+
+def phase_mesh() -> dict:
+    """The node-axis mesh on one card (cell ``mesh``): arms A-D, every
+    scheduler a JSON v1alpha1 file through ``Scheduler.from_config``, all
+    counted from 0 together: the launches are every card run's of the
+    phase (the twins, the 500-node runs and the composed runtime's warmup
+    included), and ``cycles`` counts every cycle of those runs. Injects
+    shard losses (arm D) and a solve-site device loss (arm C), so, as
+    ``recovery``, it may reset the device."""
+    import tempfile
+
+    from kubernetes_tpu_torch import kernels
+
+    kernels.reset_launches()
+    t_arm = {}
+    cycles = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm, run in (("A", mesh_arm_a), ("B", mesh_arm_b),
+                         ("C", mesh_arm_c), ("D", mesh_arm_d)):
+            t0 = time.perf_counter()
+            got = run(tmp)
+            t_arm[arm] = time.perf_counter() - t0
+            cycles += got["cycles"]
+            emit({"phase": "mesh", "arm": arm, "arm_s": t_arm[arm], **got})
+    return {"launches": launch_counts(), "shapes": launch_shapes(),
+            "cycles": cycles, "arm_s": t_arm}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -7321,18 +7870,19 @@ def main() -> None:
                        ("recovery", phase_recovery),
                        ("ledger", phase_ledger),
                        ("scenario", phase_scenario),
-                       ("grpc", phase_grpc)):
+                       ("grpc", phase_grpc),
+                       ("mesh", phase_mesh)):
         if phase not in phases:
             continue
         RECOVERY.reset()
         t_phase = time.perf_counter()
         got = run()
         phase_s[phase] = time.perf_counter() - t_phase
-        if phase != "recovery" and (RECOVERY.device_resets
-                                    or RECOVERY.host_cycles):
-            # only the recovery phase injects device faults: anywhere
-            # else a reset or a host-mode cycle is a real fault passing
-            # as a quiet fallback
+        if phase not in FAULT_PHASES and (RECOVERY.device_resets
+                                          or RECOVERY.host_cycles):
+            # only the fault phases inject device faults: anywhere else
+            # a reset or a host-mode cycle is a real fault passing as a
+            # quiet fallback
             fail(f"{phase}: {RECOVERY.device_resets} device resets, "
                  f"{RECOVERY.host_cycles} host-mode cycles")
         if phase in MAIN_PATHS:

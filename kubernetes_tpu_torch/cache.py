@@ -100,6 +100,9 @@ class SchedulerCache:
         self.max_dirty_frac = max_dirty_frac
         self._dev = None  # resident ops.arrays.DeviceNodes
         self._dev_pad: int = 0  # its padded row count
+        #: the node-axis mesh (parallel.mesh.Mesh) the resident table is
+        #: placed on (set_mesh); None = single device
+        self.mesh = None
         #: host refreshes the device hasn't applied yet: [(idx, sub)]
         self._pending_dev: List[Tuple[List[int], NodeTable]] = []
         #: a full host repack happened since the device last uploaded
@@ -398,6 +401,10 @@ class SchedulerCache:
             self.fault_injector.device_hook("snapshot:device")
         table, _mode, _idx, _sub = self._refresh_host()
         n_pad = bucket_size(max(table.n, 1))
+        if self.mesh is not None:
+            # the node bucket must divide across the mesh: both are powers
+            # of two, so padding up to the device count suffices
+            n_pad = max(n_pad, self.mesh.size)
         self.last_upload_rows = 0
         self.last_upload_nbytes = 0
         self.last_patched_idx = []
@@ -405,8 +412,18 @@ class SchedulerCache:
         if (self._dev is None or self._dev_stale or n_pad != self._dev_pad
                 or pending_rows > self.max_dirty_frac * max(table.n, 1)):
             self._pending_dev.clear()
-            self._dev = nodes_to_device(table, pad_to=n_pad,
-                                        device=self.device)
+            if self.mesh is not None:
+                # full uploads, universe-growth repacks and the rebuilds
+                # after a device loss all re-place onto the mesh through
+                # the one seam the host-mode cycle and the warmup share
+                from kubernetes_tpu_torch.parallel.mesh import (
+                    place_node_table,
+                )
+
+                self._dev = place_node_table(table, self.mesh, pad_to=n_pad)
+            else:
+                self._dev = nodes_to_device(table, pad_to=n_pad,
+                                            device=self.device)
             self._dev_pad = n_pad
             self._dev_stale = False
             self.last_snapshot_mode = "full"
@@ -480,6 +497,22 @@ class SchedulerCache:
     def has_device_snapshot(self) -> bool:
         """Whether a resident device table exists now (no upload)."""
         return self._dev is not None
+
+    def set_mesh(self, mesh) -> None:
+        """Attach (or detach, with ``None``) the node-axis device mesh.
+        A change of mesh drops the resident table: the next
+        :meth:`device_snapshot` re-places it in full onto the new one."""
+        if mesh is not self.mesh:
+            self.mesh = mesh
+            self.drop_device_snapshot()
+
+    @property
+    def resident_mesh(self):
+        """The mesh the resident table lives on: None when there is no
+        resident table or it is a single-device one. A delta scatter keeps
+        it; a change of mesh drops the table (:meth:`set_mesh`), so a
+        resident table is always on the current one."""
+        return self.mesh if self._dev is not None else None
 
     def _mem_register(self, name: str, tree, shape: str = "") -> None:
         """Register a resident tree of tensors with the attached memory

@@ -52,9 +52,9 @@ The hub is duck-typed: ``clock`` (callable, with ``advance``),
 as in the reference, or any stand-in with that surface; the network
 harnesses and ``HAReplica`` need the simulated cluster itself (its watch
 cursors, compaction and lease). Schedulers the harnesses build run on
-the card unless ``scheduler_kw={"device": "cpu"}`` asks otherwise. Not
-ported yet: the shard-loss harness ``MeshChaos``, which needs the mesh
-(ROADMAP A.17).
+the card unless ``scheduler_kw={"device": "cpu"}`` asks otherwise.
+:class:`MeshChaos` loses a shard of a mesh-backed scheduler mid-churn
+(the loss -> host-mode cooloff -> sharded heal arc).
 """
 
 from __future__ import annotations
@@ -252,6 +252,79 @@ class CrashLoop:
 #: the phase window removes exactly these, leaving any other rules
 #: (crash plans, device faults) untouched
 NET_FAULT_SITES = ("rpc:bind", "rpc:get", "watch:event", "watch:batch")
+
+
+class MeshChaos:
+    """Shard-loss chaos for the sharded backend, arm-able mid-churn.
+
+    Owns a :class:`~kubernetes_tpu_torch.faults.FaultInjector` wired into
+    the scheduler's device seam (the scheduler's own, or one attached
+    here) and arms a bounded ``shard_lost`` burst on demand: the next
+    ``recovery.device_reset_limit + 1`` snapshots raise
+    :class:`~kubernetes_tpu_torch.faults.ShardLost`, which exhausts the
+    per-cycle rebuild budget and puts the scheduler on host-mode
+    snapshots for ``device_cooloff_s``; after it the heal probe
+    re-places the resident table on the mesh (the cache's ``set_mesh``
+    seam). The fault surfaces inside ``_device_snapshot_recovering``,
+    which falls back instead of raising out of the cycle, so a serving
+    loop never stalls.
+
+    Arming only appends to the injector's rule list, so a producer
+    thread may arm without the ingest lock. :meth:`observe` takes each
+    cycle's snapshot provenance; :meth:`report` sums up the arc."""
+
+    def __init__(self, sched, shard: int = 0) -> None:
+        from kubernetes_tpu_torch.faults import FaultInjector
+
+        if sched.fault_injector is None:
+            sched.fault_injector = FaultInjector(seed=0)
+            # the cache hook is attached at construction; a late
+            # injector needs the same seam
+            if getattr(sched.cache, "fault_injector", "absent") is None:
+                sched.cache.fault_injector = sched.fault_injector
+        self.sched = sched
+        self.injector = sched.fault_injector
+        self.shard = shard
+        self.lost_at: Optional[float] = None
+        self.host_cycles = 0
+        self.healed_at: Optional[float] = None
+        self._was_lost = False
+
+    def lose_shard(self, clock_now: Optional[float] = None) -> None:
+        """Arm the loss: enough one-shot ``shard_lost`` faults at the
+        snapshot seam to blow the rebuild budget in one cycle (the
+        scheduler rebuilds ``device_reset_limit`` times, then cools off)."""
+        shots = self.sched.recovery.device_reset_limit + 1
+        self.injector.arm("snapshot:device", "shard_lost", count=shots,
+                          shard=self.shard)
+        self.lost_at = clock_now
+        self._was_lost = True
+        self.healed_at = None
+
+    def observe(self, res, clock_now: Optional[float] = None) -> None:
+        """Feed one CycleResult: counts host-mode cycles and stamps the
+        heal (the first resident snapshot after a loss)."""
+        if not self._was_lost or self.healed_at is not None:
+            return
+        if res.snapshot_mode == "host":
+            self.host_cycles += 1
+        elif res.snapshot_mode in ("full", "delta", "clean") \
+                and self.host_cycles:
+            self.healed_at = clock_now
+
+    def report(self) -> dict:
+        heal_s = None
+        if self.healed_at is not None and self.lost_at is not None:
+            heal_s = self.healed_at - self.lost_at
+        return {
+            "shard": self.shard,
+            "shard_losses_fired": self.injector.fired_total(
+                "snapshot:device"),
+            "host_mode_cycles": self.host_cycles,
+            "healed_sharded": self.healed_at is not None,
+            "shard_heal_s": (round(heal_s, 3)
+                             if heal_s is not None else None),
+        }
 
 
 def arm_net_fault_load(injector, bind_timeout_rate: float = 0.10,

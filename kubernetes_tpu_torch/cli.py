@@ -790,13 +790,13 @@ def resolve_config(args) -> KubeSchedulerConfiguration:
 
 def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
     """What a valid configuration asks for that the port does not have
-    yet, one message per setting, each naming its ROADMAP item. A
-    setting at its default passes; nothing is silently ignored."""
+    yet, one message per setting, each naming its ROADMAP item. Every
+    setting is ported now, so the list is empty; the seam stays for the
+    next one. ``parallel.mesh`` resolves against the real devices where
+    the scheduler is built (one card: a mesh of 1), and a mesh over
+    distinct cards is refused there (``parallel.mesh.make_mesh``, ROADMAP
+    A.17.2), never silently gathered onto one."""
     errs: List[str] = []
-    mesh = cfg.parallel.mesh
-    if mesh not in ("off", 1):
-        errs.append(f"parallel.mesh: {mesh!r} is not ported yet (ROADMAP "
-                    "A.17: node-axis sharding; the port runs one card)")
     return errs
 
 

@@ -503,10 +503,11 @@ class IncrementalConfig:
 class ParallelConfig:
     """Sharded execution backend (kubernetes_tpu_torch/parallel): shard the
     node axis of the device-resident snapshot — and with it the (P, N)
-    plane of every solve/validate/explain kernel — across a 1-D
-    ``jax.sharding.Mesh``. Pods and selector tables replicate; GSPMD
-    inserts the cross-device collectives (per-pod vectors only — no
-    (P, N) matrix ever crosses ICI, see parallel/costmodel.py)."""
+    plane of every solve/validate/explain kernel — across a 1-D device
+    mesh (``parallel/mesh.py``). Pods and selector tables replicate. On
+    one card the mesh is logical: its shards are row blocks of one
+    tensor, and the shard count reaches the sparse routes' per-shard
+    candidate pick."""
 
     #: ``"off"`` = single-device (today's behavior); ``"auto"`` = a mesh
     #: over every local device; an integer N = a mesh over the first N

@@ -30,8 +30,11 @@ with no site; ``end_cycle`` charges their bytes to the site
 cycle read back.
 
 ``note_scenario`` takes a scenario cycle's placement-quality scores
-(``Scheduler._publish_scenario_quality``); ``note_mesh`` /
-``note_mesh_cycle`` (A.17) are the reference's paths with no caller yet.
+(``Scheduler._publish_scenario_quality``); ``note_mesh`` takes the
+scheduler's mesh width at construction and ``note_mesh_cycle`` what each
+cycle ran on (0 for a single-device cooloff cycle), which lands on the
+flight record's ``mesh`` and keys the perf ledger's and the memory
+preflight's cells.
 """
 
 from __future__ import annotations
@@ -131,7 +134,7 @@ class Observability:
         #: a device-loss forensic flag captured between cycles (a warmup
         #: abort), parked for the next record
         self._pending_oom = ""
-        #: node-axis mesh size (A.17; 0 = single device)
+        #: node-axis mesh size (0 = single device)
         self.mesh_devices = 0
 
     # -- cycle lifecycle ----------------------------------------------------
@@ -257,11 +260,11 @@ class Observability:
                 self._scratch.get("ambiguous_binds", 0) + 1)
 
     def note_mesh(self, devices: int) -> None:
-        """The sharded backend's mesh size (A.17)."""
+        """The sharded backend's mesh size."""
         self.mesh_devices = int(devices)
 
     def note_mesh_cycle(self, devices: int) -> None:
-        """What THIS cycle ran on (A.17)."""
+        """What THIS cycle ran on."""
         self._scratch["mesh"] = int(devices)
 
     def note_preflight(self, action: str) -> None:

@@ -114,8 +114,16 @@ preemptors and displaced pods re-solve in the same cycle. With
 drains the least-used nodes whose pods the rest can absorb
 (``maybe_repack``).
 
-Not ported yet (ROADMAP): the mesh with its ``batch-single`` tier and
-the shard-loss harness (A.17).
+With ``parallel=ParallelConfig(mesh=...)`` (``parallel.mesh`` in the
+config) the node axis of the resident table shards across a 1-D device
+mesh (:mod:`.parallel.mesh`; on one card a logical mesh whose shards
+share it): the cache pads the node bucket to at least the mesh size
+and keeps the mesh beside the resident table, the sparse routes'
+candidate pick runs per shard, the batch shape carries ``+mesh{d}``, the
+flight record its width (0 for a cooloff cycle, which runs
+single-device) and the ladder gains the ``batch-single`` rung before
+``batch-cpu``. The dense solve, its round-loop graphs and their keys are
+the single-device ones: the shards share the card.
 """
 
 from __future__ import annotations
@@ -134,6 +142,7 @@ from kubernetes_tpu_torch.cache import SchedulerCache
 from kubernetes_tpu_torch.config import (
     IncrementalConfig,
     ObservabilityConfig,
+    ParallelConfig,
     RecoveryConfig,
     RobustnessConfig,
     ScenarioConfig,
@@ -167,6 +176,7 @@ from kubernetes_tpu_torch.obs.explain import (
     read_back,
 )
 from kubernetes_tpu_torch.ops import device_loop
+from kubernetes_tpu_torch.parallel import mesh as pmesh
 from kubernetes_tpu_torch.ops.arrays import (
     gather_candidates,
     gather_node_rows,
@@ -443,6 +453,7 @@ class Scheduler:
         snapshot_max_dirty_frac: Optional[float] = None,
         warmup: Optional[WarmupConfig] = None,
         scenario: Optional[ScenarioConfig] = None,
+        parallel: Optional[ParallelConfig] = None,
     ) -> None:
         if solver not in TIERS:
             raise ValueError(f"solver must be one of {TIERS}, got {solver!r}")
@@ -688,6 +699,30 @@ class Scheduler:
         self._explain_reasons_seen: set = set()
         #: round-loop graph captures at the start of the cycle in flight
         self._captures0 = 0
+        #: the sharded execution backend (config.ParallelConfig): with a
+        #: mesh, the node axis of the resident table, and with it the
+        #: (P, N) plane of every solve, shards across a 1-D device mesh
+        #: built here (parallel/mesh.py; on one card a logical mesh whose
+        #: shards share it); "off" (the default) builds none
+        self.parallel = parallel if parallel is not None else ParallelConfig()
+        self.mesh = pmesh.mesh_from_spec(
+            self.parallel.mesh, pmesh.local_devices(self.device.type))
+        if (self.mesh is not None and self.mesh.device
+                != pmesh.normalize_device(self.device)):
+            raise ValueError(
+                f"parallel.mesh: the mesh is on {self.mesh.device}, the "
+                f"scheduler on {self.device}")
+        set_mesh = getattr(self.cache, "set_mesh", None)
+        if set_mesh is not None:  # duck-typed: cache fakes stay valid
+            set_mesh(self.mesh)
+        mesh_gauge = getattr(self.metrics, "mesh_devices", None)
+        if mesh_gauge is not None:  # duck-typed: metrics fakes stay valid
+            mesh_gauge.set(pmesh.mesh_size(self.mesh))
+        self.obs.note_mesh(pmesh.mesh_size(self.mesh))
+        #: whether THIS cycle's tables live on the mesh (False in the
+        #: device-loss cooloff, whose host-mode cycles run single-device:
+        #: a lost shard is not re-engaged before the heal probe)
+        self._mesh_live = False
 
     @classmethod
     def from_config(cls, cfg, **kw) -> "Scheduler":
@@ -738,6 +773,7 @@ class Scheduler:
         kw.setdefault("warmup", cfg.warmup)
         kw.setdefault("scenario", cfg.scenario)
         kw.setdefault("incremental", cfg.incremental)
+        kw.setdefault("parallel", cfg.parallel)
         if cfg.plugins and "framework" not in kw:
             # config-driven framework assembly (framework.go:88 NewFramework:
             # registry factories + per-plugin args); unknown names fail
@@ -1352,6 +1388,15 @@ class Scheduler:
             self.obs.note_oom_forensic(ml.oom_flag(rec))
         RECOVERY.device_resets += 1
 
+    def _mesh_width(self) -> int:
+        """Devices THIS cycle's tables are sharded over; 0 when the mesh
+        is off or the cycle runs single-device (the cooloff)."""
+        return self.mesh.size if self._mesh_live else 0
+
+    def _num_shards(self) -> int:
+        """The shard count of the sparse routes' candidate pick."""
+        return self._mesh_width() or 1
+
     def _cycle_snapshot(self):
         """The cycle's node snapshot: ``(table, dev, mode)`` with ``dev``
         always on ``self.device``. The resident path (with device-loss
@@ -1363,8 +1408,19 @@ class Scheduler:
             nt, dn, mode = self._device_snapshot_recovering()
         else:
             nt, dn, mode = self.cache.snapshot(), None, "host"
+        # mesh liveness for THIS cycle: a resident table comes back placed
+        # on the mesh (cache.set_mesh), the non-resident host pack is
+        # placed below; only the device-loss cooloff (resident on, no
+        # device table) runs single-device until the heal probe
+        self._mesh_live = (self.mesh is not None
+                           and (dn is not None
+                                or not self.device_resident_snapshot))
+        self.obs.note_mesh_cycle(self._mesh_width())
         if dn is None:
-            dn = nodes_to_device(nt, device=self.device)
+            if self._mesh_live:
+                dn = pmesh.place_node_table(nt, self.mesh)
+            else:
+                dn = nodes_to_device(nt, device=self.device)
             RECOVERY.host_cycles += 1
         rows = nt.n if mode == "host" else self.cache.last_upload_rows
         self.metrics.snapshot_packs.inc(mode=mode)
@@ -1460,7 +1516,7 @@ class Scheduler:
                     min(len(batch), self.pipeline_chunk) if use_pipeline
                     else len(batch), 1))
                 act, split_p, verdict = ml.preflight(
-                    eff_p, int(dn.valid.shape[0]), 0)
+                    eff_p, int(dn.valid.shape[0]), self._mesh_width())
                 self.obs.note_preflight(act)
                 if act == "split" and not use_pipeline and split_p > 0:
                     if split_p < len(batch):
@@ -1621,7 +1677,7 @@ class Scheduler:
             static=(solver, tuple(skip_prio), no_ports, no_pod_aff,
                     no_spread, self.pred_mask, self.per_node_cap,
                     self.max_rounds, extra_mask is None,
-                    extra_score is None, False))
+                    extra_score is None, self._mesh_live))
         ts = self.clock()
         ladder = self._solve_ladder(solver, batch, dp, dn, ds, dt, dv, sv,
                                     base_fr, extra_mask, extra_score,
@@ -1794,7 +1850,8 @@ class Scheduler:
             f"xN{dn.valid.shape[0]}"
             + ("+topo" if dt is not None else "")
             + ("+vol" if dv is not None else "")
-            + (f"+pipe{self.pipeline_chunk}" if use_pipeline else ""))
+            + (f"+pipe{self.pipeline_chunk}" if use_pipeline else "")
+            + (f"+mesh{self.mesh.size}" if self._mesh_live else ""))
 
     def _finish(self, res: CycleResult, t0: float, syncs0: int,
                 cycle: Optional[int] = None):
@@ -2176,7 +2233,8 @@ class Scheduler:
         else:
             nt, dn = self.cache.snapshot(), None
         if dn is None:
-            dn = nodes_to_device(nt, device=dev)
+            dn = (pmesh.place_node_table(nt, self.mesh) if self._mesh_live
+                  else nodes_to_device(nt, device=dev))
         node_order = self.cache.node_order()
         pt = pk.pack_pods(pods_list)
         skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
@@ -2199,7 +2257,8 @@ class Scheduler:
             "solve", dp, dn, ds, dt, dv,
             static=(solver, tuple(skip_prio), no_ports, no_pod_aff,
                     no_spread, self.pred_mask, self.per_node_cap,
-                    self.max_rounds, True, extra_score is None, False))
+                    self.max_rounds, True, extra_score is None,
+                    self._mesh_live))
         ladder = self._solve_ladder(solver, pods_list, dp, dn, ds, dt, dv,
                                     sv, None, None, extra_score, skip_prio,
                                     no_ports, no_pod_aff, no_spread, res)
@@ -2531,6 +2590,10 @@ class Scheduler:
             if hook is not None:
                 out = hook("solve:exact", *out, dn.valid.shape[0])
             return out, dp, dn
+        # the mesh rung ``batch-single`` is the identical batch solve
+        # re-pinned off the mesh onto its one device: on a mesh of one
+        # card the tables already live there, unsharded, so it solves them
+        # as they are (a KernelError still escapes it)
         if tier == "batch-cpu":
             # the host fallback: every table copied to CPU tensors (one
             # counted transfer) and the identical solve re-run on the
@@ -2540,7 +2603,8 @@ class Scheduler:
                 (dp, dn, ds, dt, dv, sv, extra_mask, extra_score))
         # the Sinkhorn stats ride the solve as a (2,) device pair and the
         # tier's one readback brings them back (_validated_readback); the
-        # host fallback, as the reference's, solves without them
+        # re-pinning tiers, as the reference's, solve without them
+        repinned = tier in ("batch-single", "batch-cpu")
         out = batch_assign(
             dp, dn, ds, self.weights, max_rounds=self.max_rounds,
             per_node_cap=self.per_node_cap, topo=dt, extra_mask=extra_mask,
@@ -2550,7 +2614,7 @@ class Scheduler:
             no_pod_affinity=no_pod_aff, no_spread=no_spread,
             fault_hook=hook, fault_site=f"solve:{tier}",
             stats_out=(self.observability.sinkhorn_telemetry
-                       and tier != "batch-cpu"))
+                       and not repinned))
         return out, dp, dn
 
     def _validated_readback(self, tier, out, dp, dn):
@@ -2609,7 +2673,8 @@ class Scheduler:
                       no_pod_aff, no_spread, res):
         """The degradation ladder: the configured tier, then each tier of
         ``robustness.fallback_chain`` (``batch-cpu``, then the greedy
-        oracle), with a circuit breaker per tier, bounded in-cycle
+        oracle; under a live mesh ``batch-single`` first), with a circuit
+        breaker per tier, bounded in-cycle
         retries, a deadline that skips to the floor, and result
         validation, so a lying solver never binds an infeasible pod. A
         solver fault (``faults.SolverFault``: a timeout, a crash, a lost
@@ -2621,6 +2686,11 @@ class Scheduler:
         usage, rounds, tier)`` or None when every tier failed."""
         rc = self.robustness
         tiers = [solver]
+        if self._mesh_live and solver in ("batch", "sinkhorn", "greedy"):
+            # the mesh rung: a failing sharded solve retries unsharded on
+            # one device of the mesh before the ladder leaves the card
+            # (sharded -> batch-single -> batch-cpu -> greedy)
+            tiers.append("batch-single")
         for t in rc.fallback_chain:
             if t not in tiers:
                 tiers.append(t)
@@ -2850,7 +2920,7 @@ class Scheduler:
         pack = self.scenario_pack
         statics = (solver, tuple(skip_prio), no_ports, no_pod_aff,
                    no_spread, self.pred_mask, self.per_node_cap,
-                   self.max_rounds, True, pack is None, False)
+                   self.max_rounds, True, pack is None, self._mesh_live)
 
         def pack_chunk(k):
             with self.obs.span(f"pipeline:pack@{k}", pods=len(chunks[k])):
@@ -3190,7 +3260,7 @@ class Scheduler:
             "solve", dp_f, sub_dn, ds,
             static=("restricted", self.solver, tuple(skip_prio),
                     self.pred_mask, self.per_node_cap, self.max_rounds,
-                    sk_init is None, extra_score is None, False))
+                    sk_init is None, extra_score is None, self._mesh_live))
         out = batch_assign(
             dp_f, sub_dn, ds, self.weights, max_rounds=self.max_rounds,
             per_node_cap=self.per_node_cap, enabled_mask=self.pred_mask,
@@ -3277,15 +3347,20 @@ class Scheduler:
                 h[: hm.shape[0]] = hm
                 hint = upload(h, self.device)
                 hq = max(int(inc.group_quota_frac * C), 1)
-        # the candidate pick is a site of its own, as in the reference
+        # the candidate pick is a site of its own, as in the reference;
+        # under a live mesh it is the per-shard local top-C over the
+        # node-sharded summary and a merge of the (S, C) winners,
+        # bit-identical to the reference's sharded pick
+        ns = self._num_shards()
         self.obs.jax.record_call("incremental", summary.rank,
-                                 static=(C, n_pad, False, 1, hint is None,
-                                         hq))
+                                 static=(C, n_pad, self._mesh_live, ns,
+                                         hint is None, hq))
         ts = self.clock()
         try:
             with self.obs.span("solve:restricted"):
                 cand, sub_dn = gather_candidates(summary, dirty, dn, C,
                                                  hint_mask=hint,
+                                                 num_shards=ns,
                                                  hint_quota=hq or 0)
                 # the restricted_ok pack's cost on the gathered frame: the
                 # term is per column, so it equals the dense term
@@ -3411,13 +3486,14 @@ class Scheduler:
         def pending_pods():
             return dp._replace(valid=dp.valid & upload(pending, dev))
 
+        ns = self._num_shards()
         self.obs.jax.record_call("partition", summary.rank,
-                                 static=(B, C, n_pad, 1, False))
+                                 static=(B, C, n_pad, ns, self._mesh_live))
         ts = self.clock()
         solve_span = self.obs.current_trace.begin_span("solve:partitioned",
                                                         blocks=B)
         try:
-            blocks = partition_columns(summary, zeros_dirty, B, C)
+            blocks = partition_columns(summary, zeros_dirty, B, C, ns)
             for b in range(B):
                 if not pending[: len(batch)].any():
                     break
@@ -3441,8 +3517,9 @@ class Scheduler:
                 sum_u = node_summary(dn_u, **self._summary_flags)
                 self.obs.jax.record_call(
                     "incremental", sum_u.rank,
-                    static=(C, n_pad, False, 1, True, None))
-                cand, sub_dn = gather_candidates(sum_u, zeros_dirty, dn_u, C)
+                    static=(C, n_pad, self._mesh_live, ns, True, None))
+                cand, sub_dn = gather_candidates(sum_u, zeros_dirty, dn_u, C,
+                                                 num_shards=ns)
                 got, r, _depth, _pot, _frame = self._solve_frame(
                     pending_pods(), sub_dn, ds, cand, skip_prio, warm=warm,
                     site="solve:partitioned", readback_site="cold-block")
@@ -3504,24 +3581,31 @@ class Scheduler:
         sample = list(sample_pods)
         for p in sample:
             pk.intern_pod(p)
+        self._mesh_live = self.mesh is not None
         if self.cache.nodes():
             if self.device_resident_snapshot:
                 nt, dn, _mode = self._device_snapshot_recovering()
+                if dn is None:
+                    # cooling off after a device loss: warm what the
+                    # host-mode cycles present, single-device
+                    self._mesh_live = False
             else:
                 nt, dn = self.cache.snapshot(), None
             if dn is None:
                 # host mode (cooling off, or not resident): warm on the
                 # host table at the padded shape a host-mode cycle
-                # uploads, which is the resident one's (one card, no
-                # mesh: the reference's separate host-fallback sweep has
-                # no other shape to warm here)
-                dn = nodes_to_device(nt, device=dev)
+                # uploads (placed on the mesh when the cycles place it)
+                dn = (pmesh.place_node_table(nt, self.mesh)
+                      if self._mesh_live else nodes_to_device(nt, device=dev))
         elif node_count:
             # no cluster yet: a widths-complete zero-row table padded to
-            # the caller's expected node bucket
+            # the caller's expected node bucket (and at least the mesh
+            # size, as the mesh cycles pad it)
             nt = pk.pack_nodes([])
-            dn = nodes_to_device(nt, pad_to=bucket_size(max(node_count, 1)),
-                                 device=dev)
+            pad = bucket_size(max(node_count, 1))
+            dn = (pmesh.place_node_table(nt, self.mesh, pad_to=pad)
+                  if self._mesh_live
+                  else nodes_to_device(nt, pad_to=pad, device=dev))
         else:
             # warming now would capture shapes with an empty-cluster node
             # bucket no real cycle can match
@@ -3599,12 +3683,74 @@ class Scheduler:
                     # log line; the cold route still serves every cycle
                     self._note_device_reset("warmup:incremental", e)
                     klog.warning("incremental warmup aborted: %s", e)
+            if wu.host_fallback and self._mesh_live:
+                compiled += self._warm_host_fallback(
+                    buckets, pk, sample, nt, node_count, solver, gates,
+                    has_vol_sample, wu)
         captures = device_loop.CAPTURES.count - captures0
         if captures:
             self.metrics.graph_captures.inc(captures, phase="warmup")
         klog.V(2).info("warmup: %d bucketed solve shapes, %d graphs "
                        "captured (nodes bucket %d)", compiled, captures,
                        dn.valid.shape[0])
+        return compiled
+
+    def _warm_host_fallback(self, buckets, pk, sample, nt, node_count,
+                            solver, gates, has_vol_sample, wu) -> int:
+        """The host-fallback sweep (``warmup.host_fallback``, under a
+        mesh): warm the single-device host-mode shapes too, the ones a
+        device-loss cooloff cycle presents (resident table dropped, the
+        host mirror uploaded, the mesh not live), so a shard lost
+        mid-churn degrades through the cooloff without capturing a
+        round-loop graph on the hot path. The shards share the card, so
+        where the host pad equals the mesh pad (a bucket of at least the
+        mesh size) the host-mode graphs are the mesh sweep's own and are
+        replayed, not captured again; the sweep still registers the
+        host-mode solve signatures (``_mesh_live`` False), as the
+        reference compiles them. A device error stops the sweep as the
+        mesh sweep's does; a ``KernelError`` propagates. Returns the
+        shapes warmed."""
+        dev = self.device
+        compiled = 0
+        self._mesh_live = False
+        try:
+            host_n = nt.n if nt.n else (node_count or 1)
+            dn_h = nodes_to_device(nt, pad_to=bucket_size(max(host_n, 1)),
+                                   device=dev)
+            ds_h = selectors_to_device(pk.pack_selector_tables(), device=dev)
+            dt_h = (topology_to_device(pk.pack_topology_tables(), device=dev)
+                    if _has_topo(pk.u) else None)
+            for P in buckets:
+                try:
+                    if self.fault_injector is not None:
+                        self.fault_injector.device_hook("warmup:compile")
+                    compiled += self._warm_bucket(P, pk, sample, nt, dn_h,
+                                                  ds_h, dt_h, solver, gates,
+                                                  has_vol_sample, wu)
+                except kernels.KernelError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — a device error
+                    self._note_device_reset("warmup:compile", e,
+                                            shapes=f"P{P}(host)")
+                    self.cache.drop_device_snapshot()
+                    self._drop_incremental("device-loss")
+                    klog.warning("host-fallback warmup aborted at bucket "
+                                 "%d: %s", P, e)
+                    return compiled
+            if self.incremental.enabled:
+                # the restricted shapes in host mode too: the heal
+                # boundary's cycles must not capture on the hot path
+                try:
+                    compiled += self._warm_incremental(
+                        buckets, pk, sample, nt, dn_h, ds_h, gates[0])
+                except kernels.KernelError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — a device error
+                    self._note_device_reset("warmup:incremental", e)
+                    klog.warning("incremental host-fallback warmup "
+                                 "aborted: %s", e)
+        finally:
+            self._mesh_live = self.mesh is not None
         return compiled
 
     def _warm_bucket(self, P, pk, sample, nt, dn, ds, dt, solver, gates,
@@ -3640,7 +3786,8 @@ class Scheduler:
         # captures are deliberate, never retraces
         statics = (solver, tuple(skip_prio), no_ports, no_pod_aff,
                    no_spread, self.pred_mask, self.per_node_cap,
-                   self.max_rounds, True, extra_score is None, False)
+                   self.max_rounds, True, extra_score is None,
+                   self._mesh_live)
 
         # the cycles' own solve arguments; the stats flag joins the graph
         # key, so it is the cycles' own too
@@ -3724,8 +3871,8 @@ class Scheduler:
         out = batch_assign(dp, dn, ds, self.weights, **solve_kwargs)
         rounds = int(self.obs.jax.readback("ledger-anchor", out[2]))
         elapsed = time.perf_counter() - t0
-        ledger.model.record_anchor("full", P_pad, N_pad, 0, elapsed,
-                                   rounds=max(rounds, 1))
+        ledger.model.record_anchor("full", P_pad, N_pad, self._mesh_width(),
+                                   elapsed, rounds=max(rounds, 1))
 
     def _capture_bucket_memory(self, dp, dn, ds, solve_kwargs) -> None:
         """The memory ledger's per-bucket peak (obs/memledger.py): one
@@ -3746,7 +3893,8 @@ class Scheduler:
         ma = solve_memory_analysis(dp, dn, ds, self.weights, **solve_kwargs)
         if ma is None:
             return
-        key = (int(dp.valid.shape[0]), int(dn.valid.shape[0]), 0)
+        key = (int(dp.valid.shape[0]), int(dn.valid.shape[0]),
+               self._mesh_width())
         cur = ml.bucket_table().get(key)
         if cur is None or cur["total_bytes"] <= ma["total_bytes"]:
             ml.record_bucket_memory(*key, ma)
@@ -3785,6 +3933,7 @@ class Scheduler:
         ladder = [c for c in ladder if c < n_pad]
         if not ladder:
             return 0
+        ns = self._num_shards()
         flags = self._summary_flags
         summary = node_summary(dn, **flags)
         zeros_dirty = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
@@ -3807,20 +3956,23 @@ class Scheduler:
         for C in ladder:
             self.obs.jax.record_call(
                 "incremental", summary.rank,
-                static=(C, n_pad, False, 1, True, None), warmup=True)
-            cand, sub_dn = gather_candidates(summary, zeros_dirty, dn, C)
+                static=(C, n_pad, self._mesh_live, ns, True, None),
+                warmup=True)
+            cand, sub_dn = gather_candidates(summary, zeros_dirty, dn, C,
+                                             num_shards=ns)
             if pack is not None:
                 # the hinted pick (two disjoint top-k's) is a site of its
                 # own: run it once with a placeholder mask
                 hq = max(int(inc.group_quota_frac * C), 1)
                 self.obs.jax.record_call(
                     "incremental", summary.rank,
-                    static=(C, n_pad, False, 1, False, hq), warmup=True)
+                    static=(C, n_pad, self._mesh_live, ns, False, hq),
+                    warmup=True)
                 gather_candidates(
                     summary, zeros_dirty, dn, C,
                     hint_mask=torch.zeros((n_pad,), dtype=torch.bool,
                                           device=dev),
-                    hint_quota=hq)
+                    num_shards=ns, hint_quota=hq)
             part_warm = False
             if inc.primary:
                 B = self._cold_blocks(n_pad, C)
@@ -3828,8 +3980,10 @@ class Scheduler:
                     part_warm = True
                     self.obs.jax.record_call(
                         "partition", summary.rank,
-                        static=(B, C, n_pad, 1, False), warmup=True)
-                    blocks = partition_columns(summary, zeros_dirty, B, C)
+                        static=(B, C, n_pad, ns, self._mesh_live),
+                        warmup=True)
+                    blocks = partition_columns(summary, zeros_dirty, B, C,
+                                               ns)
                     gather_node_rows(dn, blocks[0])
             limit = inc.max_batch_frac * C
             for P in buckets:
@@ -3878,7 +4032,7 @@ class Scheduler:
                         static=("restricted", self.solver, tuple(skip_prio),
                                 self.pred_mask, self.per_node_cap,
                                 self.max_rounds, sk_init is None,
-                                extra_score is None, False),
+                                extra_score is None, self._mesh_live),
                         warmup=True)
                     out = batch_assign(
                         dp, sub_dn, ds, self.weights,

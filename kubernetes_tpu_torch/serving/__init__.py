@@ -17,8 +17,9 @@ Four pieces, each usable standalone:
   bounded-buffer watch fan-out hub (a slow watcher is disconnected with
   410 Gone instead of stalling the publisher).
 - :mod:`kubernetes_tpu_torch.serving.compose` — :class:`ServingRuntime`,
-  the composed posture on one card: the serving loop with the
-  crash/failover protocol, APF shedding wired to the scheduler's real
+  the composed posture on one card: the serving loop on the node-axis
+  mesh backend (a logical mesh of the card; a mesh forces the
+  host-fallback warmup) with the crash/failover protocol, APF shedding wired to the scheduler's real
   backend pressure, and takeover-relisted watch fan-out — one
   constructor shared by ``cli.run`` and ``chip_smoke.py``.
 """

@@ -16,7 +16,9 @@ What composing changes (vs. the pieces in isolation):
 
 - **warmup**: the serving grid extends down to micro-batch buckets
   (min bucket 8), so a trickle cycle never captures a round-loop graph
-  on the hot path;
+  on the hot path; and when a mesh is on, the single-device host-mode
+  shapes warm too (``warmup.host_fallback``), so a shard lost mid-churn
+  degrades through the cooloff without a capture;
 - **APF shedding**: the mutating flow's saturation probe is
   :meth:`Scheduler.backend_pressure` — active-queue depth INFLATED
   while the ladder runs degraded, the device cools off after a loss, or
@@ -33,8 +35,6 @@ What composing changes (vs. the pieces in isolation):
   attaches the state-conservation auditor (``obs/audit.py``) and runs
   its structural sweep as a maintenance hook between loop iterations,
   under the ingest lock (:meth:`maybe_audit`).
-
-Not ported yet: the reference's mesh branch (ROADMAP A.17).
 """
 
 from __future__ import annotations
@@ -72,12 +72,18 @@ class ServingRuntime:
         self.clock = clock
         # -- warmed-grid adaptation ---------------------------------------
         wu = warmup if warmup is not None else sched.warmup_config
-        if wu.enabled and not wu.pod_buckets and wu.min_bucket > MIN_BUCKET:
-            # the streaming path presents SMALL buckets (micro-batches
-            # pad to bucket_size(depth), floor 8); the batch-mode default
-            # min_bucket=256 would leave them unwarmed and every trickle
-            # cycle would capture its round-loop graph on the hot path
-            wu = dataclasses.replace(wu, min_bucket=MIN_BUCKET)
+        if wu.enabled:
+            if not wu.pod_buckets and wu.min_bucket > MIN_BUCKET:
+                # the streaming path presents SMALL buckets (micro-batches
+                # pad to bucket_size(depth), floor 8); the batch-mode
+                # default min_bucket=256 would leave them unwarmed and
+                # every trickle cycle would capture its round-loop graph
+                # on the hot path
+                wu = dataclasses.replace(wu, min_bucket=MIN_BUCKET)
+            if sched.mesh is not None and not wu.host_fallback:
+                # composed mode: a shard loss mid-churn must not capture
+                # on the hot path — warm the host-mode fallback shapes
+                wu = dataclasses.replace(wu, host_fallback=True)
         sched.warmup_config = wu
         self._warmup_pending = wu.enabled
         # -- the loop + doorbell ------------------------------------------

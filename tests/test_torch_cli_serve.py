@@ -5,8 +5,8 @@ takes the lease in its lock file and exits 0 on SIGTERM; without a card
 the default ``--device cuda`` exits non-zero naming it; ``cli.run``'s
 serving and legacy branches bind what arrives, the legacy one never
 solves while idle, a shutdown releases the lease, and
-``unported_features`` now passes the serving and leadership settings
-while it keeps refusing the rest."""
+``unported_features`` passes the serving and leadership settings and,
+since the node-axis mesh was ported, every other one."""
 
 import dataclasses
 import json
@@ -244,10 +244,32 @@ def test_serving_and_leadership_settings_are_ported(field, value):
 @pytest.mark.parametrize("field,value,item", [
     ("parallel", ParallelConfig(mesh=4), "A.17"),
 ])
-def test_unported_settings_stay_refused(field, value, item):
+def test_unported_settings_stay_refused(field, value, item, monkeypatch):
+    """The last setting refused by name (ROADMAP ``item``, the node-axis
+    mesh) is ported for one card: the configuration validates as the
+    reference's does, ``unported_features`` is empty, and the scheduler
+    builds the mesh asked for (8 logical CPU devices stand in for the
+    reference's 8 virtual ones). A mesh over distinct cards stays
+    refused, naming its own item (A.17.2)."""
+    import torch
+
+    import kubernetes_tpu.cli as jcli
+    import kubernetes_tpu.config as jconfig
+    import kubernetes_tpu_torch.parallel.mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "local_devices",
+                        lambda kind="cuda": [torch.device("cpu")] * 8)
     cfg = dataclasses.replace(KubeSchedulerConfiguration(), **{field: value})
-    errs = cli.unported_features(cfg)
-    assert len(errs) == 1 and f"ROADMAP {item}" in errs[0], errs
+    ref = dataclasses.replace(jconfig.KubeSchedulerConfiguration(), **{
+        field: jconfig.ParallelConfig(mesh=value.mesh)})
+    assert cli.validate_config(cfg) == jcli.validate_config(ref) == []
+    assert cli.unported_features(cfg) == []
+    s = Scheduler.from_config(cfg, device="cpu")
+    assert s.mesh.size == 4 and s.metrics.mesh_devices.value() == 4
+    monkeypatch.setattr(tmesh, "local_devices", lambda kind="cuda": [
+        torch.device("cuda", i) for i in range(8)])
+    with pytest.raises(tmesh.MeshError, match=f"ROADMAP {item}.2"):
+        Scheduler.from_config(cfg, device="cpu")
 
 
 def test_device_flag_defaults_to_the_card():

@@ -186,21 +186,43 @@ def test_cli_validate_only_exit_codes(tmp_path, capsys, doc, rc, line):
     ({"parallel": {"mesh": "auto"}}, "A.17"),
     ({"parallel": {"mesh": 2}}, "A.17"),
 ])
-def test_unported_features_are_refused_by_name(tmp_path, capsys, doc, item):
-    """A valid configuration that turns on something the port does not
-    have yet is refused — by --validate-only and by from_config — with
-    a message naming the ROADMAP item; never silently ignored."""
-    f = tmp_path / "cfg.json"
-    f.write_text(json.dumps(doc))
-    assert REF.cli.main(["--validate-only", "--config", str(f)]) == 0
-    capsys.readouterr()
-    assert PORT.cli.main(["--validate-only", "--config", str(f)]) == 1
-    err = capsys.readouterr().err
-    assert f"ROADMAP {item}" in err
+def test_unported_features_are_refused_by_name(tmp_path, capsys, monkeypatch,
+                                               doc, item):
+    """A mesh setting, refused by name until ROADMAP ``item`` was ported
+    for one card, is accepted as the reference accepts it: --validate-only
+    prints the reference's line with its exit code, ``unported_features``
+    is empty, and ``from_config`` builds the mesh the reference builds (on
+    8 logical CPU devices here, as the reference on its 8 virtual ones).
+    What is still unported, the same setting resolved over distinct
+    cards, is refused by ``from_config`` naming its ROADMAP item (A.17.2);
+    nothing is silently ignored or gathered onto one card."""
+    import jax
+    import torch
+
+    import kubernetes_tpu_torch.parallel.mesh as tmesh
+    from kubernetes_tpu.scheduler import Scheduler as JScheduler
     from kubernetes_tpu_torch.scheduler import Scheduler
 
+    monkeypatch.setattr(tmesh, "local_devices",
+                        lambda kind="cuda": [torch.device("cpu")] * 8)
+    f = tmp_path / "cfg.json"
+    f.write_text(json.dumps(doc))
+    outs = []
+    for m in (REF, PORT):
+        rc = m.cli.main(["--validate-only", "--config", str(f)])
+        outs.append((rc, capsys.readouterr().out))
+    assert outs[1] == outs[0] and outs[0][0] == 0
     cfg = PORT.cli.load_config_file(str(f))
-    with pytest.raises(PORT.cli.ConfigError, match=f"ROADMAP {item}"):
+    assert PORT.cli.unported_features(cfg) == []
+    got = Scheduler.from_config(cfg, device="cpu")
+    want = JScheduler.from_config(REF.cli.load_config_file(str(f)))
+    assert int(want.mesh.devices.size) <= len(jax.devices())
+    assert got.mesh.size == int(want.mesh.devices.size)
+    assert (got.metrics.mesh_devices.value()
+            == want.metrics.mesh_devices.value() == got.mesh.size)
+    monkeypatch.setattr(tmesh, "local_devices", lambda kind="cuda": [
+        torch.device("cuda", i) for i in range(8)])
+    with pytest.raises(tmesh.MeshError, match=f"ROADMAP {item}.2"):
         Scheduler.from_config(cfg, device="cpu")
 
 
