@@ -132,7 +132,7 @@ non-zero if any fails:
    writer, flaky binds) with its scheduler on the card at its defaults,
    5000 smoke-cell nodes, a DaemonSet (a pod per node), 2500 pods of
    Deployments and zone-preferring bare pods, a Job of 500 and a
-   StatefulSet of 3 (the pod count cut, ``HOLLOW_FULL``); it steps until
+   StatefulSet of 2 (the pod count cut, ``HOLLOW_FULL``); it steps until
    every pod is bound, then 3 churn steps of 320 s (pods killed, nodes
    removed, 50 kubelets killed, their pods evicted; healed after the
    last, their nodes restored in arm B's first step),
@@ -242,8 +242,11 @@ non-zero if any fails:
    the smoke nodes and 500 of its pods, then a ReplicaSet, a churn step
    and the controller's refeed. Arm C: arm A's stream at 500 nodes x
    1024 pods places equally on the card and on CPU tensors;
-17. the node-axis mesh on one card (``parallel.mesh``), every scheduler a
-   JSON v1alpha1 file through ``Scheduler.from_config``. Arm A: the smoke
+17. the node-axis mesh (``parallel.mesh``), every scheduler a
+   JSON v1alpha1 file through ``Scheduler.from_config``; every mesh of
+   d > 1 runs the partitioned solve (one program per shard, the
+   cross-shard reductions of ``parallel/collectives.py``, the split pair
+   and u kernels). Arm A: the smoke
    cell at full width under ``parallel: {mesh: auto}`` (a mesh of 1 on
    one card) beside a mesh-off twin: equal placements, rounds and host
    syncs, the pair launched as often, ``+mesh1`` in every batch shape,
@@ -260,7 +263,17 @@ non-zero if any fails:
    clock, the flight records' mesh 0 then 8, resets equal to the shots,
    the healed table back on the mesh), then a composed
    ``ServingRuntime`` on a 2-shard mesh loses one mid-churn: every pod
-   bound exactly once, no graph captured after warmup.
+   bound exactly once, no graph captured after warmup. Arm E: the smoke
+   cell at full width over 2 and 4 copies of the card, monolithic and
+   pipelined, each beside a mesh-off twin: equal placements and rounds,
+   one cycle under sync-debug ``error``, the split pair launched, the
+   collectives of a round body beside the cost model's payloads; then
+   ``solver: sinkhorn`` with 4096 pods on 4 shards: equal placements, u
+   (split) and v launched. Arm E2 runs ``mesh: auto`` over every card
+   where there are two or more, and otherwise prints that it did not.
+   Phase 2 also holds the split kernels (``fused_pair_max``,
+   ``fused_pair_scale``, ``sinkhorn_u_partial``) against their plain
+   versions at (8192, 8192 / d) for d in 2, 4, 8.
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
@@ -269,7 +282,7 @@ path, the topology path, the preempt cell, the sparse cell, the
 pipeline cell, the configured scheduler's arm A, the serve loop's
 arms A-D, the hollow cluster's arms A and B, the recovery phase's
 arms A-C, the ledger phase's arms A-C, the scenario phase's arms and
-the grpc phase's arms A-C and the mesh phase's arms A-D,
+the grpc phase's arms A-C and the mesh phase's arms A-E2,
 each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
@@ -424,6 +437,26 @@ KERNELS = {
         "source": "kubernetes_tpu_torch/csrc/sinkhorn.cu",
         "replaces": "kubernetes_tpu/ops/sinkhorn.py:171 _v_kernel",
     },
+    # the pair and the u pass split at their reduction seam: what the
+    # partitioned solve (a mesh of d > 1 shards) launches on each shard
+    "fused_pair_max": {
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/fused_pair.cu",
+        "replaces": "kubernetes_tpu/ops/fused_score.py:75 _pair_max_kernel "
+                    "(its pallas_call at :123)",
+    },
+    "fused_pair_scale": {
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/fused_pair.cu",
+        "replaces": "kubernetes_tpu/ops/fused_score.py:95 "
+                    "_pair_scale_kernel (its pallas_call at :141)",
+    },
+    "sinkhorn_u_partial": {
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/sinkhorn.cu",
+        "replaces": "kubernetes_tpu/ops/sinkhorn.py:156 _u_kernel (its "
+                    "pallas_call at :239), split at its log-sum-exp",
+    },
     # not a Pallas kernel: the conditional-node graph and its exit-test
     # kernel that keep the round loop on the card, as the reference's
     # jax.lax.while_loop does
@@ -437,6 +470,10 @@ KERNELS = {
 
 #: the kernels that take (P, N) arrays (timed again at the main shapes)
 ARRAY_KERNELS = ("fused_pair_normalize", "sinkhorn_u", "sinkhorn_v")
+#: the split kernels of the partitioned solve, one launch per shard
+SPLIT_KERNELS = ("fused_pair_max", "fused_pair_scale", "sinkhorn_u_partial")
+#: the shard counts the split kernels are held at, on (8192, 8192 / d)
+SPLIT_WIDTHS = (2, 4, 8)
 
 #: Sinkhorn passes sum in another order than the plain versions
 SINKHORN_ATOL, SINKHORN_RTOL = 1e-5, 1e-4
@@ -629,6 +666,160 @@ def _wide_pair(rf, rr, mask):
     out = torch.empty_like(rf)
     fused_score.launch(rf, rr, mask, out, 1.0, 1.0, staged=False)
     return out
+
+
+def _split_bound(name, P, n) -> dict:
+    """Least time of a split kernel on one (P, n) block: each input read
+    once, each output written once."""
+    if name == "fused_pair_max":
+        return _bound(P * n * (4 + 4 + 1) + 2 * P * 4, P * n * 4)
+    if name == "fused_pair_scale":
+        return _bound(P * n * (4 + 4 + 4) + 2 * P * 4, P * n * 12)
+    return _bound(P * n * 4 + n * 4 + 2 * P * 4, P * n * 5)
+
+
+def check_split_kernels(out_rows: dict) -> None:
+    """The partitioned solve's split kernels against their plain versions
+    at (8192, 8192 / d) for d in SPLIT_WIDTHS: the pair's max and scale
+    passes bit for bit (and, composed over the d blocks, bit for bit
+    against the fused pair), the u pass's (shift, sum) and the merged u
+    within the Sinkhorn tolerance in both rules. Timed at every width
+    (the row's figures at d = 2, arm E's first mesh), each beside its
+    plain version and a library call (the pair's max pass:
+    ``torch.amax(torch.where(mask, rf, 0), 1)``; the u pass:
+    ``torch.logsumexp`` on the block)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import fused_score, sinkhorn
+    from kubernetes_tpu_torch.parallel import collectives as coll
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261018)
+    P, N = 8192, 8192
+    rf, rr, mask = _pair_inputs(P, N, gen, dev)
+    logk, log_r, _lc, _u, v = _sinkhorn_inputs(P, N, gen, dev)
+    fused = fused_score.fused_pair_normalize(rf, rr, mask, 1.0, 1.0)
+    u_whole = {r: sinkhorn.sinkhorn_u_plain(logk, v, log_r, r)
+               for r in (False, True)}
+    for d in SPLIT_WIDTHS:
+        n = N // d
+        blk = [(a.contiguous(), b.contiguous(), m.contiguous()) for a, b, m
+               in zip(rf.split(n, 1), rr.split(n, 1), mask.split(n, 1))]
+        mx = [fused_score.fused_pair_max(*b) for b in blk]
+        mx_p = [fused_score.fused_pair_max_plain(*b) for b in blk]
+        for (a, b), (c, e) in zip(mx, mx_p):
+            if not (torch.equal(a, c) and torch.equal(b, e)):
+                fail(f"fused_pair_max {P}x{n}: differs from its plain "
+                     "version")
+        mxf = torch.stack([m[0] for m in mx]).amax(0)
+        mxr = torch.stack([m[1] for m in mx]).amax(0)
+        outs = [fused_score.fused_pair_scale(b[0], b[1], mxf, mxr, 1.0, 1.0)
+                for b in blk]
+        for o, b in zip(outs, blk):
+            want = fused_score.fused_pair_scale_plain(b[0], b[1], mxf, mxr,
+                                                      1.0, 1.0)
+            if not torch.equal(o, want):
+                fail(f"fused_pair_scale {P}x{n}: differs from its plain "
+                     f"version (max |err| {float((o - want).abs().max())})")
+        if not torch.equal(torch.cat(outs, 1), fused):
+            fail(f"split pair over {d} shards differs from the fused pair")
+        lk = [x.contiguous() for x in logk.split(n, 1)]
+        vb = [x.contiguous() for x in v.split(n, 0)]
+        errs = {}
+        for rule in (False, True):
+            parts = [sinkhorn.sinkhorn_u_partial(a, b, rule)
+                     for a, b in zip(lk, vb)]
+            plain = [sinkhorn.sinkhorn_u_partial_plain(a, b, rule)
+                     for a, b in zip(lk, vb)]
+            u = coll.lse_combine(torch.stack([p[0] for p in parts]),
+                                 torch.stack([p[1] for p in parts]), log_r,
+                                 rule)
+            u_p = coll.lse_combine(torch.stack([p[0] for p in plain]),
+                                   torch.stack([p[1] for p in plain]),
+                                   log_r, rule)
+            tag = "jnp" if rule else "pallas"
+            for got, want, what in ((u, u_p, "merged u"),
+                                    (u, u_whole[rule], "u against the "
+                                     "whole-row pass")):
+                err, ok = sinkhorn_err(got, want)
+                if not ok:
+                    fail(f"sinkhorn_u_partial {P}x{n} ({tag} rule): {what} "
+                         f"max |err| {err} beyond atol {SINKHORN_ATOL} rtol "
+                         f"{SINKHORN_RTOL}")
+                errs[f"{tag}_{'plain' if want is u_p else 'whole'}"] = err
+            for (m, s_), (mp, sp) in zip(parts, plain):
+                if not torch.allclose(m, mp, atol=SINKHORN_ATOL,
+                                      rtol=SINKHORN_RTOL) or not \
+                        torch.allclose(s_, sp, atol=SINKHORN_ATOL,
+                                       rtol=SINKHORN_RTOL):
+                    fail(f"sinkhorn_u_partial {P}x{n} ({tag} rule): "
+                         "(shift, sum) beyond tolerance")
+        a, b, m = blk[0]
+        timed = {
+            "fused_pair_max": dict(
+                max_abs_err=0.0,
+                ms=cuda_time_ms(lambda: fused_score.fused_pair_max(a, b, m)),
+                device_ms=device_ms(lambda: fused_score.fused_pair_max(a, b,
+                                                                       m)),
+                plain_ms=cuda_time_ms(
+                    lambda: fused_score.fused_pair_max_plain(a, b, m)),
+                library_ms=cuda_time_ms(
+                    lambda: torch.amax(torch.where(m, a, 0.0), 1))),
+            "fused_pair_scale": dict(
+                max_abs_err=0.0,
+                ms=cuda_time_ms(lambda: fused_score.fused_pair_scale(
+                    a, b, mxf, mxr, 1.0, 1.0)),
+                device_ms=device_ms(lambda: fused_score.fused_pair_scale(
+                    a, b, mxf, mxr, 1.0, 1.0)),
+                plain_ms=cuda_time_ms(lambda: fused_score
+                                      .fused_pair_scale_plain(
+                                          a, b, mxf, mxr, 1.0, 1.0)),
+                library_ms=None),
+            "sinkhorn_u_partial": dict(
+                max_abs_err=max(errs.values()),
+                max_abs_err_by_rule=errs,
+                ms=cuda_time_ms(lambda: sinkhorn.sinkhorn_u_partial(
+                    lk[0], vb[0])),
+                device_ms=device_ms(lambda: sinkhorn.sinkhorn_u_partial(
+                    lk[0], vb[0])),
+                plain_ms=cuda_time_ms(lambda: sinkhorn
+                                      .sinkhorn_u_partial_plain(lk[0],
+                                                                vb[0])),
+                library_ms=cuda_time_ms(lambda: torch.logsumexp(
+                    lk[0] + vb[0][None, :], 1))),
+        }
+        for name, got in timed.items():
+            got.update(_split_bound(name, P, n))
+            row = out_rows.setdefault(name, {})
+            row[f"d{d}"] = {"shape": [P, n], **got}
+            if d == SPLIT_WIDTHS[0]:
+                row.update(got)
+                row["shape"] = [P, n]
+        del blk, mx, mx_p, outs, lk, vb
+        torch.cuda.empty_cache()
+    # the split kernels take any row length (a shard's block may be
+    # narrower than four columns): scalar reads, same results
+    for n in (1, 3, 6):
+        a, b, m = (x[:64, :n].contiguous() for x in (rf, rr, mask))
+        got = fused_score.fused_pair_max(a, b, m)
+        want = fused_score.fused_pair_max_plain(a, b, m)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"fused_pair_max 64x{n}: differs from its plain version")
+        o = fused_score.fused_pair_scale(a, b, want[0], want[1], 1.0, 1.0)
+        if not torch.equal(o, fused_score.fused_pair_scale_plain(
+                a, b, want[0], want[1], 1.0, 1.0)):
+            fail(f"fused_pair_scale 64x{n}: differs from its plain version")
+        lk, vb = logk[:64, :n].contiguous(), v[:n].contiguous()
+        for rule in (False, True):
+            got = sinkhorn.sinkhorn_u_partial(lk, vb, rule)
+            want = sinkhorn.sinkhorn_u_partial_plain(lk, vb, rule)
+            if not all(torch.allclose(x, y, atol=SINKHORN_ATOL,
+                                      rtol=SINKHORN_RTOL)
+                       for x, y in zip(got, want)):
+                fail(f"sinkhorn_u_partial 64x{n}: beyond tolerance")
+    del rf, rr, mask, logk, log_r, v, fused
+    torch.cuda.empty_cache()
 
 
 def check_kernels(out_rows: dict) -> None:
@@ -4181,8 +4372,10 @@ def phase_serve() -> dict:
 #: whole truth map (``HollowKubelet.pods``), so a hub step costs host time
 #: in proportion to nodes x pods. The StatefulSet's ordinals bind two
 #: steps apart, so its size sets the bind steps: 5 until the mesh phase
-#: came, 3 since (four fewer 5-10 s steps pay for that phase)
-HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 3}
+#: came, 3 since (four fewer 5-10 s steps pay for that phase), 2 since
+#: the mesh phase's arm E (two fewer steps pay for it; two ordinals
+#: still bind in order)
+HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 2}
 #: the CUDA-against-CPU run: arm A's traffic at 500 nodes and 3000 pods
 HOLLOW_REDUCED = {"n_nodes": 500, "n_deploy": 1995, "n_job": 500,
                   "n_sts": 3}
@@ -4828,7 +5021,8 @@ def _launches_since(before: dict) -> dict:
     """The array kernels' launches since ``before`` (a ``launch_counts()``
     read)."""
     now = launch_counts()
-    return {k: now[k] - before.get(k, 0) for k in ARRAY_KERNELS}
+    return {k: now[k] - before.get(k, 0)
+            for k in ARRAY_KERNELS + SPLIT_KERNELS}
 
 
 def netchaos_run(device: str, n_nodes: int, n_pods: int,
@@ -7207,7 +7401,14 @@ MESH = {"n_nodes": 5000, "n_bound": 1000, "n_pending": 10000,
         "shards": 8, "burst": 1024, "steady": 8,
         "eq_nodes": 500, "eq_bound": 100, "eq_burst": 512,
         "ladder_pods": 1024, "chaos_pods": 256, "serve_shards": 2,
-        "serve_batches": (3, 5, 8, 2, 6, 5, 4)}
+        "serve_batches": (3, 5, 8, 2, 6, 5, 4),
+        # arm E: the partitioned solve at full width over 2 and 4 shards,
+        # and the plan path's 4096 pods over 4
+        "e_shards": (2, 4), "e_plan_pods": 4096, "e_plan_shards": 4}
+
+#: arm A's mesh-off twin (the smoke cell, pipelined at the defaults):
+#: arm E's pipelined runs compare against it
+_TWIN: dict = {}
 
 
 @contextlib.contextmanager
@@ -7227,6 +7428,25 @@ def logical_devices(n: int):
         yield
     finally:
         pmesh.local_devices = real
+
+
+@contextlib.contextmanager
+def distinct_card_path():
+    """The copies of the one card taken as distinct cards:
+    ``Mesh.logical`` reads False and every placement copies, as a copy to
+    another card does. So the multi-card code path runs on one card
+    (each block uploaded apart, the owning block's delta scatter, the
+    Python round loop with one counted read a round), every peer copy a
+    copy on the card."""
+    from kubernetes_tpu_torch.parallel import mesh as pmesh
+
+    logical, to = pmesh.Mesh.logical, pmesh._to
+    pmesh.Mesh.logical = property(lambda self: False)
+    pmesh._to = lambda t, dev: None if t is None else t.to(dev).clone()
+    try:
+        yield
+    finally:
+        pmesh.Mesh.logical, pmesh._to = logical, to
 
 
 def _mesh_doc(mesh=None, **doc) -> dict:
@@ -7291,6 +7511,8 @@ def mesh_arm_a(tmp: str) -> dict:
                      f"after {r.solver_fallbacks} fallbacks")
         release_graphs()
     off, on = runs["off"], runs["auto"]
+    _TWIN["pipelined"] = [(r.assignments, r.rounds) for r in off["results"]]
+    _TWIN["pipelined_solve_s"] = [r.solve_s for r in off["results"]]
     for key in ("assignments", "rounds", "host_syncs", "snapshot_mode",
                 "pipeline_chunks"):
         a = [getattr(r, key) for r in off["results"]]
@@ -7692,6 +7914,194 @@ def mesh_serve_churn(tmp: str) -> dict:
             "cycles": len(arc)}
 
 
+def _collectives_beside_model(shards: int, P: int, N: int) -> dict:
+    """The collectives of the last partitioned round body the host ran
+    (``parallel/collectives.ROUND``: calls, payload bytes a mesh over
+    cards moves, bytes this run moved) beside the cost model's payloads
+    for one round at the same (d, P, N)."""
+    from kubernetes_tpu_torch.parallel import collectives as coll
+    from kubernetes_tpu_torch.parallel.costmodel import CollectiveCostModel
+
+    model = CollectiveCostModel(devices=shards, pods_per_batch=P,
+                                nodes_padded=N).per_round_collectives()
+    return {"round": coll.ROUND.snapshot(), "solve": coll.STATS.snapshot(),
+            "model_per_round": model}
+
+
+def mesh_arm_e(tmp: str) -> dict:
+    """Arm E: the partitioned solve at full width on the card. The smoke
+    cell (5000 nodes over 10 zones, 1000 bound, 10,000 pending pods) runs
+    through ``Scheduler.from_config`` with ``parallel.mesh`` over 2 and 4
+    copies of the card, monolithic (``pipelineDepth: 1``: batches of 8192
+    and 1808) beside a mesh-off monolithic twin, and pipelined (the
+    defaults) beside arm A's mesh-off twin. Fails unless placements and
+    rounds equal the twin's cycle for cycle, every cycle solved on the
+    configured tier, the second cycle ran clean under sync-debug
+    ``error``, the split pair launched on every run and every batch
+    shape carries ``+mesh{d}``. Then ``solver: sinkhorn`` with 4096
+    pending pods on 4 shards beside its mesh-off twin: equal placements
+    and rounds, u (split) and v launched. The collectives of a round
+    body are reported beside the cost model's payloads."""
+    nodes, bound, pending = smoke_cell(MESH["n_nodes"], MESH["n_bound"],
+                                       MESH["n_pending"])
+    by_key = {p.key(): p for p in pending}
+    out = {"cell": "smoke-5k-prefaffinity", "runs": {}}
+    launches = {k: 0 for k in ARRAY_KERNELS + SPLIT_KERNELS}
+    cycles = 0
+
+    def run(name, doc, shards, pods, sync_error_at=None):
+        nonlocal cycles
+        from kubernetes_tpu_torch.parallel import collectives as coll
+
+        with logical_devices(shards or 1):
+            sched = configured(_mesh_doc(shards, **doc), tmp,
+                               f"mesh-e-{name}", enable_preemption=False)
+        feed(sched, nodes, bound, [])
+        before = launch_counts()
+        coll.STATS.reset()
+        results, records, wall = _mesh_cycles(sched, pods, sync_error_at)
+        got = _launches_since(before)
+        loops = launch_counts()["round_loop"] - before["round_loop"]
+        for k in launches:
+            launches[k] += got[k]
+        cycles += len(results)
+        tier = doc.get("solver", "batch")
+        for r in results:
+            if r.solver_tier != tier or r.solver_fallbacks:
+                fail(f"mesh/E/{name}: a cycle solved on {r.solver_tier!r} "
+                     f"after {r.solver_fallbacks} fallbacks")
+        if shards and not all(rec.batch_shape.endswith(f"+mesh{shards}")
+                              for rec in records):
+            fail(f"mesh/E/{name}: batch shapes "
+                 f"{[rec.batch_shape for rec in records]}")
+        P = max((int(rec.batch_shape.split("xN")[0][1:]) for rec in records),
+                default=0)
+        coll_now = (_collectives_beside_model(shards, P, 8192)
+                    if shards else None)
+        release_graphs()
+        return {"results": results, "wall_s": wall, "launches": got,
+                "round_loops": loops, "collectives": coll_now,
+                "solve_s": [r.solve_s for r in results],
+                "rounds": [r.rounds for r in results],
+                "host_syncs": [r.host_syncs for r in results]}
+
+    mono = {"pipelineDepth": 1}
+    twins = {"monolithic": run("mono-off", mono, None, pending)}
+    twin_pairs = {"monolithic": [(r.assignments, r.rounds) for r in
+                                 twins["monolithic"]["results"]],
+                  "pipelined": _TWIN.get("pipelined")}
+    if twin_pairs["pipelined"] is None:
+        twins["pipelined"] = run("pipe-off", {}, None, pending)
+        twin_pairs["pipelined"] = [(r.assignments, r.rounds) for r in
+                                   twins["pipelined"]["results"]]
+    for mode, doc in (("monolithic", mono), ("pipelined", {})):
+        for d in MESH["e_shards"]:
+            got = run(f"{mode}-{d}", doc, d, pending, sync_error_at=1)
+            pairs = [(r.assignments, r.rounds) for r in got["results"]]
+            if pairs != twin_pairs[mode]:
+                fail(f"mesh/E/{mode}/{d}: placements or rounds differ from "
+                     "the mesh-off twin's: rounds "
+                     f"{[p[1] for p in pairs]} against "
+                     f"{[p[1] for p in twin_pairs[mode]]}")
+            for k in ("fused_pair_max", "fused_pair_scale"):
+                if got["launches"][k] <= 0:
+                    fail(f"mesh/E/{mode}/{d}: {k} never launched")
+            if got["launches"]["fused_pair_normalize"]:
+                fail(f"mesh/E/{mode}/{d}: the fused pair ran on the mesh")
+            placed = {k: v for r in got["results"]
+                      for k, v in r.assignments.items()}
+            if len(placed) != len(pending):
+                fail(f"mesh/E/{mode}/{d}: bound {len(placed)} of "
+                     f"{len(pending)}")
+            recheck_capacity(nodes, bound, placed, by_key)
+            got.pop("results")
+            out["runs"][f"{mode}-{d}"] = got
+    # the multi-card code path on one card, beside the monolithic twin:
+    # the same placements, no round-loop graph (one cannot span cards),
+    # one counted read a round more than the twin
+    with distinct_card_path():
+        got = run("cards-path-2", mono, 2, pending, sync_error_at=1)
+    pairs = [(r.assignments, r.rounds) for r in got.pop("results")]
+    if pairs != twin_pairs["monolithic"]:
+        fail("mesh/E/cards-path: placements or rounds differ from the "
+             "mesh-off twin's")
+    if got["round_loops"] or got["launches"]["fused_pair_max"] <= 0:
+        fail(f"mesh/E/cards-path: {got['round_loops']} round-loop graphs "
+             f"launched, the split pair {got['launches']['fused_pair_max']}"
+             " times")
+    want_syncs = [a + r + 1 for a, r in zip(
+        twins["monolithic"]["host_syncs"], twins["monolithic"]["rounds"])]
+    if got["host_syncs"] != want_syncs:
+        fail(f"mesh/E/cards-path: host syncs {got['host_syncs']}, "
+             f"expected the twin's plus rounds + 1: {want_syncs}")
+    out["runs"]["cards-path-2"] = got
+    for mode, t in twins.items():
+        t.pop("results")
+        out["runs"][f"{mode}-off"] = t
+    if "pipelined" not in twins:
+        out["runs"]["pipelined-off"] = {
+            "solve_s": _TWIN.get("pipelined_solve_s"),
+            "rounds": [p[1] for p in twin_pairs["pipelined"]],
+            "note": "arm A's mesh-off twin"}
+    plan = pending[:MESH["e_plan_pods"]]
+    d = MESH["e_plan_shards"]
+    twin = run("sinkhorn-off", {"solver": "sinkhorn"}, None, plan)
+    got = run(f"sinkhorn-{d}", {"solver": "sinkhorn"}, d, plan,
+              sync_error_at=1)
+    pairs = [(r.assignments, r.rounds) for r in got.pop("results")]
+    want = [(r.assignments, r.rounds) for r in twin.pop("results")]
+    if pairs != want:
+        diff = sum(a.get(k) != v for (a, _), (b, _) in zip(pairs, want)
+                   for k, v in b.items())
+        fail(f"mesh/E/sinkhorn/{d}: placements or rounds differ from the "
+             f"mesh-off twin's ({diff} pods placed elsewhere)")
+    if got["launches"]["sinkhorn_u_partial"] <= 0 or \
+            got["launches"]["sinkhorn_v"] <= 0:
+        fail(f"mesh/E/sinkhorn/{d}: u / v not launched ({got['launches']})")
+    if got["launches"]["sinkhorn_u"]:
+        fail(f"mesh/E/sinkhorn/{d}: the whole-row u pass ran on the mesh")
+    out["runs"][f"sinkhorn-{d}"] = got
+    out["runs"]["sinkhorn-off"] = twin
+    out["launches"] = launches
+    out["cycles"] = cycles
+    return out
+
+
+def mesh_arm_e2(tmp: str) -> dict:
+    """Arm E2: ``parallel: {mesh: auto}`` over every card of the machine,
+    beside a one-card twin, with equal placements required. Runs only
+    where ``torch.cuda.device_count() >= 2``; otherwise it says on its own
+    line that it did not run, and why."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"chip_smoke: mesh arm E2 did not run: "
+              f"torch.cuda.device_count() is {count}, the arm needs two "
+              "or more cards", flush=True)
+        return {"ran": False, "device_count": count, "cycles": 0,
+                "launches": {k: 0 for k in ARRAY_KERNELS + SPLIT_KERNELS}}
+    nodes, bound, pending = smoke_cell(MESH["n_nodes"], MESH["n_bound"],
+                                       MESH["ladder_pods"])
+    got = {}
+    for name, mesh in (("one", None), ("auto", "auto")):
+        sched = configured(_mesh_doc(mesh), tmp, f"mesh-e2-{name}",
+                           enable_preemption=False)
+        feed(sched, nodes, bound, [])
+        before = launch_counts()
+        results, _records, wall = _mesh_cycles(sched, pending)
+        got[name] = ([(r.assignments, r.rounds) for r in results], wall,
+                     _launches_since(before), sched.mesh)
+        release_graphs()
+    if got["auto"][0] != got["one"][0]:
+        fail(f"mesh/E2: placements over {count} cards differ from one "
+             "card's")
+    return {"ran": True, "device_count": count,
+            "mesh": [str(d) for d in got["auto"][3].devices],
+            "wall_s": got["auto"][1], "twin_wall_s": got["one"][1],
+            "launches": got["auto"][2], "cycles": len(got["auto"][0])}
+
+
 def phase_mesh() -> dict:
     """The node-axis mesh on one card (cell ``mesh``): arms A-D, every
     scheduler a JSON v1alpha1 file through ``Scheduler.from_config``, all
@@ -7709,7 +8119,8 @@ def phase_mesh() -> dict:
     cycles = 0
     with tempfile.TemporaryDirectory() as tmp:
         for arm, run in (("A", mesh_arm_a), ("B", mesh_arm_b),
-                         ("C", mesh_arm_c), ("D", mesh_arm_d)):
+                         ("C", mesh_arm_c), ("D", mesh_arm_d),
+                         ("E", mesh_arm_e), ("E2", mesh_arm_e2)):
             t0 = time.perf_counter()
             got = run(tmp)
             t_arm[arm] = time.perf_counter() - t0
@@ -7853,6 +8264,7 @@ def main() -> None:
     rows: dict = {}
     if "kernels" in phases:
         check_kernels(rows)
+        check_split_kernels(rows)
         emit({"phase": "kernels", "ok": True})
 
     paths = {}

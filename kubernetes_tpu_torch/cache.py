@@ -99,6 +99,9 @@ class SchedulerCache:
         #: table costs more than re-uploading it
         self.max_dirty_frac = max_dirty_frac
         self._dev = None  # resident ops.arrays.DeviceNodes
+        #: the resident table's placement on a mesh of d > 1 devices
+        #: (parallel.mesh.ShardedNodes; its ``whole`` is ``_dev``)
+        self._placed = None
         self._dev_pad: int = 0  # its padded row count
         #: the node-axis mesh (parallel.mesh.Mesh) the resident table is
         #: placed on (set_mesh); None = single device
@@ -417,10 +420,15 @@ class SchedulerCache:
                 # after a device loss all re-place onto the mesh through
                 # the one seam the host-mode cycle and the warmup share
                 from kubernetes_tpu_torch.parallel.mesh import (
+                    ShardedNodes,
                     place_node_table,
+                    whole,
                 )
 
-                self._dev = place_node_table(table, self.mesh, pad_to=n_pad)
+                placed = place_node_table(table, self.mesh, pad_to=n_pad)
+                self._placed = (placed if isinstance(placed, ShardedNodes)
+                                else None)
+                self._dev = whole(placed)
             else:
                 self._dev = nodes_to_device(table, pad_to=n_pad,
                                             device=self.device)
@@ -462,6 +470,15 @@ class SchedulerCache:
                         self._summary,
                         node_summary(sub_dev, **self._summary_flags), pidx)
                 self._dev = scatter_node_rows(self._dev, sub_dev, pidx)
+                if self._placed is not None:
+                    # the mesh blocks take the same rows: views again on
+                    # a logical mesh, the owning shard's rows on cards
+                    from kubernetes_tpu_torch.parallel.mesh import (
+                        scatter_placed,
+                    )
+
+                    self._placed = scatter_placed(self._placed, self._dev,
+                                                  sub_dev, pidx)
                 self.last_upload_rows += len(idx)
                 self.last_upload_nbytes += tree_nbytes(sub_dev)
                 self.last_patched_idx.extend(idx)
@@ -485,6 +502,7 @@ class SchedulerCache:
         for the rebuild unless ``torch.cuda.empty_cache`` returns them."""
         with self._snap_lock:
             self._dev = None
+            self._placed = None
             self._dev_pad = 0
             self._dev_stale = True
             self._pending_dev.clear()
@@ -505,6 +523,14 @@ class SchedulerCache:
         if mesh is not self.mesh:
             self.mesh = mesh
             self.drop_device_snapshot()
+
+    @property
+    def placed_table(self):
+        """The resident table as placed on a mesh of ``d > 1`` devices (a
+        ``parallel.mesh.ShardedNodes`` whose ``whole`` is the table
+        :meth:`device_snapshot` returns), or None."""
+        p = self._placed
+        return p if p is not None and p.whole is self._dev else None
 
     @property
     def resident_mesh(self):

@@ -793,9 +793,10 @@ def unported_features(cfg: KubeSchedulerConfiguration) -> List[str]:
     yet, one message per setting, each naming its ROADMAP item. Every
     setting is ported now, so the list is empty; the seam stays for the
     next one. ``parallel.mesh`` resolves against the real devices where
-    the scheduler is built (one card: a mesh of 1), and a mesh over
-    distinct cards is refused there (``parallel.mesh.make_mesh``, ROADMAP
-    A.17.2), never silently gathered onto one."""
+    the scheduler is built: one card is a mesh of 1, several cards a mesh
+    over them that runs the partitioned solve (``parallel.mesh``,
+    ``parallel.collectives``); only a mesh that mixes device types is
+    refused there (``parallel.mesh.make_mesh``)."""
     errs: List[str] = []
     return errs
 

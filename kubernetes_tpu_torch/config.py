@@ -504,10 +504,12 @@ class ParallelConfig:
     """Sharded execution backend (kubernetes_tpu_torch/parallel): shard the
     node axis of the device-resident snapshot — and with it the (P, N)
     plane of every solve/validate/explain kernel — across a 1-D device
-    mesh (``parallel/mesh.py``). Pods and selector tables replicate. On
-    one card the mesh is logical: its shards are row blocks of one
-    tensor, and the shard count reaches the sparse routes' per-shard
-    candidate pick."""
+    mesh (``parallel/mesh.py``). Pods and selector tables replicate. A
+    mesh of d > 1 devices (distinct cards, or copies of one card: a
+    logical mesh) runs the partitioned solve, one program per shard with
+    explicit cross-shard reductions (``parallel/collectives.py``); the
+    shard count also reaches the sparse routes' per-shard candidate
+    pick."""
 
     #: ``"off"`` = single-device (today's behavior); ``"auto"`` = a mesh
     #: over every local device; an integer N = a mesh over the first N

@@ -8,6 +8,18 @@
 // w_f * floor(10*rf/mxf + 1e-5) + w_r * (10 - floor(10*rr/mxr + 1e-5)).
 // f32 max is exact under any association, so the fusion is exact.
 //
+// On a node-axis mesh of d > 1 shards the maxima must be all-reduced
+// across shards between the two passes, so the pair is also built split
+// at that seam (the two Pallas kernels' own boundary):
+//   ktt_fused_pair_max    masked row maxima of rf and rr over a shard's
+//                         column block (masked entries count as 0)
+//   ktt_fused_pair_scale  the scaled, weighted sum given the global
+//                         maxima, with the mxf <= 0 / mxr <= 0 rules
+// Both are simple one-block-per-row kernels, for any row length (float4
+// reads when n % 4 == 0 and the rows are 16-byte aligned, scalar reads
+// otherwise), with the same per-element arithmetic as the fused kernel,
+// so max-then-scale over the shards is bit-identical to the fused pair.
+//
 // Bound: bytes. The least the function can move is one read of rf, rr
 // (f32) and the mask (1 byte) plus one write of out (f32): 13 bytes per
 // (pod, node) element, about 0.26 ms at 8192 x 8192 on an H100 at
@@ -48,6 +60,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <initializer_list>
 
 namespace {
 
@@ -218,6 +231,60 @@ fused_pair_kernel(const float* __restrict__ rf, const float* __restrict__ rr,
     o4[j] = pair_value4(a4[j], b4[j], mxf, mxr, wf, wr);
 }
 
+// ---- split at the max / scale seam (the partitioned solve) --------------
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+pair_max_kernel(const float* __restrict__ rf, const float* __restrict__ rr,
+                const unsigned char* __restrict__ mask,
+                float* __restrict__ mxf_out, float* __restrict__ mxr_out,
+                int n) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  float mxf = -INFINITY, mxr = -INFINITY;
+  if (kVec) {
+    const float4* a4 = reinterpret_cast<const float4*>(rf + base);
+    const float4* b4 = reinterpret_cast<const float4*>(rr + base);
+    const uchar4* m4 = reinterpret_cast<const uchar4*>(mask + base);
+    for (int j = threadIdx.x; j < (n >> 2); j += blockDim.x) {
+      const uchar4 k = m4[j];
+      mxf = fmaxf(mxf, masked_max4(a4[j], k));
+      mxr = fmaxf(mxr, masked_max4(b4[j], k));
+    }
+  } else {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      const bool k = mask[base + j] != 0;
+      mxf = fmaxf(mxf, k ? rf[base + j] : 0.0f);
+      mxr = fmaxf(mxr, k ? rr[base + j] : 0.0f);
+    }
+  }
+  block_max2(mxf, mxr);
+  if (threadIdx.x == 0) {
+    mxf_out[blockIdx.x] = mxf;
+    mxr_out[blockIdx.x] = mxr;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+pair_scale_kernel(const float* __restrict__ rf, const float* __restrict__ rr,
+                  const float* __restrict__ mxf_in,
+                  const float* __restrict__ mxr_in, float* __restrict__ out,
+                  int n, float wf, float wr) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  const float mxf = mxf_in[blockIdx.x], mxr = mxr_in[blockIdx.x];
+  if (kVec) {
+    const float4* a4 = reinterpret_cast<const float4*>(rf + base);
+    const float4* b4 = reinterpret_cast<const float4*>(rr + base);
+    float4* o4 = reinterpret_cast<float4*>(out + base);
+    for (int j = threadIdx.x; j < (n >> 2); j += blockDim.x)
+      o4[j] = pair_value4(a4[j], b4[j], mxf, mxr, wf, wr);
+  } else {
+    for (int j = threadIdx.x; j < n; j += blockDim.x)
+      out[base + j] = pair_value(rf[base + j], rr[base + j], mxf, mxr, wf,
+                                 wr);
+  }
+}
+
 }  // namespace
 
 // Staged path: the caller checks n % 16 == 0, n <= the staged limit and
@@ -272,5 +339,53 @@ extern "C" int ktt_fused_pair_normalize_wide(const void* rf, const void* rr,
       static_cast<const float*>(rf), static_cast<const float*>(rr),
       static_cast<const unsigned char*>(mask), static_cast<float*>(out), n,
       wf, wr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+bool vec_rows(int n, std::initializer_list<const void*> ps) {
+  if (n % 4) return false;
+  for (const void* q : ps)
+    if (reinterpret_cast<uintptr_t>(q) % 16) return false;
+  return true;
+}
+}  // namespace
+
+// The max pass of the split pair: mxf, mxr (p,) f32 over the row block.
+extern "C" int ktt_fused_pair_max(const void* rf, const void* rr,
+                                  const void* mask, void* mxf, void* mxr,
+                                  int p, int n, void* stream) {
+  if (p <= 0 || n <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(rf);
+  const auto* b = static_cast<const float*>(rr);
+  const auto* k = static_cast<const unsigned char*>(mask);
+  // the mask rows are read as uchar4: 4-byte aligned rows suffice there
+  if (vec_rows(n, {rf, rr}) && reinterpret_cast<uintptr_t>(mask) % 4 == 0)
+    pair_max_kernel<true><<<p, kThreads, 0, s>>>(
+        a, b, k, static_cast<float*>(mxf), static_cast<float*>(mxr), n);
+  else
+    pair_max_kernel<false><<<p, kThreads, 0, s>>>(
+        a, b, k, static_cast<float*>(mxf), static_cast<float*>(mxr), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scale pass of the split pair: out (p, n) given the global maxima.
+extern "C" int ktt_fused_pair_scale(const void* rf, const void* rr,
+                                    const void* mxf, const void* mxr,
+                                    void* out, int p, int n, float wf,
+                                    float wr, void* stream) {
+  if (p <= 0 || n <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const float*>(rf);
+  const auto* b = static_cast<const float*>(rr);
+  const auto* x = static_cast<const float*>(mxf);
+  const auto* y = static_cast<const float*>(mxr);
+  auto* o = static_cast<float*>(out);
+  if (vec_rows(n, {rf, rr, out}))
+    pair_scale_kernel<true><<<p, kThreads, 0, s>>>(a, b, x, y, o, n, wf, wr);
+  else
+    pair_scale_kernel<false><<<p, kThreads, 0, s>>>(a, b, x, y, o, n, wf,
+                                                    wr);
   return static_cast<int>(cudaGetLastError());
 }

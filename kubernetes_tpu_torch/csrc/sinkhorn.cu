@@ -42,6 +42,16 @@
 //           past n and rows past the chunk read as -inf.
 // The summation order differs from the plain version's, so results agree
 // to a few ulps, not bit for bit.
+//
+// On a node-axis mesh of d > 1 shards the u pass is split at its
+// reduction: ktt_sinkhorn_u_partial writes, per row over the shard's
+// columns, the shift m and the sum s = sum_j exp(logk_ij + v_j - m) (the
+// Pallas rule clamps m at NEG_INF, rescaling s; the jnp rule replaces a
+// non-finite m by 0), and the shards' pairs merge into u in plain PyTorch
+// (parallel/collectives.lse_combine). One block per row, float4 reads
+// when n % 4 == 0 and the rows and v are 16-byte aligned, scalar reads
+// otherwise (a shard's block can be narrower than four columns). The v
+// pass is column-local: each shard runs ktt_sinkhorn_v on its columns.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -275,6 +285,55 @@ v_kernel(const float* __restrict__ logk, const float* __restrict__ u,
   if (j0 + 3 < n) v[j0 + 3] = v_value<kJnp>(fm.w, fs.w, log_c[j0 + 3]);
 }
 
+
+// The split u pass: (m, s) per row over this block's columns.
+template <bool kVec, bool kJnp>
+__global__ void __launch_bounds__(kThreads)
+u_partial_kernel(const float* __restrict__ logk, const float* __restrict__ v,
+                 float* __restrict__ m_out, float* __restrict__ s_out,
+                 int n) {
+  const float* row = logk + static_cast<size_t>(blockIdx.x) * n;
+  float m = -INFINITY, s = 0.0f;
+  if (kVec) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    for (int j = threadIdx.x; j < (n >> 2); j += blockDim.x) {
+      const float4 x = r4[j], w = v4[j];
+      lse_add(m, s, x.x + w.x);
+      lse_add(m, s, x.y + w.y);
+      lse_add(m, s, x.z + w.z);
+      lse_add(m, s, x.w + w.w);
+    }
+  } else {
+    for (int j = threadIdx.x; j < n; j += blockDim.x)
+      lse_add(m, s, row[j] + v[j]);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+    lse_merge(m, s, m2, s2);
+  }
+  __shared__ float sm[32], ss[32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) { sm[wid] = m; ss[wid] = s; }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (blockDim.x >> 5); ++w) lse_merge(m, s, sm[w], ss[w]);
+    if (kJnp) {
+      // the shift of jax.scipy.special.logsumexp: 0 when not finite
+      if (!isfinite(m)) {
+        s = m == -INFINITY ? 0.0f : NAN;
+        m = 0.0f;
+      }
+    } else if (m < kNegInf) {
+      s = m == -INFINITY ? 0.0f : s * expf(m - kNegInf);
+      m = kNegInf;
+    }
+    m_out[blockIdx.x] = m;
+    s_out[blockIdx.x] = s;
+  }
+}
+
 }  // namespace
 
 // jnp_rule: 0 = the Pallas rule, else the jnp rule (see the header).
@@ -329,5 +388,29 @@ extern "C" int ktt_sinkhorn_v(const void* logk, const void* u,
   else
     v_kernel<false, false><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s,
                                                       cnt, p, n, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// m, s: (p,) f32 outputs; jnp_rule as for the u pass.
+extern "C" int ktt_sinkhorn_u_partial(const void* logk, const void* v,
+                                      void* m, void* s, int p, int n,
+                                      int jnp_rule, void* stream) {
+  if (p <= 0 || n <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* k = static_cast<const float*>(logk);
+  const float* vv = static_cast<const float*>(v);
+  float* mm = static_cast<float*>(m);
+  float* sm = static_cast<float*>(s);
+  const bool vec = n % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(logk) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  if (vec && jnp_rule)
+    u_partial_kernel<true, true><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
+  else if (vec)
+    u_partial_kernel<true, false><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
+  else if (jnp_rule)
+    u_partial_kernel<false, true><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
+  else
+    u_partial_kernel<false, false><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
   return static_cast<int>(cudaGetLastError());
 }

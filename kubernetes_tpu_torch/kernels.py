@@ -37,7 +37,7 @@ import os
 import shutil
 import subprocess
 import threading
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -57,12 +57,17 @@ LIBRARIES = {
         "ktt_fused_pair_normalize": [_P, _P, _P, _P, _I, _I, _F, _F, _P],
         "ktt_fused_pair_normalize_wide": [_P, _P, _P, _P, _I, _I, _F, _F,
                                           _P],
+        # the pair split at its max / scale seam (the partitioned solve)
+        "ktt_fused_pair_max": [_P, _P, _P, _P, _P, _I, _I, _P],
+        "ktt_fused_pair_scale": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     }),
     "sinkhorn": ("sinkhorn.cu", [], {
         # the int before the stream: 0 = the Pallas rule, 1 = the jnp rule
         "ktt_sinkhorn_u": [_P, _P, _P, _P, _I, _I, _I, _P],
         "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P],
+        # the u pass split at its reduction (the partitioned solve)
+        "ktt_sinkhorn_u_partial": [_P, _P, _P, _P, _I, _I, _I, _P],
     }),
     # the round loop's conditional WHILE graph (ops/device_loop.py)
     "graph_loop": ("graph_loop.cu", [], {
@@ -81,7 +86,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {
     "fused_pair_normalize": 0,
     "fused_pair_normalize_wide": 0,
+    "fused_pair_max": 0,
+    "fused_pair_scale": 0,
     "sinkhorn_u": 0,
+    "sinkhorn_u_partial": 0,
     "sinkhorn_v": 0,
     "round_loop": 0,
 }
@@ -248,6 +256,17 @@ def check(code: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if code != 0:
         raise KernelError(f"{what}: CUDA error {code} at launch")
+
+
+def on_device(t):
+    """Make ``t``'s card the current device for a launch: a kernel goes
+    to the current device's context, so a launch on another card of a
+    node-axis mesh must switch to it first (a no-op on the current one)."""
+    import torch
+
+    if t.device.index in (None, torch.cuda.current_device()):
+        return nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def stream_ptr(t) -> int:

@@ -21,6 +21,14 @@ eagerly, the later rounds loop as one CUDA graph (:mod:`.device_loop`),
 and the only host read is the transport-plan router's round-0 decision
 (one counted sync, :mod:`.sync`). On CPU tensors the plain Python loop
 stays.
+
+On a node-axis mesh of ``d > 1`` devices (``batch_assign(*shard_cluster(
+pods, nodes, sel, mesh))``, :mod:`kubernetes_tpu_torch.parallel.mesh`) the
+batch solve is partitioned: each round is one program per shard over its
+row block — the same round functions, written as generators that yield
+their per-shard partials where the reference's partitioner inserts a
+collective (``parallel/collectives.py``) — and the placements come back
+as global node rows on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from kubernetes_tpu_torch.ops.predicates import (
     BIT,
     resource_fit_mask,
     run_predicates,
+    run_predicates_g,
     static_predicate_reasons,
     static_volume_reasons,
 )
@@ -48,14 +57,15 @@ from kubernetes_tpu_torch.ops.priorities import (
     _EPS,
     _idiv,
     MAX_PRIORITY,
-    hoist_priorities,
+    hoist_priorities_g,
     run_priorities,
+    run_priorities_g,
 )
-from kubernetes_tpu_torch.ops.sync import to_host
 from kubernetes_tpu_torch.ops.topology import (
-    self_escape_active,
+    self_escape_active_g,
     sensitive_keys,
 )
+from kubernetes_tpu_torch.parallel import collectives as coll
 
 NEG = -1e30
 
@@ -245,7 +255,12 @@ def greedy_assign(
     ``fault_hook(site, assigned, usage, rounds, n_nodes)`` is the
     solver-entry fault-injection seam (:mod:`kubernetes_tpu_torch.faults`):
     called with the would-be result, it may raise a solver fault or
-    return a poisoned triple."""
+    return a poisoned triple. On a mesh the serial oracle runs on the
+    whole table, gathered onto the mesh's first device."""
+    from kubernetes_tpu_torch.parallel.mesh import unreplicated, whole
+
+    pods, nodes, sel = unreplicated(pods), whole(nodes), unreplicated(sel)
+    topo, vol = unreplicated(topo), unreplicated(vol)
     P = pods.req.shape[0]
     dev = pods.req.device
     perm = queue_order(pods)
@@ -371,39 +386,82 @@ def _lean_masked_score(pods, nodes, u, active, static_ok, res_on, plan):
     return torch.where(mask, score, NEG)
 
 
-def _rotated_pick(tied: torch.Tensor, arank: torch.Tensor):
+def _rotated_pick(tied: torch.Tensor, arank: torch.Tensor, sh=None):
     """Each row picks its ``(arank % tcount + 1)``-th tied column — the
     deterministic tie-break spread, the batched analog of selectHost's
     randomized round-robin among max-scoring nodes
     (generic_scheduler.go:292). Returns (choice, tcount); choice is 0
     where a row has no tied column. (The reference's blocked two-level
-    selection picks the same column.)"""
+    selection picks the same column.)
+
+    A shard program (generator). On a mesh (``sh``) the tie counts are
+    per block: the global count and this block's exclusive offset come
+    from the cross-shard cumsum, the block that holds the rotated
+    position picks, and the argmax merge hands its global column to
+    every shard (the lowest global index wins the no-tie case, column
+    0 as alone)."""
     pos = torch.cumsum(tied.to(torch.int32), dim=1, dtype=torch.int32)
-    tcount = pos[:, -1]
+    local = pos[:, -1]
+    if sh is None:
+        tcount, off = local, None
+    else:
+        tcount, off = yield coll.offsets(local)
     rot = torch.where(tcount > 0, arank % tcount.clamp_min(1), 0)
-    choice = _first_true(tied & (pos == (rot + 1)[:, None]))
+    if sh is None:
+        choice = _first_true(tied & (pos == (rot + 1)[:, None]))
+        return torch.where(tcount > 0, choice, 0), tcount
+    at = rot - off
+    owned = (tcount > 0) & (at >= 0) & (at < local)
+    lc = torch.where(owned, _first_true(tied & (pos == (at + 1)[:, None])),
+                     0)
+    _, choice = yield coll.pick(owned.to(torch.int32), lc + sh.lo)
     return torch.where(tcount > 0, choice, 0), tcount
 
 
-def _admit_scored(choice, rank, req, free, per_node_cap, capacity_on,
-                  sorted_gate=None):
+def _take_rows(table: torch.Tensor, choice: torch.Tensor, sh=None):
+    """``table[choice]`` for a node-axis ``table`` and global node rows
+    ``choice`` (clipped into the table), as a shard program: on a mesh
+    the one block that owns each row supplies it."""
+    if sh is None:
+        return table[choice.clamp(0, table.shape[0] - 1)]
+    g = choice.clamp(0, sh.n - 1)
+    owner = torch.div(g, sh.rows, rounding_mode="floor")
+    rows = table[(g - owner * sh.rows).clamp(0, sh.rows - 1)]
+    return (yield coll.from_owner(rows, owner))
+
+
+def _take_cols(x: torch.Tensor, choice: torch.Tensor, sh=None):
+    """``x[p, choice[p]]`` of a (P, N) table, as a shard program."""
+    if sh is None:
+        return x.gather(1, choice[:, None])[:, 0]
+    g = choice.clamp(0, sh.n - 1)
+    owner = torch.div(g, sh.rows, rounding_mode="floor")
+    local = (g - owner * sh.rows).clamp(0, sh.rows - 1)
+    return (yield coll.from_owner(x.gather(1, local[:, None])[:, 0],
+                                  owner))
+
+
+def _admit_scored(choice, rank, req, free_at, n_nodes, per_node_cap,
+                  capacity_on, sorted_gate=None):
     """Score-ordered per-node admission, one spelling shared by the general
     and lean rounds: group chosen pods by node (queue rank ascending
     within a node), admit the prefix that fits remaining capacity
     (``capacity_on`` is the PodFitsResources gate), cap admissions per
-    node per round. ``sorted_gate(order2, seg_starts) -> (P,) bool`` ANDs
-    in the general path's port guard in the same sorted frame. Returns
-    the (P,) accepted mask in original row order."""
+    node per round. ``free_at`` (P, R) is the free capacity of each pod's
+    chosen node (any row where ``choice < 0``); ``n_nodes`` the node
+    count. ``sorted_gate(order2, seg_starts) -> (P,) bool`` ANDs in the
+    general path's port guard in the same sorted frame. Returns the (P,)
+    accepted mask in original row order. Every input is per pod, so on a
+    mesh each shard computes the same admission as the unsharded round."""
     P = choice.shape[0]
-    N = free.shape[0]
-    ckey = torch.where(choice >= 0, choice, N + 1)
+    ckey = torch.where(choice >= 0, choice, n_nodes + 1)
     order2 = _lexsort(rank, ckey)  # grouped by chosen node, rank asc
     c_s = choice[order2]
     ckey_s = ckey[order2].contiguous()  # sorted — safe for searchsorted
     req_s = req[order2]
     seg_starts = torch.searchsorted(ckey_s, ckey_s, side="left")
     prefix = _segment_prefix(req_s, seg_starts)  # usage by earlier pods
-    free_s = free[c_s.clamp(0, N - 1)]
+    free_s = free_at[order2]
     if capacity_on:
         fits = (prefix + req_s <= free_s + 1e-6).all(1)
     else:
@@ -417,6 +475,26 @@ def _admit_scored(choice, rank, req, free, per_node_cap, capacity_on,
     return acc_s[_inverse_permutation(order2)]
 
 
+def _admit_at(choice, rank, req, free, per_node_cap, capacity_on,
+              sorted_gate=None, sh=None):
+    """:func:`_admit_scored` reading each pod's chosen free row from the
+    node-axis ``free`` table (the owning block's on a mesh)."""
+    free_at = yield from _take_rows(free, choice, sh)
+    n = free.shape[0] if sh is None else sh.n
+    return _admit_scored(choice, rank, req, free_at, n, per_node_cap,
+                         capacity_on, sorted_gate)
+
+
+def _apply_local(u, pods, choice, accepted, sh=None):
+    """Scatter the accepted pods into this block's usage: on a mesh only
+    the pods whose chosen node the block owns, at its local rows."""
+    if sh is None:
+        return _apply_batch(u, pods, torch.where(accepted, choice, 0),
+                            accepted)
+    mine = accepted & (choice >= sh.lo) & (choice < sh.lo + sh.rows)
+    return _apply_batch(u, pods, torch.where(mine, choice - sh.lo, 0), mine)
+
+
 def _round_exit(assigned, pods, accepted) -> torch.Tensor:
     """The round loop's data-dependent exit test as a 0-d bool device
     tensor: continue while the round admitted somebody (no contention
@@ -425,18 +503,20 @@ def _round_exit(assigned, pods, accepted) -> torch.Tensor:
 
 
 def _lean_round(ctx, state, first, tag, *, per_node_cap, res_on,
-                lean_plan):
-    """One fused lean round (the body :func:`_lean_rounds` loops)."""
+                lean_plan, sh=None):
+    """One fused lean round (the body :func:`_lean_rounds` loops), as a
+    shard program over one block of the node axis (``sh`` None: the
+    whole axis)."""
     pods, nodes, rank, static_ok = ctx
     assigned, u = state
     P = pods.req.shape[0]
-    N = nodes.allocatable.shape[0]
+    N = nodes.allocatable.shape[0] if sh is None else sh.n
     window = N * per_node_cap
     guard = NEG * 0.5  # real scores are finite and tiny next to NEG
     active = (assigned == -1) & pods.valid
     ms = _lean_masked_score(pods, nodes, u, active, static_ok, res_on,
                             lean_plan)
-    rowmax = ms.amax(1, keepdim=True)
+    rowmax = yield coll.all_max(ms.amax(1, keepdim=True))
     feasible_any = rowmax[:, 0] > guard
     wkey = torch.where(active & feasible_any, rank, P + 1)
     arank = _inverse_permutation(torch.argsort(wkey, stable=True))
@@ -444,17 +524,25 @@ def _lean_round(ctx, state, first, tag, *, per_node_cap, res_on,
         # the bidder window binds only with more pods than window slots
         gate = active & feasible_any & (arank < window)
         ms = torch.where(gate[:, None], ms, NEG)
-        rowmax = ms.amax(1, keepdim=True)
+        rowmax = yield coll.all_max(ms.amax(1, keepdim=True))
     tied = (ms >= rowmax) & (rowmax > guard)
-    choice, _tc = _rotated_pick(tied, arank)
-    feasible = ms.gather(1, choice[:, None])[:, 0] > guard
+    choice, _tc = yield from _rotated_pick(tied, arank, sh)
+    feasible = (yield from _take_cols(ms, choice, sh)) > guard
     choice = torch.where(feasible, choice, -1)
-    accepted = _admit_scored(choice, rank, pods.req,
-                             nodes.allocatable - u.requested,
-                             per_node_cap, res_on)
+    accepted = yield from _admit_at(choice, rank, pods.req,
+                                    nodes.allocatable - u.requested,
+                                    per_node_cap, res_on, sh=sh)
     assigned = torch.where(accepted, choice.to(torch.int32), assigned)
-    u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
+    u = _apply_local(u, pods, choice, accepted, sh)
     return (assigned, u), _round_exit(assigned, pods, accepted), None
+
+
+def _lean_static_ok(pods, nodes, sel, enabled_mask):
+    static_reasons, _prog = static_predicate_reasons(pods, nodes, sel)
+    if enabled_mask is not None:
+        static_reasons = static_reasons & int(enabled_mask)
+    return (static_reasons == 0) & nodes.valid[None, :] \
+        & pods.valid[:, None]
 
 
 def _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
@@ -462,15 +550,12 @@ def _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
     """The fused round loop for lean batches: same exits and admission
     rule as the general loop, one materialized (P, N) matrix per round."""
     P = pods.req.shape[0]
-    static_reasons, _prog = static_predicate_reasons(pods, nodes, sel)
-    if enabled_mask is not None:
-        static_reasons = static_reasons & int(enabled_mask)
-    static_ok = (static_reasons == 0) & nodes.valid[None, :] \
-        & pods.valid[:, None]
+    static_ok = _lean_static_ok(pods, nodes, sel, enabled_mask)
     res_on = enabled_mask is None or bool(
         enabled_mask & (1 << BIT["PodFitsResources"]))
-    body = functools.partial(_lean_round, per_node_cap=per_node_cap,
-                             res_on=res_on, lean_plan=lean_plan)
+    body = functools.partial(_solo_round, _lean_round,
+                             per_node_cap=per_node_cap, res_on=res_on,
+                             lean_plan=lean_plan)
     state = (torch.full((P,), -1, dtype=torch.int32,
                         device=pods.req.device), usage_from_nodes(nodes))
     (assigned, u), rounds = device_loop.run(
@@ -478,6 +563,11 @@ def _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
         statics=("lean", per_node_cap, res_on, lean_plan),
         shape=static_ok.shape)
     return assigned, u, rounds
+
+
+def _solo_round(program, ctx, state, first, tag, **kw):
+    """A round body of the unsharded loop: the round's program alone."""
+    return coll.solo(program(ctx, state, first, tag, **kw))
 
 
 def _column_slots(pods, nodes, u, active):
@@ -500,17 +590,21 @@ def _tie_cohort_detected(mask_full, score, slots):
     """The auto-router's round-0 test: does the batch hold a real
     tie-contention cohort — multi-way-tied best columns that are
     oversubscribed, among bidders whose runner-up gaps differ? Evaluated
-    over the PRE-window mask (the whole batch's tie structure)."""
-    rm = torch.where(mask_full, score, NEG).amax(1, keepdim=True)
+    over the PRE-window mask (the whole batch's tie structure). A shard
+    program: the row maximum, the tie count, the runner-up and the anys
+    reduce across shards; the rest is per pod."""
+    rm = yield coll.all_max(
+        torch.where(mask_full, score, NEG).amax(1, keepdim=True))
     tied_f = mask_full & (score >= rm)
-    tc0 = tied_f.sum(1).to(torch.float32)
+    tc0 = (yield coll.all_sum(tied_f.sum(1))).to(torch.float32)
     share = tied_f.to(torch.float32) / tc0.clamp_min(1.0)[:, None]
     demand = share.sum(0)  # (N,) intended tie mass
     over = demand > slots.clamp_min(1e-9)
-    cohort = (tc0 >= 2.0) & (tied_f & over[None, :]).any(1)
+    cohort = (tc0 >= 2.0) & (yield coll.all_or(
+        (tied_f & over[None, :]).any(1)))
     alt = mask_full & ~tied_f
-    r2 = torch.where(alt, score, NEG).amax(1)
-    gap = torch.where(alt.any(1), rm[:, 0] - r2, 1e3)
+    r2 = yield coll.all_max(torch.where(alt, score, NEG).amax(1))
+    gap = torch.where((yield coll.all_or(alt.any(1))), rm[:, 0] - r2, 1e3)
     gmin = torch.where(cohort, gap, float("inf")).amin()
     gmax = torch.where(cohort, gap, -float("inf")).amax()
     return ((cohort.sum() >= AUTO_TIE_MIN_COHORT)
@@ -534,20 +628,22 @@ def _first_per_group(ok, gate, key, rank):
 
 
 def _serialize_topology(accepted, choice, rank, sens, pods, cur, topo,
-                        tpid, no_pod_affinity):
+                        tpid, no_pod_affinity, sh=None):
     """The batched guard for anti-affinity / hard-spread interactions among
     same-round admissions (the serial loop never needs it; in-batch it
     replaces per-pod cache updates): one topology-sensitive pod per
     (key, pair) per round, then one self-match escapee per affinity
-    program."""
+    program. A shard program: each pod's topology pairs come from the
+    block that owns its chosen node."""
     ok = accepted
+    pairs = yield from _take_rows(tpid, choice, sh)  # (P, K)
     for k in range(tpid.shape[1]):
-        pair = tpid[choice.clamp(0, tpid.shape[0] - 1), k]
+        pair = pairs[:, k]
         gate = ok & (choice >= 0) & sens[:, k] & (pair >= 0)
         ok = _first_per_group(ok, gate, pair, rank)
     if not no_pod_affinity:
         # the second first-pod-of-a-group must wait and join the first
-        esc = self_escape_active(pods, cur, topo)
+        esc = yield from self_escape_active_g(pods, cur, topo)
         gate_e = ok & (choice >= 0) & esc
         ok = _first_per_group(ok, gate_e, pods.affprog_id, rank)
     return ok
@@ -556,15 +652,16 @@ def _serialize_topology(accepted, choice, rank, sens, pods, cur, topo,
 def _general_round(ctx, state, first, use_plan, *, weights, skip,
                    enabled_mask, no_ports, no_pod_affinity, no_spread,
                    per_node_cap, res_on, use_sinkhorn, auto_sinkhorn,
-                   sk_warm, sk_tol, with_stats, route_plan=None):
-    """One general assignment round (the body :func:`_batch_impl` loops).
-    ``first`` marks round 0, where the auto-router decides ``use_plan``
-    for every later round with one counted sync."""
+                   sk_warm, sk_tol, with_stats, route_plan=None, sh=None):
+    """One general assignment round (the body :func:`_batch_impl` loops),
+    as a shard program over one block of the node axis (``sh`` None: the
+    whole axis). ``first`` marks round 0, where the auto-router decides
+    ``use_plan`` for every later round with one counted sync."""
     (pods, nodes, sel, topo, vol, static_vol, extra_mask, extra_score, rank,
      hoisted, hoisted_prio, sens, has_port) = ctx
     assigned, u, sk_stats, sk_u, sk_v = state
     P = pods.req.shape[0]
-    N = nodes.allocatable.shape[0]
+    N = nodes.allocatable.shape[0] if sh is None else sh.n
 
     def port_gate(order2, seg_starts):
         # one port-bearing pod per node per round (conservative, exact)
@@ -574,59 +671,118 @@ def _general_round(ctx, state, first, use_plan, *, weights, skip,
 
     cur = nodes_with_usage(nodes, u)
     active = (assigned == -1) & pods.valid
-    mask = run_predicates(
+    mask = (yield from run_predicates_g(
         pods, cur, sel, topo, vol, static_vol, enabled_mask,
         hoisted=hoisted, no_ports=no_ports,
         no_pod_affinity=no_pod_affinity,
-        no_spread=no_spread).mask & active[:, None]
+        no_spread=no_spread)).mask & active[:, None]
     if extra_mask is not None:
         mask = mask & extra_mask
-    score = run_priorities(pods, cur, sel, mask, weights, topo,
-                           skip=skip, hoisted=hoisted_prio, fused=True)
+    score = yield from run_priorities_g(
+        pods, cur, sel, mask, weights, topo, skip=skip,
+        hoisted=hoisted_prio, fused=True, sh=sh)
     if extra_score is not None:
         score = score + extra_score
     # bidder window: only the top K = N*per_node_cap active pods (by
     # queue rank) with a feasible node bid this round, so priority
     # order is structural (the serial loop is the K=1 case)
-    feasible_any = mask.any(1)
+    feasible_any = yield coll.all_or(mask.any(1))
     wkey = torch.where(active & feasible_any, rank, P + 1)
     arank = _inverse_permutation(torch.argsort(wkey, stable=True))
     mask_full = mask  # pre-window, for the auto-router
     mask = mask & (active & feasible_any & (arank < N * per_node_cap))[
         :, None]
-    rowmax = torch.where(mask, score, NEG).amax(1, keepdim=True)
+    rowmax = yield coll.all_max(
+        torch.where(mask, score, NEG).amax(1, keepdim=True))
     tied = mask & (score >= rowmax)
     if use_sinkhorn or auto_sinkhorn:
         slots = _column_slots(pods, nodes, u, active)
         if auto_sinkhorn and first:
             # decide ONCE, from round 0: one counted sync (unless the
             # caller fixed the route)
-            use_plan = (bool(to_host(
-                _tie_cohort_detected(mask_full, score, slots)))
-                if route_plan is None else bool(route_plan))
+            if route_plan is None:
+                flag = yield from _tie_cohort_detected(mask_full, score,
+                                                       slots)
+                use_plan = bool((yield coll.host(flag)))
+            else:
+                use_plan = bool(route_plan)
         if use_sinkhorn or use_plan:
-            tied, sk_stats, (sk_u, sk_v) = _plan_tied(
+            tied, sk_stats, (sk_u, sk_v) = yield from _plan_tied(
                 score, rowmax, mask, slots,
                 init=(sk_u, sk_v) if sk_warm else None, tol=sk_tol,
-                with_stats=with_stats)
-    choice, _tc = _rotated_pick(tied, arank)
-    feasible = mask.gather(1, choice[:, None])[:, 0]
+                with_stats=with_stats, sh=sh)
+    choice, _tc = yield from _rotated_pick(tied, arank, sh)
+    feasible = yield from _take_cols(mask, choice, sh)
     choice = torch.where(feasible, choice, -1)
     # per-node acceptance: highest-priority prefix that fits. The cap
     # turns each round into an auction step: nodes admit their best
     # bidders, usage updates, the rest re-bid
-    accepted = _admit_scored(choice, rank, pods.req,
-                             nodes.allocatable - u.requested,
-                             per_node_cap, res_on, sorted_gate=port_gate)
+    accepted = yield from _admit_at(choice, rank, pods.req,
+                                    nodes.allocatable - u.requested,
+                                    per_node_cap, res_on,
+                                    sorted_gate=port_gate, sh=sh)
     if sens is not None:
-        accepted = _serialize_topology(accepted, choice, rank, sens,
-                                       pods, cur, topo,
-                                       nodes.topo_pair_id,
-                                       no_pod_affinity)
+        accepted = yield from _serialize_topology(
+            accepted, choice, rank, sens, pods, cur, topo,
+            nodes.topo_pair_id, no_pod_affinity, sh)
     assigned = torch.where(accepted, choice.to(torch.int32), assigned)
-    u = _apply_batch(u, pods, torch.where(accepted, choice, 0), accepted)
+    u = _apply_local(u, pods, choice, accepted, sh)
     return ((assigned, u, sk_stats, sk_u, sk_v),
             _round_exit(assigned, pods, accepted), bool(use_plan))
+
+
+def _batch_gates(topo, vol, static_vol, extra_mask, extra_score, no_ports,
+                 use_sinkhorn, auto_sinkhorn, skip, weights, sk_init,
+                 sk_tol):
+    """The batch-wide routing of :func:`_batch_impl`, shared by the
+    unsharded and the partitioned solve: ``(auto_sinkhorn, sk_warm,
+    lean_plan)``."""
+    # routing gate: no preference kernel live -> no possible asymmetric
+    # tie cohort -> the router and the plan branch stay out
+    auto_sinkhorn = (auto_sinkhorn and not use_sinkhorn
+                     and not all(k in skip for k in _PREFERENCE_KERNELS))
+    # warm-started Sinkhorn: the potentials carry across rounds (and, via
+    # sk_init, across cycles) only when a warm start or a tolerance is
+    # asked for; otherwise every round's plan solves from zeros
+    sk_warm = (sk_init is not None) or (sk_tol is not None)
+    # ---- lean round (constraint-light batches) --------------------------
+    # no topology/volume/port coupling, no extender/plugin mask or score, argmax
+    # tie-break and a provably exact lean scoring plan: one materialized
+    # (P, N) matrix per round; placements identical to the general round
+    lean_plan = None
+    if (topo is None and vol is None and static_vol is None
+            and extra_mask is None and extra_score is None and no_ports
+            and not use_sinkhorn and not auto_sinkhorn):
+        lean_plan = _lean_score_plan(weights, skip)
+    return auto_sinkhorn, sk_warm, lean_plan
+
+
+def _general_prologue(pods, nodes, sel, topo, vol, static_vol, weights,
+                      skip, no_pod_affinity, no_spread, sh=None):
+    """The once-per-batch slice of the general round, as a shard
+    program: ``(static_vol, hoisted, hoisted_prio, sens, has_port)``."""
+    # pods carrying host ports or attach-counted/conflict-checked volumes
+    # are admitted at most one per node per round (conservative, exact)
+    has_port = (pods.port_wild_pp.sum(1) + pods.port_spec_pp.sum(1)) > 0
+    if vol is not None:
+        has_port = has_port | ((pods.vol_any_mh.sum(1) + pods.pd_mh.sum(1)
+                                + pods.csi_mh.sum(1)) > 0)
+    # usage-invariant predicate bits + selector programs, and the
+    # usage-invariant scoring slice, once per batch
+    hoisted = static_predicate_reasons(pods, nodes, sel)
+    if vol is not None and static_vol is None:
+        static_vol = static_volume_reasons(pods, nodes, sel, vol,
+                                           prog=hoisted[1])
+    hoisted_prio = yield from hoist_priorities_g(pods, nodes, sel, weights,
+                                                 skip, sh)
+    # (P, K) topology keys along which same-round co-admission into one
+    # topology group could violate required anti-affinity / hard spread;
+    # skipped when BOTH batch gates hold (a universe matcher left by a
+    # long-gone affinity pod would otherwise serialize clean pods)
+    sens = None
+    if topo is not None and not (no_pod_affinity and no_spread):
+        sens = sensitive_keys(pods, topo, nodes.topo_pair_id.shape[1])
+    return static_vol, hoisted, hoisted_prio, sens, has_port
 
 
 def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
@@ -640,14 +796,9 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
     Sinkhorn stats ([-1, -1] when the plan never ran or ``with_stats`` is
     off) and the potential carry. On a CUDA tensor nothing is read back
     except the auto-router's round-0 decision (:mod:`.device_loop`)."""
-    # routing gate: no preference kernel live -> no possible asymmetric
-    # tie cohort -> the router and the plan branch stay out
-    auto_sinkhorn = (auto_sinkhorn and not use_sinkhorn
-                     and not all(k in skip for k in _PREFERENCE_KERNELS))
-    # warm-started Sinkhorn: the potentials carry across rounds (and, via
-    # sk_init, across cycles) only when a warm start or a tolerance is
-    # asked for; otherwise every round's plan solves from zeros
-    sk_warm = (sk_init is not None) or (sk_tol is not None)
+    auto_sinkhorn, sk_warm, lean_plan = _batch_gates(
+        topo, vol, static_vol, extra_mask, extra_score, no_ports,
+        use_sinkhorn, auto_sinkhorn, skip, weights, sk_init, sk_tol)
     P = pods.req.shape[0]
     N = nodes.allocatable.shape[0]
     dev = pods.req.device
@@ -660,41 +811,15 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         sk_v = torch.zeros((N,), dtype=torch.float32, device=dev)
     perm = queue_order(pods)
     rank = _inverse_permutation(perm)
-    # ---- lean round (constraint-light batches) --------------------------
-    # no topology/volume/port coupling, no extender/plugin mask or score, argmax
-    # tie-break and a provably exact lean scoring plan: one materialized
-    # (P, N) matrix per round; placements identical to the general round
-    lean_plan = None
-    if (topo is None and vol is None and static_vol is None
-            and extra_mask is None and extra_score is None and no_ports
-            and not use_sinkhorn and not auto_sinkhorn):
-        lean_plan = _lean_score_plan(weights, skip)
     if lean_plan is not None:
         # the lean route never runs the plan: [-1, -1] stats and zero
         # potentials keep the return uniform
         return _lean_rounds(pods, nodes, sel, rank, lean_plan, max_rounds,
                             per_node_cap, enabled_mask) + (
             sk_stats, (sk_u.new_zeros((P,)), sk_v.new_zeros((N,))))
-    # pods carrying host ports or attach-counted/conflict-checked volumes
-    # are admitted at most one per node per round (conservative, exact)
-    has_port = (pods.port_wild_pp.sum(1) + pods.port_spec_pp.sum(1)) > 0
-    if vol is not None:
-        has_port = has_port | ((pods.vol_any_mh.sum(1) + pods.pd_mh.sum(1)
-                                + pods.csi_mh.sum(1)) > 0)
-    # usage-invariant predicate bits + selector programs, and the
-    # usage-invariant scoring slice, once per batch
-    hoisted = static_predicate_reasons(pods, nodes, sel)
-    if vol is not None and static_vol is None:
-        static_vol = static_volume_reasons(pods, nodes, sel, vol,
-                                           prog=hoisted[1])
-    hoisted_prio = hoist_priorities(pods, nodes, sel, weights, skip)
-    # (P, K) topology keys along which same-round co-admission into one
-    # topology group could violate required anti-affinity / hard spread;
-    # skipped when BOTH batch gates hold (a universe matcher left by a
-    # long-gone affinity pod would otherwise serialize clean pods)
-    sens = None
-    if topo is not None and not (no_pod_affinity and no_spread):
-        sens = sensitive_keys(pods, topo, nodes.topo_pair_id.shape[1])
+    static_vol, hoisted, hoisted_prio, sens, has_port = coll.solo(
+        _general_prologue(pods, nodes, sel, topo, vol, static_vol, weights,
+                          skip, no_pod_affinity, no_spread))
     res_on = enabled_mask is None or bool(
         enabled_mask & (1 << BIT["PodFitsResources"]))
     flags = dict(weights=weights, skip=tuple(skip), enabled_mask=enabled_mask,
@@ -703,21 +828,147 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                  res_on=res_on, use_sinkhorn=use_sinkhorn,
                  auto_sinkhorn=auto_sinkhorn, sk_warm=sk_warm, sk_tol=sk_tol,
                  with_stats=with_stats, route_plan=route_plan)
-    # the tolerance-gated Sinkhorn reads its residual on the host every
-    # iteration, so its rounds cannot be captured: they keep the Python
-    # loop (statics None)
-    statics = None if sk_tol is not None else (
-        "general", _weights_key(weights),
-        *[(k, v) for k, v in flags.items()
-          if k not in ("weights", "route_plan")])
     ctx = (pods, nodes, sel, topo, vol, static_vol, extra_mask, extra_score,
            rank, hoisted, hoisted_prio, sens, has_port)
     state = (torch.full((P,), -1, dtype=torch.int32, device=dev),
              usage_from_nodes(nodes), sk_stats, sk_u, sk_v)
     (assigned, u, sk_stats, sk_u, sk_v), rounds = device_loop.run(
-        functools.partial(_general_round, **flags), ctx, state, pods.valid,
-        max_rounds, statics, shape=(P, N))
+        functools.partial(_solo_round, _general_round, **flags), ctx, state,
+        pods.valid, max_rounds, _general_statics(flags), shape=(P, N))
     return assigned, u, rounds, sk_stats, (sk_u, sk_v)
+
+
+def _general_statics(flags):
+    """What a captured general round bakes in besides its inputs' shapes.
+    The tolerance-gated Sinkhorn reads its residual on the host every
+    iteration, so its rounds cannot be captured: they keep the Python
+    loop (None)."""
+    if flags["sk_tol"] is not None:
+        return None
+    return ("general", _weights_key(flags["weights"]),
+            *[(k, v) for k, v in flags.items()
+              if k not in ("weights", "route_plan")])
+
+
+def _column_blocks(x, mesh):
+    """A (P, N) table's column blocks, block i on ``mesh.devices[i]``."""
+    if x is None:
+        return (None,) * mesh.size
+    return tuple(b.to(dev) for b, dev in zip(x.chunk(mesh.size, 1),
+                                              mesh.devices))
+
+
+def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
+                        per_node_cap, extra_mask=None, vol=None,
+                        static_vol=None, enabled_mask=None, extra_score=None,
+                        use_sinkhorn=False, skip=(), no_ports=False,
+                        no_pod_affinity=False, no_spread=False,
+                        auto_sinkhorn=True, with_stats=False, sk_init=None,
+                        sk_tol=None, route_plan=None):
+    """The partitioned round loop over a :class:`~kubernetes_tpu_torch.
+    parallel.mesh.ShardedNodes` of ``d`` blocks: one program per shard
+    (the same round functions as :func:`_batch_impl`, each over its
+    block, the cross-shard reductions in ``parallel/collectives.py``),
+    driven in lockstep. Pods, selectors, topology and volume tables are
+    replicated per device; (P, N) inputs split into column blocks.
+    Returns :func:`_batch_impl`'s tuple with the placements as global
+    node rows on ``mesh.devices[0]`` and the usage and v gathered there.
+
+    On a logical mesh (the blocks share one card) the whole partitioned
+    round is one device's work: round 0 runs eagerly and the later rounds
+    are captured into one graph and looped by the WHILE node, as the
+    unsharded loop is (the graph key carries the shard count through the
+    block shapes and ``statics``). On distinct cards one graph cannot
+    span devices: the rounds take the Python loop, whose exit test is
+    one counted read per round, so a solve makes ``rounds + 1`` counted
+    syncs (the batch's any-valid test and each round's exit) plus the
+    auto-router's one and, with ``sk_tol``, one per Sinkhorn iteration;
+    the result's readback is the caller's."""
+    from kubernetes_tpu_torch.parallel.mesh import gather_usage, replicas
+
+    mesh = nodes.mesh
+    d = mesh.size
+    devs = mesh.devices
+    blocks = nodes.blocks
+    pods_k, sel_k = replicas(pods, mesh), replicas(sel, mesh)
+    topo_k, vol_k = replicas(topo, mesh), replicas(vol, mesh)
+    pods0 = pods_k[0]
+    auto_sinkhorn, sk_warm, lean_plan = _batch_gates(
+        topo, vol, static_vol, extra_mask, extra_score, no_ports,
+        use_sinkhorn, auto_sinkhorn, skip, weights, sk_init, sk_tol)
+    shs = [coll.Shard(i, d, nodes.rows) for i in range(d)]
+    P = pods0.req.shape[0]
+    N = nodes.n
+    ranks = [_inverse_permutation(queue_order(p)) for p in pods_k]
+    usage0 = [usage_from_nodes(b) for b in blocks]
+    assigned0 = [torch.full((P,), -1, dtype=torch.int32, device=dv)
+                 for dv in devs]
+    if lean_plan is not None:
+        res_on = enabled_mask is None or bool(
+            enabled_mask & (1 << BIT["PodFitsResources"]))
+        ctx = tuple((pods_k[i], blocks[i], ranks[i], _lean_static_ok(
+            pods_k[i], blocks[i], sel_k[i], enabled_mask)) for i in range(d))
+        state = tuple(zip(assigned0, usage0))
+        kw = dict(per_node_cap=per_node_cap, res_on=res_on,
+                  lean_plan=lean_plan)
+        statics = ("lean", per_node_cap, res_on, lean_plan)
+        program = _lean_round
+    else:
+        static_vols = _column_blocks(static_vol, mesh)
+        pro = coll.lockstep([_general_prologue(
+            pods_k[i], blocks[i], sel_k[i], topo_k[i], vol_k[i],
+            static_vols[i], weights, skip, no_pod_affinity, no_spread,
+            shs[i]) for i in range(d)], devs)
+        res_on = enabled_mask is None or bool(
+            enabled_mask & (1 << BIT["PodFitsResources"]))
+        kw = dict(weights=weights, skip=tuple(skip),
+                  enabled_mask=enabled_mask, no_ports=no_ports,
+                  no_pod_affinity=no_pod_affinity, no_spread=no_spread,
+                  per_node_cap=per_node_cap, res_on=res_on,
+                  use_sinkhorn=use_sinkhorn, auto_sinkhorn=auto_sinkhorn,
+                  sk_warm=sk_warm, sk_tol=sk_tol, with_stats=with_stats,
+                  route_plan=route_plan)
+        statics = _general_statics(kw)
+        program = _general_round
+        ems, ess = _column_blocks(extra_mask, mesh), \
+            _column_blocks(extra_score, mesh)
+        ctx = tuple(
+            (pods_k[i], blocks[i], sel_k[i], topo_k[i], vol_k[i], pro[i][0],
+             ems[i], ess[i], ranks[i], pro[i][1], pro[i][2], pro[i][3],
+             pro[i][4]) for i in range(d))
+        if sk_init is not None:
+            us = [sk_init[0].to(dv, torch.float32) for dv in devs]
+            vs = [b.to(dv, torch.float32) for b, dv in zip(
+                sk_init[1].chunk(d, 0), devs)]
+        else:
+            us = [torch.zeros((P,), dtype=torch.float32, device=dv)
+                  for dv in devs]
+            vs = [torch.zeros((nodes.rows,), dtype=torch.float32, device=dv)
+                  for dv in devs]
+        state = tuple(
+            (assigned0[i], usage0[i],
+             torch.full((2,), -1.0, dtype=torch.float32, device=devs[i]),
+             us[i], vs[i]) for i in range(d))
+
+    def body(ctx, state, first, tag):
+        coll.ROUND.reset()
+        outs = coll.lockstep([program(ctx[i], state[i], first, tag,
+                                      sh=shs[i], **kw) for i in range(d)],
+                             devs)
+        return tuple(o[0] for o in outs), outs[0][1], outs[0][2]
+
+    if statics is not None:
+        statics = ("sharded", d) + tuple(statics) if mesh.logical else None
+    states, rounds = device_loop.run(body, ctx, state, pods0.valid,
+                                     max_rounds, statics, shape=(P, N))
+    usage = gather_usage([st[1] for st in states], devs[0])
+    if lean_plan is not None:
+        return (states[0][0], usage, rounds,
+                torch.full((2,), -1.0, dtype=torch.float32, device=devs[0]),
+                (torch.zeros((P,), dtype=torch.float32, device=devs[0]),
+                 torch.zeros((N,), dtype=torch.float32, device=devs[0])))
+    sk_v = torch.cat([st[4].to(devs[0]) for st in states])
+    return states[0][0], usage, rounds, states[0][2], (states[0][3], sk_v)
 
 
 def _weights_key(weights) -> tuple:
@@ -734,26 +985,28 @@ def _weights_key(weights) -> tuple:
 
 
 def _plan_tied(score, rowmax, mask, slots, init=None, tol=None,
-               with_stats=False):
+               with_stats=False, sh=None):
     """Choose from the entropic-OT transport plan instead of the raw
     per-pod argmax: the plan balances the batch against node capacities,
     so contended pods pre-spread instead of colliding. Identical pods get
     identical plan rows, so the plan argmax keeps the rotation tie-break.
     ``init``/``tol`` warm-start the scaling and gate it on a tolerance.
     Returns ``(tied mask, stats, (u, v))``; stats are [-1, -1] unless
-    ``with_stats``."""
-    from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_plan
+    ``with_stats``. A shard program: the plan's row pass and its row
+    maximum reduce across shards."""
+    from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_plan_g
 
     masked = torch.where(mask, score - rowmax, NEG)
-    out = sinkhorn_plan(masked, mask, slots, with_stats=with_stats,
-                        init=init, tol=tol, return_potentials=True)
+    out = yield from sinkhorn_plan_g(masked, mask, slots,
+                                     with_stats=with_stats, init=init,
+                                     tol=tol, return_potentials=True, sh=sh)
     if with_stats:
         plan, stats, pot = out
     else:
         (plan, pot), stats = out, torch.full(
             (2,), -1.0, dtype=torch.float32, device=score.device)
     pmasked = torch.where(mask, plan, -1.0)
-    prowmax = pmasked.amax(1, keepdim=True)
+    prowmax = yield coll.all_max(pmasked.amax(1, keepdim=True))
     return mask & (pmasked >= prowmax), stats, pot
 
 
@@ -815,8 +1068,23 @@ def batch_assign(
     :func:`greedy_assign`; the hook stands where an out-of-process
     solver's response would be decoded. ``route_plan`` replaces the
     auto-router's round-0 decision (no read): the warmup uses it to
-    capture the round-loop graph of each route the router can take."""
-    assigned, u, rounds, sk_stats, pot = _batch_impl(
+    capture the round-loop graph of each route the router can take.
+
+    ``nodes`` a :class:`~kubernetes_tpu_torch.parallel.mesh.ShardedNodes`
+    (with pods and selectors replicated or not) runs the partitioned
+    solve (:func:`_batch_impl_sharded`): the same placements and rounds,
+    the usage and potentials gathered onto the mesh's first device."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, unreplicated
+
+    impl = _batch_impl
+    if isinstance(nodes, ShardedNodes):
+        impl = _batch_impl_sharded
+        n_nodes = nodes.n
+    else:
+        pods, sel = unreplicated(pods), unreplicated(sel)
+        topo, vol = unreplicated(topo), unreplicated(vol)
+        n_nodes = nodes.allocatable.shape[0]
+    assigned, u, rounds, sk_stats, pot = impl(
         pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         extra_mask=extra_mask, vol=vol, static_vol=static_vol,
         enabled_mask=enabled_mask, extra_score=extra_score,
@@ -827,7 +1095,7 @@ def batch_assign(
         route_plan=route_plan)
     if fault_hook is not None:
         assigned, u, rounds = fault_hook(fault_site, assigned, u, rounds,
-                                         nodes.allocatable.shape[0])
+                                         n_nodes)
     ret = (assigned, u, rounds)
     if stats_out:
         ret = ret + (sk_stats,)
@@ -850,7 +1118,10 @@ def solve_cost_analysis(pods: DevicePods, nodes: DeviceNodes,
     Host arithmetic only: no device work."""
     from kubernetes_tpu_torch.obs.ledger import round_work
 
-    return round_work(int(pods.valid.shape[0]), int(nodes.valid.shape[0]),
+    from kubernetes_tpu_torch.parallel.mesh import unreplicated, whole
+
+    return round_work(int(unreplicated(pods).valid.shape[0]),
+                      int(whole(nodes).valid.shape[0]),
                       use_sinkhorn=bool(solve_kwargs.get("use_sinkhorn")))
 
 
@@ -870,14 +1141,21 @@ def solve_memory_analysis(pods: DevicePods, nodes: DeviceNodes,
     propagates."""
     from kubernetes_tpu_torch.obs.jaxtel import tree_nbytes
     from kubernetes_tpu_torch.obs.memledger import capture_memory_analysis
+    from kubernetes_tpu_torch.parallel.mesh import (
+        ShardedNodes,
+        unreplicated,
+    )
 
-    args = tree_nbytes(pods, nodes, sel, *(
+    # a partitioned solve is measured on its first device, whose
+    # allocator holds block 0 and the whole table's mirror
+    blocks = nodes.blocks[0] if isinstance(nodes, ShardedNodes) else nodes
+    args = tree_nbytes(unreplicated(pods), blocks, unreplicated(sel), *(
         solve_kwargs.get(k) for k in ("topo", "vol", "static_vol",
                                       "extra_mask", "extra_score")
         if solve_kwargs.get(k) is not None))
     return capture_memory_analysis(
         lambda: batch_assign(pods, nodes, sel, weights, **solve_kwargs),
-        pods.valid.device, args)
+        unreplicated(pods).valid.device, args)
 
 
 def validate_solution(assigned, usage: UsageState, pods: DevicePods,

@@ -31,6 +31,15 @@ no quiet fall-back to the Python loop.
 
 A round body must keep every shape static (no ``nonzero``, no boolean
 indexing, no ``.item()``): the capture refuses anything else.
+
+The partitioned round of a node-axis mesh (``ops/assign.py``) is one
+body over per-shard inputs and states. On a logical mesh (every shard
+on one card) it is one device's work and loops as above; its key
+carries the shard count (the ``statics`` and the blocks' shapes). On
+distinct cards one graph cannot span the devices, so the caller passes
+``statics=None`` and the rounds take the Python loop, whose exit test
+is one counted read a round: ``rounds + 1`` syncs a solve (the batch's
+any-valid test and each round's exit), besides the auto-router's one.
 """
 
 from __future__ import annotations

@@ -14,6 +14,14 @@ second time mostly from L2). Per-element arithmetic
 replicates ``priorities._idiv`` and ``_normalize_reduce`` exactly, and
 f32 max is exact under any association, so the result is bit-identical
 to :func:`fused_pair_normalize_plain`.
+
+On a node-axis mesh of d > 1 shards the two maxima are all-reduced across
+shards between the passes, so the pair also comes split at that seam (the
+reference's own two kernels): :func:`fused_pair_max` on each shard's
+column block, an all-reduce MAX (``parallel/collectives.py``), then
+:func:`fused_pair_scale` on each block. Max is exact and the scale's
+per-element arithmetic is the fused kernel's, so the composition is
+bit-identical to the fused pair.
 """
 
 from __future__ import annotations
@@ -49,6 +57,72 @@ def fused_pair_normalize_plain(raw_fwd, raw_rev, mask, w_fwd, w_rev):
     sr = torch.where(mxr > 0, sr, 0.0)
     sr = torch.where(mxr > 0, MAX_PRIORITY - sr, MAX_PRIORITY)
     return w_fwd * sf + w_rev * sr
+
+
+def fused_pair_max_plain(raw_fwd, raw_rev, mask):
+    """The plain version of the split pair's max pass: per row, the
+    maxima of ``raw_fwd`` and ``raw_rev`` over the block, masked-out
+    entries counting 0. Returns ``(mxf, mxr)``, each (P,)."""
+    return (torch.where(mask, raw_fwd, 0.0).amax(1),
+            torch.where(mask, raw_rev, 0.0).amax(1))
+
+
+def fused_pair_scale_plain(raw_fwd, raw_rev, mxf, mxr, w_fwd, w_rev):
+    """The plain version of the split pair's scale pass, given the
+    (global) row maxima ``mxf``, ``mxr`` (each (P,))."""
+    mxf, mxr = mxf[:, None], mxr[:, None]
+    sf = _idiv(MAX_PRIORITY * raw_fwd, torch.where(mxf > 0, mxf, 1.0))
+    sf = torch.where(mxf > 0, sf, 0.0)
+    sr = _idiv(MAX_PRIORITY * raw_rev, torch.where(mxr > 0, mxr, 1.0))
+    sr = torch.where(mxr > 0, sr, 0.0)
+    sr = torch.where(mxr > 0, MAX_PRIORITY - sr, MAX_PRIORITY)
+    return w_fwd * sf + w_rev * sr
+
+
+def fused_pair_max(raw_fwd, raw_rev, mask):
+    """(mxf, mxr) of one shard's (P, n) block: the plain version on a
+    CPU tensor, the CUDA kernel on a CUDA tensor (or it raises; any
+    n)."""
+    if raw_fwd.device.type == "cpu":
+        return fused_pair_max_plain(raw_fwd, raw_rev, mask)
+    P, N = raw_fwd.shape
+    kernels.require(raw_fwd, "fused_pair_max raw_fwd", torch.float32)
+    kernels.require(raw_rev, "fused_pair_max raw_rev", torch.float32,
+                    (P, N))
+    kernels.require(mask, "fused_pair_max mask", torch.bool, (P, N))
+    mx = torch.empty((2, P), dtype=torch.float32, device=raw_fwd.device)
+    with kernels.on_device(raw_fwd):
+        code = kernels.lib("fused_pair").ktt_fused_pair_max(
+            raw_fwd.data_ptr(), raw_rev.data_ptr(), mask.data_ptr(),
+            mx[0].data_ptr(), mx[1].data_ptr(), P, N,
+            kernels.stream_ptr(raw_fwd))
+    kernels.check(code, "fused_pair_max")
+    kernels.count_launch("fused_pair_max", (P, N))
+    return mx[0], mx[1]
+
+
+def fused_pair_scale(raw_fwd, raw_rev, mxf, mxr, w_fwd, w_rev):
+    """(P, n) weighted pair of one shard's block given the global row
+    maxima: the plain version on a CPU tensor, the CUDA kernel on a CUDA
+    tensor (or it raises; any n)."""
+    if raw_fwd.device.type == "cpu":
+        return fused_pair_scale_plain(raw_fwd, raw_rev, mxf, mxr, w_fwd,
+                                      w_rev)
+    P, N = raw_fwd.shape
+    kernels.require(raw_fwd, "fused_pair_scale raw_fwd", torch.float32)
+    kernels.require(raw_rev, "fused_pair_scale raw_rev", torch.float32,
+                    (P, N))
+    kernels.require(mxf, "fused_pair_scale mxf", torch.float32, (P,))
+    kernels.require(mxr, "fused_pair_scale mxr", torch.float32, (P,))
+    out = torch.empty((P, N), dtype=torch.float32, device=raw_fwd.device)
+    with kernels.on_device(raw_fwd):
+        code = kernels.lib("fused_pair").ktt_fused_pair_scale(
+            raw_fwd.data_ptr(), raw_rev.data_ptr(), mxf.data_ptr(),
+            mxr.data_ptr(), out.data_ptr(), P, N, float(w_fwd), float(w_rev),
+            kernels.stream_ptr(raw_fwd))
+    kernels.check(code, "fused_pair_scale")
+    kernels.count_launch("fused_pair_scale", (P, N))
+    return out
 
 
 def staged_route(n, *ts) -> bool:
@@ -93,9 +167,10 @@ def launch(raw_fwd, raw_rev, mask, out, w_fwd, w_rev, staged: bool):
     lib = kernels.lib("fused_pair")
     fn = (lib.ktt_fused_pair_normalize if staged
           else lib.ktt_fused_pair_normalize_wide)
-    code = fn(raw_fwd.data_ptr(), raw_rev.data_ptr(), mask.data_ptr(),
-              out.data_ptr(), P, N, float(w_fwd), float(w_rev),
-              kernels.stream_ptr(raw_fwd))
+    with kernels.on_device(raw_fwd):
+        code = fn(raw_fwd.data_ptr(), raw_rev.data_ptr(), mask.data_ptr(),
+                  out.data_ptr(), P, N, float(w_fwd), float(w_rev),
+                  kernels.stream_ptr(raw_fwd))
     kernels.check(code, "fused_pair_normalize")
 
 

@@ -395,7 +395,40 @@ def run_predicates(
     :class:`~kubernetes_tpu_torch.ops.arrays.DeviceTopology`) adds the
     inter-pod affinity and topology spread predicates; ``no_pod_affinity``
     / ``no_spread`` skip each of them where the batch gates prove its mask
-    all-true."""
+    all-true. ``nodes`` a ``parallel.mesh.ShardedNodes`` runs the pass
+    partitioned across its mesh (``hoisted`` is then recomputed per
+    block)."""
+    from kubernetes_tpu_torch.parallel.collectives import lockstep, solo
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, replicas
+
+    if not isinstance(nodes, ShardedNodes):
+        return solo(run_predicates_g(
+            pods, nodes, sel, topo, vol, static_reasons, enabled_mask,
+            hoisted, no_ports, no_pod_affinity, no_spread))
+    # the partitioned Filter pass: one program per shard over its block
+    # (pods and selectors replicated, (P, N) inputs in column blocks),
+    # the (P, N) result gathered onto the mesh's first device
+    mesh = nodes.mesh
+    rep = [replicas(t, mesh) for t in (pods, sel, topo, vol)]
+    sr = ((None,) * mesh.size if static_reasons is None else tuple(
+        b.to(d) for b, d in zip(static_reasons.chunk(mesh.size, 1),
+                                mesh.devices)))
+    outs = lockstep([run_predicates_g(
+        rep[0][i], nodes.blocks[i], rep[1][i], rep[2][i], rep[3][i], sr[i],
+        enabled_mask, None, no_ports, no_pod_affinity, no_spread)
+        for i in range(mesh.size)], mesh.devices)
+    return FilterResult(*[torch.cat([getattr(o, f).to(mesh.device)
+                                     for o in outs], 1)
+                          for f in FilterResult._fields])
+
+
+def run_predicates_g(pods, nodes, sel, topo=None, vol=None,
+                     static_reasons=None, enabled_mask=None, hoisted=None,
+                     no_ports=False, no_pod_affinity=False,
+                     no_spread=False):
+    """:func:`run_predicates` as a shard program over one block of the
+    node axis: every predicate is node-local except the topology ones,
+    whose panels reduce across shards (``ops/topology.py``)."""
     if hoisted is None:
         reasons, prog = static_predicate_reasons(pods, nodes, sel)
     else:
@@ -414,8 +447,8 @@ def run_predicates(
 
     if topo is not None:
         from kubernetes_tpu_torch.ops.topology import (
-            even_pods_spread_mask,
-            inter_pod_affinity_mask,
+            even_pods_spread_mask_g,
+            inter_pod_affinity_mask_g,
         )
 
         # the topology universe only grows over a packer's life, so the
@@ -425,12 +458,12 @@ def run_predicates(
         # batch) each prove their mask all-true
         if not no_pod_affinity:
             # MatchInterPodAffinity (predicates.go:1211)
-            reasons |= _bits(~inter_pod_affinity_mask(pods, nodes, topo),
-                             "MatchInterPodAffinity")
+            ok = yield from inter_pod_affinity_mask_g(pods, nodes, topo)
+            reasons |= _bits(~ok, "MatchInterPodAffinity")
         if not no_spread:
             # EvenPodsSpread (predicates.go:1720)
-            reasons |= _bits(~even_pods_spread_mask(pods, nodes, topo, prog),
-                             "EvenPodsSpread")
+            ok = yield from even_pods_spread_mask_g(pods, nodes, topo, prog)
+            reasons |= _bits(~ok, "EvenPodsSpread")
 
     if vol is not None:
         reasons |= _dynamic_volume_reasons(pods, nodes, vol)

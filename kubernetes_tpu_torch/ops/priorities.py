@@ -6,6 +6,13 @@ Each priority emits the whole (P, N) matrix at once; reduces (normalizes)
 are per-row ops; the weighted sum is one accumulate. Go's integer
 arithmetic (scores are int64 0..10 with repeated integer division) is
 emulated with ``floor(x + eps)`` in f32 — see ``_idiv``.
+
+The kernels that reduce over the node axis (the NormalizeReduce maxima,
+ImageLocality's node counts, SelectorSpread's node and zone maxima and
+the topology scores) are also written as shard programs (``*_g``, see
+``parallel/collectives.py``) that yield their per-shard partials for a
+reduction across the mesh; :func:`run_priorities_g` is the whole Score
+pass as one shard's program. The plain kernels run one program alone.
 """
 
 from __future__ import annotations
@@ -25,9 +32,10 @@ from kubernetes_tpu_torch.ops.predicates import (
     selector_program_match,
 )
 from kubernetes_tpu_torch.ops.topology import (
-    even_pods_spread_score,
-    inter_pod_affinity_score,
+    even_pods_spread_score_g,
+    inter_pod_affinity_score_g,
 )
+from kubernetes_tpu_torch.parallel import collectives as coll
 
 _EPS = 1e-5
 
@@ -47,7 +55,14 @@ def _normalize_reduce(raw, mask, reverse: bool):
     max becomes MaxPriority; if max==0 -> all MaxPriority when reversed,
     else 0. The max is taken over the pod's feasible nodes only
     (PrioritizeNodes receives filteredNodes, generic_scheduler.go:684)."""
-    mx = torch.where(mask, raw, 0.0).amax(1, keepdim=True)  # (P, 1)
+    return coll.solo(_normalize_reduce_g(raw, mask, reverse))
+
+
+def _normalize_reduce_g(raw, mask, reverse: bool):
+    """:func:`_normalize_reduce` as a shard program: the row max is an
+    all-reduce MAX across shards."""
+    mx = yield coll.all_max(
+        torch.where(mask, raw, 0.0).amax(1, keepdim=True))  # (P, 1)
     scaled = _idiv(MAX_PRIORITY * raw, torch.where(mx > 0, mx, 1.0))
     scaled = torch.where(mx > 0, scaled, 0.0)
     if reverse:
@@ -144,11 +159,18 @@ def image_locality(pods, nodes, sel, topo, mask):
     """image_locality.go: sum of (size * nodes-with-image/total-nodes) over
     the pod's images present on the node, clamped to [23MB, 1000MB] and
     scaled to 0..10."""
+    return coll.solo(image_locality_g(pods, nodes, sel, topo, mask))
+
+
+def image_locality_g(pods, nodes, sel, topo, mask):
+    """:func:`image_locality` as a shard program: the node counts are
+    all-reduce SUMs (exact integers)."""
     mb = 1024.0 * 1024.0
     lo, hi = 23.0 * mb, 1000.0 * mb
-    total = torch.clamp_min(nodes.valid.to(torch.float32).sum(), 1.0)
-    num_nodes = torch.where(nodes.valid[:, None], nodes.image_mh,
-                            0.0).sum(0)  # (Ui,)
+    total = torch.clamp_min(
+        (yield coll.all_sum(nodes.valid.to(torch.float32).sum())), 1.0)
+    num_nodes = yield coll.all_sum(torch.where(
+        nodes.valid[:, None], nodes.image_mh, 0.0).sum(0))  # (Ui,)
     spread = num_nodes / total
     # truncation to int64 per image (scaledImageScore) then summed
     scaled = torch.floor(sel.image_sizes * spread + _EPS)  # (Ui,)
@@ -162,11 +184,17 @@ def selector_spread(pods, nodes, sel, topo, mask):
     matching all owner selectors; reduce = 10*(max-count)/max blended 1/3
     with the zone-level equivalent at 2/3 (zoneWeighting, :34) when zones
     exist."""
+    return coll.solo(selector_spread_g(pods, nodes, sel, topo, mask))
+
+
+def selector_spread_g(pods, nodes, sel, topo, mask):
+    """:func:`selector_spread` as a shard program: the node maximum is an
+    all-reduce MAX, the zone panels all-reduce SUMs."""
     idx = pods.owner_id.clamp(0, nodes.owner_counts.shape[1] - 1).long()
     counts = torch.where((pods.owner_id >= 0)[:, None],
                          nodes.owner_counts.T[idx], 0.0)  # (P, N)
     counts = torch.where(mask, counts, 0.0)
-    max_node = counts.amax(1, keepdim=True)  # (P, 1)
+    max_node = yield coll.all_max(counts.amax(1, keepdim=True))  # (P, 1)
 
     # zone aggregation as a one-hot matmul: zmat (N, Z)
     n_zones = nodes.zone_valid.shape[0]
@@ -174,9 +202,10 @@ def selector_spread(pods, nodes, sel, topo, mask):
     zid = nodes.zone_id.clamp(0, n_zones - 1).long()
     zmat = ((zid[:, None] == torch.arange(n_zones, device=zid.device)[None, :])
             & has_zone[:, None]).to(torch.float32)  # (N, Z)
-    zcounts = counts @ zmat  # (P, Z)
+    zcounts = yield coll.all_sum(counts @ zmat)  # (P, Z)
     # zones present for this pod = zones containing a feasible node
-    zone_present = (mask.to(torch.float32) @ zmat) > 0  # (P, Z)
+    zone_present = (yield coll.all_sum(
+        mask.to(torch.float32) @ zmat)) > 0  # (P, Z)
     max_zone = torch.where(zone_present, zcounts,
                            -float("inf")).amax(1, keepdim=True)
     have_zones = zone_present.any(1, keepdim=True)  # (P, 1)
@@ -221,19 +250,28 @@ def inter_pod_affinity(pods, nodes, sel, topo, mask):
     """interpod_affinity.go CalculateInterPodAffinityPriority (symmetric
     weighted term counts, min/max-normalized). All zeros when no topology
     tables were packed."""
+    return coll.solo(inter_pod_affinity_g(pods, nodes, sel, topo, mask))
+
+
+def inter_pod_affinity_g(pods, nodes, sel, topo, mask):
     if topo is None:
         return _zeros(pods, nodes)
-    return inter_pod_affinity_score(pods, nodes, topo, mask)
+    return (yield from inter_pod_affinity_score_g(pods, nodes, topo, mask))
 
 
 def even_pods_spread(pods, nodes, sel, topo, mask):
     """even_pods_spread.go CalculateEvenPodsSpreadPriority (enabled
     whenever soft constraints exist). All zeros when no topology tables
     were packed."""
+    return coll.solo(even_pods_spread_g(pods, nodes, sel, topo, mask))
+
+
+def even_pods_spread_g(pods, nodes, sel, topo, mask):
     if topo is None:
         return _zeros(pods, nodes)
     prog = selector_program_match(sel, nodes)
-    return even_pods_spread_score(pods, nodes, topo, prog, mask)
+    return (yield from even_pods_spread_score_g(pods, nodes, topo, prog,
+                                                mask))
 
 
 #: RequestedToCapacityRatio default shape: least-utilized preferred
@@ -446,6 +484,23 @@ def _fused_pair_normalize(raw_fwd, raw_rev, mask, w_fwd, w_rev):
                                 mask.contiguous(), w_fwd, w_rev)
 
 
+def _fused_pair_normalize_g(raw_fwd, raw_rev, mask, w_fwd, w_rev, sh):
+    """The pair as a shard program: the fused kernel alone (``sh``
+    None); on a mesh the split kernels, the max pass on this block, an
+    all-reduce MAX of the (P,) maxima, the scale pass on this block."""
+    if sh is None:
+        return _fused_pair_normalize(raw_fwd, raw_rev, mask, w_fwd, w_rev)
+    from kubernetes_tpu_torch.ops.fused_score import (
+        fused_pair_max,
+        fused_pair_scale,
+    )
+
+    raw_fwd, raw_rev = raw_fwd.contiguous(), raw_rev.contiguous()
+    mx = yield coll.all_max(torch.stack(fused_pair_max(
+        raw_fwd, raw_rev, mask.contiguous())))
+    return fused_pair_scale(raw_fwd, raw_rev, mx[0], mx[1], w_fwd, w_rev)
+
+
 #: stock kernels whose full (P, N) score reads NO usage field and NO mask
 #: — computable once per batch and reused every round verbatim
 STATIC_FULL = ("ImageLocalityPriority", "NodePreferAvoidPodsPriority",
@@ -458,6 +513,38 @@ STATIC_RAW = {
     "TaintTolerationPriority": (_taint_toleration_raw, True),
 }
 
+#: stock kernels that reduce over the node axis -> their shard programs;
+#: every other stock kernel is node-local and runs on a block unchanged
+_SHARD_PROGRAMS = {
+    "NodeAffinityPriority": lambda p, n, s, t, m: _normalize_reduce_g(
+        _node_affinity_raw(p, n, s), m, False),
+    "TaintTolerationPriority": lambda p, n, s, t, m: _normalize_reduce_g(
+        _taint_toleration_raw(p, n, s), m, True),
+    "ImageLocalityPriority": image_locality_g,
+    "SelectorSpreadPriority": selector_spread_g,
+    "InterPodAffinityPriority": inter_pod_affinity_g,
+    "EvenPodsSpreadPriority": even_pods_spread_g,
+}
+
+
+def _kernel_g(name, pods, nodes, sel, topo, mask, sh):
+    """One registered kernel's (P, block) term in a shard program. A
+    stock kernel runs as its shard program (or, node-local, as itself);
+    on a mesh a custom kernel sees the whole table and the whole mask,
+    gathered across shards, and keeps its block's columns."""
+    fn = PRIORITY_REGISTRY[name]
+    if fn is _ALL_STOCK_KERNELS.get(name):
+        prog = _SHARD_PROGRAMS.get(name)
+        if prog is None:
+            return fn(pods, nodes, sel, topo, mask)
+        return (yield from prog(pods, nodes, sel, topo, mask))
+    if sh is None:
+        return fn(pods, nodes, sel, topo, mask)
+    full_nodes = yield from coll.gather_nodes(nodes)
+    full_mask = yield coll.cat(mask, 1)
+    lo = sh.index * sh.rows
+    return fn(pods, full_nodes, sel, topo, full_mask)[:, lo:lo + sh.rows]
+
 
 def hoist_priorities(pods, nodes, sel,
                      weights: Dict[str, float] | None = None,
@@ -466,6 +553,11 @@ def hoist_priorities(pods, nodes, sel,
     Returns ``{name: ("full", matrix) | ("raw", raw_matrix, reverse)}``
     for :func:`run_priorities`; gated and custom-registered kernels are
     not hoisted."""
+    return coll.solo(hoist_priorities_g(pods, nodes, sel, weights, skip))
+
+
+def hoist_priorities_g(pods, nodes, sel, weights=None, skip=(), sh=None):
+    """:func:`hoist_priorities` as a shard program."""
     weights = DEFAULT_WEIGHTS if weights is None else weights
     parts: Dict[str, tuple] = {}
     for name, w in weights.items():
@@ -474,8 +566,8 @@ def hoist_priorities(pods, nodes, sel,
         if PRIORITY_REGISTRY.get(name) is not _STOCK_KERNELS.get(name):
             continue
         if name in STATIC_FULL:
-            parts[name] = ("full", PRIORITY_REGISTRY[name](
-                pods, nodes, sel, None, None))
+            parts[name] = ("full", (yield from _kernel_g(
+                name, pods, nodes, sel, None, None, sh)))
         elif name in STATIC_RAW:
             raw_fn, reverse = STATIC_RAW[name]
             parts[name] = ("raw", raw_fn(pods, nodes, sel), reverse)
@@ -503,6 +595,15 @@ def run_priorities(
     + TaintToleration) into one kernel — only when :func:`_fusable` proves
     the regrouped accumulation exact, so the total is always
     bit-identical."""
+    return coll.solo(run_priorities_g(pods, nodes, sel, mask, weights, topo,
+                                      skip, hoisted, fused))
+
+
+def run_priorities_g(pods, nodes, sel, mask, weights=None, topo=None,
+                     skip=(), hoisted=None, fused=False, sh=None):
+    """:func:`run_priorities` as the shard program of one block (``sh``
+    None: the whole table, alone): the same terms in the same order, the
+    pair on the split kernels on a mesh."""
     weights = DEFAULT_WEIGHTS if weights is None else weights
     hoisted = hoisted or {}
     _NA, _TT = "NodeAffinityPriority", "TaintTolerationPriority"
@@ -520,19 +621,19 @@ def run_priorities(
             continue
         if name in fuse_pair:
             if name == fuse_pair[0]:
-                total = total + _fused_pair_normalize(
+                total = total + (yield from _fused_pair_normalize_g(
                     hoisted[_NA][1], hoisted[_TT][1], mask,
-                    float(weights[_NA]), float(weights[_TT]))
+                    float(weights[_NA]), float(weights[_TT]), sh))
             continue  # second of the pair: already accumulated
         if (name in skip and name in EMPTY_CONSTANTS
                 and PRIORITY_REGISTRY[name] is _STOCK_KERNELS[name]):
             total = total + w * EMPTY_CONSTANTS[name]
         elif name in hoisted:
             kind, val, *rest = hoisted[name]
-            term = val if kind == "full" else _normalize_reduce(
-                val, mask, rest[0])
+            term = val if kind == "full" else (
+                yield from _normalize_reduce_g(val, mask, rest[0]))
             total = total + w * term
         else:
-            total = total + w * PRIORITY_REGISTRY[name](pods, nodes, sel,
-                                                        topo, mask)
+            total = total + w * (yield from _kernel_g(
+                name, pods, nodes, sel, topo, mask, sh))
     return total

@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from kubernetes_tpu_torch import kernels
-from kubernetes_tpu_torch.ops.sync import to_host
+from kubernetes_tpu_torch.parallel import collectives as coll
 
 NEG_INF = -1e30
 
@@ -99,6 +99,39 @@ def sinkhorn_v_plain(logk, u, log_c, jnp_rule: bool = False):
     return torch.where(v > NEG_INF / 2, v, 0.0)
 
 
+def sinkhorn_u_partial_plain(logk, v, jnp_rule: bool = False):
+    """The split row pass over one shard's columns (plain version):
+    ``(m, s)``, each (P,), with ``m`` the row's shift (the Pallas rule
+    clamps it at NEG_INF; the jnp rule takes 0 where the max is not
+    finite) and ``s = sum_j exp(logk + v - m)``. The shards' pairs merge
+    into u in ``parallel/collectives.lse_combine``."""
+    x = logk + v[None, :]
+    m = x.amax(1, keepdim=True)
+    if jnp_rule:
+        m = torch.where(torch.isfinite(m), m, 0.0)
+    else:
+        m = m.clamp_min(NEG_INF)
+    return m[:, 0], torch.exp(x - m).sum(1)
+
+
+def sinkhorn_u_partial(logk, v, jnp_rule: bool = False):
+    """``(m, s)`` of one shard's (P, n) block: the plain version on a CPU
+    tensor, the CUDA kernel on a CUDA tensor (or it raises; any n)."""
+    if logk.device.type == "cpu":
+        return sinkhorn_u_partial_plain(logk, v, jnp_rule)
+    P, N = logk.shape
+    kernels.require(logk, "sinkhorn_u_partial logk", torch.float32)
+    kernels.require(v, "sinkhorn_u_partial v", torch.float32, (N,))
+    ms = torch.empty((2, P), dtype=torch.float32, device=logk.device)
+    with kernels.on_device(logk):
+        code = kernels.lib("sinkhorn").ktt_sinkhorn_u_partial(
+            logk.data_ptr(), v.data_ptr(), ms[0].data_ptr(), ms[1].data_ptr(),
+            P, N, int(jnp_rule), kernels.stream_ptr(logk))
+    kernels.check(code, "sinkhorn_u_partial")
+    kernels.count_launch("sinkhorn_u_partial", (P, N))
+    return ms[0], ms[1]
+
+
 def sinkhorn_u(logk, v, log_r, jnp_rule: bool = False):
     """(P,) row potentials in the Pallas rule, or the jnp rule with
     ``jnp_rule``. CPU tensors take the plain version; CUDA tensors launch
@@ -112,8 +145,10 @@ def sinkhorn_u(logk, v, log_r, jnp_rule: bool = False):
     kernels.require_vec4(N, "sinkhorn_u", logk, v)
     u = torch.empty((P,), dtype=torch.float32, device=logk.device)
     fn = kernels.lib("sinkhorn").ktt_sinkhorn_u
-    code = fn(logk.data_ptr(), v.data_ptr(), log_r.data_ptr(), u.data_ptr(),
-              P, N, int(jnp_rule), kernels.stream_ptr(logk))
+    with kernels.on_device(logk):
+        code = fn(logk.data_ptr(), v.data_ptr(), log_r.data_ptr(),
+                  u.data_ptr(), P, N, int(jnp_rule),
+                  kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_u")
     kernels.count_launch("sinkhorn_u", (P, N))
     return u
@@ -153,15 +188,25 @@ def launch_v(logk, u, log_c, chunks: int, rows: int,
                           device=logk.device)
     base = scratch.data_ptr()
     fn = kernels.lib("sinkhorn").ktt_sinkhorn_v
-    code = fn(logk.data_ptr(), u.data_ptr(), log_c.data_ptr(), v.data_ptr(),
-              base, base + 4 * part, base + 8 * part, P, N, chunks, rows,
-              int(jnp_rule), kernels.stream_ptr(logk))
+    with kernels.on_device(logk):
+        code = fn(logk.data_ptr(), u.data_ptr(), log_c.data_ptr(),
+                  v.data_ptr(), base, base + 4 * part, base + 8 * part, P,
+                  N, chunks, rows, int(jnp_rule), kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_v")
     return v
 
 
-def _step(logk, log_r, log_c, u, v, jnp_rule=False):
-    u = sinkhorn_u(logk, v, log_r, jnp_rule)
+def _u_pass(logk, v, log_r, jnp_rule, sh):
+    """The row pass of one shard program: the whole-row kernel off the
+    mesh (``sh`` None), else the split pass and the merge across shards."""
+    if sh is None:
+        return sinkhorn_u(logk, v, log_r, jnp_rule)
+    m, s = sinkhorn_u_partial(logk, v, jnp_rule)
+    return (yield coll.lse(m, s, log_r, jnp_rule))
+
+
+def _step(logk, log_r, log_c, u, v, jnp_rule=False, sh=None):
+    u = yield from _u_pass(logk, v, log_r, jnp_rule, sh)
     v = sinkhorn_v(logk, u, log_c, jnp_rule)
     return u, v
 
@@ -171,7 +216,7 @@ def _delta(u2, u):
     return torch.where(finite, (u2 - u).abs(), 0.0).amax()
 
 
-def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL):
+def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL, sh=None):
     """``iters`` scaling iterations while tracking convergence, all on
     device: returns (u, v, stats) with stats = [first iteration whose max
     row-potential delta dropped under ``tol`` (``iters`` if never), final
@@ -179,7 +224,7 @@ def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL):
     conv = torch.full((), -1, dtype=torch.int32, device=logk.device)
     delta = torch.zeros((), dtype=torch.float32, device=logk.device)
     for i in range(iters):
-        u2, v2 = _step(logk, log_r, log_c, u, v)
+        u2, v2 = yield from _step(logk, log_r, log_c, u, v, sh=sh)
         delta = _delta(u2, u)
         conv = torch.where((conv < 0) & (delta < tol),
                            torch.full_like(conv, i + 1), conv)
@@ -188,17 +233,18 @@ def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL):
     return u, v, torch.stack([used.to(torch.float32), delta])
 
 
-def _tol_scan(logk, log_r, log_c, u, v, iters, tol):
+def _tol_scan(logk, log_r, log_c, u, v, iters, tol, sh=None):
     """Tolerance-gated scaling loop: iterate until the max row-potential
     delta drops under ``tol`` or the ``iters`` budget runs out. Its passes
     take the jnp rule, as the reference's loop (``_scale_jnp``) does on
     every backend. The loop condition is read on the host, one counted
-    sync per iteration."""
+    sync per iteration (one for the whole mesh: u is replicated)."""
     i = 0
     delta = float("inf")
     while i < iters and delta >= tol:
-        u2, v2 = _step(logk, log_r, log_c, u, v, jnp_rule=True)
-        delta = to_host(_delta(u2, u))
+        u2, v2 = yield from _step(logk, log_r, log_c, u, v, jnp_rule=True,
+                                  sh=sh)
+        delta = yield coll.host(_delta(u2, u))
         u, v = u2, v2
         i += 1
     import numpy as np
@@ -209,6 +255,24 @@ def _tol_scan(logk, log_r, log_c, u, v, iters, tol):
     return u, v, stats
 
 
+def _scale_g(logk, log_r, log_c, iters, with_stats=False, u0=None, v0=None,
+             tol=None, sh=None):
+    P, N = logk.shape
+    u = (torch.zeros((P,), dtype=torch.float32, device=logk.device)
+         if u0 is None else u0)
+    v = (torch.zeros((N,), dtype=torch.float32, device=logk.device)
+         if v0 is None else v0)
+    if tol is not None:
+        return (yield from _tol_scan(logk, log_r, log_c, u, v, iters, tol,
+                                     sh))
+    if with_stats:
+        return (yield from _stats_scan(logk, log_r, log_c, u, v, iters,
+                                       sh=sh))
+    for _ in range(iters):
+        u, v = yield from _step(logk, log_r, log_c, u, v, sh=sh)
+    return u, v, None
+
+
 def _scale(logk, log_r, log_c, iters, with_stats=False, u0=None, v0=None,
            tol=None):
     """Alternating log-domain scaling, columns capped at 0 (inequality).
@@ -216,18 +280,47 @@ def _scale(logk, log_r, log_c, iters, with_stats=False, u0=None, v0=None,
     is set. ``u0``/``v0`` warm-start the potentials (scaling converges
     from any start, so a warm start changes only the iteration count);
     ``tol`` switches to the tolerance-gated loop (:func:`_tol_scan`)."""
-    P, N = logk.shape
-    u = (torch.zeros((P,), dtype=torch.float32, device=logk.device)
-         if u0 is None else u0)
-    v = (torch.zeros((N,), dtype=torch.float32, device=logk.device)
-         if v0 is None else v0)
-    if tol is not None:
-        return _tol_scan(logk, log_r, log_c, u, v, iters, tol)
+    return coll.solo(_scale_g(logk, log_r, log_c, iters, with_stats, u0, v0,
+                              tol))
+
+
+def sinkhorn_plan_g(score, mask, capacity, eps=0.5, iters=25,
+                    with_stats=False, init=None, tol=None,
+                    return_potentials=False, sh=None):
+    """:func:`sinkhorn_plan` as one shard's program: ``score``, ``mask``,
+    ``capacity`` and ``init``'s v are the shard's column block, u is
+    replicated; the row pass's log-sum-exp and the rows' any-feasible
+    test reduce across shards (``sh`` None: alone, the unsharded plan)."""
+    score = score.to(torch.float32)
+    row_ok = mask.any(1)
+    if sh is not None:
+        row_ok = yield coll.all_or(row_ok)
+    logk = torch.where(mask, score / eps, NEG_INF).contiguous()
+    log_r = torch.where(row_ok, 0.0, NEG_INF)
+    log_c = torch.where(capacity > 0,
+                        torch.log(torch.clamp_min(capacity, 1e-30)), NEG_INF)
+    log_c = log_c.to(torch.float32)
+    u0 = v0 = None
+    if init is not None:
+        # sanitize a foreign start: non-finite rows restart from zero (a
+        # NEG_INF row potential would wedge its row at zero mass)
+        u0, v0 = init
+        u0 = torch.where(torch.isfinite(u0) & (u0 > NEG_INF / 2), u0,
+                         0.0).to(torch.float32).contiguous()
+        v0 = torch.where(torch.isfinite(v0) & (v0 > NEG_INF / 2), v0,
+                         0.0).to(torch.float32).contiguous()
+    u, v, stats = yield from _scale_g(logk, log_r, log_c, iters,
+                                      with_stats=with_stats, u0=u0, v0=v0,
+                                      tol=tol, sh=sh)
+    plan = torch.exp(torch.clamp(logk + u[:, None] + v[None, :], NEG_INF,
+                                 30.0))
+    plan = torch.where(mask, plan, 0.0)
+    out = (plan,)
     if with_stats:
-        return _stats_scan(logk, log_r, log_c, u, v, iters)
-    for _ in range(iters):
-        u, v = _step(logk, log_r, log_c, u, v)
-    return u, v, None
+        out = out + (stats,)
+    if return_potentials:
+        out = out + ((u, v),)
+    return out if len(out) > 1 else plan
 
 
 def sinkhorn_plan(
@@ -250,30 +343,6 @@ def sinkhorn_plan(
     ``(u0, v0)`` warm start (scaling converges from any start to the same
     fixpoint); ``tol`` switches to the tolerance-gated loop;
     ``return_potentials`` appends the final ``(u, v)``."""
-    score = score.to(torch.float32)
-    row_ok = mask.any(1)
-    logk = torch.where(mask, score / eps, NEG_INF).contiguous()
-    log_r = torch.where(row_ok, 0.0, NEG_INF)
-    log_c = torch.where(capacity > 0,
-                        torch.log(torch.clamp_min(capacity, 1e-30)), NEG_INF)
-    log_c = log_c.to(torch.float32)
-    u0 = v0 = None
-    if init is not None:
-        # sanitize a foreign start: non-finite rows restart from zero (a
-        # NEG_INF row potential would wedge its row at zero mass)
-        u0, v0 = init
-        u0 = torch.where(torch.isfinite(u0) & (u0 > NEG_INF / 2), u0,
-                         0.0).to(torch.float32).contiguous()
-        v0 = torch.where(torch.isfinite(v0) & (v0 > NEG_INF / 2), v0,
-                         0.0).to(torch.float32).contiguous()
-    u, v, stats = _scale(logk, log_r, log_c, iters, with_stats=with_stats,
-                         u0=u0, v0=v0, tol=tol)
-    plan = torch.exp(torch.clamp(logk + u[:, None] + v[None, :], NEG_INF,
-                                 30.0))
-    plan = torch.where(mask, plan, 0.0)
-    out = (plan,)
-    if with_stats:
-        out = out + (stats,)
-    if return_potentials:
-        out = out + ((u, v),)
-    return out if len(out) > 1 else plan
+    return coll.solo(sinkhorn_plan_g(score, mask, capacity, eps, iters,
+                                     with_stats, init, tol,
+                                     return_potentials))

@@ -26,6 +26,16 @@ off), the ``index_add_`` sums (whose order on CUDA is not fixed) and the
 signed preferred weights are exact, and the results equal the reference's
 bit for bit. Every gather either clips its index or reads a dump row, as
 the reference does.
+
+Each pass that reduces over the node axis is written as a shard program
+(a generator, ``*_g``; see ``parallel/collectives.py``): the pair-count
+panels, the matcher totals and the per-pod maxima, minima, totals and
+anys are per-shard partials that it yields for a reduction across the
+mesh's shards. The plain functions run one program alone (the unsharded
+pass). Segment reductions over term rows (``_seg_any``, ``_seg_all``,
+``_segment_sum`` of a (T, N) table) stay node-local. Every partial of a
+panel is an exact integer count in f32, so the sharded sums are
+bit-exact.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from kubernetes_tpu_torch.ops.arrays import (
     DeviceTopology,
 )
 from kubernetes_tpu_torch.ops.predicates import _segment_max, _segment_min
+from kubernetes_tpu_torch.parallel import collectives as coll
 
 Tensor = torch.Tensor
 
@@ -130,8 +141,9 @@ def _prog_escape(nodes: DeviceNodes, topo: DeviceTopology, has: Tensor):
     """Per affinity program: (prog_empty, prog_has_aff), both (Ga+1,).
     ``prog_empty``: no existing pod matches any of the program's affinity
     rows on a keyed node (the self-match escape's precondition)."""
-    mc_tot = torch.where(has, topo.ra_m_onehot @ nodes.matcher_counts.T,
-                         0.0).sum(1)  # (Ta,) matching pods over keyed nodes
+    mc_tot = yield coll.all_sum(torch.where(
+        has, topo.ra_m_onehot @ nodes.matcher_counts.T,
+        0.0).sum(1))  # (Ta,) matching pods over keyed nodes
     num = topo.ga_valid.shape[0] + 1
     is_aff = topo.ra_valid & ~topo.ra_anti
     prog_empty = _seg_all(~is_aff | (mc_tot <= 0.5), topo.ra_prog, num)
@@ -142,19 +154,26 @@ def _prog_escape(nodes: DeviceNodes, topo: DeviceTopology, has: Tensor):
 def inter_pod_affinity_mask(pods: DevicePods, nodes: DeviceNodes,
                             topo: DeviceTopology) -> Tensor:
     """(P, N) bool — InterPodAffinityMatches (predicates.go:1211)."""
+    return coll.solo(inter_pod_affinity_mask_g(pods, nodes, topo))
+
+
+def inter_pod_affinity_mask_g(pods, nodes, topo):
+    """:func:`inter_pod_affinity_mask` as a shard program."""
     n_pairs = topo.pair_valid.shape[0]
     tpid = nodes.topo_pair_id
 
     # (a) existing pods' required anti-affinity vs the incoming pod
     # (satisfiesExistingPodsAntiAffinity): node fails when any of its
     # topology pairs holds a pod whose anti-term matches the incoming pod
-    A = _group_counts(tpid, nodes.anti_counts, n_pairs)  # (Utp+1, Ua)
+    A = yield coll.all_sum(
+        _group_counts(tpid, nodes.anti_counts, n_pairs))  # (Utp+1, Ua)
     AG = _col_gather(A, tpid, topo.at_key)  # (N, Ua)
     pm_anti = pods.matcher_mh @ topo.at_m_onehot.T  # (P, Ua)
     ok = (pm_anti @ AG.T) <= 0.5  # (P, N)
 
     # (b) the incoming pod's own required terms
-    G = _group_counts(tpid, nodes.matcher_counts, n_pairs)  # (Utp+1, M)
+    G = yield coll.all_sum(
+        _group_counts(tpid, nodes.matcher_counts, n_pairs))  # (Utp+1, M)
     cnt, has = _row_counts(G, tpid, topo.ra_key, topo.ra_m_onehot)
     n_progs = topo.ga_valid.shape[0]
     seg = topo.ra_prog  # pad rows -> n_progs (dump)
@@ -180,7 +199,7 @@ def inter_pod_affinity_mask(pods: DevicePods, nodes: DeviceNodes,
 
     # self-match escape: the merged affinity-pair map is empty AND the pod
     # matches its own terms (predicates.go:1437)
-    prog_empty, prog_has_aff = _prog_escape(nodes, topo, has)
+    prog_empty, prog_has_aff = yield from _prog_escape(nodes, topo, has)
 
     gid = pods.affprog_id.clamp(0, n_progs).long()
     has_prog = pods.affprog_id >= 0
@@ -251,6 +270,11 @@ def even_pods_spread_mask(pods: DevicePods, nodes: DeviceNodes,
     """(P, N) bool — EvenPodsSpreadPredicate (predicates.go:1720):
     matchNum + selfMatch - minMatchNum <= maxSkew per hard constraint.
     ``sel_match`` (Gsel, N) is the required-selector program table."""
+    return coll.solo(even_pods_spread_mask_g(pods, nodes, topo, sel_match))
+
+
+def even_pods_spread_mask_g(pods, nodes, topo, sel_match):
+    """:func:`even_pods_spread_mask` as a shard program."""
     n_pairs = topo.pair_valid.shape[0]
     tpid = nodes.topo_pair_id
     Gsh = topo.shp_valid.shape[0]
@@ -260,6 +284,8 @@ def even_pods_spread_mask(pods: DevicePods, nodes: DeviceNodes,
     cand_row = cand[topo.sh_prog.long()]  # (Tsh, N)
     C, Pres = _spread_pair_counts(nodes, n_pairs, cand_row, topo.sh_key,
                                   topo.sh_m_onehot)
+    C = yield coll.all_sum(C)
+    Pres = yield coll.all_sum(Pres)
     # min match per row over pairs seen on candidate nodes (metadata.go:285);
     # rows with no candidate pairs keep +INF -> the skew check passes
     minm = torch.where(Pres[:n_pairs] > 0.5, C[:n_pairs], _INF).amin(0)
@@ -288,6 +314,12 @@ def even_pods_spread_score(pods: DevicePods, nodes: DeviceNodes,
     """(P, N) f32 — CalculateEvenPodsSpreadPriority
     (even_pods_spread.go:86): 10 * (total - count) / (total - min), over
     the filtered candidate nodes ``mask``."""
+    return coll.solo(even_pods_spread_score_g(pods, nodes, topo, sel_match,
+                                              mask))
+
+
+def even_pods_spread_score_g(pods, nodes, topo, sel_match, mask):
+    """:func:`even_pods_spread_score` as a shard program."""
     n_pairs = topo.pair_valid.shape[0]
     tpid = nodes.topo_pair_id
     Gss = topo.ssp_valid.shape[0]
@@ -298,6 +330,7 @@ def even_pods_spread_score(pods: DevicePods, nodes: DeviceNodes,
     cand_row = cand[topo.ss_prog.long()]
     C, _ = _spread_pair_counts(nodes, n_pairs, cand_row, topo.ss_key,
                                topo.ss_m_onehot)
+    C = yield coll.all_sum(C)
     cntn = _pair_gather_rows(C, tpid, topo.ss_key)  # (Tss, N)
     # per-program per-node credit: sum of pair counts over its constraints
     CS = _segment_sum(torch.where(topo.ss_valid[:, None], cntn, 0.0),
@@ -309,9 +342,11 @@ def even_pods_spread_score(pods: DevicePods, nodes: DeviceNodes,
     # the selector is NOT re-checked here (initialize() vs processAllNode
     # asymmetry in even_pods_spread.go)
     el = keys_ok[gid] & mask
-    total = torch.where(el, cnt_p, 0.0).sum(1, keepdim=True)  # (P, 1)
-    minc = torch.where(el, cnt_p, _INF).amin(1, keepdim=True)
-    any_el = el.any(1, keepdim=True)
+    total = yield coll.all_sum(
+        torch.where(el, cnt_p, 0.0).sum(1, keepdim=True))  # (P, 1)
+    minc = yield coll.all_min(
+        torch.where(el, cnt_p, _INF).amin(1, keepdim=True))
+    any_el = yield coll.all_or(el.any(1, keepdim=True))
     diff = total - torch.where(any_el, minc, 0.0)
     score = torch.where(
         diff > 0,
@@ -368,8 +403,13 @@ def self_escape_active(pods: DevicePods, nodes: DeviceNodes,
     first-pod-of-a-group escape (empty pair map + self match) under the
     CURRENT counts. Two escapees of one program must not be admitted in
     the same round — the second must join the first's topology group."""
+    return coll.solo(self_escape_active_g(pods, nodes, topo))
+
+
+def self_escape_active_g(pods, nodes, topo):
+    """:func:`self_escape_active` as a shard program."""
     has = _has_key_rows(nodes.topo_pair_id, topo.ra_key)  # (Ta, N)
-    prog_empty, prog_has_aff = _prog_escape(nodes, topo, has)
+    prog_empty, prog_has_aff = yield from _prog_escape(nodes, topo, has)
     gid = pods.affprog_id.clamp(0, topo.ga_valid.shape[0]).long()
     return ((pods.affprog_id >= 0) & prog_has_aff[gid] & prog_empty[gid]
             & pods.self_aff_match)
@@ -382,13 +422,21 @@ def inter_pod_affinity_score(pods: DevicePods, nodes: DeviceNodes,
     (interpod_affinity.go): weighted term counts (incoming preferred terms
     + symmetric existing-pod terms), min/max-normalized to 0..10 per pod
     over feasible nodes."""
+    return coll.solo(inter_pod_affinity_score_g(pods, nodes, topo, mask,
+                                                hard_pod_affinity_weight))
+
+
+def inter_pod_affinity_score_g(pods, nodes, topo, mask,
+                               hard_pod_affinity_weight: float = 1.0):
+    """:func:`inter_pod_affinity_score` as a shard program."""
     n_pairs = topo.pair_valid.shape[0]
     tpid = nodes.topo_pair_id
     Gp = topo.gp_valid.shape[0]
 
     # incoming pod's preferred terms: +/-w per matching existing pod in the
     # node's topology group of the term's key
-    G = _group_counts(tpid, nodes.matcher_counts, n_pairs)
+    G = yield coll.all_sum(_group_counts(tpid, nodes.matcher_counts,
+                                         n_pairs))
     cnt, has = _row_counts(G, tpid, topo.rp_key, topo.rp_m_onehot)  # (Tp, N)
     w_cnt = topo.rp_w[:, None] * torch.where(has, cnt, 0.0)
     S_in = _segment_sum(torch.where(topo.rp_valid[:, None], w_cnt, 0.0),
@@ -400,7 +448,8 @@ def inter_pod_affinity_score(pods: DevicePods, nodes: DeviceNodes,
     # symmetry: existing pods' hard-affinity (x hardPodAffinityWeight),
     # soft-affinity (+w) and soft-anti-affinity (-w) terms that match the
     # incoming pod, credited to the existing pod's whole topology group
-    S = _group_counts(tpid, nodes.sym_counts, n_pairs)  # (Utp+1, Us)
+    S = yield coll.all_sum(
+        _group_counts(tpid, nodes.sym_counts, n_pairs))  # (Utp+1, Us)
     SG = _col_gather(S, tpid, topo.st_key)  # (N, Us)
     pm_sym = pods.matcher_mh @ topo.st_m_onehot.T  # (P, Us)
     w_eff = topo.st_w + topo.st_hard * hard_pod_affinity_weight  # (Us,)
@@ -412,8 +461,8 @@ def inter_pod_affinity_score(pods: DevicePods, nodes: DeviceNodes,
     counted = pods.has_aff[:, None] | (nodes.aff_pod_count > 0.5)[None, :]
     el = mask & counted
     z = torch.where(el, counts, 0.0)
-    mx = torch.clamp_min(z.amax(1, keepdim=True), 0.0)
-    mn = torch.clamp_max(z.amin(1, keepdim=True), 0.0)
+    mx = torch.clamp_min((yield coll.all_max(z.amax(1, keepdim=True))), 0.0)
+    mn = torch.clamp_max((yield coll.all_min(z.amin(1, keepdim=True))), 0.0)
     diff = mx - mn
     return torch.where(
         (diff > 0) & counted,

@@ -1,12 +1,15 @@
 """The sharded execution backend's host side (the port of
-``kubernetes_tpu/parallel``): the node-axis mesh (:mod:`.mesh`, on one
-card: a logical mesh whose shards share the card) and the analytic
-scale-out model the perf ledger divides by (:mod:`.costmodel`)."""
+``kubernetes_tpu/parallel``): the node-axis mesh (:mod:`.mesh`: distinct
+cards, or one card repeated as a logical mesh), the cross-shard
+reductions of the partitioned solve (:mod:`.collectives`) and the
+analytic scale-out model the perf ledger divides by (:mod:`.costmodel`)."""
 
 from kubernetes_tpu_torch.parallel.mesh import (  # noqa: F401
     NODE_AXIS,
     Mesh,
     MeshError,
+    Replicated,
+    ShardedNodes,
     largest_pow2,
     local_devices,
     make_mesh,
@@ -14,9 +17,11 @@ from kubernetes_tpu_torch.parallel.mesh import (  # noqa: F401
     mesh_size,
     normalize_device,
     place_node_table,
+    replicas,
     replicate,
     shard_cluster,
     shard_nodes,
     shard_usage,
     shards,
+    whole,
 )

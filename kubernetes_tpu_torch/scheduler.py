@@ -116,14 +116,19 @@ drains the least-used nodes whose pods the rest can absorb
 
 With ``parallel=ParallelConfig(mesh=...)`` (``parallel.mesh`` in the
 config) the node axis of the resident table shards across a 1-D device
-mesh (:mod:`.parallel.mesh`; on one card a logical mesh whose shards
-share it): the cache pads the node bucket to at least the mesh size
-and keeps the mesh beside the resident table, the sparse routes'
-candidate pick runs per shard, the batch shape carries ``+mesh{d}``, the
-flight record its width (0 for a cooloff cycle, which runs
-single-device) and the ladder gains the ``batch-single`` rung before
-``batch-cpu``. The dense solve, its round-loop graphs and their keys are
-the single-device ones: the shards share the card.
+mesh (:mod:`.parallel.mesh`: distinct cards, or one card repeated as a
+logical mesh): the cache pads the node bucket to at least the mesh size
+and keeps the table placed on the mesh (row block i on device i; on
+distinct cards with a whole mirror on the first device, which the
+reads outside the batch solve use: the filter reasons, explain,
+preemption, the exact and greedy tiers, the sparse routes' candidate
+gathers), the configured batch tier solves partitioned (one program
+per shard, ``parallel/collectives.py``; the round-loop graph key
+carries the shard count), the sparse routes' candidate pick runs per
+shard, the batch shape carries ``+mesh{d}``, the flight record its width
+(0 for a cooloff cycle, which runs single-device) and the ladder gains
+the ``batch-single`` rung before ``batch-cpu``: the identical solve on
+the whole table on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -702,8 +707,8 @@ class Scheduler:
         #: the sharded execution backend (config.ParallelConfig): with a
         #: mesh, the node axis of the resident table, and with it the
         #: (P, N) plane of every solve, shards across a 1-D device mesh
-        #: built here (parallel/mesh.py; on one card a logical mesh whose
-        #: shards share it); "off" (the default) builds none
+        #: built here (parallel/mesh.py: distinct cards, or one card
+        #: repeated as a logical mesh); "off" (the default) builds none
         self.parallel = parallel if parallel is not None else ParallelConfig()
         self.mesh = pmesh.mesh_from_spec(
             self.parallel.mesh, pmesh.local_devices(self.device.type))
@@ -723,6 +728,9 @@ class Scheduler:
         #: device-loss cooloff, whose host-mode cycles run single-device:
         #: a lost shard is not re-engaged before the heal probe)
         self._mesh_live = False
+        #: the mesh placement of the last host table placed
+        #: (:meth:`_place_host`)
+        self._host_placed = None
 
     @classmethod
     def from_config(cls, cfg, **kw) -> "Scheduler":
@@ -1393,6 +1401,29 @@ class Scheduler:
         is off or the cycle runs single-device (the cooloff)."""
         return self.mesh.size if self._mesh_live else 0
 
+    def _place_host(self, nt, pad_to=None):
+        """Place a host node table on the live mesh (the host-mode cycle,
+        the cascade and the warmup): returns the whole table on the
+        mesh's first device and keeps its placement for the partitioned
+        solve (:meth:`_solve_nodes`)."""
+        placed = pmesh.place_node_table(nt, self.mesh, pad_to=pad_to)
+        self._host_placed = placed
+        return pmesh.whole(placed)
+
+    def _solve_nodes(self, dn):
+        """The node table the batch solve runs on: on a live mesh of
+        ``d > 1`` devices the table's placement (the resident one the
+        cache keeps, or the host-mode one), so the solve is partitioned;
+        otherwise ``dn`` itself. A table the placements do not hold (a
+        table the cycle derived) is sharded now: views on a logical
+        mesh, block copies on distinct cards."""
+        if not self._mesh_live or self.mesh.size < 2:
+            return dn
+        for placed in (self.cache.placed_table, self._host_placed):
+            if placed is not None and placed.whole is dn:
+                return placed
+        return pmesh.shard_nodes(dn, self.mesh)
+
     def _num_shards(self) -> int:
         """The shard count of the sparse routes' candidate pick."""
         return self._mesh_width() or 1
@@ -1418,7 +1449,7 @@ class Scheduler:
         self.obs.note_mesh_cycle(self._mesh_width())
         if dn is None:
             if self._mesh_live:
-                dn = pmesh.place_node_table(nt, self.mesh)
+                dn = self._place_host(nt)
             else:
                 dn = nodes_to_device(nt, device=self.device)
             RECOVERY.host_cycles += 1
@@ -2233,7 +2264,7 @@ class Scheduler:
         else:
             nt, dn = self.cache.snapshot(), None
         if dn is None:
-            dn = (pmesh.place_node_table(nt, self.mesh) if self._mesh_live
+            dn = (self._place_host(nt) if self._mesh_live
                   else nodes_to_device(nt, device=dev))
         node_order = self.cache.node_order()
         pt = pk.pack_pods(pods_list)
@@ -2605,10 +2636,20 @@ class Scheduler:
         # tier's one readback brings them back (_validated_readback); the
         # re-pinning tiers, as the reference's, solve without them
         repinned = tier in ("batch-single", "batch-cpu")
+        sdp, sdn, sds, sdt, sdv = dp, dn, ds, dt, dv
+        if not repinned:
+            # the configured tier on a live mesh: the partitioned solve
+            # over the placed table, the replicated tables on every shard
+            # (a mesh of one places nothing)
+            sdn = self._solve_nodes(dn)
+            if sdn is not dn:
+                sdp, sdn, sds = pmesh.shard_cluster(dp, sdn, ds, self.mesh)
+                sdt = pmesh.replicate(dt, self.mesh)
+                sdv = pmesh.replicate(dv, self.mesh)
         out = batch_assign(
-            dp, dn, ds, self.weights, max_rounds=self.max_rounds,
-            per_node_cap=self.per_node_cap, topo=dt, extra_mask=extra_mask,
-            vol=dv, static_vol=sv, enabled_mask=self.pred_mask,
+            sdp, sdn, sds, self.weights, max_rounds=self.max_rounds,
+            per_node_cap=self.per_node_cap, topo=sdt, extra_mask=extra_mask,
+            vol=sdv, static_vol=sv, enabled_mask=self.pred_mask,
             extra_score=extra_score, use_sinkhorn=(tier == "sinkhorn"),
             skip_priorities=skip_prio, no_ports=no_ports,
             no_pod_affinity=no_pod_aff, no_spread=no_spread,
@@ -3595,7 +3636,7 @@ class Scheduler:
                 # host mode (cooling off, or not resident): warm on the
                 # host table at the padded shape a host-mode cycle
                 # uploads (placed on the mesh when the cycles place it)
-                dn = (pmesh.place_node_table(nt, self.mesh)
+                dn = (self._place_host(nt)
                       if self._mesh_live else nodes_to_device(nt, device=dev))
         elif node_count:
             # no cluster yet: a widths-complete zero-row table padded to
@@ -3603,7 +3644,7 @@ class Scheduler:
             # size, as the mesh cycles pad it)
             nt = pk.pack_nodes([])
             pad = bucket_size(max(node_count, 1))
-            dn = (pmesh.place_node_table(nt, self.mesh, pad_to=pad)
+            dn = (self._place_host(nt, pad_to=pad)
                   if self._mesh_live
                   else nodes_to_device(nt, pad_to=pad, device=dev))
         else:
@@ -3702,12 +3743,12 @@ class Scheduler:
         device-loss cooloff cycle presents (resident table dropped, the
         host mirror uploaded, the mesh not live), so a shard lost
         mid-churn degrades through the cooloff without capturing a
-        round-loop graph on the hot path. The shards share the card, so
-        where the host pad equals the mesh pad (a bucket of at least the
-        mesh size) the host-mode graphs are the mesh sweep's own and are
-        replayed, not captured again; the sweep still registers the
-        host-mode solve signatures (``_mesh_live`` False), as the
-        reference compiles them. A device error stops the sweep as the
+        round-loop graph on the hot path. The cooloff solves the
+        unsharded program, another graph than the mesh sweep's
+        partitioned one (its key carries the shard count), so the sweep
+        captures it and registers the host-mode solve signatures
+        (``_mesh_live`` False), as the reference compiles them. A device
+        error stops the sweep as the
         mesh sweep's does; a ``KernelError`` propagates. Returns the
         shapes warmed."""
         dev = self.device
@@ -3807,7 +3848,8 @@ class Scheduler:
             # one graph per route the auto-router can choose in round 0
             # (``sinkhorn`` always plans: the router stays out)
             for route in (False, True) if solver == "batch" else (None,):
-                out = batch_assign(dp, dn, ds, self.weights,
+                out = batch_assign(dp, self._solve_nodes(dn), ds,
+                                   self.weights,
                                    extra_mask=extra_mask, route_plan=route,
                                    **solve_kwargs)
             return out[0], out[1]
@@ -3868,7 +3910,8 @@ class Scheduler:
         if dp.valid.is_cuda:
             torch.cuda.synchronize(dp.valid.device)  # not the capture
         t0 = time.perf_counter()
-        out = batch_assign(dp, dn, ds, self.weights, **solve_kwargs)
+        out = batch_assign(dp, self._solve_nodes(dn), ds, self.weights,
+                           **solve_kwargs)
         rounds = int(self.obs.jax.readback("ledger-anchor", out[2]))
         elapsed = time.perf_counter() - t0
         ledger.model.record_anchor("full", P_pad, N_pad, self._mesh_width(),
@@ -3890,7 +3933,8 @@ class Scheduler:
         from kubernetes_tpu_torch.ops.assign import solve_memory_analysis
 
         ml = self.obs.memledger
-        ma = solve_memory_analysis(dp, dn, ds, self.weights, **solve_kwargs)
+        ma = solve_memory_analysis(dp, self._solve_nodes(dn), ds,
+                                   self.weights, **solve_kwargs)
         if ma is None:
             return
         key = (int(dp.valid.shape[0]), int(dn.valid.shape[0]),

@@ -249,8 +249,9 @@ def test_unported_settings_stay_refused(field, value, item, monkeypatch):
     mesh) is ported for one card: the configuration validates as the
     reference's does, ``unported_features`` is empty, and the scheduler
     builds the mesh asked for (8 logical CPU devices stand in for the
-    reference's 8 virtual ones). A mesh over distinct cards stays
-    refused, naming its own item (A.17.2)."""
+    reference's 8 virtual ones). Resolved over distinct cards (ROADMAP
+    A.17.2) the setting is a mesh of the same width, one card per shard;
+    a mesh that mixes device types is refused."""
     import torch
 
     import kubernetes_tpu.cli as jcli
@@ -266,10 +267,15 @@ def test_unported_settings_stay_refused(field, value, item, monkeypatch):
     assert cli.unported_features(cfg) == []
     s = Scheduler.from_config(cfg, device="cpu")
     assert s.mesh.size == 4 and s.metrics.mesh_devices.value() == 4
-    monkeypatch.setattr(tmesh, "local_devices", lambda kind="cuda": [
-        torch.device("cuda", i) for i in range(8)])
-    with pytest.raises(tmesh.MeshError, match=f"ROADMAP {item}.2"):
-        Scheduler.from_config(cfg, device="cpu")
+    # distinct cards (ROADMAP A.17.2) resolve to a real mesh of the
+    # same width, one card per shard; only a mesh that mixes device
+    # types is refused
+    cards = [torch.device("cuda", i) for i in range(8)]
+    m = tmesh.mesh_from_spec(value.mesh, cards)
+    assert m.size == 4 and not m.logical
+    assert list(m.devices) == cards[:4]
+    with pytest.raises(tmesh.MeshError, match="mixes device types"):
+        tmesh.mesh_from_spec(value.mesh, [torch.device("cpu")] + cards)
 
 
 def test_device_flag_defaults_to_the_card():

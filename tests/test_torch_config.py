@@ -193,9 +193,10 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, monkeypatch,
     prints the reference's line with its exit code, ``unported_features``
     is empty, and ``from_config`` builds the mesh the reference builds (on
     8 logical CPU devices here, as the reference on its 8 virtual ones).
-    What is still unported, the same setting resolved over distinct
-    cards, is refused by ``from_config`` naming its ROADMAP item (A.17.2);
-    nothing is silently ignored or gathered onto one card."""
+    The same setting resolved over distinct cards (ROADMAP A.17.2) is a
+    mesh of the same width, one card per shard; a mesh that mixes device
+    types is refused by name. Nothing is silently ignored or gathered
+    onto one card."""
     import jax
     import torch
 
@@ -220,10 +221,16 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys, monkeypatch,
     assert got.mesh.size == int(want.mesh.devices.size)
     assert (got.metrics.mesh_devices.value()
             == want.metrics.mesh_devices.value() == got.mesh.size)
-    monkeypatch.setattr(tmesh, "local_devices", lambda kind="cuda": [
-        torch.device("cuda", i) for i in range(8)])
-    with pytest.raises(tmesh.MeshError, match=f"ROADMAP {item}.2"):
-        Scheduler.from_config(cfg, device="cpu")
+    # distinct cards (ROADMAP A.17.2) resolve to a real mesh of the
+    # same width, one card per shard; only a mesh that mixes device
+    # types is refused
+    cards = [torch.device("cuda", i) for i in range(8)]
+    m = tmesh.mesh_from_spec(cfg.parallel.mesh, cards)
+    assert m.size == got.mesh.size and not m.logical
+    assert list(m.devices) == cards[: m.size]
+    with pytest.raises(tmesh.MeshError, match="mixes device types"):
+        tmesh.mesh_from_spec(cfg.parallel.mesh,
+                             [torch.device("cpu")] + cards)
 
 
 @pytest.mark.parametrize("spelling", ["native", "v1alpha1"])

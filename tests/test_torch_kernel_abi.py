@@ -214,7 +214,10 @@ def test_entry_points_are_called_from_one_place_each():
     assert callers == {
         "ktt_fused_pair_normalize": {"fused_score.py"},
         "ktt_fused_pair_normalize_wide": {"fused_score.py"},
+        "ktt_fused_pair_max": {"fused_score.py"},
+        "ktt_fused_pair_scale": {"fused_score.py"},
         "ktt_sinkhorn_u": {"sinkhorn.py"},
+        "ktt_sinkhorn_u_partial": {"sinkhorn.py"},
         "ktt_sinkhorn_v": {"sinkhorn.py"},
         "ktt_loop_build": {"device_loop.py"},
         "ktt_loop_launch": {"device_loop.py"},

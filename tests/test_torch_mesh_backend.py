@@ -8,8 +8,10 @@ does for JAX). Each case runs one script through both packages and
 compares what it returns, exactly: placements, rounds, the solve scope,
 the snapshot mode, the ladder tier, the mesh gauge, the flight record's
 ``mesh`` and the ``+mesh{d}`` batch shape, at mesh widths {1, 2, 4, 8}.
-The port's own cases: a mesh over distinct devices is refused naming
-ROADMAP A.17.2, and a ``KernelError`` escapes the ``batch-single`` rung."""
+The port's own cases: a mesh over distinct cards is built (and one that
+mixes device types refused), the partitioned program runs at every
+width above one, and a ``KernelError`` escapes the ``batch-single``
+rung."""
 
 import collections
 import dataclasses
@@ -157,25 +159,40 @@ def test_one_card_clamps_a_device_count(monkeypatch):
 
 
 @pytest.mark.parametrize("devices", [
-    ["cuda:0", "cuda:1"], ["cuda:0", "cuda:1", "cuda:2"],
-    ["cpu", "meta"]])
+    ["cpu", "meta"], ["cuda:0", "cpu"], ["cpu", "cuda:1", "cuda:2", "meta"]])
 def test_mesh_over_distinct_devices_is_refused(devices, monkeypatch):
-    """Splitting the node axis across cards needs cross-card reductions
-    the port does not have: a mesh over distinct devices raises, naming
-    ROADMAP A.17.2, wherever it is built, and nothing gathers it onto one
-    device quietly."""
+    """A mesh that mixes device types is no mesh any reference runs: it
+    raises wherever it is built, naming the types, and nothing gathers it
+    onto one device quietly."""
     devs = [torch.device(d) for d in devices]
-    with pytest.raises(tmesh.MeshError, match="ROADMAP A.17.2"):
+    with pytest.raises(tmesh.MeshError, match="mixes device types"):
         tmesh.make_mesh(devs)
-    with pytest.raises(tmesh.MeshError, match="ROADMAP A.17.2"):
+    with pytest.raises(tmesh.MeshError, match="mixes device types"):
         tmesh.mesh_from_spec("auto", devs)
-    with pytest.raises(tmesh.MeshError, match="ROADMAP A.17.2"):
+    with pytest.raises(tmesh.MeshError, match="mixes device types"):
         tmesh.mesh_from_spec(2, devs)
     monkeypatch.setattr(tmesh, "local_devices", lambda kind="cuda": devs)
-    with pytest.raises(tmesh.MeshError, match="ROADMAP A.17.2"):
+    with pytest.raises(tmesh.MeshError, match="mixes device types"):
         _sched(PORT, mesh="auto")
     # the one-device prefix is a mesh the port runs
     assert tmesh.mesh_from_spec(1, devs).size == 1
+
+
+@pytest.mark.parametrize("devices,width", [
+    (["cuda:0", "cuda:1"], 2), (["cuda:0", "cuda:1", "cuda:2"], 2),
+    ([f"cuda:{i}" for i in range(8)], 8)])
+def test_mesh_over_distinct_cards_is_built(devices, width):
+    """Distinct cards make a real mesh: the largest power-of-two prefix,
+    one device per shard in order, from every spelling; the placement
+    helpers lay row block i out for ``devices[i]`` (shapes only: the
+    copies need the cards)."""
+    devs = [torch.device(d) for d in devices]
+    for m in (tmesh.make_mesh(devs), tmesh.mesh_from_spec("auto", devs),
+              tmesh.mesh_from_spec(len(devs), devs)):
+        assert m.size == width and not m.logical
+        assert list(m.devices) == devs[:width]
+        assert tmesh.mesh_size(m) == width
+    assert tmesh.mesh_from_spec(1, devs).devices == (devs[0],)
 
 
 def test_shards_are_row_blocks_of_one_tensor():
@@ -519,11 +536,12 @@ def test_scheduler_mesh_warmup_registers_sharded_shapes():
         res = s.schedule_cycle()
         if pkg is PORT:
             # every round-loop key the cycle presents was warmed: on the
-            # card the cycle captures nothing. The shards share the card,
-            # so the keys are a mesh-off scheduler's own: one graph per
-            # shape, whatever the mesh
+            # card the cycle captures nothing. The partitioned round is
+            # another program than the mesh-off one, so its keys carry
+            # the shard count and share none with a mesh-off scheduler's
             assert device_loop.KEYS and device_loop.KEYS <= warmed
-            assert warm(pkg, None)[2] == warmed
+            assert all(k[2][:2] == ("sharded", 8) for k in warmed)
+            assert not warm(pkg, None)[2] & warmed
         return n, res.scheduled, s.obs.jax.retrace_total("solve")
 
     assert both(script) == (1, 1, 0)

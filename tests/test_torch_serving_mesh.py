@@ -336,9 +336,10 @@ def test_runtime_auto_shed_bound_and_warmup_adaptation(mesh):
 def test_host_fallback_warmup_covers_cooloff_cycles(host_fallback):
     """With host_fallback the device-loss cooloff cycle solves on warmed
     single-device signatures (no retrace); without it the cooloff cycle
-    meets signatures the warmup never saw. On the port the shards share
-    the card, so the cooloff's round-loop graphs are the mesh sweep's own
-    either way (no unwarmed graph key, no second copy of a graph)."""
+    meets signatures the warmup never saw. On the port the same holds of
+    the round-loop graphs: the mesh sweep warms the partitioned program,
+    whose keys carry the shard count, so only the host-fallback sweep
+    warms the cooloff's unsharded graphs."""
     def script(pkg):
         fi = pkg.faults.FaultInjector(seed=0)
         s = pkg.scheduler.Scheduler(
@@ -362,7 +363,8 @@ def test_host_fallback_warmup_covers_cooloff_cycles(host_fallback):
         res = s.schedule_cycle()
         rec = s.obs.recorder.records()[-1]
         if pkg is PORT:
-            assert device_loop.KEYS and device_loop.KEYS <= warmed
+            assert device_loop.KEYS
+            assert (device_loop.KEYS <= warmed) is host_fallback
         return (compiled, res.snapshot_mode, res.scheduled, rec.mesh,
                 s.obs.jax.retrace_total() > 0)
 
