@@ -272,8 +272,11 @@ non-zero if any fails:
    (split) and v launched. Arm E2 runs ``mesh: auto`` over every card
    where there are two or more, and otherwise prints that it did not.
    Phase 2 also holds the split kernels (``fused_pair_max``,
-   ``fused_pair_scale``, ``sinkhorn_u_partial``) against their plain
-   versions at (8192, 8192 / d) for d in 2, 4, 8.
+   ``fused_pair_scale``, ``sinkhorn_u_partial``) and the whole v pass a
+   shard runs against their plain versions at (8192, 8192 / d) for d in
+   2, 4, 8, the u pass in both rules, to the same bits over two launches
+   and on edge inputs, each timed warm and with the L2 cold; once the
+   mesh phase ran, the u and v passes again at every shape it launched.
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
@@ -292,8 +295,10 @@ the recovery cells' under ``recovery_shapes``, the ledger cell's
 under ``ledger_shapes`` and the scenario arms' under
 ``scenario_shapes``), error against the plain
 version, times and bound (``ms``, ``plain_ms`` and ``library_ms`` are single-call
-CUDA-event medians; ``ms_batched`` times back-to-back calls and
-``device_ms`` is the trace's device time); the last line is the one-line
+CUDA-event medians; ``ms_batched`` times back-to-back calls,
+``device_ms`` is the trace's device time and ``device_ms_cold`` the
+kernel's own trace time with the L2 flushed before each launch); the
+last line is the one-line
 contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
@@ -414,6 +419,43 @@ def device_ms(fn, reps: int = 10) -> dict:
                              for t, c in got.values()) if got else None),
             "by_kernel": {k: {"ms": t / c, "count": c}
                           for k, (t, c) in got.items()}}
+
+
+#: the L2-cold timing's flush (H100: a 50 MB L2): a scratch buffer
+#: overwritten between launches, then a second one read, so the L2 holds
+#: none of the kernel's inputs and no dirty lines whose write-back the
+#: kernel's misses would pay for
+FLUSH_WRITE_BYTES = 64 << 20
+FLUSH_READ_BYTES = 96 << 20
+_FLUSH: dict = {}
+
+
+def l2_flush() -> None:
+    """Evict the card's L2 (outside any timed span): overwrite a 64 MB
+    scratch buffer, then read a 96 MB one."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH["w"] = torch.empty(FLUSH_WRITE_BYTES // 4, device="cuda")
+        _FLUSH["r"] = torch.ones(FLUSH_READ_BYTES // 4, device="cuda")
+    _FLUSH["w"].fill_(1.0)
+    _FLUSH["r"].amax()
+
+
+def cold_ms(fn, kernel: str, reps: int = 10) -> dict:
+    """Device milliseconds of the kernel named ``kernel`` (a prefix of its
+    trace name) in ``fn()``, each call after :func:`l2_flush`: the mean
+    of the kernel's own trace entries (the flush's kernels are not in
+    it), with their count; ``ms`` None when the trace holds none."""
+    def call():
+        l2_flush()
+        fn()
+
+    got = device_ms(call, reps)["by_kernel"]
+    hits = [v for k, v in got.items() if k.startswith(kernel)]
+    return {"ms": (sum(h["ms"] * h["count"] for h in hits)
+                   / sum(h["count"] for h in hits)) if hits else None,
+            "count": sum(h["count"] for h in hits)}
 
 
 # ---------------------------------------------------------------------------
@@ -678,18 +720,150 @@ def _split_bound(name, P, n) -> dict:
     return _bound(P * n * 4 + n * 4 + 2 * P * 4, P * n * 5)
 
 
+#: each kernel's entry in the trace (a prefix of its name there)
+TRACE_NAMES = {"fused_pair_normalize": "fused_pair_staged_kernel",
+               "sinkhorn_u": "u_kernel",
+               "fused_pair_max": "pair_max_kernel",
+               "fused_pair_scale": "pair_scale_kernel",
+               "sinkhorn_u_partial": "u_partial_kernel",
+               "sinkhorn_v": "v_kernel"}
+#: row lengths the split u pass is held at on its edge inputs: a block
+#: narrower than four columns, not a multiple of four (scalar reads, one
+#: or three warp tiles), one tile, one tile and a ragged second, a row
+#: four warps share, and one wider than the float4 route takes (scalar
+#: reads)
+U_EDGE_WIDTHS = (1, 3, 6, 1024, 1028, 3001, 4096, 12288)
+
+
+def _u_partial_agrees(got, want) -> bool:
+    """The split u pass's (shift, sum) against its plain version's within
+    the Sinkhorn tolerance."""
+    import torch
+
+    return all(torch.allclose(x, y, atol=SINKHORN_ATOL, rtol=SINKHORN_RTOL)
+               for x, y in zip(got, want))
+
+
+def _u_partial_same_bits(logk, v, rule: bool) -> bool:
+    """Two launches of the split u pass on the same inputs give the same
+    bits (no atomics: the order of every sum is fixed)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import sinkhorn
+
+    one = sinkhorn.sinkhorn_u_partial(logk, v, rule)
+    two = sinkhorn.sinkhorn_u_partial(logk, v, rule)
+    return all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+def check_u_partial_edges(logk, v) -> list:
+    """The split u pass in both rules against its plain version on edge
+    inputs (64 rows): every width of U_EDGE_WIDTHS; at 1024 columns a
+    block of all -inf rows, an all-padding block (NEG_INF logk, as a
+    shard holding no live node), a live column a row, rows whose max lies
+    below NEG_INF (the Pallas rule's clamp), v all NEG_INF, and logk, v
+    or both offset by 4 bytes (scalar reads; v staged alike). Returns the
+    cases' names."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import sinkhorn
+    from kubernetes_tpu_torch.ops.sinkhorn import NEG_INF
+
+    rows, n = 64, 1024
+    wide = torch.cat([logk[:rows], logk[:rows]], 1)
+    wide_v = torch.cat([v, v])
+    cases = {f"n{w}": (wide[:, :w].contiguous(), wide_v[:w].contiguous())
+             for w in U_EDGE_WIDTHS}
+    lk, vb = logk[:rows, :n].contiguous(), v[:n].contiguous()
+    one = torch.full_like(lk, float("-inf"))
+    at = torch.arange(rows, device=lk.device)
+    one[at, (at * 37) % n] = lk[at, (at * 37) % n]
+    below = lk.clone()
+    below[0] = -2e30
+    below[1] = torch.linspace(-3e30, -1.5e30, n, device=lk.device)
+
+    def off4(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    cases.update({
+        "all_-inf_block": (torch.full_like(lk, float("-inf")), vb),
+        "all_padding_block": (torch.full_like(lk, NEG_INF),
+                              torch.zeros_like(vb)),
+        "one_live_column_a_row": (one, vb),
+        "max_below_NEG_INF": (below, vb),
+        "v_all_NEG_INF": (lk, torch.full_like(vb, NEG_INF)),
+        "logk_and_v_off_4_bytes": (off4(lk), off4(vb)),
+        "logk_off_4_bytes": (off4(lk), vb),
+        "v_off_4_bytes": (lk, off4(vb))})
+    for name, (a, b) in cases.items():
+        for rule in (False, True):
+            got = sinkhorn.sinkhorn_u_partial(a, b, rule)
+            want = sinkhorn.sinkhorn_u_partial_plain(a, b, rule)
+            if not _u_partial_agrees(got, want):
+                fail(f"sinkhorn_u_partial {name} ({'jnp' if rule else 'pallas'}"
+                     f" rule): beyond atol {SINKHORN_ATOL} rtol "
+                     f"{SINKHORN_RTOL}")
+    return sorted(cases)
+
+
+def time_shard_v(logk, u, log_c, P, n) -> dict:
+    """The whole v pass on one shard's (P, n) block, as each shard runs it:
+    held against its plain version in both rules, timed warm and with the
+    L2 cold, beside its plain version, ``torch.logsumexp`` and its bound,
+    with ``v_plan``'s (strips, chunks, rows)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.ops import sinkhorn
+
+    errs = {}
+    for rule in (False, True):
+        got = sinkhorn.sinkhorn_v(logk, u, log_c, rule)
+        want = sinkhorn.sinkhorn_v_plain(logk, u, log_c, rule)
+        err, ok = sinkhorn_err(got, want)
+        tag = "jnp" if rule else "pallas"
+        if not ok:
+            fail(f"sinkhorn_v {P}x{n} ({tag} rule): max |err| {err} beyond "
+                 f"atol {SINKHORN_ATOL} rtol {SINKHORN_RTOL}")
+        errs[tag] = err
+
+    def kern():
+        return sinkhorn.sinkhorn_v(logk, u, log_c)
+
+    return {"shape": [P, n], "max_abs_err": max(errs.values()),
+            "max_abs_err_by_rule": errs,
+            "plan": dict(zip(("strips", "chunks", "rows"), sinkhorn.v_plan(
+                P, n, kernels.sm_count(logk)))),
+            "ms": cuda_time_ms(kern), "device_ms": device_ms(kern),
+            "device_ms_cold": cold_ms(kern, TRACE_NAMES["sinkhorn_v"]),
+            "plain_ms": cuda_time_ms(
+                lambda: sinkhorn.sinkhorn_v_plain(logk, u, log_c)),
+            "library_ms": cuda_time_ms(
+                lambda: torch.logsumexp(logk + u[:, None], 0)),
+            **_sinkhorn_bound("sinkhorn_v", P, n)}
+
+
 def check_split_kernels(out_rows: dict) -> None:
     """The partitioned solve's split kernels against their plain versions
     at (8192, 8192 / d) for d in SPLIT_WIDTHS: the pair's max and scale
     passes bit for bit (and, composed over the d blocks, bit for bit
     against the fused pair), the u pass's (shift, sum) and the merged u
-    within the Sinkhorn tolerance in both rules. Timed at every width
-    (the row's figures at d = 2, arm E's first mesh), each beside its
-    plain version and a library call (the pair's max pass:
+    within the Sinkhorn tolerance in both rules (against the plain merge
+    and the whole-row pass), two u launches to the same bits. Timed at
+    every width (the row's figures at d = 2, arm E's first mesh) warm and
+    with the L2 cold (``device_ms_cold``: the kernel's own trace time,
+    each launch after :func:`l2_flush`; the u pass in both rules), each
+    beside its plain version and a library call (the pair's max pass:
     ``torch.amax(torch.where(mask, rf, 0), 1)``; the u pass:
-    ``torch.logsumexp`` on the block)."""
+    ``torch.logsumexp`` on the block). The whole v pass, which each shard
+    runs on its block, is held and timed alike (``shard_widths`` on the v
+    row). Then the split kernels on edge inputs."""
     import torch
 
+    from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.ops import fused_score, sinkhorn
     from kubernetes_tpu_torch.parallel import collectives as coll
 
@@ -698,7 +872,7 @@ def check_split_kernels(out_rows: dict) -> None:
     gen.manual_seed(20261018)
     P, N = 8192, 8192
     rf, rr, mask = _pair_inputs(P, N, gen, dev)
-    logk, log_r, _lc, _u, v = _sinkhorn_inputs(P, N, gen, dev)
+    logk, log_r, log_c, u_in, v = _sinkhorn_inputs(P, N, gen, dev)
     fused = fused_score.fused_pair_normalize(rf, rr, mask, 1.0, 1.0)
     u_whole = {r: sinkhorn.sinkhorn_u_plain(logk, v, log_r, r)
                for r in (False, True)}
@@ -748,30 +922,40 @@ def check_split_kernels(out_rows: dict) -> None:
                          f"max |err| {err} beyond atol {SINKHORN_ATOL} rtol "
                          f"{SINKHORN_RTOL}")
                 errs[f"{tag}_{'plain' if want is u_p else 'whole'}"] = err
-            for (m, s_), (mp, sp) in zip(parts, plain):
-                if not torch.allclose(m, mp, atol=SINKHORN_ATOL,
-                                      rtol=SINKHORN_RTOL) or not \
-                        torch.allclose(s_, sp, atol=SINKHORN_ATOL,
-                                       rtol=SINKHORN_RTOL):
+            for got, want in zip(parts, plain):
+                if not _u_partial_agrees(got, want):
                     fail(f"sinkhorn_u_partial {P}x{n} ({tag} rule): "
                          "(shift, sum) beyond tolerance")
+            if not _u_partial_same_bits(lk[0], vb[0], rule):
+                fail(f"sinkhorn_u_partial {P}x{n} ({tag} rule): two "
+                     "launches differ")
         a, b, m = blk[0]
+        lk0, vb0 = lk[0], vb[0]
+
+        def pair_max():
+            return fused_score.fused_pair_max(a, b, m)
+
+        def pair_scale():
+            return fused_score.fused_pair_scale(a, b, mxf, mxr, 1.0, 1.0)
+
+        def u_part(rule=False):
+            return sinkhorn.sinkhorn_u_partial(lk0, vb0, rule)
+
         timed = {
             "fused_pair_max": dict(
                 max_abs_err=0.0,
-                ms=cuda_time_ms(lambda: fused_score.fused_pair_max(a, b, m)),
-                device_ms=device_ms(lambda: fused_score.fused_pair_max(a, b,
-                                                                       m)),
+                ms=cuda_time_ms(pair_max), device_ms=device_ms(pair_max),
+                device_ms_cold=cold_ms(pair_max,
+                                       TRACE_NAMES["fused_pair_max"]),
                 plain_ms=cuda_time_ms(
                     lambda: fused_score.fused_pair_max_plain(a, b, m)),
                 library_ms=cuda_time_ms(
                     lambda: torch.amax(torch.where(m, a, 0.0), 1))),
             "fused_pair_scale": dict(
                 max_abs_err=0.0,
-                ms=cuda_time_ms(lambda: fused_score.fused_pair_scale(
-                    a, b, mxf, mxr, 1.0, 1.0)),
-                device_ms=device_ms(lambda: fused_score.fused_pair_scale(
-                    a, b, mxf, mxr, 1.0, 1.0)),
+                ms=cuda_time_ms(pair_scale), device_ms=device_ms(pair_scale),
+                device_ms_cold=cold_ms(pair_scale,
+                                       TRACE_NAMES["fused_pair_scale"]),
                 plain_ms=cuda_time_ms(lambda: fused_score
                                       .fused_pair_scale_plain(
                                           a, b, mxf, mxr, 1.0, 1.0)),
@@ -779,15 +963,20 @@ def check_split_kernels(out_rows: dict) -> None:
             "sinkhorn_u_partial": dict(
                 max_abs_err=max(errs.values()),
                 max_abs_err_by_rule=errs,
-                ms=cuda_time_ms(lambda: sinkhorn.sinkhorn_u_partial(
-                    lk[0], vb[0])),
-                device_ms=device_ms(lambda: sinkhorn.sinkhorn_u_partial(
-                    lk[0], vb[0])),
+                plan=dict(zip(("warps_a_row", "rows", "blocks"),
+                              sinkhorn.u_partial_plan(
+                                  P, n, kernels.sm_count(lk0)))),
+                ms=cuda_time_ms(u_part), device_ms=device_ms(u_part),
+                device_ms_cold=cold_ms(u_part,
+                                       TRACE_NAMES["sinkhorn_u_partial"]),
+                jnp_rule={"device_ms": device_ms(lambda: u_part(True)),
+                          "device_ms_cold": cold_ms(
+                              lambda: u_part(True),
+                              TRACE_NAMES["sinkhorn_u_partial"])},
                 plain_ms=cuda_time_ms(lambda: sinkhorn
-                                      .sinkhorn_u_partial_plain(lk[0],
-                                                                vb[0])),
+                                      .sinkhorn_u_partial_plain(lk0, vb0)),
                 library_ms=cuda_time_ms(lambda: torch.logsumexp(
-                    lk[0] + vb[0][None, :], 1))),
+                    lk0 + vb0[None, :], 1))),
         }
         for name, got in timed.items():
             got.update(_split_bound(name, P, n))
@@ -796,10 +985,13 @@ def check_split_kernels(out_rows: dict) -> None:
             if d == SPLIT_WIDTHS[0]:
                 row.update(got)
                 row["shape"] = [P, n]
+        lcb = log_c.split(n, 0)[0].contiguous()
+        out_rows.setdefault("sinkhorn_v", {}).setdefault(
+            "shard_widths", {})[f"d{d}"] = time_shard_v(lk0, u_in, lcb, P, n)
         del blk, mx, mx_p, outs, lk, vb
         torch.cuda.empty_cache()
-    # the split kernels take any row length (a shard's block may be
-    # narrower than four columns): scalar reads, same results
+    # the split pair takes any row length (a shard's block may be narrower
+    # than four columns): scalar reads, same results
     for n in (1, 3, 6):
         a, b, m = (x[:64, :n].contiguous() for x in (rf, rr, mask))
         got = fused_score.fused_pair_max(a, b, m)
@@ -810,15 +1002,9 @@ def check_split_kernels(out_rows: dict) -> None:
         if not torch.equal(o, fused_score.fused_pair_scale_plain(
                 a, b, want[0], want[1], 1.0, 1.0)):
             fail(f"fused_pair_scale 64x{n}: differs from its plain version")
-        lk, vb = logk[:64, :n].contiguous(), v[:n].contiguous()
-        for rule in (False, True):
-            got = sinkhorn.sinkhorn_u_partial(lk, vb, rule)
-            want = sinkhorn.sinkhorn_u_partial_plain(lk, vb, rule)
-            if not all(torch.allclose(x, y, atol=SINKHORN_ATOL,
-                                      rtol=SINKHORN_RTOL)
-                       for x, y in zip(got, want)):
-                fail(f"sinkhorn_u_partial 64x{n}: beyond tolerance")
-    del rf, rr, mask, logk, log_r, v, fused
+    out_rows.setdefault("sinkhorn_u_partial", {})["edge_inputs"] = \
+        check_u_partial_edges(logk, v)
+    del rf, rr, mask, logk, log_r, log_c, u_in, v, fused
     torch.cuda.empty_cache()
 
 
@@ -864,6 +1050,8 @@ def check_kernels(out_rows: dict) -> None:
             row["ms"] = cuda_time_ms(kern)
             row["ms_batched"] = batched_ms(kern)
             row["device_ms"] = device_ms(kern)
+            row["device_ms_cold"] = cold_ms(
+                kern, TRACE_NAMES["fused_pair_normalize"])
             row["wide_ms"] = cuda_time_ms(lambda: _wide_pair(rf, rr, mask))
             row["wide_ms_batched"] = batched_ms(
                 lambda: _wide_pair(rf, rr, mask))
@@ -916,6 +1104,8 @@ def check_kernels(out_rows: dict) -> None:
                 row["ms"] = cuda_time_ms(lambda: kern(*args))
                 row["ms_batched"] = batched_ms(lambda: kern(*args))
                 row["device_ms"] = device_ms(lambda: kern(*args))
+                row["device_ms_cold"] = cold_ms(lambda: kern(*args),
+                                                TRACE_NAMES[name])
                 row["plain_ms"] = cuda_time_ms(lambda: plain(*args))
                 row["library_ms"] = cuda_time_ms(lib)
                 row.update(_sinkhorn_bound(name, P, N))
@@ -1002,6 +1192,47 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             torch.cuda.empty_cache()
         if rows:
             out_rows.setdefault(name, {})[f"{phase}_shapes"] = rows
+    # the mesh phase's shard blocks: the split u pass and the v pass at
+    # every shape the phase launched them
+    for name in ("sinkhorn_u_partial", "sinkhorn_v"):
+        rows = [{"shape": [P, N], "launches": n,
+                 **time_shard_pass(name, P, N, gen, dev)}
+                for (P, N), n in paths.get("mesh", {}).get("shapes", {})
+                .get(name, [])]
+        if rows:
+            out_rows.setdefault(name, {})["mesh_shapes"] = rows
+
+
+def time_shard_pass(name, P, N, gen, dev) -> dict:
+    """The split u pass or the v pass at one (P, N) shape a shard launched:
+    the v pass as :func:`time_shard_v`; the u pass held against its plain
+    version in both rules and to the same bits over two launches, then
+    its device time warm and with the L2 cold, in the Pallas rule, beside
+    its bound."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import sinkhorn
+
+    logk, _log_r, log_c, u, v = _sinkhorn_inputs(P, N, gen, dev)
+    if name == "sinkhorn_v":
+        return time_shard_v(logk, u, log_c, P, N)
+    for rule in (False, True):
+        got = sinkhorn.sinkhorn_u_partial(logk, v, rule)
+        want = sinkhorn.sinkhorn_u_partial_plain(logk, v, rule)
+        if not _u_partial_agrees(got, want) or \
+                not _u_partial_same_bits(logk, v, rule):
+            fail(f"sinkhorn_u_partial {P}x{N} (mesh shape): beyond "
+                 "tolerance or two launches differ")
+
+    def kern():
+        return sinkhorn.sinkhorn_u_partial(logk, v)
+
+    out = {"device_ms": device_ms(kern),
+           "device_ms_cold": cold_ms(kern, TRACE_NAMES[name]),
+           **_split_bound(name, P, N)}
+    del logk, log_c, u, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def launch_counts() -> dict:
@@ -8263,9 +8494,13 @@ def main() -> None:
 
     rows: dict = {}
     if "kernels" in phases:
+        t0 = time.perf_counter()
         check_kernels(rows)
+        t_split = time.perf_counter()
         check_split_kernels(rows)
-        emit({"phase": "kernels", "ok": True})
+        t1 = time.perf_counter()
+        emit({"phase": "kernels", "ok": True, "seconds": t1 - t0,
+              "split_s": t1 - t_split})
 
     paths = {}
     phase_s = {}
@@ -8304,7 +8539,9 @@ def main() -> None:
         for phase in CELLS:
             profile_cycle(args.profile, phase)
     if "kernels" in phases:
+        t0 = time.perf_counter()
         time_main_shapes(rows, paths)
+        phase_s["main_shapes"] = time.perf_counter() - t0
         if "pipeline" in paths:
             check_round_loop(rows, paths["pipeline"]["inputs"])
     out = []

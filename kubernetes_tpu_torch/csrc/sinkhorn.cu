@@ -48,10 +48,24 @@
 // columns, the shift m and the sum s = sum_j exp(logk_ij + v_j - m) (the
 // Pallas rule clamps m at NEG_INF, rescaling s; the jnp rule replaces a
 // non-finite m by 0), and the shards' pairs merge into u in plain PyTorch
-// (parallel/collectives.lse_combine). One block per row, float4 reads
-// when n % 4 == 0 and the rows and v are 16-byte aligned, scalar reads
-// otherwise (a shard's block can be narrower than four columns). The v
-// pass is column-local: each shard runs ktt_sinkhorn_v on its columns.
+// (parallel/collectives.lse_combine). Bound: bytes, logk read once (33.6
+// MB for a shard's (8192, 1024) block, 10 us at 3.35 TB/s), so the whole
+// kernel is a few round trips to memory and its latency is what it must
+// hide. A warp owns a row (or, when the rows alone would leave most of the
+// card's warp slots empty, wpr = 2-8 warps of a block share a wide row and
+// merge in shared memory): a lane issues all 8 float4 loads of its
+// 1024-column tile before any arithmetic (128 bytes a lane, 128 KB an SM
+// at the four 8-warp blocks an SM the launch bounds keep resident), folds
+// them with one max, at most one rescale and 32 exps with no branch, and
+// the lanes merge in the 5-step shuffle tree: no __syncthreads and no
+// serial merge on the main path. A block walks a tile of rows, the grid
+// planned as one wave (ops/sinkhorn.py u_partial_plan), and stages its v
+// once in shared memory, so logk is the only stream from HBM. Rows are
+// read as float4 when n % 4 == 0, n <= kUSharedCols and logk is 16-byte
+// aligned, as scalars with v from global memory otherwise (a shard's block
+// can be narrower than four columns). No atomics: two launches give the
+// same bits. The v pass is column-local: each shard runs ktt_sinkhorn_v on
+// its columns.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -165,15 +179,17 @@ __device__ __forceinline__ float4 load_quad(const float* __restrict__ logk,
   return q;
 }
 
-// Fold one column's tile of kVTile terms into its running pair (m, s):
-// one rescale when the tile's max exceeds m, then the tile's exps with
-// no branch. -inf terms (rows past the end) add exp(-inf) = 0; while m is
-// still -inf every term was -inf and nothing is added (no -inf - -inf).
+// Fold a tile of K terms (a column's kVTile rows, or a lane's 32 columns
+// of a row) into its running pair (m, s): one rescale when the tile's max
+// exceeds m, then the tile's exps with no branch. -inf terms (past the
+// end) add exp(-inf) = 0; while m is still -inf every term was -inf and
+// nothing is added (no -inf - -inf).
+template <int K>
 __device__ __forceinline__ void lse_tile(float& m, float& s,
-                                         const float (&x)[kVTile]) {
+                                         const float (&x)[K]) {
   float tm = x[0];
 #pragma unroll
-  for (int r = 1; r < kVTile; ++r) tm = fmaxf(tm, x[r]);
+  for (int r = 1; r < K; ++r) tm = fmaxf(tm, x[r]);
   if (tm > m) {
     s *= expf(m - tm);
     m = tm;
@@ -181,7 +197,7 @@ __device__ __forceinline__ void lse_tile(float& m, float& s,
   if (m > -INFINITY) {
     float acc = 0.0f;
 #pragma unroll
-    for (int r = 0; r < kVTile; ++r) acc += expf(x[r] - m);
+    for (int r = 0; r < K; ++r) acc += expf(x[r] - m);
     s += acc;
   }
 }
@@ -285,40 +301,106 @@ v_kernel(const float* __restrict__ logk, const float* __restrict__ u,
   if (j0 + 3 < n) v[j0 + 3] = v_value<kJnp>(fm.w, fs.w, log_c[j0 + 3]);
 }
 
+// ---- split u pass --------------------------------------------------------
 
-// The split u pass: (m, s) per row over this block's columns.
-template <bool kVec, bool kJnp>
-__global__ void __launch_bounds__(kThreads)
-u_partial_kernel(const float* __restrict__ logk, const float* __restrict__ v,
-                 float* __restrict__ m_out, float* __restrict__ s_out,
-                 int n) {
-  const float* row = logk + static_cast<size_t>(blockIdx.x) * n;
-  float m = -INFINITY, s = 0.0f;
-  if (kVec) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    const float4* v4 = reinterpret_cast<const float4*>(v);
-    for (int j = threadIdx.x; j < (n >> 2); j += blockDim.x) {
-      const float4 x = r4[j], w = v4[j];
-      lse_add(m, s, x.x + w.x);
-      lse_add(m, s, x.y + w.y);
-      lse_add(m, s, x.z + w.z);
-      lse_add(m, s, x.w + w.w);
+constexpr int kUWarps = kThreads / 32;  // warps of a block
+constexpr int kUTile = 8;               // float4 a lane loads before math
+constexpr int kUTileCols = 1024;        // a warp's tile: 32 lanes x 8 float4
+constexpr int kUBlocksPerSm = 4;        // resident blocks the plan counts on
+constexpr int kUSharedCols = 8192;      // the float4 route's widest row
+static_assert(kUTileCols == 32 * 4 * kUTile, "a tile is 8 float4 a lane");
+
+// The lane's share of one warp tile, plus v, -inf past n: float4 t/4 +
+// 32*k + lane with v from the block's copy in shared memory (kVec), else
+// the scalar columns t + 32*k + lane with v from global memory. Every load
+// of the tile is issued before any arithmetic.
+template <bool kVec>
+__device__ __forceinline__ void u_tile(const float* __restrict__ row,
+                                       const float* __restrict__ v,
+                                       const float4* vs, int t, int lane,
+                                       int n, float (&x)[4 * kUTile]) {
+  if constexpr (!kVec) {
+#pragma unroll
+    for (int k = 0; k < 4 * kUTile; ++k) {
+      const int j = t + 32 * k + lane;
+      x[k] = j < n ? __ldg(row + j) : -INFINITY;
+    }
+#pragma unroll
+    for (int k = 0; k < 4 * kUTile; ++k) {
+      const int j = t + 32 * k + lane;
+      if (j < n) x[k] += __ldg(v + j);
     }
   } else {
-    for (int j = threadIdx.x; j < n; j += blockDim.x)
-      lse_add(m, s, row[j] + v[j]);
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    const int n4 = n >> 2, t4 = t >> 2;
+    float4 a[kUTile];
+#pragma unroll
+    for (int k = 0; k < kUTile; ++k) {
+      const int j = t4 + 32 * k + lane;
+      a[k] = j < n4 ? __ldg(r4 + j) : neg_inf4();
+    }
+#pragma unroll
+    for (int k = 0; k < kUTile; ++k) {
+      const int j = t4 + 32 * k + lane;
+      const float4 w = j < n4 ? vs[j] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      x[4 * k] = a[k].x + w.x;
+      x[4 * k + 1] = a[k].y + w.y;
+      x[4 * k + 2] = a[k].z + w.z;
+      x[4 * k + 3] = a[k].w + w.w;
+    }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
-    lse_merge(m, s, m2, s2);
+}
+
+// The split u pass: (m, s) per row over this block's columns. A block of
+// kUWarps warps is `groups` = kUWarps / wpr groups of wpr warps; it owns
+// rows [blockIdx.x * groups * rows, +groups * rows) and at step it group g
+// takes row first + it * groups + g. Warp q of a group walks its row's
+// tiles q, q + wpr, ... and the lanes merge in the shuffle tree; with wpr
+// > 1 the group's warps merge in shared memory, in warp order.
+template <bool kVec, bool kJnp>
+__global__ void __launch_bounds__(kThreads, kUBlocksPerSm)
+u_partial_kernel(const float* __restrict__ logk, const float* __restrict__ v,
+                 float* __restrict__ m_out, float* __restrict__ s_out, int p,
+                 int n, int wpr, int rows) {
+  extern __shared__ float4 vs[];  // v, when kVec
+  __shared__ float gm[kUWarps], gs[kUWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = kUWarps / wpr, g = warp / wpr, q = warp - g * wpr;
+  if constexpr (kVec) {
+    // scalar copies: v need not be 16-byte aligned
+    float* vf = reinterpret_cast<float*>(vs);
+    for (int j = threadIdx.x; j < n; j += kThreads) vf[j] = __ldg(v + j);
+    __syncthreads();
   }
-  __shared__ float sm[32], ss[32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) { sm[wid] = m; ss[wid] = s; }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < (blockDim.x >> 5); ++w) lse_merge(m, s, sm[w], ss[w]);
+  const int first = blockIdx.x * groups * rows;
+  for (int it = 0; it < rows; ++it) {
+    const int i = first + it * groups + g;
+    float m = -INFINITY, s = 0.0f;
+    if (i < p) {
+      const float* row = logk + static_cast<size_t>(i) * n;
+      for (int t = q * kUTileCols; t < n; t += wpr * kUTileCols) {
+        float x[4 * kUTile];
+        u_tile<kVec>(row, v, vs, t, lane, n, x);
+        lse_tile(m, s, x);
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+      lse_merge(m, s, m2, s2);
+    }
+    if (wpr > 1) {  // the same for the whole block: the barriers are safe
+      if (lane == 0) {
+        gm[warp] = m;
+        gs[warp] = s;
+      }
+      __syncthreads();
+      if (q == 0 && lane == 0)
+        for (int w = 1; w < wpr; ++w) lse_merge(m, s, gm[warp + w],
+                                                gs[warp + w]);
+      __syncthreads();
+    }
+    if (q != 0 || lane != 0 || i >= p) continue;
     if (kJnp) {
       // the shift of jax.scipy.special.logsumexp: 0 when not finite
       if (!isfinite(m)) {
@@ -329,9 +411,22 @@ u_partial_kernel(const float* __restrict__ logk, const float* __restrict__ v,
       s = m == -INFINITY ? 0.0f : s * expf(m - kNegInf);
       m = kNegInf;
     }
-    m_out[blockIdx.x] = m;
-    s_out[blockIdx.x] = s;
+    m_out[i] = m;
+    s_out[i] = s;
   }
+}
+
+template <bool kVec>
+void launch_u_partial(int blocks, cudaStream_t st, const float* k,
+                      const float* v, float* m, float* s, int p, int n,
+                      int wpr, int rows, int jnp_rule) {
+  const size_t smem = kVec ? sizeof(float) * n : 0;
+  if (jnp_rule)
+    u_partial_kernel<kVec, true><<<blocks, kThreads, smem, st>>>(
+        k, v, m, s, p, n, wpr, rows);
+  else
+    u_partial_kernel<kVec, false><<<blocks, kThreads, smem, st>>>(
+        k, v, m, s, p, n, wpr, rows);
 }
 
 }  // namespace
@@ -391,26 +486,30 @@ extern "C" int ktt_sinkhorn_v(const void* logk, const void* u,
   return static_cast<int>(cudaGetLastError());
 }
 
-// m, s: (p,) f32 outputs; jnp_rule as for the u pass.
+// m, s: (p,) f32 outputs; wpr warps a row (1, 2, 4 or 8), rows per group
+// and blocks from the wrapper's plan (ops/sinkhorn.py u_partial_plan),
+// covering every row; jnp_rule as for the u pass.
 extern "C" int ktt_sinkhorn_u_partial(const void* logk, const void* v,
                                       void* m, void* s, int p, int n,
+                                      int wpr, int rows, int blocks,
                                       int jnp_rule, void* stream) {
   if (p <= 0 || n <= 0) return 0;
+  if (wpr <= 0 || kUWarps % wpr != 0 || rows <= 0 || blocks <= 0 ||
+      static_cast<long long>(blocks) * (kUWarps / wpr) * rows < p)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* k = static_cast<const float*>(logk);
   const float* vv = static_cast<const float*>(v);
   float* mm = static_cast<float*>(m);
   float* sm = static_cast<float*>(s);
-  const bool vec = n % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(logk) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  if (vec && jnp_rule)
-    u_partial_kernel<true, true><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
-  else if (vec)
-    u_partial_kernel<true, false><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
-  else if (jnp_rule)
-    u_partial_kernel<false, true><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
+  // float4 rows need n % 4 == 0 and a 16-byte aligned logk; v is staged
+  // into shared memory with scalar copies, so its alignment is free
+  if (n % 4 == 0 && n <= kUSharedCols &&
+      reinterpret_cast<uintptr_t>(logk) % 16 == 0)
+    launch_u_partial<true>(blocks, st, k, vv, mm, sm, p, n, wpr, rows,
+                           jnp_rule);
   else
-    u_partial_kernel<false, false><<<p, kThreads, 0, st>>>(k, vv, mm, sm, n);
+    launch_u_partial<false>(blocks, st, k, vv, mm, sm, p, n, wpr, rows,
+                            jnp_rule);
   return static_cast<int>(cudaGetLastError());
 }

@@ -66,8 +66,10 @@ LIBRARIES = {
         "ktt_sinkhorn_u": [_P, _P, _P, _P, _I, _I, _I, _P],
         "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _P],
-        # the u pass split at its reduction (the partitioned solve)
-        "ktt_sinkhorn_u_partial": [_P, _P, _P, _P, _I, _I, _I, _P],
+        # the u pass split at its reduction (the partitioned solve): p, n,
+        # then the launch plan (warps a row, rows a group, blocks), the rule
+        "ktt_sinkhorn_u_partial": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _P],
     }),
     # the round loop's conditional WHILE graph (ops/device_loop.py)
     "graph_loop": ("graph_loop.cu", [], {

@@ -68,6 +68,34 @@ def v_plan(P: int, N: int, sms: int) -> Tuple[int, int, int]:
     return strips, max(-(-P // rows), 1), rows
 
 
+#: the split u pass (one shard's row pass): a block of U_WARPS warps walks
+#: a tile of rows, each row read by one warp in tiles of U_TILE_COLS
+#: columns (8 float4 a lane, all loaded before any arithmetic), or by
+#: ``wpr`` warps of the block when the rows alone would leave most of the
+#: card's warp slots empty; the grid is one wave at U_BLOCKS_PER_SM blocks
+#: an SM (the kernel's launch bounds keep that many resident).
+U_WARPS = 8
+U_TILE_COLS = 1024
+U_BLOCKS_PER_SM = 4
+
+
+def u_partial_plan(P: int, N: int, sms: int) -> Tuple[int, int, int]:
+    """(warps a row, rows a warp group walks, blocks) of the split u pass
+    over a (P, N) block on a card with ``sms`` SMs: a wide row is split
+    over 2, 4 or 8 warps while twice the warps it then takes still fit
+    the card's resident warp slots (and it has a tile for each); block b
+    owns rows [b * groups * rows, (b + 1) * groups * rows), every block at
+    least one row."""
+    slots = U_BLOCKS_PER_SM * sms
+    tiles = -(-N // U_TILE_COLS)
+    wpr = 1
+    while wpr < min(U_WARPS, tiles) and 2 * P * wpr <= slots * U_WARPS:
+        wpr *= 2
+    groups = U_WARPS // wpr
+    rows = max(-(-P // (groups * slots)), 1)
+    return wpr, rows, max(-(-P // (groups * rows)), 1)
+
+
 def _lse(x, dim: int, jnp_rule: bool):
     """Log-sum-exp of ``x`` along ``dim`` in the pass's rule: the jnp rule
     is ``jax.scipy.special.logsumexp`` (shift by the max, 0 when it is not
@@ -122,11 +150,12 @@ def sinkhorn_u_partial(logk, v, jnp_rule: bool = False):
     P, N = logk.shape
     kernels.require(logk, "sinkhorn_u_partial logk", torch.float32)
     kernels.require(v, "sinkhorn_u_partial v", torch.float32, (N,))
+    wpr, rows, blocks = u_partial_plan(P, N, kernels.sm_count(logk))
     ms = torch.empty((2, P), dtype=torch.float32, device=logk.device)
     with kernels.on_device(logk):
         code = kernels.lib("sinkhorn").ktt_sinkhorn_u_partial(
             logk.data_ptr(), v.data_ptr(), ms[0].data_ptr(), ms[1].data_ptr(),
-            P, N, int(jnp_rule), kernels.stream_ptr(logk))
+            P, N, wpr, rows, blocks, int(jnp_rule), kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_u_partial")
     kernels.count_launch("sinkhorn_u_partial", (P, N))
     return ms[0], ms[1]

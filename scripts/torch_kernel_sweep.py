@@ -23,7 +23,14 @@ the inputs always come from this checkout's ``chip_smoke.py``. Parts:
   (one read, one write);
 - ``chunks``: the v kernel launched through ``sinkhorn.launch_v`` at
   several chunk counts, the launch plan's one free parameter, each output
-  held against the plain version (this checkout's package only).
+  held against the plain version (this checkout's package only);
+- ``split``: the split u pass (``sinkhorn_u_partial``) on one shard's
+  (P, N / d) block of each shape, d in 2, 4, 8, held against its plain
+  version in both rules, then its device time warm (``device_ms``), with
+  the L2 cold (``chip_smoke.cold_ms``: a 64 MB scratch overwritten, then
+  96 MB read, before each launch) and after the overwrite alone
+  (``cold_dirty_ms``: the L2 left full of dirty lines, whose write-back
+  the kernel's misses pay).
 
 One JSON object per line; the card's name and power limit come first.
 It needs a CUDA card and exits non-zero without one or on a mismatch.
@@ -162,7 +169,44 @@ def main() -> None:
             emit({"shape": [P, N], "v_wrapper_plan": sinkhorn.v_plan(
                 P, N, kernels.sm_count(logk))})
             del logk, log_c, u, want
+        if "split" in parts:
+            split_widths(cs, sinkhorn, P, N, gen, dev)
         torch.cuda.empty_cache()
+
+
+def split_widths(cs, sinkhorn, P, N, gen, dev) -> None:
+    """The ``split`` part at one (P, N) shape (see the module's note)."""
+    import torch
+
+    logk, _log_r, _log_c, _u, v = cs._sinkhorn_inputs(P, N, gen, dev)
+    scratch = torch.empty(cs.FLUSH_WRITE_BYTES // 4, device=dev)
+    kernel = cs.TRACE_NAMES["sinkhorn_u_partial"]
+    for d in (2, 4, 8):
+        n = N // d
+        lk, vb = logk[:, :n].contiguous(), v[:n].contiguous()
+        for rule in (False, True):
+            if not cs._u_partial_agrees(
+                    sinkhorn.sinkhorn_u_partial(lk, vb, rule),
+                    sinkhorn.sinkhorn_u_partial_plain(lk, vb, rule)):
+                sys.exit(f"sinkhorn_u_partial {P}x{n} disagrees with its "
+                         "plain version")
+
+        def kern():
+            return sinkhorn.sinkhorn_u_partial(lk, vb)
+
+        def dirty():
+            scratch.fill_(1.0)
+            kern()
+
+        by = cs.device_ms(dirty)["by_kernel"]
+        hits = [t for k, t in by.items() if k.startswith(kernel)]
+        emit({"shape": [P, n], "split": "sinkhorn_u_partial", "d": d,
+              "device_ms": cs.device_ms(kern),
+              "cold_ms": cs.cold_ms(kern, kernel),
+              "cold_dirty_ms": hits[0]["ms"] if hits else None,
+              **cs._split_bound("sinkhorn_u_partial", P, n)})
+        del lk, vb
+    del logk, v, scratch
 
 
 if __name__ == "__main__":

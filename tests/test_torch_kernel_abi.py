@@ -4,7 +4,8 @@ matches the ``ctypes`` argtypes ``kernels.LIBRARIES`` gives it (a wrong
 count or kind would shift every later pointer on the card), the build
 flags keep IEEE arithmetic, the constants the wrappers share with the
 sources agree, and the wrappers' launch plans (the pair's staged / wide
-route, the v pass's grid) hold their invariants."""
+route, the v pass's grid, the split u pass's grid) hold their
+invariants."""
 
 import ctypes
 import os
@@ -78,6 +79,9 @@ def test_sinkhorn_entry_points_take_the_rule_mode():
         "pointer"] * 4 + ["int"] * 3 + ["pointer"]
     assert [_KIND[t] for t in fns["ktt_sinkhorn_v"]] == [
         "pointer"] * 7 + ["int"] * 5 + ["pointer"]
+    # the split pass: p, n, the plan's (warps a row, rows, blocks), rule
+    assert [_KIND[t] for t in fns["ktt_sinkhorn_u_partial"]] == [
+        "pointer"] * 4 + ["int"] * 6 + ["pointer"]
     src = _source("sinkhorn.cu")
     assert re.search(r"int jnp_rule, void\* stream\) \{\n  if \(p <= 0",
                      src)
@@ -145,6 +149,18 @@ def test_constants_shared_with_the_sources_agree():
     # all fit there at once
     m = re.search(r"__launch_bounds__\(kThreads,\s*(\d+)\)\s*\nv_kernel", sk)
     assert m and int(m.group(1)) >= sinkhorn.V_BLOCKS_PER_SM
+    # the split u pass: the block's warps, a warp tile's columns and the
+    # blocks an SM the plan counts on, which the kernel's launch bounds
+    # must keep resident
+    m = re.search(r"constexpr int kThreads\s*=\s*(\d+);", sk)
+    assert m and int(m.group(1)) == 32 * sinkhorn.U_WARPS
+    assert re.search(r"kUWarps\s*=\s*kThreads / 32;", sk)
+    m = re.search(r"kUTileCols\s*=\s*(\d+);", sk)
+    assert m and int(m.group(1)) == sinkhorn.U_TILE_COLS
+    m = re.search(r"kUBlocksPerSm\s*=\s*(\d+);", sk)
+    assert m and int(m.group(1)) == sinkhorn.U_BLOCKS_PER_SM
+    assert re.search(r"__launch_bounds__\(kThreads,\s*kUBlocksPerSm\)\s*\n"
+                     r"u_partial_kernel", sk)
 
 
 @pytest.mark.parametrize("n, offset, staged", [
@@ -189,6 +205,41 @@ def test_v_plan_at_the_main_shapes():
     # slots (two an SM), at the padded shape and at the plan path's
     assert sinkhorn.v_plan(8192, 8192, 132) == (64, 4, 2048)
     assert sinkhorn.v_plan(4096, 8192, 132) == (64, 4, 1024)
+
+
+@pytest.mark.parametrize("P, N", [
+    (8192, 1024), (8192, 2048), (8192, 4096),  # a shard of 8, 4, 2
+    (4096, 2048),                               # mesh arm E's plan run
+    (1024, 1024), (256, 1), (64, 3), (1, 8), (100000, 128)])
+def test_u_partial_plan_covers_every_row_once(P, N):
+    sms = 132
+    wpr, rows, blocks = sinkhorn.u_partial_plan(P, N, sms)
+    assert wpr in (1, 2, 4, 8) and sinkhorn.U_WARPS % wpr == 0
+    # a row is split only over warps that each get a tile of it
+    assert wpr == 1 or (wpr - 1) * sinkhorn.U_TILE_COLS < N
+    groups = sinkhorn.U_WARPS // wpr
+    # the kernel's walk: block b, step it, group g reads row
+    # b * groups * rows + it * groups + g (rows past P are skipped)
+    seen = torch.zeros(P, dtype=torch.int64)
+    b = torch.arange(blocks)[:, None, None]
+    it = torch.arange(rows)[None, :, None]
+    g = torch.arange(groups)[None, None, :]
+    walk = (b * groups * rows + it * groups + g).flatten()
+    seen.index_add_(0, walk[walk < P], torch.ones_like(walk[walk < P]))
+    assert bool((seen == 1).all())
+    # no block without a row, and the grid one wave of the card's slots
+    assert (blocks - 1) * groups * rows < P
+    assert 1 <= blocks <= sinkhorn.U_BLOCKS_PER_SM * sms
+
+
+def test_u_partial_plan_at_the_main_shapes():
+    # on a 132-SM H100, a shard of 8 of the 8192 bucket: a warp a row, two
+    # rows a warp, 512 blocks for 528 slots (four an SM); mesh arm E's
+    # plan run (4096 pods on 4 shards) one row a warp; a narrow batch of a
+    # wide block splits its rows over four warps
+    assert sinkhorn.u_partial_plan(8192, 1024, 132) == (1, 2, 512)
+    assert sinkhorn.u_partial_plan(4096, 2048, 132) == (1, 1, 512)
+    assert sinkhorn.u_partial_plan(64, 4096, 132) == (4, 1, 32)
 
 
 def _repo_python_files():
