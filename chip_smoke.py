@@ -809,14 +809,27 @@ def check_u_partial_edges(logk, v) -> list:
     return sorted(cases)
 
 
-def time_shard_v(logk, u, log_c, P, n) -> dict:
-    """The whole v pass on one shard's (P, n) block, as each shard runs it:
-    held against its plain version in both rules, timed warm and with the
-    L2 cold, beside its plain version, ``torch.logsumexp`` and its bound,
-    with ``v_plan``'s (strips, chunks, rows)."""
+#: the v pass's edge inputs: row lengths of one column, not a multiple of
+#: four (scalar copies), and one past a 128-column strip; row counts of
+#: one, one short of a 64-row band, and one past a 4096-row block
+V_EDGE_WIDTHS = (1, 3, 6, 130)
+V_EDGE_ROWS = (1, 63, 4097)
+
+
+def _v_same_bits(logk, u, log_c, rule: bool) -> bool:
+    """Two launches of the v pass on the same inputs give the same bits
+    (no atomics: every merge runs in a fixed order)."""
     import torch
 
-    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.ops import sinkhorn
+
+    return torch.equal(sinkhorn.sinkhorn_v(logk, u, log_c, rule),
+                       sinkhorn.sinkhorn_v(logk, u, log_c, rule))
+
+
+def _v_held(logk, u, log_c, what: str) -> dict:
+    """The v pass against its plain version in both rules, and to the same
+    bits over two launches; the max error by rule."""
     from kubernetes_tpu_torch.ops import sinkhorn
 
     errs = {}
@@ -826,19 +839,79 @@ def time_shard_v(logk, u, log_c, P, n) -> dict:
         err, ok = sinkhorn_err(got, want)
         tag = "jnp" if rule else "pallas"
         if not ok:
-            fail(f"sinkhorn_v {P}x{n} ({tag} rule): max |err| {err} beyond "
+            fail(f"sinkhorn_v {what} ({tag} rule): max |err| {err} beyond "
                  f"atol {SINKHORN_ATOL} rtol {SINKHORN_RTOL}")
+        if not _v_same_bits(logk, u, log_c, rule):
+            fail(f"sinkhorn_v {what} ({tag} rule): two launches differ")
         errs[tag] = err
+    return errs
 
-    def kern():
-        return sinkhorn.sinkhorn_v(logk, u, log_c)
 
+def check_v_edges(logk, u, log_c) -> list:
+    """The v pass in both rules against its plain version, and to the same
+    bits over two launches, on edge inputs cut from a (P, N) problem: every
+    width of V_EDGE_WIDTHS at every row count of V_EDGE_ROWS, with
+    zero-capacity columns (log_c NEG_INF) in each; at (4097, 130) every
+    other row's u NEG_INF, every row's, and every column's capacity zero;
+    at (4097, 1024) logk offset by 4 bytes from a 16-byte boundary (scalar
+    copies where the aligned row takes 16-byte ones). Returns the cases'
+    names."""
+    import torch
+
+    from kubernetes_tpu_torch.ops.sinkhorn import NEG_INF
+
+    cases = {}
+    for p in V_EDGE_ROWS:
+        for n in V_EDGE_WIDTHS:
+            lc = log_c[:n].clone()
+            lc[::3] = NEG_INF  # zero capacity
+            cases[f"{p}x{n}"] = (logk[:p, :n].contiguous(),
+                                 u[:p].contiguous(), lc)
+    p, n = V_EDGE_ROWS[-1], V_EDGE_WIDTHS[-1]
+    lk, ub, lc = cases[f"{p}x{n}"]
+    half = ub.clone()
+    half[::2] = NEG_INF
+    # a row length that takes 16-byte copies when aligned
+    wide = logk[:p, :1024]
+    buf = torch.empty(wide.numel() + 1, device=lk.device)
+    off = buf[1:].view(wide.shape)
+    off.copy_(wide)
+    cases.update({
+        "u_rows_NEG_INF": (lk, half, lc),
+        "u_all_NEG_INF": (lk, torch.full_like(ub, NEG_INF), lc),
+        "every_capacity_zero": (lk, ub, torch.full_like(lc, NEG_INF)),
+        "logk_off_4_bytes": (off, ub, log_c[:1024].contiguous())})
+    for name, (a, b, c) in cases.items():
+        _v_held(a, b, c, f"edge {name}")
+    return sorted(cases)
+
+
+def time_shard_v(logk, u, log_c, P, n) -> dict:
+    """The whole v pass on one shard's (P, n) block, as each shard runs it:
+    held against its plain version in both rules and to the same bits over
+    two launches, timed warm and with the L2 cold (both rules), beside its
+    plain version, ``torch.logsumexp`` and its bound, with ``v_plan``'s
+    (lanes, strips, cluster, rows) and the card's resident clusters."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import sinkhorn
+
+    errs = _v_held(logk, u, log_c, f"{P}x{n}")
+
+    def kern(rule=False):
+        return sinkhorn.sinkhorn_v(logk, u, log_c, rule)
+
+    fit = sinkhorn.v_fit(logk)
     return {"shape": [P, n], "max_abs_err": max(errs.values()),
             "max_abs_err_by_rule": errs,
-            "plan": dict(zip(("strips", "chunks", "rows"), sinkhorn.v_plan(
-                P, n, kernels.sm_count(logk)))),
+            "plan": {**dict(zip(("lanes", "strips", "cluster", "rows"),
+                                sinkhorn.v_plan(P, n, fit))),
+                     "resident_clusters": dict(enumerate(fit, 1))},
             "ms": cuda_time_ms(kern), "device_ms": device_ms(kern),
             "device_ms_cold": cold_ms(kern, TRACE_NAMES["sinkhorn_v"]),
+            "jnp_rule": {"device_ms": device_ms(lambda: kern(True)),
+                         "device_ms_cold": cold_ms(
+                             lambda: kern(True), TRACE_NAMES["sinkhorn_v"])},
             "plain_ms": cuda_time_ms(
                 lambda: sinkhorn.sinkhorn_v_plain(logk, u, log_c)),
             "library_ms": cuda_time_ms(
@@ -1004,6 +1077,12 @@ def check_split_kernels(out_rows: dict) -> None:
             fail(f"fused_pair_scale 64x{n}: differs from its plain version")
     out_rows.setdefault("sinkhorn_u_partial", {})["edge_inputs"] = \
         check_u_partial_edges(logk, v)
+    # the v pass at mesh arm E's plan run (4096 pods on 4 shards), then on
+    # its edge inputs
+    out_rows["sinkhorn_v"]["shard_widths"]["arm_e_plan"] = time_shard_v(
+        logk[:4096, :2048].contiguous(), u_in[:4096].contiguous(),
+        log_c[:2048].contiguous(), 4096, 2048)
+    out_rows["sinkhorn_v"]["edge_inputs"] = check_v_edges(logk, u_in, log_c)
     del rf, rr, mask, logk, log_r, log_c, u_in, v, fused
     torch.cuda.empty_cache()
 
@@ -1109,11 +1188,12 @@ def check_kernels(out_rows: dict) -> None:
                 row["plain_ms"] = cuda_time_ms(lambda: plain(*args))
                 row["library_ms"] = cuda_time_ms(lib)
                 row.update(_sinkhorn_bound(name, P, N))
-        # the v pass gives the same bits run to run (the last block of a
-        # strip merges the chunk partials in chunk order)
-        if not torch.equal(sinkhorn.sinkhorn_v(logk, u, log_c),
-                           sinkhorn.sinkhorn_v(logk, u, log_c)):
-            fail(f"sinkhorn_v {P}x{N}: two runs differ")
+        # the v pass gives the same bits run to run in both rules (every
+        # merge, across the cluster's blocks too, runs in a fixed order)
+        for rule in (False, True):
+            if not _v_same_bits(logk, u, log_c, rule):
+                fail(f"sinkhorn_v {P}x{N} ({'jnp' if rule else 'pallas'} "
+                     "rule): two runs differ")
         del logk, log_r, log_c, u, v
         torch.cuda.empty_cache()
     # the pair and the u pass read rows as 16-byte vectors: a row length

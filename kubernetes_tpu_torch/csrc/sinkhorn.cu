@@ -22,24 +22,30 @@
 // the max grows -- so logk is read exactly once per pass:
 //   u pass: one block per row, float4 row reads (n % 4 == 0), pairs
 //           merged across the block.
-//   v pass: one launch. A block owns a strip of 128 columns and a chunk of
-//           rows; each thread owns four adjacent columns, read as one
-//           float4 (16 bytes, neighbouring lanes on neighbouring
-//           addresses), and walks its chunk's rows in tiles of 8 with all
-//           8 loads of a tile issued before any arithmetic: 128 bytes in
-//           flight per thread, 64 KB per SM at the two blocks an SM the
-//           wrapper plans (up to four fit), well above the ~20 KB per SM
-//           that covers HBM latency at 3.35 TB/s. Per tile and
-//           column one max, at most one rescale and 8 exps with no
-//           branch. The warps' pairs merge in shared memory into one
-//           partial per (chunk, column); the last block of a strip to
-//           finish (an atomic counter per strip after __threadfence,
-//           zeroed by a memset the entry point queues right before the
-//           kernel) merges the strip's partials in chunk order and
-//           writes v, so the result is the same run to run. Rows of any length are
-//           taken: when n % 4 != 0 (or logk is not 16-byte aligned) the
-//           same kernel reads the four columns as scalars, and columns
-//           past n and rows past the chunk read as -inf.
+//   v pass: one launch of 512-thread blocks, one an SM. A strip of 128,
+//           64 or 32 columns is shared by the 1-16 blocks of one thread
+//           block cluster, each a band of the rows, so that a mesh
+//           shard's narrow block still spreads over the card; the plan
+//           (ops/sinkhorn.py v_plan) keeps the grid to one wave of the
+//           clusters the card holds resident, which it reads off the card
+//           (a cluster stays inside one GPC: an H100 holds 66 clusters of
+//           2 blocks, 15 of 8, 7 of 16). Each thread owns four adjacent
+//           columns (16 bytes, neighbouring lanes on neighbouring
+//           addresses) and walks its warp's tiles of 4 rows, the next
+//           tile's loads issued into a second set of registers before the
+//           current one is folded, so the loads never wait on the math
+//           and the math never waits on a whole round trip. Per tile and
+//           column one max, one rescale and 4 exps, with no branch. The
+//           pairs merge in a fixed order: a warp's row groups by shuffles,
+//           the block's warps in a tree in shared memory, the cluster's
+//           blocks through distributed shared memory (each other rank
+//           writes its pair into rank 0's shared memory and arrives on an
+//           mbarrier there, then exits; rank 0 merges them in rank order)
+//           -- no scratch in global memory, no memset, no atomics, so the
+//           result is the same run to run. Rows of any length are taken:
+//           when n % 4 != 0 (or logk is not 16-byte aligned) the same
+//           kernel reads the four columns as scalars, and columns past n
+//           and rows past the block read as -inf.
 // The summation order differs from the plain version's, so results agree
 // to a few ulps, not bit for bit.
 //
@@ -65,13 +71,19 @@
 // aligned, as scalars with v from global memory otherwise (a shard's block
 // can be narrower than four columns). No atomics: two launches give the
 // same bits. The v pass is column-local: each shard runs ktt_sinkhorn_v on
-// its columns.
+// its columns, its plan sized for the shard's block (a (8192, 1024) block
+// is 8 strips of 128 columns, each over a cluster of 8 blocks).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
@@ -151,39 +163,31 @@ u_kernel(const float* __restrict__ logk, const float* __restrict__ v,
 
 // ---- v pass ---------------------------------------------------------------
 
-constexpr int kVWarps = kThreads / 32;  // row groups of a block
-constexpr int kVCols = 128;             // a strip: 32 lanes x 4 columns
-constexpr int kVTile = 8;               // rows a thread loads before math
+constexpr int kVThreads = 512;    // a block: one an SM
+constexpr int kVWarps = kVThreads / 32;
+constexpr int kVTile = 4;         // rows a thread loads a tile
+constexpr int kVMaxCluster = 16;  // blocks of a strip, at most
+// The dynamic shared memory a block asks for: its pairs' merge buffers
+// (32 KB), padded to more than half an SM's 227 KB so that one block fits
+// an SM -- the plan counts blocks as SMs.
+constexpr int kVPairs = 2 * (kVWarps + kVMaxCluster) * 32;  // float4
+constexpr int kVSmem = 116 * 1024;
+static_assert(kVPairs * 16 <= kVSmem && 2 * kVSmem > 227 * 1024,
+              "the pairs fit, and a second block does not");
 
 __device__ __forceinline__ float4 neg_inf4() {
   return make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
 }
 
-// logk[i, j0..j0+3], -inf where the row or a column is out of range. The
-// vector form needs n % 4 == 0 and a 16-byte aligned logk.
-template <bool kVec>
-__device__ __forceinline__ float4 load_quad(const float* __restrict__ logk,
-                                            int i, bool row_ok, int j0,
-                                            int n) {
-  const float* at = logk + static_cast<size_t>(i) * n + j0;
-  if (kVec)
-    return row_ok && j0 < n ? __ldg(reinterpret_cast<const float4*>(at))
-                            : neg_inf4();
-  float4 q = neg_inf4();
-  if (row_ok) {
-    if (j0 < n) q.x = __ldg(at);
-    if (j0 + 1 < n) q.y = __ldg(at + 1);
-    if (j0 + 2 < n) q.z = __ldg(at + 2);
-    if (j0 + 3 < n) q.w = __ldg(at + 3);
-  }
-  return q;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Fold a tile of K terms (a column's kVTile rows, or a lane's 32 columns
-// of a row) into its running pair (m, s): one rescale when the tile's max
-// exceeds m, then the tile's exps with no branch. -inf terms (past the
-// end) add exp(-inf) = 0; while m is still -inf every term was -inf and
-// nothing is added (no -inf - -inf).
+// Fold a tile of K terms (a lane's 32 columns of a row) into its running
+// pair (m, s): one rescale when the tile's max exceeds m, then the tile's
+// exps with no branch. -inf terms (past the end) add exp(-inf) = 0; while
+// m is still -inf every term was -inf and nothing is added (no -inf -
+// -inf).
 template <int K>
 __device__ __forceinline__ void lse_tile(float& m, float& s,
                                          const float (&x)[K]) {
@@ -202,12 +206,23 @@ __device__ __forceinline__ void lse_tile(float& m, float& s,
   }
 }
 
-__device__ __forceinline__ void lse_merge4(float4& m, float4& s, float4 m2,
-                                           float4 s2) {
-  lse_merge(m.x, s.x, m2.x, s2.x);
-  lse_merge(m.y, s.y, m2.y, s2.y);
-  lse_merge(m.z, s.z, m2.z, s2.z);
-  lse_merge(m.w, s.w, m2.w, s2.w);
+// Merge pair (m2, s2) into (m, s) without a branch (so the four columns
+// of a thread interleave): both sums rescaled to the larger shift, or to 0
+// while both are empty (-inf), so that nothing is -inf - -inf.
+__device__ __forceinline__ void lse_join(float& m, float& s, float m2,
+                                         float s2) {
+  const float nm = fmaxf(m, m2);
+  const float sh = nm > -INFINITY ? nm : 0.0f;
+  s = s * expf(m - sh) + s2 * expf(m2 - sh);
+  m = nm;
+}
+
+__device__ __forceinline__ void lse_join4(float4& m, float4& s, float4 m2,
+                                          float4 s2) {
+  lse_join(m.x, s.x, m2.x, s2.x);
+  lse_join(m.y, s.y, m2.y, s2.y);
+  lse_join(m.z, s.z, m2.z, s2.z);
+  lse_join(m.w, s.w, m2.w, s2.w);
 }
 
 // The column potential, in the launch's rule (fminf returns 0 for a NaN
@@ -219,86 +234,272 @@ __device__ __forceinline__ float v_value(float m, float s, float log_c) {
   return vv > kNegInf * 0.5f ? vv : 0.0f;
 }
 
-// Block (strip, chunk): lane l owns columns strip*128 + 4l .. +3, warp w
-// the chunk's row tiles w, w + 8, ... (tiles of 8 rows, all loads of a
-// tile issued before its math). The warps' pairs merge in warp order into
-// the block's partial, written to pm/ps[chunk] (row stride npad =
-// strips * 128). The last block of a strip to finish (a counter per strip,
-// zeroed before the launch) merges the strip's partials in chunk order and
-// writes v, so the result does not depend on which block ran when.
+// Fold the block's kVWarps pairs (wm, ws: [warp][lane]) into warp 0's in
+// a fixed tree, each warp's own pair (bm, bs) in registers: for h = 8, 4,
+// 2, 1, warp w < h merges warp w + h's pair into its own. Every thread of
+// the block calls it (it holds the block's barriers).
+__device__ __forceinline__ void tree_merge(float4* wm, float4* ws,
+                                           float4& bm, float4& bs, int w,
+                                           int lane) {
+  wm[w * 32 + lane] = bm;
+  ws[w * 32 + lane] = bs;
+  __syncthreads();
+  for (int h = kVWarps / 2; h > 0; h >>= 1) {
+    if (w < h) {
+      lse_join4(bm, bs, wm[(w + h) * 32 + lane], ws[(w + h) * 32 + lane]);
+      wm[w * 32 + lane] = bm;
+      ws[w * 32 + lane] = bs;
+    }
+    __syncthreads();
+  }
+}
+
+// The cluster's barrier, split: arrive early, wait (acquire) just before
+// another block's shared memory is touched. The arrive is relaxed: the one
+// write it must publish, rank 0's mbarrier init, has its own fence
+// (fence.mbarrier_init.release.cluster).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrive on the mbarrier at `bar` (a shared address of this block) in the
+// block of cluster rank `rank`, releasing this thread's earlier writes to
+// that block's shared memory.
+__device__ __forceinline__ void arrive_remote(uint32_t bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(bar), "r"(rank));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      :: "r"(remote) : "memory");
+}
+
+// Wait for phase `parity` of this block's mbarrier at `bar`, acquiring
+// what the other blocks of the cluster released with their arrivals.
+__device__ __forceinline__ void wait_cluster_arrivals(uint32_t bar,
+                                                      uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// Fold K terms of one column into its running pair (m, s) without a
+// branch, so the four columns of a thread interleave: the new shift is
+// max(m, the terms' max) (0 while every term so far was -inf, so that
+// nothing is -inf - -inf), the old sum is rescaled by one exp, and the
+// terms' exps are summed in a fixed tree.
+template <int K>
+__device__ __forceinline__ void lse_fold(float& m, float& s,
+                                         const float (&x)[K]) {
+  float t[K];
+#pragma unroll
+  for (int r = 0; r < K; ++r) t[r] = x[r];
+#pragma unroll
+  for (int h = K / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int r = 0; r < h; ++r) t[r] = fmaxf(t[r], t[r + h]);
+  const float nm = fmaxf(m, t[0]);
+  const float sh = nm > -INFINITY ? nm : 0.0f;
+#pragma unroll
+  for (int r = 0; r < K; ++r) t[r] = expf(x[r] - sh);
+#pragma unroll
+  for (int h = K / 2; h > 0; h >>= 1)
+#pragma unroll
+    for (int r = 0; r < h; ++r) t[r] += t[r + h];
+  s = s * expf(m - sh) + t[0];
+  m = nm;
+}
+
+// Block (rank, strip) of a cluster of gridDim.x blocks that share a strip
+// of 4 * lanes columns (lanes = 32, 16 or 8 lanes a row segment, so one
+// warp load covers 32 / lanes rows); rank r owns rows [r * rows,
+// min((r + 1) * rows, p)). Lane l owns columns strip * 4 * lanes +
+// 4 * (l % lanes) .. +3 in row group l / lanes; warp w takes the block's
+// tiles w, w + kVWarps, ... of kVTile * 32 / lanes rows, each tile's loads
+// issued into registers one tile ahead of its math. Terms past the rows
+// or the columns read as -inf. A warp's row groups and the block's warps
+// merge their pairs in fixed trees, the cluster's blocks in rank order in
+// rank 0, which writes v: the same bits every run.
 template <bool kVec, bool kJnp>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kVThreads, 1)
 v_kernel(const float* __restrict__ logk, const float* __restrict__ u,
-         const float* __restrict__ log_c, float* __restrict__ v,
-         float* __restrict__ pm, float* __restrict__ ps,
-         int* __restrict__ counters, int p, int n, int rows) {
-  const int strip = blockIdx.x, chunk = blockIdx.y, chunks = gridDim.y;
-  const int lane = threadIdx.x & 31, wy = threadIdx.x >> 5;
-  const int j0 = strip * kVCols + 4 * lane;
-  const size_t npad = static_cast<size_t>(gridDim.x) * kVCols;
-  const int i1 = min((chunk + 1) * rows, p);
+         const float* __restrict__ log_c, float* __restrict__ v, int p,
+         int n, int lanes, int rows) {
+  // the block's warps' pairs, then (rank 0) the other ranks' pairs
+  extern __shared__ float4 pairs[];
+  float4* wm = pairs;
+  float4* ws = wm + kVWarps * 32;
+  float4* gm = ws + kVWarps * 32;
+  float4* gs = gm + kVMaxCluster * 32;
+  __shared__ __align__(8) uint64_t gathered;  // rank 0: the others arrive
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int shift = __ffs(lanes) - 1;  // lanes == 1 << shift
+  const int groups = 32 >> shift;      // rows one warp load covers
+  const int rg = lane >> shift;        // this lane's row group
+  const int j0 = blockIdx.y * 4 * lanes + 4 * (lane & (lanes - 1));
+  const int first = rank * rows;
+  const int end = min(first + rows, p);
+  const int tile_rows = kVTile * groups;
+  const int band = kVWarps * tile_rows;
+  // tiles a warp walks, an even number (two a loop)
+  const int tiles = end > first ? (end - first + 2 * band - 1) / (2 * band) * 2
+                                : 0;
+  // tile t's terms of this thread: its kVTile rows' quads and u values
+  const auto load = [&](int t, float4 (&q)[kVTile], float (&uq)[kVTile]) {
+    const int base = first + (t * kVWarps + w) * tile_rows;
+#pragma unroll
+    for (int k = 0; k < kVTile; ++k) {
+      const int i = base + k * groups + rg;
+      const bool ok = t < tiles && i < end;
+      const float* src = logk + static_cast<size_t>(i) * n + j0;
+      if (kVec) {
+        q[k] = ok && j0 < n ? __ldg(reinterpret_cast<const float4*>(src))
+                            : neg_inf4();
+      } else {
+        q[k] = neg_inf4();
+        if (ok && j0 < n) q[k].x = __ldg(src);
+        if (ok && j0 + 1 < n) q[k].y = __ldg(src + 1);
+        if (ok && j0 + 2 < n) q[k].z = __ldg(src + 2);
+        if (ok && j0 + 3 < n) q[k].w = __ldg(src + 3);
+      }
+      uq[k] = ok ? __ldg(u + i) : 0.0f;
+    }
+  };
   float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int t = chunk * rows + wy * kVTile; t < i1; t += kVWarps * kVTile) {
-    float4 q[kVTile];
-#pragma unroll
-    for (int r = 0; r < kVTile; ++r)
-      q[r] = load_quad<kVec>(logk, t + r, t + r < i1, j0, n);
+  const auto fold = [&](const float4 (&q)[kVTile],
+                        const float (&uq)[kVTile]) {
     float x[4][kVTile];
 #pragma unroll
-    for (int r = 0; r < kVTile; ++r) {
-      const float ur = t + r < i1 ? __ldg(u + t + r) : 0.0f;
-      x[0][r] = q[r].x + ur;
-      x[1][r] = q[r].y + ur;
-      x[2][r] = q[r].z + ur;
-      x[3][r] = q[r].w + ur;
+    for (int k = 0; k < kVTile; ++k) {
+      x[0][k] = q[k].x + uq[k];
+      x[1][k] = q[k].y + uq[k];
+      x[2][k] = q[k].z + uq[k];
+      x[3][k] = q[k].w + uq[k];
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) lse_tile(m[k], s[k], x[k]);
+    for (int c = 0; c < 4; ++c) lse_fold(m[c], s[c], x[c]);
+  };
+
+  const uint32_t bar = smem_addr(&gathered);
+  if (rank == 0 && tid == 0 && ranks > 1) {
+    // every lane of warp 0 of every other rank arrives once
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(32 * (ranks - 1)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  cluster_arrive();  // rank 0's barrier is initialised; waited on below
+
+  // two register buffers: tile t + 1 loads while tile t is folded
+  float4 qa[kVTile], qb[kVTile];
+  float ua[kVTile], ub[kVTile];
+  load(0, qa, ua);
+  for (int t = 0; t < tiles; t += 2) {
+    load(t + 1, qb, ub);
+    fold(qa, ua);
+    load(t + 2, qa, ua);
+    fold(qb, ub);
   }
 
-  __shared__ float4 wm[kVWarps][32], ws[kVWarps][32];
-  __shared__ int last;
-  wm[wy][lane] = make_float4(m[0], m[1], m[2], m[3]);
-  ws[wy][lane] = make_float4(s[0], s[1], s[2], s[3]);
-  __syncthreads();
-  float4* pm4 = reinterpret_cast<float4*>(pm);
-  float4* ps4 = reinterpret_cast<float4*>(ps);
-  const size_t col4 = static_cast<size_t>(strip) * (kVCols / 4) + lane;
-  if (wy == 0) {
-    float4 bm = wm[0][lane], bs = ws[0][lane];
-    for (int w = 1; w < kVWarps; ++w) lse_merge4(bm, bs, wm[w][lane],
-                                                 ws[w][lane]);
-    pm4[chunk * (npad / 4) + col4] = bm;
-    ps4[chunk * (npad / 4) + col4] = bs;
-    __threadfence();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(counters + strip, 1) == chunks - 1;
-  __syncthreads();
-  if (!last || wy != 0) return;
-
-  // the strip's last block: merge every chunk's partial in chunk order
-  // (loads four chunks ahead, from L2: the other blocks wrote them)
-  float4 fm = neg_inf4(), fs = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int c0 = 0; c0 < chunks; c0 += 4) {
-    float4 am[4], as[4];
+  // a warp's row groups (lanes < 32), then the block's warps
+  for (int o = lanes; o < 32; o <<= 1) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      if (c0 + c < chunks) {
-        am[c] = __ldcg(pm4 + (c0 + c) * (npad / 4) + col4);
-        as[c] = __ldcg(ps4 + (c0 + c) * (npad / 4) + col4);
-      }
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[c], o);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s[c], o);
+      lse_join(m[c], s[c], m2, s2);
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (c0 + c < chunks) lse_merge4(fm, fs, am[c], as[c]);
   }
-  if (j0 < n) v[j0] = v_value<kJnp>(fm.x, fs.x, log_c[j0]);
-  if (j0 + 1 < n) v[j0 + 1] = v_value<kJnp>(fm.y, fs.y, log_c[j0 + 1]);
-  if (j0 + 2 < n) v[j0 + 2] = v_value<kJnp>(fm.z, fs.z, log_c[j0 + 2]);
-  if (j0 + 3 < n) v[j0 + 3] = v_value<kJnp>(fm.w, fs.w, log_c[j0 + 3]);
+  float4 bm = make_float4(m[0], m[1], m[2], m[3]);
+  float4 bs = make_float4(s[0], s[1], s[2], s[3]);
+  tree_merge(wm, ws, bm, bs, w, lane);
+
+  // then the cluster's blocks: warp 0 of every other rank writes its pair
+  // into rank 0's shared memory and arrives on rank 0's barrier, then its
+  // block exits; warp 0 of rank 0 waits for them and merges in rank order
+  cluster_wait();
+  if (w != 0) return;
+  if (rank != 0) {
+    *cluster.map_shared_rank(gm + rank * 32 + lane, 0) = bm;
+    *cluster.map_shared_rank(gs + rank * 32 + lane, 0) = bs;
+    arrive_remote(bar, 0);
+    return;
+  }
+  if (ranks > 1) wait_cluster_arrivals(bar, 0);
+  for (int r = 1; r < ranks; ++r)
+    lse_join4(bm, bs, gm[r * 32 + lane], gs[r * 32 + lane]);
+  if (rg != 0) return;
+  if (j0 < n) v[j0] = v_value<kJnp>(bm.x, bs.x, log_c[j0]);
+  if (j0 + 1 < n) v[j0 + 1] = v_value<kJnp>(bm.y, bs.y, log_c[j0 + 1]);
+  if (j0 + 2 < n) v[j0 + 2] = v_value<kJnp>(bm.z, bs.z, log_c[j0 + 2]);
+  if (j0 + 3 < n) v[j0 + 3] = v_value<kJnp>(bm.w, bs.w, log_c[j0 + 3]);
+}
+
+template <bool kVec, bool kJnp>
+cudaError_t allow_v() {
+  const auto fn = v_kernel<kVec, kJnp>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kVSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+        static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// Once per device (function attributes are per device): the shared
+// memory above the 48 KB default and clusters of up to 16 blocks, for
+// every variant.
+cudaError_t v_ready() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static std::atomic<uint64_t> ready{0};
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit && (ready.load(std::memory_order_acquire) & bit))
+    return cudaSuccess;
+  e = allow_v<true, false>();
+  if (e == cudaSuccess) e = allow_v<true, true>();
+  if (e == cudaSuccess) e = allow_v<false, false>();
+  if (e == cudaSuccess) e = allow_v<false, true>();
+  if (e == cudaSuccess && bit) ready.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+// A launch of the v kernel in a cluster of `cluster` blocks along x.
+cudaLaunchConfig_t v_config(dim3 grid, cudaLaunchAttribute* attr,
+                            int cluster, cudaStream_t st) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kVThreads, 1, 1);
+  cfg.dynamicSmemBytes = kVSmem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 // ---- split u pass --------------------------------------------------------
@@ -448,42 +649,73 @@ extern "C" int ktt_sinkhorn_u(const void* logk, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// pm, ps: (chunks, strips * 128) f32 scratch; counters: (strips,) int32
-// scratch, zeroed here on the stream right before the launch (the caller
-// allocates all three); strips = ceil(n / 128); chunk c holds rows
-// [c*rows, min((c+1)*rows, p)), every chunk at least one row; jnp_rule as
-// for the u pass.
+// lanes a row segment (32, 16 or 8: strips of 4 * lanes columns),
+// blocks a cluster along the rows (1-16) and rows a block, from the
+// wrapper's plan (ops/sinkhorn.py v_plan), covering every row; jnp_rule as
+// for the u pass. The launch is the only operation queued.
 extern "C" int ktt_sinkhorn_v(const void* logk, const void* u,
-                              const void* log_c, void* v, void* pm, void* ps,
-                              void* counters, int p, int n, int chunks,
-                              int rows, int jnp_rule, void* stream) {
+                              const void* log_c, void* v, int p, int n,
+                              int lanes, int cluster, int rows,
+                              int jnp_rule, void* stream) {
   if (p <= 0 || n <= 0) return 0;
-  const dim3 grid((n + kVCols - 1) / kVCols, chunks);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((lanes != 32 && lanes != 16 && lanes != 8) || cluster < 1 ||
+      cluster > kVMaxCluster ||
+      rows <= 0 || static_cast<long long>(cluster) * rows < p)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int strips = (n + 4 * lanes - 1) / (4 * lanes);
+  if (strips > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = v_ready();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      v_config(dim3(cluster, strips, 1), &attr, cluster,
+               static_cast<cudaStream_t>(stream));
   const float* k = static_cast<const float*>(logk);
   const float* uu = static_cast<const float*>(u);
   const float* lc = static_cast<const float*>(log_c);
   float* vv = static_cast<float*>(v);
-  float* m = static_cast<float*>(pm);
-  float* s = static_cast<float*>(ps);
-  int* cnt = static_cast<int*>(counters);
-  const cudaError_t z =
-      cudaMemsetAsync(cnt, 0, sizeof(int) * grid.x, st);
-  if (z != cudaSuccess) return static_cast<int>(z);
+  // 16-byte copies need n % 4 == 0 and a 16-byte aligned logk; u is copied
+  // a value at a time, so its alignment is free
   const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(logk) % 16 == 0;
   if (vec && jnp_rule)
-    v_kernel<true, true><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s, cnt,
-                                                    p, n, rows);
+    e = cudaLaunchKernelEx(&cfg, v_kernel<true, true>, k, uu, lc, vv, p, n,
+                           lanes, rows);
   else if (vec)
-    v_kernel<true, false><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s,
-                                                     cnt, p, n, rows);
+    e = cudaLaunchKernelEx(&cfg, v_kernel<true, false>, k, uu, lc, vv, p, n,
+                           lanes, rows);
   else if (jnp_rule)
-    v_kernel<false, true><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s,
-                                                     cnt, p, n, rows);
+    e = cudaLaunchKernelEx(&cfg, v_kernel<false, true>, k, uu, lc, vv, p, n,
+                           lanes, rows);
   else
-    v_kernel<false, false><<<grid, kThreads, 0, st>>>(k, uu, lc, vv, m, s,
-                                                      cnt, p, n, rows);
-  return static_cast<int>(cudaGetLastError());
+    e = cudaLaunchKernelEx(&cfg, v_kernel<false, false>, k, uu, lc, vv, p,
+                           n, lanes, rows);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// clusters: (kVMaxCluster,) int32 output. Entry c - 1: how many clusters
+// of c blocks of the v kernel the current device keeps resident at once
+// (0 where that size cannot launch: above 8 is beyond the portable
+// limit). The wrapper caches it per device.
+extern "C" int ktt_sinkhorn_v_fit(void* clusters) {
+  cudaError_t e = v_ready();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int* out = static_cast<int*>(clusters);
+  for (int cs = 1; cs <= kVMaxCluster; ++cs) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        v_config(dim3(cs, 1, 1), &attr, cs, nullptr);
+    int got = 0;
+    e = cudaOccupancyMaxActiveClusters(
+        &got, reinterpret_cast<const void*>(&v_kernel<true, false>), &cfg);
+    if (e != cudaSuccess) {
+      if (cs <= 8) return static_cast<int>(e);  // a portable size
+      (void)cudaGetLastError();
+      got = 0;
+    }
+    out[cs - 1] = got;
+  }
+  return 0;
 }
 
 // m, s: (p,) f32 outputs; wpr warps a row (1, 2, 4 or 8), rows per group

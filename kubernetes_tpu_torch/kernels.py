@@ -64,8 +64,11 @@ LIBRARIES = {
     "sinkhorn": ("sinkhorn.cu", [], {
         # the int before the stream: 0 = the Pallas rule, 1 = the jnp rule
         "ktt_sinkhorn_u": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "ktt_sinkhorn_v": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P],
+        # the v pass: p, n, then the launch plan (lanes a row segment,
+        # blocks a cluster, rows a block), the rule
+        "ktt_sinkhorn_v": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # the clusters of 1-16 v blocks the current card keeps resident
+        "ktt_sinkhorn_v_fit": [_P],
         # the u pass split at its reduction (the partitioned solve): p, n,
         # then the launch plan (warps a row, rows a group, blocks), the rule
         "ktt_sinkhorn_u_partial": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

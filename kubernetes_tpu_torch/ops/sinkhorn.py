@@ -44,28 +44,59 @@ NEG_INF = -1e30
 #: this counts the iteration as converged (log-domain, so ~relative)
 STATS_TOL = 1e-3
 
-#: the v pass: a block covers a strip of V_COLS columns (32 threads x 4)
-#: and one chunk of the rows; the chunks are sized so that the grid is
-#: V_BLOCKS_PER_SM blocks for each SM (one wave: the kernel's launch
-#: bounds let four stay resident), with at most V_CHUNKS chunks and at
-#: least V_MIN_ROWS rows (one 8-row tile per warp) in each. The last block
-#: of a strip merges the strip's chunk partials. Two blocks an SM measured
-#: faster than one, four or more on an H100 (scripts/torch_kernel_sweep.py:
-#: longer row walks per warp, fewer partials to merge).
-V_COLS = 128
-V_BLOCKS_PER_SM = 2
-V_CHUNKS = 64
+#: the v pass: one block of V_WARPS warps an SM (each asks for more than
+#: half an SM's shared memory), a strip of 4 * lanes columns for lanes in
+#: V_LANES (a warp load covers 32 / lanes rows), shared by the blocks of
+#: one thread block cluster of a size in V_CLUSTERS, each a band of the
+#: rows (at least V_MIN_ROWS: one 4-row tile for each warp). The plan is
+#: one wave: no more strips than clusters of that size the card keeps
+#: resident (``v_fit``), as many blocks as that allows.
+V_WARPS = 16
+V_LANES = (32, 16, 8)
+V_CLUSTERS = (1, 2, 4, 8, 16)
 V_MIN_ROWS = 64
 
 
-def v_plan(P: int, N: int, sms: int) -> Tuple[int, int, int]:
-    """(strips, chunks, rows per chunk) of the v pass on a card with
-    ``sms`` SMs; every chunk holds at least one row."""
-    strips = -(-N // V_COLS)
-    chunks = max(1, min(V_BLOCKS_PER_SM * sms // strips, V_CHUNKS,
-                        -(-P // V_MIN_ROWS)))
-    rows = max(-(-P // chunks), 1)
-    return strips, max(-(-P // rows), 1), rows
+def v_plan(P: int, N: int, fit) -> Tuple[int, int, int, int]:
+    """(lanes, strips, cluster, rows a block) of the v pass over (P, N) on
+    a card that keeps ``fit[c - 1]`` clusters of c blocks resident: of
+    the plans that are one wave, the one with the most blocks, then the
+    widest strip (wider row segments read faster from HBM), then the
+    smallest cluster (a strip of 128 columns per block, in waves, when no
+    plan is one wave). Block r of a cluster owns rows [r * rows,
+    min((r + 1) * rows, P)), none of them empty."""
+    best, best_key = (V_LANES[0], -(-N // (4 * V_LANES[0])), 1, P), None
+    for lanes in V_LANES:
+        strips = -(-N // (4 * lanes))
+        for cluster in V_CLUSTERS:
+            if strips > fit[cluster - 1] or (cluster > 1 and
+                                             cluster * V_MIN_ROWS > P):
+                continue
+            key = (strips * cluster, lanes, -cluster)
+            if best_key is None or key > best_key:
+                best, best_key = (lanes, strips, cluster,
+                                  -(-P // cluster)), key
+    return best
+
+
+_V_FIT: dict = {}
+
+
+def v_fit(t) -> Tuple[int, ...]:
+    """Clusters of 1, 2, ..., V_CLUSTERS[-1] blocks of the v pass that the
+    card holding ``t`` keeps resident at once (asked of the card once, then
+    cached)."""
+    index = t.device.index if t.device.index is not None else 0
+    got = _V_FIT.get(index)
+    if got is None:
+        import ctypes
+
+        out = (ctypes.c_int * V_CLUSTERS[-1])()
+        with kernels.on_device(t):
+            code = kernels.lib("sinkhorn").ktt_sinkhorn_v_fit(out)
+        kernels.check(code, "sinkhorn_v_fit")
+        got = _V_FIT[index] = tuple(out)
+    return got
 
 
 #: the split u pass (one shard's row pass): a block of U_WARPS warps walks
@@ -193,34 +224,25 @@ def sinkhorn_v(logk, u, log_c, jnp_rule: bool = False):
     kernels.require(logk, "sinkhorn_v logk", torch.float32)
     kernels.require(u, "sinkhorn_v u", torch.float32, (P,))
     kernels.require(log_c, "sinkhorn_v log_c", torch.float32, (N,))
-    _, chunks, rows = v_plan(P, N, kernels.sm_count(logk))
-    v = launch_v(logk, u, log_c, chunks, rows, jnp_rule)
+    lanes, _strips, cluster, rows = v_plan(P, N, v_fit(logk))
+    v = launch_v(logk, u, log_c, lanes, cluster, rows, jnp_rule)
     kernels.count_launch("sinkhorn_v", (P, N))
     return v
 
 
-def launch_v(logk, u, log_c, chunks: int, rows: int,
+def launch_v(logk, u, log_c, lanes: int, cluster: int, rows: int,
              jnp_rule: bool = False):
-    """Launch the v kernel with ``chunks`` chunks of ``rows`` rows (every
-    chunk at least one row) in the Pallas or the jnp rule and return v
-    (no checks and no count:
+    """Launch the v kernel with strips of ``4 * lanes`` columns, each over
+    a cluster of ``cluster`` blocks of ``rows`` rows (covering every row),
+    in the Pallas or the jnp rule and return v (no checks and no count:
     :func:`sinkhorn_v` makes both; the one place the C entry point is
     called)."""
     P, N = logk.shape
-    strips = -(-N // V_COLS)
     v = torch.empty((N,), dtype=torch.float32, device=logk.device)
-    # one scratch allocation: the chunk partials pm and ps, (chunks,
-    # strips * V_COLS) f32 each, then one int32 counter per strip (4-byte
-    # words; the entry point zeroes the counters on the stream)
-    part = chunks * strips * V_COLS
-    scratch = torch.empty((2 * part + strips,), dtype=torch.float32,
-                          device=logk.device)
-    base = scratch.data_ptr()
-    fn = kernels.lib("sinkhorn").ktt_sinkhorn_v
     with kernels.on_device(logk):
-        code = fn(logk.data_ptr(), u.data_ptr(), log_c.data_ptr(),
-                  v.data_ptr(), base, base + 4 * part, base + 8 * part, P,
-                  N, chunks, rows, int(jnp_rule), kernels.stream_ptr(logk))
+        code = kernels.lib("sinkhorn").ktt_sinkhorn_v(
+            logk.data_ptr(), u.data_ptr(), log_c.data_ptr(), v.data_ptr(), P,
+            N, lanes, cluster, rows, int(jnp_rule), kernels.stream_ptr(logk))
     kernels.check(code, "sinkhorn_v")
     return v
 

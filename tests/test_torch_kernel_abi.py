@@ -77,8 +77,12 @@ def test_sinkhorn_entry_points_take_the_rule_mode():
     fns = kernels.LIBRARIES["sinkhorn"][2]
     assert [_KIND[t] for t in fns["ktt_sinkhorn_u"]] == [
         "pointer"] * 4 + ["int"] * 3 + ["pointer"]
+    # the v pass: p, n, the plan's (lanes, cluster, rows), rule; no
+    # scratch and no counters since the cluster merges in shared memory
     assert [_KIND[t] for t in fns["ktt_sinkhorn_v"]] == [
-        "pointer"] * 7 + ["int"] * 5 + ["pointer"]
+        "pointer"] * 4 + ["int"] * 6 + ["pointer"]
+    # the resident clusters of each size, into a (5,) int32 buffer
+    assert [_KIND[t] for t in fns["ktt_sinkhorn_v_fit"]] == ["pointer"]
     # the split pass: p, n, the plan's (warps a row, rows, blocks), rule
     assert [_KIND[t] for t in fns["ktt_sinkhorn_u_partial"]] == [
         "pointer"] * 4 + ["int"] * 6 + ["pointer"]
@@ -143,12 +147,25 @@ def test_constants_shared_with_the_sources_agree():
     m = re.search(r"kStagedMaxN\s*=\s*(\d+)", pair)
     assert m and int(m.group(1)) == fused_score.STAGED_MAX_N
     sk = _source("sinkhorn.cu")
-    m = re.search(r"kVCols\s*=\s*(\d+)", sk)
-    assert m and int(m.group(1)) == sinkhorn.V_COLS
-    # the v pass's grid is one wave: the blocks it plans for each SM must
-    # all fit there at once
-    m = re.search(r"__launch_bounds__\(kThreads,\s*(\d+)\)\s*\nv_kernel", sk)
-    assert m and int(m.group(1)) >= sinkhorn.V_BLOCKS_PER_SM
+    # the v pass: a block of V_WARPS warps, one an SM (the plan counts
+    # blocks as SMs), clusters of 1 to V_CLUSTERS[-1] blocks, and
+    # V_MIN_ROWS rows a block: one kVTile-row tile for each warp
+    m = re.search(r"constexpr int kVThreads\s*=\s*(\d+);", sk)
+    assert m and int(m.group(1)) == 32 * sinkhorn.V_WARPS
+    assert re.search(r"kVWarps\s*=\s*kVThreads / 32;", sk)
+    assert re.search(r"__launch_bounds__\(kVThreads,\s*1\)\s*\nv_kernel", sk)
+    m = re.search(r"kVMaxCluster\s*=\s*(\d+);", sk)
+    assert m and int(m.group(1)) == sinkhorn.V_CLUSTERS[-1]
+    assert sinkhorn.V_CLUSTERS == (1, 2, 4, 8, 16)
+    tile = int(re.search(r"kVTile\s*=\s*(\d+);", sk).group(1))
+    assert sinkhorn.V_MIN_ROWS == sinkhorn.V_WARPS * tile
+    # the lanes a row segment the entry point takes
+    assert re.search(r"lanes != 32 && lanes != 16 && lanes != 8\)", sk)
+    assert sinkhorn.V_LANES == (32, 16, 8)
+    # the shared memory a block asks for leaves no room for a second block
+    # on an SM's 227 KB
+    m = re.search(r"constexpr int kVSmem = (\d+) \* 1024;", sk)
+    assert m and 227 // 2 < int(m.group(1)) <= 227
     # the split u pass: the block's warps, a warp tile's columns and the
     # blocks an SM the plan counts on, which the kernel's launch bounds
     # must keep resident
@@ -181,30 +198,64 @@ def test_pair_route(n, offset, staged):
     assert fused_score.staged_route(n, rf, rf, mask, rf) is staged
 
 
-@pytest.mark.parametrize("P, N, sms", [
-    (8192, 8192, 132), (4096, 8192, 132), (5000, 3000, 132),
-    (1000, 3001, 132), (96, 32, 132), (1, 8, 132), (3, 5, 1),
-    (100000, 128, 132), (8192, 16384, 132),
+#: the clusters of 1, 2, ..., 16 v blocks an NVIDIA H100 80GB HBM3 (132
+#: SMs) keeps resident, as ``ktt_sinkhorn_v_fit`` reads them off the card
+#: (clusters stay inside one GPC: 30 of 4 use 120 SMs, 7 of 16 use 112)
+H100_FIT = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+
+
+@pytest.mark.parametrize("fit", [
+    H100_FIT,
+    H100_FIT[:8] + (0,) * 8,    # no cluster beyond the portable 8
+    (132, 66, 44, 33, 26, 22, 18, 16, 14, 13, 12, 11, 10, 9, 8, 8),
+    (1,) + (0,) * 15])           # one SM
+@pytest.mark.parametrize("P, N", [
+    (8192, 8192), (4096, 8192), (5000, 3000), (1000, 3001), (96, 32),
+    (1, 8), (3, 5), (100000, 128), (8192, 16384), (8192, 100000),
+    # a mesh shard's block: d = 8, 4, 2 of the 8192 bucket, and mesh arm
+    # E's plan run (4096 pods on 4 shards)
+    (8192, 1024), (8192, 2048), (8192, 4096), (4096, 2048),
     # the restricted frames: P_pad <= 128 against C = 256, and a
     # partitioned block's (4096, 256)
-    (16, 256, 132), (128, 256, 132), (4096, 256, 132)])
-def test_v_plan_covers_every_row_once(P, N, sms):
-    strips, chunks, rows = sinkhorn.v_plan(P, N, sms)
-    assert strips * sinkhorn.V_COLS >= N > (strips - 1) * sinkhorn.V_COLS
-    assert 1 <= chunks <= sinkhorn.V_CHUNKS
-    # chunk c holds rows [c*rows, min((c+1)*rows, P)): none empty, all
-    # rows covered
-    assert (chunks - 1) * rows < P <= chunks * rows
-    # one wave: the grid fits the card's block slots unless a strip alone
-    # overflows them
-    assert chunks == 1 or strips * chunks <= sinkhorn.V_BLOCKS_PER_SM * sms
+    (16, 256), (128, 256), (4096, 256)])
+def test_v_plan_covers_every_row_once(P, N, fit):
+    lanes, strips, cluster, rows = sinkhorn.v_plan(P, N, fit)
+    assert lanes in sinkhorn.V_LANES and cluster in sinkhorn.V_CLUSTERS
+    cols = 4 * lanes
+    assert strips * cols >= N > (strips - 1) * cols
+    # block r of a cluster holds rows [r*rows, min((r+1)*rows, P)): none
+    # empty, all rows covered once, at least a tile for each warp when
+    # the strip is split
+    assert (cluster - 1) * rows < P <= cluster * rows
+    assert cluster == 1 or rows >= sinkhorn.V_MIN_ROWS
+    # one wave: no more strips than the card keeps clusters of this size
+    # resident (one block an SM) -- unless no plan is one wave, and then a
+    # strip of 128 columns a block
+    wave = strips <= fit[cluster - 1]
+    assert wave or (lanes, cluster) == (32, 1)
+    # and no plan that is one wave has more blocks, or as many with a
+    # wider strip
+    for ln in sinkhorn.V_LANES:
+        s = -(-N // (4 * ln))
+        for cs in sinkhorn.V_CLUSTERS:
+            if s <= fit[cs - 1] and (cs == 1
+                                     or cs * sinkhorn.V_MIN_ROWS <= P):
+                assert wave and (s * cs, ln) <= (strips * cluster, lanes)
 
 
 def test_v_plan_at_the_main_shapes():
-    # on a 132-SM H100: 64 strips x 4 chunks, 256 blocks for 264 planned
-    # slots (two an SM), at the padded shape and at the plan path's
-    assert sinkhorn.v_plan(8192, 8192, 132) == (64, 4, 2048)
-    assert sinkhorn.v_plan(4096, 8192, 132) == (64, 4, 1024)
+    # on an H100 (H100_FIT), one block an SM: 128 blocks at the padded
+    # dense shape and at the plan path's (64 strips of 128 columns over
+    # clusters of 2); a mesh shard's block spreads its few strips over
+    # clusters of 2-8 blocks. At 1024 columns no plan of more blocks is
+    # one wave: 16 strips of 64 columns over clusters of 8 would need 16
+    # resident, and the card keeps 15
+    assert sinkhorn.v_plan(8192, 8192, H100_FIT) == (32, 64, 2, 4096)
+    assert sinkhorn.v_plan(4096, 8192, H100_FIT) == (32, 64, 2, 2048)
+    assert sinkhorn.v_plan(8192, 4096, H100_FIT) == (16, 64, 2, 4096)
+    assert sinkhorn.v_plan(8192, 2048, H100_FIT) == (8, 64, 2, 4096)
+    assert sinkhorn.v_plan(8192, 1024, H100_FIT) == (32, 8, 8, 1024)
+    assert sinkhorn.v_plan(4096, 2048, H100_FIT) == (8, 64, 2, 2048)
 
 
 @pytest.mark.parametrize("P, N", [
@@ -270,6 +321,7 @@ def test_entry_points_are_called_from_one_place_each():
         "ktt_sinkhorn_u": {"sinkhorn.py"},
         "ktt_sinkhorn_u_partial": {"sinkhorn.py"},
         "ktt_sinkhorn_v": {"sinkhorn.py"},
+        "ktt_sinkhorn_v_fit": {"sinkhorn.py"},
         "ktt_loop_build": {"device_loop.py"},
         "ktt_loop_launch": {"device_loop.py"},
         "ktt_loop_destroy": {"device_loop.py"},

@@ -539,7 +539,8 @@ def test_scheduler_mesh_cycle_equals_the_mesh_off_cycle(solver,
 
 @pytest.mark.parametrize("solver,module,wrapper", [
     ("batch", tfs, "fused_pair_max"), ("batch", tfs, "fused_pair_scale"),
-    ("sinkhorn", tsk, "sinkhorn_u_partial")])
+    ("sinkhorn", tsk, "sinkhorn_u_partial"),
+    ("sinkhorn", tsk, "sinkhorn_v")])
 def test_a_kernel_error_of_a_split_kernel_escapes_every_rung(
         solver, module, wrapper, monkeypatch):
     """A split kernel that fails to build or launch raises KernelError on

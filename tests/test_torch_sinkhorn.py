@@ -8,6 +8,7 @@ and the auto-router takes the plan exactly when that signature shows."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,6 +67,49 @@ def test_scaling_passes_match_the_pallas_kernels(shape):
            ju)
     _close(ts.sinkhorn_v(torch.tensor(logk), u0, torch.tensor(log_c)),
            jv)
+
+
+def _reference_v(logk, u, log_c, jnp_rule):
+    """The reference's column pass: its ``_v_kernel`` as ``_scale_pallas``
+    launches it (columns padded to its block, interpret mode) in the
+    Pallas rule; its jnp scaling's v step in the jnp rule."""
+    if jnp_rule:
+        v = jnp.minimum(jnp.asarray(log_c)
+                        - js._col_lse(jnp.asarray(logk), jnp.asarray(u)), 0.0)
+        return np.asarray(jnp.where(jnp.isfinite(v), v, 0.0))
+    from jax.experimental import pallas as pl
+
+    P, N0 = logk.shape
+    _bp, bn, _P, N = js._block_shapes(P, N0)
+    logk = np.pad(logk, ((0, 0), (0, N - N0)), constant_values=js.NEG_INF)
+    log_c = np.pad(log_c, (0, N - N0), constant_values=js.NEG_INF)
+    v_call = pl.pallas_call(
+        js._v_kernel, grid=(N // bn,),
+        in_specs=[pl.BlockSpec((P, bn), lambda j: (0, j)),
+                  pl.BlockSpec((1, P), lambda j: (0, 0)),
+                  pl.BlockSpec((1, bn), lambda j: (0, j))],
+        out_specs=pl.BlockSpec((1, bn), lambda j: (0, j)),
+        out_shape=jax.ShapeDtypeStruct((1, N), jnp.float32), interpret=True)
+    return np.asarray(v_call(jnp.asarray(logk), jnp.asarray(u)[None, :],
+                             jnp.asarray(log_c)[None, :]))[0, :N0]
+
+
+@pytest.mark.parametrize("jnp_rule", [False, True])
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_per_block_v_matches_the_reference_column_pass(d, jnp_rule):
+    # a mesh of d shards runs the v pass on each shard's column block:
+    # the blocks' potentials, side by side, are the reference's whole pass
+    P, N = 96, 64
+    logk, _log_r, log_c = _log_tables(*_problem(7 + d, P, N,
+                                                zero_caps=True))
+    u = np.random.default_rng(d).uniform(-3, 0, P).astype(np.float32)
+    u[::7] = js.NEG_INF  # rows that ship nothing
+    want = _reference_v(logk, u, log_c, jnp_rule)
+    got = torch.cat([
+        ts.sinkhorn_v_plain(torch.tensor(lk), torch.tensor(u),
+                            torch.tensor(lc), jnp_rule)
+        for lk, lc in zip(np.split(logk, d, 1), np.split(log_c, d))])
+    _close(got, want)
 
 
 def test_scaling_matches_the_jnp_loop_with_stats_and_tolerance():
