@@ -173,6 +173,9 @@ def collect() -> None:
     them: one device-to-host read per card that ever captured a launch.
     Call it outside any timed or sync-checked region."""
     for counts in _DEVICE_COUNTS.values():
+        # graftlint: disable=R7 -- launch-count bookkeeping, read outside
+        # any timed or sync-checked region: not a solver read (SYNCS
+        # counts those, and a cycle's report subtracts them)
         got = counts.tolist()
         counts.zero_()
         for (name, shape), slot in _DEVICE_SLOTS.items():

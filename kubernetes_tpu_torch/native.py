@@ -42,7 +42,8 @@ def _hungarian_py(score: np.ndarray) -> np.ndarray:
     """The shortest-augmenting-path algorithm in numpy."""
     BIG = 1e12
     P, S = score.shape
-    # f64 keeps the dual potentials' tie-break ordering exact
+    # graftlint: disable=R5 -- host Hungarian oracle: f64 keeps the dual
+    # potentials' tie-break ordering exact; nothing here rides the device
     cost = np.where(score <= -1e29, BIG, -score.astype(np.float64))
     u = np.zeros(P + 1)
     v = np.zeros(S + 1)

@@ -232,7 +232,7 @@ def upload(a, device, dtype=None) -> Tensor:
     caching host allocator holds the pinned block until the copy ran).
     Raises when ``cuda`` is asked for and no card is visible."""
     dev = resolve_device(device)
-    arr = np.asarray(a, dtype=dtype)
+    arr = np.asarray(a, dtype=dtype)  # graftlint: disable=R7 -- a is host data (the upload's source)
     if dev.type != "cuda":
         return torch.tensor(arr)
     if not (arr.flags.c_contiguous and arr.flags.writeable):
@@ -350,7 +350,7 @@ def scatter_node_rows(resident: DeviceNodes, sub: DeviceNodes,
     sole owner of the resident tensors, which is what makes the in-place
     update safe. Returns the patched DeviceNodes (same tensors, fresh
     ``zone_valid``)."""
-    idx = np.asarray(idx, np.int64)
+    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7 -- host row indices
     keep = np.nonzero(idx < resident.n)[0]
     if len(keep):
         dev = resident.valid.device
@@ -515,7 +515,7 @@ def topology_to_device(t: TopologyTables, device="cuda") -> DeviceTopology:
         # of matcher 0 — the pm_* matmuls are the only validity gate the
         # at/st tables have
         oh = np.zeros((rows, M), np.float32)
-        m_idx = np.asarray(m_idx)
+        m_idx = np.asarray(m_idx)  # graftlint: disable=R7 -- host pack input, never a device value
         ok = m_idx >= 0
         r = np.arange(len(m_idx))[ok]
         if len(r):
@@ -582,4 +582,5 @@ def from_numpy(kind: str, fields: dict, device="cuda"):
     over as they are."""
     cls = _KINDS[kind]
     up = functools.partial(upload, device=resolve_device(device))
+    # graftlint: disable=R7 -- fields are host numpy arrays (the input)
     return cls(**{f: up(np.asarray(fields[f])) for f in cls._fields})

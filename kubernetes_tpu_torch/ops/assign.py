@@ -850,6 +850,9 @@ def _general_statics(flags):
               if k not in ("weights", "route_plan")])
 
 
+# graftlint: disable-scope=R8 -- placement, not a gather: a (P, N) input on
+# the mesh's first device split into its column blocks, block i onto
+# devices[i] (no copy on a logical mesh)
 def _column_blocks(x, mesh):
     """A (P, N) table's column blocks, block i on ``mesh.devices[i]``."""
     if x is None:
@@ -937,7 +940,10 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
              ems[i], ess[i], ranks[i], pro[i][1], pro[i][2], pro[i][3],
              pro[i][4]) for i in range(d))
         if sk_init is not None:
+            # graftlint: disable=R8 -- placement of the warm start: u
+            # replicated onto every shard, v split into its row blocks
             us = [sk_init[0].to(dv, torch.float32) for dv in devs]
+            # graftlint: disable=R8 -- placement of the warm start (v)
             vs = [b.to(dv, torch.float32) for b, dv in zip(
                 sk_init[1].chunk(d, 0), devs)]
         else:
@@ -967,6 +973,9 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
                 torch.full((2,), -1.0, dtype=torch.float32, device=devs[0]),
                 (torch.zeros((P,), dtype=torch.float32, device=devs[0]),
                  torch.zeros((N,), dtype=torch.float32, device=devs[0])))
+    # graftlint: disable=R8 -- the solve's result: v gathered once onto
+    # devices[0] for the caller, as the docstring says (per-shard reads
+    # of the result are ROADMAP §A item 1's open work)
     sk_v = torch.cat([st[4].to(devs[0]) for st in states])
     return states[0][0], usage, rounds, states[0][2], (states[0][3], sk_v)
 
@@ -1158,6 +1167,10 @@ def solve_memory_analysis(pods: DevicePods, nodes: DeviceNodes,
         unreplicated(pods).valid.device, args)
 
 
+# graftlint: disable-scope=R2,R7,R8 -- the deliberate host boundary: trust-
+# but-verify reads the solver's claimed result back ONCE per cycle to check
+# it before any pod binds; cheap O(P*R + N*R) numpy by design (see
+# docstring). On a mesh the result is already on the first device
 def validate_solution(assigned, usage: UsageState, pods: DevicePods,
                       nodes: DeviceNodes,
                       enabled_mask: Optional[int] = None) -> Tuple[bool, str]:

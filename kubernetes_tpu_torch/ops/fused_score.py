@@ -253,7 +253,7 @@ def patch_node_summary(summary: NodeSummary, sub: NodeSummary,
 
     from kubernetes_tpu_torch.ops.arrays import upload
 
-    idx = np.asarray(idx, np.int64)
+    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7 -- host row indices
     keep = np.nonzero(idx < summary.rank.shape[0])[0]
     if len(keep):
         dev = summary.rank.device

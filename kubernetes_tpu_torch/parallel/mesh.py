@@ -295,7 +295,7 @@ def scatter_placed(placed: ShardedNodes, whole_new, sub, idx):
 
     from kubernetes_tpu_torch.ops.arrays import scatter_node_rows
 
-    idx = np.asarray(idx, np.int64)
+    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7 -- host row indices
     rows = placed.rows
     blocks = []
     for i, (b, dev) in enumerate(zip(placed.blocks, mesh.devices)):

@@ -104,3 +104,61 @@ def make_pdb(name: str, match_labels: Dict[str, str],
         name=name, namespace=namespace,
         selector=LabelSelector(match_labels=dict(match_labels)),
         disruptions_allowed=disruptions_allowed)
+
+
+def lint_clean(
+    source,
+    rules: Sequence[str] = ("R1", "R2", "R3", "R5", "R6"),
+    filename: str = "<kernel>",
+    capture_all: bool = True,
+) -> None:
+    """Assert a round program's or kernel's source passes the port's
+    graftlint — the capture-safety analog of the wrappers above: a new
+    ops module pins its own discipline with one line in its unit test::
+
+        from kubernetes_tpu_torch.testing import lint_clean
+        import kubernetes_tpu_torch.ops.mykernel as mk
+        def test_mykernel_capture_safe():
+            lint_clean(mk)
+
+    ``source`` is a source string, a module, or any object
+    ``inspect.getsource`` accepts (function, class). ``capture_all=True``
+    treats every *uncalled* top-level function as a capture root (its
+    positional parameters tensors, ``first``/``tag`` and keyword-only
+    parameters host), so the check covers round programs whose
+    ``device_loop.run`` call lives in the caller; helpers the source
+    itself calls are judged by their real call-site taint. Pass
+    ``capture_all=False`` for modules that mix round programs with
+    deliberate host-side functions (``ops/assign.py``'s trust-but-verify
+    ``validate_solution``) to lint via the module's real ``device_loop.run``
+    roots. The default rule set is the device-side discipline (capture
+    safety, host syncs, re-capture, dtype); pass ``rules=None`` for
+    everything.
+
+    Raises AssertionError listing every finding; returns None when clean.
+    """
+    import inspect
+    import os
+
+    from kubernetes_tpu_torch.lint import lint_source
+    from kubernetes_tpu_torch.lint.report import render_text
+
+    if not isinstance(source, str):
+        filename = getattr(source, "__file__", None) or filename
+        source = inspect.getsource(source)
+    # R5 scopes by path: make bare snippet names look like ops/ files so
+    # the dtype rule engages for kernel sources passed as strings
+    if "/" not in filename.replace(os.sep, "/"):
+        filename = f"ops/{filename.lstrip('<').rstrip('>') or 'kernel'}.py"
+    # R6 is always on: every OTHER rule is vacuous on source that does
+    # not parse, so without the syntax gate a broken kernel would pass
+    select = tuple(dict.fromkeys(tuple(rules) + ("R6",))) \
+        if rules is not None else None
+    findings = lint_source(
+        source, filename=filename, select=select, capture_all=capture_all,
+    )
+    if findings:
+        raise AssertionError(
+            "graftlint found capture-safety problems:\n"
+            + render_text(findings)
+        )
