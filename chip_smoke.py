@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs seventeen phases and exits
+``nvcc`` per source, in parallel), then runs eighteen phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -25,28 +25,41 @@ non-zero if any fails:
    ``Scheduler(device="cuda")`` until the queue drains (its 8192-pod
    cycle pipelines in 2 chunks at the defaults, the 1808-pod one does
    not);
-4. the plan path: ``Scheduler(solver="sinkhorn")`` on the same cluster
+4. the kernel-route policy (``KTPU_PALLAS``, the reference's
+   ``use_pallas`` variable), cell ``smoke-5k-prefaffinity`` at full width
+   in two fresh schedulers, the variable unset (the deployment default)
+   and ``"1"``: both launch the pair and place alike, and each arm's
+   cycle seconds are printed. The plain route is refused on the card:
+   under ``"0"`` a scheduler on the card, a solve and a plan on its
+   tensors, and unset ``fused_score=False`` and ``pallas=False``, each
+   raise ``PlainRouteRefused`` and launch none of the six hand-kernel
+   entries. Unset is decided per process, so CPU tensors beside the card
+   take the card's route: the tied-preferences workload (which the
+   auto-router plans) places on them as on the card, and the seeded
+   zero-capacity plan agrees on both. Every other phase runs the
+   deployment default;
+5. the plan path: ``Scheduler(solver="sinkhorn")`` on the same cluster
    with 4096 pending pods (one Sinkhorn stats sample a cycle, riding the
    solve's readback, on the flight record and in
    ``scheduler_sinkhorn_iterations``), the same path reduced (500 nodes,
    1024 pods) on the card and on CPU tensors with equal placements and
    stats (the residual within atol 1e-5 / rtol 1e-4), then the
    tied-preferences workload through the default auto-router;
-5. the topology path at full width, cell ``topo-5k-mixed``: the same
+6. the topology path at full width, cell ``topo-5k-mixed``: the same
    cluster with 10,000 pending pods mixing preferred zones, hostname pod
    anti-affinity, zone pod affinity, and hard and soft topology spread,
    checked by a host re-check of every constraint;
-6. one reduced cycle of each cell (1000 nodes x 2048 pods), and a reduced
+7. one reduced cycle of each cell (1000 nodes x 2048 pods), and a reduced
    run of the sparse cell (1000 nodes, C = 64, a 512-pod burst, then 8
    micro-batches), on CUDA and on CPU tensors (the plain versions) must
    place identically, with the same solve scopes;
-7. the failure path at full width, cell ``preempt-5k-burst``: 5000 full
+8. the failure path at full width, cell ``preempt-5k-burst``: 5000 full
    nodes (20,000 bound low-priority pods, some under a PDB) take 4064
    ordinary pods and 32 high-priority preemptors, then 64 poachers that
    only the freed nodes could hold, on a hand-advanced clock: preemption,
    nominated pods (pass A) and the explain report, checked by a host
    re-check of every victim, nomination, poacher and node;
-8. the sparsity-first routes at full width, cell ``sparse-5k-churn``: the
+9. the sparsity-first routes at full width, cell ``sparse-5k-churn``: the
    smoke cell's 5000 nodes and 1000 bound pods through
    ``Scheduler(incremental=IncrementalConfig(enabled=True, primary=True,
    candidate_bucket=256))``, once with ``solver="batch"`` and once with
@@ -58,7 +71,7 @@ non-zero if any fails:
    sequence, the capacity re-check, the misfit's FitError and the
    incremental metric families (a count per cycle by scope, the reuse
    gauge, the warm state's drops);
-9. the pipelined cycle executor at full width, cell ``pipeline-5k-30k``
+10. the pipelined cycle executor at full width, cell ``pipeline-5k-30k``
    (the reference bench's headline: 5000 nodes, 1000 bound, 30,000
    pending smoke pods in batches of 8192, each cycle in 2 chunks of at
    most 4096), at depth 2 and at depth 1: every chunk's dispatch runs
@@ -79,7 +92,7 @@ non-zero if any fails:
    agree. The device round loop (``csrc/graph_loop.cu``) is then held
    against its plain version, the Python loop, on the first chunk's
    inputs;
-10. the configured scheduler: every arm's configuration is a JSON
+11. the configured scheduler: every arm's configuration is a JSON
    v1alpha1 ``KubeSchedulerConfiguration`` written to a temporary
    directory, loaded with ``cli.load_config_file`` and built with
    ``Scheduler.from_config``. Arm A, cell ``pipeline-5k-30k`` with
@@ -99,7 +112,7 @@ non-zero if any fails:
    script serves on 127.0.0.1, then ``percentageOfNodesToScore: 50``:
    every bound node passed the extender's filter and lies in its cycle's
    ``NodeTree.take(k)`` subset;
-11. the serve loop, cell ``serve-5k-churn``: the smoke cluster (5000
+12. the serve loop, cell ``serve-5k-churn``: the smoke cluster (5000
    nodes, 1000 bound pods) under create/delete churn in 10 Hz bursts at
    500 ops/s (``scripts/bench_churn.py``'s default), pods of the smoke
    cell's shape. Arm A runs ``cli.run`` with the ServingRuntime (window
@@ -127,12 +140,12 @@ non-zero if any fails:
    kubernetes_tpu_torch`` as a process (``/healthz``, ``/metrics``, the
    lock file, rc 0 on SIGTERM) and 128 extender POSTs whose answers
    equal the same scheduler's on CPU tensors;
-12. the hollow cluster, cell ``hollow-5k-controllers``: arm A builds
+13. the hollow cluster, cell ``hollow-5k-controllers``: arm A builds
    ``sim.HollowCluster`` (admission, one tick of watch delay, a competing
    writer, flaky binds) with its scheduler on the card at its defaults,
    5000 smoke-cell nodes, a DaemonSet (a pod per node), 2500 pods of
    Deployments and zone-preferring bare pods, a Job of 500 and a
-   StatefulSet of 2 (the pod count cut, ``HOLLOW_FULL``); it steps until
+   StatefulSet of 1 (the pod count cut, ``HOLLOW_FULL``); it steps until
    every pod is bound, then 3 churn steps of 320 s (pods killed, nodes
    removed, 50 kubelets killed, their pods evicted; healed after the
    last, their nodes restored in arm B's first step),
@@ -146,7 +159,7 @@ non-zero if any fails:
    must see every binding once, a compaction (410 and relists), a stalled
    watch relisting past the deadline, the whole node and pod lists in
    protobuf decoding to the JSON lists' objects;
-13. the recovery paths: arm A, cell ``netchaos-5k``, ``chaos.NetChaos``
+14. the recovery paths: arm A, cell ``netchaos-5k``, ``chaos.NetChaos``
    at the reference's default fault rates (ambiguous bind timeouts, bind
    errors, verification GET timeouts, a dropping, duplicating and
    reordering watch, a relist storm) on a ``sim.HollowCluster`` of the
@@ -175,7 +188,7 @@ non-zero if any fails:
    the leader is killed: the standby takes over and binds every pod
    exactly once. No other phase may reset the device or run a host-mode
    cycle;
-14. the device backends of observability, cell ``ledger-5k``: the smoke
+15. the device backends of observability, cell ``ledger-5k``: the smoke
    cell's cluster, every scheduler from a JSON v1alpha1 file through
    ``Scheduler.from_config``, monolithic cycles, warmup at pod buckets
    1024-8192 (N = 8192). Arm A: the backends at their defaults against a
@@ -196,7 +209,7 @@ non-zero if any fails:
    error), 64-pod cycles recover it, and ``/debug/ledger``,
    ``/debug/memory``, ``/debug/incidents`` and ``/debug/profile`` answer
    over HTTP with the reference's keys;
-15. the scenario packs, every scheduler from a JSON v1alpha1 file with a
+16. the scenario packs, every scheduler from a JSON v1alpha1 file with a
    ``scenario:`` block through ``Scheduler.from_config``. Arm A, cell
    ``scenario-5k-consolidation``: the smoke cell through ``pack:
    consolidation`` under ``solver: batch`` and ``solver: sinkhorn``,
@@ -221,7 +234,7 @@ non-zero if any fails:
    nodes x 1024 pods equal on the card and on CPU tensors, and one
    quality-on cycle of each under sync-debug ``error`` making one sync
    more than its quality-off twin;
-16. the protobuf codec and the gRPC seam, cell ``grpc-5k-deltas``, over
+17. the protobuf codec and the gRPC seam, cell ``grpc-5k-deltas``, over
    ``grpc_shim.serve_grpc`` on 127.0.0.1 where ``grpcio`` imports, else
    over an in-process loopback that serializes every message each way
    with the port's codec (the line names the transport; both are token
@@ -242,7 +255,7 @@ non-zero if any fails:
    the smoke nodes and 500 of its pods, then a ReplicaSet, a churn step
    and the controller's refeed. Arm C: arm A's stream at 500 nodes x
    1024 pods places equally on the card and on CPU tensors;
-17. the node-axis mesh (``parallel.mesh``), every scheduler a
+18. the node-axis mesh (``parallel.mesh``), every scheduler a
    JSON v1alpha1 file through ``Scheduler.from_config``; every mesh of
    d > 1 runs the partitioned solve (one program per shard, the
    cross-shard reductions of ``parallel/collectives.py``, the split pair
@@ -280,11 +293,12 @@ non-zero if any fails:
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
-kernel with its launches on the main paths (the smoke cell, the plan
-path, the topology path, the preempt cell, the sparse cell, the
-pipeline cell, the configured scheduler's arm A, the serve loop's
-arms A-D, the hollow cluster's arms A and B, the recovery phase's
-arms A-C, the ledger phase's arms A-C, the scenario phase's arms and
+kernel with its launches on the main paths (the smoke cell, the
+kernel-route arms, the plan path, the topology path, the preempt cell,
+the sparse cell, the pipeline cell, the configured scheduler's arm A,
+the serve loop's arms A-D, the hollow cluster's arms A and B, the
+recovery phase's arms A-C, the ledger phase's arms A-C, the scenario
+phase's arms and
 the grpc phase's arms A-C and the mesh phase's arms A-E2,
 each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
@@ -302,8 +316,8 @@ last line is the one-line
 contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
-env, kernels, smoke, plan, topology, parity, preempt, sparse, pipeline,
-config, serve, hollow, recovery, ledger, scenario, grpc, mesh);
+env, kernels, smoke, route, plan, topology, parity, preempt, sparse,
+pipeline, config, serve, hollow, recovery, ledger, scenario, grpc, mesh);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -327,13 +341,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 
-ALL_PHASES = ("env", "kernels", "smoke", "plan", "topology", "parity",
+ALL_PHASES = ("env", "kernels", "smoke", "route", "plan", "topology",
+              "parity",
               "preempt", "sparse", "pipeline", "config", "serve", "hollow",
               "recovery", "ledger", "scenario", "grpc", "mesh")
 #: the phases that drive a main path and count its kernel launches
-MAIN_PATHS = ("smoke", "plan", "topology", "preempt", "sparse", "pipeline",
-              "config", "serve", "hollow", "recovery", "ledger", "scenario",
-              "grpc", "mesh")
+MAIN_PATHS = ("smoke", "route", "plan", "topology", "preempt", "sparse",
+              "pipeline", "config", "serve", "hollow", "recovery", "ledger",
+              "scenario", "grpc", "mesh")
 #: the phases that inject device faults (any other phase fails on a
 #: device reset or a host-mode cycle)
 FAULT_PHASES = ("recovery", "mesh")
@@ -1344,7 +1359,8 @@ def _bound(nbytes: float, ops: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 3-5: the main path through the port's Scheduler
+# phases 3-6: the main path through the port's Scheduler (3 and 5-6),
+# and the kernel-route policy on it (4)
 # ---------------------------------------------------------------------------
 
 ZONE = "failure-domain.beta.kubernetes.io/zone"
@@ -1786,6 +1802,229 @@ def phase_cell(phase: str) -> dict:
     return {"launches": launches, "cycles": len(results), "shapes": shapes}
 
 
+#: the hand-kernel entries the plain route must not launch
+ROUTE_KERNELS = ("fused_pair_normalize", "fused_pair_max", "fused_pair_scale",
+                 "sinkhorn_u", "sinkhorn_u_partial", "sinkhorn_v")
+
+
+@contextlib.contextmanager
+def kernel_route(value):
+    """``KTPU_PALLAS`` set to ``value`` (None: unset, the default route)
+    inside the block, restored after it."""
+    old = os.environ.pop("KTPU_PALLAS", None)
+    if value is not None:
+        os.environ["KTPU_PALLAS"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("KTPU_PALLAS", None)
+        if old is not None:
+            os.environ["KTPU_PALLAS"] = old
+
+
+def _route_cycles(sched, nodes, bound, pending):
+    """Feed the cluster, then :func:`_mesh_cycles` with the launches and
+    the round-loop captures counted from 0. Returns (results, launches,
+    captures, wall seconds of the cycles, each cycle's span seconds)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.ops import device_loop
+
+    feed(sched, nodes, bound, [])
+    kernels.reset_launches()
+    captures = device_loop.CAPTURES.count
+    results, records, wall = _mesh_cycles(sched, pending)
+    return (results, launch_counts(), device_loop.CAPTURES.count - captures,
+            wall, [_span_sums(rec.spans) for rec in records])
+
+
+def _tied_tables(dev: str):
+    """The tied-preferences workload (a batch the auto-router sends to the
+    plan) as device tables on ``dev``: (pods, nodes, selectors, pods)."""
+    from kubernetes_tpu_torch.ops.arrays import (
+        nodes_to_device,
+        pods_to_device,
+        selectors_to_device,
+    )
+    from kubernetes_tpu_torch.snapshot import SnapshotPacker
+
+    t_nodes, t_pods, _points = tied_preferences_workload()
+    pk = SnapshotPacker()
+    for p in t_pods:
+        pk.intern_pod(p)
+    return (pods_to_device(pk.pack_pods(t_pods), device=dev),
+            nodes_to_device(pk.pack_nodes(t_nodes, []), device=dev),
+            selectors_to_device(pk.pack_selector_tables(), device=dev),
+            t_pods)
+
+
+def _tied_route(dev: str) -> dict:
+    """The tied-preferences workload through ``batch_assign`` on ``dev``
+    under the current route, the default auto-router and a forced plan:
+    label -> (placements, Sinkhorn iterations of the last plan round)."""
+    from kubernetes_tpu_torch.ops.assign import batch_assign
+
+    dp, dn, ds, t_pods = _tied_tables(dev)
+    out = {}
+    for label, kw in (("default", {}), ("forced_plan",
+                                        {"use_sinkhorn": True})):
+        a, _u, _r, stats = batch_assign(dp, dn, ds, per_node_cap=2,
+                                        stats_out=True, **kw)
+        out[label] = (a.cpu().tolist()[: len(t_pods)],
+                      float(stats.cpu()[0]))
+    return out
+
+
+def _zero_capacity_plan(dev: str):
+    """A seeded 16 x 8 plan's inputs on ``dev``: columns 0 and 3 at
+    capacity 0, every other column at 2, column 0 scoring 5 more than the
+    rest (the case where the two routes' rules part)."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(0)
+    score = g.integers(0, 10, (16, 8)).astype(np.float32)
+    score[:, 0] += 5
+    mask = g.random((16, 8)) < 0.8
+    cap = np.full(8, 2, np.float32)
+    cap[[0, 3]] = 0
+    return tuple(torch.tensor(x, device=dev) for x in (score, mask, cap))
+
+
+def phase_route() -> dict:
+    """The kernel-route policy on the card (``KTPU_PALLAS``, the
+    reference's ``use_pallas`` variable). The smoke cell at full width
+    through ``Scheduler(device="cuda")`` in two fresh schedulers, the
+    variable unset (the deployment default) and ``"1"``: fails unless
+    both launch the pair, bind every pod on the batch tier and place
+    alike; each arm's cycle seconds are printed. The plain route is
+    refused on the card: under ``"0"`` a scheduler on the card, a solve
+    on the card's tables and a plan on the card's tensors, and with the
+    variable unset ``batch_assign(fused_score=False)`` and
+    ``sinkhorn_plan(pallas=False)`` on them, must each raise
+    ``PlainRouteRefused`` and launch none of the six hand-kernel entries.
+    The unset default is decided per process: a CPU tensor here takes the
+    card's route, so the tied-preferences workload (the auto-router plans
+    it) places on CPU tensors as on the card, and the seeded
+    zero-capacity plan agrees on both within atol 1e-5 / rtol 1e-4.
+    Returns the two arms' launches (the phase's path) and cycle count."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.ops.assign import batch_assign
+    from kubernetes_tpu_torch.ops.fused_score import (
+        PlainRouteRefused,
+        use_kernels,
+    )
+    from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_plan
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    t_phase = time.perf_counter()
+    warm_up("smoke")
+    nodes, bound, pending = smoke_cell()
+    by_key = {p.key(): p for p in pending}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    cycles = 0
+    arms = []
+    for value in (None, "1"):
+        name = "default" if value is None else "kernel"
+        with kernel_route(value):
+            results, got, captured, wall, spans = _route_cycles(
+                Scheduler(device="cuda"), nodes, bound, pending)
+        for k in total:
+            total[k] += got[k]
+        cycles += len(results)
+        placed = {k: v for r in results for k, v in r.assignments.items()}
+        if len(placed) != len(pending):
+            fail(f"route/{name}: bound {len(placed)} of {len(pending)}")
+        for r in results:
+            if r.solver_tier != "batch" or r.solver_fallbacks:
+                fail(f"route/{name}: a cycle solved on tier "
+                     f"{r.solver_tier!r} after {r.solver_fallbacks} "
+                     "fallbacks")
+        if got["fused_pair_normalize"] <= 0:
+            fail(f"route/{name}: the kernel route never launched the pair")
+        recheck_capacity(nodes, bound, placed, by_key)
+        arms.append({"arm": name, "KTPU_PALLAS": value,
+                     "cycle_s": [r.elapsed_s for r in results],
+                     "solve_s": [r.solve_s for r in results],
+                     "rounds": [r.rounds for r in results],
+                     "host_syncs": [r.host_syncs for r in results],
+                     "wall_s": wall, "graph_captures": captured,
+                     "spans": spans,
+                     "launches": {k: got[k] for k in ROUTE_KERNELS},
+                     "placements": [r.assignments for r in results]})
+    if arms[1]["placements"] != arms[0]["placements"]:
+        fail("route/kernel: placements differ from the default arm's")
+    for arm in arms:
+        arm.pop("placements")
+
+    # the plain route on the card: refused at every door, nothing launched
+    dp, dn, ds, _t_pods = _tied_tables("cuda")
+    plan_in = _zero_capacity_plan("cuda")
+    doors = (("0", "scheduler", lambda: Scheduler(device="cuda")),
+             ("0", "batch_assign", lambda: batch_assign(dp, dn, ds)),
+             ("0", "sinkhorn_plan", lambda: sinkhorn_plan(*plan_in)),
+             (None, "fused_score=False",
+              lambda: batch_assign(dp, dn, ds, fused_score=False)),
+             (None, "pallas=False",
+              lambda: sinkhorn_plan(*plan_in, pallas=False)))
+    kernels.reset_launches()
+    refused = []
+    for value, door, call in doors:
+        with kernel_route(value):
+            try:
+                call()
+            except PlainRouteRefused as e:
+                refused.append({"door": door, "KTPU_PALLAS": value,
+                                "error": str(e)[:160]})
+                continue
+        fail(f"route/plain: {door} (KTPU_PALLAS={value or 'unset'}) took "
+             "the plain route on the card")
+    got = launch_counts()
+    if any(got[k] for k in ROUTE_KERNELS):
+        fail(f"route/plain: a refused call launched kernels {got}")
+
+    # unset, decided per process: a CPU tensor takes the card's route
+    with kernel_route(None):
+        if not use_kernels("cpu"):
+            fail("route: a CPU tensor beside the card left the card's route")
+        kernels.reset_launches()
+        tied = {dev: _tied_route(dev) for dev in ("cuda", "cpu")}
+        got = launch_counts()
+        plans = {dev: sinkhorn_plan(*_zero_capacity_plan(dev)).cpu()
+                 for dev in ("cuda", "cpu")}
+    if not got["sinkhorn_u"] or not got["sinkhorn_v"]:
+        fail(f"route/tied: the card's plan ran no u or v kernel ({got})")
+    for label in tied["cuda"]:
+        (a_gpu, it_gpu), (a_cpu, it_cpu) = (tied["cuda"][label],
+                                            tied["cpu"][label])
+        # the kernels sum in another order: the first converged
+        # iteration may fall one apart at the tolerance's edge
+        if a_gpu != a_cpu or it_gpu < 0 or abs(it_gpu - it_cpu) > 1:
+            fail(f"route/tied {label}: the card placed unlike the CPU "
+                 f"({tied})")
+    zc_err = float((plans["cuda"] - plans["cpu"]).abs().max())
+    if not torch.allclose(plans["cuda"], plans["cpu"], atol=1e-5,
+                          rtol=1e-4) or not torch.equal(
+                              plans["cuda"].argmax(1),
+                              plans["cpu"].argmax(1)):
+        fail(f"route/zero-capacity plan: card and CPU differ ({zc_err})")
+    for arm in arms:
+        print(f"chip_smoke: route {arm['arm']} (KTPU_PALLAS="
+              f"{arm['KTPU_PALLAS'] or 'unset'}): cycle seconds "
+              f"{arm['cycle_s']}", flush=True)
+    emit({"phase": "route", "cell": "smoke-5k-prefaffinity",
+          "nodes": len(nodes), "bound": len(bound),
+          "pending": len(pending), "arms": arms, "refused": refused,
+          "tied": {"equal_to_cpu": True,
+                   "sinkhorn_iterations": {
+                       k: [tied["cuda"][k][1], tied["cpu"][k][1]]
+                       for k in tied["cuda"]}},
+          "zero_capacity_plan_max_abs_err": zc_err,
+          "seconds": time.perf_counter() - t_phase})
+    return {"launches": total, "cycles": cycles}
+
+
 def profile_cycle(out_dir: str, phase: str) -> None:
     """The first cycle of the phase's cell under torch.profiler: device
     time by kernel, the device-busy share of the cycle, and a gzipped
@@ -1894,7 +2133,7 @@ def phase_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: preemption, nominated pods and the explain report
+# phase 8: preemption, nominated pods and the explain report
 # ---------------------------------------------------------------------------
 
 PREEMPTOR_PRIORITY = 1000
@@ -2127,7 +2366,7 @@ def phase_preempt() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the sparsity-first routes (restricted, partitioned, warm Sinkhorn)
+# phase 9: the sparsity-first routes (restricted, partitioned, warm Sinkhorn)
 # ---------------------------------------------------------------------------
 
 #: micro-batch sizes the steady cycles cycle through (128 = max_batch_frac
@@ -2437,7 +2676,7 @@ def phase_sparse() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the pipelined cycle executor and the device round loop
+# phase 10: the pipelined cycle executor and the device round loop
 # ---------------------------------------------------------------------------
 
 
@@ -2504,12 +2743,13 @@ def busy_share(prof, wall_s: float) -> dict:
             "device_idle_share": 1.0 - busy_us / 1e6 / wall_s}
 
 
-def _span_sums(trace) -> dict:
+def _span_sums(durations: dict) -> dict:
     """Host seconds of the pipelined executor's span kinds in one cycle
     (``pack``, ``dispatch``, ``readback``, ``bind``, summed over chunks)
-    and of the cycle's other top-level spans."""
+    and of the cycle's other top-level spans, from the cycle trace's
+    ``span_durations()``."""
     out: dict = {}
-    for name, sec in trace.span_durations().items():
+    for name, sec in durations.items():
         key = name.split("@")[0].replace("pipeline:", "")
         out[key] = out.get(key, 0.0) + sec
     return out
@@ -2549,7 +2789,8 @@ def run_pipeline(depth: int, cell=None, chunk: int = 4096, device="cuda",
                 torch.cuda.set_sync_debug_mode(0)
         if r.attempted == 0:
             break
-        results.append((r, _span_sums(sched.obs.last_trace)))
+        results.append(
+            (r, _span_sums(sched.obs.last_trace.span_durations())))
         reads.append(sum(dc.reads[n0:]) if dc else 0)
         if facade is not None:
             rec = (sched.obs.recorder.records()[-1]
@@ -2741,7 +2982,8 @@ def phase_pipeline() -> dict:
           "cycle": 2, "scheduled": r.scheduled,
           "pipeline_chunks": r.pipeline_chunks, "rounds": r.rounds,
           "host_syncs": r.host_syncs, "wall_s_profiled": wall,
-          "spans_s": _span_sums(sched.obs.last_trace), **got})
+          "spans_s": _span_sums(sched.obs.last_trace.span_durations()),
+          **got})
     emit({"phase": "pipeline-upload", "cell": "pipeline-5k-30k",
           **time_full_upload(sched.cache.device_snapshot()[0])})
     del sched, prof
@@ -2885,7 +3127,7 @@ def check_round_loop(out_rows: dict, inputs) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the configured scheduler (Scheduler.from_config, the ladder,
+# phase 11: the configured scheduler (Scheduler.from_config, the ladder,
 # exact, extenders, node truncation, warmup)
 # ---------------------------------------------------------------------------
 
@@ -3426,7 +3668,7 @@ def phase_config() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the serve loop (cli.run, ServingRuntime, leader election with
+# phase 12: the serve loop (cli.run, ServingRuntime, leader election with
 # fenced binds and takeover reconciliation, the extender server)
 # ---------------------------------------------------------------------------
 
@@ -4674,7 +4916,7 @@ def phase_serve() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the hollow cluster, its informer and the REST registry
+# phase 13: the hollow cluster, its informer and the REST registry
 # ---------------------------------------------------------------------------
 
 #: cell ``hollow-5k-controllers``, arm A: kubemark's and scheduler_perf's
@@ -4684,9 +4926,12 @@ def phase_serve() -> dict:
 #: in proportion to nodes x pods. The StatefulSet's ordinals bind two
 #: steps apart, so its size sets the bind steps: 5 until the mesh phase
 #: came, 3 since (four fewer 5-10 s steps pay for that phase), 2 since
-#: the mesh phase's arm E (two fewer steps pay for it; two ordinals
-#: still bind in order)
-HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 2}
+#: the mesh phase's arm E (two fewer steps pay for it), 1 since the
+#: route phase (two fewer steps pay for it, 23-41 s each on the slowest
+#: host seen; the churn steps cannot go: the killed kubelets' pods are
+#: evicted only at the third). The equality arm's StatefulSet of 3 still
+#: binds its ordinals in order on the card against the CPU
+HOLLOW_FULL = {"n_nodes": 5000, "n_deploy": 2500, "n_job": 500, "n_sts": 1}
 #: the CUDA-against-CPU run: arm A's traffic at 500 nodes and 3000 pods
 HOLLOW_REDUCED = {"n_nodes": 500, "n_deploy": 1995, "n_job": 500,
                   "n_sts": 3}
@@ -5300,7 +5545,7 @@ def _merge_shapes(*runs) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the recovery paths — the ambiguous-bind protocol under network
+# phase 14: the recovery paths — the ambiguous-bind protocol under network
 # chaos, device-loss recovery with host mode, HA failover
 # ---------------------------------------------------------------------------
 
@@ -5807,7 +6052,7 @@ def phase_recovery() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the device backends of observability (cell ledger-5k)
+# phase 15: the device backends of observability (cell ledger-5k)
 # ---------------------------------------------------------------------------
 
 #: cell ``ledger-5k``: the smoke cell's cluster (5000 nodes over 10 zones,
@@ -6264,7 +6509,7 @@ def phase_ledger() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the scenario packs
+# phase 16: the scenario packs
 # ---------------------------------------------------------------------------
 
 #: the phase's cells: arm A's consolidation cell (the smoke cell), arm B's
@@ -7061,7 +7306,7 @@ def phase_scenario() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the protobuf codec and the gRPC seam
+# phase 17: the protobuf codec and the gRPC seam
 # ---------------------------------------------------------------------------
 
 #: cell ``grpc-5k-deltas``: arm A at full width (the smoke cell's cluster,
@@ -7700,7 +7945,7 @@ def phase_grpc() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the node-axis mesh on one card
+# phase 18: the node-axis mesh on one card
 # ---------------------------------------------------------------------------
 
 #: the mesh phase's sizes: arm A the smoke cell at full width, arm B
@@ -8585,6 +8830,7 @@ def main() -> None:
     paths = {}
     phase_s = {}
     for phase, run in (("smoke", lambda: phase_cell("smoke")),
+                       ("route", phase_route),
                        ("plan", phase_plan),
                        ("topology", lambda: phase_cell("topology")),
                        ("parity", phase_parity),

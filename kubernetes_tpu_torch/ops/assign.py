@@ -45,6 +45,7 @@ from kubernetes_tpu_torch.ops.arrays import (
     DevicePods,
     DeviceSelectors,
 )
+from kubernetes_tpu_torch.ops.fused_score import use_kernels
 from kubernetes_tpu_torch.ops.predicates import (
     BIT,
     resource_fit_mask,
@@ -652,11 +653,14 @@ def _serialize_topology(accepted, choice, rank, sens, pods, cur, topo,
 def _general_round(ctx, state, first, use_plan, *, weights, skip,
                    enabled_mask, no_ports, no_pod_affinity, no_spread,
                    per_node_cap, res_on, use_sinkhorn, auto_sinkhorn,
-                   sk_warm, sk_tol, with_stats, route_plan=None, sh=None):
+                   sk_warm, sk_tol, with_stats, fused, kernel_route,
+                   route_plan=None, sh=None):
     """One general assignment round (the body :func:`_batch_impl` loops),
     as a shard program over one block of the node axis (``sh`` None: the
     whole axis). ``first`` marks round 0, where the auto-router decides
-    ``use_plan`` for every later round with one counted sync."""
+    ``use_plan`` for every later round with one counted sync. ``fused``
+    scores the pair on its kernel, ``kernel_route`` runs the plan on the
+    Sinkhorn kernels (both resolved by :func:`batch_assign`)."""
     (pods, nodes, sel, topo, vol, static_vol, extra_mask, extra_score, rank,
      hoisted, hoisted_prio, sens, has_port) = ctx
     assigned, u, sk_stats, sk_u, sk_v = state
@@ -680,7 +684,7 @@ def _general_round(ctx, state, first, use_plan, *, weights, skip,
         mask = mask & extra_mask
     score = yield from run_priorities_g(
         pods, cur, sel, mask, weights, topo, skip=skip,
-        hoisted=hoisted_prio, fused=True, sh=sh)
+        hoisted=hoisted_prio, fused=fused, sh=sh)
     if extra_score is not None:
         score = score + extra_score
     # bidder window: only the top K = N*per_node_cap active pods (by
@@ -710,7 +714,7 @@ def _general_round(ctx, state, first, use_plan, *, weights, skip,
             tied, sk_stats, (sk_u, sk_v) = yield from _plan_tied(
                 score, rowmax, mask, slots,
                 init=(sk_u, sk_v) if sk_warm else None, tol=sk_tol,
-                with_stats=with_stats, sh=sh)
+                with_stats=with_stats, sh=sh, kernel_route=kernel_route)
     choice, _tc = yield from _rotated_pick(tied, arank, sh)
     feasible = yield from _take_cols(mask, choice, sh)
     choice = torch.where(feasible, choice, -1)
@@ -790,7 +794,8 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                 enabled_mask=None, extra_score=None, use_sinkhorn=False,
                 skip=(), no_ports=False, no_pod_affinity=False,
                 no_spread=False, auto_sinkhorn=True, with_stats=False,
-                sk_init=None, sk_tol=None, route_plan=None):
+                sk_init=None, sk_tol=None, route_plan=None, *, fused,
+                kernel_route):
     """The round loop. Returns ``(assigned, usage, rounds, sk_stats,
     (sk_u, sk_v))``: ``rounds`` an int32 0-d tensor, the last round's
     Sinkhorn stats ([-1, -1] when the plan never ran or ``with_stats`` is
@@ -827,7 +832,8 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
                  no_spread=no_spread, per_node_cap=per_node_cap,
                  res_on=res_on, use_sinkhorn=use_sinkhorn,
                  auto_sinkhorn=auto_sinkhorn, sk_warm=sk_warm, sk_tol=sk_tol,
-                 with_stats=with_stats, route_plan=route_plan)
+                 with_stats=with_stats, fused=fused,
+                 kernel_route=kernel_route, route_plan=route_plan)
     ctx = (pods, nodes, sel, topo, vol, static_vol, extra_mask, extra_score,
            rank, hoisted, hoisted_prio, sens, has_port)
     state = (torch.full((P,), -1, dtype=torch.int32, device=dev),
@@ -839,10 +845,12 @@ def _batch_impl(pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
 
 
 def _general_statics(flags):
-    """What a captured general round bakes in besides its inputs' shapes.
-    The tolerance-gated Sinkhorn reads its residual on the host every
-    iteration, so its rounds cannot be captured: they keep the Python
-    loop (None)."""
+    """What a captured general round bakes in besides its inputs' shapes,
+    the resolved kernel route included (a flip of ``KTPU_PALLAS``
+    captures a new graph, never replays one with the other route baked
+    in). The tolerance-gated Sinkhorn reads its residual on the host
+    every iteration, so its rounds cannot be captured: they keep the
+    Python loop (None)."""
     if flags["sk_tol"] is not None:
         return None
     return ("general", _weights_key(flags["weights"]),
@@ -867,7 +875,8 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
                         use_sinkhorn=False, skip=(), no_ports=False,
                         no_pod_affinity=False, no_spread=False,
                         auto_sinkhorn=True, with_stats=False, sk_init=None,
-                        sk_tol=None, route_plan=None):
+                        sk_tol=None, route_plan=None, *, fused,
+                        kernel_route):
     """The partitioned round loop over a :class:`~kubernetes_tpu_torch.
     parallel.mesh.ShardedNodes` of ``d`` blocks: one program per shard
     (the same round functions as :func:`_batch_impl`, each over its
@@ -930,6 +939,7 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
                   per_node_cap=per_node_cap, res_on=res_on,
                   use_sinkhorn=use_sinkhorn, auto_sinkhorn=auto_sinkhorn,
                   sk_warm=sk_warm, sk_tol=sk_tol, with_stats=with_stats,
+                  fused=fused, kernel_route=kernel_route,
                   route_plan=route_plan)
         statics = _general_statics(kw)
         program = _general_round
@@ -975,7 +985,7 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
                  torch.zeros((N,), dtype=torch.float32, device=devs[0])))
     # graftlint: disable=R8 -- the solve's result: v gathered once onto
     # devices[0] for the caller, as the docstring says (per-shard reads
-    # of the result are ROADMAP §A item 1's open work)
+    # of the result are ROADMAP §A item 3's open work)
     sk_v = torch.cat([st[4].to(devs[0]) for st in states])
     return states[0][0], usage, rounds, states[0][2], (states[0][3], sk_v)
 
@@ -994,7 +1004,7 @@ def _weights_key(weights) -> tuple:
 
 
 def _plan_tied(score, rowmax, mask, slots, init=None, tol=None,
-               with_stats=False, sh=None):
+               with_stats=False, sh=None, *, kernel_route):
     """Choose from the entropic-OT transport plan instead of the raw
     per-pod argmax: the plan balances the batch against node capacities,
     so contended pods pre-spread instead of colliding. Identical pods get
@@ -1002,13 +1012,15 @@ def _plan_tied(score, rowmax, mask, slots, init=None, tol=None,
     ``init``/``tol`` warm-start the scaling and gate it on a tolerance.
     Returns ``(tied mask, stats, (u, v))``; stats are [-1, -1] unless
     ``with_stats``. A shard program: the plan's row pass and its row
-    maximum reduce across shards."""
+    maximum reduce across shards. ``kernel_route`` is the plan's route
+    (``sinkhorn_plan``'s ``pallas``)."""
     from kubernetes_tpu_torch.ops.sinkhorn import sinkhorn_plan_g
 
     masked = torch.where(mask, score - rowmax, NEG)
     out = yield from sinkhorn_plan_g(masked, mask, slots,
                                      with_stats=with_stats, init=init,
-                                     tol=tol, return_potentials=True, sh=sh)
+                                     tol=tol, return_potentials=True, sh=sh,
+                                     pallas=kernel_route)
     if with_stats:
         plan, stats, pot = out
     else:
@@ -1045,6 +1057,7 @@ def batch_assign(
     fault_hook=None,
     fault_site: str = "solve:batch",
     route_plan: Optional[bool] = None,
+    fused_score: bool = True,
 ):
     """Fast batched solver. Returns (assigned row per pod or -1, final
     usage, rounds executed) — ``rounds`` an int32 0-d tensor on the
@@ -1054,10 +1067,20 @@ def batch_assign(
     :func:`greedy_assign` (None routes constraint-light batches to the
     lean round).
 
-    The general round always scores the NodeAffinity + TaintToleration
-    pair with the fused kernel (the CUDA kernel on the card) when the
-    regrouped accumulation is provably exact — bit-identical to the two
-    separate normalizes. ``use_sinkhorn`` picks from the transport plan
+    ``fused_score`` (default on) lets the general round score the
+    NodeAffinity + TaintToleration pair with the fused kernel (the CUDA
+    kernel on the card) when the regrouped accumulation is provably exact
+    — bit-identical to the two separate normalizes. It is resolved here,
+    at call time, against the kernel-route policy (``KTPU_PALLAS``,
+    :func:`~kubernetes_tpu_torch.ops.fused_score.use_kernels` of the
+    tables' device), as the reference resolves it against ``use_pallas``;
+    the same policy picks the transport plan's route, and both join the
+    round-loop graph's key. On the plain route the pair takes the two
+    separate normalizes and the plan the plain passes in the jnp rule; it
+    is for CPU tensors only: asked for on CUDA tensors (``KTPU_PALLAS=0``
+    or ``fused_score=False``), it raises
+    :class:`~kubernetes_tpu_torch.ops.fused_score.PlainRouteRefused`.
+    ``use_sinkhorn`` picks from the transport plan
     every round; ``auto_sinkhorn`` lets round 0 decide. ``topo`` (a
     :class:`~kubernetes_tpu_torch.ops.arrays.DeviceTopology`) adds inter-pod
     affinity and topology spread, with their admissions serialized per
@@ -1093,6 +1116,13 @@ def batch_assign(
         pods, sel = unreplicated(pods), unreplicated(sel)
         topo, vol = unreplicated(topo), unreplicated(vol)
         n_nodes = nodes.allocatable.shape[0]
+    # the route, resolved HERE so that it joins the graph key (the
+    # reference resolves fused_score against use_pallas for its jit key);
+    # fused_score=False asks for the pair's plain version, which only a
+    # CPU tensor may take
+    dev = unreplicated(pods).valid.device
+    kernel_route = use_kernels(dev)
+    fused = kernel_route if fused_score else use_kernels(dev, False)
     assigned, u, rounds, sk_stats, pot = impl(
         pods, nodes, sel, topo, weights, max_rounds, per_node_cap,
         extra_mask=extra_mask, vol=vol, static_vol=static_vol,
@@ -1101,7 +1131,7 @@ def batch_assign(
         no_ports=no_ports, no_pod_affinity=no_pod_affinity,
         no_spread=no_spread, auto_sinkhorn=auto_sinkhorn,
         with_stats=stats_out, sk_init=sk_init, sk_tol=sk_tol,
-        route_plan=route_plan)
+        route_plan=route_plan, fused=fused, kernel_route=kernel_route)
     if fault_hook is not None:
         assigned, u, rounds = fault_hook(fault_site, assigned, u, rounds,
                                          n_nodes)
@@ -1146,8 +1176,10 @@ def solve_memory_analysis(pods: DevicePods, nodes: DeviceNodes,
     in it), plus the argument and output bytes. Returns the reference's
     keys (``argument_bytes``, ``output_bytes``, ``temp_bytes``,
     ``total_bytes``, ...), or None on CPU tensors, where no allocator
-    counts. A fault of the solve (a ``KernelError`` included)
-    propagates."""
+    counts. The run resolves the kernel route as the cycle's solve does
+    (:func:`batch_assign`, ``KTPU_PALLAS``), so the preflight measures the
+    program the cycle runs. A fault of the solve (a ``KernelError``
+    included) propagates."""
     from kubernetes_tpu_torch.obs.jaxtel import tree_nbytes
     from kubernetes_tpu_torch.obs.memledger import capture_memory_analysis
     from kubernetes_tpu_torch.parallel.mesh import (

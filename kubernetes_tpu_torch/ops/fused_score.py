@@ -22,10 +22,14 @@ column block, an all-reduce MAX (``parallel/collectives.py``), then
 :func:`fused_pair_scale` on each block. Max is exact and the scale's
 per-element arithmetic is the fused kernel's, so the composition is
 bit-identical to the fused pair.
+
+Which route a solve takes is :func:`use_kernels`, the reference's
+``use_pallas`` policy, shared with ``ops/sinkhorn.py``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -38,6 +42,40 @@ _EPS = 1e-5
 #: widest row the staged path holds in shared memory (9 bytes an element:
 #: two at most of these 108 KB stages fit on an SM)
 STAGED_MAX_N = 12288
+
+class PlainRouteRefused(kernels.KernelError):
+    """The plain route was asked for on a CUDA tensor. On the card every
+    path runs its hand kernels; the plain versions there are only the
+    yardstick the kernels are held against. A ``KernelError``, so it
+    escapes every rung of the solver ladder, as a kernel fault does."""
+
+
+def use_kernels(device, asked: Optional[bool] = None) -> bool:
+    """The kernel-route policy, the reference's ``use_pallas`` read from
+    the same variable. ``asked`` is an explicit route (``sinkhorn_plan``'s
+    ``pallas``, ``batch_assign``'s ``fused_score=False``); None reads
+    ``KTPU_PALLAS`` at this call: ``1`` the kernel route, ``0`` the plain
+    route, unset the kernel route only in a process that sees a CUDA card
+    (the counterpart of ``default_backend() == "tpu"``, so a CPU rung on a
+    card's machine keeps the card's rule). On a CPU tensor the kernel
+    route runs the kernels' plain versions in the Pallas rule (the
+    counterpart of interpret mode), the plain route the plain passes in
+    the jnp rule. On a CUDA tensor the plain route raises
+    :class:`PlainRouteRefused`: no setting moves the card off its
+    kernels, and no kernel fault does either (a ``KernelError`` on the
+    kernel route raises)."""
+    device = torch.device(device)
+    if asked is None:
+        env = os.environ.get("KTPU_PALLAS", "")
+        asked = env == "1" or (env != "0" and torch.cuda.is_available())
+    if not asked and device.type == "cuda":
+        raise PlainRouteRefused(
+            f"the plain route was asked for on {device} (KTPU_PALLAS="
+            f"{os.environ.get('KTPU_PALLAS', 'unset')}, or an explicit "
+            "pallas=False / fused_score=False): a CUDA tensor runs the hand "
+            "kernels; unset KTPU_PALLAS, or pass device='cpu' for the plain "
+            "route")
+    return bool(asked)
 
 
 def _idiv(num, den):

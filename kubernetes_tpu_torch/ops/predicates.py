@@ -420,7 +420,7 @@ def run_predicates(
         enabled_mask, None, no_ports, no_pod_affinity, no_spread)
         for i in range(mesh.size)], mesh.devices)
     # graftlint: disable=R8 -- the filter reasons' wholesale mirror read
-    # on devices[0] (ROADMAP §A item 1: per-shard reads are open work)
+    # on devices[0] (ROADMAP §A item 3: per-shard reads are open work)
     return FilterResult(*[torch.cat([getattr(o, f).to(mesh.device)
                                      for o in outs], 1)
                           for f in FilterResult._fields])

@@ -27,15 +27,22 @@ v -> 0, so a zero-capacity column keeps v ~ NEG_INF and takes no mass).
 The kernels sum in another order than the plain versions, so the two
 agree to a few ulps: the tests hold potentials and plans to
 ``atol=1e-5, rtol=1e-4``.
+
+The route is the reference's: :func:`sinkhorn_plan`'s ``pallas`` (unset:
+``fused_score.use_kernels``, the ``KTPU_PALLAS`` policy) picks the kernel
+route above or the plain route, which runs the plain passes and takes the
+jnp rule in every loop, as the reference's ``_scale_jnp`` does. The plain
+route is for CPU tensors: asked for on a CUDA tensor, it raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from kubernetes_tpu_torch import kernels
+from kubernetes_tpu_torch.ops.fused_score import use_kernels
 from kubernetes_tpu_torch.parallel import collectives as coll
 
 NEG_INF = -1e30
@@ -247,18 +254,40 @@ def launch_v(logk, u, log_c, lanes: int, cluster: int, rows: int,
     return v
 
 
-def _u_pass(logk, v, log_r, jnp_rule, sh):
-    """The row pass of one shard program: the whole-row kernel off the
-    mesh (``sh`` None), else the split pass and the merge across shards."""
+class _Route(NamedTuple):
+    """One route's scaling passes, and the rule of its fixed-iteration
+    loops (:func:`_route`)."""
+
+    u: Callable
+    u_partial: Callable
+    v: Callable
+    jnp_rule: bool
+
+
+def _route(kernel_route: bool) -> _Route:
+    """The kernel route: the wrappers (the kernels on a CUDA tensor, their
+    plain versions on a CPU tensor) in the Pallas rule, the reference's
+    ``_scale_pallas``; the plain route: the plain versions, called
+    directly, in the jnp rule, its ``_scale_jnp``. Looked up at each
+    plan, so a patched wrapper is the one that runs."""
+    if kernel_route:
+        return _Route(sinkhorn_u, sinkhorn_u_partial, sinkhorn_v, False)
+    return _Route(sinkhorn_u_plain, sinkhorn_u_partial_plain,
+                  sinkhorn_v_plain, True)
+
+
+def _u_pass(logk, v, log_r, route, sh):
+    """The row pass of one shard program: the whole-row pass off the mesh
+    (``sh`` None), else the split pass and the merge across shards."""
     if sh is None:
-        return sinkhorn_u(logk, v, log_r, jnp_rule)
-    m, s = sinkhorn_u_partial(logk, v, jnp_rule)
-    return (yield coll.lse(m, s, log_r, jnp_rule))
+        return route.u(logk, v, log_r, route.jnp_rule)
+    m, s = route.u_partial(logk, v, route.jnp_rule)
+    return (yield coll.lse(m, s, log_r, route.jnp_rule))
 
 
-def _step(logk, log_r, log_c, u, v, jnp_rule=False, sh=None):
-    u = yield from _u_pass(logk, v, log_r, jnp_rule, sh)
-    v = sinkhorn_v(logk, u, log_c, jnp_rule)
+def _step(logk, log_r, log_c, u, v, route, sh=None):
+    u = yield from _u_pass(logk, v, log_r, route, sh)
+    v = route.v(logk, u, log_c, route.jnp_rule)
     return u, v
 
 
@@ -267,7 +296,8 @@ def _delta(u2, u):
     return torch.where(finite, (u2 - u).abs(), 0.0).amax()
 
 
-def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL, sh=None):
+def _stats_scan(logk, log_r, log_c, u, v, iters, route, tol=STATS_TOL,
+                sh=None):
     """``iters`` scaling iterations while tracking convergence, all on
     device: returns (u, v, stats) with stats = [first iteration whose max
     row-potential delta dropped under ``tol`` (``iters`` if never), final
@@ -275,7 +305,7 @@ def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL, sh=None):
     conv = torch.full((), -1, dtype=torch.int32, device=logk.device)
     delta = torch.zeros((), dtype=torch.float32, device=logk.device)
     for i in range(iters):
-        u2, v2 = yield from _step(logk, log_r, log_c, u, v, sh=sh)
+        u2, v2 = yield from _step(logk, log_r, log_c, u, v, route, sh)
         delta = _delta(u2, u)
         conv = torch.where((conv < 0) & (delta < tol),
                            torch.full_like(conv, i + 1), conv)
@@ -284,17 +314,18 @@ def _stats_scan(logk, log_r, log_c, u, v, iters, tol=STATS_TOL, sh=None):
     return u, v, torch.stack([used.to(torch.float32), delta])
 
 
-def _tol_scan(logk, log_r, log_c, u, v, iters, tol, sh=None):
+def _tol_scan(logk, log_r, log_c, u, v, iters, tol, route, sh=None):
     """Tolerance-gated scaling loop: iterate until the max row-potential
     delta drops under ``tol`` or the ``iters`` budget runs out. Its passes
-    take the jnp rule, as the reference's loop (``_scale_jnp``) does on
-    every backend. The loop condition is read on the host, one counted
-    sync per iteration (one for the whole mesh: u is replicated)."""
+    are the route's but take the jnp rule on either route, as the
+    reference's loop (``_scale_jnp``) does on every backend. The loop
+    condition is read on the host, one counted sync per iteration (one
+    for the whole mesh: u is replicated)."""
+    route = route._replace(jnp_rule=True)
     i = 0
     delta = float("inf")
     while i < iters and delta >= tol:
-        u2, v2 = yield from _step(logk, log_r, log_c, u, v, jnp_rule=True,
-                                  sh=sh)
+        u2, v2 = yield from _step(logk, log_r, log_c, u, v, route, sh)
         # graftlint: disable=R1 -- never captured: a tolerance makes
         # ops/assign._general_statics return None, so these rounds take
         # device_loop's Python loop and this read is one counted sync
@@ -310,7 +341,7 @@ def _tol_scan(logk, log_r, log_c, u, v, iters, tol, sh=None):
 
 
 def _scale_g(logk, log_r, log_c, iters, with_stats=False, u0=None, v0=None,
-             tol=None, sh=None):
+             tol=None, sh=None, *, route):
     P, N = logk.shape
     u = (torch.zeros((P,), dtype=torch.float32, device=logk.device)
          if u0 is None else u0)
@@ -318,33 +349,36 @@ def _scale_g(logk, log_r, log_c, iters, with_stats=False, u0=None, v0=None,
          if v0 is None else v0)
     if tol is not None:
         return (yield from _tol_scan(logk, log_r, log_c, u, v, iters, tol,
-                                     sh))
+                                     route, sh))
     if with_stats:
         return (yield from _stats_scan(logk, log_r, log_c, u, v, iters,
-                                       sh=sh))
+                                       route, sh=sh))
     for _ in range(iters):
-        u, v = yield from _step(logk, log_r, log_c, u, v, sh=sh)
+        u, v = yield from _step(logk, log_r, log_c, u, v, route, sh)
     return u, v, None
 
 
 def _scale(logk, log_r, log_c, iters, with_stats=False, u0=None, v0=None,
-           tol=None):
+           tol=None, *, kernel_route: bool):
     """Alternating log-domain scaling, columns capped at 0 (inequality).
     Returns (u, v, stats) — stats is None unless ``with_stats`` or ``tol``
     is set. ``u0``/``v0`` warm-start the potentials (scaling converges
     from any start, so a warm start changes only the iteration count);
-    ``tol`` switches to the tolerance-gated loop (:func:`_tol_scan`)."""
+    ``tol`` switches to the tolerance-gated loop (:func:`_tol_scan`);
+    ``kernel_route`` picks the passes and the rule (:func:`_route`)."""
     return coll.solo(_scale_g(logk, log_r, log_c, iters, with_stats, u0, v0,
-                              tol))
+                              tol, route=_route(kernel_route)))
 
 
 def sinkhorn_plan_g(score, mask, capacity, eps=0.5, iters=25,
                     with_stats=False, init=None, tol=None,
-                    return_potentials=False, sh=None):
+                    return_potentials=False, sh=None, pallas=None):
     """:func:`sinkhorn_plan` as one shard's program: ``score``, ``mask``,
     ``capacity`` and ``init``'s v are the shard's column block, u is
     replicated; the row pass's log-sum-exp and the rows' any-feasible
-    test reduce across shards (``sh`` None: alone, the unsharded plan)."""
+    test reduce across shards (``sh`` None: alone, the unsharded plan).
+    ``pallas`` picks the route as in :func:`sinkhorn_plan`."""
+    route = _route(use_kernels(score.device, pallas))
     score = score.to(torch.float32)
     row_ok = mask.any(1)
     if sh is not None:
@@ -365,7 +399,7 @@ def sinkhorn_plan_g(score, mask, capacity, eps=0.5, iters=25,
                          0.0).to(torch.float32).contiguous()
     u, v, stats = yield from _scale_g(logk, log_r, log_c, iters,
                                       with_stats=with_stats, u0=u0, v0=v0,
-                                      tol=tol, sh=sh)
+                                      tol=tol, sh=sh, route=route)
     plan = torch.exp(torch.clamp(logk + u[:, None] + v[None, :], NEG_INF,
                                  30.0))
     plan = torch.where(mask, plan, 0.0)
@@ -387,6 +421,7 @@ def sinkhorn_plan(
     init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     tol: Optional[float] = None,
     return_potentials: bool = False,
+    pallas: Optional[bool] = None,
 ):
     """Transport plan (P, N): plan[p, j] ≈ how much of pod p's unit demand
     node j serves at equilibrium. Row sums <= 1; column sums <= capacity
@@ -396,7 +431,16 @@ def sinkhorn_plan(
     [iterations-to-converge, final max row-potential delta]. ``init`` is a
     ``(u0, v0)`` warm start (scaling converges from any start to the same
     fixpoint); ``tol`` switches to the tolerance-gated loop;
-    ``return_potentials`` appends the final ``(u, v)``."""
+    ``return_potentials`` appends the final ``(u, v)``.
+
+    ``pallas`` is the reference's route switch: True the kernel route
+    (the hand kernels on a CUDA tensor, their plain versions on a CPU
+    tensor; the fixed-iteration scans in the Pallas rule), False the
+    plain route (the plain passes in the jnp rule; CPU tensors only: on a
+    CUDA tensor it raises ``PlainRouteRefused``), None the ``KTPU_PALLAS``
+    policy (:func:`~kubernetes_tpu_torch.ops.fused_score.use_kernels`).
+    The two rules differ on a zero-capacity column: the jnp rule keeps its
+    v near NEG_INF, the Pallas rule writes 0."""
     return coll.solo(sinkhorn_plan_g(score, mask, capacity, eps, iters,
                                      with_stats, init, tol,
-                                     return_potentials))
+                                     return_potentials, pallas=pallas))

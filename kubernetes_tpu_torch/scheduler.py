@@ -208,6 +208,7 @@ from kubernetes_tpu_torch.ops.fused_score import (
     node_summary,
     partition_columns,
     patch_node_summary,
+    use_kernels,
 )
 from kubernetes_tpu_torch.ops.predicates import (
     BIT,
@@ -465,6 +466,9 @@ class Scheduler:
         if solver not in TIERS:
             raise ValueError(f"solver must be one of {TIERS}, got {solver!r}")
         self.device = resolve_device(device)
+        # KTPU_PALLAS=0 on a card is refused here, before any cycle (a
+        # CPU scheduler takes the plain route it asks for)
+        use_kernels(self.device)
         self.scheduler_name = scheduler_name
         self.framework = framework or Framework(clock=clock)
         #: the reference's metric set (metrics.py), recorded every cycle

@@ -448,6 +448,9 @@ def _counting(monkeypatch, module, name, calls):
 
 @pytest.mark.parametrize("d", [1, 2, 4])
 def test_a_mesh_wider_than_one_runs_the_partitioned_program(d, monkeypatch):
+    # the kernel route (the card's default): on CPU tensors the kernels'
+    # plain versions, reached through their wrappers
+    monkeypatch.setenv("KTPU_PALLAS", "1")
     calls = []
     for name in ("fused_pair_max_plain", "fused_pair_scale_plain",
                  "fused_pair_normalize_plain"):
@@ -551,6 +554,9 @@ def test_a_kernel_error_of_a_split_kernel_escapes_every_rung(
     def broken(*a, **k):
         raise KernelError(f"injected: {wrapper} failed to launch")
 
+    # the kernel route, on which the split kernels launch (the card's
+    # default; on CPU tensors KTPU_PALLAS=1 asks for it)
+    monkeypatch.setenv("KTPU_PALLAS", "1")
     s = _pref_scheduler(4, solver, monkeypatch)
     monkeypatch.setattr(module, wrapper, broken)
     with pytest.raises(KernelError, match=wrapper):

@@ -57,7 +57,7 @@ def test_scaling_passes_match_the_pallas_kernels(shape):
     ju, jv, _ = js._scale_pallas(jnp.asarray(logk), jnp.asarray(log_r),
                                  jnp.asarray(log_c), 20, interpret=True)
     tu, tv, _ = ts._scale(torch.tensor(logk), torch.tensor(log_r),
-                          torch.tensor(log_c), 20)
+                          torch.tensor(log_c), 20, kernel_route=True)
     _close(tu, ju)
     _close(tv, jv)
     # one pass each, from the same potentials
@@ -117,12 +117,13 @@ def test_scaling_matches_the_jnp_loop_with_stats_and_tolerance():
     args_j = [jnp.asarray(a) for a in (logk, log_r, log_c)]
     args_t = [torch.tensor(a) for a in (logk, log_r, log_c)]
     ju, jv, jstats = js._scale_jnp(*args_j, 30, with_stats=True)
-    tu, tv, tstats = ts._scale(*args_t, 30, with_stats=True)
+    tu, tv, tstats = ts._scale(*args_t, 30, with_stats=True,
+                               kernel_route=False)
     _close(tu, ju)
     _close(tv, jv)
     assert int(tstats[0]) == int(np.asarray(jstats)[0])
     ju, jv, jstats = js._scale_jnp(*args_j, 60, tol=1e-4)
-    tu, tv, tstats = ts._scale(*args_t, 60, tol=1e-4)
+    tu, tv, tstats = ts._scale(*args_t, 60, tol=1e-4, kernel_route=False)
     _close(tu, ju)
     _close(tv, jv)
     assert abs(int(tstats[0]) - int(np.asarray(jstats)[0])) <= 1
@@ -176,7 +177,7 @@ def test_plan_matches(seed):
                             jnp.asarray(cap), iters=25, pallas=True,
                             interpret=True)
     got = ts.sinkhorn_plan(torch.tensor(score), torch.tensor(mask),
-                           torch.tensor(cap), iters=25)
+                           torch.tensor(cap), iters=25, pallas=True)
     _close(got, want)
     # warm start from the reference's potentials, with stats
     _p, jst, (ju, jv) = js.sinkhorn_plan(
@@ -188,7 +189,8 @@ def test_plan_matches(seed):
                             interpret=True, init=(ju, jv))
     got, _st, (tu, tv) = ts.sinkhorn_plan(
         torch.tensor(score), torch.tensor(mask), torch.tensor(cap),
-        iters=10, init=init_t, with_stats=True, return_potentials=True)
+        iters=10, init=init_t, with_stats=True, return_potentials=True,
+        pallas=True)
     _close(got, want)
 
 
