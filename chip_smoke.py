@@ -282,7 +282,13 @@ non-zero if any fails:
    one cycle under sync-debug ``error``, the split pair launched, the
    collectives of a round body beside the cost model's payloads; then
    ``solver: sinkhorn`` with 4096 pods on 4 shards: equal placements, u
-   (split) and v launched. Arm E2 runs ``mesh: auto`` over every card
+   (split) and v launched. Arm E3 takes 2 copies of the card as
+   distinct cards (no whole table anywhere): a cycle of 1024 pods of
+   which 64 cannot fit, then a delta cycle, beside a mesh-off twin, with
+   equal placements, reasons, explain reports, victims and nominations,
+   the twin's host syncs plus the Python round loop's, no whole-table
+   gather, and the placement's memory growth against the table's bytes.
+   Arm E2 runs ``mesh: auto`` over every card
    where there are two or more, and otherwise prints that it did not.
    Phase 2 also holds the split kernels (``fused_pair_max``,
    ``fused_pair_scale``, ``sinkhorn_u_partial``) and the whole v pass a
@@ -299,7 +305,7 @@ the sparse cell, the pipeline cell, the configured scheduler's arm A,
 the serve loop's arms A-D, the hollow cluster's arms A and B, the
 recovery phase's arms A-C, the ledger phase's arms A-C, the scenario
 phase's arms and
-the grpc phase's arms A-C and the mesh phase's arms A-E2,
+the grpc phase's arms A-C and the mesh phase's arms A-E3,
 each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
@@ -8623,6 +8629,195 @@ def mesh_arm_e(tmp: str) -> dict:
     return out
 
 
+#: arm E3: the smoke cluster on 2 shards taken as distinct cards, one
+#: cycle of 1024 pending pods of which 64 no node can take, then one delta
+#: cycle of 256 of which 16; 8 of each wave's unfit pods are pinned to a
+#: node a bound pod holds, the delta wave's 8 as preemptors
+E3 = {"shards": 2, "pods": 1024, "unfit": 64, "delta_pods": 256,
+      "delta_unfit": 16, "pinned": 8}
+
+
+def _e3_unfit(k: int, tag: str, priority: int = 0) -> list:
+    """``k`` pending pods no node of the smoke cell can take as it
+    stands. The first ``E3["pinned"]`` ask for a whole node (4 CPU), each
+    pinned by hostname to a node that a bound pod (priority 0, 100m)
+    occupies: at ``priority`` above 0 they fit only by evicting it (the
+    preemption rows of every shard's columns decide), at 0 they fail.
+    Both waves carry the same selectors, so the delta wave brings no new
+    selector into the table (a new one re-packs it whole). Of the rest,
+    half ask for 8 CPU (a node has 4), half select a disk label no node
+    carries."""
+    from kubernetes_tpu_torch.testing import make_pod
+
+    out = [make_pod(f"pinned-{tag}-{i}", cpu_milli=4000,
+                    memory=500 * 2**20, priority=priority,
+                    node_selector={"kubernetes.io/hostname":
+                                   f"node-{100 * i}"})
+           for i in range(E3["pinned"])]
+    return out + [make_pod(f"unfit-{tag}-{i}",
+                           cpu_milli=8000 if i % 2 else 100,
+                           memory=500 * 2**20,
+                           node_selector=None if i % 2 else {"disk": "none"})
+                  for i in range(k - E3["pinned"])]
+
+
+def _e3_view(r) -> tuple:
+    """What a mesh cycle must keep of its mesh-off twin's cycle (the
+    explain reports but their queue residency, a wall-clock reading)."""
+    ex = None
+    if r.explain is not None:
+        ex = (r.explain.to_json(),
+              {k: {f: v for f, v in pe.to_json().items()
+                   if f != "queue_residency_s"}
+               for k, pe in r.explain.pods.items()})
+    return (r.assignments, r.failure_reasons, r.fit_errors, r.preempted,
+            r.nominations, r.rounds, r.snapshot_mode, ex)
+
+
+def mesh_arm_e3(tmp: str) -> dict:
+    """Arm E3: a mesh cycle's reads outside the batch solve, per shard,
+    with no whole table on the first card. The smoke cluster (5000 nodes,
+    1000 bound) on 2 shards, with the copies of the one card taken as
+    distinct cards (``distinct_card_path``: said on its own line), runs
+    one cycle of 1024 pending pods of which 64 no node can take, then one
+    delta cycle of 256 of which 16 (8 of them preemptors that fit only
+    by evicting a bound pod; ``_e3_unfit``), preemption on, beside a
+    mesh-off
+    twin. Fails on any difference in placements, failure reasons, FitError
+    text, explain reports, victims or nominations, on host syncs other
+    than the twin's plus the Python round loop's ``rounds + 1`` reads a
+    solve (one graph cannot span cards), and on any whole-table gather
+    (``collectives`` operation ``gather_nodes``). Measures what
+    ``place_node_table`` adds to ``torch.cuda.memory_allocated`` against
+    the table's bytes (the blocks alone: 1x; the whole-table mirror made
+    it 2x) and the failure pass's peak over its start, beside its (P, N)
+    plane's bytes (5 B a pair)."""
+    import torch
+
+    from kubernetes_tpu_torch import scheduler as tsched
+    from kubernetes_tpu_torch.parallel import collectives as coll
+    from kubernetes_tpu_torch.parallel import mesh as pmesh
+    from kubernetes_tpu_torch.utils.interner import bucket_size
+
+    d = E3["shards"]
+    peaks: list = []
+    real_filter = tsched._filter_pass
+
+    def measured_filter(*args, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real_filter(*args, **kw)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        return out
+
+    def run(name, shards):
+        # pods of its own for each run: preemption marks the preemptors
+        # nominated and the victims terminating on the objects themselves
+        first = E3["pods"] - E3["unfit"]
+        nodes, bound, fit = smoke_cell(
+            MESH["n_nodes"], MESH["n_bound"],
+            first + E3["delta_pods"] - E3["delta_unfit"])
+        waves = [fit[:first] + _e3_unfit(E3["unfit"], "a"),
+                 fit[first:] + _e3_unfit(E3["delta_unfit"], "b",
+                                         priority=1000)]
+        victims: list = []
+        with logical_devices(shards or 1):
+            sched = configured(_mesh_doc(shards), tmp, f"mesh-e3-{name}",
+                               victim_deleter=lambda p: victims.append(
+                                   p.key()))
+        feed(sched, nodes, bound, [])
+        before = launch_counts()
+        coll.STATS.reset()
+        views, syncs, rounds, walls = [], [], [], []
+        for pods in waves:
+            r, wall = _ladder_cycle(sched, pods)
+            views.append(_e3_view(r))
+            syncs.append(r.host_syncs)
+            rounds.append(r.rounds)
+            walls.append(wall)
+        return {"sched": sched, "views": views, "victims": victims,
+                "host_syncs": syncs, "rounds": rounds, "cycle_s": walls,
+                "gathers": coll.STATS.by_op.get("gather_nodes", 0),
+                "collectives": coll.STATS.snapshot(),
+                "launches": _launches_since(before)}
+
+    twin = run("off", None)
+    release_graphs()
+    print(f"chip_smoke: mesh arm E3 takes {d} copies of the one card as "
+          "distinct cards (Mesh.logical reads False, every placement "
+          "copies)", flush=True)
+    with distinct_card_path():
+        tsched._filter_pass = measured_filter
+        try:
+            got = run(f"cards-{d}", d)
+        finally:
+            tsched._filter_pass = real_filter
+        sched = got["sched"]
+        resident = sched.cache.device_snapshot()[1]
+        if not isinstance(resident, pmesh.ShardedNodes) or \
+                resident.whole is not None:
+            fail("mesh/E3: the resident table is not the placed blocks "
+                 f"alone ({type(resident).__name__})")
+        table_bytes = sum(f.numel() * f.element_size()
+                          for b in resident.blocks for f in b)
+        nt = sched.cache.snapshot()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        placed = pmesh.place_node_table(nt, sched.mesh, pad_to=resident.n)
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - m0
+        del placed
+    release_graphs()
+    for k in ("sched",):
+        twin.pop(k)
+        got.pop(k)
+    if got["views"] != twin["views"]:
+        bad = [i for i, (a, b) in enumerate(zip(got["views"],
+                                                twin["views"])) if a != b]
+        fail(f"mesh/E3: cycles {bad} differ from the mesh-off twin's "
+             "(placements, reasons, explain, preemption)")
+    if got["victims"] != twin["victims"]:
+        fail(f"mesh/E3: victims {got['victims']} against the twin's "
+             f"{twin['victims']}")
+    if not got["victims"] or not got["views"][1][4]:
+        fail("mesh/E3: the preemptors evicted nothing: the preemption "
+             "path did not run")
+    want_syncs = [s + r + 1 for s, r in zip(twin["host_syncs"],
+                                            twin["rounds"])]
+    if got["host_syncs"] != want_syncs:
+        fail(f"mesh/E3: host syncs {got['host_syncs']}, expected the "
+             f"twin's plus rounds + 1: {want_syncs}")
+    if got["gathers"]:
+        fail(f"mesh/E3: {got['gathers']} whole-table gathers")
+    if got["launches"]["fused_pair_max"] <= 0:
+        fail("mesh/E3: the split pair never launched")
+    unfit = [len(v[1]) for v in got["views"]]
+    if unfit != [E3["unfit"], E3["delta_unfit"]] or \
+            [v[6] for v in got["views"]] != ["full", "delta"]:
+        fail(f"mesh/E3: {unfit} pods failed, snapshots "
+             f"{[v[6] for v in got['views']]}")
+    if grew > 1.25 * table_bytes:
+        fail(f"mesh/E3: placing the table grew memory by {grew} B, "
+             f"{grew / table_bytes:.2f}x its {table_bytes} B")
+    P = bucket_size(E3["pods"])
+    plane = 5 * P * resident.n
+    print(f"chip_smoke: mesh arm E3 placement grew memory_allocated by "
+          f"{grew} B against the table's {table_bytes} B "
+          f"({grew / table_bytes:.3f}x; the whole-table mirror made it 2x); "
+          f"failure pass peaks {peaks} B against the (P, N) plane's "
+          f"{plane} B at P={P}, N={resident.n}", flush=True)
+    for r in (got, twin):
+        r["views"] = len(r["views"])
+    return {"cell": "smoke-5k-prefaffinity", "shards": d,
+            "placement_grew_bytes": grew, "table_bytes": table_bytes,
+            "placement_ratio": grew / table_bytes,
+            "failure_pass_peak_bytes": peaks, "plane_bytes": plane,
+            "cards": got, "twin": twin, "launches": got["launches"],
+            "cycles": got["views"] + twin["views"]}
+
+
 def mesh_arm_e2(tmp: str) -> dict:
     """Arm E2: ``parallel: {mesh: auto}`` over every card of the machine,
     beside a one-card twin, with equal placements required. Runs only
@@ -8676,7 +8871,8 @@ def phase_mesh() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for arm, run in (("A", mesh_arm_a), ("B", mesh_arm_b),
                          ("C", mesh_arm_c), ("D", mesh_arm_d),
-                         ("E", mesh_arm_e), ("E2", mesh_arm_e2)):
+                         ("E", mesh_arm_e), ("E3", mesh_arm_e3),
+                         ("E2", mesh_arm_e2)):
             t0 = time.perf_counter()
             got = run(tmp)
             t_arm[arm] = time.perf_counter() - t0

@@ -61,7 +61,11 @@ class CacheError(Exception):
 
 
 def tree_nbytes(tables) -> int:
-    """Bytes held by the tensors of a NamedTuple table."""
+    """Bytes held by the tensors of a NamedTuple table (of every block of
+    a table placed on distinct cards)."""
+    blocks = getattr(tables, "blocks", None)
+    if blocks is not None:
+        return sum(tree_nbytes(b) for b in blocks)
     return sum(t.numel() * t.element_size() for t in tables)
 
 
@@ -98,9 +102,13 @@ class SchedulerCache:
         #: dirty-row fraction above which patching the resident device
         #: table costs more than re-uploading it
         self.max_dirty_frac = max_dirty_frac
-        self._dev = None  # resident ops.arrays.DeviceNodes
+        #: the resident ops.arrays.DeviceNodes; on a mesh of d > 1
+        #: distinct cards, its placement itself (no device holds the
+        #: whole table)
+        self._dev = None
         #: the resident table's placement on a mesh of d > 1 devices
-        #: (parallel.mesh.ShardedNodes; its ``whole`` is ``_dev``)
+        #: (parallel.mesh.ShardedNodes; on a logical mesh its ``whole``
+        #: is ``_dev``, on distinct cards it is ``_dev``)
         self._placed = None
         self._dev_pad: int = 0  # its padded row count
         #: the node-axis mesh (parallel.mesh.Mesh) the resident table is
@@ -422,13 +430,15 @@ class SchedulerCache:
                 from kubernetes_tpu_torch.parallel.mesh import (
                     ShardedNodes,
                     place_node_table,
-                    whole,
                 )
 
                 placed = place_node_table(table, self.mesh, pad_to=n_pad)
-                self._placed = (placed if isinstance(placed, ShardedNodes)
-                                else None)
-                self._dev = whole(placed)
+                self._placed = None
+                self._dev = placed
+                if isinstance(placed, ShardedNodes):
+                    self._placed = placed
+                    if placed.whole is not None:
+                        self._dev = placed.whole
             else:
                 self._dev = nodes_to_device(table, pad_to=n_pad,
                                             device=self.device)
@@ -460,7 +470,8 @@ class SchedulerCache:
                 pidx[: len(idx)] = idx
                 if self._score_cache_on and self._summary is not None:
                     # the summary's same rows, from the same delta pack:
-                    # clean columns are reused, dirty ones recomputed
+                    # clean columns are reused, dirty ones recomputed (on
+                    # a mesh, in the block that owns each row)
                     from kubernetes_tpu_torch.ops.fused_score import (
                         node_summary,
                         patch_node_summary,
@@ -469,16 +480,26 @@ class SchedulerCache:
                     self._summary = patch_node_summary(
                         self._summary,
                         node_summary(sub_dev, **self._summary_flags), pidx)
-                self._dev = scatter_node_rows(self._dev, sub_dev, pidx)
-                if self._placed is not None:
-                    # the mesh blocks take the same rows: views again on
-                    # a logical mesh, the owning shard's rows on cards
+                if self._placed is not None and self._placed is self._dev:
+                    # distinct cards: each row lands in the block that
+                    # owns it, and no whole table exists to patch
                     from kubernetes_tpu_torch.parallel.mesh import (
                         scatter_placed,
                     )
 
-                    self._placed = scatter_placed(self._placed, self._dev,
+                    self._placed = scatter_placed(self._placed, None,
                                                   sub_dev, pidx)
+                    self._dev = self._placed
+                else:
+                    self._dev = scatter_node_rows(self._dev, sub_dev, pidx)
+                    if self._placed is not None:
+                        # a logical mesh: the blocks are views of the
+                        # patched table again
+                        from kubernetes_tpu_torch.parallel.mesh import (
+                            shard_nodes,
+                        )
+
+                        self._placed = shard_nodes(self._dev, self.mesh)
                 self.last_upload_rows += len(idx)
                 self.last_upload_nbytes += tree_nbytes(sub_dev)
                 self.last_patched_idx.extend(idx)
@@ -527,10 +548,12 @@ class SchedulerCache:
     @property
     def placed_table(self):
         """The resident table as placed on a mesh of ``d > 1`` devices (a
-        ``parallel.mesh.ShardedNodes`` whose ``whole`` is the table
-        :meth:`device_snapshot` returns), or None."""
+        ``parallel.mesh.ShardedNodes``: on a logical mesh its ``whole`` is
+        the table :meth:`device_snapshot` returns, on distinct cards it is
+        that table), or None."""
         p = self._placed
-        return p if p is not None and p.whole is self._dev else None
+        return (p if p is not None and (p is self._dev
+                                        or p.whole is self._dev) else None)
 
     @property
     def resident_mesh(self):
@@ -592,8 +615,10 @@ class SchedulerCache:
             if self._summary is None:
                 from kubernetes_tpu_torch.ops.fused_score import node_summary
 
-                self._summary = node_summary(self._dev,
-                                             **self._summary_flags)
+                # on a mesh, per block (parallel.mesh.Blocks)
+                self._summary = node_summary(
+                    self._placed if self._placed is not None else self._dev,
+                    **self._summary_flags)
                 self.last_summary_rebuilt = True
                 self._mem_register("cache.score_summary", self._summary,
                                    shape=f"N{self._dev_pad}")

@@ -525,8 +525,9 @@ def poison_solution(kind: str, assigned, usage, rounds, n_nodes: int, rng):
     from kubernetes_tpu_torch.ops.sync import to_host
 
     dev = assigned.device if isinstance(assigned, torch.Tensor) else None
-    # graftlint: disable=R7 -- chaos harness: materializes the result to
-    # poison it (a device result through the counted to_host)
+    # graftlint: disable=R7,R8 -- chaos harness: materializes the result
+    # to poison it (a device result through the counted to_host; on a
+    # mesh the assignment is already merged on the first device)
     a = np.asarray(to_host(assigned) if dev is not None else assigned,
                    np.int32)
 
@@ -547,8 +548,11 @@ def poison_solution(kind: str, assigned, usage, rounds, n_nodes: int, rng):
         )
         return back(a), usage, rounds
     if kind == "nan":
-        usage = usage._replace(
-            requested=torch.full_like(usage.requested, float("nan")))
+        from kubernetes_tpu_torch.parallel.mesh import per_shard
+
+        # a partitioned solve's usage is per shard (parallel.mesh.Blocks)
+        usage = usage._replace(requested=per_shard(
+            torch.full_like, usage.requested, float("nan"), split=0))
         return back(a), usage, rounds
     if kind == "infeasible":
         # the lying solver: every pod "fits" on node 0

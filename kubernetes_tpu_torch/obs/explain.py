@@ -15,6 +15,11 @@ bits on the device into small int32 arrays:
 
 The scheduler reads them back as one transfer; :func:`build_report`
 decodes them into an :class:`UnschedulableReport` on the host.
+
+On a node-axis mesh the reduction is a shard program over each shard's
+column block (:func:`explain_reduce_g`): the node counts merge as sums,
+``pod_bits`` as a bitwise OR, and the reductions over the reason or pod
+axis run after the merge, so the result equals the unsharded one.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from kubernetes_tpu_torch.ops.predicates import (
     REASON_MESSAGES,
 )
 from kubernetes_tpu_torch.ops.sync import to_host
+from kubernetes_tpu_torch.parallel import collectives as coll
 
 #: number of predicate reason bits (the static axis of every reduction)
 N_REASONS = len(PREDICATE_BITS)
@@ -83,7 +89,25 @@ def explain_reduce(reasons, node_valid, pod_mask, req=None, free=None,
     The reason axis unrolls as B passes over the (P, N) plane; no
     (P, N, B) intermediate is materialized. ``pod_bits`` is assembled
     from per-bit ``any`` reductions (each term owns its bit, so the sum
-    is the bitwise OR), as in the reference."""
+    is the bitwise OR), as in the reference.
+
+    ``reasons`` a ``parallel.mesh.Blocks`` of column blocks (and the
+    node-axis inputs the ``Blocks`` of their row blocks; the pod-axis
+    ones whole, on the first device) runs one program per shard; the
+    merged result lands on the mesh's first device."""
+    from kubernetes_tpu_torch.parallel.mesh import per_shard
+
+    return per_shard(explain_reduce_g, reasons, node_valid, pod_mask, req,
+                     free, ready, net_unavail)
+
+
+def explain_reduce_g(reasons, node_valid, pod_mask, req=None, free=None,
+                     ready=None, net_unavail=None):
+    """:func:`explain_reduce` as a shard program over one column block:
+    the node counts are block partials merged with ``all_sum``,
+    ``pod_bits`` merges with ``all_or``, and ``best_bit``, ``best_gain``,
+    ``pair_hist`` and ``pods_blocked`` (reductions over the reason or the
+    pod axis) are taken after the merge."""
     vmask = pod_mask[:, None] & node_valid[None, :]  # (P, N)
     P = reasons.shape[0]
     i32 = torch.int32
@@ -97,25 +121,28 @@ def explain_reduce(reasons, node_valid, pod_mask, req=None, free=None,
         one_bit_cols.append(only.sum(1, dtype=i32))
         pod_bits = pod_bits + (1 << b) * (
             fired & node_valid[None, :]).any(1).to(i32)
-    per_pod = torch.stack(per_pod_cols, 1)  # (P, B)
-    one_bit = torch.stack(one_bit_cols, 1)  # (P, B)
+    per_pod = yield coll.all_sum(torch.stack(per_pod_cols, 1))  # (P, B)
+    one_bit = yield coll.all_sum(torch.stack(one_bit_cols, 1))  # (P, B)
+    pod_bits = yield coll.all_or(pod_bits)
     # argmax takes the FIRST maximal index, as jnp.argmax does
     best_bit = one_bit.argmax(1).to(i32)
     best_gain = one_bit.max(1).values
-    feasible = ((reasons == 0) & vmask).sum(1, dtype=i32)
+    feasible = yield coll.all_sum(((reasons == 0) & vmask).sum(1, dtype=i32))
     pair_hist = per_pod.sum(0, dtype=i32)
     pods_blocked = (per_pod > 0).sum(0, dtype=i32)
     if req is not None:
         res_fired = (((reasons >> BIT["PodFitsResources"]) & 1) > 0) \
             & node_valid[None, :]
-        insufficient = torch.stack([
+        insufficient = yield coll.all_sum(torch.stack([
             (res_fired & (req[:, r:r + 1] > free[None, :, r] + 1e-6)).sum(
                 1, dtype=i32)
-            for r in range(req.shape[1])], 1)  # (P, R)
+            for r in range(req.shape[1])], 1))  # (P, R)
         cond_fired = (((reasons >> BIT["CheckNodeCondition"]) & 1) > 0) \
             & node_valid[None, :]
-        not_ready = (cond_fired & ~ready[None, :]).sum(1, dtype=i32)
-        netun = (cond_fired & net_unavail[None, :]).sum(1, dtype=i32)
+        not_ready = yield coll.all_sum(
+            (cond_fired & ~ready[None, :]).sum(1, dtype=i32))
+        netun = yield coll.all_sum(
+            (cond_fired & net_unavail[None, :]).sum(1, dtype=i32))
     else:
         insufficient = torch.zeros((P, 0), dtype=i32, device=reasons.device)
         not_ready = torch.zeros((P,), dtype=i32, device=reasons.device)
@@ -123,6 +150,31 @@ def explain_reduce(reasons, node_valid, pod_mask, req=None, free=None,
     return ExplainResult(per_pod, one_bit, best_bit, best_gain, feasible,
                          pair_hist, pods_blocked, pod_bits, insufficient,
                          not_ready, netun)
+
+
+def explain_rows(reasons, nodes, req, rows) -> ExplainResult:
+    """The failure pass's reduction for the failed rows: rows ``rows``
+    ((k,) int64) of the filter reasons against ``nodes`` (the node table
+    with the cycle's usage), every row under analysis, the FitError
+    inputs taken from ``nodes``. On a mesh (``nodes`` a
+    ``parallel.mesh.ShardedNodes``, ``reasons`` the filter pass's column
+    blocks) each shard takes its own block's rows and reduces them; no
+    (P, N) plane leaves its shard."""
+    from kubernetes_tpu_torch.parallel.mesh import per_shard
+
+    every = torch.ones((rows.shape[0],), dtype=torch.bool,
+                       device=rows.device)
+    return per_shard(_explain_rows_g, reasons, nodes, every,
+                     req.index_select(0, rows), rows)
+
+
+def _explain_rows_g(reasons, nodes, every, req, rows):
+    """:func:`explain_rows` as a shard program over one block: the
+    block's own rows of the reasons against its own node rows."""
+    return (yield from explain_reduce_g(
+        reasons.index_select(0, rows), nodes.valid, every, req,
+        nodes.allocatable - nodes.requested, nodes.ready,
+        nodes.network_unavailable))
 
 
 #: the (P,) fields of ExplainResult, in the column order of read_back
@@ -141,8 +193,9 @@ def read_back(ex: ExplainResult, read=to_host) -> dict:
                       torch.stack([getattr(ex, f) for f in _POD_FIELDS], 1)],
                      1)
     W = rows.shape[1]
-    # graftlint: disable=R7 -- `read` is the caller's counted readback
-    # (obs.jax.readback at site explain): a host list comes back
+    # graftlint: disable=R7,R8 -- `read` is the caller's counted readback
+    # (obs.jax.readback at site explain) of the merged result: a host
+    # list comes back
     flat = np.asarray(read(torch.cat(
         [rows.flatten(), ex.pair_hist, ex.pods_blocked])), np.int64)
     host = flat[: P * W].reshape(P, W)

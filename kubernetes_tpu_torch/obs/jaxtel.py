@@ -37,16 +37,23 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from kubernetes_tpu_torch.parallel.mesh import Abstract, abstract
 from kubernetes_tpu_torch.sanitize import make_lock
 
 
 def _leaves(x, out: List) -> List:
     """The leaves of a tree of tensors in the reference's pytree order:
     NamedTuples, tuples and lists in field order, dicts by sorted key,
-    None contributes nothing."""
+    None contributes nothing. A value placed on a mesh's node-axis
+    blocks reads as its global-shaped signature
+    (``parallel.mesh.abstract``), so a mesh cycle digests and counts
+    bytes as its mesh-off twin does."""
     if x is None:
         return out
-    if isinstance(x, dict):
+    x = abstract(x)
+    if isinstance(x, Abstract):
+        out.append(x)
+    elif isinstance(x, dict):
         for k in sorted(x):
             _leaves(x[k], out)
     elif isinstance(x, (tuple, list)):

@@ -232,7 +232,7 @@ def upload(a, device, dtype=None) -> Tensor:
     caching host allocator holds the pinned block until the copy ran).
     Raises when ``cuda`` is asked for and no card is visible."""
     dev = resolve_device(device)
-    arr = np.asarray(a, dtype=dtype)  # graftlint: disable=R7 -- a is host data (the upload's source)
+    arr = np.asarray(a, dtype=dtype)  # graftlint: disable=R7,R8 -- host data (the upload's source)
     if dev.type != "cuda":
         return torch.tensor(arr)
     if not (arr.flags.c_contiguous and arr.flags.writeable):
@@ -350,7 +350,7 @@ def scatter_node_rows(resident: DeviceNodes, sub: DeviceNodes,
     sole owner of the resident tensors, which is what makes the in-place
     update safe. Returns the patched DeviceNodes (same tensors, fresh
     ``zone_valid``)."""
-    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7 -- host row indices
+    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7,R8 -- host row indices
     keep = np.nonzero(idx < resident.n)[0]
     if len(keep):
         dev = resident.valid.device
@@ -364,6 +364,11 @@ def scatter_node_rows(resident: DeviceNodes, sub: DeviceNodes,
     return resident._replace(zone_valid=sub.zone_valid)
 
 
+def _gather_local_rows(block, idx, sh):
+    """A block's own rows of the global rows ``idx`` (zeros elsewhere)."""
+    return gather_node_rows(block, idx.long() - sh.lo)
+
+
 def gather_node_rows(nodes: DeviceNodes, idx: Tensor) -> DeviceNodes:
     """The restricted solve's candidate-column view: the (C,) node rows
     ``idx`` of the resident table as a small DeviceNodes the solver runs
@@ -371,7 +376,27 @@ def gather_node_rows(nodes: DeviceNodes, idx: Tensor) -> DeviceNodes:
     sentinel ``== N``) gives a row of zeros, as the reference's
     ``jnp.take(mode="fill", fill_value=0)``: ``valid`` is False there, so
     padded rows reject every predicate. ``zone_valid`` is universe-shaped
-    and passes through whole."""
+    and passes through whole.
+
+    A ``parallel.mesh.ShardedNodes`` gathers each row from the block that
+    owns it: every shard gathers its own rows of ``idx`` (zeros
+    elsewhere), and ``owner_select`` takes each row from its owner onto
+    the first device, where ``idx`` lies."""
+    from kubernetes_tpu_torch.parallel import collectives as coll
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, per_shard
+
+    if isinstance(nodes, ShardedNodes):
+        mesh = nodes.mesh
+        mine = per_shard(_gather_local_rows, nodes, idx, shard=True,
+                         split=0)
+        owner = torch.div(idx.long(), nodes.rows,
+                          rounding_mode="floor").clamp(0, mesh.size - 1)
+        first = (mesh.device,)
+        return DeviceNodes(**{
+            name: (mine.zone_valid.parts[0] if name == "zone_valid" else
+                   coll.owner_select(list(getattr(mine, name).parts),
+                                     owner, first)[0])
+            for name in DeviceNodes._fields})
     idx = idx.long()
     inside = (idx >= 0) & (idx < nodes.n)
     safe = torch.where(inside, idx, 0)
@@ -393,7 +418,9 @@ def gather_candidates(summary, dirty_mask: Tensor, nodes: DeviceNodes,
                       hint_quota: int = 0):
     """Candidate pick + row gather (``ops/fused_score.candidate_columns``
     composed with :func:`gather_node_rows`). Returns ``(cand_idx,
-    sub_nodes)``."""
+    sub_nodes)``; on a mesh (``nodes`` a ``parallel.mesh.ShardedNodes``,
+    the summary and masks in its row blocks) the pick is per shard and
+    each row comes from its owning block, both onto the first device."""
     from kubernetes_tpu_torch.ops.fused_score import candidate_columns
 
     cand = candidate_columns(summary, dirty_mask, k, hint_mask, num_shards,
@@ -515,7 +542,7 @@ def topology_to_device(t: TopologyTables, device="cuda") -> DeviceTopology:
         # of matcher 0 — the pm_* matmuls are the only validity gate the
         # at/st tables have
         oh = np.zeros((rows, M), np.float32)
-        m_idx = np.asarray(m_idx)  # graftlint: disable=R7 -- host pack input, never a device value
+        m_idx = np.asarray(m_idx)  # graftlint: disable=R7,R8 -- host pack input, never a device value
         ok = m_idx >= 0
         r = np.arange(len(m_idx))[ok]
         if len(r):
@@ -582,5 +609,5 @@ def from_numpy(kind: str, fields: dict, device="cuda"):
     over as they are."""
     cls = _KINDS[kind]
     up = functools.partial(upload, device=resolve_device(device))
-    # graftlint: disable=R7 -- fields are host numpy arrays (the input)
+    # graftlint: disable=R7,R8 -- fields are host numpy arrays (the input)
     return cls(**{f: up(np.asarray(fields[f])) for f in cls._fields})

@@ -114,6 +114,13 @@ class UsageState(NamedTuple):
 
 
 def usage_from_nodes(nodes: DeviceNodes) -> UsageState:
+    """The usage slice of a node table; of a ``parallel.mesh.
+    ShardedNodes``, a ``UsageState`` of its blocks' slices (each field a
+    ``parallel.mesh.Blocks``)."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, per_shard
+
+    if isinstance(nodes, ShardedNodes):
+        return per_shard(usage_from_nodes, nodes, split=0)
     return UsageState(
         requested=nodes.requested,
         nonzero_req=nodes.nonzero_req,
@@ -133,6 +140,15 @@ def usage_from_nodes(nodes: DeviceNodes) -> UsageState:
 
 
 def nodes_with_usage(nodes: DeviceNodes, u: UsageState) -> DeviceNodes:
+    """The node table with ``u`` as its usage; a ``parallel.mesh.
+    ShardedNodes`` takes a ``UsageState`` of ``parallel.mesh.Blocks``,
+    block by block (a derived table: no whole)."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, part
+
+    if isinstance(nodes, ShardedNodes):
+        return ShardedNodes(nodes.mesh, tuple(
+            nodes_with_usage(b, part(u, i))
+            for i, b in enumerate(nodes.blocks)))
     return nodes._replace(
         requested=u.requested,
         nonzero_req=u.nonzero_req,
@@ -163,6 +179,22 @@ def _scatter_max(base, idx, vals):
 
 
 def _apply_batch(u: UsageState, pods: DevicePods, node_idx: torch.Tensor,
+                 accepted: torch.Tensor) -> UsageState:
+    """Scatter accepted pods into the usage state (new tensors; ``u`` is
+    left as it was): :func:`_apply_usage`, or on a mesh (``u`` a
+    ``UsageState`` of ``parallel.mesh.Blocks``; ``node_idx`` and
+    ``accepted`` on the mesh's first device) per block: each block takes
+    the pods whose node it owns, at its local rows, in the same order,
+    so every node's sums are the unsharded ones."""
+    from kubernetes_tpu_torch.parallel.mesh import is_placed, per_shard
+
+    if not is_placed(u):
+        return _apply_usage(u, pods, node_idx, accepted)
+    return per_shard(_apply_local, u, pods, node_idx, accepted,
+                     shard=True, split=0)
+
+
+def _apply_usage(u: UsageState, pods: DevicePods, node_idx: torch.Tensor,
                  accepted: torch.Tensor) -> UsageState:
     """Scatter accepted pods into the usage state (new tensors; ``u`` is
     left as it was). ``node_idx`` (P,) row per pod; ``accepted`` (P,) bool
@@ -257,10 +289,13 @@ def greedy_assign(
     solver-entry fault-injection seam (:mod:`kubernetes_tpu_torch.faults`):
     called with the would-be result, it may raise a solver fault or
     return a poisoned triple. On a mesh the serial oracle runs on the
-    whole table, gathered onto the mesh's first device."""
-    from kubernetes_tpu_torch.parallel.mesh import unreplicated, whole
+    whole table, gathered onto the mesh's first device
+    (``collectives.whole_table``)."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, unreplicated
 
-    pods, nodes, sel = unreplicated(pods), whole(nodes), unreplicated(sel)
+    if isinstance(nodes, ShardedNodes):
+        nodes = coll.whole_table(nodes)
+    pods, sel = unreplicated(pods), unreplicated(sel)
     topo, vol = unreplicated(topo), unreplicated(vol)
     P = pods.req.shape[0]
     dev = pods.req.device
@@ -288,7 +323,7 @@ def greedy_assign(
             score = score + extra_score.index_select(0, p)
         best = torch.where(mask, score, NEG).argmax(1)  # (1,)
         ok = mask.gather(1, best[:, None])[:, 0] & pod.valid
-        u = _apply_batch(u, pod, best, ok)
+        u = _apply_usage(u, pod, best, ok)
         picks[i:i + 1] = torch.where(ok, best, -1).to(torch.int32)
     assigned = torch.full((P,), -1, dtype=torch.int32, device=dev)
     assigned[perm] = picks
@@ -490,10 +525,10 @@ def _apply_local(u, pods, choice, accepted, sh=None):
     """Scatter the accepted pods into this block's usage: on a mesh only
     the pods whose chosen node the block owns, at its local rows."""
     if sh is None:
-        return _apply_batch(u, pods, torch.where(accepted, choice, 0),
+        return _apply_usage(u, pods, torch.where(accepted, choice, 0),
                             accepted)
     mine = accepted & (choice >= sh.lo) & (choice < sh.lo + sh.rows)
-    return _apply_batch(u, pods, torch.where(mine, choice - sh.lo, 0), mine)
+    return _apply_usage(u, pods, torch.where(mine, choice - sh.lo, 0), mine)
 
 
 def _round_exit(assigned, pods, accepted) -> torch.Tensor:
@@ -858,17 +893,6 @@ def _general_statics(flags):
               if k not in ("weights", "route_plan")])
 
 
-# graftlint: disable-scope=R8 -- placement, not a gather: a (P, N) input on
-# the mesh's first device split into its column blocks, block i onto
-# devices[i] (no copy on a logical mesh)
-def _column_blocks(x, mesh):
-    """A (P, N) table's column blocks, block i on ``mesh.devices[i]``."""
-    if x is None:
-        return (None,) * mesh.size
-    return tuple(b.to(dev) for b, dev in zip(x.chunk(mesh.size, 1),
-                                              mesh.devices))
-
-
 def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
                         per_node_cap, extra_mask=None, vol=None,
                         static_vol=None, enabled_mask=None, extra_score=None,
@@ -884,7 +908,9 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
     driven in lockstep. Pods, selectors, topology and volume tables are
     replicated per device; (P, N) inputs split into column blocks.
     Returns :func:`_batch_impl`'s tuple with the placements as global
-    node rows on ``mesh.devices[0]`` and the usage and v gathered there.
+    node rows on ``mesh.devices[0]``, the usage as a ``UsageState`` of
+    ``parallel.mesh.Blocks`` and v as the ``Blocks`` of the shards' own
+    rows.
 
     On a logical mesh (the blocks share one card) the whole partitioned
     round is one device's work: round 0 runs eagerly and the later rounds
@@ -896,7 +922,13 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
     syncs (the batch's any-valid test and each round's exit) plus the
     auto-router's one and, with ``sk_tol``, one per Sinkhorn iteration;
     the result's readback is the caller's."""
-    from kubernetes_tpu_torch.parallel.mesh import gather_usage, replicas
+    from kubernetes_tpu_torch.parallel.mesh import (
+        Blocks,
+        column_blocks,
+        join,
+        part,
+        replicas,
+    )
 
     mesh = nodes.mesh
     d = mesh.size
@@ -926,10 +958,10 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
         statics = ("lean", per_node_cap, res_on, lean_plan)
         program = _lean_round
     else:
-        static_vols = _column_blocks(static_vol, mesh)
+        static_vols = column_blocks(static_vol, mesh)
         pro = coll.lockstep([_general_prologue(
             pods_k[i], blocks[i], sel_k[i], topo_k[i], vol_k[i],
-            static_vols[i], weights, skip, no_pod_affinity, no_spread,
+            part(static_vols, i), weights, skip, no_pod_affinity, no_spread,
             shs[i]) for i in range(d)], devs)
         res_on = enabled_mask is None or bool(
             enabled_mask & (1 << BIT["PodFitsResources"]))
@@ -943,19 +975,21 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
                   route_plan=route_plan)
         statics = _general_statics(kw)
         program = _general_round
-        ems, ess = _column_blocks(extra_mask, mesh), \
-            _column_blocks(extra_score, mesh)
+        ems, ess = column_blocks(extra_mask, mesh), \
+            column_blocks(extra_score, mesh)
         ctx = tuple(
             (pods_k[i], blocks[i], sel_k[i], topo_k[i], vol_k[i], pro[i][0],
-             ems[i], ess[i], ranks[i], pro[i][1], pro[i][2], pro[i][3],
+             part(ems, i), part(ess, i), ranks[i], pro[i][1], pro[i][2], pro[i][3],
              pro[i][4]) for i in range(d))
         if sk_init is not None:
             # graftlint: disable=R8 -- placement of the warm start: u
             # replicated onto every shard, v split into its row blocks
             us = [sk_init[0].to(dv, torch.float32) for dv in devs]
-            # graftlint: disable=R8 -- placement of the warm start (v)
+            # graftlint: disable=R8 -- placement of the warm start (v):
+            # its row blocks, each onto its shard's device
             vs = [b.to(dv, torch.float32) for b, dv in zip(
-                sk_init[1].chunk(d, 0), devs)]
+                sk_init[1].parts if isinstance(sk_init[1], Blocks)
+                else sk_init[1].chunk(d, 0), devs)]
         else:
             us = [torch.zeros((P,), dtype=torch.float32, device=dv)
                   for dv in devs]
@@ -967,26 +1001,25 @@ def _batch_impl_sharded(pods, nodes, sel, topo, weights, max_rounds,
              us[i], vs[i]) for i in range(d))
 
     def body(ctx, state, first, tag):
-        coll.ROUND.reset()
-        outs = coll.lockstep([program(ctx[i], state[i], first, tag,
-                                      sh=shs[i], **kw) for i in range(d)],
-                             devs)
+        with coll.round_body():
+            outs = coll.lockstep([program(ctx[i], state[i], first, tag,
+                                          sh=shs[i], **kw)
+                                  for i in range(d)], devs)
         return tuple(o[0] for o in outs), outs[0][1], outs[0][2]
 
     if statics is not None:
         statics = ("sharded", d) + tuple(statics) if mesh.logical else None
     states, rounds = device_loop.run(body, ctx, state, pods0.valid,
                                      max_rounds, statics, shape=(P, N))
-    usage = gather_usage([st[1] for st in states], devs[0])
+    usage = join([st[1] for st in states], mesh)
     if lean_plan is not None:
         return (states[0][0], usage, rounds,
                 torch.full((2,), -1.0, dtype=torch.float32, device=devs[0]),
                 (torch.zeros((P,), dtype=torch.float32, device=devs[0]),
-                 torch.zeros((N,), dtype=torch.float32, device=devs[0])))
-    # graftlint: disable=R8 -- the solve's result: v gathered once onto
-    # devices[0] for the caller, as the docstring says (per-shard reads
-    # of the result are ROADMAP §A item 3's open work)
-    sk_v = torch.cat([st[4].to(devs[0]) for st in states])
+                 Blocks(mesh, tuple(
+                     torch.zeros((nodes.rows,), dtype=torch.float32,
+                                 device=dv) for dv in devs))))
+    sk_v = Blocks(mesh, tuple(st[4] for st in states))
     return states[0][0], usage, rounds, states[0][2], (states[0][3], sk_v)
 
 
@@ -1105,7 +1138,8 @@ def batch_assign(
     ``nodes`` a :class:`~kubernetes_tpu_torch.parallel.mesh.ShardedNodes`
     (with pods and selectors replicated or not) runs the partitioned
     solve (:func:`_batch_impl_sharded`): the same placements and rounds,
-    the usage and potentials gathered onto the mesh's first device."""
+    the usage and v left in the shards' blocks (``parallel.mesh.Blocks``,
+    the usage field by field; ``sk_init`` takes v so too, or whole)."""
     from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, unreplicated
 
     impl = _batch_impl
@@ -1156,11 +1190,9 @@ def solve_cost_analysis(pods: DevicePods, nodes: DeviceNodes,
     reference reads XLA's ``cost_analysis()`` of the compiled program.
     Host arithmetic only: no device work."""
     from kubernetes_tpu_torch.obs.ledger import round_work
+    from kubernetes_tpu_torch.parallel.mesh import unreplicated
 
-    from kubernetes_tpu_torch.parallel.mesh import unreplicated, whole
-
-    return round_work(int(unreplicated(pods).valid.shape[0]),
-                      int(whole(nodes).valid.shape[0]),
+    return round_work(int(unreplicated(pods).valid.shape[0]), int(nodes.n),
                       use_sinkhorn=bool(solve_kwargs.get("use_sinkhorn")))
 
 
@@ -1188,7 +1220,7 @@ def solve_memory_analysis(pods: DevicePods, nodes: DeviceNodes,
     )
 
     # a partitioned solve is measured on its first device, whose
-    # allocator holds block 0 and the whole table's mirror
+    # allocator holds block 0
     blocks = nodes.blocks[0] if isinstance(nodes, ShardedNodes) else nodes
     args = tree_nbytes(unreplicated(pods), blocks, unreplicated(sel), *(
         solve_kwargs.get(k) for k in ("topo", "vol", "static_vol",
@@ -1214,10 +1246,23 @@ def validate_solution(assigned, usage: UsageState, pods: DevicePods,
     solver's usage). Capacity is enforced only when PodFitsResources is,
     and only blames nodes that were within allocatable before the batch."""
 
+    from kubernetes_tpu_torch.parallel.mesh import (
+        Blocks,
+        ShardedNodes,
+        join,
+        unreplicated,
+    )
+
     def host(t):
+        if isinstance(t, Blocks):
+            # a per-shard value: its parts read and joined on the host
+            return np.concatenate([host(p) for p in t.parts], t.axis)
         return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
             else np.asarray(t)
 
+    if isinstance(nodes, ShardedNodes):
+        nodes = join(nodes.blocks, nodes.mesh)
+    pods = unreplicated(pods)
     P = pods.req.shape[0]
     try:
         a = host(assigned)
@@ -1273,16 +1318,36 @@ def device_validate(assigned, usage: UsageState, pods: DevicePods,
     readback; decode with :data:`VALIDATE_REASONS`. A result that is not
     a 1-D tensor covering the batch never reaches the device (returns
     None; the host checker renders the verdict). Capacity is recomputed
-    from the assignment, never from the claimed usage."""
+    from the assignment, never from the claimed usage.
+
+    ``nodes`` a ``parallel.mesh.ShardedNodes`` (``usage`` a
+    ``UsageState`` of ``parallel.mesh.Blocks``) checks per shard: the
+    assignment is broadcast, each shard checks the pods assigned into
+    its own block (node validity, capacity) and its own usage
+    (finiteness), the per-check flags merge with ``all_max``, and the
+    code is taken from the merged flags in :data:`VALIDATE_REASONS`
+    order, so several failing checks give the unsharded code, not a
+    shard's own first. The verdict lands on the mesh's first device."""
+    from kubernetes_tpu_torch.parallel.mesh import per_shard, unreplicated
+
     if isinstance(assigned, np.ndarray):
         assigned = torch.tensor(assigned)
+    P = unreplicated(pods).req.shape[0]
     if (not isinstance(assigned, torch.Tensor) or assigned.ndim != 1
-            or assigned.shape[0] < pods.req.shape[0]):
+            or assigned.shape[0] < P):
         return None
+    return per_shard(_validate_g, assigned, usage, pods, nodes,
+                     enabled_mask, shard=True)
+
+
+def _validate_g(assigned, usage, pods, nodes, enabled_mask, sh=None):
+    """:func:`device_validate` as a shard program over one block of the
+    node axis (``sh`` None: the whole table)."""
     P = pods.req.shape[0]
     valid = pods.valid
     nvalid = nodes.valid
-    N = nvalid.shape[0]
+    rows = nvalid.shape[0]
+    lo, N = (0, rows) if sh is None else (sh.lo, sh.n)
     a = assigned[:P].to(pods.req.device)
     false = torch.zeros((), dtype=torch.bool, device=a.device)
     if a.is_floating_point():
@@ -1298,8 +1363,11 @@ def device_validate(assigned, usage: UsageState, pods: DevicePods,
         a = a.to(torch.int32)
     range_bad = (valid & ((a < -1) | (a >= N))).any()
     sel = valid & (a >= 0)
-    ac = a.clamp(0, N - 1).long()
-    invalid_node = (sel & ~nvalid[ac]).any()
+    # the pods this block owns (a row past the table is range_bad, which
+    # outranks every check below)
+    mine = sel & (a >= lo) & (a < lo + rows)
+    ac = (a - lo).clamp(0, rows - 1).long()
+    invalid_node = (mine & ~nvalid[ac]).any()
     fin_bad = ~torch.isfinite(usage.requested).all()
     res_on = enabled_mask is None or bool(
         enabled_mask & (1 << BIT["PodFitsResources"]))
@@ -1307,13 +1375,18 @@ def device_validate(assigned, usage: UsageState, pods: DevicePods,
         base = nodes.requested
         alloc = nodes.allocatable
         add = torch.zeros_like(base).index_add_(
-            0, torch.where(sel, ac, 0), pods.req * sel.to(base.dtype)[:, None])
+            0, torch.where(mine, ac, 0),
+            pods.req * mine.to(base.dtype)[:, None])
         tol = 1e-5 * torch.clamp_min(alloc, 1.0) + 1e-6
         pre_ok = base <= alloc + tol
         over = (base + add > alloc + tol) & nvalid[:, None] & (add > 0)
         cap_bad = (over & pre_ok).any()
     else:
         cap_bad = false
+    # the block-local checks merge before the code is taken
+    flags = yield coll.all_max(torch.stack(
+        [invalid_node, fin_bad, cap_bad]).to(torch.int32))
+    invalid_node, fin_bad, cap_bad = (flags > 0).unbind()
     code = torch.where(fin_a_bad, 5, torch.where(
         dtype_bad, 2, torch.where(
             range_bad, 3, torch.where(

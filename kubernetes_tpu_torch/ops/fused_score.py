@@ -256,8 +256,16 @@ def node_summary(nodes, honor_conditions: bool = True,
     a delta sub-table (whose rows then go in through
     :func:`patch_node_summary`): one pass over the (N, R) usage and the
     (N,) condition bits. ``honor_conditions``: the Policy enforces the
-    node condition predicates; ``prefer_packed``: rank fullest-first."""
+    node condition predicates; ``prefer_packed``: rank fullest-first. A
+    ``parallel.mesh.ShardedNodes`` gives the summary of its blocks, each
+    field the ``parallel.mesh.Blocks`` of the blocks' rows, each on its
+    shard's device."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, per_shard
     from kubernetes_tpu_torch.snapshot import RES_CPU, RES_MEM, RES_PODS
+
+    if isinstance(nodes, ShardedNodes):
+        return per_shard(node_summary, nodes, honor_conditions,
+                         prefer_packed, split=0)
 
     free = nodes.allocatable - nodes.requested  # (N, R)
     eligible = nodes.valid
@@ -286,12 +294,26 @@ def patch_node_summary(summary: NodeSummary, sub: NodeSummary,
     row indices ``idx`` (aligned with ``sub``'s rows); entries at or past
     the resident row count are padding and drop, as in
     ``ops/arrays.scatter_node_rows``. Returns the patched summary (the
-    same tensors)."""
+    same tensors). A summary in a mesh's row blocks takes each row in
+    the one block that owns it (``sub`` placed on each block's device)."""
     import numpy as np
 
     from kubernetes_tpu_torch.ops.arrays import upload
+    from kubernetes_tpu_torch.parallel.mesh import (
+        is_placed,
+        local_rows,
+        part,
+        replicas,
+    )
 
-    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7 -- host row indices
+    if is_placed(summary):
+        mesh = summary.rank.mesh
+        rows = summary.rank.parts[0].shape[0]
+        for i, (sub_k, local) in enumerate(zip(
+                replicas(sub, mesh), local_rows(idx, rows, mesh.size))):
+            patch_node_summary(part(summary, i), sub_k, local)
+        return summary
+    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7,R8 -- host row indices
     keep = np.nonzero(idx < summary.rank.shape[0])[0]
     if len(keep):
         dev = summary.rank.device
@@ -335,13 +357,40 @@ def _merge_local_topk(vals, idx, k: int):
     return vals[o[:k]], idx[o[:k]]
 
 
+def _blocks_topk(score, k: int):
+    """:func:`_sharded_topk` of a score left in the row blocks of a mesh
+    (a ``parallel.mesh.Blocks``): each shard picks its local top-k on its
+    own block, the ``(S, k)`` winners (values and global indices) come to
+    the first device in one gather each and merge as in
+    :func:`_sharded_topk`, bit-identical to it. ``k`` past a block takes
+    the single pass over the score gathered whole ((N,) values, not the
+    node table)."""
+    from kubernetes_tpu_torch.parallel import collectives as coll
+
+    parts, first = score.parts, (score.mesh.device,)
+    local = parts[0].shape[0]
+    if k > local:
+        return _topk(coll.all_gather(list(parts), 0, first)[0], k)
+    picks = [_topk(p, k) for p in parts]
+    vals = coll.all_gather([v for v, _ in picks], 0, first)[0]
+    idx = coll.all_gather([i + s * local for s, (_, i) in enumerate(picks)],
+                          0, first)[0]
+    S = len(parts)
+    return _merge_local_topk(vals.reshape(S, k), idx.reshape(S, k), k)
+
+
 def _sharded_topk(score, k: int, num_shards: int):
     """Top-``k`` of a (N,) plane, optionally in two stages: with
     ``num_shards > 1`` each contiguous block of N/S columns picks its
     local top-k and the (S, k) winners merge by (value desc, index asc).
     Both stages break ties on the lower global index, so the result is
     bit-identical to the single pass on any shard count. Shapes that
-    cannot shard evenly (or k past a block) take the single pass."""
+    cannot shard evenly (or k past a block) take the single pass. A
+    score in a mesh's row blocks takes :func:`_blocks_topk`."""
+    from kubernetes_tpu_torch.parallel.mesh import Blocks
+
+    if isinstance(score, Blocks):
+        return _blocks_topk(score, k)
     n = score.shape[0]
     if num_shards > 1 and n % num_shards == 0 and k <= n // num_shards:
         local = n // num_shards
@@ -363,18 +412,29 @@ def candidate_columns(summary: NodeSummary, dirty_mask, k: int,
 
     ``hint_quota > 0`` reserves a split: the first ``hint_quota`` slots
     hold the best hinted columns, the rest the best unhinted ones
-    (disjoint; quota slots a small hint set cannot fill are sentinels)."""
-    n = summary.rank.shape[0]
+    (disjoint; quota slots a small hint set cannot fill are sentinels).
+
+    A summary in a mesh's row blocks (each field a ``parallel.mesh.
+    Blocks``, with ``dirty_mask`` and ``hint_mask`` in the same blocks)
+    scores each block on its own shard and merges the local winners
+    (:func:`_blocks_topk`); the columns land on the first device."""
+    from kubernetes_tpu_torch.parallel.mesh import abstract, per_shard
+
+    n = abstract(summary.rank).shape[0]
     if hint_mask is not None and 0 < hint_quota < k:
-        base = _candidate_score(summary, dirty_mask, None)
-        hv, hi = _sharded_topk(torch.where(hint_mask, base, _NEG),
-                               hint_quota, num_shards)
-        uv, ui = _sharded_topk(torch.where(hint_mask, _NEG, base),
-                               k - hint_quota, num_shards)
+        base = per_shard(_candidate_score, summary, dirty_mask, None,
+                         split=0)
+        hv, hi = _sharded_topk(per_shard(
+            torch.where, hint_mask, base, _NEG, split=0),
+            hint_quota, num_shards)
+        uv, ui = _sharded_topk(per_shard(
+            torch.where, hint_mask, _NEG, base, split=0),
+            k - hint_quota, num_shards)
         vals, idx = torch.cat([hv, uv]), torch.cat([hi, ui])
     else:
-        vals, idx = _sharded_topk(
-            _candidate_score(summary, dirty_mask, hint_mask), k, num_shards)
+        vals, idx = _sharded_topk(per_shard(
+            _candidate_score, summary, dirty_mask, hint_mask, split=0), k,
+            num_shards)
     return torch.where(vals > _NEG / 2, idx, n).to(torch.int32)
 
 
@@ -384,9 +444,13 @@ def partition_columns(summary: NodeSummary, dirty_mask, n_blocks: int,
     the top ``n_blocks * block_width`` columns by rank, dealt round-robin
     (block b holds ranks b, b+B, b+2B, ...), so every block spans the
     rank spectrum and block 0 owns the best column. Ineligible slots hold
-    the sentinel ``N``. Returns (n_blocks, block_width) int32."""
-    n = summary.rank.shape[0]
-    vals, order = _sharded_topk(_candidate_score(summary, dirty_mask),
-                                n_blocks * block_width, num_shards)
+    the sentinel ``N``. Returns (n_blocks, block_width) int32. A summary
+    in a mesh's row blocks ranks as in :func:`candidate_columns`."""
+    from kubernetes_tpu_torch.parallel.mesh import abstract, per_shard
+
+    n = abstract(summary.rank).shape[0]
+    vals, order = _sharded_topk(
+        per_shard(_candidate_score, summary, dirty_mask, None, split=0),
+        n_blocks * block_width, num_shards)
     idx = torch.where(vals > _NEG / 2, order, n).to(torch.int32)
     return idx.reshape(block_width, n_blocks).T.contiguous()

@@ -397,33 +397,37 @@ def run_predicates(
     / ``no_spread`` skip each of them where the batch gates prove its mask
     all-true. ``nodes`` a ``parallel.mesh.ShardedNodes`` runs the pass
     partitioned across its mesh (``hoisted`` is then recomputed per
-    block)."""
-    from kubernetes_tpu_torch.parallel.collectives import lockstep, solo
-    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, replicas
+    block) and returns a ``FilterResult`` whose mask and reasons are the
+    ``parallel.mesh.Blocks`` of the shards' column blocks, each on its
+    shard's device; ``static_reasons`` may be such blocks too."""
+    from kubernetes_tpu_torch.parallel.mesh import (
+        ShardedNodes,
+        column_blocks,
+        per_shard,
+    )
 
-    if not isinstance(nodes, ShardedNodes):
-        return solo(run_predicates_g(
-            pods, nodes, sel, topo, vol, static_reasons, enabled_mask,
-            hoisted, no_ports, no_pod_affinity, no_spread))
-    # the partitioned Filter pass: one program per shard over its block
-    # (pods and selectors replicated, (P, N) inputs in column blocks),
-    # the (P, N) result gathered onto the mesh's first device
-    mesh = nodes.mesh
-    rep = [replicas(t, mesh) for t in (pods, sel, topo, vol)]
-    # graftlint: disable=R8 -- placement, not a gather: the (P, N) static
-    # reasons split into column blocks, block i onto devices[i]
-    sr = ((None,) * mesh.size if static_reasons is None else tuple(
-        b.to(d) for b, d in zip(static_reasons.chunk(mesh.size, 1),
-                                mesh.devices)))
-    outs = lockstep([run_predicates_g(
-        rep[0][i], nodes.blocks[i], rep[1][i], rep[2][i], rep[3][i], sr[i],
-        enabled_mask, None, no_ports, no_pod_affinity, no_spread)
-        for i in range(mesh.size)], mesh.devices)
-    # graftlint: disable=R8 -- the filter reasons' wholesale mirror read
-    # on devices[0] (ROADMAP §A item 3: per-shard reads are open work)
-    return FilterResult(*[torch.cat([getattr(o, f).to(mesh.device)
-                                     for o in outs], 1)
-                          for f in FilterResult._fields])
+    if isinstance(nodes, ShardedNodes):
+        # (P, N) inputs in column blocks; the result stays in its column
+        # blocks, each on its shard's device
+        hoisted = None
+        static_reasons = column_blocks(static_reasons, nodes.mesh)
+    return per_shard(run_predicates_g, pods, nodes, sel, topo, vol,
+                     static_reasons, enabled_mask, hoisted, no_ports,
+                     no_pod_affinity, no_spread, split=1)
+
+
+def reason_rows(reasons, rows):
+    """Rows ``rows`` ((k,) int64 on the first device) of a filter pass's
+    (P, N) reasons, on the first device: the column blocks of a
+    partitioned pass each take their own ``k`` rows and one gather brings
+    only those to the first device."""
+    from kubernetes_tpu_torch.parallel import collectives as coll
+    from kubernetes_tpu_torch.parallel.mesh import Blocks, per_shard
+
+    mine = per_shard(torch.Tensor.index_select, reasons, 0, rows, split=1)
+    if not isinstance(mine, Blocks):
+        return mine
+    return coll.all_gather(list(mine.parts), 1, (mine.mesh.device,))[0]
 
 
 def run_predicates_g(pods, nodes, sel, topo=None, vol=None,
@@ -545,7 +549,15 @@ def static_volume_reasons(pods: DevicePods, nodes: DeviceNodes,
     - VolumeError: unresolvable PVC/PV state fails the pod everywhere.
 
     ``prog`` accepts the selector table from
-    :func:`static_predicate_reasons` so it is evaluated once."""
+    :func:`static_predicate_reasons` so it is evaluated once. ``nodes`` a
+    ``parallel.mesh.ShardedNodes``: every term is per column, so each
+    shard evaluates its own block and the result stays in its column
+    blocks (a ``parallel.mesh.Blocks``)."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, per_shard
+
+    if isinstance(nodes, ShardedNodes):
+        return per_shard(static_volume_reasons, pods, nodes, sel, vol,
+                         split=1)
     P = pods.req.shape[0]
     N = nodes.allocatable.shape[0]
     reasons = torch.zeros((P, N), dtype=torch.int32, device=pods.req.device)

@@ -78,17 +78,31 @@ def consolidation_bias(pod_valid: torch.Tensor, nodes,
       the reference's order, ``(-0.5 * blk) / nblocks`` in f32.
 
     ``weight`` is a 0-d f32 tensor on the tables' device (a new cost
-    weight is new data, not a new graph); ``fill_block`` a Python int."""
+    weight is new data, not a new graph); ``fill_block`` a Python int.
+    ``nodes`` a ``parallel.mesh.ShardedNodes`` gives the
+    ``parallel.mesh.Blocks`` of each shard's columns, its fill order
+    counted from the block's first global row."""
+    from kubernetes_tpu_torch.parallel.mesh import per_shard
+
+    return per_shard(_consolidation, pod_valid, nodes, weight, fill_block,
+                     shard=True, split=1)
+
+
+def _consolidation(pod_valid, nodes, weight, fill_block, sh=None):
+    """:func:`consolidation_bias` over one block of the node axis (``sh``
+    None: the whole table)."""
     valid = nodes.valid
     occupied = valid & (nodes.requested[:, RES_PODS] > 0)
-    N = valid.shape[0]
+    rows = valid.shape[0]
+    lo, N = (0, rows) if sh is None else (sh.lo, sh.n)
     fb = max(int(fill_block), 1)
     nblocks = max((N + int(fill_block) - 1) // int(fill_block), 1)
-    blk = torch.div(torch.arange(N, dtype=torch.int32, device=valid.device),
+    blk = torch.div(torch.arange(lo, lo + rows, dtype=torch.int32,
+                                 device=valid.device),
                     fb, rounding_mode="floor")
     order = (-0.5 * blk.to(torch.float32)) / nblocks
     row = (torch.where(occupied, weight, 0.0) + order).to(torch.float32)
-    return (row.unsqueeze(0).expand(pod_valid.shape[0], N)
+    return (row.unsqueeze(0).expand(pod_valid.shape[0], rows)
             * pod_valid.unsqueeze(1))
 
 
@@ -99,7 +113,14 @@ def gang_topology_score(home_zone: torch.Tensor, nodes,
     per hop saved against cross-fabric (home-slice nodes ``2 * weight``,
     same superpod ``weight``, fabric 0). A pod without a gang home
     (``home_zone < 0``) gets an all-zero row. ``home_zone`` is (P,)
-    int32 on the tables' device, ``weight`` a 0-d f32 tensor there."""
+    int32 on the tables' device, ``weight`` a 0-d f32 tensor there. A
+    ``parallel.mesh.ShardedNodes`` gives the ``parallel.mesh.Blocks`` of
+    each shard's columns (the score is per column)."""
+    from kubernetes_tpu_torch.parallel.mesh import ShardedNodes, per_shard
+
+    if isinstance(nodes, ShardedNodes):
+        return per_shard(gang_topology_score, home_zone, nodes, weight,
+                         superpod, split=1)
     d = slice_distance(home_zone.unsqueeze(1), nodes.zone_id.unsqueeze(0),
                        superpod=superpod)
     score = weight * (2 - d).to(torch.float32)
@@ -115,21 +136,44 @@ def quality_reduce(assigned: torch.Tensor, usage_requested: torch.Tensor,
     int32 row vector (node row or -1), ``usage_requested`` the final
     (N, R) requested matrix. The three counts are exact (an int32
     ``index_add_`` and int32 sums); the fractions are f32 sums whose
-    order may differ from XLA's in the last bits."""
+    order may differ from XLA's in the last bits.
+
+    ``nodes`` a ``parallel.mesh.ShardedNodes`` (``usage_requested`` the
+    ``parallel.mesh.Blocks`` of its blocks' rows; ``assigned`` on the
+    first device) reduces per shard: the node sums are block partials
+    merged with ``all_sum`` (in shard order, so the fractions may differ
+    from the unsharded sums in the last bits, as XLA's do), each placed
+    pod's free fraction comes from the block that owns its node."""
+    from kubernetes_tpu_torch.parallel.mesh import per_shard
+
+    return per_shard(_quality_g, assigned, usage_requested, pods, nodes,
+                     shard=True)
+
+
+def _quality_g(assigned, usage_requested, pods, nodes, sh=None):
+    """:func:`quality_reduce` as a shard program over one block of the
+    node axis (``sh`` None: the whole table)."""
+    from kubernetes_tpu_torch.parallel import collectives as coll
+
     valid_n = nodes.valid
     alloc = nodes.allocatable
     dev = valid_n.device
-    N = valid_n.shape[0]
+    rows = valid_n.shape[0]
+    lo, N = (0, rows) if sh is None else (sh.lo, sh.n)
     f32 = torch.float32
     placed_mask = pods.valid & (assigned >= 0)
-    ac = assigned.clamp(0, N - 1).to(torch.long)
+    mine = placed_mask & (assigned >= lo) & (assigned < lo + rows)
+    ac = (assigned.clamp(0, N - 1) - lo).clamp(0, rows - 1).to(torch.long)
 
     pod_cnt = usage_requested[:, RES_PODS]
-    nodes_used = (valid_n & (pod_cnt > 0)).sum(dtype=torch.int32)
-    got_batch = torch.zeros((N,), dtype=torch.int32, device=dev)
-    got_batch.index_add_(0, torch.where(placed_mask, ac, torch.zeros_like(ac)),
-                         placed_mask.to(torch.int32))
-    nodes_used_batch = ((got_batch > 0) & valid_n).sum(dtype=torch.int32)
+    got_batch = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    got_batch.index_add_(0, torch.where(mine, ac, torch.zeros_like(ac)),
+                         mine.to(torch.int32))
+    counts = yield coll.all_sum(torch.stack([
+        (valid_n & (pod_cnt > 0)).sum(dtype=torch.int32),
+        ((got_batch > 0) & valid_n).sum(dtype=torch.int32),
+        valid_n.sum(dtype=torch.int32)]))
+    nodes_used, nodes_used_batch, n_valid = counts.unbind()
     placed = placed_mask.sum(dtype=torch.int32)
 
     cap_cpu = alloc[:, RES_CPU].clamp_min(1e-9)
@@ -137,17 +181,20 @@ def quality_reduce(assigned: torch.Tensor, usage_requested: torch.Tensor,
     free_cpu = (alloc[:, RES_CPU] - usage_requested[:, RES_CPU]).clamp_min(0.0)
     free_mem = (alloc[:, RES_MEM] - usage_requested[:, RES_MEM]).clamp_min(0.0)
     min_free_frac = torch.minimum(free_cpu / cap_cpu, free_mem / cap_mem)
-    n_valid = valid_n.sum(dtype=torch.int32).clamp_min(1)
-    headroom = torch.where(valid_n, min_free_frac, 0.0).sum() / n_valid
 
     # fragmentation: the share of free CPU on nodes whose free CPU cannot
     # fit even the batch's mean request
     n_pods = pods.valid.sum(dtype=torch.int32).clamp_min(1)
     mean_req = torch.where(pods.valid.unsqueeze(1), pods.req,
                            0.0)[:, RES_CPU].sum() / n_pods
-    total_free = torch.where(valid_n, free_cpu, 0.0).sum()
-    stranded = torch.where(valid_n & (free_cpu < mean_req.clamp_min(1e-9)),
-                           free_cpu, 0.0).sum()
+    sums = yield coll.all_sum(torch.stack([
+        torch.where(valid_n, min_free_frac, 0.0).sum(),
+        torch.where(valid_n, free_cpu, 0.0).sum(),
+        torch.where(valid_n & (free_cpu < mean_req.clamp_min(1e-9)),
+                    free_cpu, 0.0).sum(),
+        torch.where(valid_n, alloc[:, RES_CPU], 0.0).sum()]))
+    free_sum, total_free, stranded, total_cap = sums.unbind()
+    headroom = free_sum / n_valid.clamp_min(1)
     fragmentation = stranded / total_free.clamp_min(1e-9)
 
     # priority-weighted headroom: placed pods' node free fraction,
@@ -157,9 +204,13 @@ def quality_reduce(assigned: torch.Tensor, usage_requested: torch.Tensor,
     base = torch.where(torch.isfinite(pri_min), pri_min, 0.0)
     w = torch.where(placed_mask, pri - base + 1.0, 0.0)
     pod_free = min_free_frac.index_select(0, ac)
+    if sh is not None:
+        # each pod's fraction from the block that owns its node
+        pod_free = yield coll.from_owner(
+            pod_free, torch.div(assigned.clamp(0, N - 1), rows,
+                                rounding_mode="floor"))
     pri_headroom = (w * pod_free).sum() / w.sum().clamp_min(1e-9)
 
-    total_cap = torch.where(valid_n, alloc[:, RES_CPU], 0.0).sum()
     free_cpu_frac = total_free / total_cap.clamp_min(1e-9)
 
     return torch.stack([

@@ -6,6 +6,7 @@ analytic scale-out model the perf ledger divides by (:mod:`.costmodel`)."""
 
 from kubernetes_tpu_torch.parallel.mesh import (  # noqa: F401
     NODE_AXIS,
+    Blocks,
     Mesh,
     MeshError,
     Replicated,
@@ -23,5 +24,4 @@ from kubernetes_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_nodes,
     shard_usage,
     shards,
-    whole,
 )

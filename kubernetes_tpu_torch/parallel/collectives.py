@@ -30,8 +30,18 @@ lands first) and copies the result back to every shard's device:
   pairs to the row potential u;
 - :func:`owner_select` — a per-pod value read from the one shard that
   owns the pod's chosen node;
-- :func:`all_gather` — the shards' blocks concatenated (only for a
-  custom priority kernel, which must see the whole table).
+- :func:`all_gather` — the shards' blocks concatenated, on every device
+  or (``devices=(first,)``) on the first only: a custom priority
+  kernel's whole mask, the preemption rows' ``k`` reason rows, the
+  candidate pick's ``(S, C)`` winners;
+- :func:`broadcast` — a value made on the first device copied to every
+  shard (an assignment the shards then check or apply, block by block);
+- :func:`whole_table` (and the shard-program step :func:`gather_nodes`)
+  — the whole node table from its blocks, counted once per gather as
+  operation ``gather_nodes``: only the passes that re-pin the whole
+  table onto one device take it (the ``batch-single`` and ``batch-cpu``
+  rungs, the greedy and exact tiers, a registered custom priority
+  kernel, a framework batch plugin).
 
 On a logical mesh (every device the same card) the gathers and copies
 are no-ops: that is the only difference from a mesh over distinct cards.
@@ -48,6 +58,7 @@ host ran, the per-round figures ``chip_smoke.py`` prints beside
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Generator, List, NamedTuple, Sequence
 
 import torch
@@ -102,7 +113,26 @@ class Stats:
 
 STATS = Stats()
 #: the collectives of the last partitioned round body run on the host
+#: (counted only inside :func:`round_body`)
 ROUND = Stats()
+_IN_ROUND = [False]
+
+
+@contextlib.contextmanager
+def round_body():
+    """Count the collectives issued inside into :data:`ROUND`, reset
+    first: the reads that follow a solve (validation, the failure pass)
+    stay out of the round's figures."""
+    ROUND.reset()
+    _IN_ROUND[0] = True
+    try:
+        yield
+    finally:
+        _IN_ROUND[0] = False
+
+
+def _stats():
+    return (STATS, ROUND) if _IN_ROUND[0] else (STATS,)
 
 
 # ---------------------------------------------------------------------------
@@ -153,12 +183,10 @@ def cat(x, dim: int):
 
 def gather_nodes(nodes):
     """Shard program step: the whole node table from the shards' row
-    blocks (universe-shaped ``zone_valid`` is the same on every shard).
-    Only a custom priority kernel on a mesh needs it."""
-    out = []
-    for name, f in zip(type(nodes)._fields, nodes):
-        out.append(f if name == "zone_valid" else (yield cat(f, 0)))
-    return type(nodes)(*out)
+    blocks, on every shard (:func:`whole_table`'s gather, one
+    ``gather_nodes`` operation). Only a custom priority kernel on a mesh
+    needs it."""
+    return (yield Request("gather_nodes", (nodes,)))
 
 
 def host(x):
@@ -180,8 +208,8 @@ def _gather(parts: Sequence[torch.Tensor], dev0) -> List[torch.Tensor]:
     out = []
     for p in parts:
         if p.device != dev0:
-            STATS.moved_bytes += _nbytes(p)
-            ROUND.moved_bytes += _nbytes(p)
+            for st in _stats():
+                st.moved_bytes += _nbytes(p)
         out.append(p.to(dev0))
     return out
 
@@ -190,14 +218,14 @@ def _scatter(res: torch.Tensor, devices) -> List[torch.Tensor]:
     out = []
     for dev in devices:
         if res.device != dev:
-            STATS.moved_bytes += _nbytes(res)
-            ROUND.moved_bytes += _nbytes(res)
+            for st in _stats():
+                st.moved_bytes += _nbytes(res)
         out.append(res.to(dev))
     return out
 
 
 def _count(op: str, d: int, part_bytes: int, res_bytes: int) -> None:
-    for st in (STATS, ROUND):
+    for st in _stats():
         st.calls += 1
         st.payload_bytes += (d - 1) * (part_bytes + res_bytes)
         st.by_op[op] = st.by_op.get(op, 0) + 1
@@ -212,7 +240,8 @@ _FOLD = {
     "max": torch.maximum,
     "min": torch.minimum,
     "sum": torch.add,
-    "or": torch.logical_or,
+    # bitwise: a bool partial ORs as a bool, an int32 bit set as bits
+    "or": torch.bitwise_or,
 }
 
 
@@ -298,6 +327,38 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int, devices=None):
     return _scatter(out, devices)
 
 
+def broadcast(x: torch.Tensor, devices) -> List[torch.Tensor]:
+    """``x``, made on ``devices[0]``, on every device of the mesh."""
+    devices = list(devices)
+    _count("bcast", len(devices), 0, _nbytes(x))
+    return _scatter(x, devices)
+
+
+def _cat_table(blocks, dev0):
+    """The whole table from its row blocks on ``dev0`` (universe-shaped
+    ``zone_valid`` is the same on every block: block 0's)."""
+    out = []
+    for name in type(blocks[0])._fields:
+        fs = [getattr(b, name) for b in blocks]
+        out.append(fs[0] if name == "zone_valid"
+                   else torch.cat(_gather(fs, dev0)))
+    return type(blocks[0])(*out)
+
+
+def whole_table(placed):
+    """The whole node table of a ``parallel.mesh.ShardedNodes`` on the
+    mesh's first device: one ``gather_nodes`` operation. On a logical
+    mesh the blocks' parent is the table and nothing moves. Only the
+    passes that re-pin the whole table onto one device call it (module
+    docstring)."""
+    blocks = placed.blocks
+    table = (placed.whole if placed.whole is not None
+             else _cat_table(blocks, placed.mesh.device))
+    part = sum(_nbytes(f) for f in blocks[0])
+    _count("gather_nodes", len(blocks), part, part * len(blocks))
+    return table
+
+
 def owner_select(values: Sequence[torch.Tensor], owner: torch.Tensor,
                  devices=None):
     """Per pod (dim 0), the value of the shard ``owner`` (P,) names —
@@ -336,6 +397,13 @@ def _resolve(reqs: List[Request], devices) -> List[Any]:
         return owner_select(cols[0], cols[1][0], devices)
     if op == "cat":
         return all_gather(cols[0], cols[1][0], devices)
+    if op == "gather_nodes":
+        from kubernetes_tpu_torch.parallel.mesh import Mesh, ShardedNodes
+
+        table = whole_table(ShardedNodes(Mesh(tuple(devices)),
+                                         tuple(cols[0])))
+        return [type(table)(*[_scatter(f, [dev])[0] for f in table])
+                for dev in devices]
     if op == "host":
         val = to_host(cols[0][0])
         return [val] * len(reqs)
@@ -346,7 +414,7 @@ def _resolve_one(req: Request):
     """A request of a program that runs alone: the reduction of one
     partial is the partial."""
     op, args = req
-    if op in _FOLD or op in ("owner", "cat"):
+    if op in _FOLD or op in ("owner", "cat", "gather_nodes"):
         return args[0]
     if op == "argmax":
         return args

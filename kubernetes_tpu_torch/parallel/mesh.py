@@ -11,15 +11,24 @@ out:
   repeated (a *logical* mesh);
 - a node-axis table on a mesh of ``d > 1`` devices is a
   :class:`ShardedNodes`: ``d`` contiguous row blocks of ``N / d`` rows,
-  block ``i`` on ``devices[i]`` (:func:`shards`), beside the whole table
-  on ``devices[0]`` that the reads outside the partitioned solve use (on
-  a logical mesh the blocks are views of it; on distinct cards it is a
-  mirror the cache keeps in step);
+  block ``i`` on ``devices[i]`` (:func:`shards`). On a logical mesh the
+  blocks are views of one table on the card (``ShardedNodes.whole``); on
+  distinct cards no device holds the whole table: a pass that needs it
+  gathers it explicitly (``collectives.whole_table``, counted);
+- a tensor a shard program leaves per shard (a usage column, a score
+  summary's rank, a filter result's column block) is a :class:`Blocks`:
+  part ``i`` on ``devices[i]``, split along the node axis (rows, or the
+  columns of a (P, N) plane); a table of them keeps its type, a
+  :class:`Blocks` in each field;
 - a replicated table is a :class:`Replicated`: one copy on every device
   (the same object ``d`` times on a logical mesh).
 
-``batch_assign`` dispatches on :class:`ShardedNodes`: one program per
-shard over its own block, the cross-shard reductions explicit in
+Every pass a cycle runs over the node axis goes through
+:func:`per_shard` (``run_predicates``, ``explain_reduce``,
+``device_validate``, ``quality_reduce``, the candidate pick and its row
+gather, the usage updates; ``batch_assign`` drives its own rounds): off
+the mesh the unsharded program once, on it one program per shard over
+its own block, the cross-shard reductions explicit in
 :mod:`.collectives` (the only place shards exchange data). A mesh of one
 device keeps the unsharded program — the reference's partitioner is the
 identity there — so the placement helpers return the table itself.
@@ -64,8 +73,8 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The first device: where the replicated results and the whole
-        table live."""
+        """The first device: where the replicated results land and the
+        host reads them."""
         return self.devices[0]
 
     @property
@@ -76,22 +85,37 @@ class Mesh:
 
 class ShardedNodes(NamedTuple):
     """A node table placed on a mesh of ``d > 1`` devices: ``blocks[i]``
-    (a ``DeviceNodes`` of ``N / d`` rows) on ``mesh.devices[i]``, and the
-    whole table on ``mesh.devices[0]`` (the blocks' parent on a logical
-    mesh)."""
+    (a ``DeviceNodes`` of ``N / d`` rows) on ``mesh.devices[i]``.
+    ``whole`` is the blocks' parent on a logical mesh (one card holds the
+    table once) and None otherwise: on distinct cards no device holds the
+    whole table."""
 
     mesh: Mesh
     blocks: tuple
-    whole: object
+    whole: object = None
 
     @property
     def n(self) -> int:
-        return self.whole.n
+        """The padded global node count."""
+        return self.rows * self.mesh.size
 
     @property
     def rows(self) -> int:
         """Rows of one block."""
         return self.blocks[0].n
+
+
+class Blocks(NamedTuple):
+    """A tensor split along the node axis of a mesh: ``parts[i]`` on
+    ``mesh.devices[i]``. ``axis`` 0 splits node rows (a usage column, a
+    score summary's rank), 1 the columns of a (P, N) plane (a filter
+    result's mask, a score term). A table of such tensors (a
+    ``FilterResult``, a ``UsageState``, a ``NodeSummary``) keeps its own
+    type with a :class:`Blocks` in each field (:func:`join`)."""
+
+    mesh: Mesh
+    parts: tuple
+    axis: int = 0
 
 
 class Replicated(NamedTuple):
@@ -220,54 +244,53 @@ def _blocks(table, mesh: Mesh, whole_field=("zone_valid",)):
     return tuple(out)
 
 
-def shard_nodes(nodes, mesh: Mesh, placed: Optional[ShardedNodes] = None):
+def shard_nodes(nodes, mesh: Mesh):
     """Place a ``DeviceNodes`` on the mesh: node-axis tensors split into
     the mesh's row blocks, universe-shaped ones (``zone_valid``)
     replicated. The node axis must divide across the mesh (callers pad
     the bucket up to the mesh size; both are powers of two). A mesh of
-    one device returns the table on its device. ``placed``: an earlier
-    placement of this very table (its blocks are reused)."""
+    one device returns the table on its device. On a logical mesh the
+    blocks are views of the table, which stays their parent; on distinct
+    cards only the blocks are kept."""
     if isinstance(nodes, ShardedNodes):
         return nodes
     _check_divides(nodes.allocatable.shape[0], mesh)
     if mesh.size == 1:
         return type(nodes)(*[_to(f, mesh.device) for f in nodes])
-    if placed is not None and placed.whole is nodes \
-            and placed.mesh == mesh:
-        return placed
+    if not mesh.logical:
+        return ShardedNodes(mesh, _blocks(nodes, mesh))
     whole = type(nodes)(*[_to(f, mesh.device) for f in nodes])
     return ShardedNodes(mesh, _blocks(whole, mesh), whole)
 
 
-def whole(nodes):
-    """The whole node table on ``mesh.devices[0]`` (the table itself when
-    it is not sharded)."""
-    return nodes.whole if isinstance(nodes, ShardedNodes) else nodes
+def node_blocks(nodes) -> tuple:
+    """The row blocks of a node table: those of a :class:`ShardedNodes`,
+    else the table itself as the one block."""
+    return nodes.blocks if isinstance(nodes, ShardedNodes) else (nodes,)
 
 
 def place_node_table(table, mesh: Mesh, pad_to: Optional[int] = None):
     """Host ``NodeTable`` -> mesh-placed nodes in one call: pad the node
     bucket up to the mesh size and upload. On a mesh of one device, or a
     logical mesh, the table is uploaded once (the blocks are its views);
-    on distinct cards each block goes straight from the host to its
-    card, and the whole table to ``devices[0]``. Returns a
-    ``DeviceNodes`` on a mesh of one, else a :class:`ShardedNodes`. The
-    one placement seam of the cache's full rebuild, the host-mode cycle
-    and the warmup."""
+    on distinct cards each block goes straight from the host to its card
+    and nothing else is uploaded. Returns a ``DeviceNodes`` on a mesh of
+    one, else a :class:`ShardedNodes`. The one placement seam of the
+    cache's full rebuild, the host-mode cycle and the warmup."""
     from kubernetes_tpu_torch.ops.arrays import nodes_to_device
     from kubernetes_tpu_torch.utils.interner import bucket_size
 
     n_pad = pad_to or bucket_size(max(table.n, 1))
     n_pad = max(n_pad, mesh.size)
-    whole_dev = nodes_to_device(table, pad_to=n_pad, device=mesh.device)
     if mesh.size == 1 or mesh.logical:
-        return shard_nodes(whole_dev, mesh)
+        return shard_nodes(
+            nodes_to_device(table, pad_to=n_pad, device=mesh.device), mesh)
     _check_divides(n_pad, mesh)
     rows = n_pad // mesh.size
     return ShardedNodes(mesh, tuple(
         nodes_to_device(_row_block(table, i * rows, (i + 1) * rows),
                         pad_to=rows, device=dev)
-        for i, dev in enumerate(mesh.devices)), whole_dev)
+        for i, dev in enumerate(mesh.devices)))
 
 
 def _row_block(table, lo: int, hi: int):
@@ -284,42 +307,228 @@ def _row_block(table, lo: int, hi: int):
 
 def scatter_placed(placed: ShardedNodes, whole_new, sub, idx):
     """Keep a :class:`ShardedNodes` in step with a delta scatter of
-    ``sub``'s rows at host rows ``idx`` that produced ``whole_new``: on a
-    logical mesh the blocks are views of it again; on distinct cards each
+    ``sub``'s rows at host rows ``idx``: on a logical mesh the scatter
+    went into the parent, which produced ``whole_new``, and the blocks
+    are views of it again; on distinct cards (``whole_new`` None) each
     row lands in the one block that owns it (``ops/arrays.
     scatter_node_rows``, in place)."""
     mesh = placed.mesh
     if mesh.logical:
         return shard_nodes(whole_new, mesh)
-    import numpy as np
-
     from kubernetes_tpu_torch.ops.arrays import scatter_node_rows
 
-    idx = np.asarray(idx, np.int64)  # graftlint: disable=R7 -- host row indices
-    rows = placed.rows
-    blocks = []
-    for i, (b, dev) in enumerate(zip(placed.blocks, mesh.devices)):
+    return ShardedNodes(mesh, tuple(
+        scatter_node_rows(b, type(sub)(*[_to(f, dev) for f in sub]), local)
+        for b, dev, local in zip(placed.blocks, mesh.devices,
+                                 local_rows(idx, placed.rows, mesh.size))))
+
+
+def local_rows(idx, rows: int, count: int) -> list:
+    """Host row indices ``idx`` as each of ``count`` blocks of ``rows``
+    rows sees them: a block's own rows at their local index, every other
+    row at ``rows`` (a padding index the scatters drop)."""
+    import numpy as np
+
+    # graftlint: disable=R7,R8 -- host row indices
+    idx = np.asarray(idx, np.int64)
+    out = []
+    for i in range(count):
         mine = (idx >= i * rows) & (idx < (i + 1) * rows)
-        local = np.where(mine, idx - i * rows, rows)  # rows: dropped
-        blocks.append(scatter_node_rows(
-            b, type(sub)(*[_to(f, dev) for f in sub]), local))
-    return ShardedNodes(mesh, tuple(blocks), whole_new)
+        out.append(np.where(mine, idx - i * rows, rows))
+    return out
 
 
 def shard_usage(u, mesh: Mesh):
     """Shard a node-axis usage table (``ops/assign.UsageState``, every
-    field (N, ...)) along the mesh, as the resident table is: a tuple of
-    ``d`` per-block usage tables (the table itself on a mesh of one)."""
+    field (N, ...)) along the mesh, as the resident table is: the
+    ``UsageState`` of :class:`Blocks` (the table itself on a mesh of
+    one)."""
     if mesh.size == 1:
         return type(u)(*[_to(f, mesh.device) for f in u])
-    return _blocks(u, mesh, whole_field=())
+    return join(_blocks(u, mesh, whole_field=()), mesh)
 
 
-def gather_usage(blocks, dev):
-    """The inverse of :func:`shard_usage`: per-block usage tables -> one
-    table on ``dev``."""
-    return type(blocks[0])(*[torch.cat([_to(b[i], dev) for b in blocks])
-                             for i in range(len(blocks[0]))])
+def row_blocks(x, mesh: Mesh) -> Blocks:
+    """A node-axis tensor (N, ...) on one device as the :class:`Blocks`
+    of its row blocks, block i placed on ``devices[i]`` (views on a
+    logical mesh); a :class:`Blocks` passes through."""
+    if isinstance(x, Blocks):
+        return x
+    return Blocks(mesh, tuple(_to(b, dev) for b, dev in
+                              zip(x.chunk(mesh.size, 0), mesh.devices)))
+
+
+def column_blocks(x, mesh: Mesh) -> Optional[Blocks]:
+    """A (P, N) plane as the :class:`Blocks` of its column blocks, block
+    i on ``devices[i]`` (views on a logical mesh); a :class:`Blocks` and
+    None pass through. Placement, not an exchange: the plane was made on
+    the first device (a plugin's or the host's term)."""
+    if x is None or isinstance(x, Blocks):
+        return x
+    return Blocks(mesh, tuple(_to(b, dev) for b, dev in
+                              zip(x.chunk(mesh.size, 1), mesh.devices)), 1)
+
+
+def upload_rows(host, mesh: Mesh) -> Blocks:
+    """A host node-axis array (N, ...) uploaded as row blocks, block i
+    straight to ``devices[i]`` (``ops/arrays.upload``)."""
+    from kubernetes_tpu_torch.ops.arrays import upload
+
+    rows = host.shape[0] // mesh.size
+    return Blocks(mesh, tuple(upload(host[i * rows:(i + 1) * rows], dev)
+                              for i, dev in enumerate(mesh.devices)))
+
+
+def _table(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def is_placed(x) -> bool:
+    """Whether ``x`` lies in a mesh's node-axis blocks: a
+    :class:`ShardedNodes`, a :class:`Blocks`, or a table with a
+    :class:`Blocks` field."""
+    if isinstance(x, (ShardedNodes, Blocks)):
+        return True
+    return _table(x) and any(isinstance(f, Blocks) for f in x)
+
+
+def _has_tensor(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return True
+    return isinstance(x, (tuple, list)) and any(_has_tensor(f) for f in x)
+
+
+def _mesh_of(x) -> Optional[Mesh]:
+    if isinstance(x, (ShardedNodes, Blocks)):
+        return x.mesh
+    if _table(x):
+        for f in x:
+            if isinstance(f, Blocks):
+                return f.mesh
+    return None
+
+
+def _rows_of(x) -> int:
+    if isinstance(x, ShardedNodes):
+        return x.rows
+    if isinstance(x, Blocks):
+        return x.parts[0].shape[x.axis]
+    return next(_rows_of(f) for f in x if isinstance(f, Blocks))
+
+
+def part(x, i: int):
+    """Shard ``i``'s view of a value: block ``i`` of a
+    :class:`ShardedNodes`, part ``i`` of a :class:`Blocks` (and of each
+    :class:`Blocks` field of a table), copy ``i`` of a
+    :class:`Replicated`; anything else as it is."""
+    if isinstance(x, ShardedNodes):
+        return x.blocks[i]
+    if isinstance(x, Blocks):
+        return x.parts[i]
+    if isinstance(x, Replicated):
+        return x.copies[i]
+    if is_placed(x):
+        return type(x)(*[part(f, i) for f in x])
+    return x
+
+
+def join(outs: Sequence, mesh: Mesh, axis: int = 0):
+    """The ``d`` per-shard values of a mesh as one placed value: a
+    :class:`Blocks` of tensors, or a table of the parts' type with each
+    field joined (None fields stay None)."""
+    o0 = outs[0]
+    if o0 is None:
+        return None
+    if isinstance(o0, torch.Tensor):
+        return Blocks(mesh, tuple(outs), axis)
+    return type(o0)(*[join([o[k] for o in outs], mesh, axis)
+                      for k in range(len(o0))])
+
+
+def per_shard(program, *args, split: Optional[int] = None,
+              shard: bool = False, **kw):
+    """Run ``program`` over the placement of its node-axis arguments: the
+    one dispatch of every pass a cycle runs over the node axis.
+
+    No argument placed (:func:`is_placed`): ``program(*args, **kw)``
+    once (a :class:`Replicated` as its first copy); a shard program (a
+    generator) runs alone (``collectives.solo``), where every reduction
+    is its own partial.
+    On a mesh of ``d``: one call per shard ``i``, each placed argument
+    as its part ``i`` (:func:`part`), a :class:`Replicated` as its copy
+    ``i``, any other tensor broadcast from the first device (a counted
+    ``collectives.broadcast``), any other table replicated, everything
+    else as it is; ``shard=True`` adds ``sh=collectives.Shard(i, d,
+    rows)``. Shard programs run in lockstep (``collectives.lockstep``).
+
+    Returns, with ``split`` None, shard 0's result (a merged value on
+    the first device); with ``split`` 0 or 1, the shards' results joined
+    along that axis (:func:`join`): node rows, or a (P, N) plane's
+    columns."""
+    import inspect
+
+    from kubernetes_tpu_torch.parallel import collectives as coll
+
+    placed = [a for a in list(args) + list(kw.values()) if is_placed(a)]
+    if not placed:
+        out = program(*[unreplicated(a) for a in args],
+                      **{k: unreplicated(v) for k, v in kw.items()})
+        return coll.solo(out) if inspect.isgenerator(out) else out
+    mesh = _mesh_of(placed[0])
+    d = mesh.size
+
+    def spread(x):
+        if is_placed(x) or isinstance(x, Replicated):
+            return [part(x, i) for i in range(d)]
+        if isinstance(x, torch.Tensor):
+            return coll.broadcast(x, mesh.devices)
+        if isinstance(x, tuple) and _has_tensor(x):
+            return list(replicas(x, mesh))
+        return [x] * d
+
+    pos = [spread(a) for a in args]
+    named = {k: spread(v) for k, v in kw.items()}
+    if shard:
+        rows = _rows_of(placed[0])
+        named["sh"] = [coll.Shard(i, d, rows) for i in range(d)]
+    outs = [program(*[a[i] for a in pos],
+                    **{k: v[i] for k, v in named.items()})
+            for i in range(d)]
+    if inspect.isgenerator(outs[0]):
+        outs = coll.lockstep(outs, mesh.devices)
+    return outs[0] if split is None else join(outs, mesh, split)
+
+
+class Abstract(NamedTuple):
+    """A tensor's shape and dtype, no data: what a signature digest and a
+    byte count read."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+    def element_size(self) -> int:
+        return torch.empty((), dtype=self.dtype).element_size()
+
+
+def abstract(x):
+    """The signature of a node-axis value as the unsharded value would
+    show it: a :class:`ShardedNodes`, a :class:`Blocks` or a table of
+    them becomes its global-shaped :class:`Abstract` tree (so a mesh
+    cycle digests and counts bytes as its mesh-off twin does); anything
+    else is itself."""
+    if isinstance(x, ShardedNodes):
+        b0 = x.blocks[0]
+        return type(b0)(*[
+            f if name == "zone_valid" else
+            Abstract((x.n,) + tuple(f.shape[1:]), f.dtype)
+            for name, f in zip(type(b0)._fields, b0)])
+    if isinstance(x, Blocks):
+        shape = list(x.parts[0].shape)
+        shape[x.axis] *= x.mesh.size
+        return Abstract(tuple(shape), x.parts[0].dtype)
+    if is_placed(x):
+        return type(x)(*[abstract(f) for f in x])
+    return x
 
 
 def _place_tree(tree, dev):

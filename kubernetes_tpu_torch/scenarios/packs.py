@@ -72,10 +72,11 @@ class ScenarioPack:
 
     def cost(self, batch, nt, node_order, dp, dn):
         """Optional (P, N) score term for THIS cycle's solve, on ``dn``'s
-        device. ``batch``/``nt``/``node_order`` are host-side (a pack may
-        derive small per-pod arrays from them: uploads only, never a
-        readback); ``dp``/``dn`` are the cycle's device tables. None = no
-        term."""
+        device (on a mesh, ``dn`` a ``parallel.mesh.ShardedNodes``: the
+        ``parallel.mesh.Blocks`` of its shards' columns).
+        ``batch``/``nt``/``node_order`` are host-side (a pack may derive
+        small per-pod arrays from them: uploads only, never a readback);
+        ``dp``/``dn`` are the cycle's device tables. None = no term."""
         return None
 
     def quality_host(self, batch, assigned, nt) -> Dict[str, float]:
@@ -118,7 +119,7 @@ class ConsolidationPack(ScenarioPack):
         from kubernetes_tpu_torch.ops.scenario_cost import consolidation_bias
 
         return consolidation_bias(
-            dp.valid, dn, self.weight_on(dn.valid.device),
+            dp.valid, dn, self.weight_on(dp.valid.device),
             fill_block=self.config.fill_block)
 
 
@@ -176,7 +177,7 @@ class GangTopologyPack(ScenarioPack):
         if P > home.shape[0]:  # padding rows are gangless
             home = np.concatenate(
                 [home, np.full((P - home.shape[0],), -1, np.int32)])
-        dev = dn.valid.device
+        dev = dp.valid.device
         return gang_topology_score(
             upload(home, dev), dn, self.weight_on(dev),
             superpod=self.config.superpod)

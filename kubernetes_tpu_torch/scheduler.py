@@ -119,21 +119,26 @@ config) the node axis of the resident table shards across a 1-D device
 mesh (:mod:`.parallel.mesh`: distinct cards, or one card repeated as a
 logical mesh): the cache pads the node bucket to at least the mesh size
 and keeps the table placed on the mesh (row block i on device i; on
-distinct cards with a whole mirror on the first device, which the
-reads outside the batch solve use: the filter reasons, explain,
-preemption, the exact and greedy tiers, the sparse routes' candidate
-gathers), the configured batch tier solves partitioned (one program
-per shard, ``parallel/collectives.py``; the round-loop graph key
-carries the shard count), the sparse routes' candidate pick runs per
-shard, the batch shape carries ``+mesh{d}``, the flight record its width
-(0 for a cooloff cycle, which runs single-device) and the ladder gains
-the ``batch-single`` rung before ``batch-cpu``: the identical solve on
-the whole table on the mesh's first device.
+distinct cards no device holds the whole table). Every node-axis pass
+of the cycle runs as one program per shard over its own block
+(``parallel/collectives.py`` holds every exchange): the configured
+batch tier (the round-loop graph key carries the shard count), the
+failure pass and ``explain_reduce``, the preemption rows (only their k
+rows gathered), pass A, the usage updates, ``device_validate``,
+``quality_reduce``, a scenario pack's cost terms and the sparse
+routes' candidate pick and row gather. The batch shape carries
+``+mesh{d}``, the flight record its width (0 for a cooloff cycle, which
+runs single-device) and the ladder gains the ``batch-single`` rung
+before ``batch-cpu``: the identical solve on the whole table gathered
+onto the mesh's first device (``collectives.whole_table``, one counted
+``gather_nodes``), as the greedy and exact tiers and a framework batch
+plugin take it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import operator
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Protocol, Tuple
@@ -177,10 +182,11 @@ from kubernetes_tpu_torch.obs.explain import (
     PodExplanation,
     UnschedulableReport,
     build_report,
-    explain_reduce,
+    explain_rows,
     read_back,
 )
 from kubernetes_tpu_torch.ops import device_loop
+from kubernetes_tpu_torch.parallel import collectives as coll
 from kubernetes_tpu_torch.parallel import mesh as pmesh
 from kubernetes_tpu_torch.ops.arrays import (
     gather_candidates,
@@ -215,6 +221,7 @@ from kubernetes_tpu_torch.ops.predicates import (
     decode_reasons,
     fit_error_message_from_counts,
     run_predicates,
+    reason_rows,
     static_volume_reasons,
 )
 from kubernetes_tpu_torch.ops.priorities import (
@@ -364,6 +371,28 @@ def _filter_pass(dp, dn, ds, dt, dv=None, sv=None, em=None):
     nominated-pods pass-A mask and the failure-reason passes (the
     reference's jitted ``_filter_pass``)."""
     return run_predicates(dp, dn, ds, dt, dv, sv, em)
+
+
+def _whole_cols(x):
+    """A (P, N) plane whole on the mesh's first device: one gather of a
+    plane left in column blocks (``parallel.mesh.Blocks``), the plane
+    itself otherwise."""
+    if not isinstance(x, pmesh.Blocks):
+        return x
+    return coll.all_gather(list(x.parts), x.axis, (x.mesh.device,))[0]
+
+
+def _combine(a, b, op):
+    """``op(a, b)`` of two (P, N) planes (``&`` of masks, ``+`` of
+    scores), either None (the other), either in a mesh's column blocks
+    (then block by block)."""
+    if a is None or b is None:
+        return b if a is None else a
+    mesh = next((m.mesh for m in (a, b) if isinstance(m, pmesh.Blocks)),
+                None)
+    if mesh is not None:
+        a, b = pmesh.column_blocks(a, mesh), pmesh.column_blocks(b, mesh)
+    return pmesh.per_shard(op, a, b, split=1)
 
 
 def _static_vol_pass(dp, dn, ds, dv):
@@ -1409,26 +1438,55 @@ class Scheduler:
 
     def _place_host(self, nt, pad_to=None):
         """Place a host node table on the live mesh (the host-mode cycle,
-        the cascade and the warmup): returns the whole table on the
-        mesh's first device and keeps its placement for the partitioned
-        solve (:meth:`_solve_nodes`)."""
+        the cascade and the warmup): the placement itself (a
+        ``ShardedNodes`` on a mesh of ``d > 1``), kept for
+        :meth:`_solve_nodes`."""
         placed = pmesh.place_node_table(nt, self.mesh, pad_to=pad_to)
         self._host_placed = placed
-        return pmesh.whole(placed)
+        return placed
 
     def _solve_nodes(self, dn):
-        """The node table the batch solve runs on: on a live mesh of
-        ``d > 1`` devices the table's placement (the resident one the
-        cache keeps, or the host-mode one), so the solve is partitioned;
-        otherwise ``dn`` itself. A table the placements do not hold (a
-        table the cycle derived) is sharded now: views on a logical
-        mesh, block copies on distinct cards."""
-        if not self._mesh_live or self.mesh.size < 2:
+        """The node table a cycle's node-axis passes run on: on a live
+        mesh of ``d > 1`` devices the table's placement (the resident one
+        the cache keeps, or the host-mode one), so every pass is
+        partitioned; otherwise ``dn`` itself. A placement passes through;
+        a whole table the placements do not hold is sharded now."""
+        if (not self._mesh_live or self.mesh.size < 2
+                or isinstance(dn, pmesh.ShardedNodes)):
             return dn
         for placed in (self.cache.placed_table, self._host_placed):
             if placed is not None and placed.whole is dn:
                 return placed
         return pmesh.shard_nodes(dn, self.mesh)
+
+    def _whole(self, dn, *planes):
+        """``dn`` and the (P, N) ``planes`` whole on the mesh's first
+        device, for the passes that re-pin the cycle off the mesh (the
+        ``batch-single`` and ``batch-cpu`` rungs, the greedy and exact
+        tiers): one counted ``gather_nodes`` for a placed table and one
+        gather per plane left in column blocks; the inputs as they are
+        otherwise."""
+        if not isinstance(dn, pmesh.ShardedNodes):
+            return (dn,) + planes
+        return (coll.whole_table(dn),) + tuple(_whole_cols(x)
+                                               for x in planes)
+
+    def _node_mask(self, n_pad: int, rows=None, host=None):
+        """An (N,) bool node mask on the cycle's node placement: True at
+        host rows ``rows`` (or the host array ``host``). Whole on the
+        cycle's device off the mesh; in the mesh's row blocks on it, each
+        uploaded straight to its shard."""
+        if not self._mesh_live or self.mesh.size < 2:
+            if host is not None:
+                return upload(host, self.device)
+            m = torch.zeros((n_pad,), dtype=torch.bool, device=self.device)
+            if rows:
+                m[upload(rows, self.device, np.int64)] = True
+            return m
+        if host is None:
+            host = np.zeros((n_pad,), bool)
+            host[list(rows or ())] = True
+        return pmesh.upload_rows(host, self.mesh)
 
     def _num_shards(self) -> int:
         """The shard count of the sparse routes' candidate pick."""
@@ -1459,6 +1517,7 @@ class Scheduler:
             else:
                 dn = nodes_to_device(nt, device=self.device)
             RECOVERY.host_cycles += 1
+        dn = self._solve_nodes(dn)
         rows = nt.n if mode == "host" else self.cache.last_upload_rows
         self.metrics.snapshot_packs.inc(mode=mode)
         self.metrics.snapshot_rows_packed.inc(rows)
@@ -1553,7 +1612,7 @@ class Scheduler:
                     min(len(batch), self.pipeline_chunk) if use_pipeline
                     else len(batch), 1))
                 act, split_p, verdict = ml.preflight(
-                    eff_p, int(dn.valid.shape[0]), self._mesh_width())
+                    eff_p, int(dn.n), self._mesh_width())
                 self.obs.note_preflight(act)
                 if act == "split" and not use_pipeline and split_p > 0:
                     if split_p < len(batch):
@@ -1647,7 +1706,7 @@ class Scheduler:
                                            self.percentage_of_nodes_to_score)
             if k < nt.n:
                 subset = set(self.node_tree.take(k))
-                col = np.zeros((dn.valid.shape[0],), bool)
+                col = np.zeros((dn.n,), bool)
                 for j, name in enumerate(node_order):
                     col[j] = name in subset
                 cm = upload(col, dev)[None, :]
@@ -1675,14 +1734,11 @@ class Scheduler:
             with self.obs.span("scenario:cost"):
                 sc_cost = self.scenario_pack.cost(batch, nt, node_order, dp,
                                                   dn)
-            if sc_cost is not None:
-                extra_score = (sc_cost if extra_score is None
-                               else extra_score + sc_cost)
+            extra_score = _combine(extra_score, sc_cost, operator.add)
         if nominated:
             nom_mask = self._nominated_mask(nominated, node_order, dp, dn,
                                             ds, dt, dv, sv)
-            extra_mask = (nom_mask if extra_mask is None
-                          else extra_mask & nom_mask)
+            extra_mask = _combine(extra_mask, nom_mask, operator.and_)
 
         solver = self.solver
         if solver == "exact":
@@ -1771,24 +1827,20 @@ class Scheduler:
         # usage (without the nominated phantoms, as in the reference),
         # reduced on the device by explain_reduce for exactly the failed
         # rows and read back as one transfer; preemption's per-node rows
-        # are gathered for the preemptable pods only
+        # are gathered for the preemptable pods only (on a mesh each
+        # shard reduces and takes rows of its own column block)
         failed_idx = [i for i, a in enumerate(assigned) if a < 0]
         preemptable_idx = [i for i in failed_idx if i not in gang_failed]
         ex = rows_dev = None
         if failed_idx:
             tx = time.perf_counter()
-            fr = _filter_pass(dp, nodes_with_usage(dn, usage), ds, dt, dv,
-                              sv, self.pred_mask)
-            rows = upload(failed_idx, dev, np.int64)
-            every = torch.ones((len(failed_idx),), dtype=torch.bool,
-                               device=dev)
-            ex = explain_reduce(
-                fr.reasons.index_select(0, rows), dn.valid, every,
-                dp.req.index_select(0, rows), dn.allocatable - usage.requested,
-                dn.ready, dn.network_unavailable)
+            dn_u = nodes_with_usage(dn, usage)
+            fr = _filter_pass(dp, dn_u, ds, dt, dv, sv, self.pred_mask)
+            ex = explain_rows(fr.reasons, dn_u, dp.req,
+                              upload(failed_idx, dev, np.int64))
             if self.enable_preemption and preemptable_idx:
                 pre = upload(preemptable_idx, dev, np.int64)
-                rows_dev = fr.reasons.index_select(0, pre)[:, : nt.n]
+                rows_dev = reason_rows(fr.reasons, pre)[:, : nt.n]
             res.explain_s += time.perf_counter() - tx
 
         # bind the placed pods first: host work that overlaps the failure
@@ -1884,7 +1936,7 @@ class Scheduler:
         self.obs.jax.record_upload("snapshot", *uploads)
         self.obs.note_batch_shape(
             f"P{dp.valid.shape[0] if dp is not None else n_batch}"
-            f"xN{dn.valid.shape[0]}"
+            f"xN{dn.n}"
             + ("+topo" if dt is not None else "")
             + ("+vol" if dv is not None else "")
             + (f"+pipe{self.pipeline_chunk}" if use_pipeline else "")
@@ -1963,11 +2015,16 @@ class Scheduler:
         fails only its own pod."""
         fw = self.framework
         state = CycleState()
+        n_pad = dn.n
+        if fw.has_batch_filters() or fw.has_batch_scores():
+            # a batch plugin reads the whole table (one counted gather on
+            # a mesh), as a registered custom priority kernel does
+            dn = self._whole(dn)[0]
         extra_mask = fw.run_filter_batch(state, dp, dn, ds)
         extra_score = fw.run_score_batch(state, dp, dn, ds)
         early_fail: Dict[int, str] = {}
         if fw.has_host_filters() or fw.has_host_scores():
-            shape = (dp.valid.shape[0], dn.valid.shape[0])
+            shape = (dp.valid.shape[0], n_pad)
             hm = np.ones(shape, bool)
             hs = np.zeros(shape, np.float32)
             for i, p in enumerate(batch):
@@ -2012,7 +2069,7 @@ class Scheduler:
         package, ALL nominated pods are added, not only those of higher or
         equal priority — strictly more conservative than the reference (a
         pod may wait one extra cycle; capacity is never double-promised).
-        Returns the (P, N) mask."""
+        Returns the (P, N) mask (its column blocks on a mesh)."""
         dev = self.device
         row_of = {name: i for i, name in enumerate(node_order)}
         dpn = pods_to_device(
@@ -2272,6 +2329,7 @@ class Scheduler:
         if dn is None:
             dn = (self._place_host(nt) if self._mesh_live
                   else nodes_to_device(nt, device=dev))
+        dn = self._solve_nodes(dn)
         node_order = self.cache.node_order()
         pt = pk.pack_pods(pods_list)
         skip_prio, no_ports, no_pod_aff, no_spread = solver_gates(nt, pt)
@@ -2445,8 +2503,8 @@ class Scheduler:
             return None, None
         # the built-in-feasible mask crosses to the host for the HTTP
         # fan-out: one counted read
-        base = np.asarray(self.obs.jax.readback("extender-mask",
-                                                base_fr.mask), bool)
+        base = np.asarray(self.obs.jax.readback(
+            "extender-mask", _whole_cols(base_fr.mask)), bool)
         rows = {n: j for j, n in enumerate(node_order)}
         nodes_by_name = {nd.name: nd for nd in self.cache.nodes()}
         em = np.ones(base.shape, bool)
@@ -2612,6 +2670,13 @@ class Scheduler:
         ladder."""
         hook = (self.fault_injector.solver_hook
                 if self.fault_injector is not None else None)
+        if tier in ("greedy", "exact", "batch-single", "batch-cpu"):
+            # the tiers that re-pin the cycle off the mesh take the whole
+            # table and planes (gathered once per attempt on a mesh)
+            dn, sv, extra_mask, extra_score = self._whole(
+                dn, sv, extra_mask, extra_score)
+            if base_fr is not None and tier == "exact":
+                base_fr = base_fr._replace(mask=_whole_cols(base_fr.mask))
         if tier == "greedy":
             a, u = greedy_assign(
                 dp, dn, ds, self.weights, topo=dt, extra_mask=extra_mask,
@@ -2625,12 +2690,12 @@ class Scheduler:
             out = self._exact_solve(dp, dn, ds, dt, base_fr, extra_mask,
                                     extra_score)
             if hook is not None:
-                out = hook("solve:exact", *out, dn.valid.shape[0])
+                out = hook("solve:exact", *out, dn.n)
             return out, dp, dn
         # the mesh rung ``batch-single`` is the identical batch solve
-        # re-pinned off the mesh onto its one device: on a mesh of one
-        # card the tables already live there, unsharded, so it solves them
-        # as they are (a KernelError still escapes it)
+        # re-pinned off the mesh onto its first device, on the table
+        # gathered there above (on a mesh of one card the tables already
+        # live there, unsharded); a KernelError still escapes it
         if tier == "batch-cpu":
             # the host fallback: every table copied to CPU tensors (one
             # counted transfer) and the identical solve re-run on the
@@ -2802,12 +2867,8 @@ class Scheduler:
             if result is not None:
                 br.record_success()
                 assigned, usage, rounds = result
-                if usage.requested.device != dn.requested.device:
-                    # batch-cpu's usage joins the cycle's device tables
-                    # (the failure pass) on their device
-                    usage = type(usage)(*(t.to(dn.requested.device)
-                                          for t in usage))
-                return assigned, usage, int(rounds), tier
+                return assigned, self._placed_usage(usage, dn), \
+                    int(rounds), tier
             br.record_failure()
             klog.warning("solver tier %s failed (%s); falling back", tier,
                          last_err)
@@ -2816,6 +2877,20 @@ class Scheduler:
                 res.solver_fallbacks += 1
             i += 1
         return None
+
+    def _placed_usage(self, usage, dn):
+        """A tier's usage placed as the cycle's tables are: a re-pinned
+        tier's whole usage goes back into the mesh's row blocks, and
+        ``batch-cpu``'s joins the cycle's device (the failure pass reads
+        it beside the tables)."""
+        if isinstance(dn, pmesh.ShardedNodes):
+            if pmesh.is_placed(usage):
+                return usage
+            return pmesh.shard_usage(usage, dn.mesh)
+        dev = dn.requested.device
+        if usage.requested.device != dev:
+            usage = type(usage)(*(t.to(dev) for t in usage))
+        return usage
 
     # graftlint: disable-scope=R2,R7,R8 -- host oracle by design: the exact
     # tier runs the Hungarian solver on CPU, so the one filter+score result
@@ -3074,18 +3149,12 @@ class Scheduler:
             fr = _filter_pass(dp_c, dn_cur, ds, dt, dv_c, sv_c,
                               self.pred_mask)
             rows = upload(failed_idx, dev, np.int64)
-            reasons = fr.reasons.index_select(0, rows)
-            ex = explain_reduce(
-                reasons, dn_cur.valid,
-                torch.ones((len(failed_idx),), dtype=torch.bool, device=dev),
-                dp_c.req.index_select(0, rows),
-                dn_cur.allocatable - dn_cur.requested, dn_cur.ready,
-                dn_cur.network_unavailable)
+            ex = explain_rows(fr.reasons, dn_cur, dp_c.req, rows)
             ex_h = read_back(ex, self._reader("explain"))
             ex_parts.append(ex_h)
             rmat = None
             if self.enable_preemption:
-                rows_dev = reasons[:, : nt.n]
+                rows_dev = reason_rows(fr.reasons, rows)[:, : nt.n]
                 res.preempt_rows_bytes += (rows_dev.numel()
                                            * rows_dev.element_size())
                 rmat = self.obs.jax.readback("preempt-reasons", rows_dev)
@@ -3283,7 +3352,7 @@ class Scheduler:
             return False
         # the tuner sees the raw batch size before the bucket compare
         self._note_tuner_batch(len(batch))
-        n_pad = dn.valid.shape[0]
+        n_pad = dn.n
         C = self._candidate_bucket(n_pad)
         if C >= n_pad or len(batch) > inc.max_batch_frac * C:
             return False
@@ -3373,12 +3442,10 @@ class Scheduler:
         summary = self.cache.score_summary()
         if summary is None:
             return None
-        n_pad = dn.valid.shape[0]
+        n_pad = dn.n
         C = self._candidate_bucket(n_pad)
         idxs = list(self.cache.last_patched_idx)
-        dirty = torch.zeros((n_pad,), dtype=torch.bool, device=self.device)
-        if idxs:
-            dirty[upload(idxs, self.device, np.int64)] = True
+        dirty = self._node_mask(n_pad, rows=idxs)
         # a lazy rebuild recomputed the whole summary: no reuse this cycle
         reuse = (0.0 if self.cache.last_summary_rebuilt
                  else max(0.0, 1.0 - len(idxs) / max(nt.n, 1)))
@@ -3397,7 +3464,7 @@ class Scheduler:
             if hm is not None:
                 h = np.zeros((n_pad,), bool)
                 h[: hm.shape[0]] = hm
-                hint = upload(h, self.device)
+                hint = self._node_mask(n_pad, host=h)
                 hq = max(int(inc.group_quota_frac * C), 1)
         # the candidate pick is a site of its own, as in the reference;
         # under a live mesh it is the per-shard local top-C over the
@@ -3500,7 +3567,7 @@ class Scheduler:
             return False
         if any(p.pod_group for p in batch):
             return False
-        n_pad = dn.valid.shape[0]
+        n_pad = dn.n
         C = self._candidate_bucket(n_pad)
         return C < n_pad and self._cold_blocks(n_pad, C) >= 2
 
@@ -3515,7 +3582,7 @@ class Scheduler:
         dense ladder. A ``KernelError`` propagates."""
         inc = self.incremental
         dev = self.device
-        n_pad = dn.valid.shape[0]
+        n_pad = dn.n
         P_pad = dp.valid.shape[0]
         C = self._candidate_bucket(n_pad)
         B = self._cold_blocks(n_pad, C)
@@ -3526,7 +3593,7 @@ class Scheduler:
         pending = np.zeros((P_pad,), bool)
         pending[: len(batch)] = True
         assigned = np.full((len(batch),), -1, np.int64)
-        zeros_dirty = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
+        zeros_dirty = self._node_mask(n_pad)
         rounds = 0
 
         def take(got):
@@ -3649,6 +3716,7 @@ class Scheduler:
                 # uploads (placed on the mesh when the cycles place it)
                 dn = (self._place_host(nt)
                       if self._mesh_live else nodes_to_device(nt, device=dev))
+            dn = self._solve_nodes(dn)
         elif node_count:
             # no cluster yet: a widths-complete zero-row table padded to
             # the caller's expected node bucket (and at least the mesh
@@ -3709,7 +3777,7 @@ class Scheduler:
                     # solve failure, and the next re-arm warms again
                     self._note_device_reset(
                         "warmup:compile", e,
-                        shapes=f"P{P}xN{int(dn.valid.shape[0])}")
+                        shapes=f"P{P}xN{int(dn.n)}")
                     self.cache.drop_device_snapshot()
                     self._drop_incremental("device-loss")
                     klog.warning("warmup aborted at bucket %d: %s", P, e)
@@ -3744,7 +3812,7 @@ class Scheduler:
             self.metrics.graph_captures.inc(captures, phase="warmup")
         klog.V(2).info("warmup: %d bucketed solve shapes, %d graphs "
                        "captured (nodes bucket %d)", compiled, captures,
-                       dn.valid.shape[0])
+                       dn.n)
         return compiled
 
     def _warm_host_fallback(self, buckets, pk, sample, nt, node_count,
@@ -3913,7 +3981,7 @@ class Scheduler:
 
         ledger = self.obs.ledger
         P_pad = int(dp.valid.shape[0])
-        N_pad = int(dn.valid.shape[0])
+        N_pad = int(dn.n)
         ca = solve_cost_analysis(dp, dn, ds, self.weights, **solve_kwargs)
         if ca is not None:
             ledger.model.record_signature(
@@ -3948,7 +4016,7 @@ class Scheduler:
                                    self.weights, **solve_kwargs)
         if ma is None:
             return
-        key = (int(dp.valid.shape[0]), int(dn.valid.shape[0]),
+        key = (int(dp.valid.shape[0]), int(dn.n),
                self._mesh_width())
         cur = ml.bucket_table().get(key)
         if cur is None or cur["total_bytes"] <= ma["total_bytes"]:
@@ -3957,16 +4025,18 @@ class Scheduler:
     def _warm_delta_scatter(self, dn) -> None:
         """Run the resident table's delta scatter once at each dirty-row
         bucket steady churn presents, on a throwaway copy (the first
-        launch of each kernel loads its module)."""
-        n_pad = dn.valid.shape[0]
-        dev = dn.valid.device
-        for dpb in (4, 8, 16, 32, 64):
-            sub = gather_node_rows(dn, torch.zeros((dpb,), dtype=torch.long,
-                                                   device=dev))
-            resident = dn._replace(**{
-                f: getattr(dn, f).clone() for f in dn._fields})
-            scatter_node_rows(resident, sub,
-                              np.full((dpb,), n_pad, np.int64))
+        launch of each kernel loads its module); on a mesh, on every
+        block, as the cache's scatter runs."""
+        for blk in pmesh.node_blocks(dn):
+            n_pad = blk.n
+            dev = blk.valid.device
+            for dpb in (4, 8, 16, 32, 64):
+                sub = gather_node_rows(blk, torch.zeros(
+                    (dpb,), dtype=torch.long, device=dev))
+                resident = blk._replace(**{
+                    f: getattr(blk, f).clone() for f in blk._fields})
+                scatter_node_rows(resident, sub,
+                                  np.full((dpb,), n_pad, np.int64))
 
     def _warm_incremental(self, buckets, pk, sample, nt, dn, ds,
                           skip_prio) -> int:
@@ -3980,7 +4050,7 @@ class Scheduler:
         Returns the (C, P) shapes warmed."""
         inc = self.incremental
         dev = self.device
-        n_pad = dn.valid.shape[0]
+        n_pad = dn.n
         c0 = bucket_size(max(inc.candidate_bucket, 1))
         ladder = [c0]
         if inc.auto_tune:
@@ -3991,7 +4061,7 @@ class Scheduler:
         ns = self._num_shards()
         flags = self._summary_flags
         summary = node_summary(dn, **flags)
-        zeros_dirty = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
+        zeros_dirty = self._node_mask(n_pad)
         for dpb in (4, 8, 16, 32, 64):
             sub = gather_node_rows(dn, torch.zeros((dpb,), dtype=torch.long,
                                                    device=dev))
@@ -4025,8 +4095,7 @@ class Scheduler:
                     warmup=True)
                 gather_candidates(
                     summary, zeros_dirty, dn, C,
-                    hint_mask=torch.zeros((n_pad,), dtype=torch.bool,
-                                          device=dev),
+                    hint_mask=self._node_mask(n_pad),
                     num_shards=ns, hint_quota=hq)
             part_warm = False
             if inc.primary:

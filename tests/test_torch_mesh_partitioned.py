@@ -17,6 +17,7 @@ against the JAX package on the CPU.
 - that a mesh of d > 1 runs the partitioned program and a mesh of one
   does not."""
 
+import dataclasses
 import functools
 
 import jax
@@ -71,6 +72,14 @@ def jmesh_of(d):
 
 def _parts(x, d, dim):
     return list(torch.tensor(x).chunk(d, dim))
+
+
+def _joined(x):
+    """A value a shard program left in a mesh's blocks, joined on the
+    host (a whole tensor as it is)."""
+    if isinstance(x, tmesh.Blocks):
+        return np.concatenate([p.numpy() for p in x.parts], x.axis)
+    return x.numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -386,9 +395,11 @@ def test_partitioned_predicates_match_the_reference(d):
     args = tmesh.shard_cluster(port_table(dp), port_table(dn),
                                port_table(ds), tmesh_of(d))
     got = trun_predicates(*args)
-    np.testing.assert_array_equal(got.mask.numpy(), want)
+    # the partitioned pass leaves its result in the shards' column blocks
+    assert isinstance(got.mask, tmesh.Blocks) and len(got.mask.parts) == d
+    np.testing.assert_array_equal(_joined(got.mask), want)
     flat = trun_predicates(port_table(dp), port_table(dn), port_table(ds))
-    np.testing.assert_array_equal(got.reasons.numpy(), flat.reasons.numpy())
+    np.testing.assert_array_equal(_joined(got.reasons), flat.reasons.numpy())
 
 
 @pytest.mark.parametrize("name", ["batch", "topology", "volumes"])
@@ -417,17 +428,20 @@ def test_partitioned_lean_round_matches_the_reference(d):
 
 
 def test_partitioned_sinkhorn_potentials_match_the_unsharded_ones():
-    """The potentials of a plan round (u replicated, v gathered) agree with
-    the unsharded solve's within the stated tolerance."""
+    """The potentials of a plan round (u replicated, v in the shards' row
+    blocks) agree with the unsharded solve's within the stated
+    tolerance; the per-shard usage joins to the unsharded usage."""
     dp, dn, ds, _dt, _dv = _case("sinkhorn")
     tp, tn, ts_ = port_table(dp), port_table(dn), port_table(ds)
     flat = tbatch_assign(tp, tn, ts_, use_sinkhorn=True, potentials_out=True)
     got = tbatch_assign(*tmesh.shard_cluster(tp, tn, ts_, tmesh_of(4)),
                         use_sinkhorn=True, potentials_out=True)
+    # v stays in the shards' row blocks
+    assert isinstance(got[3][1], tmesh.Blocks)
     for a, b in zip(got[3], flat[3]):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL,
+        np.testing.assert_allclose(_joined(a), b.numpy(), rtol=RTOL,
                                    atol=ATOL)
-    np.testing.assert_array_equal(got[1].requested.numpy(),
+    np.testing.assert_array_equal(_joined(got[1].requested),
                                   flat[1].requested.numpy())
 
 
@@ -606,24 +620,228 @@ def _steady_cycles(mesh):
 def test_distinct_card_path_places_as_the_mesh_off_solve(d, distinct_cards):
     from kubernetes_tpu_torch.ops import device_loop
 
-    _off, want = _steady_cycles(None)
+    off, want = _steady_cycles(None)
     device_loop.KEYS.clear()
+    coll.STATS.reset()
     s, got = _steady_cycles(d)
     assert got == want
     assert [m for _a, _r, m in got] == ["full", "delta", "delta"]
     # one graph cannot span cards: the partitioned rounds took the Python
     # loop, which registers no graph key
     assert not any(k[2] and k[2][0] == "sharded" for k in device_loop.KEYS)
+    s.cache.device_snapshot()  # the last cycle's binds, scattered
     placed = s.cache.placed_table
     assert placed is not None and len(placed.blocks) == d
-    whole = placed.whole
+    # no whole table on the first card: the placement is the resident
+    # table, and no cycle gathered one
+    assert placed.whole is None
+    assert s.cache.placed_table is s.cache.device_snapshot()[1]
+    assert coll.STATS.by_op.get("gather_nodes", 0) == 0
+    flat = off.cache.device_snapshot()[1]
+    ptrs = {blk.requested.data_ptr() for blk in placed.blocks}
+    assert len(ptrs) == d
     for i, blk in enumerate(placed.blocks):
         # blocks of their own (uploaded apart, scattered apart), holding
-        # the whole table's rows after the deltas
-        assert blk.requested.data_ptr() != whole.requested.data_ptr()
-        for f, a, b in zip(type(blk)._fields, blk, whole):
+        # the mesh-off table's rows after the deltas
+        for f, a, b in zip(type(blk)._fields, blk, flat):
             want_rows = b if f == "zone_valid" else b.chunk(d, 0)[i]
             assert torch.equal(a, want_rows), f
+
+
+class _Clock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _cycle_view(r):
+    """What a mesh cycle must keep of its mesh-off twin's cycle."""
+    return (r.assignments, r.failure_reasons, r.fit_errors, r.rounds,
+            r.preempted, r.nominations, r.host_syncs, r.solver_tier,
+            r.solve_scope,
+            None if r.explain is None else (
+                r.explain.to_json(),
+                {k: pe.to_json() for k, pe in r.explain.pods.items()}))
+
+
+def _burst_script(mesh):
+    """The preempt-burst cell shrunk to 64 nodes (preemption on, a PDB
+    guarding every 10th bound pod): wave 1 binds and leaves its
+    preemptors unplaced, preemption nominates, the poachers are held off
+    by pass A (the nominated phantoms), leave, and the preemptors bind;
+    then a steady sparse-route pair on another scheduler (the partitioned
+    cold solve, then the restricted one). Returns the cycles' views and
+    the victims deleted, and the two schedulers."""
+    from kubernetes_tpu_torch.config import IncrementalConfig, ParallelConfig
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+    from torch_parity import preempt_burst_cluster, to_port
+
+    nodes, bound, wave1, poachers, pdb = to_port(preempt_burst_cluster(5))
+    victims = []
+    clk = _Clock()
+    par = ParallelConfig(mesh=mesh) if mesh else None
+    s = Scheduler(device="cpu", clock=clk, max_preemptions_per_cycle=4,
+                  pdb_lister=lambda: [pdb],
+                  victim_deleter=lambda p: victims.append(p.key()),
+                  parallel=par)
+    for nd in nodes:
+        s.on_node_add(nd)
+    for p in bound + wave1:
+        s.on_pod_add(p)
+    out = [_cycle_view(s.schedule_cycle())]
+    clk.t += 0.5
+    for p in poachers:
+        s.on_pod_add(p)
+    out.append(_cycle_view(s.schedule_cycle()))
+    for p in poachers:
+        s.on_pod_delete(p)
+    for _ in range(3):
+        clk.t += 11.0
+        out.append(_cycle_view(s.schedule_cycle()))
+    sp = Scheduler(device="cpu", clock=_Clock(), enable_preemption=False,
+                   incremental=IncrementalConfig(enabled=True, primary=True,
+                                                 candidate_bucket=8),
+                   parallel=par)
+    for i in range(64):
+        sp.on_node_add(make_node(f"node-{i}",
+                                 cpu_milli=(4000 if i % 2 else 8000),
+                                 pods=32, zone=f"z{i % 4}"))
+    for c in range(2):
+        for i in range(4):
+            sp.on_pod_add(make_pod(f"c{c}-{i}", cpu_milli=300 + 100 * i))
+        out.append(_cycle_view(sp.schedule_cycle()))
+    return out, victims, s, sp
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_distinct_cards_hold_no_whole_table_and_cycle_as_mesh_off(
+        d, distinct_cards):
+    """On distinct cards a mesh cycle keeps no whole node table on the
+    first card and gathers none: the failure pass, explain, the
+    preemption rows, pass A, the validation, the usage and the sparse
+    routes' candidate pick all run per shard, and give the mesh-off
+    scheduler's assignments, explain reports, victims, nominations and
+    host syncs."""
+    want, want_victims, *_ = _burst_script(None)
+    coll.STATS.reset()
+    got, got_victims, s, sp = _burst_script(d)
+    assert got == want
+    assert got_victims == want_victims and got_victims
+    assert any(v[5] for v in got)  # preemption nominated
+    assert [v[8] for v in got[-2:]] == ["partitioned", "restricted"]
+    assert coll.STATS.by_op.get("gather_nodes", 0) == 0
+    for sched in (s, sp):
+        resident = sched.cache.device_snapshot()[1]
+        placed = sched.cache.placed_table
+        assert placed is resident and placed.whole is None
+
+
+@pytest.mark.parametrize("pack", ["consolidation", "gang-topology"])
+def test_distinct_cards_scenario_pack_runs_per_shard(pack, distinct_cards):
+    """A scenario pack's cost term and the quality reduction run per
+    shard on distinct cards: the mesh-off scheduler's placements and
+    quality counts (its fractions within rtol 1e-5, atol 1e-6: the node
+    sums merge per shard), and no whole-table gather."""
+    from kubernetes_tpu_torch.config import ParallelConfig, ScenarioConfig
+    from kubernetes_tpu_torch.models.cluster import make_gang_pods
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    def drive(mesh):
+        s = Scheduler(device="cpu", clock=_Clock(), enable_preemption=False,
+                      scenario=ScenarioConfig(pack=pack, quality=True),
+                      parallel=ParallelConfig(mesh=mesh) if mesh else None)
+        for i in range(24):
+            s.on_node_add(make_node(f"node-{i}", cpu_milli=4000, pods=16,
+                                    zone=f"z{i % 4}"))
+        pods = ([make_pod(f"p{i}", cpu_milli=300 + 100 * (i % 4))
+                 for i in range(20)] if pack == "consolidation"
+                else make_gang_pods(3, 4, name_prefix="g"))
+        out = []
+        for c in range(2):
+            for p in pods:
+                s.on_pod_add(dataclasses.replace(p, name=f"{p.name}-{c}"))
+            r = s.schedule_cycle()
+            out.append((r.assignments, r.rounds, r.scenario_quality))
+        return out
+
+    want = drive(None)
+    coll.STATS.reset()
+    got = drive(2)
+    assert coll.STATS.by_op.get("gather_nodes", 0) == 0
+    for (ga, gr, gq), (wa, wr, wq) in zip(got, want):
+        assert (ga, gr) == (wa, wr)
+        assert ga and gq.keys() == wq.keys()
+        np.testing.assert_allclose([gq[k] for k in sorted(gq)],
+                                   [wq[k] for k in sorted(wq)],
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_distinct_cards_batch_single_rung_gathers_once(d, distinct_cards):
+    """The ``batch-single`` rung re-pins the cycle onto the first card:
+    it takes the one whole-table gather of the cycle, and the cycle binds
+    as the mesh-off ladder's does."""
+    from kubernetes_tpu_torch.config import ParallelConfig
+    from kubernetes_tpu_torch.faults import FaultInjector
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    fi = FaultInjector(seed=0).arm("solve:batch", "device_lost")
+    s = Scheduler(device="cpu", clock=_Clock(), enable_preemption=False,
+                  fault_injector=fi, parallel=ParallelConfig(mesh=d))
+    for i in range(8):
+        s.on_node_add(make_node(f"n{i}", cpu_milli=1000, pods=4))
+    for i in range(16):
+        s.on_pod_add(make_pod(f"p{i}", cpu_milli=600 + 200 * (i % 3)))
+    coll.STATS.reset()
+    r = s.schedule_cycle()
+    assert r.solver_tier == "batch-single"
+    assert coll.STATS.by_op.get("gather_nodes", 0) == 1
+    assert r.scheduled and r.unschedulable  # the failure pass ran too
+    assert s.cache.placed_table.whole is None
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_distinct_cards_exact_solver_gathers_once_per_cycle(
+        d, distinct_cards):
+    """The exact tier re-pins the cycle onto the first card: its shared
+    filter pass runs per shard and its mask is gathered whole beside the
+    table (one ``gather_nodes`` a cycle); the cycles bind, fail and
+    explain as the mesh-off scheduler's."""
+    from kubernetes_tpu_torch.config import ParallelConfig
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing import make_node, make_pod
+
+    def drive(mesh):
+        s = Scheduler(device="cpu", clock=_Clock(), enable_preemption=False,
+                      solver="exact",
+                      parallel=ParallelConfig(mesh=mesh) if mesh else None)
+        for i in range(12):
+            s.on_node_add(make_node(f"n{i}", cpu_milli=2000 + 1000 * (i % 3),
+                                    pods=8, zone=f"z{i % 4}"))
+        out, gathers = [], []
+        for c in range(2):
+            for i in range(10):
+                # every fifth pod fits no node
+                cpu = 9000 if i % 5 == 4 else 300 + 200 * (i % 4)
+                s.on_pod_add(make_pod(f"p{c}-{i}", cpu_milli=cpu))
+            coll.STATS.reset()
+            r = s.schedule_cycle()
+            gathers.append(coll.STATS.by_op.get("gather_nodes", 0))
+            out.append(_cycle_view(r))
+        return out, gathers, s
+
+    want, _g, _s = drive(None)
+    got, gathers, s = drive(d)
+    assert got == want
+    assert [v[7] for v in got] == ["exact", "exact"]
+    assert all(v[0] for v in got) and all(v[1] for v in got)
+    assert gathers == [1, 1]
+    assert s.cache.placed_table.whole is None
 
 
 @pytest.mark.parametrize("d", WIDTHS)
