@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kubernetes_tpu_torch/csrc`` (one
-``nvcc`` per source, in parallel), then runs eighteen phases and exits
+``nvcc`` per source, in parallel), then runs nineteen phases and exits
 non-zero if any fails:
 
 1. environment: card name and power limit, torch/CUDA versions, build time,
@@ -13,12 +13,16 @@ non-zero if any fails:
 2. every kernel against its plain PyTorch version on the card, at the main
    path's padded shape (8192 x 8192) and a ragged one (5000 x 3000); the
    fused pair also on the widest staged row (1024 x 12288), a row past the
-   staged limit (256 x 16384) and the smallest bucket (64 x 8), each on
-   the path its route names; u and v in both rules (the fixed-iteration
-   Pallas rule and the tolerance loop's jnp rule); the v pass also at
-   1000 x 3001, and twice to the same bits. Times at 8192 x 8192 (the pair's wide path beside its
-   staged one) and, once the main paths ran, the pair and the v pass held
-   again and timed at the shapes those paths launched;
+   staged limit (256 x 16384), the smallest bucket (64 x 8) and the
+   config5 path's shape (4096 x 65536, wide), each on the path its route
+   names; u and v in both rules (the fixed-iteration Pallas rule and the
+   tolerance loop's jnp rule), also at 4096 x 65536; the v pass also at
+   1000 x 3001, and twice to the same bits. Times at 8192 x 8192 (the
+   pair's wide path beside its staged one) and, once the main paths ran,
+   the pair, u and v held again and timed at the shapes those paths
+   launched (the config5 cell's also with the L2 cold: the wide route's
+   row), and the split pair held and timed at every block shape the mesh
+   and config5 phases launched;
 3. the main path at full width, cell ``smoke-5k-prefaffinity``: 5000
    nodes, 1000 bound pods, 10,000 pending pods with preferred zone
    affinity and a PreferNoSchedule taint on every 10th node, through
@@ -117,7 +121,7 @@ non-zero if any fails:
    500 ops/s (``scripts/bench_churn.py``'s default), pods of the smoke
    cell's shape. Arm A runs ``cli.run`` with the ServingRuntime (window
    max 20 ms, warmup from bucket 8) behind an elector on an in-memory
-   lock for 30 s: every created pod binds exactly once, no graph is
+   lock for 20 s: every created pod binds exactly once, no graph is
    captured after warmup, every flush is bucket-fill or max-wait, one
    mid-run cycle runs clean under ``torch.cuda.set_sync_debug_mode(
    "error")`` and one is profiled; a ``soak.SoakEngine`` attached for the
@@ -129,7 +133,7 @@ non-zero if any fails:
    unschedulable families on ``/metrics`` answer; arm C floods creates for 10 s through
    the runtime's mutating APF flow (sheds, every admitted pod bound);
    arm B is the legacy fixed-interval loop (``--cycle-interval 0.25``)
-   for 20 s; arm D fails over between two ServingRuntimes on one lock and
+   for 10 s; arm D fails over between two ServingRuntimes on one lock and
    one CAS binder (``solver: sinkhorn``, lease cut to 2 s / 1.5 s /
    0.5 s), the leader killed at 8 s by ``chaos.KillingBinder`` just
    after a bind's CAS committed (no release, the torn cycle's binds
@@ -155,7 +159,7 @@ non-zero if any fails:
    arm B serves the hub over ``restapi.RestServer`` on 127.0.0.1 and
    feeds a second scheduler (``Scheduler.from_config``, ``solver:
    sinkhorn``, ``watchProgressDeadline: 5s``) only through a
-   ``sim.Reflector``: 2000 pods created over REST, an NDJSON watch that
+   ``sim.Reflector``: 1000 pods created over REST, an NDJSON watch that
    must see every binding once, a compaction (410 and relists), a stalled
    watch relisting past the deadline, the whole node and pod lists in
    protobuf decoding to the JSON lists' objects;
@@ -295,7 +299,26 @@ non-zero if any fails:
    shard runs against their plain versions at (8192, 8192 / d) for d in
    2, 4, 8, the u pass in both rules, to the same bits over two launches
    and on edge inputs, each timed warm and with the L2 cold; once the
-   mesh phase ran, the u and v passes again at every shape it launched.
+   mesh phase ran, the u and v passes again at every shape it launched;
+19. the reference bench's BASELINE config 5 (``bench.py:1190-1206``),
+   cell ``config5-50k``: 50,000 nodes of ``models.cluster.make_nodes``
+   over 10 zones (every 10th ``PreferNoSchedule``), batches of 4096,
+   per-node cap 8, ``parallel: {mesh: auto}``, every scheduler a JSON
+   v1alpha1 file through ``Scheduler.from_config``; the node bucket is
+   65,536 columns, past the pair's staged limit. Arm B: warmed at pod
+   bucket 4096, 3 cycles of 4096 smoke pods, every round's pair on the
+   wide route at (4096, 65536), every pod bound on tier ``batch``, host
+   syncs within the pipeline cell's budget, one cycle under sync-debug
+   ``error`` and every tier run under it, 0 graph captures, the capacity
+   and soft-term re-checks, the peak memory and the preflight's verdict,
+   then a contended cycle (24 pods preferring one node by hostname, cap
+   8 a round) whose later rounds replay the wide pair from the captured
+   round graph; arm A: the same scheduler
+   takes 3 cycles of 4096 ``make_pods(., "bench")`` base pods (which
+   round they take, read off the router's reads); arm C: arm B's first
+   batch on 8 logical shards (the split pair on (4096, 8192) blocks)
+   placing bit for bit as arm B's first cycle; arm D: ``solver:
+   sinkhorn``, u and v at (4096, 65536), the plan's stats finite.
 
 Lines of JSON report each phase, then the whole run's seconds and each
 phase's (``"phase": "total"``); the line before the last lists every
@@ -305,7 +328,8 @@ the sparse cell, the pipeline cell, the configured scheduler's arm A,
 the serve loop's arms A-D, the hollow cluster's arms A and B, the
 recovery phase's arms A-C, the ledger phase's arms A-C, the scenario
 phase's arms and
-the grpc phase's arms A-C and the mesh phase's arms A-E3,
+the grpc phase's arms A-C, the mesh phase's arms A-E3 and the config5
+phase's arms A-D,
 each counted from 0 just before it runs: ``launches`` is
 their sum, ``launches_by_path`` and ``launches_per_cycle`` split it; the
 sparse cell's frame shapes are held and timed again under
@@ -323,7 +347,8 @@ contract
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result. ``--phases`` runs a subset (comma-separated names:
 env, kernels, smoke, route, plan, topology, parity, preempt, sparse,
-pipeline, config, serve, hollow, recovery, ledger, scenario, grpc, mesh);
+pipeline, config, serve, hollow, recovery, ledger, scenario, grpc, mesh,
+config5);
 ``--profile DIR``
 adds one profiled first cycle of the smoke cell and of the topology cell
 (device time by kernel, traces written to DIR).
@@ -350,11 +375,11 @@ F32_OPS_S = 67e12
 ALL_PHASES = ("env", "kernels", "smoke", "route", "plan", "topology",
               "parity",
               "preempt", "sparse", "pipeline", "config", "serve", "hollow",
-              "recovery", "ledger", "scenario", "grpc", "mesh")
+              "recovery", "ledger", "scenario", "grpc", "mesh", "config5")
 #: the phases that drive a main path and count its kernel launches
 MAIN_PATHS = ("smoke", "route", "plan", "topology", "preempt", "sparse",
               "pipeline", "config", "serve", "hollow", "recovery", "ledger",
-              "scenario", "grpc", "mesh")
+              "scenario", "grpc", "mesh", "config5")
 #: the phases that inject device faults (any other phase fails on a
 #: device reset or a host-mode cycle)
 FAULT_PHASES = ("recovery", "mesh")
@@ -520,6 +545,16 @@ KERNELS = {
         "replaces": "kubernetes_tpu/ops/sinkhorn.py:156 _u_kernel (its "
                     "pallas_call at :239), split at its log-sum-exp",
     },
+    # the pair's wide route (rows past STAGED_MAX_N, or not staged): its
+    # launches are a share of fused_pair_normalize's; held and timed at
+    # the config5 path's shape
+    "fused_pair_normalize_wide": {
+        "route": "cuda",
+        "source": "kubernetes_tpu_torch/csrc/fused_pair.cu",
+        "replaces": "kubernetes_tpu/ops/fused_score.py:75 _pair_max_kernel"
+                    " + :95 _pair_scale_kernel (a row past the staged "
+                    "limit: fused_pair_kernel, two sweeps of the row)",
+    },
     # not a Pallas kernel: the conditional-node graph and its exit-test
     # kernel that keep the round loop on the card, as the reference's
     # jax.lax.while_loop does
@@ -591,15 +626,19 @@ def _sinkhorn_inputs(P, N, gen, dev):
     return logk, log_r, log_c, u, v
 
 
+#: the config5 path's padded shape (batches of 4096 on 50,000 nodes):
+#: the pair's wide route and u / v there are held and timed at it
+CONFIG5_SHAPE = (4096, 65536)
 #: shapes the pair is held bit for bit at: the main path's padded shape
 #: (staged, timed), a ragged one (3000 % 16 != 0: wide), the widest staged
-#: row, a row wider than the staged limit and the smallest bucket (wide)
+#: row, a row wider than the staged limit, the smallest bucket (wide) and
+#: the config5 path's (wide, timed)
 PAIR_SHAPES = ((8192, 8192), (5000, 3000), (1024, 12288), (256, 16384),
-               (64, 8))
+               (64, 8), CONFIG5_SHAPE)
 #: shapes the Sinkhorn passes are held at: the padded main shape (timed),
-#: a ragged one, and a row that is not a multiple of four (v only: the u
-#: pass refuses it)
-SINKHORN_SHAPES = ((8192, 8192), (5000, 3000), (1000, 3001))
+#: a ragged one, a row that is not a multiple of four (v only: the u
+#: pass refuses it) and the config5 path's (timed)
+SINKHORN_SHAPES = ((8192, 8192), (5000, 3000), (1000, 3001), CONFIG5_SHAPE)
 
 
 def _pair_bound(P, N) -> dict:
@@ -615,9 +654,11 @@ def _sinkhorn_bound(name, P, N) -> dict:
     return _bound(nbytes, ops)
 
 
-def time_pair(P, N, gen, dev) -> dict:
+def time_pair(P, N, gen, dev, cold: bool = False) -> dict:
     """The pair's wrapper and plain version timed at (P, N), the wrapper
-    held bit for bit against the plain version on the same inputs."""
+    held bit for bit against the plain version on the same inputs; with
+    ``cold``, also its device time with the L2 cold, read off the trace
+    entry of the route (staged or wide) the row takes."""
     import torch
 
     from kubernetes_tpu_torch.ops import fused_score
@@ -636,9 +677,15 @@ def time_pair(P, N, gen, dev) -> dict:
     err = float((got - want).abs().max())
     if not torch.equal(got, want):
         fail(f"fused_pair_normalize {P}x{N}: max |err| {err}, must be 0")
-    out = {"max_abs_err": err, "ms": cuda_time_ms(kern),
+    route = ("staged" if fused_score.staged_route(N, rf, rr, mask, got)
+             else "wide")
+    out = {"max_abs_err": err, "route": route, "ms": cuda_time_ms(kern),
            "ms_batched": batched_ms(kern), "device_ms": device_ms(kern),
            "plain_ms": cuda_time_ms(plain)}
+    if cold:
+        out["device_ms_cold"] = cold_ms(kern, TRACE_NAMES[
+            "fused_pair_normalize" if route == "staged"
+            else "fused_pair_normalize_wide"])
     out.update(_pair_bound(P, N))
     return out
 
@@ -674,11 +721,13 @@ def time_v(P, N, gen, dev) -> dict:
     return out
 
 
-def time_sinkhorn_pass(name, P, N, gen, dev) -> dict:
+def time_sinkhorn_pass(name, P, N, gen, dev, cold: bool = False) -> dict:
     """A Sinkhorn pass's wrapper held against its plain version in both
     rules at (P, N) (zero-capacity columns in the inputs), then timed in
     the jnp rule (the tolerance loop's, which the sparse path runs) with
-    its plain version and library call, and in the Pallas rule."""
+    its plain version and library call, and in the Pallas rule; with
+    ``cold``, also its device time with the L2 cold in the Pallas rule
+    (the fixed-iteration plan's), and the v pass's launch plan."""
     import torch
 
     from kubernetes_tpu_torch.ops import sinkhorn
@@ -715,6 +764,11 @@ def time_sinkhorn_pass(name, P, N, gen, dev) -> dict:
         "ms_pallas_rule": cuda_time_ms(lambda: kern(*args)),
         "plain_ms": cuda_time_ms(lambda: plain(*args, jnp_rule=True)),
         "library_ms": cuda_time_ms(lib)})
+    if cold:
+        out["device_ms_cold"] = cold_ms(lambda: kern(*args),
+                                        TRACE_NAMES[name])
+        if name == "sinkhorn_v":
+            out["v_plan"] = sinkhorn.v_plan(P, N, sinkhorn.v_fit(logk))
     out.update(_sinkhorn_bound(name, P, N))
     return out
 
@@ -743,6 +797,7 @@ def _split_bound(name, P, n) -> dict:
 
 #: each kernel's entry in the trace (a prefix of its name there)
 TRACE_NAMES = {"fused_pair_normalize": "fused_pair_staged_kernel",
+               "fused_pair_normalize_wide": "fused_pair_kernel",
                "sinkhorn_u": "u_kernel",
                "fused_pair_max": "pair_max_kernel",
                "fused_pair_scale": "pair_scale_kernel",
@@ -1236,8 +1291,11 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
     """Times the redesigned kernels at the shapes their main path
     launched, read off the launches: the pair at the smoke cell's first
     launch (its first cycle's batch), the v pass at the plan path's; and
-    every kernel at every shape the sparse and the serve phase launched
-    (the pair bit for bit, u and v in both rules)."""
+    every kernel at every shape the sparse, serve, hollow, recovery,
+    ledger, scenario and config5 phases launched (the pair bit for bit, u
+    and v in both rules; config5's also with the L2 cold, and the pair's
+    wide route's row from them); the split pair, u pass and v pass at
+    every shape the mesh and config5 phases launched them."""
     import torch
 
     dev = torch.device("cuda")
@@ -1269,21 +1327,24 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
         out_rows.setdefault(name, {})["sparse_shapes"] = rows
     # the serve path's micro-batch frames (arms A-D), the hollow
     # cluster's cycles (arms A and B), the recovery cells' (arms A-C),
-    # the ledger cell's (arms A-C) and the scenario arms': every kernel at
-    # every shape they launched (the pair bit for bit, u and v in both
-    # rules), with the wrapper's host share of a single call
+    # the ledger cell's (arms A-C), the scenario arms' and the config5
+    # cell's: every kernel at every shape they launched (the pair bit for
+    # bit, u and v in both rules), with the wrapper's host share of a
+    # single call
     for phase, name, shapes in [
             (phase, name, shapes) for phase in ("serve", "hollow",
                                                 "recovery", "ledger",
-                                                "scenario")
+                                                "scenario", "config5")
             for name, shapes in paths.get(phase, {}).get("shapes",
                                                          {}).items()]:
         if name not in ARRAY_KERNELS:
             continue
         rows = []
+        cold = phase == "config5"
         for (P, N), n in shapes:
-            got = (time_pair(P, N, gen, dev) if name == "fused_pair_normalize"
-                   else time_sinkhorn_pass(name, P, N, gen, dev))
+            got = (time_pair(P, N, gen, dev, cold)
+                   if name == "fused_pair_normalize"
+                   else time_sinkhorn_pass(name, P, N, gen, dev, cold))
             if name == "fused_pair_normalize":
                 got["library_ms"] = None
             per_call = got["device_ms"]["per_call"]
@@ -1293,6 +1354,25 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
             torch.cuda.empty_cache()
         if rows:
             out_rows.setdefault(name, {})[f"{phase}_shapes"] = rows
+    # the pair's wide route: its row's figures at the shape the config5
+    # path launched it (the config5 shape when that phase did not run)
+    wide = [r for r in out_rows.get("fused_pair_normalize", {})
+            .get("config5_shapes", []) if r["route"] == "wide"]
+    out_rows["fused_pair_normalize_wide"] = (
+        {k: v for k, v in wide[0].items() if k != "launches"} if wide else
+        {"shape": list(CONFIG5_SHAPE), "library_ms": None,
+         **time_pair(*CONFIG5_SHAPE, gen, dev, cold=True)})
+    torch.cuda.empty_cache()
+    # the split pair at every block shape the mesh and config5 phases
+    # launched it: config5's composed over its mesh's shards, the mesh
+    # phase's (several shard counts) over one block
+    for phase in ("mesh", "config5"):
+        d = CONFIG5["shards"] if phase == "config5" else 1
+        for (P, n), c in paths.get(phase, {}).get("shapes", {}).get(
+                "fused_pair_max", []):
+            for name, got in time_split_pair(P, n, d, gen, dev).items():
+                out_rows.setdefault(name, {}).setdefault(
+                    f"{phase}_shapes", []).append({"launches": c, **got})
     # the mesh phase's shard blocks: the split u pass and the v pass at
     # every shape the phase launched them
     for name in ("sinkhorn_u_partial", "sinkhorn_v"):
@@ -1302,6 +1382,56 @@ def time_main_shapes(out_rows: dict, paths: dict) -> None:
                 .get(name, [])]
         if rows:
             out_rows.setdefault(name, {})["mesh_shapes"] = rows
+
+
+def time_split_pair(P, n, d, gen, dev) -> dict:
+    """The split pair at a (P, n) block shape a path launched: the max
+    and scale passes bit for bit against their plain versions on each of
+    the ``d`` blocks of a (P, n * d) row, and their composition bit for
+    bit against the fused pair's plain version on the whole row; then
+    both passes timed on the first block, warm and with the L2 cold,
+    beside their bounds. Returns each pass's figures by name."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import fused_score
+
+    rf, rr, mask = _pair_inputs(P, n * d, gen, dev)
+    blk = [(a.contiguous(), b.contiguous(), m.contiguous()) for a, b, m
+           in zip(rf.split(n, 1), rr.split(n, 1), mask.split(n, 1))]
+    mx = [fused_score.fused_pair_max(*b) for b in blk]
+    for b, (f, r) in zip(blk, mx):
+        pf, pr = fused_score.fused_pair_max_plain(*b)
+        if not (torch.equal(f, pf) and torch.equal(r, pr)):
+            fail(f"fused_pair_max {P}x{n} (path shape): differs from its "
+                 "plain version")
+    mxf = torch.stack([m[0] for m in mx]).amax(0)
+    mxr = torch.stack([m[1] for m in mx]).amax(0)
+    outs = [fused_score.fused_pair_scale(b[0], b[1], mxf, mxr, 1.0, 1.0)
+            for b in blk]
+    for o, b in zip(outs, blk):
+        if not torch.equal(o, fused_score.fused_pair_scale_plain(
+                b[0], b[1], mxf, mxr, 1.0, 1.0)):
+            fail(f"fused_pair_scale {P}x{n} (path shape): differs from its "
+                 "plain version")
+    if not torch.equal(torch.cat(outs, 1),
+                       fused_score.fused_pair_normalize_plain(
+                           rf, rr, mask, 1.0, 1.0)):
+        fail(f"split pair over {d} blocks of {P}x{n} differs from the "
+             "fused pair's plain version")
+    a, b, m = blk[0]
+    del rf, rr, mask, mx, outs
+    out = {}
+    for name, fn in (
+            ("fused_pair_max", lambda: fused_score.fused_pair_max(a, b, m)),
+            ("fused_pair_scale", lambda: fused_score.fused_pair_scale(
+                a, b, mxf, mxr, 1.0, 1.0))):
+        out[name] = {"shape": [P, n], "blocks": d, "max_abs_err": 0.0,
+                     "device_ms": device_ms(fn),
+                     "device_ms_cold": cold_ms(fn, TRACE_NAMES[name]),
+                     **_split_bound(name, P, n)}
+    del blk, a, b, m
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_shard_pass(name, P, N, gen, dev) -> dict:
@@ -2699,8 +2829,9 @@ class DispatchCheck:
     """Wraps a scheduler's tier runs (the pipelined executor's dispatch):
     each runs under ``torch.cuda.set_sync_debug_mode("error")``, so a
     device-to-host sync that does not go through the counted ``to_host``
-    raises; the counted reads (the auto-router's decisions) are recorded
-    per run, and the first run's inputs are kept."""
+    raises (the mode the run found is restored after it); the counted
+    reads (the auto-router's decisions) are recorded per run, and the
+    first run's inputs are kept."""
 
     def __init__(self, sched) -> None:
         self.reads: list = []
@@ -2715,11 +2846,12 @@ class DispatchCheck:
             if self.inputs is None:
                 self.inputs = args
             s0 = SYNCS.count
+            mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 return real(tier, batch, *args)
             finally:
-                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.set_sync_debug_mode(mode)
                 self.reads.append(SYNCS.count - s0)
 
         sched._run_tier = run
@@ -3684,6 +3816,11 @@ SERVE_RATE = 500.0
 #: the micro-batch window's latency ceiling (bench_churn's non-mesh
 #: default; ServingConfig's is 50 ms)
 SERVE_MAX_WAIT = "20ms"
+#: the serve arms' wall seconds of churn: A (the serving runtime) and B
+#: (the legacy loop), short enough that the whole script, config5
+#: included, stays inside its time limit on a slow host
+SERVE_A_S = 20.0
+SERVE_B_S = 10.0
 #: arm C's offered rate, a multiple of SERVE_RATE above what the serve
 #: loop binds at 5000 nodes (so it must shed)
 OVERLOAD_FACTOR = 40
@@ -4208,8 +4345,8 @@ def serve_debug_routes(srv, sched) -> dict:
 
 def serve_arm_ac(tmp: str, nodes, bound) -> dict:
     """Arms A (serving) and C (overload) on one ``cli.run``: the
-    ServingRuntime behind an elector on an InMemoryLock, 30 s of churn
-    at SERVE_RATE, then 10 s of creates flooded through the runtime's
+    ServingRuntime behind an elector on an InMemoryLock, SERVE_A_S of
+    churn at SERVE_RATE, then 10 s of creates flooded through the runtime's
     mutating APF flow."""
     import random
     import threading
@@ -4257,7 +4394,7 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
     engine.run_phase(SoakPhase("warm", 0.0, "clean"))
     journey_e2e = journey_spy(sched)
     # arm A: the churn, with one sync-debug and one profiled cycle
-    prod = Churn(rt.loop.ingest, sched, "sv", seed=12, duration=30.0)
+    prod = Churn(rt.loop.ingest, sched, "sv", seed=12, duration=SERVE_A_S)
     rt.loop.on_cycle = lambda r: (hooks["results"].append(
         (time.perf_counter(), r)), prod.on_cycle(r))
     pt = threading.Thread(target=prod.run, name="churn-A", daemon=True)
@@ -4270,7 +4407,7 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
             debug_fired.append(elapsed)
             hooks["cycles"].debug.set()
 
-    engine.run_phase(SoakPhase("serve-A", 30.0, "traffic", tick=tick))
+    engine.run_phase(SoakPhase("serve-A", SERVE_A_S, "traffic", tick=tick))
     pt.join(timeout=90)
     if pt.is_alive() or prod.error:
         fail(f"serve/A: the producer failed: {prod.error!r}")
@@ -4425,7 +4562,7 @@ def serve_arm_ac(tmp: str, nodes, bound) -> dict:
 def serve_arm_b(tmp: str, nodes, bound) -> dict:
     """Arm B, the legacy loop: the same ``cli.run`` with
     ``serving.enabled: false`` and ``--cycle-interval 0.25`` at
-    SERVE_RATE for 20 s (bench_churn's fixed arm). The legacy loop has
+    SERVE_RATE for SERVE_B_S (bench_churn's fixed arm). The legacy loop has
     no ingest lock, so the producer and every cycle share one."""
     import random
     import threading
@@ -4475,7 +4612,7 @@ def serve_arm_b(tmp: str, nodes, bound) -> dict:
         with lock:
             return fn(*a)
 
-    prod = Churn(ingest, sched, "fx", seed=22, duration=20.0)
+    prod = Churn(ingest, sched, "fx", seed=22, duration=SERVE_B_S)
     hooks["prod"] = prod
     n0 = len(hooks["results"])
     t0 = time.perf_counter()
@@ -4952,8 +5089,9 @@ HOLLOW_MINUTE_DT = 60.0
 #: third (the 300 s default toleration ran out); the kubelets are healed
 #: after it, and arm B's first step on the same hub restores their nodes
 HOLLOW_CHURN_DT = 320.0
-#: arm B: pods created over REST, half for each scheduler
-HOLLOW_REST_PODS = 2000
+#: arm B: pods created over REST, half for each scheduler (few enough
+#: that the whole script, config5 included, stays inside its limit)
+HOLLOW_REST_PODS = 1000
 
 
 def hollow_hub(device="cuda", n_nodes=5000, n_deploy=2500, n_job=500,
@@ -5353,7 +5491,7 @@ def hollow_arm_b(probe, tmp: str) -> dict:
     ``robustness.watchProgressDeadline: 5s``, and
     ``percentageOfNodesToScore: 100`` for the dense solve, as the
     ``config`` phase sets it) on the card, fed only by a
-    ``sim.Reflector`` and binding through the hub's binder. 2000 pods are
+    ``sim.Reflector`` and binding through the hub's binder. 1000 pods are
     created over REST POST (kubectl's ``RestClient``), half for each
     scheduler; an NDJSON watch client must see every binding once. Then
     a compaction (the watch client gets 410 and relists, the Reflector
@@ -8883,6 +9021,440 @@ def phase_mesh() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the reference bench's BASELINE config 5 (50,000 nodes, batches
+# of 4096) on the card
+# ---------------------------------------------------------------------------
+
+#: ``bench.py:1190-1206``: ``build_variant("base", 50000, 0, 200000)`` on
+#: ``make_mesh()``, batches of 4096 (``BENCH_C5_BATCH``), ``cap=8``; cut to
+#: 3 + 3 cycles of 4096 (the depth of
+#: ``benchres/config5_cpu_mesh_r05.json``), nodes not cut. N pads to
+#: 65,536, past the pair's staged limit: the general round's pair takes
+#: the wide route.
+CONFIG5 = {"n_nodes": 50000, "zones": 10, "batch": 4096, "cap": 8,
+           "cycles": 3, "shards": 8, "seed": 7, "warm_sample": 64,
+           "hot_pods": 24, "hot_node": 1}
+
+
+def config5_nodes(n_nodes: int):
+    """``models.cluster.make_nodes(n, zones=10)`` (the reference bench's
+    nodes: 4 CPU / 32 Gi / 110 pods), every 10th node carrying the smoke
+    cell's ``PreferNoSchedule`` taint."""
+    from kubernetes_tpu_torch.api.types import Taint
+    from kubernetes_tpu_torch.models.cluster import make_nodes
+
+    taint = Taint(SOFT_TAINT, "true", "PreferNoSchedule")
+    nodes = make_nodes(n_nodes, zones=CONFIG5["zones"])
+    for nd in nodes[::10]:
+        nd.taints = (taint,)
+    return nodes
+
+
+def config5_smoke_pods():
+    """Arm B's pods, built anew from the seed on every call: the smoke
+    cell's pending pods (100m / 500 Mi, each preferring a seeded zone with
+    weight 50, half tolerating the taint), ``cycles`` batches of them."""
+    return smoke_cell(0, 0, CONFIG5["cycles"] * CONFIG5["batch"],
+                      CONFIG5["seed"])[2]
+
+
+def config5_hot_pods(nodes):
+    """Arm B's contended cycle: a batch of ``batch`` pods whose first
+    ``hot_pods`` (100m / 500 Mi) prefer one untainted node by hostname
+    with weight 50, the rest base pods. That node has room for them all,
+    but the per-node cap admits ``cap`` a round, so the cycle takes at
+    least ceil(hot_pods / cap) rounds: every round after the first is a
+    replay of the captured round graph. Returns (pods, hot node)."""
+    from kubernetes_tpu_torch.models.cluster import make_pods
+    from kubernetes_tpu_torch.testing import (
+        make_pod,
+        node_affinity_preferred,
+        req,
+    )
+
+    hot = nodes[CONFIG5["hot_node"]]
+    pods = [make_pod(f"c5hot-{i}", cpu_milli=100, memory=500 * 2**20,
+                     affinity=node_affinity_preferred(
+                         (50, [req("kubernetes.io/hostname", "In",
+                                   hot.name)])))
+            for i in range(CONFIG5["hot_pods"])]
+    return pods + make_pods(CONFIG5["batch"] - len(pods), "c5fill"), hot
+
+
+def _c5_doc(mesh="auto", **doc) -> dict:
+    return {"percentageOfNodesToScore": 100, "perNodeCap": CONFIG5["cap"],
+            "maxBatch": CONFIG5["batch"], "parallel": {"mesh": mesh},
+            "warmup": {"enabled": True, "podBuckets": [CONFIG5["batch"]]},
+            **doc}
+
+
+def _c5_scheduler(tmp, name, nodes, shards=None, **doc):
+    """``Scheduler.from_config`` of the config-5 document on the card
+    (``parallel.mesh`` over ``shards`` copies of it, or ``auto``), fed the
+    nodes. Returns the scheduler and the node sync's host seconds."""
+    with logical_devices(shards or 1):
+        sched = configured(_c5_doc(shards or "auto", **doc), tmp, name)
+    if sched.mesh is None or sched.mesh.size != (shards or 1):
+        fail(f"config5/{name}: asked for a mesh of {shards or 1}, built "
+             f"{sched.mesh and sched.mesh.size}")
+    t0 = time.perf_counter()
+    for nd in nodes:
+        sched.on_node_add(nd)
+    return sched, time.perf_counter() - t0
+
+
+def _c5_cycle(tag, sched, pods, reads, sync_error=False,
+              tier="batch") -> dict:
+    """Pods in, one cycle (whole under sync-debug ``error`` with
+    ``sync_error``; its tier runs always, through ``reads``), the card
+    synchronised. Fails unless every pod binds on the configured ``tier``
+    with no fallback and the host syncs are within the pipeline cell's
+    budget: a readback a solve, two a solve
+    with failures (explain), plus the router's counted reads (``reads``,
+    a :class:`DispatchCheck`)."""
+    import torch
+
+    for p in pods:
+        sched.on_pod_add(p)
+    torch.cuda.synchronize()
+    n_rec, n_reads = sched.obs.recorder.recorded, len(reads.reads)
+    t0 = time.perf_counter()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = sched.schedule_cycle()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = (sched.obs.recorder.records()[-1]
+           if sched.obs.recorder.recorded > n_rec else None)
+    if r.scheduled != len(pods) or r.solver_tier != tier \
+            or r.solver_fallbacks:
+        fail(f"config5/{tag}: bound {r.scheduled} of {len(pods)} on tier "
+             f"{r.solver_tier!r} after {r.solver_fallbacks} fallbacks")
+    router = sum(reads.reads[n_reads:])
+    chunks = max(r.pipeline_chunks, 1)
+    budget = chunks + (2 * chunks if r.unschedulable else 0) + router
+    if r.host_syncs > budget:
+        fail(f"config5/{tag}: {r.host_syncs} host syncs, budget {budget} "
+             f"({chunks} solves, {router} router reads)")
+    return {"r": r, "wall": wall, "rec": rec, "router_reads": router,
+            "spans": sched.obs.last_trace.span_durations(),
+            "preflight": sched.obs.memledger.snapshot()["preflight"]["last"]}
+
+
+def recheck_preferences(nodes, assignments, pods_by_key) -> dict:
+    """Host re-check of the smoke pods' two soft terms, independent of the
+    port: each pod meets as many of them (its preferred zone; no taint it
+    does not tolerate) as some node with room could. Both are worth a full
+    priority (10 points) against the resource scores' few on a cluster
+    this empty; only an intolerant pod preferring a zone whose every node
+    is tainted (zone 0 here: the taint and the zones both follow the node
+    index mod 10) can meet one of them at most, either one."""
+    by_name = {nd.name: nd for nd in nodes}
+    tainted_zone: dict = {}
+    for nd in nodes:
+        tainted_zone[nd.zone()] = tainted_zone.get(nd.zone(), True) and \
+            bool(nd.taints)
+    short = torn = 0
+    for key, node in assignments.items():
+        p, nd = pods_by_key[key], by_name[node]
+        want = p.affinity.node_preferred[0].preference \
+            .match_expressions[0].values[0]
+        met = (nd.zone() == want) + (not (nd.taints and not p.tolerations))
+        best = 1 if not p.tolerations and tainted_zone[want] else 2
+        short += met < best
+        torn += best == 1
+    if short:
+        fail(f"config5: {short} pods meet fewer soft terms than a node "
+             "with room offers")
+    return {"soft_terms_met": len(assignments), "one_term_at_most": torn}
+
+
+def _shapes_since(before: dict, name: str) -> list:
+    """``name``'s launches by shape since ``before`` (a ``launch_shapes()``
+    read): ``[[[P, N], launches], ...]``."""
+    was = {tuple(s): c for s, c in before.get(name, [])}
+    return [[s, c - was.get(tuple(s), 0)]
+            for s, c in launch_shapes().get(name, [])
+            if c - was.get(tuple(s), 0)]
+
+
+def _memory() -> dict:
+    import torch
+
+    return {"peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+            "allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def config5_arms_ba(tmp: str, nodes) -> dict:
+    """Arms B and A on one scheduler (``mesh: auto``, a mesh of 1), warmed
+    at pod bucket 4096 with arm B's first pods, every tier run under
+    sync-debug ``error`` (a :class:`DispatchCheck`). Arm B: 3 cycles of
+    4096 smoke pods, each round's pair at (4096, 65536) on the wide route;
+    one cycle whole under sync-debug ``error``; 0 graph captures; the
+    capacity and preference re-checks; then a contended cycle
+    (:func:`config5_hot_pods`) whose later rounds replay the wide pair
+    from the captured round graph. Arm A: 3 cycles of 4096 ``make_pods(.,
+    "bench")`` base pods, the reference's own config 5 but for the taint
+    on every 10th node; which round they take is read off the router's
+    reads."""
+    import torch
+
+    from kubernetes_tpu_torch.models.cluster import make_pods
+    from kubernetes_tpu_torch.ops import device_loop
+
+    P, N = CONFIG5_SHAPE
+    B = CONFIG5["batch"]
+    torch.cuda.reset_peak_memory_stats()
+    sched, node_s = _c5_scheduler(tmp, "config5-b", nodes)
+    reads = DispatchCheck(sched)
+    pending = config5_smoke_pods()
+    c0 = device_loop.CAPTURES.count
+    t0 = time.perf_counter()
+    warmed = sched.warmup(sample_pods=pending[:CONFIG5["warm_sample"]])
+    torch.cuda.synchronize()
+    warm = {"warmed": warmed, "warmup_s": time.perf_counter() - t0,
+            "captures": device_loop.CAPTURES.count - c0, **_memory()}
+    ml = sched.obs.memledger
+    table = {f"{p}x{n}+mesh{m}": e.get("total_bytes")
+             for (p, n, m), e in ml.bucket_table().items()}
+    before, shapes0 = launch_counts(), launch_shapes()
+    torch.cuda.reset_peak_memory_stats()
+    rows = [_c5_cycle(f"B/{k + 1}", sched, pending[k * B:(k + 1) * B],
+                      reads, sync_error=k == 1)
+            for k in range(CONFIG5["cycles"])]
+    mem_b = _memory()
+    got = _launches_since(before)
+    wide = launch_counts()["fused_pair_normalize_wide"] \
+        - before["fused_pair_normalize_wide"]
+    wide_shapes = _shapes_since(shapes0, "fused_pair_normalize_wide")
+    if wide <= 0 or [s for s, _ in wide_shapes] != [[P, N]]:
+        fail(f"config5/B: the wide pair launched {wide} times at "
+             f"{wide_shapes}, not at ({P}, {N})")
+    caps = [row["r"].graph_captures for row in rows]
+    if any(caps):
+        fail(f"config5/B: graph captures {caps} after warmup")
+    placed = {k: v for row in rows for k, v in row["r"].assignments.items()}
+    by_key = {p.key(): p for p in pending}
+    recheck_capacity(nodes, [], placed, by_key)
+    prefs = recheck_preferences(nodes, placed, by_key)
+    # the contended cycle: rounds past the first replay the round graph
+    # warmed at this bucket, the wide pair inside it
+    hot_pods, hot = config5_hot_pods(nodes)
+    before = launch_counts()
+    row = _c5_cycle("B/contended", sched, hot_pods, reads)
+    hot_got = {k: c - before[k] for k, c in launch_counts().items()}
+    r = row["r"]
+    need = -(-CONFIG5["hot_pods"] // CONFIG5["cap"])
+    if r.rounds < need or r.graph_captures \
+            or hot_got["fused_pair_normalize_wide"] != r.rounds \
+            or not hot_got["round_loop"]:
+        fail(f"config5/B contended: {r.rounds} rounds (at least {need}), "
+             f"{r.graph_captures} captures, the wide pair launched "
+             f"{hot_got['fused_pair_normalize_wide']} times, the round "
+             f"graph {hot_got['round_loop']}: the rounds past the first "
+             "did not replay the wide pair from the graph")
+    off = [p.name for p in hot_pods[:CONFIG5["hot_pods"]]
+           if r.assignments.get(p.key()) != hot.name]
+    if off:
+        fail(f"config5/B contended: {len(off)} pods preferring {hot.name} "
+             f"(room for all) placed elsewhere: {off[:4]}")
+    placed.update(r.assignments)
+    by_key.update({p.key(): p for p in hot_pods})
+    recheck_capacity(nodes, [], placed, by_key)
+    contended = {
+        "pods": len(hot_pods), "hot_pods": CONFIG5["hot_pods"],
+        "hot_node": hot.name, "rounds": r.rounds,
+        "wide_launches": hot_got["fused_pair_normalize_wide"],
+        "wide_replayed": hot_got["fused_pair_normalize_wide"] - 1,
+        "round_loop": hot_got["round_loop"],
+        "graph_captures": r.graph_captures, "cycle_s": row["wall"],
+        "solve_s": r.solve_s, "host_syncs": r.host_syncs,
+        "router_reads": row["router_reads"], "spans_s": row["spans"],
+        "recheck": {"capacity": "clean", "hot_pods_on_hot_node": "all"}}
+    arm_b = {
+        "pods": len(pending), "shape": [P, N], "node_sync_s": node_s,
+        "warmup": warm, "bucket_total_bytes": table,
+        "preflight": [row["preflight"] for row in rows],
+        "cycle_s": [row["wall"] for row in rows],
+        "solve_s": [row["r"].solve_s for row in rows],
+        "rounds": [row["r"].rounds for row in rows],
+        "host_syncs": [row["r"].host_syncs for row in rows],
+        "router_reads": [row["router_reads"] for row in rows],
+        "snapshot_mode": [row["r"].snapshot_mode for row in rows],
+        "spans_s": [row["spans"] for row in rows],
+        "sync_error_cycle": 2, "graph_captures": caps,
+        "launches": got, "wide_launches": wide, "wide_shapes": wide_shapes,
+        "memory": mem_b, "recheck": {"capacity": "clean", **prefs},
+        "contended_cycle": contended}
+    first = rows[0]["r"].assignments
+
+    # arm A: the reference's base pods on the same scheduler
+    base = make_pods(CONFIG5["cycles"] * B, "bench")
+    before, shapes0 = launch_counts(), launch_shapes()
+    rows = [_c5_cycle(f"A/{k + 1}", sched, base[k * B:(k + 1) * B], reads)
+            for k in range(CONFIG5["cycles"])]
+    got = _launches_since(before)
+    placed.update({k: v for row in rows
+                   for k, v in row["r"].assignments.items()})
+    by_key.update({p.key(): p for p in base})
+    # arm B's pods stay on their nodes: the re-check counts both arms
+    recheck_capacity(nodes, [], placed, by_key)
+    # the general round asks the auto-router in round 0 (a counted read);
+    # the lean round has no router. Without a preferring pod NodeAffinity
+    # is gated off, so the general round scores TaintToleration alone and
+    # the pair (both priorities' kernel) does not launch
+    general = any(row["router_reads"] for row in rows)
+    arm_a = {
+        "pods": len(base),
+        "round": ("lean" if not general else "general+plan"
+                  if got["sinkhorn_u"] else "general"),
+        "pair_launched": got["fused_pair_normalize"] > 0,
+        "cycle_s": [row["wall"] for row in rows],
+        "solve_s": [row["r"].solve_s for row in rows],
+        "rounds": [row["r"].rounds for row in rows],
+        "host_syncs": [row["r"].host_syncs for row in rows],
+        "router_reads": [row["router_reads"] for row in rows],
+        "graph_captures": [row["r"].graph_captures for row in rows],
+        "preflight": [row["preflight"] for row in rows],
+        "spans_s": [row["spans"] for row in rows],
+        "launches": got,
+        "wide_shapes": _shapes_since(shapes0, "fused_pair_normalize_wide"),
+        "memory": _memory(), "recheck": {"capacity": "clean"}}
+    del sched, reads
+    release_graphs()
+    return {"B": arm_b, "A": arm_a, "first_cycle": first}
+
+
+def config5_arm_c(tmp: str, nodes, first: dict) -> dict:
+    """Arm C: arm B's first batch, rebuilt from the seed, on a logical mesh
+    of 8 shards (``parallel.mesh: 8`` over 8 copies of the card): each
+    shard's block is N / 8 columns, so the split pair runs where arm B ran
+    the wide route. Fails unless the placements equal arm B's first
+    cycle's bit for bit and the split pair launched at the block's
+    shape."""
+    import torch
+
+    P, N = CONFIG5_SHAPE
+    d = CONFIG5["shards"]
+    torch.cuda.reset_peak_memory_stats()
+    sched, node_s = _c5_scheduler(tmp, "config5-c", nodes, shards=d)
+    reads = DispatchCheck(sched)
+    before, shapes0 = launch_counts(), launch_shapes()
+    row = _c5_cycle("C", sched, config5_smoke_pods()[:CONFIG5["batch"]],
+                    reads)
+    got = _launches_since(before)
+    split = _shapes_since(shapes0, "fused_pair_max")
+    if got["fused_pair_normalize"] or [s for s, _ in split] != [[P, N // d]]:
+        fail(f"config5/C: the fused pair launched "
+             f"{got['fused_pair_normalize']} times, the split pair at "
+             f"{split}, not at ({P}, {N // d})")
+    if row["r"].assignments != first:
+        n = sum(row["r"].assignments.get(k) != v for k, v in first.items())
+        fail(f"config5/C: {n} of {len(first)} pods placed unlike arm B's "
+             "first cycle (the wide route)")
+    out = {"shards": d, "block": [P, N // d], "node_sync_s": node_s,
+           "cycle_s": row["wall"], "solve_s": row["r"].solve_s,
+           "rounds": row["r"].rounds, "host_syncs": row["r"].host_syncs,
+           "router_reads": row["router_reads"], "spans_s": row["spans"],
+           "batch_shape": row["rec"].batch_shape if row["rec"] else None,
+           "launches": got, "split_shapes": split,
+           "equal_to_arm_b_first_cycle": True, "memory": _memory()}
+    del sched, reads
+    release_graphs()
+    return out
+
+
+def config5_arm_d(tmp: str, nodes) -> dict:
+    """Arm D: ``solver: sinkhorn`` (``mesh: auto``) on a fresh scheduler,
+    one cycle of arm B's first batch: u and v launched at the path's
+    (4096, 65536), every pod bound on tier ``sinkhorn``, the capacity and
+    preference re-checks, the plan's stats on the flight record finite."""
+    import math
+
+    import torch
+
+    P, N = CONFIG5_SHAPE
+    torch.cuda.reset_peak_memory_stats()
+    sched, node_s = _c5_scheduler(tmp, "config5-d", nodes,
+                                  solver="sinkhorn")
+    reads = DispatchCheck(sched)
+    pods = config5_smoke_pods()[:CONFIG5["batch"]]
+    before, shapes0 = launch_counts(), launch_shapes()
+    row = _c5_cycle("D", sched, pods, reads, tier="sinkhorn")
+    got = _launches_since(before)
+    uv = {k: _shapes_since(shapes0, k) for k in ("sinkhorn_u", "sinkhorn_v")}
+    if any([s for s, _ in v] != [[P, N]] for v in uv.values()):
+        fail(f"config5/D: u / v launched at {uv}, not at ({P}, {N})")
+    rec = row["rec"]
+    stats = (rec.sinkhorn_iters, rec.sinkhorn_residual) if rec else None
+    if stats is None or stats[0] < 0 or not all(map(math.isfinite, stats)):
+        fail(f"config5/D: the plan's stats {stats}")
+    by_key = {p.key(): p for p in pods}
+    recheck_capacity(nodes, [], row["r"].assignments, by_key)
+    prefs = recheck_preferences(nodes, row["r"].assignments, by_key)
+    out = {"solver": "sinkhorn", "node_sync_s": node_s,
+           "cycle_s": row["wall"], "solve_s": row["r"].solve_s,
+           "rounds": row["r"].rounds, "host_syncs": row["r"].host_syncs,
+           "spans_s": row["spans"], "sinkhorn_stats": stats,
+           "launches": got, "uv_shapes": uv, "memory": _memory(),
+           "recheck": {"capacity": "clean", **prefs}}
+    del sched, reads
+    release_graphs()
+    return out
+
+
+def phase_config5() -> dict:
+    """The reference bench's BASELINE config 5 on the card: 50,000 nodes
+    (``models.cluster.make_nodes``, 10 zones, every 10th node
+    ``PreferNoSchedule``), batches of 4096, per-node cap 8, every
+    scheduler a JSON v1alpha1 file through ``Scheduler.from_config``. Arms
+    B and A share a scheduler (``config5_arms_ba``), then arms C and D
+    (:func:`config5_arm_c`, :func:`config5_arm_d`) build their own. All
+    counted from 0 together; every wide-pair launch of the phase at
+    (4096, 65536)."""
+    import tempfile
+
+    from kubernetes_tpu_torch import kernels
+
+    kernels.reset_launches()
+    P, N = CONFIG5_SHAPE
+    t0 = time.perf_counter()
+    nodes = config5_nodes(CONFIG5["n_nodes"])
+    arm_s = {"nodes": time.perf_counter() - t0}
+    cycles = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ba = config5_arms_ba(tmp, nodes)
+        arm_s["BA"] = time.perf_counter() - t0
+        for arm in ("B", "A"):
+            emit({"phase": "config5", "cell": "config5-50k", "arm": arm,
+                  **ba[arm]})
+        cycles += 2 * CONFIG5["cycles"] + 1  # arm B's contended cycle too
+        for arm, run in (("C", lambda: config5_arm_c(tmp, nodes,
+                                                     ba["first_cycle"])),
+                         ("D", lambda: config5_arm_d(tmp, nodes))):
+            t0 = time.perf_counter()
+            got = run()
+            arm_s[arm] = time.perf_counter() - t0
+            cycles += 1
+            emit({"phase": "config5", "cell": "config5-50k", "arm": arm,
+                  "arm_s": arm_s[arm], **got})
+    shapes = launch_shapes()
+    if [s for s, _ in shapes["fused_pair_normalize_wide"]] != [[P, N]]:
+        fail(f"config5: wide-pair launches at "
+             f"{shapes['fused_pair_normalize_wide']}, not only at ({P}, {N})")
+    emit({"phase": "config5", "arm_s": arm_s, "nodes": len(nodes),
+          "shape": [P, N]})
+    return {"launches": launch_counts(), "shapes": shapes, "cycles": cycles,
+            "arm_s": arm_s}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -9040,7 +9612,8 @@ def main() -> None:
                        ("ledger", phase_ledger),
                        ("scenario", phase_scenario),
                        ("grpc", phase_grpc),
-                       ("mesh", phase_mesh)):
+                       ("mesh", phase_mesh),
+                       ("config5", phase_config5)):
         if phase not in phases:
             continue
         RECOVERY.reset()
@@ -9075,10 +9648,6 @@ def main() -> None:
         r["launches_by_path"] = by_path
         r["launches_per_cycle"] = {p: got["launches"][name] / got["cycles"]
                                    for p, got in paths.items()}
-        if name == "fused_pair_normalize":
-            r["launches_wide"] = sum(
-                got["launches"]["fused_pair_normalize_wide"]
-                for got in paths.values())
         # every kernel serves at least one main path: once all of them
         # ran, a kernel that none of them launched is a failure
         if set(MAIN_PATHS) <= set(paths) and r["launches"] <= 0:
